@@ -1,0 +1,17 @@
+"""Qwen1.5-0.5B — dense LM with QKV bias [hf:Qwen/Qwen1.5-0.5B]."""
+from repro_torch.configs.base import ArchConfig
+
+CONFIG = ArchConfig(
+    name="qwen1.5-0.5b",
+    family="dense",
+    num_layers=24,
+    d_model=1024,
+    num_heads=16,
+    num_kv_heads=16,  # MHA
+    d_ff=2816,
+    vocab_size=151936,
+    head_dim=64,
+    qkv_bias=True,
+    tie_embeddings=True,
+    source="hf:Qwen/Qwen1.5-0.5B",
+)

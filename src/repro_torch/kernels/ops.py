@@ -1,0 +1,37 @@
+"""Public kernel entry points of the port (mirrors ``repro/kernels/ops.py``).
+
+The JAX package dispatches Pallas on the TPU and interpret mode
+elsewhere; here each wrapper launches its CUDA kernel for CUDA tensors
+and takes its plain PyTorch version for CPU tensors — the choice follows
+the tensors' device and nothing else.
+"""
+from __future__ import annotations
+
+from repro_torch.kernels import ref
+from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.kernels.paged_attention import paged_attention
+from repro_torch.kernels.xfer_matmul import xfer_matmul
+
+#: every kernel wrapper of the port; each carries a ``launches`` counter
+KERNELS = (xfer_matmul, flash_attention, paged_attention)
+
+
+# the JAX package's ``ops`` names
+matmul = xfer_matmul
+attention = flash_attention
+paged_attn = paged_attention
+
+
+def reset_launches() -> None:
+    for k in KERNELS:
+        k.launches = 0
+
+
+def launch_counts() -> dict:
+    return {k.__name__: k.launches for k in KERNELS}
+
+
+# plain versions re-exported for tests and chip_smoke.py
+matmul_ref = ref.matmul_ref
+attention_ref = ref.flash_attention_ref
+paged_attn_ref = ref.paged_attention_ref

@@ -1,0 +1,85 @@
+"""``paged_attention``: single-token decode attention through a page table.
+
+Replaces the TPU kernel ``repro/kernels/paged_attention.py``
+(``paged_attention`` / ``_paged_kernel``, fp body ``_paged_body``) with
+the hand-written CUDA kernel ``csrc/paged_attention.cu``. q ``[B, H,
+D]``, page pools kp/vp ``[P, ps, G, D]``, ``page_table [B, M]`` int32,
+``lengths [B]`` int32; head h reads group ``h // (H/G)``; positions at
+or past ``lengths[b]`` are masked; online softmax across the row.
+
+Bound on the H100: the bytes of the valid K/V rows (4·D flops per
+4·D bytes in bf16). One block per (row, head) reads its own table row
+and length and stops at the length — the TPU grid walked all M pages.
+
+The dense serving slot grid ``[slots, max_len, G, D]`` is read as a pool
+of ``P = slots`` pages of ``ps = max_len`` with an identity table
+(``models.blocks``). Lengths must lie in ``[1, M·ps]``: the kernel
+asserts it on the card, the wrapper checks it on the CPU — for the dense
+grid that is the engine's ``positions < max_len``.
+
+A CPU tensor takes the plain version (:func:`plain`); a CUDA tensor
+launches the kernel or raises. ``paged_attention.launches`` counts
+launches.
+"""
+from __future__ import annotations
+
+import ctypes
+import math
+
+import torch
+
+from repro_torch.kernels._launch import DTYPE_CODES, check_cuda, launch
+from repro_torch.kernels.ref import paged_attention_ref as plain
+
+MAX_HEAD_DIM = 128
+_VP, _I = ctypes.c_void_p, ctypes.c_int
+_ARGTYPES = (_VP, _VP, _VP, _VP, _VP, _VP, _I, _I, _I, _I, _I, _I, _I,
+             ctypes.c_float, _I)
+
+
+def paged_attention(q: torch.Tensor, kp: torch.Tensor, vp: torch.Tensor,
+                    page_table: torch.Tensor,
+                    lengths: torch.Tensor) -> torch.Tensor:
+    """q [B, H, D]; kp, vp [P, ps, G, D]; page_table [B, M] int32;
+    lengths [B] int32. Returns [B, H, D] in ``q.dtype``."""
+    if q.dim() != 3 or kp.dim() != 4 or kp.shape != vp.shape:
+        raise ValueError(f"paged_attention: bad shapes q {tuple(q.shape)} "
+                         f"kp {tuple(kp.shape)} vp {tuple(vp.shape)}")
+    b, h, d = q.shape
+    n_pages, ps, g, d2 = kp.shape
+    if d2 != d or h % g != 0:
+        raise ValueError(f"paged_attention: q {tuple(q.shape)} does not "
+                         f"match pool {tuple(kp.shape)}")
+    if page_table.dim() != 2 or page_table.shape[0] != b \
+            or tuple(lengths.shape) != (b,):
+        raise ValueError(f"paged_attention: table {tuple(page_table.shape)} "
+                         f"/ lengths {tuple(lengths.shape)} for batch {b}")
+    if page_table.dtype != torch.int32 or lengths.dtype != torch.int32:
+        raise TypeError("paged_attention: page_table and lengths must be int32")
+    m = page_table.shape[1]
+    if all(t.device.type == "cpu" for t in (q, kp, vp, page_table, lengths)):
+        if b and (int(lengths.min()) < 1 or int(lengths.max()) > m * ps):
+            raise ValueError(f"paged_attention: lengths must lie in "
+                             f"[1, {m * ps}], got {lengths.tolist()}")
+        return plain(q, kp, vp, page_table, lengths)
+    check_cuda("paged_attention", q, kp, vp)
+    if page_table.device != q.device or lengths.device != q.device:
+        raise ValueError("paged_attention: page_table / lengths on another "
+                         "device than q")
+    if d > MAX_HEAD_DIM or MAX_HEAD_DIM % d != 0:
+        raise ValueError(f"paged_attention: head dim {d} must divide "
+                         f"{MAX_HEAD_DIM}")
+    q, kp, vp = q.contiguous(), kp.contiguous(), vp.contiguous()
+    page_table, lengths = page_table.contiguous(), lengths.contiguous()
+    out = torch.empty_like(q)
+    if b == 0:
+        return out
+    launch("paged_attention", _ARGTYPES, q.data_ptr(), kp.data_ptr(),
+           vp.data_ptr(), page_table.data_ptr(), lengths.data_ptr(),
+           out.data_ptr(), b, h, g, d, ps, m, n_pages, 1.0 / math.sqrt(d),
+           DTYPE_CODES[q.dtype])
+    paged_attention.launches += 1
+    return out
+
+
+paged_attention.launches = 0

@@ -1,0 +1,64 @@
+"""Plain PyTorch versions of the kernels (the port's ``kernels/ref.py``).
+
+Each function mirrors its JAX oracle in ``repro/kernels/ref.py``
+operation for operation: inputs promoted to fp32, the same masks, the
+same ``NEG_INF`` fill, softmax, cast back to the input dtype. They are
+what a kernel wrapper runs when it is handed CPU tensors, and what
+``chip_smoke.py`` holds each CUDA kernel against on the card.
+
+Only the fp paths of this slice's three oracles are here; the int8
+``k_scale``/``v_scale`` arguments and the other three oracles
+(``quant_matmul_ref``, ``rglru_scan_ref``, ``mlstm_ref``) arrive with
+their slices.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+
+NEG_INF = -1e30
+
+
+def matmul_ref(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """x [R, N] @ w [N, M] in fp32, cast to ``x.dtype``."""
+    return (x.float() @ w.float()).to(x.dtype)
+
+
+def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                        causal: bool = True, window: int = 0) -> torch.Tensor:
+    """q: [BH, S, D]; k, v: [BH, T, D]; positions of q and k start at 0."""
+    _, sq, d = q.shape
+    t = k.shape[1]
+    s = torch.einsum("bsd,btd->bst", q.float(), k.float()) / math.sqrt(d)
+    qp = torch.arange(sq, device=q.device)[:, None]
+    kp = torch.arange(t, device=q.device)[None, :]
+    mask = torch.ones((sq, t), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= kp <= qp
+    if window:
+        mask &= (qp - kp) < window
+    s = torch.where(mask[None], s, NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    return torch.einsum("bst,btd->bsd", p, v.float()).to(q.dtype)
+
+
+def paged_attention_ref(q: torch.Tensor, kp: torch.Tensor, vp: torch.Tensor,
+                        page_table: torch.Tensor,
+                        lengths: torch.Tensor) -> torch.Tensor:
+    """Gather-then-attend: q [B, H, D]; kp, vp [P, ps, G, D];
+    page_table [B, M] int32; lengths [B] valid kv count. Returns [B, H, D]."""
+    b, h, d = q.shape
+    ps, g = kp.shape[1], kp.shape[2]
+    t = page_table.shape[1] * ps
+    rep = h // g
+    table = page_table.long()
+    k = kp[table].reshape(b, t, g, d).float()
+    v = vp[table].reshape(b, t, g, d).float()
+    qg = q.float().reshape(b, g, rep, d) / math.sqrt(d)
+    s = torch.einsum("bgrd,btgd->bgrt", qg, k)
+    valid = torch.arange(t, device=q.device)[None] < lengths.to(q.device)[:, None]
+    s = torch.where(valid[:, None, None, :], s, NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    o = torch.einsum("bgrt,btgd->bgrd", p, v)
+    return o.reshape(b, h, d).to(q.dtype)

@@ -1,0 +1,147 @@
+"""Transformer block of the dense family: pre-norm GQA attention + SwiGLU
+MLP over a dense slot-grid KV cache.
+
+Mirrors the dense branches of ``repro/models/blocks.py``: ``make_kv_cache``,
+``_project_qkv`` (with the qkv bias), ``attn_apply``'s prefill fill and
+decode ring write (``_cache_write``). The windowed, paged, append,
+cross-attention and MoE branches arrive with their slices.
+
+A cache is a dict ``{"k", "v": [B, T, G, D], "pos": [B, T] int32}``
+(``pos = -1`` marks an invalid entry). Decode writes into it in place,
+where the JAX package returns a new tree; the JAX ``count`` leaf is not
+kept because nothing reads it.
+"""
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+from torch import nn
+
+from repro_torch.configs.base import ArchConfig
+from repro_torch.models import layers as L
+
+
+def make_kv_cache(arch: ArchConfig, batch: int, length: int, *,
+                  device: torch.device, dtype: torch.dtype) -> dict:
+    g, d = arch.num_kv_heads, arch.head_dim
+    return {
+        "k": torch.zeros((batch, length, g, d), dtype=dtype, device=device),
+        "v": torch.zeros((batch, length, g, d), dtype=dtype, device=device),
+        "pos": torch.full((batch, length), -1, dtype=torch.int32, device=device),
+    }
+
+
+def _cache_write(cache: dict, k_new, v_new, pos_new) -> None:
+    """Ring-buffer write of one decode token per row, in place: slot =
+    position mod cache length, per batch row."""
+    t = cache["k"].shape[1]
+    rows = torch.arange(k_new.shape[0], device=k_new.device)
+    slot = (pos_new[:, 0] % t).long()
+    cache["k"][rows, slot] = k_new[:, 0].to(cache["k"].dtype)
+    cache["v"][rows, slot] = v_new[:, 0].to(cache["v"].dtype)
+    cache["pos"][rows, slot] = pos_new[:, 0].to(torch.int32)
+
+
+def _prefill_fill(cache: dict, k, v, positions) -> dict:
+    """The prefill's cache: the last T positions when S >= T, else the S
+    positions padded to T (k/v zeros, pos -1)."""
+    t = cache["k"].shape[1]
+    s = k.shape[1]
+    dt = cache["k"].dtype
+    if s >= t:  # own copies: decode writes into them in place
+        return {"k": k[:, -t:].to(dt).contiguous(),
+                "v": v[:, -t:].to(dt).contiguous(),
+                "pos": positions[:, -t:].to(torch.int32).contiguous()}
+    out = {name: torch.zeros_like(cache[name]) for name in ("k", "v")}
+    out["k"][:, :s] = k.to(dt)
+    out["v"][:, :s] = v.to(dt)
+    out["pos"] = torch.full_like(cache["pos"], -1)
+    out["pos"][:, :s] = positions.to(torch.int32)
+    return out
+
+
+def _param(*shape, device, dtype) -> nn.Parameter:
+    return nn.Parameter(torch.zeros(shape, device=device, dtype=dtype),
+                        requires_grad=False)
+
+
+class SwiGLU(nn.Module):
+    def __init__(self, d_model: int, d_ff: int, *, device, dtype):
+        super().__init__()
+        self.w_gate = _param(d_model, d_ff, device=device, dtype=dtype)
+        self.w_up = _param(d_model, d_ff, device=device, dtype=dtype)
+        self.w_down = _param(d_ff, d_model, device=device, dtype=dtype)
+
+
+class AttnBlock(nn.Module):
+    """Pre-norm self-attention + MLP. Weights in the JAX layout
+    ``[d_in, d_out]``; parameter names mirror the JAX tree
+    (``ln1, wq, wk, wv, wo, bq, bk, bv, ln2, mlp.{w_gate, w_up, w_down}``)."""
+
+    def __init__(self, arch: ArchConfig, *, device, dtype):
+        super().__init__()
+        if arch.mlp != "swiglu" or not arch.d_ff:
+            raise NotImplementedError(f"{arch.name}: only the SwiGLU dense "
+                                      f"block is ported")
+        self.arch = arch
+        d, qd, kvd = arch.d_model, arch.q_dim, arch.kv_dim
+        kw = dict(device=device, dtype=dtype)
+        self.ln1 = _param(d, **kw)
+        self.wq = _param(d, qd, **kw)
+        self.wk = _param(d, kvd, **kw)
+        self.wv = _param(d, kvd, **kw)
+        self.wo = _param(qd, d, **kw)
+        if arch.qkv_bias:
+            self.bq = _param(qd, **kw)
+            self.bk = _param(kvd, **kw)
+            self.bv = _param(kvd, **kw)
+        self.ln2 = _param(d, **kw)
+        self.mlp = SwiGLU(d, arch.d_ff, **kw)
+
+    def init_(self, gen: torch.Generator) -> None:
+        """Random weights with ``layers.dense_init``'s distribution; norms
+        and biases stay zero, as in ``blocks.attn_init``."""
+        for w in (self.wq, self.wk, self.wv, self.wo,
+                  self.mlp.w_gate, self.mlp.w_up, self.mlp.w_down):
+            L.dense_init_(w, w.shape[0], gen)
+
+    def _project_qkv(self, h: torch.Tensor):
+        arch = self.arch
+        b, s, _ = h.shape
+        q = L.dense(h, self.wq)
+        k = L.dense(h, self.wk)
+        v = L.dense(h, self.wv)
+        if arch.qkv_bias:
+            q, k, v = q + self.bq, k + self.bk, v + self.bv
+        return (q.reshape(b, s, arch.num_heads, arch.head_dim),
+                k.reshape(b, s, arch.num_kv_heads, arch.head_dim),
+                v.reshape(b, s, arch.num_kv_heads, arch.head_dim))
+
+    def forward(self, x: torch.Tensor, *, positions: torch.Tensor,
+                cache: Optional[dict] = None,
+                decode_meta: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
+                ) -> Tuple[torch.Tensor, Optional[dict]]:
+        """Full mode (no cache, or a cache being filled by a prefill): x
+        [B, S, D]. Decode mode (a cache and S == 1): ``decode_meta`` is
+        the identity page table and lengths of :func:`layers.decode_attention`."""
+        arch = self.arch
+        b, s, _ = x.shape
+        h = L.rms_norm(x, self.ln1)
+        q, k, v = self._project_qkv(h)
+        q = L.rope(q, positions, arch.rope_theta)
+        k = L.rope(k, positions, arch.rope_theta)
+
+        new_cache = None
+        if cache is not None and s == 1:
+            _cache_write(cache, k, v, positions)
+            table, lengths = decode_meta
+            o = L.decode_attention(q, cache["k"], cache["v"], table, lengths)
+            new_cache = cache
+        else:
+            o = L.attention(q, k, v)
+            if cache is not None:
+                new_cache = _prefill_fill(cache, k, v, positions)
+        x = x + L.dense(o.reshape(b, s, arch.q_dim), self.wo)
+        x = x + L.mlp_apply(self.mlp, L.rms_norm(x, self.ln2), arch.mlp)
+        return x, new_cache

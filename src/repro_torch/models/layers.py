@@ -1,0 +1,116 @@
+"""Shared model primitives on tensors: init, norm, RoPE, MLP, embeddings,
+and the two attention forms of the serving path.
+
+Mirrors ``repro/models/layers.py`` function for function where this
+slice needs it. Every ``x @ w`` goes through ``kernels.ops.matmul``
+(``xfer_matmul`` on the card). Attention goes through the kernels too:
+prefill self-attention through ``flash_attention``, single-token decode
+over the dense slot grid through ``paged_attention``. On CPU tensors the
+kernels' plain versions run, so the CPU path is the same code.
+
+The JAX package's masked ``attention``/``_attend_block``/``_mask`` are
+not carried over: the two kernels take their place, with the causal mask
+(prefill) and the length mask (decode) that the dense path needs.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.kernels import ops
+
+
+def dense_init_(param: torch.Tensor, fan_in: int,
+                gen: torch.Generator) -> None:
+    """Fill ``param`` in place like ``layers.dense_init``: a normal
+    truncated to [-2, 2], scaled by 1/sqrt(fan_in), drawn in fp32 from
+    ``gen`` and cast to the param's dtype. (The distribution, not JAX's
+    bits: those come over through ``bridge.from_jax_params``.)"""
+    std = 1.0 / math.sqrt(max(fan_in, 1))
+    x = torch.empty(param.shape, dtype=torch.float32, device=param.device)
+    torch.nn.init.trunc_normal_(x, 0.0, 1.0, -2.0, 2.0, generator=gen)
+    param.copy_((x * std).to(param.dtype))
+
+
+def rms_norm(x: torch.Tensor, scale: torch.Tensor,
+             eps: float = 1e-6) -> torch.Tensor:
+    dt = x.dtype
+    x = x.float()
+    var = x.square().mean(dim=-1, keepdim=True)
+    y = x * torch.rsqrt(var + eps)
+    return (y * (1.0 + scale.float())).to(dt)
+
+
+def rope(x: torch.Tensor, positions: torch.Tensor,
+         theta: float = 10_000.0) -> torch.Tensor:
+    """x: [B, S, H, D]; positions: [B, S] (int). Rotates pairs (d, d+D/2)."""
+    d = x.shape[-1]
+    half = d // 2
+    freq = torch.exp(-math.log(theta)
+                     * torch.arange(half, dtype=torch.float32, device=x.device)
+                     / half)
+    ang = positions.float()[:, :, None] * freq[None, None, :]  # [B, S, half]
+    cos = torch.cos(ang)[:, :, None, :]
+    sin = torch.sin(ang)[:, :, None, :]
+    x1, x2 = x[..., :half].float(), x[..., half:].float()
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+def dense(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``x @ w`` over the last axis of ``x`` through ``xfer_matmul``."""
+    lead = x.shape[:-1]
+    return ops.matmul(x.reshape(-1, x.shape[-1]), w).reshape(*lead, w.shape[1])
+
+
+def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+              window: int = 0) -> torch.Tensor:
+    """Causal self-attention over a prefill: q [B, S, H, D], k/v
+    [B, S, G, D], positions 0..S-1 -> [B, S, H, D]. KV is broadcast across
+    groups and heads are folded into the batch for ``flash_attention``."""
+    b, s, h, d = q.shape
+    g = k.shape[2]
+    if g != h:
+        k = k.repeat_interleave(h // g, dim=2)
+        v = v.repeat_interleave(h // g, dim=2)
+
+    def fold(t):
+        return t.permute(0, 2, 1, 3).reshape(b * h, s, d)
+
+    o = ops.attention(fold(q), fold(k), fold(v), causal=True, window=window)
+    return o.reshape(b, h, s, d).permute(0, 2, 1, 3)
+
+
+def decode_attention(q: torch.Tensor, k_grid: torch.Tensor,
+                     v_grid: torch.Tensor, table: torch.Tensor,
+                     lengths: torch.Tensor) -> torch.Tensor:
+    """One-token decode over the dense slot grid: q [B, 1, H, D]; grids
+    [B, T, G, D] read as a page pool of B pages of T tokens through the
+    identity ``table`` [B, 1]; ``lengths`` [B] = positions + 1. Returns
+    [B, 1, H, D].
+
+    Equal to the JAX grid mask (``pos >= 0`` and ``kv_pos <= q_pos``)
+    for non-windowed caches whose slots never wrap, which ``submit``
+    guarantees (prompt + max_new <= max_len): grid index i holds
+    position i, every index below the length is valid, every index at or
+    past it is masked."""
+    o = ops.paged_attn(q[:, 0], k_grid, v_grid, table, lengths)
+    return o[:, None]
+
+
+def mlp_apply(p, x: torch.Tensor, kind: str) -> torch.Tensor:
+    if kind != "swiglu":
+        raise NotImplementedError(f"mlp {kind!r} is not ported yet")
+    g = dense(x, p.w_gate)
+    u = dense(x, p.w_up)
+    return dense(F.silu(g) * u, p.w_down)
+
+
+def embed_tokens(embed: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
+    return F.embedding(tokens.long(), embed)
+
+
+def unembed_logits(w: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    return dense(x, w)

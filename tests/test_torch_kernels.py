@@ -1,0 +1,134 @@
+"""Plain versions of the port's kernels vs the JAX package's oracles and
+its Pallas kernels (interpret mode), on inputs made from a numpy seed.
+
+On CPU tensors every ``repro_torch.kernels.ops`` entry runs its plain
+version and no kernel launches. Shapes are drawn from the sweeps of
+tests/test_kernels.py, at its tolerances.
+"""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels import ops as jops
+from repro.kernels import ref as jref
+from repro_torch.kernels import ops
+
+_TOL = {"float32": dict(rtol=2e-4, atol=2e-4),
+        "bfloat16": dict(rtol=5e-2, atol=5e-2)}
+_JDT = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}
+_TDT = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def _pair(x: np.ndarray, dtype: str):
+    """The same values as a JAX and a torch array (both round fp32 to
+    bf16 to nearest even)."""
+    return (jnp.asarray(x).astype(_JDT[dtype]),
+            torch.from_numpy(x).to(_TDT[dtype]))
+
+
+def _np(t) -> np.ndarray:
+    if isinstance(t, torch.Tensor):
+        return t.float().numpy()
+    return np.asarray(t, np.float32)
+
+
+@pytest.fixture(autouse=True)
+def _no_launches():
+    ops.reset_launches()
+    yield
+    assert ops.launch_counts() == {"xfer_matmul": 0, "flash_attention": 0,
+                                   "paged_attention": 0}
+
+
+@pytest.mark.parametrize("r,n,m,tiles", [
+    (256, 256, 256, (128, 128, 128)),
+    (128, 128, 512, (64, 64, 256)),
+])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_matmul_plain_matches_jax(r, n, m, tiles, dtype):
+    rng = np.random.RandomState(0)
+    xj, xt = _pair(rng.standard_normal((r, n)).astype(np.float32), dtype)
+    wj, wt = _pair(rng.standard_normal((n, m)).astype(np.float32), dtype)
+    tr, tn, tm = tiles
+    got = ops.matmul(xt, wt, tr=tr, tn=tn, tm=tm)
+    assert got.dtype == _TDT[dtype] and tuple(got.shape) == (r, m)
+    np.testing.assert_allclose(_np(got), _np(jref.matmul_ref(xj, wj)),
+                               **_TOL[dtype])
+    np.testing.assert_allclose(
+        _np(got), _np(jops.matmul(xj, wj, tr=tr, tn=tn, tm=tm)), **_TOL[dtype])
+
+
+def test_matmul_takes_strided_weight_view():
+    """The tied unembedding passes ``embed.T``; the plain version (like
+    the kernel) takes the strided view as it is."""
+    rng = np.random.RandomState(1)
+    x = torch.from_numpy(rng.standard_normal((5, 16)).astype(np.float32))
+    embed = torch.from_numpy(rng.standard_normal((40, 16)).astype(np.float32))
+    np.testing.assert_allclose(ops.matmul(x, embed.T).numpy(),
+                               (x @ embed.T.contiguous()).numpy(), rtol=1e-5,
+                               atol=1e-5)
+
+
+@pytest.mark.parametrize("s,t,d,blocks,window", [
+    (256, 256, 64, (128, 128), 0),
+    (256, 256, 64, (64, 64), 64),
+    (64, 256, 64, (64, 128), 0),  # cross/short-query
+])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_attention_plain_matches_jax(s, t, d, blocks, window, dtype):
+    rng = np.random.RandomState(2)
+    (qj, qt), (kj, kt), (vj, vt) = (
+        _pair(rng.standard_normal((3, n, d)).astype(np.float32), dtype)
+        for n in (s, t, t))
+    causal = s == t
+    got = ops.attention(qt, kt, vt, causal=causal, window=window)
+    np.testing.assert_allclose(
+        _np(got), _np(jref.flash_attention_ref(qj, kj, vj, causal=causal,
+                                               window=window)), **_TOL[dtype])
+    np.testing.assert_allclose(
+        _np(got), _np(jops.attention(qj, kj, vj, causal=causal, window=window,
+                                     bq=blocks[0], bk=blocks[1])),
+        **_TOL[dtype])
+
+
+@pytest.mark.parametrize("b,h,g,d,ps,m", [(3, 8, 2, 16, 8, 4),
+                                          (1, 6, 1, 64, 8, 3)])
+def test_paged_attention_plain_matches_jax(b, h, g, d, ps, m):
+    """GQA head grouping, partial frontier pages and permuted tables."""
+    rng = np.random.RandomState(3)
+    n_pages = b * m + 2
+    q = rng.standard_normal((b, h, d)).astype(np.float32)
+    kp = rng.standard_normal((n_pages, ps, g, d)).astype(np.float32)
+    vp = rng.standard_normal((n_pages, ps, g, d)).astype(np.float32)
+    table = np.stack([rng.permutation(np.arange(1, n_pages))[:m]
+                      for _ in range(b)]).astype(np.int32)
+    lengths = rng.randint(1, m * ps + 1, size=b).astype(np.int32)
+    lengths[-1] = m * ps
+    got = ops.paged_attn(*(torch.from_numpy(a) for a in
+                           (q, kp, vp, table, lengths)))
+    jargs = [jnp.asarray(a) for a in (q, kp, vp, table, lengths)]
+    np.testing.assert_allclose(got.numpy(), _np(jref.paged_attention_ref(*jargs)),
+                               rtol=2e-4, atol=2e-4)
+    np.testing.assert_allclose(got.numpy(), _np(jops.paged_attn(*jargs)),
+                               rtol=2e-4, atol=2e-4)
+
+
+def test_paged_attention_rejects_lengths_outside_the_table():
+    q = torch.zeros(2, 4, 16)
+    pool = torch.zeros(2, 8, 4, 16)
+    table = torch.arange(2, dtype=torch.int32)[:, None]
+    for bad in ([0, 3], [3, 9]):
+        with pytest.raises(ValueError, match="lengths"):
+            ops.paged_attn(q, pool, pool, table,
+                           torch.tensor(bad, dtype=torch.int32))
+
+
+def test_wrappers_validate_shapes():
+    with pytest.raises(ValueError):
+        ops.matmul(torch.zeros(2, 3), torch.zeros(4, 5))
+    with pytest.raises(ValueError):
+        ops.matmul(torch.zeros(2, 3), torch.zeros(3, 5), tr=0)
+    with pytest.raises(ValueError):
+        ops.attention(torch.zeros(2, 4, 16), torch.zeros(2, 4, 8),
+                      torch.zeros(2, 4, 8))
