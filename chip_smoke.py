@@ -11,14 +11,29 @@ Phases (each failure propagates; the process exits non-zero):
    serving path's shapes plus one ragged case each, in fp32 (tolerance
    1e-3: summation order) and bf16 (5e-2, the tests/test_kernels.py bf16
    tolerance); kernel, plain-version and one-PyTorch-call (yardstick
-   only) times with CUDA events;
+   only) times with CUDA events. The INT8 kernels (``quant_matmul``, the int8 body of
+   ``paged_attention``) are checked the same way, with q/x in fp32
+   (the INT8 path's activations) and bf16. ``quant_matmul``'s library
+   call is ``torch._weight_int8pack_mm`` on the weight transposed ahead
+   of time (or the error it raises); no PyTorch call computes the int8
+   attention body. Their labelled yardsticks are ``torch.matmul`` on a
+   weight dequantised ahead of time and SDPA over pre-dequantised K/V;
 4. full-width qwen1.5-0.5b served greedily in bf16 through
-   ``ServingEngine.run_until_drained()``: every kernel's launch counter
-   must rise on that run;
+   ``ServingEngine.run_until_drained()``: the fp kernels' launch
+   counters must rise by their per-step counts, the INT8 ones stay 0;
+4b. the same traffic under ``ServeConfig(quant=INT8_SERVE)``:
+   ``quant_matmul`` rises by 169 x (decode steps + prefill groups), the
+   int8 ``paged_attention`` by 24 x steps, ``flash_attention`` by 24 x
+   groups, ``xfer_matmul`` and the fp ``paged_attention`` by 0;
 5. full-width parity: seeded fp32 weights, one batched prefill of 4
    prompts plus 4 greedy decode steps on the card vs on the CPU (plain
    versions): last-position logits within 2e-3 of max |logit|, greedy
-   tokens equal;
+   tokens equal (a flip is allowed only under a top-2 margin of 2e-3);
+5b. the same under INT8: the same fp32 weights quantised on the card
+   and on the CPU give bit-equal int8 payloads and scales; then the same
+   prefill and decode steps over int8 grids, held to the same
+   tolerance (a K/V value one int8 level apart on the two sides is
+   inside it);
 6. the kernel table as one JSON line, then the result line.
 
 It imports nothing of JAX and nothing of the JAX package.
@@ -47,7 +62,15 @@ SOURCES = {
                         "src/repro/kernels/flash_attention.py:67"),
     "paged_attention": ("src/repro_torch/kernels/csrc/paged_attention.cu",
                         "src/repro/kernels/paged_attention.py:74"),
+    "paged_attention_q8": ("src/repro_torch/kernels/csrc/paged_attention.cu",
+                           "src/repro/kernels/paged_attention.py:81"),
+    "quant_matmul": ("src/repro_torch/kernels/csrc/xfer_matmul.cu",
+                     "src/repro/kernels/quant_matmul.py:27"),
 }
+# the kernels each serving path runs (phase 4: fp, phase 4b: INT8)
+PATH_KERNELS = {"fp": ("xfer_matmul", "flash_attention", "paged_attention"),
+                "int8": ("quant_matmul", "flash_attention",
+                         "paged_attention_q8")}
 
 
 def log(msg: str) -> None:
@@ -222,6 +245,135 @@ def check_kernels(dev) -> dict:
                     max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=b,
                     bound_by=kind, library_ms=lib)
             log(line)
+    entries.update(check_int8_kernels(dev, gen))
+    return entries
+
+
+def int8pack_ms(x, w_q, scale, want):
+    """``torch._weight_int8pack_mm(x, w [M, N] int8, scales [M])``, the
+    PyTorch call that computes ``quant_matmul``, with the weight
+    transposed ahead of time (no copy for the unembedding's ``q.T``).
+    Returns (ms, max abs err against the plain version), or (None, the
+    first line of the error it raises)."""
+    import torch
+    w_t, s = w_q.T.contiguous(), scale.reshape(-1).to(x.dtype)
+    try:
+        out = torch._weight_int8pack_mm(x, w_t, s)
+    except (RuntimeError, NotImplementedError) as e:
+        return None, str(e).strip().splitlines()[0]
+    err = float((out.float() - want.float()).abs().max())
+    return time_ms(lambda: torch._weight_int8pack_mm(x, w_t, s)), err
+
+
+def check_int8_kernels(dev, gen) -> dict:
+    """``quant_matmul`` and the int8 ``paged_attention`` body against
+    their plain versions; timed in fp32, the INT8 path's activations."""
+    import torch
+    from repro_torch import quant as Q
+    from repro_torch.kernels import ops
+
+    dtypes = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+    entries = {}
+
+    def randn(*shape, dt=torch.float32, scale=1.0):
+        return (torch.randn(*shape, generator=gen, device=dev) * scale).to(dt)
+
+    # ---- quant_matmul: every projection + the tied unembedding (q.T)
+    d, ff, vocab = 1024, 2816, 151936
+    cases = []
+    for r in (SLOTS, N_PREFILL * BUCKET):
+        for n, m in ((d, d), (d, ff), (ff, d)):
+            cases.append((f"R={r} {n}x{m}", r, n, m, False))
+    cases.append((f"R={SLOTS} {d}x{vocab} (embed.q.T)", SLOTS, d, vocab, True))
+    cases.append(("ragged R=13 1000x1001", 13, 1000, 1001, False))
+    cases.append(("ragged R=77 1000x1001 (q.T)", 77, 1000, 1001, True))
+    for label, r, n, m, transposed in cases:
+        if transposed:  # the unembedding: unit scale, q.T a strided view
+            w = Q.quantize(randn(m, n, scale=n ** -0.5), axis=0)
+            w_q, scale = w.q.T, torch.ones(1, m, device=dev)
+        else:
+            w = Q.quantize(randn(n, m, scale=n ** -0.5), axis=0)
+            w_q, scale = w.q, w.scale
+        w_deq = Q.dequantize(Q.QTensor(w_q, scale))
+        for dname, dt in dtypes.items():
+            x = randn(r, n, dt=dt)
+            got = ops.int8_matmul(x, w_q, scale)
+            want = ops.int8_matmul_ref(x, w_q, scale)
+            err = compare(f"quant_matmul {label} {dname}", got, want, dname)
+            line = f"[kernel] quant_matmul {label} {dname}: max_abs_err {err:.3e}"
+            if dname == "float32" and not label.startswith("ragged"):
+                ms = time_ms(lambda: ops.int8_matmul(x, w_q, scale))
+                plain = time_ms(lambda: ops.int8_matmul_ref(x, w_q, scale))
+                lib, lib_note = int8pack_ms(x, w_q, scale, want)
+                yard = time_ms(lambda: torch.matmul(x, w_deq))
+                b, kind = bound_ms(r * n * 4 + n * m + m * 4 + r * m * 4,
+                                   2.0 * r * n * m, dname)
+                lib_text = (f"{lib:.4f} (torch._weight_int8pack_mm, max_abs_err "
+                            f"{lib_note:.3e})" if lib is not None else
+                            f"null (torch._weight_int8pack_mm raises: {lib_note})")
+                line += (f" ms {ms:.4f} plain_ms {plain:.4f} library_ms "
+                         f"{lib_text} yardstick_ms {yard:.4f} (torch.matmul on "
+                         f"a weight dequantised ahead of time) bound_ms "
+                         f"{b:.4f} ({kind})")
+                if r == SLOTS and m == vocab:
+                    entries["quant_matmul"] = dict(
+                        shape=f"x[{r},{n}] fp32 @ embed.q.T[{n},{m}] int8",
+                        max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=b,
+                        bound_by=kind, library_ms=lib, yardstick_ms=yard,
+                        yardstick="torch.matmul on the pre-dequantised weight")
+                    if lib is None:
+                        entries["quant_matmul"]["library_error"] = lib_note
+            log(line)
+        del x, got, want, w, w_q, w_deq
+
+    # ---- paged_attention int8 body: decode over the int8 slot grid
+    lengths_main = [1, 17, 64, 128, 129, 200, 233, MAX_LEN]
+    kq = Q.quantize_kv(randn(SLOTS, MAX_LEN, 16, 64))
+    vq = Q.quantize_kv(randn(SLOTS, MAX_LEN, 16, 64))
+    table = torch.arange(SLOTS, device=dev, dtype=torch.int32)[:, None]
+    lens_main = torch.tensor(lengths_main, device=dev, dtype=torch.int32)
+    n_pages, ps, m = 3 * 9 + 2, 16, 9
+    perm = torch.randperm(n_pages - 1, generator=gen, device=dev) + 1
+    rk = Q.quantize_kv(randn(n_pages, ps, 2, 64))
+    rv = Q.quantize_kv(randn(n_pages, ps, 2, 64))
+    for dname, dt in dtypes.items():
+        cases = [(f"grid q[{SLOTS},16,64] int8 pool[{SLOTS},{MAX_LEN},16,64]",
+                  randn(SLOTS, 16, 64, dt=dt), kq, vq, table, lens_main),
+                 ("ragged GQA H=8 G=2 ps=16", randn(3, 8, 64, dt=dt), rk, rv,
+                  perm[:3 * m].reshape(3, m).to(torch.int32),
+                  torch.tensor([1, 77, m * ps], device=dev, dtype=torch.int32))]
+        for label, q, k8, v8, tb, lens in cases:
+            args = (q, k8.q, v8.q, tb, lens)
+            scales = dict(k_scale=k8.scale, v_scale=v8.scale)
+            got = ops.paged_attn(*args, **scales)
+            want = ops.paged_attn_ref(*args, **scales)
+            err = compare(f"paged_attention_q8 {label} {dname}", got, want, dname)
+            line = f"[kernel] paged_attention_q8 {label} {dname}: max_abs_err {err:.3e}"
+            if dname == "float32" and label.startswith("grid"):
+                ms = time_ms(lambda: ops.paged_attn(*args, **scales))
+                plain = time_ms(lambda: ops.paged_attn_ref(*args, **scales))
+                # yardstick: SDPA over K/V dequantised ahead of time
+                q4 = q[:, :, None, :]
+                k4 = Q.dequantize(k8).permute(0, 2, 1, 3)
+                v4 = Q.dequantize(v8).permute(0, 2, 1, 3)
+                mask = (torch.arange(MAX_LEN, device=dev)[None] < lens[:, None])
+                mask = mask[:, None, None, :]
+                yard = time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+                    q4, k4, v4, attn_mask=mask))
+                tokens = sum(lengths_main)
+                nbytes = (2 * q.numel() * 4 + tokens * 16 * (2 * 64 + 2 * 4)
+                          + tb.numel() * 4 + lens.numel() * 4)
+                b, kind = bound_ms(nbytes, 4.0 * 16 * 64 * tokens, dname)
+                line += (f" ms {ms:.4f} plain_ms {plain:.4f} yardstick_ms "
+                         f"{yard:.4f} (SDPA over pre-dequantised K/V, masked) "
+                         f"bound_ms {b:.4f} ({kind})")
+                entries["paged_attention_q8"] = dict(
+                    shape=f"q[{SLOTS},16,64] fp32 int8 grid[{SLOTS},{MAX_LEN},16,64] "
+                          f"lengths {lengths_main}",
+                    max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=b,
+                    bound_by=kind, library_ms=None, yardstick_ms=yard,
+                    yardstick="SDPA over pre-dequantised K/V")
+            log(line)
     return entries
 
 
@@ -229,26 +381,32 @@ def check_kernels(dev) -> dict:
 # phase 4: full-width serving through the kernels
 # --------------------------------------------------------------------------
 
-def serve_full_width() -> dict:
-    """Serves 16 requests through full-width qwen1.5-0.5b in bf16 and
-    returns the kernels' launch counts over that run."""
+def serve_full_width(int8: bool = False) -> dict:
+    """Serves 16 requests through full-width qwen1.5-0.5b (bf16 engine;
+    ``ServeConfig(quant=INT8_SERVE)`` when ``int8``) and returns the
+    kernels' launch counts over that run, after checking them against
+    the path's per-step counts."""
     import numpy as np
     import torch
+    from repro_torch import quant as Q
     from repro_torch.configs import get_arch
     from repro_torch.kernels import ops
     from repro_torch.models.registry import init_params
     from repro_torch.serving import Request, ServeConfig, ServingEngine
 
+    tag = "serve-int8" if int8 else "serve"
     arch = get_arch("qwen1.5-0.5b")
     n_req, new_tokens = 16, 32
-    config = ServeConfig(slots=SLOTS, max_len=MAX_LEN, seed=0, lookahead=1)
+    config = ServeConfig(slots=SLOTS, max_len=MAX_LEN, seed=0, lookahead=1,
+                         quant=Q.INT8_SERVE if int8 else Q.QuantConfig())
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     model = init_params(arch, config.seed)  # on the card, bf16
     engine = ServingEngine(arch, model, config=config)
     torch.cuda.synchronize()
-    log(f"[serve] {arch.name}: {arch.num_layers} layers, d {arch.d_model}, "
-        f"{model.dtype}, params + grid ready in {time.perf_counter() - t0:.1f} s")
+    log(f"[{tag}] {arch.name}: {arch.num_layers} layers, d {arch.d_model}, "
+        f"{model.dtype}, quant {config.quant}, params + grid ready in "
+        f"{time.perf_counter() - t0:.1f} s")
     rng = np.random.RandomState(0)
     lens = []
     for rid in range(n_req):
@@ -256,7 +414,7 @@ def serve_full_width() -> dict:
         lens.append(s)
         engine.submit(Request(rid=rid, prompt=rng.randint(
             1, arch.vocab_size, size=s).astype(np.int32), max_new_tokens=new_tokens))
-    log(f"[serve] prompt lengths {lens}")
+    log(f"[{tag}] prompt lengths {lens}")
 
     ops.reset_launches()
     t0 = time.perf_counter()
@@ -272,23 +430,39 @@ def serve_full_width() -> dict:
         if len(r.out_tokens) != new_tokens or not all(
                 0 <= t < arch.vocab_size for t in r.out_tokens):
             raise AssertionError(f"request {r.rid}: bad stream {r.out_tokens}")
-    log(f"[serve] {n_req}/{n_req} requests, {steps} decode steps, "
-        f"{wall:.3f} s wall; launches {counts}")
+    pstats = engine.prefill_stats()
+    groups = int(pstats["prefill_dispatches"])
+    log(f"[{tag}] {n_req}/{n_req} requests, {steps} decode steps, {groups} "
+        f"prefill groups, {wall:.3f} s wall; launches {counts}")
+    path = PATH_KERNELS["int8" if int8 else "fp"]
     for name, n in counts.items():
-        if n == 0:
-            raise AssertionError(f"{name} never launched on the serving path")
-    per_step = 7 * arch.num_layers + 1
-    if counts["xfer_matmul"] < per_step * steps:
+        if (n == 0) == (name in path):
+            raise AssertionError(f"{name} launched {n} times on the "
+                                 f"{tag} path, which runs {path}")
+    per_pass = 7 * arch.num_layers + 1  # projections + the unembedding
+    if int8:
+        want = {"quant_matmul": per_pass * (steps + groups),
+                "paged_attention_q8": arch.num_layers * steps,
+                "flash_attention": arch.num_layers * groups}
+        for name, n in want.items():
+            if counts[name] != n:
+                raise AssertionError(f"{name} launched {counts[name]} times, "
+                                     f"expected {n} ({steps} decode steps, "
+                                     f"{groups} prefill groups)")
+    elif counts["xfer_matmul"] < per_pass * steps:
         raise AssertionError(f"xfer_matmul launched {counts['xfer_matmul']} "
-                             f"times, under {per_step} x {steps} decode steps")
-    log(f"[serve] step_stats {json.dumps(engine.step_stats())}")
-    log(f"[serve] prefill_stats {json.dumps(engine.prefill_stats())}")
-    weight_bytes = sum(p.numel() * p.element_size() for p in model.parameters())
-    kv_bytes = sum(c[k].numel() * c[k].element_size()
-                   for c in engine.caches for k in ("k", "v"))
-    log(f"[serve] weight_bytes {weight_bytes} kv_bytes {kv_bytes} "
-        f"peak_allocated_bytes {torch.cuda.max_memory_allocated()}")
-    log(f"[serve] rid=0 out={done[0].out_tokens[:8]}")
+                             f"times, under {per_pass} x {steps} decode steps")
+    log(f"[{tag}] step_stats {json.dumps(engine.step_stats())}")
+    log(f"[{tag}] prefill_stats {json.dumps(pstats)}")
+    leaves = Q.named_leaves(model).values()
+    int8_bytes = sum(v.q.numel() for v in leaves if Q.is_qtensor(v))
+    kv = {name: sum(c[name].numel() * c[name].element_size()
+                    for c in engine.caches)
+          for name in engine.caches[0] if name != "pos"}
+    log(f"[{tag}] weight_bytes {Q.leaf_bytes(model)} (int8 payload "
+        f"{int8_bytes}) kv_bytes {kv} peak_allocated_bytes "
+        f"{torch.cuda.max_memory_allocated()}")
+    log(f"[{tag}] rid=0 out={done[0].out_tokens[:8]}")
     del engine, model
     torch.cuda.empty_cache()
     return counts
@@ -302,22 +476,60 @@ PARITY_TOL = 2e-3  # max |logits_card - logits_cpu| / max |logits_cpu|
 
 
 def parity_full_width(dev) -> None:
-    """Seeded fp32 weights; a batched bucketed prefill of 4 prompts and 4
-    greedy decode steps on the card and on the CPU, fed the same tokens
-    (the CPU's greedy choices)."""
+    """Phase 5, then 5b: seeded fp32 weights on the card and on the CPU,
+    fp, then quantised on each side (int8 payloads and scales must be
+    bit-equal) and served over int8 grids."""
     import copy
 
-    import numpy as np
     import torch
+    from repro_torch import quant as Q
     from repro_torch.configs import get_arch
     from repro_torch.models.registry import init_params
-    from repro_torch.serving.scheduler import prefill_rows, splice_rows
 
     arch = get_arch("qwen1.5-0.5b")
     t0 = time.perf_counter()
     cpu_model = init_params(arch, 1, device="cpu")  # fp32
     card_model = copy.deepcopy(cpu_model).to(dev)
     log(f"[parity] fp32 weights on CPU and card in {time.perf_counter() - t0:.1f} s")
+    compare_card_cpu(arch, cpu_model, card_model, "parity", kv_quant=False)
+
+    t0 = time.perf_counter()
+    cpu_q = Q.quantize_params(copy.deepcopy(cpu_model))
+    del cpu_model
+    card_q = Q.quantize_params(card_model)
+    torch.cuda.synchronize()
+    want, got = Q.named_leaves(cpu_q), Q.named_leaves(card_q)
+    if set(want) != set(got):
+        raise AssertionError(f"quantised leaves differ: {sorted(set(want) ^ set(got))}")
+    n_q = 0
+    for name, w in want.items():
+        g = got[name]
+        for part, a, b in ((("q", w.q, g.q), ("scale", w.scale, g.scale))
+                           if Q.is_qtensor(w) else (("fp", w, g),)):
+            b = b.cpu()
+            if not torch.equal(a, b):
+                diff = (a.float() - b.float()).abs()
+                raise AssertionError(
+                    f"{name}.{part}: card and CPU quantisation differ in "
+                    f"{int((diff > 0).sum())} of {a.numel()} elements "
+                    f"(max {float(diff.max()):.3e})")
+        n_q += Q.is_qtensor(w)
+    log(f"[parity-int8] {n_q} int8 leaves (payloads and scales) bit-equal on "
+        f"card and CPU; quantised in {time.perf_counter() - t0:.1f} s")
+    compare_card_cpu(arch, cpu_q, card_q, "parity-int8", kv_quant=True)
+    del card_q
+    torch.cuda.empty_cache()
+
+
+def compare_card_cpu(arch, cpu_model, card_model, tag: str, *,
+                     kv_quant: bool) -> None:
+    """A batched bucketed prefill of 4 prompts and 4 greedy decode steps
+    on the card and on the CPU, fed the same tokens (the CPU's greedy
+    choices); last-position logits within PARITY_TOL of max |logit|."""
+    import numpy as np
+    import torch
+    from repro_torch.serving.scheduler import prefill_rows, splice_rows
+
     rng = np.random.RandomState(1)
     lens = np.array([37, 64, 50, 21], np.int32)
     n, bucket, cache_len, steps = 4, 64, 128, 4
@@ -328,8 +540,9 @@ def parity_full_width(dev) -> None:
     def run(model, feed=None):
         d = model.device
         rows, logits = prefill_rows(model, torch.from_numpy(toks).to(d),
-                                    torch.from_numpy(lens).to(d))
-        grid = model.make_caches(n, cache_len)
+                                    torch.from_numpy(lens).to(d),
+                                    kv_quant=kv_quant)
+        grid = model.make_caches(n, cache_len, kv_quant=kv_quant)
         splice_rows(grid, rows, torch.arange(n, device=d))
         out = [logits[:, -1].float().cpu()]
         chosen = [out[-1].argmax(-1).to(torch.int32)]
@@ -346,7 +559,7 @@ def parity_full_width(dev) -> None:
     with torch.no_grad():
         want, want_tok = run(cpu_model)
         got, got_tok = run(card_model, feed=want_tok)
-    log(f"[parity] prefill + {steps} decode steps on both in "
+    log(f"[{tag}] prefill + {steps} decode steps on both in "
         f"{time.perf_counter() - t0:.1f} s")
     worst = 0.0
     for j, (g, w) in enumerate(zip(got, want)):
@@ -354,7 +567,7 @@ def parity_full_width(dev) -> None:
         rel = float((g - w).abs().max()) / scale
         worst = max(worst, rel)
         flips = (got_tok[j] != want_tok[j]).nonzero().flatten().tolist()
-        line = f"[parity] position {j}: max rel err {rel:.3e}"
+        line = f"[{tag}] position {j}: max rel err {rel:.3e}"
         for b in flips:
             top = torch.topk(w[b], 2).values
             margin = float(top[0] - top[1]) / scale
@@ -365,9 +578,7 @@ def parity_full_width(dev) -> None:
         log(line)
     if worst > PARITY_TOL:
         raise AssertionError(f"card vs CPU logits: rel err {worst:.3e} > {PARITY_TOL}")
-    log(f"[parity] ok: worst rel err {worst:.3e} (tolerance {PARITY_TOL})")
-    del card_model
-    torch.cuda.empty_cache()
+    log(f"[{tag}] ok: worst rel err {worst:.3e} (tolerance {PARITY_TOL})")
 
 
 def main() -> int:
@@ -403,22 +614,30 @@ def main() -> int:
     # ---- phase 3: kernels vs plain versions
     entries = check_kernels(dev)
 
-    # ---- phase 4: the serving path, with the launch counters read around it
-    counts = serve_full_width()
+    # ---- phase 4 and 4b: the serving paths, each with the launch
+    # counters set to 0 just before it and read just after
+    counts = {"fp": serve_full_width(), "int8": serve_full_width(int8=True)}
 
-    # ---- phase 5: card vs CPU at full width
+    # ---- phase 5 and 5b: card vs CPU at full width, fp and INT8
     parity_full_width(dev)
 
     kernels = []
     for k in ops.KERNELS:
-        e = entries[k.__name__]
-        src, replaces = SOURCES[k.__name__]
-        kernels.append({"name": k.__name__, "route": "cuda", "source": src,
-                        "replaces": replaces, "launches": counts[k.__name__],
-                        "max_abs_err": e["max_abs_err"], "ms": e["ms"],
-                        "plain_ms": e["plain_ms"], "bound_ms": e["bound_ms"],
-                        "bound_by": e["bound_by"],
-                        "library_ms": e["library_ms"], "shape": e["shape"]})
+        name = k.__name__
+        e = entries[name]
+        src, replaces = SOURCES[name]
+        path = "fp" if name in PATH_KERNELS["fp"] else "int8"
+        row = {"name": name, "route": "cuda", "source": src,
+               "replaces": replaces, "launches": counts[path][name],
+               "launches_by_path": {p: c[name] for p, c in counts.items()},
+               "max_abs_err": e["max_abs_err"], "ms": e["ms"],
+               "plain_ms": e["plain_ms"], "bound_ms": e["bound_ms"],
+               "bound_by": e["bound_by"], "library_ms": e["library_ms"],
+               "shape": e["shape"]}
+        for key in ("yardstick_ms", "yardstick", "library_error"):
+            if key in e:
+                row[key] = e[key]
+        kernels.append(row)
     log(smi)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

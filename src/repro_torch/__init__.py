@@ -12,6 +12,8 @@ is easy to find:
   models/    the dense decoder-only LM (layers, blocks, lm, registry)
   serving/   ServeConfig, DecodeState, greedy sampler, scheduler, engine
   launch/    the serving CLI
+  quant.py   INT8 serving: QTensor, quantize / quantize_kv,
+             quantize_params, QuantConfig, INT8_SERVE
   bridge.py  JAX parameter tree (as numpy) -> port ``LM`` module
   device.py  device / dtype policy shared by every entry point
 

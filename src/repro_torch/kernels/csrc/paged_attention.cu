@@ -24,9 +24,19 @@
 // [0, P): the kernel asserts both (for the dense slot grid that is the
 // serving engine's `positions < max_len`).
 //
+// The int8 body (paged_attention_q8_launch) replaces _paged_kernel_q8
+// of the same TPU file: kp/vp hold int8 and two f32 scale pools
+// ks/vs [P, ps, G, 1] ride the same page-table indirection (one scale
+// per token per kv group). Each int8 element is dequantised in registers,
+// in f32, before its dot (k * ks) or its accumulation (v * vs), as the
+// TPU body rehydrates a page in VMEM; the fp extent never exists in
+// device memory. Its bound is the int8 rows plus their scales: 2*(D+4)
+// bytes per position per group instead of 2*2*D in bf16.
+//
 // Simple first: no split of one row's pages across blocks
 // (flash-decoding), scalar loads. Those are later work.
 #include <cassert>
+#include <cstdint>
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 
@@ -38,6 +48,7 @@ constexpr float NEG_INF = -1e30f;
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
+__device__ __forceinline__ float to_f32(int8_t v) { return (float)v; }
 __device__ __forceinline__ void store(float* p, float v) { *p = v; }
 __device__ __forceinline__ void store(__nv_bfloat16* p, float v) { *p = __float2bfloat16(v); }
 
@@ -64,10 +75,13 @@ __device__ __forceinline__ float block_sum(float v, float* red) {
   return r;
 }
 
-template <typename T>
+// T: q and o; KV: the pools (T, or int8_t with Q8 and the scale pools
+// ks/vs, which are null otherwise).
+template <typename T, typename KV, bool Q8>
 __global__ void __launch_bounds__(THREADS)
-paged_kernel(const T* __restrict__ q, const T* __restrict__ kp,
-             const T* __restrict__ vp, const int* __restrict__ table,
+paged_kernel(const T* __restrict__ q, const KV* __restrict__ kp,
+             const KV* __restrict__ vp, const float* __restrict__ ks,
+             const float* __restrict__ vs, const int* __restrict__ table,
              const int* __restrict__ lengths, T* __restrict__ o, int H,
              int G, int D, int ps, int M, int P, float scale) {
   __shared__ float qs[THREADS];
@@ -98,9 +112,11 @@ paged_kernel(const T* __restrict__ q, const T* __restrict__ kp,
     if (t < len) {
       const int page = trow[t / ps];
       assert(page >= 0 && page < P);
-      const T* krow = kp + (((long long)page * ps + t % ps) * G + g) * D;
+      const long long row = ((long long)page * ps + t % ps) * G + g;
+      const KV* krow = kp + row * D;
+      const float sk = Q8 ? ks[row] : 1.f;
       float dot = 0.f;
-      for (int d = 0; d < D; ++d) dot = fmaf(qs[d], to_f32(krow[d]), dot);
+      for (int d = 0; d < D; ++d) dot = fmaf(qs[d], to_f32(krow[d]) * sk, dot);
       s = dot;
     }
     const float m_new = fmaxf(m, block_max(s, red));
@@ -114,8 +130,9 @@ paged_kernel(const T* __restrict__ q, const T* __restrict__ kp,
     for (int j = stripe; j < n; j += stripes) {
       const int tt = t0 + j;
       const int page = trow[tt / ps];
-      const T* vrow = vp + (((long long)page * ps + tt % ps) * G + g) * D;
-      acc = fmaf(prob[j], to_f32(vrow[dim]), acc);
+      const long long row = ((long long)page * ps + tt % ps) * G + g;
+      const float sv = Q8 ? vs[row] : 1.f;
+      acc = fmaf(prob[j], to_f32(vp[row * D + dim]) * sv, acc);
     }
     m = m_new;
     __syncthreads();  // prob is rewritten by the next step
@@ -130,6 +147,24 @@ paged_kernel(const T* __restrict__ q, const T* __restrict__ kp,
   }
 }
 
+bool bad_geometry(int B, int H, int G, int D, int ps, int M, int P) {
+  return B <= 0 || H <= 0 || G <= 0 || H % G != 0 || D <= 0 || D > THREADS ||
+         THREADS % D != 0 || ps <= 0 || M <= 0 || P <= 0;
+}
+
+template <typename T, typename KV, bool Q8>
+void launch(const void* q, const void* kp, const void* vp, const void* ks,
+            const void* vs, const void* table, const void* lengths, void* o,
+            int B, int H, int G, int D, int ps, int M, int P, float scale,
+            cudaStream_t stream) {
+  paged_kernel<T, KV, Q8><<<dim3(H, B), THREADS, 0, stream>>>(
+      static_cast<const T*>(q), static_cast<const KV*>(kp),
+      static_cast<const KV*>(vp), static_cast<const float*>(ks),
+      static_cast<const float*>(vs), static_cast<const int*>(table),
+      static_cast<const int*>(lengths), static_cast<T*>(o), H, G, D, ps, M,
+      P, scale);
+}
+
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16; D <= 128 and divides 128; H a
@@ -141,24 +176,38 @@ extern "C" int paged_attention_launch(const void* q, const void* kp,
                                       int H, int G, int D, int ps, int M,
                                       int P, float scale, int dtype,
                                       void* stream) {
-  if (B <= 0 || H <= 0 || G <= 0 || H % G != 0 || D <= 0 || D > THREADS ||
-      THREADS % D != 0 || ps <= 0 || M <= 0 || P <= 0)
-    return (int)cudaErrorInvalidValue;
-  const dim3 grid(H, B);
+  if (bad_geometry(B, H, G, D, ps, M, P)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int* tb = static_cast<const int*>(table);
-  const int* ln = static_cast<const int*>(lengths);
   if (dtype == 0) {
-    paged_kernel<float><<<grid, THREADS, 0, s>>>(
-        static_cast<const float*>(q), static_cast<const float*>(kp),
-        static_cast<const float*>(vp), tb, ln, static_cast<float*>(o), H, G,
-        D, ps, M, P, scale);
+    launch<float, float, false>(q, kp, vp, nullptr, nullptr, table, lengths,
+                                o, B, H, G, D, ps, M, P, scale, s);
   } else if (dtype == 1) {
-    paged_kernel<__nv_bfloat16><<<grid, THREADS, 0, s>>>(
-        static_cast<const __nv_bfloat16*>(q),
-        static_cast<const __nv_bfloat16*>(kp),
-        static_cast<const __nv_bfloat16*>(vp), tb, ln,
-        static_cast<__nv_bfloat16*>(o), H, G, D, ps, M, P, scale);
+    launch<__nv_bfloat16, __nv_bfloat16, false>(
+        q, kp, vp, nullptr, nullptr, table, lengths, o, B, H, G, D, ps, M, P,
+        scale, s);
+  } else {
+    return (int)cudaErrorInvalidValue;
+  }
+  return (int)cudaGetLastError();
+}
+
+// The int8 body: kp, vp int8 [P, ps, G, D]; ks, vs f32 [P, ps, G, 1];
+// dtype is q's and o's (0 = float32, 1 = bfloat16); the rest as above.
+extern "C" int paged_attention_q8_launch(const void* q, const void* kp,
+                                         const void* vp, const void* ks,
+                                         const void* vs, const void* table,
+                                         const void* lengths, void* o, int B,
+                                         int H, int G, int D, int ps, int M,
+                                         int P, float scale, int dtype,
+                                         void* stream) {
+  if (bad_geometry(B, H, G, D, ps, M, P)) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0) {
+    launch<float, int8_t, true>(q, kp, vp, ks, vs, table, lengths, o, B, H,
+                                G, D, ps, M, P, scale, s);
+  } else if (dtype == 1) {
+    launch<__nv_bfloat16, int8_t, true>(q, kp, vp, ks, vs, table, lengths, o,
+                                        B, H, G, D, ps, M, P, scale, s);
   } else {
     return (int)cudaErrorInvalidValue;
   }

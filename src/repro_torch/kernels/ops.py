@@ -9,15 +9,21 @@ from __future__ import annotations
 
 from repro_torch.kernels import ref
 from repro_torch.kernels.flash_attention import flash_attention
-from repro_torch.kernels.paged_attention import paged_attention
+from repro_torch.kernels.paged_attention import (paged_attention,
+                                                 paged_attention_q8)
+from repro_torch.kernels.quant_matmul import quant_matmul
 from repro_torch.kernels.xfer_matmul import xfer_matmul
 
 #: every kernel wrapper of the port; each carries a ``launches`` counter
-KERNELS = (xfer_matmul, flash_attention, paged_attention)
+#: (``paged_attention_q8`` is the int8 body behind ``paged_attention``'s
+#: ``k_scale``/``v_scale``)
+KERNELS = (xfer_matmul, flash_attention, paged_attention, paged_attention_q8,
+           quant_matmul)
 
 
 # the JAX package's ``ops`` names
 matmul = xfer_matmul
+int8_matmul = quant_matmul
 attention = flash_attention
 paged_attn = paged_attention
 
@@ -33,5 +39,6 @@ def launch_counts() -> dict:
 
 # plain versions re-exported for tests and chip_smoke.py
 matmul_ref = ref.matmul_ref
+int8_matmul_ref = ref.quant_matmul_ref
 attention_ref = ref.flash_attention_ref
 paged_attn_ref = ref.paged_attention_ref

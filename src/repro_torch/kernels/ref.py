@@ -6,10 +6,9 @@ same ``NEG_INF`` fill, softmax, cast back to the input dtype. They are
 what a kernel wrapper runs when it is handed CPU tensors, and what
 ``chip_smoke.py`` holds each CUDA kernel against on the card.
 
-Only the fp paths of this slice's three oracles are here; the int8
-``k_scale``/``v_scale`` arguments and the other three oracles
-(``quant_matmul_ref``, ``rglru_scan_ref``, ``mlstm_ref``) arrive with
-their slices.
+The int8 ``k_scale``/``v_scale`` arguments of ``flash_attention_ref``
+and the ``rglru_scan_ref`` and ``mlstm_ref`` oracles arrive with their
+slices.
 """
 from __future__ import annotations
 
@@ -23,6 +22,14 @@ NEG_INF = -1e30
 def matmul_ref(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """x [R, N] @ w [N, M] in fp32, cast to ``x.dtype``."""
     return (x.float() @ w.float()).to(x.dtype)
+
+
+def quant_matmul_ref(x: torch.Tensor, w_q: torch.Tensor,
+                     scale: torch.Tensor) -> torch.Tensor:
+    """Dequantise-then-matmul: x [R, N] fp @ (w_q [N, M] int8 * scale
+    [1, M] f32) in fp32, cast to ``x.dtype``."""
+    w = w_q.float() * scale.reshape(1, w_q.shape[1])
+    return (x.float() @ w).to(x.dtype)
 
 
 def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -44,10 +51,13 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 
 def paged_attention_ref(q: torch.Tensor, kp: torch.Tensor, vp: torch.Tensor,
-                        page_table: torch.Tensor,
-                        lengths: torch.Tensor) -> torch.Tensor:
+                        page_table: torch.Tensor, lengths: torch.Tensor,
+                        k_scale: torch.Tensor = None,
+                        v_scale: torch.Tensor = None) -> torch.Tensor:
     """Gather-then-attend: q [B, H, D]; kp, vp [P, ps, G, D];
-    page_table [B, M] int32; lengths [B] valid kv count. Returns [B, H, D]."""
+    page_table [B, M] int32; lengths [B] valid kv count; optional
+    [P, ps, G, 1] f32 scale pools dequantise int8 kp/vp after the
+    gather. Returns [B, H, D]."""
     b, h, d = q.shape
     ps, g = kp.shape[1], kp.shape[2]
     t = page_table.shape[1] * ps
@@ -55,6 +65,9 @@ def paged_attention_ref(q: torch.Tensor, kp: torch.Tensor, vp: torch.Tensor,
     table = page_table.long()
     k = kp[table].reshape(b, t, g, d).float()
     v = vp[table].reshape(b, t, g, d).float()
+    if k_scale is not None:
+        k = k * k_scale[table].reshape(b, t, g, 1)
+        v = v * v_scale[table].reshape(b, t, g, 1)
     qg = q.float().reshape(b, g, rep, d) / math.sqrt(d)
     s = torch.einsum("bgrd,btgd->bgrt", qg, k)
     valid = torch.arange(t, device=q.device)[None] < lengths.to(q.device)[:, None]

@@ -7,9 +7,14 @@ decode ring write (``_cache_write``). The windowed, paged, append,
 cross-attention and MoE branches arrive with their slices.
 
 A cache is a dict ``{"k", "v": [B, T, G, D], "pos": [B, T] int32}``
-(``pos = -1`` marks an invalid entry). Decode writes into it in place,
-where the JAX package returns a new tree; the JAX ``count`` leaf is not
-kept because nothing reads it.
+(``pos = -1`` marks an invalid entry). With ``kv_quant`` ``k``/``v`` are
+int8 and two more leaves ``k_scale``/``v_scale`` ``[B, T, G, 1]`` f32
+hold one scale per token per kv group; fresh fp K/V are quantised where
+they are written (the decode write and the prefill fill), and decode
+runs the int8 body of ``paged_attention`` over the grid. Prefill attends
+over the fresh fp K/V. Decode writes into a cache in place, where the
+JAX package returns a new tree; the JAX ``count`` leaf is not kept
+because nothing reads it.
 """
 from __future__ import annotations
 
@@ -18,18 +23,38 @@ from typing import Optional, Tuple
 import torch
 from torch import nn
 
+from repro_torch import quant as Q
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import layers as L
 
 
 def make_kv_cache(arch: ArchConfig, batch: int, length: int, *,
-                  device: torch.device, dtype: torch.dtype) -> dict:
+                  device: torch.device, dtype: torch.dtype,
+                  kv_quant: bool = False) -> dict:
     g, d = arch.num_kv_heads, arch.head_dim
-    return {
-        "k": torch.zeros((batch, length, g, d), dtype=dtype, device=device),
-        "v": torch.zeros((batch, length, g, d), dtype=dtype, device=device),
+    kv_dtype = torch.int8 if kv_quant else dtype
+    cache = {
+        "k": torch.zeros((batch, length, g, d), dtype=kv_dtype, device=device),
+        "v": torch.zeros((batch, length, g, d), dtype=kv_dtype, device=device),
         "pos": torch.full((batch, length), -1, dtype=torch.int32, device=device),
     }
+    if kv_quant:
+        for name in ("k_scale", "v_scale"):
+            cache[name] = torch.zeros((batch, length, g, 1),
+                                      dtype=torch.float32, device=device)
+    return cache
+
+
+def _kv_leaves(cache: dict, k: torch.Tensor, v: torch.Tensor):
+    """Fresh fp K/V as the cache's storage leaves, ``[(name, value)]``:
+    cast to the cache dtype, or int8 payloads and per-token scales for a
+    quantised cache. Per-token quantisation commutes with slicing and
+    padding along the length axis, so the fills quantise first."""
+    if "k_scale" not in cache:
+        return [("k", k.to(cache["k"].dtype)), ("v", v.to(cache["v"].dtype))]
+    kq, vq = Q.quantize_kv(k), Q.quantize_kv(v)
+    return [("k", kq.q), ("k_scale", kq.scale),
+            ("v", vq.q), ("v_scale", vq.scale)]
 
 
 def _cache_write(cache: dict, k_new, v_new, pos_new) -> None:
@@ -38,24 +63,25 @@ def _cache_write(cache: dict, k_new, v_new, pos_new) -> None:
     t = cache["k"].shape[1]
     rows = torch.arange(k_new.shape[0], device=k_new.device)
     slot = (pos_new[:, 0] % t).long()
-    cache["k"][rows, slot] = k_new[:, 0].to(cache["k"].dtype)
-    cache["v"][rows, slot] = v_new[:, 0].to(cache["v"].dtype)
+    for name, u in _kv_leaves(cache, k_new[:, 0], v_new[:, 0]):
+        cache[name][rows, slot] = u
     cache["pos"][rows, slot] = pos_new[:, 0].to(torch.int32)
 
 
 def _prefill_fill(cache: dict, k, v, positions) -> dict:
     """The prefill's cache: the last T positions when S >= T, else the S
-    positions padded to T (k/v zeros, pos -1)."""
+    positions padded to T (k/v and scales zeros, pos -1)."""
     t = cache["k"].shape[1]
     s = k.shape[1]
-    dt = cache["k"].dtype
+    leaves = _kv_leaves(cache, k, v)
     if s >= t:  # own copies: decode writes into them in place
-        return {"k": k[:, -t:].to(dt).contiguous(),
-                "v": v[:, -t:].to(dt).contiguous(),
-                "pos": positions[:, -t:].to(torch.int32).contiguous()}
-    out = {name: torch.zeros_like(cache[name]) for name in ("k", "v")}
-    out["k"][:, :s] = k.to(dt)
-    out["v"][:, :s] = v.to(dt)
+        out = {name: u[:, -t:].contiguous() for name, u in leaves}
+        out["pos"] = positions[:, -t:].to(torch.int32).contiguous()
+        return out
+    out = {}
+    for name, u in leaves:
+        out[name] = torch.zeros_like(cache[name])
+        out[name][:, :s] = u
     out["pos"] = torch.full_like(cache["pos"], -1)
     out["pos"][:, :s] = positions.to(torch.int32)
     return out
@@ -113,7 +139,9 @@ class AttnBlock(nn.Module):
         k = L.dense(h, self.wk)
         v = L.dense(h, self.wv)
         if arch.qkv_bias:
-            q, k, v = q + self.bq, k + self.bk, v + self.bv
+            q = q + Q.fp(self.bq)
+            k = k + Q.fp(self.bk)
+            v = v + Q.fp(self.bv)
         return (q.reshape(b, s, arch.num_heads, arch.head_dim),
                 k.reshape(b, s, arch.num_kv_heads, arch.head_dim),
                 v.reshape(b, s, arch.num_kv_heads, arch.head_dim))
@@ -136,7 +164,7 @@ class AttnBlock(nn.Module):
         if cache is not None and s == 1:
             _cache_write(cache, k, v, positions)
             table, lengths = decode_meta
-            o = L.decode_attention(q, cache["k"], cache["v"], table, lengths)
+            o = L.decode_attention(q, cache, table, lengths)
             new_cache = cache
         else:
             o = L.attention(q, k, v)

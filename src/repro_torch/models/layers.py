@@ -11,6 +11,12 @@ kernels' plain versions run, so the CPU path is the same code.
 The JAX package's masked ``attention``/``_attend_block``/``_mask`` are
 not carried over: the two kernels take their place, with the causal mask
 (prefill) and the length mask (decode) that the dense path needs.
+
+INT8 weights (``quant.quantize_params``) arrive as :class:`QTensor`
+leaves: ``dense`` runs them through ``quant_matmul``, the embedding
+gathers int8 rows and scales them, and a norm scale or bias is
+dequantised to fp32 where it is read. The values are the reference's
+``dequantize_params`` (fp32) followed by its fp arithmetic.
 """
 from __future__ import annotations
 
@@ -19,6 +25,7 @@ import math
 import torch
 import torch.nn.functional as F
 
+from repro_torch import quant as Q
 from repro_torch.kernels import ops
 
 
@@ -40,7 +47,7 @@ def rms_norm(x: torch.Tensor, scale: torch.Tensor,
     x = x.float()
     var = x.square().mean(dim=-1, keepdim=True)
     y = x * torch.rsqrt(var + eps)
-    return (y * (1.0 + scale.float())).to(dt)
+    return (y * (1.0 + Q.fp(scale).float())).to(dt)
 
 
 def rope(x: torch.Tensor, positions: torch.Tensor,
@@ -59,10 +66,16 @@ def rope(x: torch.Tensor, positions: torch.Tensor,
     return out.to(x.dtype)
 
 
-def dense(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """``x @ w`` over the last axis of ``x`` through ``xfer_matmul``."""
+def dense(x: torch.Tensor, w) -> torch.Tensor:
+    """``x @ w`` over the last axis of ``x``: through ``xfer_matmul``, or
+    through ``quant_matmul`` when ``w`` is an int8 :class:`QTensor`."""
     lead = x.shape[:-1]
-    return ops.matmul(x.reshape(-1, x.shape[-1]), w).reshape(*lead, w.shape[1])
+    x2 = x.reshape(-1, x.shape[-1])
+    if Q.is_qtensor(w):
+        out = ops.int8_matmul(x2, w.q, w.scale)
+    else:
+        out = ops.matmul(x2, w)
+    return out.reshape(*lead, w.shape[1])
 
 
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -83,20 +96,22 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return o.reshape(b, h, s, d).permute(0, 2, 1, 3)
 
 
-def decode_attention(q: torch.Tensor, k_grid: torch.Tensor,
-                     v_grid: torch.Tensor, table: torch.Tensor,
+def decode_attention(q: torch.Tensor, cache: dict, table: torch.Tensor,
                      lengths: torch.Tensor) -> torch.Tensor:
-    """One-token decode over the dense slot grid: q [B, 1, H, D]; grids
-    [B, T, G, D] read as a page pool of B pages of T tokens through the
-    identity ``table`` [B, 1]; ``lengths`` [B] = positions + 1. Returns
-    [B, 1, H, D].
+    """One-token decode over the dense slot grid: q [B, 1, H, D]; the
+    cache's grids ``k``/``v`` [B, T, G, D] (int8 with ``k_scale``/
+    ``v_scale`` [B, T, G, 1] when quantised) read as a page pool of B
+    pages of T tokens through the identity ``table`` [B, 1]; ``lengths``
+    [B] = positions + 1. Returns [B, 1, H, D].
 
     Equal to the JAX grid mask (``pos >= 0`` and ``kv_pos <= q_pos``)
     for non-windowed caches whose slots never wrap, which ``submit``
     guarantees (prompt + max_new <= max_len): grid index i holds
     position i, every index below the length is valid, every index at or
     past it is masked."""
-    o = ops.paged_attn(q[:, 0], k_grid, v_grid, table, lengths)
+    o = ops.paged_attn(q[:, 0], cache["k"], cache["v"], table, lengths,
+                       k_scale=cache.get("k_scale"),
+                       v_scale=cache.get("v_scale"))
     return o[:, None]
 
 
@@ -108,9 +123,24 @@ def mlp_apply(p, x: torch.Tensor, kind: str) -> torch.Tensor:
     return dense(F.silu(g) * u, p.w_down)
 
 
-def embed_tokens(embed: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
+def embed_tokens(embed, tokens: torch.Tensor) -> torch.Tensor:
+    """Rows of ``embed`` [V, D]; an int8 :class:`QTensor` gives its rows
+    times the per-column scale in fp32 (dequantise-then-take's values)."""
+    if Q.is_qtensor(embed):
+        return embed.q[tokens.long()].float() * embed.scale
     return F.embedding(tokens.long(), embed)
 
 
-def unembed_logits(w: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+def unembed_logits(w, x: torch.Tensor) -> torch.Tensor:
     return dense(x, w)
+
+
+def unembed_tied_int8(embed: Q.QTensor, x: torch.Tensor,
+                      ones: torch.Tensor) -> torch.Tensor:
+    """``x @ dequantize(embed).T`` for a per-column int8 ``embed`` [V, D]
+    (scale [1, D]). Transposed, the scale lies on the contraction axis,
+    where ``quant_matmul`` has no slot for it, so it scales ``x``
+    instead: ``quant_matmul(x * s, q.T, ones)``, with ``q.T`` a strided
+    view (no transposed copy) and ``ones`` [1, V]. Equal to the
+    reference up to the fp32 summation order."""
+    return dense(x * embed.scale.reshape(-1), Q.QTensor(embed.q.T, ones))

@@ -6,6 +6,11 @@ Mirrors ``repro/models/lm.py`` for ``family == "dense"``: ``forward``
 JAX package stacks the layers into a scanned ``body``; here they are a
 ``ModuleList`` (``bridge.from_jax_params`` unstacks a JAX tree), and the
 caches are a list of per-layer dicts.
+
+After ``quant.quantize_params`` the weight leaves are int8
+:class:`~repro_torch.quant.QTensor` attributes in place of parameters
+(``final_norm`` stays fp); the forward then computes in fp32, as the
+reference's INT8 step does on its dequantised params.
 """
 from __future__ import annotations
 
@@ -14,6 +19,7 @@ from typing import List, Optional, Tuple
 import torch
 from torch import nn
 
+from repro_torch import quant as Q
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import blocks as B
 from repro_torch.models import layers as L
@@ -46,11 +52,16 @@ class LM(nn.Module):
 
     @property
     def device(self) -> torch.device:
-        return self.embed.device
+        return self.final_norm.device
 
     @property
     def dtype(self) -> torch.dtype:
-        return self.embed.dtype
+        """The fp parameters' dtype (``final_norm`` is never quantised)."""
+        return self.final_norm.dtype
+
+    @property
+    def weights_quantized(self) -> bool:
+        return Q.is_qtensor(self.embed)
 
     def init_(self, gen: torch.Generator) -> None:
         """Random weights with the JAX init's distribution
@@ -62,9 +73,10 @@ class LM(nn.Module):
             layer.init_(gen)
 
     def make_caches(self, batch: int, length: int,
-                    dtype: Optional[torch.dtype] = None) -> List[dict]:
+                    dtype: Optional[torch.dtype] = None,
+                    kv_quant: bool = False) -> List[dict]:
         return [B.make_kv_cache(self.arch, batch, length, device=self.device,
-                                dtype=dtype or self.dtype)
+                                dtype=dtype or self.dtype, kv_quant=kv_quant)
                 for _ in self.layers]
 
     def forward(self, tokens: torch.Tensor, *,
@@ -102,5 +114,8 @@ class LM(nn.Module):
 
     def logits(self, hidden: torch.Tensor) -> torch.Tensor:
         """``logits_fn``: hidden [..., D] -> [..., V] through ``xfer_matmul``
-        (the tied matrix is passed as the ``embed.T`` view, no copy)."""
+        (the tied matrix is passed as the ``embed.T`` view, no copy), or
+        ``quant_matmul`` for int8 weights."""
+        if self.arch.tie_embeddings and self.weights_quantized:
+            return L.unembed_tied_int8(self.embed, hidden, self.unembed_ones)
         return L.unembed_logits(self.unembed_matrix(), hidden)

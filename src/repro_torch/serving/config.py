@@ -2,13 +2,15 @@
 
 Mirrors ``repro/serving/config.py``. Only the fields this slice reads are
 carried over: the dense slot grid (``PagingConfig.paged`` must stay
-False), greedy sampling, lookahead. Disaggregation, quantisation,
+False), greedy sampling, lookahead, INT8 quantisation. Disaggregation,
 speculation and elastic replan arrive with their slices.
 """
 from __future__ import annotations
 
 import dataclasses
 from typing import Any, Optional
+
+from repro_torch.quant import QuantConfig
 
 
 @dataclasses.dataclass(frozen=True)
@@ -25,7 +27,10 @@ class ServeConfig:
     seed (random params of the CLI). ``sampling``:
     :class:`repro_torch.serving.sampler.SamplingParams` (None -> greedy).
     ``lookahead``: dispatch depth (1 = double-buffered, 0 = synchronous).
-    ``paging``: nested :class:`PagingConfig`."""
+    ``paging``: nested :class:`PagingConfig`. ``quant``: nested
+    :class:`repro_torch.quant.QuantConfig` — INT8 serving (per-channel
+    int8 weights and/or an int8 KV grid with per-token scales); the
+    default quantises nothing."""
 
     slots: Optional[int] = None
     max_len: Optional[int] = None
@@ -34,6 +39,7 @@ class ServeConfig:
     sampling: Optional[Any] = None
     lookahead: int = 1
     paging: PagingConfig = PagingConfig()
+    quant: QuantConfig = QuantConfig()
 
     def resolve(self) -> "ServeConfig":
         """Fill defaults (greedy sampling, lookahead >= 0); ``slots`` and

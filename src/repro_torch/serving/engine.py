@@ -25,6 +25,7 @@ import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.stats import percentile
+from repro_torch import quant as Q
 from repro_torch.device import DeviceLike, default_dtype, resolve_device
 from repro_torch.models import registry as REG
 from repro_torch.models.lm import LM
@@ -73,12 +74,29 @@ class _Record:
 class ServingEngine:
     """``ServingEngine(arch, params, config=ServeConfig(slots=..., max_len=...))``.
 
-    ``params`` is the :class:`~repro_torch.models.lm.LM` to serve; it is
-    moved (in place, ``nn.Module.to``) to ``device`` and ``dtype``.
+    ``params`` is the :class:`~repro_torch.models.lm.LM` to serve. The
+    engine takes it over: it is moved in place (``nn.Module.to``) to
+    ``device`` and ``dtype`` and, under int8 weights, quantised in place,
+    so a second engine needs a model of its own.
     ``device=None`` means ``cuda`` and raises without a CUDA device; pass
     ``device="cpu"`` to serve on the CPU through the kernels' plain
     versions. ``dtype`` defaults to bf16 on CUDA and fp32 on the CPU and
-    is the dtype of the params and the KV grid."""
+    is the dtype of the params and the KV grid.
+
+    ``config.quant`` (:class:`~repro_torch.quant.QuantConfig`, e.g.
+    ``INT8_SERVE``) selects INT8 serving. ``weights="int8"`` quantises
+    the params once, on the device and after the move to ``dtype``
+    (per-channel, with the reference's layer-stack-wide scales; the fp
+    copies are dropped); every projection then runs through
+    ``quant_matmul``. As in the reference, whose INT8 step dequantises
+    its params to fp32, the activations of that forward are fp32
+    whatever ``dtype`` is (the embedding, norms, attention); only the
+    KV grid and ``final_norm`` keep ``dtype``. ``kv="int8"`` makes the
+    grid int8 with per-token f32 scales, filled by quantising the fresh
+    K/V, read by the int8 body of ``paged_attention``; with fp weights
+    the activations stay in ``dtype``. Weights-only int8 on CUDA needs
+    ``dtype=torch.float32`` (the fp decode kernel takes one dtype for q
+    and the grid)."""
 
     def __init__(self, arch: ArchConfig, params: LM, *,
                  config: ServeConfig, device: DeviceLike = None,
@@ -90,6 +108,13 @@ class ServingEngine:
             raise NotImplementedError("paged KV is not ported yet; serve "
                                       "with PagingConfig(paged=False)")
         SMP.check_supported(config.sampling)
+        quant = config.quant
+        if quant.quant_weights and not quant.quant_kv \
+                and dev.type == "cuda" and dtype != torch.float32:
+            raise NotImplementedError(
+                f"int8 weights with a {dtype} KV grid are not ported on "
+                f"CUDA (fp32 activations, one dtype per decode kernel): use "
+                f"QuantConfig(weights='int8', kv='int8') or dtype=float32")
         self.arch = arch
         self.config = config
         self.device = dev
@@ -98,13 +123,17 @@ class ServingEngine:
         self.sampling = config.sampling
         self.lookahead = config.lookahead
         self.model = params.to(device=dev, dtype=dtype)
-        self.caches = self.model.make_caches(self.slots, self.max_len, dtype)
+        if quant.quant_weights:
+            Q.quantize_params(self.model)
+        self.caches = self.model.make_caches(self.slots, self.max_len, dtype,
+                                             kv_quant=quant.quant_kv)
         self.state = make_decode_state(self.slots, dev)
         self._serve_step = REG.build_serve_step(arch, sampling=self.sampling,
                                                 eos_id=self.eos_id)
         self.scheduler = Scheduler(arch, slots=self.slots,
                                    max_len=self.max_len, cache_dtype=dtype,
-                                   sampling=self.sampling)
+                                   sampling=self.sampling,
+                                   kv_quant=quant.quant_kv)
         self.completed: List[Request] = []
         self._pending: deque = deque()  # dispatched, unread step records
         self.step_times = deque(maxlen=4096)

@@ -71,12 +71,14 @@ def invalidate_padding(rows: List[dict], lens: torch.Tensor) -> List[dict]:
 
 def splice_rows(grid: List[dict], rows: List[dict], slots: torch.Tensor) -> None:
     """Write ``n`` stacked prefill rows into the grid at ``slots [n]``, in
-    place. Rows shorter than the grid leave the k/v tail untouched and pad
-    ``pos`` with ``-1``."""
+    place: every leaf a row carries (k/v, and the int8 grid's scales).
+    Rows shorter than the grid leave the tail of those leaves untouched
+    and pad ``pos`` with ``-1``."""
     for g, r in zip(grid, rows):
         s = r["k"].shape[1]
-        g["k"][slots, :s] = r["k"].to(g["k"].dtype)
-        g["v"][slots, :s] = r["v"].to(g["v"].dtype)
+        for name, leaf in r.items():
+            if name != "pos":
+                g[name][slots, :s] = leaf.to(g[name].dtype)
         pos = torch.full((slots.shape[0], g["pos"].shape[1]), -1,
                          dtype=torch.int32, device=g["pos"].device)
         pos[:, :s] = r["pos"]
@@ -84,14 +86,14 @@ def splice_rows(grid: List[dict], rows: List[dict], slots: torch.Tensor) -> None
 
 
 def prefill_rows(model: LM, tokens: torch.Tensor, lens: torch.Tensor,
-                 cache_dtype: Optional[torch.dtype] = None
-                 ) -> Tuple[List[dict], torch.Tensor]:
+                 cache_dtype: Optional[torch.dtype] = None,
+                 kv_quant: bool = False) -> Tuple[List[dict], torch.Tensor]:
     """Batched bucketed prefill: tokens [n, bucket] right-padded, ``lens``
     [n] true lengths. Returns the length-exact cache rows (``pos`` past
-    each length invalidated) and the logits at each row's last valid
-    position, [n, 1, V]."""
+    each length invalidated; int8 with scales when ``kv_quant``) and the
+    logits at each row's last valid position, [n, 1, V]."""
     n, bucket = tokens.shape
-    caches = model.make_caches(n, bucket, cache_dtype)
+    caches = model.make_caches(n, bucket, cache_dtype, kv_quant=kv_quant)
     hidden, rows = model(tokens, caches=caches)
     last = hidden[torch.arange(n, device=hidden.device), lens.long() - 1]
     logits = model.logits(last[:, None])
@@ -105,11 +107,12 @@ class Scheduler:
     def __init__(self, arch: ArchConfig, *, slots: int, max_len: int,
                  cache_dtype: torch.dtype,
                  sampling: SMP.SamplingParams = SMP.GREEDY,
-                 min_bucket: int = MIN_BUCKET):
+                 min_bucket: int = MIN_BUCKET, kv_quant: bool = False):
         self.arch = arch
         self.slots = slots
         self.max_len = max_len
         self.cache_dtype = cache_dtype
+        self.kv_quant = kv_quant
         self.sampling = sampling
         self.min_bucket = min_bucket
         self.queue: List[Request] = []
@@ -171,7 +174,8 @@ class Scheduler:
             lens_t = torch.from_numpy(lens).to(dev)
             slots_t = torch.from_numpy(slots_arr).to(dev)
             rows, logits = prefill_rows(model, torch.from_numpy(toks).to(dev),
-                                        lens_t, self.cache_dtype)
+                                        lens_t, self.cache_dtype,
+                                        kv_quant=self.kv_quant)
             splice_rows(caches, rows, slots_t)
             first = SMP.sample(logits[:, -1], self.sampling)
             state = admit_rows(state, slots_t, first, lens_t,

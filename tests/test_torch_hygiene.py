@@ -30,7 +30,7 @@ for m in pkgutil.walk_packages(repro_torch.__path__, "repro_torch."):
 bad = sorted(n for n in sys.modules
              if n == "jax" or n.startswith(("jax.", "jaxlib"))
              or n == "repro" or n.startswith("repro."))
-print(len(names), "modules;", "leaked:", bad)
+print(len(names), "modules:", sorted(names), "leaked:", bad)
 assert not bad, bad
 """
 
@@ -46,6 +46,9 @@ def test_port_imports_no_jax_and_no_repro():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stdout + out.stderr
     assert "leaked: []" in out.stdout
+    for name in ("repro_torch.quant", "repro_torch.kernels.quant_matmul",
+                 "repro_torch.kernels.paged_attention"):
+        assert f"'{name}'" in out.stdout, name
 
 
 def _imported_roots(path):
@@ -71,6 +74,7 @@ def test_entry_points_default_to_cuda_and_raise_without_it():
     from repro_torch.configs import get_arch
     from repro_torch.launch import serve
     from repro_torch.models.registry import init_params
+    from repro_torch.quant import INT8_SERVE
     from repro_torch.serving import ServeConfig, ServingEngine
     arch = get_arch("qwen1.5-0.5b").reduced()
     with pytest.raises(RuntimeError, match='device="cpu"'):
@@ -78,6 +82,10 @@ def test_entry_points_default_to_cuda_and_raise_without_it():
     model = init_params(arch, device="cpu")
     with pytest.raises(RuntimeError, match='device="cpu"'):
         ServingEngine(arch, model, config=ServeConfig(slots=2, max_len=16))
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        ServingEngine(arch, model, config=ServeConfig(slots=2, max_len=16,
+                                                      quant=INT8_SERVE))
+    assert not model.weights_quantized  # nothing happened to the model
     tree = {"embed": np.zeros((arch.vocab_size, arch.d_model), np.float32)}
     with pytest.raises(RuntimeError, match='device="cpu"'):
         bridge.from_jax_params(tree, arch)

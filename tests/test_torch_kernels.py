@@ -10,8 +10,10 @@ import numpy as np
 import pytest
 import torch
 
+from repro import quant as JQ
 from repro.kernels import ops as jops
 from repro.kernels import ref as jref
+from repro_torch import quant as Q
 from repro_torch.kernels import ops
 
 _TOL = {"float32": dict(rtol=2e-4, atol=2e-4),
@@ -37,8 +39,10 @@ def _np(t) -> np.ndarray:
 def _no_launches():
     ops.reset_launches()
     yield
-    assert ops.launch_counts() == {"xfer_matmul": 0, "flash_attention": 0,
-                                   "paged_attention": 0}
+    counts = ops.launch_counts()
+    assert set(counts) == {"xfer_matmul", "flash_attention", "paged_attention",
+                           "paged_attention_q8", "quant_matmul"}
+    assert not any(counts.values()), counts
 
 
 @pytest.mark.parametrize("r,n,m,tiles", [
@@ -68,6 +72,42 @@ def test_matmul_takes_strided_weight_view():
     np.testing.assert_allclose(ops.matmul(x, embed.T).numpy(),
                                (x @ embed.T.contiguous()).numpy(), rtol=1e-5,
                                atol=1e-5)
+
+
+@pytest.mark.parametrize("r,n,m,tiles", [
+    (256, 256, 256, (128, 128, 128)),
+    (128, 128, 512, (64, 64, 256)),
+])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_quant_matmul_plain_matches_jax(r, n, m, tiles, dtype):
+    """fp x @ int8 w with a per-column scale: the dequantise-then-matmul
+    oracle and the interpret-mode Pallas kernel, which scales at flush
+    (the tiles are the Pallas kernel's; the port picks its own)."""
+    rng = np.random.RandomState(5)
+    xj, xt = _pair(rng.standard_normal((r, n)).astype(np.float32), dtype)
+    w = rng.standard_normal((n, m)).astype(np.float32)
+    qt = Q.quantize(torch.from_numpy(w), axis=0)
+    qj = JQ.quantize(jnp.asarray(w), axis=0)
+    tr, tn, tm = tiles
+    got = ops.int8_matmul(xt, qt.q, qt.scale)
+    assert got.dtype == _TDT[dtype] and tuple(got.shape) == (r, m)
+    np.testing.assert_allclose(
+        _np(got), _np(jref.quant_matmul_ref(xj, qj.q, qj.scale)), **_TOL[dtype])
+    np.testing.assert_allclose(
+        _np(got), _np(jops.int8_matmul(xj, qj.q, qj.scale, tr=tr, tn=tn, tm=tm)),
+        **_TOL[dtype])
+
+
+def test_quant_matmul_takes_strided_weight_view():
+    """The tied INT8 unembedding passes ``embed.q.T`` with a unit scale
+    and the embedding's column scale folded into x."""
+    rng = np.random.RandomState(6)
+    x = torch.from_numpy(rng.standard_normal((5, 16)).astype(np.float32))
+    embed = Q.quantize(torch.from_numpy(
+        rng.standard_normal((40, 16)).astype(np.float32)), axis=0)
+    got = ops.int8_matmul(x * embed.scale, embed.q.T, torch.ones(1, 40))
+    want = x @ Q.dequantize(embed).T
+    np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-5, atol=1e-5)
 
 
 @pytest.mark.parametrize("s,t,d,blocks,window", [
@@ -114,6 +154,34 @@ def test_paged_attention_plain_matches_jax(b, h, g, d, ps, m):
                                rtol=2e-4, atol=2e-4)
 
 
+@pytest.mark.parametrize("b,h,g,d,ps,m", [(3, 8, 2, 16, 8, 4),
+                                          (2, 4, 4, 32, 16, 2)])
+def test_paged_attention_int8_plain_matches_jax(b, h, g, d, ps, m):
+    """int8 page pools with [P, ps, G, 1] scale pools through the same
+    table: the JAX oracle and the interpret-mode ``_paged_kernel_q8``."""
+    rng = np.random.RandomState(7)
+    n_pages = b * m + 2
+    q = rng.standard_normal((b, h, d)).astype(np.float32)
+    kv = [rng.standard_normal((n_pages, ps, g, d)).astype(np.float32)
+          for _ in range(2)]
+    (kq, ks), (vq, vs) = ((t.q.numpy(), t.scale.numpy()) for t in
+                          (Q.quantize_kv(torch.from_numpy(a)) for a in kv))
+    table = np.stack([rng.permutation(np.arange(1, n_pages))[:m]
+                      for _ in range(b)]).astype(np.int32)
+    lengths = rng.randint(1, m * ps + 1, size=b).astype(np.int32)
+    lengths[-1] = m * ps
+    t = [torch.from_numpy(a) for a in (q, kq, vq, table, lengths, ks, vs)]
+    got = ops.paged_attn(*t[:5], k_scale=t[5], v_scale=t[6])
+    jargs = [jnp.asarray(a) for a in (q, kq, vq, table, lengths)]
+    jks, jvs = jnp.asarray(ks), jnp.asarray(vs)
+    np.testing.assert_allclose(
+        got.numpy(), _np(jref.paged_attention_ref(*jargs, jks, jvs)),
+        rtol=2e-4, atol=2e-4)
+    np.testing.assert_allclose(
+        got.numpy(), _np(jops.paged_attn(*jargs, k_scale=jks, v_scale=jvs)),
+        rtol=2e-4, atol=2e-4)
+
+
 def test_paged_attention_rejects_lengths_outside_the_table():
     q = torch.zeros(2, 4, 16)
     pool = torch.zeros(2, 8, 4, 16)
@@ -132,3 +200,21 @@ def test_wrappers_validate_shapes():
     with pytest.raises(ValueError):
         ops.attention(torch.zeros(2, 4, 16), torch.zeros(2, 4, 8),
                       torch.zeros(2, 4, 8))
+    w_q = torch.zeros(3, 5, dtype=torch.int8)
+    with pytest.raises(ValueError):
+        ops.int8_matmul(torch.zeros(2, 3), w_q, torch.ones(1, 4))
+    with pytest.raises(TypeError):
+        ops.int8_matmul(torch.zeros(2, 3), w_q.float(), torch.ones(1, 5))
+    q = torch.zeros(2, 4, 16)
+    pool = torch.zeros(2, 8, 4, 16, dtype=torch.int8)
+    scale = torch.ones(2, 8, 4, 1)
+    table = torch.arange(2, dtype=torch.int32)[:, None]
+    lens = torch.tensor([1, 8], dtype=torch.int32)
+    with pytest.raises(ValueError, match="both"):
+        ops.paged_attn(q, pool, pool, table, lens, k_scale=scale)
+    with pytest.raises(ValueError, match="scale pools"):
+        ops.paged_attn(q, pool, pool, table, lens, k_scale=scale[:, :4],
+                       v_scale=scale[:, :4])
+    with pytest.raises(TypeError):
+        ops.paged_attn(q, pool.float(), pool.float(), table, lens,
+                       k_scale=scale, v_scale=scale)

@@ -8,6 +8,14 @@ so valid rows are compared and padded rows are not. Tolerance 2e-4, the
 tests/test_kernels.py fp32 tolerance: ``_attend_block`` scales q before
 its dot, the kernels scale the scores after, so the two differ by
 rounding only.
+
+Under ``INT8_SERVE`` the port's quantised model (``quant.quantize_params``,
+``quant_matmul``, int8 caches read by the int8 ``paged_attention``) is
+held against ``LM.forward`` on ``dequantize_params(quantize_params(p))``
+with ``make_caches(kv_quant=True)``: hidden states and logits at 2e-4,
+cache scales at 2e-4 relative, and the dequantised K/V within one
+quantisation step, because the fp32 summation order can move a K/V
+value across a rounding boundary and its int8 by one.
 """
 import math
 
@@ -17,11 +25,13 @@ import numpy as np
 import pytest
 import torch
 
+from repro import quant as JQ
 from repro.configs import get_arch as jax_get_arch
 from repro.configs.base import ShapeConfig as JShape
 from repro.models import lm as JLM
 from repro.models import registry as JREG
 from repro_torch import bridge
+from repro_torch import quant as Q
 from repro_torch.configs import get_arch
 from repro_torch.configs.base import ShapeConfig
 from repro_torch.models import registry as REG
@@ -129,6 +139,87 @@ def test_prefill_then_decode_matches_jax(pair):
                                    **TOL)
         pos += 1
         check_caches(pos)
+
+
+@pytest.fixture(scope="module")
+def qpair():
+    """Non-zero seeded norms and biases (zeros would quantise to zeros);
+    the JAX side's dequantised params and the port's quantised model."""
+    arch_j = jax_get_arch(ARCH_ID).reduced()
+    arch = get_arch(ARCH_ID).reduced()
+    tree = jax.tree.map(np.asarray, JREG.init_params(
+        arch_j, jax.random.PRNGKey(5), jnp.float32))
+    rng = np.random.RandomState(6)
+    body = tree["body"]["b0_attn"]
+    for name in ("ln1", "ln2", "bq", "bk", "bv"):
+        body[name] = (0.3 * rng.standard_normal(body[name].shape)).astype(np.float32)
+    deq = JQ.dequantize_params(JQ.quantize_params(jax.tree.map(jnp.asarray, tree)))
+    model = Q.quantize_params(bridge.from_jax_params(tree, arch, device="cpu"))
+    return arch_j, deq, arch, model
+
+
+def test_int8_prefill_then_decode_matches_jax(qpair):
+    """INT8_SERVE: bucketed prefill with seq_lens into an int8 grid, then
+    two decode steps over it (the int8 ``paged_attention`` body)."""
+    arch_j, deq, arch, model = qpair
+    n, bucket, t = 3, 16, 32
+    lens = np.array([7, 16, 3], np.int32)
+    toks = _prompts(n, bucket, lens, seed=3)
+    h_j, c_j = JLM.forward(arch_j, deq, jnp.asarray(toks),
+                           caches=JLM.make_caches(arch_j, n, t, jnp.float32,
+                                                  kv_quant=True),
+                           seq_lens=jnp.asarray(lens))
+    h_t, c_t = model(torch.from_numpy(toks),
+                     caches=model.make_caches(n, t, kv_quant=True))
+    assert h_t.dtype == torch.float32
+    hj, ht = np.asarray(h_j), h_t.numpy()
+    for i, s in enumerate(lens):
+        np.testing.assert_allclose(ht[i, :s], hj[i, :s], **TOL)
+        np.testing.assert_allclose(
+            model.logits(h_t[i, s - 1]).numpy(),
+            np.asarray(JLM.logits_fn(arch_j, deq, h_j[i, s - 1])), **TOL)
+
+    def check_caches(frontier):
+        idx = np.arange(t)[None, :]
+        stale = (idx >= frontier[:, None]) & (idx < bucket)
+        for layer in range(arch.num_layers):
+            cj = {k: np.asarray(v[layer])
+                  for k, v in c_j["body"]["b0_attn"].items()}
+            ct = {k: v.numpy() for k, v in c_t[layer].items()}
+            assert ct["k"].dtype == np.int8 and ct["k_scale"].dtype == np.float32
+            valid = (cj["pos"] >= 0) & ~stale
+            np.testing.assert_array_equal(ct["pos"], cj["pos"])
+            for leaf in ("k", "v"):
+                sj, st = cj[f"{leaf}_scale"][valid], ct[f"{leaf}_scale"][valid]
+                np.testing.assert_allclose(st, sj, rtol=2e-4, atol=0)
+                step = np.maximum(sj, st)
+                err = np.abs(ct[leaf][valid] * st - cj[leaf][valid] * sj)
+                assert (err <= step * (1 + 1e-3)).all(), float((err / step).max())
+
+    check_caches(lens)
+    rng = np.random.RandomState(4)
+    pos = lens.copy()
+    for _ in range(2):
+        tok = rng.randint(1, 256, size=(n, 1)).astype(np.int32)
+        h_j, c_j = JLM.forward(arch_j, deq, jnp.asarray(tok), caches=c_j,
+                               positions=jnp.asarray(pos[:, None]))
+        h_t, c_t = model(torch.from_numpy(tok), caches=c_t,
+                         positions=torch.from_numpy(pos[:, None]))
+        np.testing.assert_allclose(h_t.numpy(), np.asarray(h_j), **TOL)
+        np.testing.assert_allclose(model.logits(h_t).numpy(),
+                                   np.asarray(JLM.logits_fn(arch_j, deq, h_j)),
+                                   **TOL)
+        pos += 1
+        check_caches(pos)
+
+
+def test_int8_tied_unembedding_matches_jax(qpair):
+    """``quant_matmul(x * s, q.T, ones)`` == x @ dequantize(embed).T."""
+    arch_j, deq, arch, model = qpair
+    x = np.random.RandomState(8).standard_normal((2, 3, arch.d_model)).astype(np.float32)
+    np.testing.assert_allclose(model.logits(torch.from_numpy(x)).numpy(),
+                               np.asarray(JLM.logits_fn(arch_j, deq, jnp.asarray(x))),
+                               **TOL)
 
 
 def test_prefill_step_and_legacy_serve_step_match_jax(pair):

@@ -10,6 +10,14 @@ to powers of two and prefills a bucket's requests as one batch. On a
 divergence the failure names the top-2 logit margin of the port's model
 at the diverging position (a flip under the fp32 tolerance is a
 near-tie, not a fault).
+
+INT8 (``ServeConfig(quant=INT8_SERVE)``): the port's streams equal the
+JAX package's unplanned dense quantised ``ServingEngine`` (the golden of
+``serving_equiv.check_quant_equivalence``) token for token, in the same
+scenarios, on a tree with seeded norms and biases and scaled-up output
+projections so that the greedy streams do not just repeat their last
+prompt token. The port's INT8 prefill logits stay within
+``QUANT_LOGITS_TOL`` of its fp32 logits (``_quant_logits_probe``).
 """
 import warnings
 
@@ -19,16 +27,22 @@ import numpy as np
 import pytest
 import torch
 
+from repro import quant as JQ
 from repro.configs import get_arch as jax_get_arch
 from repro.models import registry as JREG
+from repro.serving.config import ServeConfig as JServeConfig
 from repro.serving.engine import Request as JRequest
-from repro.testing.serving_equiv import ReferenceEngine, _prompts
+from repro.serving.engine import ServingEngine as JServingEngine
+from repro.testing.serving_equiv import (QUANT_LOGITS_TOL, ReferenceEngine,
+                                         _prompts)
 from repro_torch import bridge
 from repro_torch.configs import get_arch
 from repro_torch.kernels import ops
+from repro_torch.quant import INT8_SERVE
 from repro_torch.serving import (IncompleteDrainError, Request,
                                  RequestValidationError, ServeConfig,
                                  ServingEngine)
+from repro_torch.serving.scheduler import prefill_rows
 
 ARCH_ID = "qwen1.5-0.5b"
 SLOTS, MAX_LEN, MAX_NEW, SEED = 4, 32, 6, 0
@@ -116,8 +130,7 @@ def test_greedy_streams_match_reference(setup, scenario, lookahead):
     want = _reference(setup, scenario)
     model, prompts, eng, got = _port(setup, scenario, lookahead)
     assert not _diff(model, prompts, got, want), _diff(model, prompts, got, want)
-    assert ops.launch_counts() == {"xfer_matmul": 0, "flash_attention": 0,
-                                   "paged_attention": 0}  # CPU: plain versions
+    assert not any(ops.launch_counts().values())  # CPU: plain versions
     if scenario == "churn":
         assert len(prompts) > eng.slots
 
@@ -179,3 +192,118 @@ def test_unported_options_raise(setup):
         ServingEngine(arch, model, device="cpu", config=ServeConfig(
             slots=2, max_len=16,
             sampling=SamplingParams(method="temperature", temperature=0.7)))
+
+
+# ---------------------------------------------------------------------------
+# INT8 serving
+# ---------------------------------------------------------------------------
+
+@pytest.fixture(scope="module")
+def qsetup(setup):
+    arch_j, _, arch, tree = setup
+    rng = np.random.RandomState(SEED + 1)
+    tree = jax.tree.map(lambda x: x, tree)
+    body = dict(tree["body"]["b0_attn"])
+    for name in ("ln1", "ln2", "bq", "bk", "bv"):
+        body[name] = (0.5 * rng.standard_normal(body[name].shape)).astype(np.float32)
+    body["wo"] = body["wo"] * 8.0
+    body["mlp"] = {k: v * 8.0 for k, v in body["mlp"].items()}
+    tree["body"] = {"b0_attn": body}
+    return arch_j, jax.tree.map(jnp.asarray, tree), arch, tree
+
+
+_QREF_CACHE = {}
+
+
+def _jax_int8(qsetup, name, eos_id=None):
+    """Streams of the JAX unplanned dense engine under INT8_SERVE."""
+    key = (name, eos_id)
+    if key not in _QREF_CACHE:
+        arch_j, params, _, _ = qsetup
+        prompts, slots = _scenario(name)
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore", DeprecationWarning)
+            eng = JServingEngine(arch_j, params, dtype=jnp.float32,
+                                 config=JServeConfig(slots=slots,
+                                                     max_len=MAX_LEN,
+                                                     eos_id=eos_id,
+                                                     quant=JQ.INT8_SERVE))
+        for i, p in enumerate(prompts):
+            eng.submit(JRequest(rid=i, prompt=p, max_new_tokens=MAX_NEW))
+        eng.run_until_drained(max_steps=4000)
+        _QREF_CACHE[key] = {r.rid: list(r.out_tokens) for r in eng.completed}
+    return _QREF_CACHE[key]
+
+
+def _port_int8(qsetup, name, lookahead, eos_id=None):
+    _, _, arch, tree = qsetup
+    prompts, slots = _scenario(name)
+    model = bridge.from_jax_params(tree, arch, device="cpu")
+    eng = ServingEngine(arch, model, device="cpu", config=ServeConfig(
+        slots=slots, max_len=MAX_LEN, eos_id=eos_id, lookahead=lookahead,
+        quant=INT8_SERVE))
+    for i, p in enumerate(prompts):
+        eng.submit(Request(rid=i, prompt=p, max_new_tokens=MAX_NEW))
+    eng.run_until_drained(max_steps=4000)
+    return model, prompts, eng, {r.rid: list(r.out_tokens) for r in eng.completed}
+
+
+@pytest.mark.parametrize("lookahead", [0, 1])
+@pytest.mark.parametrize("scenario", ["basic", "churn", "eos"])
+def test_int8_greedy_streams_match_jax_engine(qsetup, scenario, lookahead):
+    eos_ids = [None]
+    if scenario == "eos":  # EOS straight out of prefill, and mid-stream
+        probe = _jax_int8(qsetup, "eos")
+        eos_ids = [probe[0][0], probe[1][2]]
+    for eos in eos_ids:
+        want = _jax_int8(qsetup, scenario, eos_id=eos)
+        model, prompts, eng, got = _port_int8(qsetup, scenario, lookahead,
+                                              eos_id=eos)
+        bad = _diff(model, prompts, got, want)
+        assert not bad, f"eos={eos}: {bad}"
+        assert model.weights_quantized
+        assert eng.caches[0]["k"].dtype == torch.int8
+    if scenario == "basic":  # the streams are not a repeated token
+        assert any(len(set(toks)) > 2 for toks in want.values()), want
+    if scenario == "eos":
+        assert any(len(t) < MAX_NEW for t in want.values()), want
+    assert not any(ops.launch_counts().values())
+
+
+def test_int8_logits_stay_within_quant_tolerance_of_fp32(qsetup):
+    """``serving_equiv._quant_logits_probe`` on the port: the same
+    length-exact prefill with fp32 params and grid, then with int8
+    weights and an int8 grid."""
+    _, _, arch, tree = qsetup
+    prompt = _prompts(jax_get_arch(ARCH_ID).reduced(), 1, MAX_LEN, SEED + 5,
+                      MAX_NEW)[0]
+    toks = np.zeros((1, MAX_LEN), np.int32)
+    toks[0, :len(prompt)] = prompt
+    lens = torch.tensor([len(prompt)], dtype=torch.int32)
+    fp_model = bridge.from_jax_params(tree, arch, device="cpu")
+    _, lf = prefill_rows(fp_model, torch.from_numpy(toks), lens)
+    q_model = bridge.from_jax_params(tree, arch, device="cpu")
+    from repro_torch.quant import quantize_params
+    _, lq = prefill_rows(quantize_params(q_model), torch.from_numpy(toks), lens,
+                         kv_quant=True)
+    lf, lq = lf.double(), lq.double()
+    err = float((lq - lf).abs().max() / max(1.0, float(lf.abs().max())))
+    assert 0 < err <= QUANT_LOGITS_TOL, err
+
+
+def test_int8_weights_only_and_kv_only_serve_on_cpu(qsetup):
+    """The two halves of INT8_SERVE alone: weights-only keeps an fp32
+    grid, kv-only keeps fp params with an int8 grid; both drain."""
+    from repro_torch.quant import QuantConfig
+    _, _, arch, tree = qsetup
+    prompts, slots = _scenario("basic")
+    for quant in (QuantConfig(weights="int8"), QuantConfig(kv="int8")):
+        model = bridge.from_jax_params(tree, arch, device="cpu")
+        eng = ServingEngine(arch, model, device="cpu", config=ServeConfig(
+            slots=slots, max_len=MAX_LEN, quant=quant))
+        for i, p in enumerate(prompts):
+            eng.submit(Request(rid=i, prompt=p, max_new_tokens=MAX_NEW))
+        eng.run_until_drained()
+        assert len(eng.completed) == len(prompts)
+        assert model.weights_quantized == quant.quant_weights
+        assert (eng.caches[0]["k"].dtype == torch.int8) == quant.quant_kv
