@@ -6,10 +6,12 @@ never ``repro`` — and keeps its own copies of the framework-neutral
 types it needs. Module names mirror the JAX package so each counterpart
 is easy to find:
 
-  configs/   ArchConfig / ShapeConfig and the qwen1.5-0.5b config
+  configs/   ArchConfig / ShapeConfig, the qwen1.5-0.5b and
+             recurrentgemma-2b configs
   kernels/   hand-written sm_90a CUDA kernels (csrc/), their ctypes
              wrappers, launch counters and plain PyTorch versions
-  models/    the dense decoder-only LM (layers, blocks, lm, registry)
+  models/    the dense and hybrid (RG-LRU + local attention)
+             decoder-only LM (layers, blocks, recurrent, lm, registry)
   serving/   ServeConfig, DecodeState, greedy sampler, scheduler, engine
   launch/    the serving CLI
   quant.py   INT8 serving: QTensor, quantize / quantize_kv,

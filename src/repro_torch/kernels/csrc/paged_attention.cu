@@ -21,8 +21,10 @@
 // dim of one position stripe) and reads V rows coalesced along D.
 //
 // A row's length must lie in [1, M * ps] and its table entries in
-// [0, P): the kernel asserts both (for the dense slot grid that is the
-// serving engine's `positions < max_len`).
+// [0, P): the kernel traps otherwise (for the dense slot grid that is the
+// serving engine's `positions < max_len`), so the launch fails with an
+// error instead of reading out of bounds. __trap() is no function call,
+// so unlike assert() it costs the kernel no stack frame and no spills.
 //
 // The int8 body (paged_attention_q8_launch) replaces _paged_kernel_q8
 // of the same TPU file: kp/vp hold int8 and two f32 scale pools
@@ -33,18 +35,23 @@
 // device memory. Its bound is the int8 rows plus their scales: 2*(D+4)
 // bytes per position per group instead of 2*2*D in bf16.
 //
+// The block has threads_for(D) threads: 128 for D <= 128, 256 for D =
+// 256 (recurrentgemma-2b's MQA heads). That many positions per step, and
+// D must divide it so that the V accumulation's (stripe, dim) layout covers
+// every dim (at D = 256 one stripe: each thread owns one dim).
+//
 // Simple first: no split of one row's pages across blocks
 // (flash-decoding), scalar loads. Those are later work.
-#include <cassert>
 #include <cstdint>
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 
 namespace {
 
-constexpr int THREADS = 128;  // positions per step; also D <= 128
-constexpr int WARPS = THREADS / 32;
 constexpr float NEG_INF = -1e30f;
+
+// threads per block (= positions per step) for head dim D
+constexpr int threads_for(int D) { return D <= 128 ? 128 : 256; }
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
@@ -52,7 +59,8 @@ __device__ __forceinline__ float to_f32(int8_t v) { return (float)v; }
 __device__ __forceinline__ void store(float* p, float v) { *p = v; }
 __device__ __forceinline__ void store(__nv_bfloat16* p, float v) { *p = __float2bfloat16(v); }
 
-// Block-wide max / sum; every thread gets the result.
+// Block-wide max / sum over WARPS warps; every thread gets the result.
+template <int WARPS>
 __device__ __forceinline__ float block_max(float v, float* red) {
   for (int off = 16; off > 0; off >>= 1)
     v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, off));
@@ -64,6 +72,7 @@ __device__ __forceinline__ float block_max(float v, float* red) {
   return r;
 }
 
+template <int WARPS>
 __device__ __forceinline__ float block_sum(float v, float* red) {
   for (int off = 16; off > 0; off >>= 1)
     v += __shfl_xor_sync(0xffffffffu, v, off);
@@ -76,14 +85,15 @@ __device__ __forceinline__ float block_sum(float v, float* red) {
 }
 
 // T: q and o; KV: the pools (T, or int8_t with Q8 and the scale pools
-// ks/vs, which are null otherwise).
-template <typename T, typename KV, bool Q8>
+// ks/vs, which are null otherwise); THREADS: threads_for(D).
+template <typename T, typename KV, bool Q8, int THREADS>
 __global__ void __launch_bounds__(THREADS)
 paged_kernel(const T* __restrict__ q, const KV* __restrict__ kp,
              const KV* __restrict__ vp, const float* __restrict__ ks,
              const float* __restrict__ vs, const int* __restrict__ table,
              const int* __restrict__ lengths, T* __restrict__ o, int H,
              int G, int D, int ps, int M, int P, float scale) {
+  constexpr int WARPS = THREADS / 32;
   __shared__ float qs[THREADS];
   __shared__ float prob[THREADS];
   __shared__ float part[THREADS];
@@ -94,7 +104,7 @@ paged_kernel(const T* __restrict__ q, const KV* __restrict__ kp,
   const long long b = blockIdx.y;
   const int g = h / (H / G);
   const int len = lengths[b];
-  assert(len >= 1 && len <= M * ps);
+  if (len < 1 || len > M * ps) __trap();
   const int* trow = table + b * M;
 
   if (tid < D) qs[tid] = to_f32(q[(b * H + h) * D + tid]) * scale;
@@ -111,7 +121,7 @@ paged_kernel(const T* __restrict__ q, const KV* __restrict__ kp,
     float s = NEG_INF;
     if (t < len) {
       const int page = trow[t / ps];
-      assert(page >= 0 && page < P);
+      if (page < 0 || page >= P) __trap();
       const long long row = ((long long)page * ps + t % ps) * G + g;
       const KV* krow = kp + row * D;
       const float sk = Q8 ? ks[row] : 1.f;
@@ -119,12 +129,12 @@ paged_kernel(const T* __restrict__ q, const KV* __restrict__ kp,
       for (int d = 0; d < D; ++d) dot = fmaf(qs[d], to_f32(krow[d]) * sk, dot);
       s = dot;
     }
-    const float m_new = fmaxf(m, block_max(s, red));
+    const float m_new = fmaxf(m, block_max<WARPS>(s, red));
     // t0 < len, so m_new is a real score and masked positions get p = 0
     const float p = t < len ? expf(s - m_new) : 0.f;
     prob[tid] = p;
     const float alpha = expf(m - m_new);
-    l = l * alpha + block_sum(p, red);  // block_sum syncs: prob is visible
+    l = l * alpha + block_sum<WARPS>(p, red);  // block_sum syncs: prob is visible
     acc *= alpha;
     const int n = min(THREADS, len - t0);
     for (int j = stripe; j < n; j += stripes) {
@@ -148,16 +158,16 @@ paged_kernel(const T* __restrict__ q, const KV* __restrict__ kp,
 }
 
 bool bad_geometry(int B, int H, int G, int D, int ps, int M, int P) {
-  return B <= 0 || H <= 0 || G <= 0 || H % G != 0 || D <= 0 || D > THREADS ||
-         THREADS % D != 0 || ps <= 0 || M <= 0 || P <= 0;
+  return B <= 0 || H <= 0 || G <= 0 || H % G != 0 || D <= 0 || D > 256 ||
+         threads_for(D) % D != 0 || ps <= 0 || M <= 0 || P <= 0;
 }
 
-template <typename T, typename KV, bool Q8>
-void launch(const void* q, const void* kp, const void* vp, const void* ks,
-            const void* vs, const void* table, const void* lengths, void* o,
-            int B, int H, int G, int D, int ps, int M, int P, float scale,
-            cudaStream_t stream) {
-  paged_kernel<T, KV, Q8><<<dim3(H, B), THREADS, 0, stream>>>(
+template <typename T, typename KV, bool Q8, int THREADS>
+void launch_nt(const void* q, const void* kp, const void* vp, const void* ks,
+               const void* vs, const void* table, const void* lengths,
+               void* o, int B, int H, int G, int D, int ps, int M, int P,
+               float scale, cudaStream_t stream) {
+  paged_kernel<T, KV, Q8, THREADS><<<dim3(H, B), THREADS, 0, stream>>>(
       static_cast<const T*>(q), static_cast<const KV*>(kp),
       static_cast<const KV*>(vp), static_cast<const float*>(ks),
       static_cast<const float*>(vs), static_cast<const int*>(table),
@@ -165,9 +175,23 @@ void launch(const void* q, const void* kp, const void* vp, const void* ks,
       P, scale);
 }
 
+template <typename T, typename KV, bool Q8>
+void launch(const void* q, const void* kp, const void* vp, const void* ks,
+            const void* vs, const void* table, const void* lengths, void* o,
+            int B, int H, int G, int D, int ps, int M, int P, float scale,
+            cudaStream_t stream) {
+  if (threads_for(D) == 128) {
+    launch_nt<T, KV, Q8, 128>(q, kp, vp, ks, vs, table, lengths, o, B, H, G,
+                              D, ps, M, P, scale, stream);
+  } else {
+    launch_nt<T, KV, Q8, 256>(q, kp, vp, ks, vs, table, lengths, o, B, H, G,
+                              D, ps, M, P, scale, stream);
+  }
+}
+
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16; D <= 128 and divides 128; H a
+// dtype: 0 = float32, 1 = bfloat16; D divides 128, or D = 256; H a
 // multiple of G; all tensors contiguous. scale = 1/sqrt(D). Returns the
 // cudaError_t of the launch (0 = success).
 extern "C" int paged_attention_launch(const void* q, const void* kp,

@@ -11,8 +11,11 @@ Bound on the H100: at this path's prefill shapes the work is operation
 bound (``4·D`` flops per visible query-key pair); the score matrix
 never reaches device memory, and kv blocks past the causal diagonal are
 skipped. One block per (bh, 64 queries), a loop over kv blocks in place
-of the TPU's sequential grid axis. The TPU tile sizes ``bq``/``bk`` do
-not carry over: the Hopper tile is fixed by the kernel.
+of the TPU's sequential grid axis; at D = 256 (recurrentgemma-2b's local
+attention) one block per (bh, 32 queries) with 8 threads sharing each
+query row, so that q and the accumulator fit in registers. The TPU tile
+sizes ``bq``/``bk`` do not carry over: the Hopper tile is fixed by the
+kernel.
 
 Like the TPU kernel it has no length operand: on a right-padded batch
 the valid query rows are exact and the padded tail's rows are not (they
@@ -33,7 +36,7 @@ import torch
 from repro_torch.kernels._launch import DTYPE_CODES, check_cuda, launch
 from repro_torch.kernels.ref import flash_attention_ref as plain
 
-HEAD_DIMS = (16, 32, 64, 128)
+HEAD_DIMS = (16, 32, 64, 128, 256)
 _VP, _I = ctypes.c_void_p, ctypes.c_int
 _ARGTYPES = (_VP, _VP, _VP, _VP, _I, _I, _I, _I, _I, _I, ctypes.c_float, _I)
 

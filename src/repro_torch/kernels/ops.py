@@ -12,13 +12,14 @@ from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.paged_attention import (paged_attention,
                                                  paged_attention_q8)
 from repro_torch.kernels.quant_matmul import quant_matmul
+from repro_torch.kernels.rglru_scan import rglru_scan
 from repro_torch.kernels.xfer_matmul import xfer_matmul
 
 #: every kernel wrapper of the port; each carries a ``launches`` counter
 #: (``paged_attention_q8`` is the int8 body behind ``paged_attention``'s
 #: ``k_scale``/``v_scale``)
 KERNELS = (xfer_matmul, flash_attention, paged_attention, paged_attention_q8,
-           quant_matmul)
+           quant_matmul, rglru_scan)
 
 
 # the JAX package's ``ops`` names
@@ -26,6 +27,7 @@ matmul = xfer_matmul
 int8_matmul = quant_matmul
 attention = flash_attention
 paged_attn = paged_attention
+lru_scan = rglru_scan
 
 
 def reset_launches() -> None:
@@ -42,3 +44,4 @@ matmul_ref = ref.matmul_ref
 int8_matmul_ref = ref.quant_matmul_ref
 attention_ref = ref.flash_attention_ref
 paged_attn_ref = ref.paged_attention_ref
+lru_scan_ref = ref.rglru_scan_ref

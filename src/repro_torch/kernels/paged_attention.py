@@ -10,11 +10,14 @@ or past ``lengths[b]`` are masked; online softmax across the row.
 Bound on the H100: the bytes of the valid K/V rows (4·D flops per
 4·D bytes in bf16). One block per (row, head) reads its own table row
 and length and stops at the length — the TPU grid walked all M pages.
+Head dims that divide 128 run 128-thread blocks; D = 256
+(recurrentgemma-2b) runs 256-thread blocks; the C entry refuses any
+other head dim, and :func:`launch` raises its error.
 
 The dense serving slot grid ``[slots, max_len, G, D]`` is read as a pool
 of ``P = slots`` pages of ``ps = max_len`` with an identity table
 (``models.blocks``). Lengths must lie in ``[1, M·ps]``: the kernel
-asserts it on the card, the wrapper checks it on the CPU — for the dense
+traps on the card if not, the wrapper checks it on the CPU — for the dense
 grid that is the engine's ``positions < max_len``.
 
 INT8 pools (``QuantConfig(kv="int8")``) pass their per-token f32 scale
@@ -41,7 +44,7 @@ from repro_torch.kernels._launch import (DTYPE_CODES, check_cuda,
                                          check_float, launch)
 from repro_torch.kernels.ref import paged_attention_ref as plain
 
-MAX_HEAD_DIM = 128
+
 _VP, _I = ctypes.c_void_p, ctypes.c_int
 _GEOMETRY = (_I, _I, _I, _I, _I, _I, _I, ctypes.c_float, _I)
 _ARGTYPES = (_VP,) * 6 + _GEOMETRY
@@ -88,9 +91,6 @@ def paged_attention(q: torch.Tensor, kp: torch.Tensor, vp: torch.Tensor,
             raise ValueError(f"paged_attention: lengths must lie in "
                              f"[1, {m * ps}], got {lengths.tolist()}")
         return plain(q, kp, vp, page_table, lengths, *scales)
-    if d > MAX_HEAD_DIM or MAX_HEAD_DIM % d != 0:
-        raise ValueError(f"paged_attention: head dim {d} must divide "
-                         f"{MAX_HEAD_DIM}")
     if scales:
         return paged_attention_q8(q, kp, vp, *scales, page_table, lengths)
     check_cuda("paged_attention", q, kp, vp)

@@ -7,8 +7,7 @@ what a kernel wrapper runs when it is handed CPU tensors, and what
 ``chip_smoke.py`` holds each CUDA kernel against on the card.
 
 The int8 ``k_scale``/``v_scale`` arguments of ``flash_attention_ref``
-and the ``rglru_scan_ref`` and ``mlstm_ref`` oracles arrive with their
-slices.
+and the ``mlstm_ref`` oracle arrive with their slices.
 """
 from __future__ import annotations
 
@@ -75,3 +74,17 @@ def paged_attention_ref(q: torch.Tensor, kp: torch.Tensor, vp: torch.Tensor,
     p = torch.softmax(s, dim=-1)
     o = torch.einsum("bgrt,btgd->bgrd", p, v)
     return o.reshape(b, h, d).to(q.dtype)
+
+
+def rglru_scan_ref(a: torch.Tensor, b: torch.Tensor,
+                   h0: torch.Tensor) -> torch.Tensor:
+    """h_t = a_t * h_{t-1} + b_t with an fp32 carry from h0 [B, W], one
+    step at a time over S; a, b [B, S, W]. Returns the h sequence
+    [B, S, W] in ``a.dtype``."""
+    af, bf = a.float(), b.float()
+    h = h0.float()
+    hs = torch.empty(af.shape, dtype=torch.float32, device=a.device)
+    for t in range(a.shape[1]):
+        h = af[:, t] * h + bf[:, t]
+        hs[:, t] = h
+    return hs.to(a.dtype)

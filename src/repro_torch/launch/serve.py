@@ -2,6 +2,8 @@
 
     PYTHONPATH=src python -m repro_torch.launch.serve --full \\
         --requests 16 --slots 8 --max-len 512
+    PYTHONPATH=src python -m repro_torch.launch.serve \\
+        --arch recurrentgemma-2b --full --requests 16 --slots 8 --max-len 2560
 
 Builds ``ServingEngine(arch, params, config=ServeConfig(...))`` directly
 (the JAX launcher's plan -> compile facade and its ``--xfer`` switch are

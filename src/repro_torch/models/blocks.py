@@ -1,10 +1,13 @@
-"""Transformer block of the dense family: pre-norm GQA attention + SwiGLU
-MLP over a dense slot-grid KV cache.
+"""Attention block of the dense and hybrid families: pre-norm GQA/MQA
+attention (causal, or local with a window) + a gated MLP (SwiGLU or
+GeGLU) over a dense slot-grid KV cache.
 
-Mirrors the dense branches of ``repro/models/blocks.py``: ``make_kv_cache``,
-``_project_qkv`` (with the qkv bias), ``attn_apply``'s prefill fill and
-decode ring write (``_cache_write``). The windowed, paged, append,
-cross-attention and MoE branches arrive with their slices.
+Mirrors the dense and windowed branches of ``repro/models/blocks.py``:
+``make_kv_cache`` (with ``window``: a ring of ``min(length, window)``
+slots), ``_project_qkv`` (with the qkv bias), ``attn_apply``'s prefill
+fills (the suffix fill, and ``_ring_exact_fill`` for a windowed prefill
+with true lengths) and decode ring write (``_cache_write``). The paged,
+append, cross-attention and MoE branches arrive with their slices.
 
 A cache is a dict ``{"k", "v": [B, T, G, D], "pos": [B, T] int32}``
 (``pos = -1`` marks an invalid entry). With ``kv_quant`` ``k``/``v`` are
@@ -30,17 +33,20 @@ from repro_torch.models import layers as L
 
 def make_kv_cache(arch: ArchConfig, batch: int, length: int, *,
                   device: torch.device, dtype: torch.dtype,
-                  kv_quant: bool = False) -> dict:
+                  window: int = 0, kv_quant: bool = False) -> dict:
+    """A grid of ``t = min(length, window)`` slots per row when
+    ``window`` > 0 (a ring), else ``length``."""
+    t = min(length, window) if window else length
     g, d = arch.num_kv_heads, arch.head_dim
     kv_dtype = torch.int8 if kv_quant else dtype
     cache = {
-        "k": torch.zeros((batch, length, g, d), dtype=kv_dtype, device=device),
-        "v": torch.zeros((batch, length, g, d), dtype=kv_dtype, device=device),
-        "pos": torch.full((batch, length), -1, dtype=torch.int32, device=device),
+        "k": torch.zeros((batch, t, g, d), dtype=kv_dtype, device=device),
+        "v": torch.zeros((batch, t, g, d), dtype=kv_dtype, device=device),
+        "pos": torch.full((batch, t), -1, dtype=torch.int32, device=device),
     }
     if kv_quant:
         for name in ("k_scale", "v_scale"):
-            cache[name] = torch.zeros((batch, length, g, 1),
+            cache[name] = torch.zeros((batch, t, g, 1),
                                       dtype=torch.float32, device=device)
     return cache
 
@@ -87,12 +93,33 @@ def _prefill_fill(cache: dict, k, v, positions) -> dict:
     return out
 
 
+def _ring_exact_fill(cache: dict, k, v, seq_lens: torch.Tensor) -> dict:
+    """Length-exact prefill fill of a (windowed) ring of ``t`` slots:
+    index i holds the newest position ``p ≡ i (mod t)`` below the row's
+    true length, i.e. the last ``min(len, t)`` positions of the unpadded
+    prompt (``pos`` -1 where ``p < 0``), whatever the padded length."""
+    t = cache["k"].shape[1]
+    s = k.shape[1]
+    ring = torch.arange(t, device=k.device)[None, :]
+    last = seq_lens.to(k.device).long()[:, None] - 1
+    pos = last - torch.remainder(last - ring, t)  # [B, t], pos ≡ ring (mod t)
+    idx = pos.clamp(0, s - 1)
+    out = {}
+    for name, u in _kv_leaves(cache, k, v):
+        ix = idx[:, :, None, None].expand(-1, -1, *u.shape[2:])
+        out[name] = torch.gather(u, 1, ix)
+    out["pos"] = torch.where(pos >= 0, pos, -1).to(torch.int32)
+    return out
+
+
 def _param(*shape, device, dtype) -> nn.Parameter:
     return nn.Parameter(torch.zeros(shape, device=device, dtype=dtype),
                         requires_grad=False)
 
 
-class SwiGLU(nn.Module):
+class GatedMLP(nn.Module):
+    """``w_gate``, ``w_up``, ``w_down`` of a SwiGLU or GeGLU MLP."""
+
     def __init__(self, d_model: int, d_ff: int, *, device, dtype):
         super().__init__()
         self.w_gate = _param(d_model, d_ff, device=device, dtype=dtype)
@@ -103,13 +130,15 @@ class SwiGLU(nn.Module):
 class AttnBlock(nn.Module):
     """Pre-norm self-attention + MLP. Weights in the JAX layout
     ``[d_in, d_out]``; parameter names mirror the JAX tree
-    (``ln1, wq, wk, wv, wo, bq, bk, bv, ln2, mlp.{w_gate, w_up, w_down}``)."""
+    (``ln1, wq, wk, wv, wo, bq, bk, bv, ln2, mlp.{w_gate, w_up, w_down}``).
+    ``arch.window`` > 0 (the hybrid family's) makes it a local-attention
+    block over a ring cache."""
 
     def __init__(self, arch: ArchConfig, *, device, dtype):
         super().__init__()
-        if arch.mlp != "swiglu" or not arch.d_ff:
-            raise NotImplementedError(f"{arch.name}: only the SwiGLU dense "
-                                      f"block is ported")
+        if arch.mlp not in ("swiglu", "geglu") or not arch.d_ff:
+            raise NotImplementedError(f"{arch.name}: only attention blocks "
+                                      f"with a SwiGLU or GeGLU MLP are ported")
         self.arch = arch
         d, qd, kvd = arch.d_model, arch.q_dim, arch.kv_dim
         kw = dict(device=device, dtype=dtype)
@@ -123,7 +152,7 @@ class AttnBlock(nn.Module):
             self.bk = _param(kvd, **kw)
             self.bv = _param(kvd, **kw)
         self.ln2 = _param(d, **kw)
-        self.mlp = SwiGLU(d, arch.d_ff, **kw)
+        self.mlp = GatedMLP(d, arch.d_ff, **kw)
 
     def init_(self, gen: torch.Generator) -> None:
         """Random weights with ``layers.dense_init``'s distribution; norms
@@ -148,11 +177,15 @@ class AttnBlock(nn.Module):
 
     def forward(self, x: torch.Tensor, *, positions: torch.Tensor,
                 cache: Optional[dict] = None,
-                decode_meta: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
+                decode_meta: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+                seq_lens: Optional[torch.Tensor] = None
                 ) -> Tuple[torch.Tensor, Optional[dict]]:
         """Full mode (no cache, or a cache being filled by a prefill): x
-        [B, S, D]. Decode mode (a cache and S == 1): ``decode_meta`` is
-        the identity page table and lengths of :func:`layers.decode_attention`."""
+        [B, S, D]; ``seq_lens`` [B], the true lengths of a right-padded
+        batch, make a windowed block's fill ring-exact
+        (:func:`_ring_exact_fill`). Decode mode (a cache and S == 1):
+        ``decode_meta`` is the identity page table and lengths of
+        :func:`layers.decode_attention`."""
         arch = self.arch
         b, s, _ = x.shape
         h = L.rms_norm(x, self.ln1)
@@ -167,8 +200,10 @@ class AttnBlock(nn.Module):
             o = L.decode_attention(q, cache, table, lengths)
             new_cache = cache
         else:
-            o = L.attention(q, k, v)
-            if cache is not None:
+            o = L.attention(q, k, v, window=arch.window)
+            if cache is not None and seq_lens is not None and arch.window:
+                new_cache = _ring_exact_fill(cache, k, v, seq_lens)
+            elif cache is not None:
                 new_cache = _prefill_fill(cache, k, v, positions)
         x = x + L.dense(o.reshape(b, s, arch.q_dim), self.wo)
         x = x + L.mlp_apply(self.mlp, L.rms_norm(x, self.ln2), arch.mlp)

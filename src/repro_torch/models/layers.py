@@ -9,8 +9,9 @@ over the dense slot grid through ``paged_attention``. On CPU tensors the
 kernels' plain versions run, so the CPU path is the same code.
 
 The JAX package's masked ``attention``/``_attend_block``/``_mask`` are
-not carried over: the two kernels take their place, with the causal mask
-(prefill) and the length mask (decode) that the dense path needs.
+not carried over: the two kernels take their place, with the causal and
+window masks (prefill) and the length mask (decode) that the dense and
+hybrid paths need.
 
 INT8 weights (``quant.quantize_params``) arrive as :class:`QTensor`
 leaves: ``dense`` runs them through ``quant_matmul``, the embedding
@@ -81,8 +82,10 @@ def dense(x: torch.Tensor, w) -> torch.Tensor:
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
               window: int = 0) -> torch.Tensor:
     """Causal self-attention over a prefill: q [B, S, H, D], k/v
-    [B, S, G, D], positions 0..S-1 -> [B, S, H, D]. KV is broadcast across
-    groups and heads are folded into the batch for ``flash_attention``."""
+    [B, S, G, D], positions 0..S-1 -> [B, S, H, D]; ``window`` > 0 also
+    masks keys ``window`` or more positions back (local attention). KV is
+    broadcast across groups and heads are folded into the batch for
+    ``flash_attention``."""
     b, s, h, d = q.shape
     g = k.shape[2]
     if g != h:
@@ -102,13 +105,18 @@ def decode_attention(q: torch.Tensor, cache: dict, table: torch.Tensor,
     cache's grids ``k``/``v`` [B, T, G, D] (int8 with ``k_scale``/
     ``v_scale`` [B, T, G, 1] when quantised) read as a page pool of B
     pages of T tokens through the identity ``table`` [B, 1]; ``lengths``
-    [B] = positions + 1. Returns [B, 1, H, D].
+    [B] = ``min(positions + 1, T)``. Returns [B, 1, H, D].
 
-    Equal to the JAX grid mask (``pos >= 0`` and ``kv_pos <= q_pos``)
-    for non-windowed caches whose slots never wrap, which ``submit``
-    guarantees (prompt + max_new <= max_len): grid index i holds
-    position i, every index below the length is valid, every index at or
-    past it is masked."""
+    Equal to the JAX grid mask (``pos >= 0``, ``kv_pos <= q_pos`` and,
+    on a windowed ring, ``q_pos - kv_pos < window``). A non-windowed
+    cache never wraps (``submit`` guarantees prompt + max_new <=
+    max_len): grid index i holds position i, every index below the
+    length is valid, every index at or past it is masked. A windowed
+    ring of T = min(max_len, window) slots holds the newest position
+    congruent to each index: before it wraps, index i holds position i
+    as above; once it has wrapped, all T slots hold the last T
+    positions, each inside the window, and the length is T. Softmax
+    does not depend on the order of the slots."""
     o = ops.paged_attn(q[:, 0], cache["k"], cache["v"], table, lengths,
                        k_scale=cache.get("k_scale"),
                        v_scale=cache.get("v_scale"))
@@ -116,11 +124,18 @@ def decode_attention(q: torch.Tensor, cache: dict, table: torch.Tensor,
 
 
 def mlp_apply(p, x: torch.Tensor, kind: str) -> torch.Tensor:
-    if kind != "swiglu":
+    """SwiGLU (``silu``) or GeGLU (tanh-approximated ``gelu``, as
+    ``jax.nn.gelu(approximate=True)``) gated MLP."""
+    if kind == "swiglu":
+        act = F.silu
+    elif kind == "geglu":
+        def act(g):
+            return F.gelu(g, approximate="tanh")
+    else:
         raise NotImplementedError(f"mlp {kind!r} is not ported yet")
     g = dense(x, p.w_gate)
     u = dense(x, p.w_up)
-    return dense(F.silu(g) * u, p.w_down)
+    return dense(act(g) * u, p.w_down)
 
 
 def embed_tokens(embed, tokens: torch.Tensor) -> torch.Tensor:

@@ -1,11 +1,17 @@
-"""Decoder-only LM of the dense family as an ``nn.Module``.
+"""Decoder-only LM of the dense and hybrid families as an ``nn.Module``.
 
-Mirrors ``repro/models/lm.py`` for ``family == "dense"``: ``forward``
-(embedding scaled by sqrt(d_model), the block stack, the final norm),
-``logits_fn`` (tied embeddings: ``embed.T``) and ``make_caches``. The
-JAX package stacks the layers into a scanned ``body``; here they are a
-``ModuleList`` (``bridge.from_jax_params`` unstacks a JAX tree), and the
-caches are a list of per-layer dicts.
+Mirrors ``repro/models/lm.py`` for ``family in ("dense", "hybrid")``:
+``forward`` (embedding scaled by sqrt(d_model), the block stack, the
+final norm), ``logits_fn`` (tied embeddings: ``embed.T``) and
+``make_caches``. The JAX package stacks the block pattern's layers into
+a scanned ``body`` of ``repeats`` copies plus unrolled ``suffix`` blocks
+(``stack_structure``; recurrentgemma-2b's 26 layers are 8 x (rglru,
+rglru, attn) + (rglru, rglru)); here they are one ``ModuleList`` in
+layer order, layer i of kind ``pattern[i % len(pattern)]``
+(``bridge.from_jax_params`` unstacks a JAX tree), and the caches are a
+list of per-layer dicts: a KV grid for an attention block (a ring of
+``min(length, window)`` slots in the hybrid family), an RG-LRU state
+for a recurrent one.
 
 After ``quant.quantize_params`` the weight leaves are int8
 :class:`~repro_torch.quant.QTensor` attributes in place of parameters
@@ -23,13 +29,40 @@ from repro_torch import quant as Q
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import blocks as B
 from repro_torch.models import layers as L
+from repro_torch.models import recurrent as R
+
+
+BLOCK_KINDS = ("attn", "rglru")
 
 
 def check_supported(arch: ArchConfig) -> None:
-    if arch.family != "dense" or arch.block_pattern or arch.window:
+    dense = arch.family == "dense" and not arch.block_pattern \
+        and not arch.window
+    hybrid = arch.family == "hybrid" \
+        and set(arch.block_pattern) <= set(BLOCK_KINDS)
+    if not (dense or hybrid):
         raise NotImplementedError(
             f"{arch.name}: family {arch.family!r} is not ported yet (the port "
-            f"serves the dense decoder-only family)")
+            f"serves the dense family and the RG-LRU hybrid family)")
+
+
+def pattern(arch: ArchConfig) -> Tuple[str, ...]:
+    return arch.block_pattern or ("attn",)
+
+
+def stack_structure(arch: ArchConfig) -> Tuple[int, List[str]]:
+    """(body repeats, suffix kinds), as the JAX ``stack_structure`` (no
+    prefix layers: those are the MoE family's)."""
+    pat = pattern(arch)
+    repeats, rem = divmod(arch.num_layers, len(pat))
+    return repeats, list(pat[:rem])
+
+
+def layer_kinds(arch: ArchConfig) -> List[str]:
+    """The kind of each layer in order: body repeat r, position j is
+    layer ``r * len(pattern) + j``; the suffix blocks follow."""
+    pat = pattern(arch)
+    return [pat[i % len(pat)] for i in range(arch.num_layers)]
 
 
 class LM(nn.Module):
@@ -47,8 +80,10 @@ class LM(nn.Module):
         self.final_norm = B._param(arch.d_model, **kw)
         if not arch.tie_embeddings:
             self.unembed = B._param(arch.d_model, arch.vocab_size, **kw)
-        self.layers = nn.ModuleList(B.AttnBlock(arch, **kw)
-                                    for _ in range(arch.num_layers))
+        self.kinds = layer_kinds(arch)
+        self.layers = nn.ModuleList(
+            B.AttnBlock(arch, **kw) if kind == "attn"
+            else R.RGLRUBlock(arch, **kw) for kind in self.kinds)
 
     @property
     def device(self) -> torch.device:
@@ -75,20 +110,30 @@ class LM(nn.Module):
     def make_caches(self, batch: int, length: int,
                     dtype: Optional[torch.dtype] = None,
                     kv_quant: bool = False) -> List[dict]:
-        return [B.make_kv_cache(self.arch, batch, length, device=self.device,
-                                dtype=dtype or self.dtype, kv_quant=kv_quant)
-                for _ in self.layers]
+        """One cache per layer: a KV grid of ``length`` slots (a ring of
+        ``min(length, window)`` in the hybrid family) or an RG-LRU
+        state."""
+        kw = dict(device=self.device, dtype=dtype or self.dtype)
+        return [B.make_kv_cache(self.arch, batch, length,
+                                window=self.arch.window, kv_quant=kv_quant,
+                                **kw) if kind == "attn"
+                else R.make_rglru_state(self.arch, batch, **kw)
+                for kind in self.kinds]
 
     def forward(self, tokens: torch.Tensor, *,
                 caches: Optional[List[dict]] = None,
-                positions: Optional[torch.Tensor] = None
+                positions: Optional[torch.Tensor] = None,
+                seq_lens: Optional[torch.Tensor] = None
                 ) -> Tuple[torch.Tensor, Optional[List[dict]]]:
         """tokens [B, S] -> (hidden [B, S, D] after the final norm, caches).
 
-        With ``caches`` and S == 1 this is a decode step: each layer writes
-        its token into its grid in place and attends over it. With
-        ``caches`` and S > 1 it is a prefill that returns freshly filled
-        caches. ``positions`` default to 0..S-1."""
+        With ``caches`` and S == 1 this is a decode step: each attention
+        layer writes its token into its grid in place and attends over it,
+        each recurrent layer steps its state. With ``caches`` and S > 1 it
+        is a prefill that returns freshly filled caches. ``positions``
+        default to 0..S-1. ``seq_lens`` [B] (the true lengths of a
+        right-padded prefill) make the recurrent states and windowed
+        rings length-exact."""
         x = L.embed_tokens(self.embed, tokens)
         x = x * torch.tensor(self.arch.d_model ** 0.5, dtype=x.dtype)
         b, s, _ = x.shape
@@ -96,15 +141,21 @@ class LM(nn.Module):
             positions = torch.arange(s, dtype=torch.int32,
                                      device=x.device)[None].expand(b, s)
         decode_meta = None
-        if caches is not None and s == 1:
-            # the dense grid read as a page pool: row b is page b
+        if caches is not None and s == 1 and "attn" in self.kinds:
+            # the dense grid read as a page pool: row b is page b; on a
+            # ring of t slots the valid length stops growing at t
+            t = caches[self.kinds.index("attn")]["k"].shape[1]
             table = torch.arange(b, dtype=torch.int32, device=x.device)[:, None]
-            decode_meta = (table, (positions[:, 0] + 1).to(torch.int32))
+            decode_meta = (table, torch.clamp(positions[:, 0] + 1,
+                                              max=t).to(torch.int32))
         new_caches = [] if caches is not None else None
-        for i, layer in enumerate(self.layers):
-            x, c = layer(x, positions=positions,
-                         cache=None if caches is None else caches[i],
-                         decode_meta=decode_meta)
+        for i, (kind, layer) in enumerate(zip(self.kinds, self.layers)):
+            cache = None if caches is None else caches[i]
+            if kind == "attn":
+                x, c = layer(x, positions=positions, cache=cache,
+                             decode_meta=decode_meta, seq_lens=seq_lens)
+            else:
+                x, c = layer(x, state=cache, seq_lens=seq_lens)
             if caches is not None:
                 new_caches.append(c)
         return L.rms_norm(x, self.final_norm), new_caches

@@ -109,6 +109,11 @@ class ServingEngine:
                                       "with PagingConfig(paged=False)")
         SMP.check_supported(config.sampling)
         quant = config.quant
+        if arch.family == "hybrid" and (quant.quant_weights or quant.quant_kv):
+            raise NotImplementedError(
+                f"{arch.name}: INT8 serving of the hybrid family is not "
+                f"ported yet (its gate, a_param and conv leaves need their "
+                f"own check; see ROADMAP A5)")
         if quant.quant_weights and not quant.quant_kv \
                 and dev.type == "cuda" and dtype != torch.float32:
             raise NotImplementedError(

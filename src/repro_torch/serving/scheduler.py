@@ -11,6 +11,12 @@ donates the grid to a jitted ``dynamic_update_slice``).
 K/V that a shorter bucket leaves in a grid row's tail are stale; the
 spliced ``pos`` leaf marks them ``-1``, and decode never reads past a
 row's length anyway.
+
+The hybrid family (recurrentgemma-2b) prefills with the rows' true
+lengths (``seq_lens``), so its recurrent states and windowed rings are
+length-exact; its buckets start at ``bucket_floor`` (the window), so a
+prefill row's ring has as many slots as the grid's, and a splice copies
+whole rows of ring and state leaves.
 """
 from __future__ import annotations
 
@@ -51,6 +57,16 @@ class Request:
                 f"max_new_tokens={self.max_new_tokens})")
 
 
+def bucket_floor(arch: ArchConfig, max_len: int,
+                 min_bucket: int = MIN_BUCKET) -> int:
+    """Smallest admissible bucket: windowed archs must build prefill rows
+    whose ring size equals the grid's (``min(bucket, window)`` ==
+    ``min(max_len, window)``), so their floor is the window."""
+    if not arch.window:
+        return min_bucket
+    return max(min_bucket, min(arch.window, max_len))
+
+
 def bucket_len(prompt_len: int, max_len: int, *,
                min_bucket: int = MIN_BUCKET) -> int:
     """Power-of-two bucket >= prompt_len, clamped to ``max_len``."""
@@ -61,11 +77,14 @@ def bucket_len(prompt_len: int, max_len: int, *,
 
 
 def invalidate_padding(rows: List[dict], lens: torch.Tensor) -> List[dict]:
-    """Mark ``pos`` entries at or beyond each row's true length ``-1``."""
+    """Mark ``pos`` entries at or beyond each row's true length ``-1``
+    (the stored position, not the ring index, is compared; recurrent
+    states have no ``pos``)."""
     out = []
     for c in rows:
-        pos = torch.where(c["pos"] < lens[:, None], c["pos"], -1)
-        out.append(dict(c, pos=pos))
+        if "pos" in c:
+            c = dict(c, pos=torch.where(c["pos"] < lens[:, None], c["pos"], -1))
+        out.append(c)
     return out
 
 
@@ -73,8 +92,13 @@ def splice_rows(grid: List[dict], rows: List[dict], slots: torch.Tensor) -> None
     """Write ``n`` stacked prefill rows into the grid at ``slots [n]``, in
     place: every leaf a row carries (k/v, and the int8 grid's scales).
     Rows shorter than the grid leave the tail of those leaves untouched
-    and pad ``pos`` with ``-1``."""
+    and pad ``pos`` with ``-1``. A recurrent state (``h``, ``conv``) is
+    copied whole."""
     for g, r in zip(grid, rows):
+        if "pos" not in r:
+            for name, leaf in r.items():
+                g[name][slots] = leaf.to(g[name].dtype)
+            continue
         s = r["k"].shape[1]
         for name, leaf in r.items():
             if name != "pos":
@@ -94,7 +118,7 @@ def prefill_rows(model: LM, tokens: torch.Tensor, lens: torch.Tensor,
     logits at each row's last valid position, [n, 1, V]."""
     n, bucket = tokens.shape
     caches = model.make_caches(n, bucket, cache_dtype, kv_quant=kv_quant)
-    hidden, rows = model(tokens, caches=caches)
+    hidden, rows = model(tokens, caches=caches, seq_lens=lens)
     last = hidden[torch.arange(n, device=hidden.device), lens.long() - 1]
     logits = model.logits(last[:, None])
     return invalidate_padding(rows, lens), logits
@@ -114,7 +138,7 @@ class Scheduler:
         self.cache_dtype = cache_dtype
         self.kv_quant = kv_quant
         self.sampling = sampling
-        self.min_bucket = min_bucket
+        self.min_bucket = bucket_floor(arch, max_len, min_bucket)
         self.queue: List[Request] = []
         self.active: Dict[int, Optional[Request]] = {i: None for i in range(slots)}
         # host wall per admission (dispatch of prefill + splice + admit);

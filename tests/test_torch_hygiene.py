@@ -47,7 +47,9 @@ def test_port_imports_no_jax_and_no_repro():
     assert out.returncode == 0, out.stdout + out.stderr
     assert "leaked: []" in out.stdout
     for name in ("repro_torch.quant", "repro_torch.kernels.quant_matmul",
-                 "repro_torch.kernels.paged_attention"):
+                 "repro_torch.kernels.paged_attention",
+                 "repro_torch.kernels.rglru_scan", "repro_torch.models.recurrent",
+                 "repro_torch.configs.recurrentgemma_2b"):
         assert f"'{name}'" in out.stdout, name
 
 

@@ -41,7 +41,7 @@ def _no_launches():
     yield
     counts = ops.launch_counts()
     assert set(counts) == {"xfer_matmul", "flash_attention", "paged_attention",
-                           "paged_attention_q8", "quant_matmul"}
+                           "paged_attention_q8", "quant_matmul", "rglru_scan"}
     assert not any(counts.values()), counts
 
 
@@ -114,6 +114,7 @@ def test_quant_matmul_takes_strided_weight_view():
     (256, 256, 64, (128, 128), 0),
     (256, 256, 64, (64, 64), 64),
     (64, 256, 64, (64, 128), 0),  # cross/short-query
+    (96, 96, 256, (32, 32), 40),  # recurrentgemma-2b's head dim, windowed
 ])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_flash_attention_plain_matches_jax(s, t, d, blocks, window, dtype):
@@ -133,7 +134,8 @@ def test_flash_attention_plain_matches_jax(s, t, d, blocks, window, dtype):
 
 
 @pytest.mark.parametrize("b,h,g,d,ps,m", [(3, 8, 2, 16, 8, 4),
-                                          (1, 6, 1, 64, 8, 3)])
+                                          (1, 6, 1, 64, 8, 3),
+                                          (2, 10, 1, 256, 8, 3)])  # MQA, D 256
 def test_paged_attention_plain_matches_jax(b, h, g, d, ps, m):
     """GQA head grouping, partial frontier pages and permuted tables."""
     rng = np.random.RandomState(3)
