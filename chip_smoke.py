@@ -8,7 +8,8 @@ Phases (each failure propagates; the process exits non-zero):
 1. card identity: ``nvidia-smi`` name and power limit, TF32 off;
 2. build every kernel from ``src/repro_torch/kernels/csrc`` with nvcc,
    print each kernel's ``ptxas -v`` registers, shared memory and spills,
-   and fail if a head-dim-256 variant or ``rglru_scan`` spills;
+   and fail if a head-dim-256 variant, ``rglru_scan`` or
+   ``mlstm_chunkwise`` spills;
 3. each kernel against its plain PyTorch version on the card, at the
    serving path's shapes plus one ragged case each, in fp32 (tolerance
    1e-3: summation order) and bf16 (5e-2, the tests/test_kernels.py bf16
@@ -31,7 +32,16 @@ Phases (each failure propagates; the process exits non-zero):
    call), ``paged_attention`` at head dim 256 (q [8, 10,
    256] over a ring grid [8, 2048, 1, 256], lengths 1-2048; masked SDPA)
    and ``xfer_matmul`` at R = 8 and 2048 for 2560x5120, 2560x7680,
-   7680x2560 and the tied 2560x256000 unembedding;
+   7680x2560 and the tied 2560x256000 unembedding, and at xlstm-350m's
+   projections (1024x4096, 2048x2048, 2048x4, 2048x1024, 1024x1024; the
+   tied 1024x50304 unembedding at R = 8). Then
+   ``mlstm_chunkwise`` (table ``MLSTM_CASES``): xlstm-350m's prefill
+   shape q, k, v [32, 2048, 512] in bf16 (timed), one row's heads [4,
+   2048, 512] in fp32, head dims 32 and 64, identity-gate tails (the
+   outputs before the tail and the final state also equal a run on the
+   unpadded prefix) and nonzero initial states; h and the final (C, n,
+   m) against the plain version; no PyTorch call computes the mLSTM, so
+   its library time is null;
 4. full-width qwen1.5-0.5b served greedily in bf16 through
    ``ServingEngine.run_until_drained()``: the fp kernels' launch
    counters must rise by their per-step counts, the INT8 ones stay 0;
@@ -46,6 +56,12 @@ Phases (each failure propagates; the process exits non-zero):
    ``xfer_matmul`` 147 x (decode steps + prefill groups), the fp
    ``paged_attention`` 8 x steps, ``flash_attention`` 8 x groups,
    ``rglru_scan`` 18 x groups, the INT8 kernels 0;
+4d. full-width, full-depth xlstm-350m (12 x (mlstm, slstm)) in bf16 on 8
+   slots of 2048 tokens: 16 requests of 16-2000 prompt tokens (rid 0 of
+   2000 fills the 2048 bucket), 32 new tokens each; launches exactly
+   ``mlstm_chunkwise`` 12 x prefill groups, ``xfer_matmul`` 109 x
+   (decode steps + groups), every other kernel 0; 353,797,216
+   parameters, 405,014,016 state bytes;
 5. full-width parity: seeded fp32 weights, one batched prefill of 4
    prompts plus 4 greedy decode steps on the card vs on the CPU (plain
    versions): last-position logits within 2e-3 of max |logit|, greedy
@@ -60,6 +76,11 @@ Phases (each failure propagates; the process exits non-zero):
    rglru), seeded fp32 weights: one prompt of 2100 tokens padded to 2560,
    then 5 decode steps past the ring's wrap, card vs CPU: logits and
    every layer's h within 2e-3 relative, greedy tokens equal;
+5d. xlstm-350m at full width, depth cut to 4 layers (2 x (mlstm,
+   slstm)), seeded fp32 weights: one prompt of 1500 tokens padded to
+   2048, then 5 decode steps, card vs CPU: logits, every mLSTM state
+   leaf and the sLSTM's h, m and c/n within 2e-3 relative, the sLSTM's
+   c and n within 2e-2 (``SLSTM_SUM_TOL``), greedy tokens equal;
 6. the kernel table as one JSON line, then the result line.
 
 It imports nothing of JAX and nothing of the JAX package.
@@ -88,6 +109,12 @@ H_SLOTS, H_MAX_LEN, H_WINDOW, H_HEADS, H_WIDTH = 8, 2560, 2048, 10, 2560
 # first three (rids 0 and 1 wrap the ring at the fill, rid 2 in decode);
 # phase 5c prefills one prompt of H_PARITY_PROMPT tokens
 H_PROMPT_RANGE, H_PROMPTS_FIXED, H_PARITY_PROMPT = (16, 2400), (2400, 2300, 2040), 2100
+# and of full-width xlstm-350m (phases 3, 4d, 5d): 8 slots of 2048 tokens,
+# 4 heads of 512 in the mLSTM (inner width 2048); phase 4d prompts are
+# seeded uniform in X_PROMPT_RANGE except rid 0 (the 2048 bucket); phase
+# 5d prefills one prompt of X_PARITY_PROMPT tokens
+X_SLOTS, X_MAX_LEN, X_HEADS, X_HD = 8, 2048, 4, 512
+X_PROMPT_RANGE, X_PROMPT_FIXED, X_PARITY_PROMPT = (16, 2000), 2000, 1500
 SOURCES = {
     "xfer_matmul": ("src/repro_torch/kernels/csrc/xfer_matmul.cu",
                     "src/repro/kernels/xfer_matmul.py:22"),
@@ -101,14 +128,18 @@ SOURCES = {
                      "src/repro/kernels/quant_matmul.py:27"),
     "rglru_scan": ("src/repro_torch/kernels/csrc/rglru_scan.cu",
                    "src/repro/kernels/rglru_scan.py:19"),
+    "mlstm_chunkwise": ("src/repro_torch/kernels/csrc/mlstm_chunkwise.cu",
+                        "src/repro/kernels/mlstm_kernel.py:20"),
 }
 # the kernels each serving path runs (phase 4: fp, phase 4b: INT8,
-# phase 4c: the hybrid); a kernel's main path is the first that runs it
+# phase 4c: the hybrid, phase 4d: the ssm family); a kernel's main path
+# is the first that runs it
 PATH_KERNELS = {"fp": ("xfer_matmul", "flash_attention", "paged_attention"),
                 "int8": ("quant_matmul", "flash_attention",
                          "paged_attention_q8"),
                 "hybrid": ("xfer_matmul", "flash_attention", "paged_attention",
-                           "rglru_scan")}
+                           "rglru_scan"),
+                "ssm": ("xfer_matmul", "mlstm_chunkwise")}
 
 
 def log(msg: str) -> None:
@@ -166,11 +197,12 @@ def iters_for(flops: float):
 
 def record(entries: dict, name: str, entry, row: dict) -> None:
     """Keep a timed case as the kernel's entry: ``main`` for the first
-    serving path that runs the kernel, ``hybrid`` as its sub-entry."""
+    serving path that runs the kernel, ``hybrid`` or ``ssm`` as a
+    sub-entry of that name."""
     if entry == "main":
         entries.setdefault(name, {}).update(row)
-    elif entry == "hybrid":
-        entries.setdefault(name, {})["hybrid"] = row
+    elif entry in ("hybrid", "ssm"):
+        entries.setdefault(name, {})[entry] = row
 
 
 # --------------------------------------------------------------------------
@@ -181,6 +213,7 @@ BOTH, FP32, BF16 = ("float32", "bfloat16"), ("float32",), ("bfloat16",)
 # qwen1.5-0.5b (phases 4, 4b) and recurrentgemma-2b (phase 4c) widths
 Q_D, Q_FF, Q_VOCAB, Q_HEADS = 1024, 2816, 151936, 16
 H_FF, H_VOCAB = 7680, 256000
+X_D, X_VOCAB = 1024, 50304  # xlstm-350m (phase 4d)
 
 # xfer_matmul: (label, R, N, M, w given as a transposed view, dtypes,
 # timed in bf16, entry); every projection at decode (R = slots) and
@@ -201,7 +234,16 @@ MM_CASES = (
        for r in (H_SLOTS, 2048)
        for n, m, tr in ((H_WIDTH, 2 * H_WIDTH, False), (H_WIDTH, H_WIDTH, False),
                         (H_WIDTH, 256, False), (H_WIDTH, H_FF, False),
-                        (H_FF, H_WIDTH, False), (H_WIDTH, H_VOCAB, True))])
+                        (H_FF, H_WIDTH, False), (H_WIDTH, H_VOCAB, True))]
+    # xlstm-350m: w_up and the sLSTM's w; wq / wk / wv; w_i / w_f;
+    # w_down; w_out; at decode also the tied unembedding
+    + [(f"R={r} {n}x{m}" + (" (embed.T)" if tr else ""), r, n, m, tr, BF16,
+        True, "ssm" if tr else None)
+       for r in (X_SLOTS, 2048)
+       for n, m, tr in ((X_D, 4 * X_D, False), (2 * X_D, 2 * X_D, False),
+                        (2 * X_D, X_HEADS, False), (2 * X_D, X_D, False),
+                        (X_D, X_D, False), (X_D, X_VOCAB, True))
+       if r == X_SLOTS or not tr])
 
 # flash_attention: (label, BH, S, D, window, causal, dtypes, timed in
 # bf16, entry); the prefill self-attention of each path, then small and
@@ -379,6 +421,7 @@ def check_kernels(dev) -> dict:
             del q, kp, vp, got, want
     entries.update(check_int8_kernels(dev, gen))
     entries.update(check_rglru(dev, gen))
+    entries.update(check_mlstm(dev, gen))
     torch.cuda.empty_cache()
     return entries
 
@@ -550,6 +593,102 @@ def check_rglru(dev, gen) -> dict:
                     library_ms=None)
             log(line)
             del a, bx, got, want
+    return entries
+
+
+# mlstm_chunkwise: (label, BH, S, D, dtypes, identity-gate tail steps,
+# nonzero initial state, timed in bf16); S need not divide by the
+# kernel's 16-step chunk
+MLSTM_CASES = [
+    (f"[{X_SLOTS * X_HEADS},{X_MAX_LEN},{X_HD}]", X_SLOTS * X_HEADS, X_MAX_LEN,
+     X_HD, BF16, 0, False, True),
+    (f"[{X_HEADS},{X_MAX_LEN},{X_HD}]", X_HEADS, X_MAX_LEN, X_HD, FP32, 0,
+     False, False),
+    ("reduced D=32 [8,100,32]", 8, 100, 32, BOTH, 0, False, False),
+    ("D=64 [6,77,64]", 6, 77, 64, BOTH, 0, False, False),
+    ("tail [4,300,512], last 87 identity", 4, 300, X_HD, BOTH, 87, False,
+     False),
+    ("state [8,200,512]", 8, 200, X_HD, BOTH, 0, True, False),
+    ("state + tail D=32 [5,45,32], last 13 identity", 5, 45, 32, BOTH, 13,
+     True, False)]
+MLSTM_CHUNK = 16  # the kernel's chunk, for its operation count
+
+
+def mlstm_bound(bh: int, s: int, d: int, esz: int, dname: str,
+                with_state: bool):
+    """Bytes: q, k, v read and h written once, the f32 gates read, the
+    final state written (and the initial one read when it is given, not
+    zeros); operations: per step q C and the rank-16 fold (2 D^2 flops
+    each), q n and the fold of n, and per chunk the causal pairs' q.k and
+    scores.v."""
+    state = bh * (d * d + d + 1) * 4
+    nbytes = (4 * bh * s * d * esz + 2 * bh * s * 4
+              + (2 if with_state else 1) * state)
+    pairs = sum(min(MLSTM_CHUNK, s - t) * (min(MLSTM_CHUNK, s - t) + 1) // 2
+                for t in range(0, s, MLSTM_CHUNK))
+    flops = bh * (4.0 * s * d * d + 4.0 * s * d + 4.0 * pairs * d)
+    return bound_ms(nbytes, flops, dname), flops
+
+
+def check_mlstm(dev, gen) -> dict:
+    """``mlstm_chunkwise`` (its state entry ``mlstm_fold``) on every case
+    of MLSTM_CASES: h and the final (C, n, m) against the plain version;
+    with an identity-gate tail, the outputs before it and the final
+    state against the kernel on the unpadded prefix too."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import ops
+
+    dtypes = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+    entries = {}
+
+    def randn(*shape, scale=1.0):
+        return torch.randn(*shape, generator=gen, device=dev) * scale
+
+    for label, bh, s, d, dnames, tail, with_state, timed in MLSTM_CASES:
+        for dname in dnames:
+            dt = dtypes[dname]
+            q, k, v = randn(bh, s, d).to(dt), randn(bh, s, d, scale=d ** -0.5).to(dt), \
+                randn(bh, s, d).to(dt)
+            it = randn(bh, s)
+            logf = F.logsigmoid(randn(bh, s) + 3.0)  # b_f = 3
+            state = ()
+            if with_state:
+                state = (randn(bh, d, d, scale=0.3), randn(bh, d, scale=0.3),
+                         randn(bh))
+            keep = s - tail
+            if tail:
+                it[:, keep:], logf[:, keep:] = -1e30, 0.0
+            args = (q, k, v, it, logf, *state)
+            got = ops.mlstm_fold(*args)
+            want = ops.mlstm_fold_ref(*args)
+            errs = [compare(f"mlstm_chunkwise {label} {dname} {part}", g, w, dname)
+                    for part, g, w in zip(("h", "C", "n", "m"), got, want)]
+            line = (f"[kernel] mlstm_chunkwise {label} {dname}: max_abs_err h "
+                    f"{errs[0]:.3e} C {errs[1]:.3e} n {errs[2]:.3e} m {errs[3]:.3e}")
+            if tail:
+                pre = ops.mlstm_fold(q[:, :keep], k[:, :keep], v[:, :keep],
+                                     it[:, :keep], logf[:, :keep], *state)
+                perr = [compare(f"mlstm_chunkwise {label} {dname} {part} vs prefix",
+                                g, w, dname)
+                        for part, g, w in zip(("h", "C", "n", "m"),
+                                              (got[0][:, :keep], *got[1:]), pre)]
+                line += f"; vs the {keep}-step prefix max {max(perr):.3e}"
+            del want
+            if timed and dname == "bfloat16":
+                ms = time_ms(lambda: ops.mlstm_fold(*args))
+                plain = time_ms(lambda: ops.mlstm_fold_ref(*args), 3, 1)
+                (nb, kind), flops = mlstm_bound(bh, s, d, q.element_size(), dname,
+                                                with_state)
+                line += (f" ms {ms:.4f} plain_ms {plain:.4f} library_ms null (no "
+                         f"PyTorch call computes the mLSTM) bound_ms {nb:.4f} "
+                         f"({kind}; {flops:.4e} flops)")
+                entries["mlstm_chunkwise"] = dict(
+                    shape=f"q,k,v[{bh},{s},{d}] bf16, gates f32, zero state",
+                    max_abs_err=errs[0], ms=ms, plain_ms=plain, bound_ms=nb,
+                    bound_by=kind, library_ms=None)
+            log(line)
+            del q, k, v, got
     return entries
 
 
@@ -737,11 +876,107 @@ def serve_hybrid() -> dict:
     return counts
 
 
+# xlstm-350m at full width and depth, as the reference's jax.eval_shape of
+# lm.init_params counts it, and its decode state on X_SLOTS slots: 12
+# mLSTM (C [8,4,512,512], n, m) and 12 sLSTM (c, n, h, m [8,1024]), f32
+XLSTM_PARAMS = 353_797_216
+XLSTM_STATE_BYTES = 405_014_016
+
+
+def serve_xlstm() -> dict:
+    """Phase 4d: 16 requests through full-width, full-depth xlstm-350m in
+    bf16 on 8 slots of 2048 tokens. Returns the kernels' launch counts
+    over the run, after checking them exactly."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import ops
+    from repro_torch.models.registry import init_params
+    from repro_torch.serving import Request, ServeConfig, ServingEngine
+
+    tag = "serve-ssm"
+    arch = get_arch("xlstm-350m")
+    n_req, new_tokens = 16, 32
+    config = ServeConfig(slots=X_SLOTS, max_len=X_MAX_LEN, seed=0, lookahead=1)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = init_params(arch, config.seed)  # on the card, bf16
+    engine = ServingEngine(arch, model, config=config)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    weight_bytes = sum(p.numel() * p.element_size() for p in model.parameters())
+    log(f"[{tag}] {arch.name}: {arch.num_layers} layers {model.kinds.count('mlstm')} "
+        f"mlstm + {model.kinds.count('slstm')} slstm, d {arch.d_model}, "
+        f"{model.dtype}, params + states ready in {time.perf_counter() - t0:.1f} s")
+    if n_params != XLSTM_PARAMS:
+        raise AssertionError(f"{n_params} parameters, the reference has "
+                             f"{XLSTM_PARAMS}")
+    rng = np.random.RandomState(0)
+    lo, hi = X_PROMPT_RANGE
+    lens = [int(x) for x in rng.randint(lo, hi + 1, size=n_req)]
+    lens[0] = X_PROMPT_FIXED
+    for rid, s in enumerate(lens):
+        engine.submit(Request(rid=rid, prompt=rng.randint(
+            1, arch.vocab_size, size=s).astype(np.int32), max_new_tokens=new_tokens))
+    log(f"[{tag}] prompt lengths {lens}")
+
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    steps = engine.run_until_drained()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = ops.launch_counts()
+
+    done = sorted(engine.completed, key=lambda r: r.rid)
+    if len(done) != n_req:
+        raise AssertionError(f"{len(done)}/{n_req} requests completed")
+    for r in done:
+        if len(r.out_tokens) != new_tokens or not all(
+                0 <= t < arch.vocab_size for t in r.out_tokens):
+            raise AssertionError(f"request {r.rid}: bad stream {r.out_tokens}")
+    pstats = engine.prefill_stats()
+    groups = int(pstats["prefill_dispatches"])
+    log(f"[{tag}] {n_req}/{n_req} requests, {steps} decode steps, {groups} "
+        f"prefill groups, {wall:.3f} s wall; launches {counts}")
+    n_ml, n_sl = model.kinds.count("mlstm"), model.kinds.count("slstm")
+    per_pass = 7 * n_ml + 2 * n_sl + 1  # projections + the unembedding
+    want = {name: 0 for name in counts}
+    want.update(xfer_matmul=per_pass * (steps + groups),
+                mlstm_chunkwise=n_ml * groups)
+    for name, n in want.items():
+        if counts[name] != n:
+            raise AssertionError(f"{name} launched {counts[name]} times, "
+                                 f"expected {n} ({steps} decode steps, "
+                                 f"{groups} prefill groups)")
+    log(f"[{tag}] step_stats {json.dumps(engine.step_stats())}")
+    log(f"[{tag}] prefill_stats {json.dumps(pstats)}")
+    state = {}
+    for c in engine.caches:
+        for name, leaf in c.items():
+            state[name] = state.get(name, 0) + leaf.numel() * leaf.element_size()
+    if sum(state.values()) != XLSTM_STATE_BYTES:
+        raise AssertionError(f"decode state of {sum(state.values())} bytes, "
+                             f"expected {XLSTM_STATE_BYTES}")
+    log(f"[{tag}] params {n_params} weight_bytes {weight_bytes} state_bytes "
+        f"{sum(state.values())} {state} peak_allocated_bytes "
+        f"{torch.cuda.max_memory_allocated()}")
+    log(f"[{tag}] rid=0 out={done[0].out_tokens[:8]}")
+    del engine, model
+    torch.cuda.empty_cache()
+    return counts
+
+
 # --------------------------------------------------------------------------
 # phase 5: full-width parity, card vs CPU
 # --------------------------------------------------------------------------
 
 PARITY_TOL = 2e-3  # max |logits_card - logits_cpu| / max |logits_cpu|
+# The sLSTM's c and n each sum ~1500 steps of weights exp(i - m) whose
+# exponent is rounded at fp32's resolution of its stabiliser m (which
+# grows to hundreds: its ulp is ~3e-5 at 256-512), so each carries
+# ~1e-3 noise on any platform; the noise is common to both, and c / n
+# (which h = sigmoid(o) c / n reads), h and m are held to PARITY_TOL.
+SLSTM_SUM_TOL = 2e-2
 
 
 def parity_full_width(dev) -> None:
@@ -937,9 +1172,110 @@ def parity_hybrid(dev) -> None:
     torch.cuda.empty_cache()
 
 
+def parity_xlstm(dev) -> None:
+    """Phase 5d: xlstm-350m at full width with the depth cut to 4 layers
+    (2 x (mlstm, slstm)), seeded fp32 weights on the card and on the CPU.
+    One prompt of 1500 tokens, right-padded to the 2048 bucket, is
+    prefilled (identity gates on the mLSTM tail, mask-carry in the
+    sLSTM), then 5 decode steps, fed the CPU's greedy tokens.
+    Last-position logits, every mLSTM state leaf and the sLSTM's h, m
+    and c / n within PARITY_TOL relative, the sLSTM's c and n within
+    SLSTM_SUM_TOL, greedy tokens equal."""
+    import copy
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.models.registry import init_params
+    from repro_torch.serving.scheduler import prefill_rows, splice_rows
+
+    tag = "parity-ssm"
+    arch = dataclasses.replace(get_arch("xlstm-350m"), num_layers=4)
+    t0 = time.perf_counter()
+    cpu_model = init_params(arch, 1, device="cpu")  # fp32
+    card_model = copy.deepcopy(cpu_model).to(dev)
+    log(f"[{tag}] {arch.num_layers} layers {cpu_model.kinds}, d {arch.d_model}: "
+        f"fp32 weights on CPU and card in {time.perf_counter() - t0:.1f} s")
+    prompt_len, bucket, steps = X_PARITY_PROMPT, X_MAX_LEN, 5
+    rng = np.random.RandomState(3)
+    toks = np.zeros((1, bucket), np.int32)
+    toks[0, :prompt_len] = rng.randint(1, arch.vocab_size, size=prompt_len)
+    lens = np.array([prompt_len], np.int32)
+
+    def states(grid):
+        out = {f"{i}.{k}": v.float().cpu() for i, c in enumerate(grid)
+               for k, v in c.items()}
+        for i, c in enumerate(grid):
+            if "c" in c:  # sLSTM: the normalised cell that h reads
+                out[f"{i}.c/n"] = (c["c"] / c["n"]).float().cpu()
+        return out
+
+    def tol(leaf):
+        return SLSTM_SUM_TOL if leaf.split(".")[1] in ("c", "n") \
+            and cpu_model.kinds[int(leaf.split(".")[0])] == "slstm" \
+            else PARITY_TOL
+
+    def run(model, feed=None):
+        d = model.device
+        rows, logits = prefill_rows(model, torch.from_numpy(toks).to(d),
+                                    torch.from_numpy(lens).to(d))
+        grid = model.make_caches(1, X_MAX_LEN)
+        splice_rows(grid, rows, torch.arange(1, device=d))
+        out = [logits[:, -1].float().cpu()]
+        sts = [states(grid)]
+        chosen = [out[-1].argmax(-1).to(torch.int32)]
+        pos = torch.from_numpy(lens).to(d)[:, None]
+        for j in range(steps):
+            tok = (feed[j] if feed is not None else chosen[-1]).to(d)[:, None]
+            hidden, grid = model(tok, caches=grid, positions=pos)
+            out.append(model.logits(hidden)[:, -1].float().cpu())
+            sts.append(states(grid))
+            chosen.append(out[-1].argmax(-1).to(torch.int32))
+            pos = pos + 1
+        return out, sts, chosen
+
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        want, want_s, want_tok = run(cpu_model)
+        got, got_s, got_tok = run(card_model, feed=want_tok)
+    log(f"[{tag}] prefill of {prompt_len} tokens (bucket {bucket}) + {steps} "
+        f"decode steps on both in {time.perf_counter() - t0:.1f} s")
+    m_max = {k: float(w.abs().max()) for k, w in want_s[0].items()
+             if k.endswith(".m")}
+    log(f"[{tag}] max |m| per layer after the prefill (CPU): {m_max}")
+    worst = {}
+    for j in range(steps + 1):
+        scale = float(want[j].abs().max())
+        rel = float((got[j] - want[j]).abs().max()) / scale
+        rel_s = {k: float((got_s[j][k] - w).abs().max()) / float(w.abs().max())
+                 for k, w in want_s[j].items()}
+        worst["logits"] = max(worst.get("logits", 0.0), rel)
+        for k, r in rel_s.items():
+            worst[k] = max(worst.get(k, 0.0), r)
+        leaf = max(rel_s, key=rel_s.get)
+        log(f"[{tag}] position {j}: logits max rel err {rel:.3e}, state max rel "
+            f"err {rel_s[leaf]:.3e} ({leaf}), token card {got_tok[j].tolist()} "
+            f"cpu {want_tok[j].tolist()}")
+        if not torch.equal(got_tok[j], want_tok[j]):
+            raise AssertionError(f"[{tag}] greedy token differs at position {j}")
+    bad = {k: r for k, r in worst.items()
+           if r > (PARITY_TOL if k == "logits" else tol(k))}
+    if bad:
+        raise AssertionError(f"[{tag}] card vs CPU over tolerance: {bad} "
+                             f"(PARITY_TOL {PARITY_TOL}, sLSTM c and n "
+                             f"{SLSTM_SUM_TOL})")
+    log(f"[{tag}] ok: worst rel err {json.dumps(worst)} (tolerance {PARITY_TOL}; "
+        f"sLSTM c and n {SLSTM_SUM_TOL})")
+    del card_model
+    torch.cuda.empty_cache()
+
+
 # kernels that must compile without spills: the head-dim-256 variants
-# (flash_split_kernel, the 256-thread paged_kernel) and rglru_scan
-NO_SPILL = ("flash_split_kernel", "paged_kernel", "rglru_kernel")
+# (flash_split_kernel, the 256-thread paged_kernel), rglru_scan and
+# mlstm_chunkwise
+NO_SPILL = ("flash_split_kernel", "paged_kernel", "rglru_kernel",
+            "mlstm_kernel")
 
 
 def check_ptxas(build_log: dict) -> None:
@@ -995,11 +1331,15 @@ def main() -> int:
     counts = {"fp": serve_full_width(), "int8": serve_full_width(int8=True)}
     # ---- phase 4c: the hybrid path (recurrentgemma-2b)
     counts["hybrid"] = serve_hybrid()
+    # ---- phase 4d: the ssm path (xlstm-350m)
+    counts["ssm"] = serve_xlstm()
 
     # ---- phase 5 and 5b: card vs CPU at full width, fp and INT8
     parity_full_width(dev)
     # ---- phase 5c: the same for the hybrid, depth cut to 4 layers
     parity_hybrid(dev)
+    # ---- phase 5d: the same for the ssm family, depth cut to 4 layers
+    parity_xlstm(dev)
 
     kernels = []
     for k in ops.KERNELS:
@@ -1014,7 +1354,8 @@ def main() -> int:
                "plain_ms": e["plain_ms"], "bound_ms": e["bound_ms"],
                "bound_by": e["bound_by"], "library_ms": e["library_ms"],
                "shape": e["shape"]}
-        for key in ("yardstick_ms", "yardstick", "library_error", "hybrid"):
+        for key in ("yardstick_ms", "yardstick", "library_error", "hybrid",
+                    "ssm"):
             if key in e:
                 row[key] = e[key]
         kernels.append(row)

@@ -6,7 +6,8 @@ subtree ``b{j}_{kind}`` per pattern position, and keeps the pattern's
 remainder as top-level ``suffix{i}`` blocks (``lm.stack_structure``; for
 the dense family the pattern is one ``attn`` block, so ``repeats ==
 num_layers``; recurrentgemma-2b has 8 repeats of (rglru, rglru, attn)
-and two suffix rglru blocks). The bridge unstacks ``b{j}_{kind}[r]``
+and two suffix rglru blocks; xlstm-350m 12 repeats of (mlstm, slstm)
+and no suffix). The bridge unstacks ``b{j}_{kind}[r]``
 into ``LM.layers[r * len(pattern) + j]`` and ``suffix{i}`` into
 ``LM.layers[repeats * len(pattern) + i]``, and keeps every weight's
 ``[d_in, d_out]`` layout, so ``x @ w`` is the same product on both
@@ -40,7 +41,7 @@ def _flatten(tree: Dict[str, Any], prefix: str = "") -> Dict[str, Any]:
 def from_jax_params(tree: Dict[str, Any], arch: ArchConfig,
                     device: DeviceLike = None,
                     dtype: Optional[torch.dtype] = None) -> LM:
-    """The JAX tree of a dense or hybrid LM as an :class:`LM` on ``device``
+    """The JAX tree of a dense, hybrid or ssm LM as an :class:`LM` on ``device``
     (default ``cuda``) in ``dtype`` (bf16 on CUDA, fp32 on the CPU by
     default).
     Raises ``KeyError`` unless the tree's leaves and the module's

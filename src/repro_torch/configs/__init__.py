@@ -1,8 +1,8 @@
 """Architecture registry of the port: ``--arch <id>`` -> ArchConfig.
 
 Only the architectures the port can serve are registered (the dense
-family's qwen1.5-0.5b and the hybrid family's recurrentgemma-2b); the
-others arrive with their slices.
+family's qwen1.5-0.5b, the hybrid family's recurrentgemma-2b and the ssm
+family's xlstm-350m); the others arrive with their slices.
 """
 from __future__ import annotations
 
@@ -13,6 +13,7 @@ from repro_torch.configs.base import ArchConfig, ShapeConfig  # noqa: F401
 _ARCH_MODULES = {
     "qwen1.5-0.5b": "qwen15_05b",
     "recurrentgemma-2b": "recurrentgemma_2b",
+    "xlstm-350m": "xlstm_350m",
 }
 
 ARCH_IDS = tuple(_ARCH_MODULES)

@@ -23,7 +23,8 @@ from typing import Dict
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
-NAMES = ("xfer_matmul", "flash_attention", "paged_attention", "rglru_scan")
+NAMES = ("xfer_matmul", "flash_attention", "paged_attention", "rglru_scan",
+         "mlstm_chunkwise")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

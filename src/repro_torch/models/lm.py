@@ -1,6 +1,6 @@
-"""Decoder-only LM of the dense and hybrid families as an ``nn.Module``.
+"""Decoder-only LM of the dense, hybrid and ssm families as an ``nn.Module``.
 
-Mirrors ``repro/models/lm.py`` for ``family in ("dense", "hybrid")``:
+Mirrors ``repro/models/lm.py`` for ``family in ("dense", "hybrid", "ssm")``:
 ``forward`` (embedding scaled by sqrt(d_model), the block stack, the
 final norm), ``logits_fn`` (tied embeddings: ``embed.T``) and
 ``make_caches``. The JAX package stacks the block pattern's layers into
@@ -10,8 +10,8 @@ rglru, attn) + (rglru, rglru)); here they are one ``ModuleList`` in
 layer order, layer i of kind ``pattern[i % len(pattern)]``
 (``bridge.from_jax_params`` unstacks a JAX tree), and the caches are a
 list of per-layer dicts: a KV grid for an attention block (a ring of
-``min(length, window)`` slots in the hybrid family), an RG-LRU state
-for a recurrent one.
+``min(length, window)`` slots in the hybrid family), an RG-LRU, mLSTM
+or sLSTM state for a recurrent one.
 
 After ``quant.quantize_params`` the weight leaves are int8
 :class:`~repro_torch.quant.QTensor` attributes in place of parameters
@@ -32,18 +32,23 @@ from repro_torch.models import layers as L
 from repro_torch.models import recurrent as R
 
 
-BLOCK_KINDS = ("attn", "rglru")
+#: the block module of each kind a pattern may name
+BLOCK_KINDS = {"attn": B.AttnBlock, "rglru": R.RGLRUBlock,
+               "mlstm": R.MLSTMBlock, "slstm": R.SLSTMBlock}
 
 
 def check_supported(arch: ArchConfig) -> None:
     dense = arch.family == "dense" and not arch.block_pattern \
         and not arch.window
     hybrid = arch.family == "hybrid" \
-        and set(arch.block_pattern) <= set(BLOCK_KINDS)
-    if not (dense or hybrid):
+        and set(arch.block_pattern) <= {"attn", "rglru"}
+    ssm = arch.family == "ssm" and not arch.window \
+        and tuple(arch.block_pattern) == ("mlstm", "slstm")
+    if not (dense or hybrid or ssm):
         raise NotImplementedError(
             f"{arch.name}: family {arch.family!r} is not ported yet (the port "
-            f"serves the dense family and the RG-LRU hybrid family)")
+            f"serves the dense family, the RG-LRU hybrid family and the "
+            f"xLSTM ssm family)")
 
 
 def pattern(arch: ArchConfig) -> Tuple[str, ...]:
@@ -81,9 +86,8 @@ class LM(nn.Module):
         if not arch.tie_embeddings:
             self.unembed = B._param(arch.d_model, arch.vocab_size, **kw)
         self.kinds = layer_kinds(arch)
-        self.layers = nn.ModuleList(
-            B.AttnBlock(arch, **kw) if kind == "attn"
-            else R.RGLRUBlock(arch, **kw) for kind in self.kinds)
+        self.layers = nn.ModuleList(BLOCK_KINDS[kind](arch, **kw)
+                                    for kind in self.kinds)
 
     @property
     def device(self) -> torch.device:
@@ -111,14 +115,21 @@ class LM(nn.Module):
                     dtype: Optional[torch.dtype] = None,
                     kv_quant: bool = False) -> List[dict]:
         """One cache per layer: a KV grid of ``length`` slots (a ring of
-        ``min(length, window)`` in the hybrid family) or an RG-LRU
-        state."""
+        ``min(length, window)`` in the hybrid family), an RG-LRU state,
+        or an mLSTM or sLSTM state (f32 whatever ``dtype``)."""
         kw = dict(device=self.device, dtype=dtype or self.dtype)
-        return [B.make_kv_cache(self.arch, batch, length,
-                                window=self.arch.window, kv_quant=kv_quant,
-                                **kw) if kind == "attn"
-                else R.make_rglru_state(self.arch, batch, **kw)
-                for kind in self.kinds]
+
+        def cache(kind):
+            if kind == "attn":
+                return B.make_kv_cache(self.arch, batch, length,
+                                       window=self.arch.window,
+                                       kv_quant=kv_quant, **kw)
+            if kind == "rglru":
+                return R.make_rglru_state(self.arch, batch, **kw)
+            make = R.make_mlstm_state if kind == "mlstm" else R.make_slstm_state
+            return make(self.arch, batch, device=self.device)
+
+        return [cache(kind) for kind in self.kinds]
 
     def forward(self, tokens: torch.Tensor, *,
                 caches: Optional[List[dict]] = None,

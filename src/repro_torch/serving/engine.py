@@ -109,11 +109,14 @@ class ServingEngine:
                                       "with PagingConfig(paged=False)")
         SMP.check_supported(config.sampling)
         quant = config.quant
-        if arch.family == "hybrid" and (quant.quant_weights or quant.quant_kv):
+        if arch.family in ("hybrid", "ssm") \
+                and (quant.quant_weights or quant.quant_kv):
+            leaves = ("gate, a_param and conv" if arch.family == "hybrid"
+                      else "gate (w_i, w_f, b_i, b_f), r and b")
             raise NotImplementedError(
-                f"{arch.name}: INT8 serving of the hybrid family is not "
-                f"ported yet (its gate, a_param and conv leaves need their "
-                f"own check; see ROADMAP A5)")
+                f"{arch.name}: INT8 serving of the {arch.family} family is "
+                f"not ported yet (its {leaves} leaves need their own check; "
+                f"see ROADMAP A5)")
         if quant.quant_weights and not quant.quant_kv \
                 and dev.type == "cuda" and dtype != torch.float32:
             raise NotImplementedError(

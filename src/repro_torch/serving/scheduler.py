@@ -16,7 +16,10 @@ The hybrid family (recurrentgemma-2b) prefills with the rows' true
 lengths (``seq_lens``), so its recurrent states and windowed rings are
 length-exact; its buckets start at ``bucket_floor`` (the window), so a
 prefill row's ring has as many slots as the grid's, and a splice copies
-whole rows of ring and state leaves.
+whole rows of ring and state leaves. The ssm family (xlstm-350m)
+prefills with ``seq_lens`` too; it has no window, so its buckets start
+at ``MIN_BUCKET``, and its mLSTM and sLSTM states are spliced as whole
+rows.
 """
 from __future__ import annotations
 
@@ -92,8 +95,9 @@ def splice_rows(grid: List[dict], rows: List[dict], slots: torch.Tensor) -> None
     """Write ``n`` stacked prefill rows into the grid at ``slots [n]``, in
     place: every leaf a row carries (k/v, and the int8 grid's scales).
     Rows shorter than the grid leave the tail of those leaves untouched
-    and pad ``pos`` with ``-1``. A recurrent state (``h``, ``conv``) is
-    copied whole."""
+    and pad ``pos`` with ``-1``. A recurrent state (RG-LRU ``h``,
+    ``conv``; mLSTM ``C``, ``n``, ``m``; sLSTM ``c``, ``n``, ``h``,
+    ``m``) is copied whole."""
     for g, r in zip(grid, rows):
         if "pos" not in r:
             for name, leaf in r.items():

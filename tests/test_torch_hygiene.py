@@ -49,7 +49,9 @@ def test_port_imports_no_jax_and_no_repro():
     for name in ("repro_torch.quant", "repro_torch.kernels.quant_matmul",
                  "repro_torch.kernels.paged_attention",
                  "repro_torch.kernels.rglru_scan", "repro_torch.models.recurrent",
-                 "repro_torch.configs.recurrentgemma_2b"):
+                 "repro_torch.configs.recurrentgemma_2b",
+                 "repro_torch.kernels.mlstm_chunkwise",
+                 "repro_torch.configs.xlstm_350m"):
         assert f"'{name}'" in out.stdout, name
 
 
