@@ -115,11 +115,18 @@ H_PROMPT_RANGE, H_PROMPTS_FIXED, H_PARITY_PROMPT = (16, 2400), (2400, 2300, 2040
 # 5d prefills one prompt of X_PARITY_PROMPT tokens
 X_SLOTS, X_MAX_LEN, X_HEADS, X_HD = 8, 2048, 4, 512
 X_PROMPT_RANGE, X_PROMPT_FIXED, X_PARITY_PROMPT = (16, 2000), 2000, 1500
+# phases 3-q8, 4e, 4f and 5e: qwen1.5-0.5b's page pool, pages of 64
+# tokens; the shared set is one 200-token system prompt (3 pages and 8
+# tokens) as the owner's prompt and 15 prompts of it plus a tail of
+# 8-120 tokens
+PAGE, SYS_LEN, TAIL_RANGE, N_SHARERS = 64, 200, (8, 120), 15
 SOURCES = {
     "xfer_matmul": ("src/repro_torch/kernels/csrc/xfer_matmul.cu",
                     "src/repro/kernels/xfer_matmul.py:22"),
     "flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",
                         "src/repro/kernels/flash_attention.py:67"),
+    "flash_attention_q8": ("src/repro_torch/kernels/csrc/flash_attention.cu",
+                           "src/repro/kernels/flash_attention.py:73"),
     "paged_attention": ("src/repro_torch/kernels/csrc/paged_attention.cu",
                         "src/repro/kernels/paged_attention.py:74"),
     "paged_attention_q8": ("src/repro_torch/kernels/csrc/paged_attention.cu",
@@ -132,14 +139,18 @@ SOURCES = {
                         "src/repro/kernels/mlstm_kernel.py:20"),
 }
 # the kernels each serving path runs (phase 4: fp, phase 4b: INT8,
-# phase 4c: the hybrid, phase 4d: the ssm family); a kernel's main path
-# is the first that runs it
+# phase 4c: the hybrid, phase 4d: the ssm family, phase 4e: paged, phase
+# 4f: paged under INT8 with int8 pools); a kernel's main path is the
+# first that runs it
 PATH_KERNELS = {"fp": ("xfer_matmul", "flash_attention", "paged_attention"),
                 "int8": ("quant_matmul", "flash_attention",
                          "paged_attention_q8"),
                 "hybrid": ("xfer_matmul", "flash_attention", "paged_attention",
                            "rglru_scan"),
-                "ssm": ("xfer_matmul", "mlstm_chunkwise")}
+                "ssm": ("xfer_matmul", "mlstm_chunkwise"),
+                "paged": ("xfer_matmul", "flash_attention", "paged_attention"),
+                "paged-int8": ("quant_matmul", "flash_attention",
+                               "flash_attention_q8", "paged_attention_q8")}
 
 
 def log(msg: str) -> None:
@@ -420,6 +431,7 @@ def check_kernels(dev) -> dict:
                 f"{dname}: ms {ms:.4f} bound_ms {nb:.4f} ({kind})")
             del q, kp, vp, got, want
     entries.update(check_int8_kernels(dev, gen))
+    check_flash_q8(dev, gen, entries)
     entries.update(check_rglru(dev, gen))
     entries.update(check_mlstm(dev, gen))
     torch.cuda.empty_cache()
@@ -693,6 +705,221 @@ def check_mlstm(dev, gen) -> dict:
 
 
 # --------------------------------------------------------------------------
+# phase 3-q8: flash_attention's int8 body and its shared-prefix entry
+# --------------------------------------------------------------------------
+
+# flash_attention's int8 body (the TPU kernel's own function): (label, BH,
+# S, T, D, causal, window, timed); every case with fp32 and bf16 q
+FQ8_CASES = [
+    (f"BH={7 * Q_HEADS} S=T=256 causal", 7 * Q_HEADS, 256, 256, 64, True, 0,
+     True),
+    ("ragged BH=6 S=T=100", 6, 100, 100, 64, True, 0, False),
+    ("window BH=6 S=T=200 w=48", 6, 200, 200, 64, True, 48, False),
+    ("non-causal BH=4 S=50 T=77", 4, 50, 77, 64, False, 0, False),
+    ("D=128 BH=4 S=T=70", 4, 70, 70, 128, True, 0, False),
+    ("D=256 BH=4 S=T=77 window 30", 4, 77, 77, 256, True, 30, False),
+    ("D=256 non-causal BH=3 S=40 T=50", 3, 40, 50, 256, False, 0, False)]
+# its shared-prefix entry: (label, BH, suffix S, D, prefix span, pre_len,
+# timed); every case with fp32 and bf16 q and an fp and an int8 prefix.
+# The first is the shared prefill of phases 4e/4f: 7 sharers x 16 heads,
+# a suffix bucket of 64, the 200-token system prompt gathered as 4 pages
+PREFIX_CASES = [
+    (f"BH={7 * Q_HEADS} S=64 span {4 * PAGE} pre_len {SYS_LEN}", 7 * Q_HEADS,
+     64, 64, 4 * PAGE, SYS_LEN, True),
+    ("pre_len on a tile edge BH=6 S=40 span 128 pre_len 64", 6, 40, 64, 128,
+     64, False),
+    ("span = pre_len BH=4 S=33 span 96", 4, 33, 64, 96, 96, False),
+    ("pre_len 1 BH=3 S=9 span 64", 3, 9, 64, 64, 1, False),
+    ("D=128 BH=4 S=50 span 100 pre_len 77", 4, 50, 128, 100, 77, False),
+    ("D=256 BH=4 S=50 span 64 pre_len 40", 4, 50, 256, 64, 40, False),
+    ("D=256 BH=3 S=17 span 48 pre_len 32 (tile edge)", 3, 17, 256, 48, 32,
+     False)]
+
+
+def ptxas_kernels(out: str) -> dict:
+    """Registers and (spill stores, spill loads) bytes of every kernel in
+    one source's ``ptxas -v`` output, keyed by its mangled name."""
+    import re
+    info, entry = {}, None
+    for line in out.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            entry = m.group(1)
+            info[entry] = {}
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m and entry:
+            info[entry]["spills"] = (int(m.group(1)), int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and entry:
+            info[entry]["registers"] = int(m.group(1))
+    return info
+
+
+def flash_instance(dt, d: int, prefix_q8: bool = False,
+                   main_q8: bool = False):
+    """(readable name, mangled-name fragment) of the flash_attention.cu
+    kernel that a call with q in ``dt`` and head dim ``d`` launches: its
+    template arguments <T, PK, K, D> as the Itanium ABI writes them
+    (float ``f``, int8_t ``a``, __nv_bfloat16 once in full, then ``S1_``)."""
+    import torch
+    bf = dt == torch.bfloat16
+    names = ("__nv_bfloat16" if bf else "float", "signed char")
+    codes = ("13__nv_bfloat16" if bf else "f", "S1_" if bf else "f", "a")
+    kern, tail = (("flash_split_kernel", "Li256ELi8EE") if d == 256
+                  else ("flash_kernel", f"Li{d}EE"))
+    targs = [names[0], names[prefix_q8], names[main_q8]]
+    mangled = (f"{kern}I{codes[0]}{codes[2] if prefix_q8 else codes[1]}"
+               f"{codes[2] if main_q8 else codes[1]}{tail}")
+    extra = ", 8" if d == 256 else ""
+    return f"{kern}<{', '.join(targs)}, {d}{extra}>", mangled
+
+
+def ptxas_note(table: dict, instance) -> str:
+    readable, mangled = instance
+    hits = [v for name, v in table.items() if mangled in name]
+    if not hits:
+        return f"ptxas {readable}: not in this process's build log"
+    v = hits[0]
+    st, ld = v.get("spills", ("?", "?"))
+    return (f"ptxas {readable}: {v.get('registers', '?')} registers, spill "
+            f"stores {st} B, loads {ld} B")
+
+
+def check_flash_q8(dev, gen, entries: dict) -> None:
+    """Phase 3-q8: the int8 body of ``flash_attention`` on FQ8_CASES and
+    its shared-prefix entry, fp and int8 prefix, on PREFIX_CASES, each in
+    fp32 and bf16 q, against their plain versions. Prefix rows at or past
+    ``pre_len`` hold large garbage (1e4, or int8 scaled by 1e3): they must
+    be masked, not read. Timed: the int8 body and the int8 prefix with
+    fp32 q (the INT8 path's activations), the fp prefix in bf16 (phase
+    4e's); yardstick: dequantise (+ cat) ahead of time, then SDPA with a
+    boolean mask, two calls (no PyTorch call dequantises inside
+    attention); no library call. Fills ``entries["flash_attention_q8"]``
+    (the int8 prefix; the int8 body as its sub-entry ``own``) and
+    ``entries["flash_attention"]["prefix"]``."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch import quant as Q
+    from repro_torch.kernels import build, ops
+
+    table = ptxas_kernels(build.build_log.get("flash_attention", ""))
+    dtypes = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+    entries.setdefault("flash_attention_q8", {})
+
+    def randn(*shape, dt=torch.float32):
+        return torch.randn(*shape, generator=gen, device=dev).to(dt)
+
+    for label, bh, s, t, d, causal, window, timed in FQ8_CASES:
+        k8, v8 = (Q.quantize_kv(randn(bh, t, 1, d)) for _ in range(2))
+        k, v = k8.q[:, :, 0], v8.q[:, :, 0]
+        ks, vs = k8.scale[:, :, 0], v8.scale[:, :, 0]
+        for dname, dt in dtypes.items():
+            q = randn(bh, s, d, dt=dt)
+            kw = dict(k_scale=ks, v_scale=vs, causal=causal, window=window)
+            got = ops.attention(q, k, v, **kw)
+            want = ops.attention_ref(q, k, v, **kw)
+            err = compare(f"flash_attention_q8 {label} {dname}", got, want, dname)
+            line = (f"[kernel] flash_attention_q8 {label} {dname}: max_abs_err "
+                    f"{err:.3e}; {ptxas_note(table, flash_instance(dt, d, main_q8=True))}")
+            if timed and dname == "float32":
+                pairs = bh * s * (s + 1) // 2
+                pos = torch.arange(s, device=dev)
+                mask = pos[None, :] <= pos[:, None]
+
+                def yard():
+                    kd = (k.float() * ks).to(dt)[None]
+                    vd = (v.float() * vs).to(dt)[None]
+                    return F.scaled_dot_product_attention(q[None], kd, vd,
+                                                          attn_mask=mask)
+
+                ms = time_ms(lambda: ops.attention(q, k, v, **kw))
+                plain = time_ms(lambda: ops.attention_ref(q, k, v, **kw))
+                yd = time_ms(yard)
+                nb, kind = bound_ms(2 * bh * s * d * 4 + 2 * bh * t * (d + 4),
+                                    4.0 * d * pairs, dname)
+                line += (f" ms {ms:.4f} plain_ms {plain:.4f} yardstick_ms "
+                         f"{yd:.4f} (dequantise, then SDPA with a boolean "
+                         f"mask: two calls) bound_ms {nb:.4f} ({kind})")
+                entries["flash_attention_q8"]["own"] = dict(
+                    shape=f"q[{bh},{s},{d}] fp32, int8 k,v[{bh},{t},{d}] + "
+                          f"f32 scales, causal",
+                    max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=nb,
+                    bound_by=kind, library_ms=None, yardstick_ms=yd)
+            log(line)
+
+    for label, bh, s, d, span, pre_len, timed in PREFIX_CASES:
+        k, v = randn(bh, s, d), randn(bh, s, d)
+        pk, pv = randn(bh, span, d), randn(bh, span, d)
+        pk[:, pre_len:], pv[:, pre_len:] = 1e4, -1e4  # garbage past pre_len
+        k8, v8 = Q.quantize_kv(pk[:, :, None]), Q.quantize_kv(pv[:, :, None])
+        k8.scale[:, pre_len:], v8.scale[:, pre_len:] = 1e3, 1e3
+        int8 = dict(pre_k_scale=k8.scale[:, :, 0], pre_v_scale=v8.scale[:, :, 0])
+        for dname, dt in dtypes.items():
+            q = randn(bh, s, d, dt=dt)
+            kt, vt = k.to(dt), v.to(dt)
+            for pname, pre, scales in (
+                    ("fp", (pk.to(dt), pv.to(dt)), {}),
+                    ("int8", (k8.q[:, :, 0], v8.q[:, :, 0]), int8)):
+                args = (q, *pre, pre_len, kt, vt)
+                got = ops.prefix_attention(*args, **scales)
+                want = ops.prefix_attention_ref(*args, **scales)
+                name = "flash_attention_q8" if scales else "flash_attention"
+                err = compare(f"{name} prefix {pname} {label} {dname}", got,
+                              want, dname)
+                inst = flash_instance(dt, d, prefix_q8=bool(scales))
+                line = (f"[kernel] {name} prefix ({pname} prefix) {label} "
+                        f"{dname}: max_abs_err {err:.3e}; "
+                        f"{ptxas_note(table, inst)}")
+                if timed and (dname == "float32") == bool(scales):
+                    mask = torch.cat([
+                        (torch.arange(span, device=dev) < pre_len)[None]
+                        .expand(s, span),
+                        torch.ones(s, s, dtype=torch.bool, device=dev).tril()],
+                        dim=1)
+
+                    def yard():
+                        if scales:
+                            kd = (pre[0].float() * scales["pre_k_scale"]).to(dt)
+                            vd = (pre[1].float() * scales["pre_v_scale"]).to(dt)
+                        else:
+                            kd, vd = pre
+                        kc = torch.cat([kd, kt], 1)[None]
+                        vc = torch.cat([vd, vt], 1)[None]
+                        return F.scaled_dot_product_attention(
+                            q[None], kc, vc, attn_mask=mask)
+
+                    ms = time_ms(lambda: ops.prefix_attention(*args, **scales))
+                    plain = time_ms(lambda: ops.prefix_attention_ref(*args,
+                                                                     **scales))
+                    yd = time_ms(yard)
+                    esz = q.element_size()
+                    pre_bytes = (2 * bh * pre_len * (d + 4) if scales
+                                 else 2 * bh * pre_len * d * esz)
+                    flops = 4.0 * d * bh * (s * pre_len + s * (s + 1) // 2)
+                    nb, kind = bound_ms(4 * bh * s * d * esz + pre_bytes,
+                                        flops, dname)
+                    line += (f" ms {ms:.4f} plain_ms {plain:.4f} yardstick_ms "
+                             f"{yd:.4f} ({'dequantise + ' if scales else ''}"
+                             f"cat, then SDPA with a boolean mask: two calls) "
+                             f"bound_ms {nb:.4f} ({kind})")
+                    row = dict(
+                        shape=f"q,k,v[{bh},{s},{d}] {dname}, {pname} prefix "
+                              f"[{bh},{span},{d}] pre_len {pre_len}",
+                        max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=nb,
+                        bound_by=kind, library_ms=None, yardstick_ms=yd,
+                        yardstick=("dequantise + cat, then SDPA with a "
+                                   "boolean mask (two calls)" if scales else
+                                   "cat, then SDPA with a boolean mask "
+                                   "(two calls)"))
+                    if scales:
+                        entries["flash_attention_q8"].update(row)
+                    else:
+                        entries["flash_attention"]["prefix"] = row
+                log(line)
+
+
+# --------------------------------------------------------------------------
 # phase 4: full-width serving through the kernels
 # --------------------------------------------------------------------------
 
@@ -780,7 +1007,7 @@ def serve_full_width(int8: bool = False) -> dict:
     log(f"[{tag}] rid=0 out={done[0].out_tokens[:8]}")
     del engine, model
     torch.cuda.empty_cache()
-    return counts
+    return counts, {r.rid: list(r.out_tokens) for r in done}
 
 
 # recurrentgemma-2b at full width and depth, as the reference's
@@ -1271,6 +1498,331 @@ def parity_xlstm(dev) -> None:
     torch.cuda.empty_cache()
 
 
+# --------------------------------------------------------------------------
+# phases 4e, 4f: the paged pool with prefix reuse
+# --------------------------------------------------------------------------
+
+def shared_set(vocab: int):
+    """The shared traffic set: the 200-token system prompt alone (the
+    owner, rid 0: its whole prompt is registered, so the others match it
+    8 tokens into its fourth page and copy that page on write) and 15
+    prompts of the system prompt plus a distinct tail of 8-120 tokens."""
+    import numpy as np
+    rng = np.random.RandomState(3)
+    sys_prompt = rng.randint(1, vocab, size=SYS_LEN).astype(np.int32)
+    prompts = [sys_prompt]
+    for _ in range(N_SHARERS):
+        tail = rng.randint(1, vocab, size=int(rng.randint(
+            TAIL_RANGE[0], TAIL_RANGE[1] + 1))).astype(np.int32)
+        prompts.append(np.concatenate([sys_prompt, tail]))
+    return prompts
+
+
+def top2_margin(model, prompt, prefix) -> float:
+    """Top-2 logit margin over max |logit| of ``model`` after ``prompt``
+    + ``prefix`` (one full causal forward, no cache)."""
+    import numpy as np
+    import torch
+    toks = np.concatenate([prompt, np.asarray(prefix, np.int32)])
+    with torch.no_grad():
+        hidden, _ = model(torch.from_numpy(toks).to(model.device)[None])
+        lg = model.logits(hidden[:, -1]).float()[0]
+    top = torch.topk(lg, 2).values
+    return float(top[0] - top[1]) / float(lg.abs().max())
+
+
+def compare_streams(tag: str, model, prompts, got: dict, want: dict,
+                    what: str) -> int:
+    """Streams of ``got`` against ``want``; a divergence prints the top-2
+    margin where it starts and fails when that margin is over the bf16
+    tolerance (a near-tie may flip under rounding). Returns the count of
+    equal streams."""
+    same = 0
+    for rid in sorted(want):
+        g, w = got[rid], want[rid]
+        if g == w:
+            same += 1
+            continue
+        j = next((i for i, (a, b) in enumerate(zip(g, w)) if a != b),
+                 min(len(g), len(w)))
+        margin = top2_margin(model, prompts[rid], w[:j])
+        log(f"[{tag}] rid {rid} diverges from {what} at token {j}: top-2 "
+            f"margin {margin:.3e} of max |logit|")
+        if margin > TOL["bfloat16"]:
+            raise AssertionError(f"[{tag}] rid {rid}: stream differs from "
+                                 f"{what} at token {j} with margin "
+                                 f"{margin:.3e} > {TOL['bfloat16']}")
+    log(f"[{tag}] {same}/{len(want)} streams equal to {what}")
+    return same
+
+
+def drive(engine, prompts, new_tokens: int, owner: bool = False):
+    """Submit ``prompts`` (rid = index) and drain. With ``owner``, rid 0
+    is admitted by one step before the rest are submitted. Returns
+    (streams, decode steps, prefill groups, shared groups, peak pages in
+    use; 0 for a dense engine), steps and groups counted over the whole
+    drive."""
+    from repro_torch.serving import Request
+    pool = engine.scheduler.pool
+    peak = [0]
+    step = engine.step
+
+    def sampled_step():
+        step()
+        if pool is not None:
+            peak[0] = max(peak[0], pool.used_pages)
+
+    engine.step = sampled_step
+    steps = groups = shared = 0
+    rest = list(enumerate(prompts))
+    if owner:
+        engine.submit(Request(rid=0, prompt=prompts[0],
+                              max_new_tokens=new_tokens))
+        engine.step()
+        st = engine.prefill_stats()
+        steps, groups, shared = 1, int(st["prefill_dispatches"]), \
+            int(st["shared_dispatches"])
+        rest = rest[1:]
+    for rid, p in rest:
+        engine.submit(Request(rid=rid, prompt=p, max_new_tokens=new_tokens))
+    steps += engine.run_until_drained()
+    del engine.step
+    st = engine.prefill_stats()
+    groups += int(st["prefill_dispatches"])
+    shared += int(st["shared_dispatches"])
+    done = sorted(engine.completed, key=lambda r: r.rid)
+    streams = {r.rid: list(r.out_tokens) for r in done}
+    if sorted(streams) != list(range(len(prompts))):
+        raise AssertionError(f"{len(streams)}/{len(prompts)} requests completed")
+    return streams, steps, groups, shared, peak[0]
+
+
+def check_paged_counts(tag: str, counts: dict, path: tuple, want: dict) -> None:
+    for name, n in counts.items():
+        if (n == 0) == (name in path):
+            raise AssertionError(f"[{tag}] {name} launched {n} times on a path "
+                                 f"that runs {path}")
+    for name, n in want.items():
+        if counts[name] != n:
+            raise AssertionError(f"[{tag}] {name} launched {counts[name]} "
+                                 f"times, expected {n}")
+
+
+def serve_paged(dense_streams: dict, int8: bool = False) -> dict:
+    """Phase 4e (bf16) or 4f (``INT8_SERVE``, int8 pools): full-width
+    qwen1.5-0.5b on 8 slots x 512 through page tables (pages of 64, the
+    default pool of 65 pages). 4e serves phase 4's 16 prompts (streams
+    against phase 4's dense ones) and then the shared set (against a
+    dense engine's); 4f the shared set. Launch counts are exact per
+    traffic set; returns their sum."""
+    import numpy as np
+    import torch
+    from repro_torch import quant as Q
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import ops
+    from repro_torch.models.registry import init_params
+    from repro_torch.serving import PagingConfig, ServeConfig, ServingEngine
+
+    tag = "paged-int8" if int8 else "paged"
+    arch = get_arch("qwen1.5-0.5b")
+    new_tokens, layers = 32, arch.num_layers
+    per_pass = 7 * layers + 1
+    quant = Q.INT8_SERVE if int8 else Q.QuantConfig()
+    config = ServeConfig(slots=SLOTS, max_len=MAX_LEN, seed=0, lookahead=1,
+                         paging=PagingConfig(paged=True, page_size=PAGE),
+                         quant=quant)
+    torch.cuda.reset_peak_memory_stats()
+    model = init_params(arch, config.seed)  # phase 4's weights, bf16
+    shared = shared_set(arch.vocab_size)
+    sets = [("shared", shared, True)]
+    if not int8:
+        rng = np.random.RandomState(0)  # phase 4's prompts
+        phase4 = []
+        for _ in range(16):
+            s = int(rng.randint(16, 201))
+            phase4.append(rng.randint(1, arch.vocab_size, size=s).astype(np.int32))
+        sets.insert(0, ("phase-4 prompts", phase4, False))
+    total = {}
+    for label, prompts, owner in sets:
+        # a fresh pool and registry per traffic set (the model is shared;
+        # under INT8_SERVE it is quantised by the first engine)
+        engine = ServingEngine(arch, model, config=config)
+        log(f"[{tag}] {label}: pool of {engine.kv_pages} pages x {PAGE} "
+            f"tokens, table {tuple(engine.state.page_table.shape)}, kv dtype "
+            f"{engine.caches[0]['kp'].dtype}")
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        streams, steps, groups, n_shared, peak = drive(engine, prompts,
+                                                       new_tokens, owner)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = ops.launch_counts()
+        for rid, toks in streams.items():
+            if len(toks) != new_tokens or not all(0 <= t < arch.vocab_size
+                                                   for t in toks):
+                raise AssertionError(f"[{tag}] rid {rid}: bad stream {toks}")
+        pstats = engine.prefill_stats()
+        lm_groups = groups - n_shared
+        if int8:
+            path = ("quant_matmul", "flash_attention", "flash_attention_q8",
+                    "paged_attention_q8")
+            want = {"quant_matmul": per_pass * (steps + groups),
+                    "flash_attention": layers * lm_groups,
+                    "flash_attention_q8": layers * n_shared,
+                    "paged_attention_q8": layers * steps}
+        else:
+            path = ("xfer_matmul", "flash_attention", "paged_attention")
+            want = {"xfer_matmul": per_pass * (steps + groups),
+                    "flash_attention": layers * groups,
+                    "paged_attention": layers * steps}
+        check_paged_counts(tag, counts, path, want)
+        if owner and not n_shared:
+            raise AssertionError(f"[{tag}] no shared-prefix group ran")
+        log(f"[{tag}] {label}: {len(streams)} requests, {steps} decode steps, "
+            f"{groups} prefill groups ({n_shared} shared), {wall:.3f} s wall; "
+            f"prefix_hit_rate {pstats['prefix_hit_rate']:.4f}; peak pages in "
+            f"use {peak} of {engine.kv_pages - 1}; launches {counts} (exact)")
+        log(f"[{tag}] {label}: step_stats {json.dumps(engine.step_stats())}")
+        log(f"[{tag}] {label}: prefill_stats {json.dumps(pstats)}")
+        if owner and pstats["prefix_hit_rate"] <= 0:
+            raise AssertionError(f"[{tag}] prefix_hit_rate 0 on the shared set")
+        if label == "phase-4 prompts":
+            compare_streams(tag, model, prompts, streams, dense_streams,
+                            "phase 4's dense streams")
+        elif not int8:
+            dense = ServingEngine(arch, model, config=ServeConfig(
+                slots=SLOTS, max_len=MAX_LEN, seed=0, lookahead=1))
+            want_streams = drive(dense, prompts, new_tokens, owner)[0]
+            del dense
+            compare_streams(tag, model, prompts, streams, want_streams,
+                            "the dense engine's")
+        for name, n in counts.items():
+            total[name] = total.get(name, 0) + n
+        kv = sum(t.numel() * t.element_size() for c in engine.caches
+                 for t in c.values())
+        log(f"[{tag}] {label}: pool bytes {kv} weight_bytes "
+            f"{Q.leaf_bytes(model)} peak_allocated_bytes "
+            f"{torch.cuda.max_memory_allocated()}; pages in use after drain "
+            f"{engine.scheduler.pool.used_pages} (registry pins)")
+        del engine
+    del model
+    torch.cuda.empty_cache()
+    return total
+
+
+# --------------------------------------------------------------------------
+# phase 5e: the paged pool, card vs CPU
+# --------------------------------------------------------------------------
+
+def parity_paged(dev) -> None:
+    """Phase 5e: full-width qwen1.5-0.5b with the depth cut to 4 layers,
+    seeded fp32 weights on the card and on the CPU, on fp pools and on
+    int8 pools (``QuantConfig(kv="int8")``). The owner's 200-token prompt
+    is prefilled into pages 1-4; three sharers copy page 4 on write and
+    prefill only their tails against the gathered prefix; then 5 decode
+    steps of all four through the page table, fed the CPU's greedy
+    tokens. Logits within PARITY_TOL of max |logit|, tokens equal, pool
+    contents (every page but the null page) within PARITY_TOL of the
+    leaf's max (int8 payloads within one level, scales within
+    PARITY_TOL)."""
+    import copy
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.models.registry import init_params
+    from repro_torch.serving import pages as PG
+    from repro_torch.serving.scheduler import (bucket_len, prefill_rows,
+                                               prefill_shared)
+
+    tag = "parity-paged"
+    arch = dataclasses.replace(get_arch("qwen1.5-0.5b"), num_layers=4)
+    cpu_model = init_params(arch, 1, device="cpu")  # fp32
+    card_model = copy.deepcopy(cpu_model).to(dev)
+    prompts = shared_set(arch.vocab_size)[:4]
+    lens = np.array([len(p) for p in prompts], np.int32)
+    m, steps, n_full = SYS_LEN, 5, SYS_LEN // PAGE
+    span = n_full + 1  # the prefix ends inside page n_full + 1
+    table = np.zeros((4, MAX_LEN // PAGE), np.int32)
+    table[0, :span] = 1 + np.arange(span)
+    fresh = span + 1
+    for i in range(1, 4):  # aliased full pages, a private copy of the frontier
+        need = -(-(int(lens[i]) + steps) // PAGE)
+        table[i, :n_full] = table[0, :n_full]
+        table[i, n_full:need] = fresh + np.arange(need - n_full)
+        fresh += need - n_full
+    n_pages = fresh
+    suffix = np.zeros((3, bucket_len(int(lens.max()) - m, MAX_LEN)), np.int32)
+    for i in range(1, 4):
+        suffix[i - 1, :lens[i] - m] = prompts[i][m:]
+    owner = np.zeros((1, bucket_len(m, MAX_LEN)), np.int32)
+    owner[0, :m] = prompts[0]
+
+    def run(model, kv_quant, feed=None):
+        d = model.device
+        t = torch.from_numpy(table).to(d)
+        pools = PG.make_paged_caches(arch, n_pages, PAGE, device=d,
+                                     dtype=torch.float32, kv_quant=kv_quant)
+        rows, lg0 = prefill_rows(model, torch.from_numpy(owner).to(d),
+                                 torch.from_numpy(lens[:1]).to(d),
+                                 kv_quant=kv_quant)
+        PG.splice_pages(pools, rows, t[:1])
+        PG.copy_pages(pools, table[1:, n_full].tolist(),
+                      [int(table[0, n_full])] * 3)
+        rows, lg1 = prefill_shared(model, pools, t[1:, :span], m,
+                                   torch.from_numpy(suffix).to(d),
+                                   torch.from_numpy(lens[1:]).to(d))
+        PG.splice_pages(pools, rows, t[1:])
+        out = [torch.cat([lg0, lg1])[:, -1].float().cpu()]
+        chosen = [out[-1].argmax(-1).to(torch.int32)]
+        pos = torch.from_numpy(lens).to(d)[:, None]
+        for j in range(steps):
+            tok = (feed[j] if feed is not None else chosen[-1]).to(d)[:, None]
+            hidden, pools = model(tok, caches=pools, positions=pos,
+                                  page_table=t)
+            out.append(model.logits(hidden)[:, -1].float().cpu())
+            chosen.append(out[-1].argmax(-1).to(torch.int32))
+            pos = pos + 1
+        return out, chosen, [{k: v[1:].cpu() for k, v in p.items()}
+                             for p in pools]
+
+    for kv_quant in (False, True):
+        label = "int8 pools" if kv_quant else "fp pools"
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            want, want_tok, want_pool = run(cpu_model, kv_quant)
+            got, got_tok, got_pool = run(card_model, kv_quant, feed=want_tok)
+        worst = 0.0
+        for j in range(steps + 1):
+            rel = float((got[j] - want[j]).abs().max()) / float(want[j].abs().max())
+            worst = max(worst, rel)
+            log(f"[{tag}] {label} position {j}: logits max rel err {rel:.3e}, "
+                f"tokens card {got_tok[j].tolist()} cpu {want_tok[j].tolist()}")
+            if not torch.equal(got_tok[j], want_tok[j]):
+                raise AssertionError(f"[{tag}] {label}: greedy token differs "
+                                     f"at position {j}")
+        pool_err, level = 0.0, 0
+        for g, w in zip(got_pool, want_pool):
+            for name in w:
+                if w[name].dtype == torch.int8:
+                    level = max(level, int((g[name].int() - w[name].int())
+                                           .abs().max()))
+                else:
+                    pool_err = max(pool_err, float((g[name] - w[name]).abs().max())
+                                   / float(w[name].abs().max()))
+        log(f"[{tag}] {label}: prefill + {steps} decode steps on both in "
+            f"{time.perf_counter() - t0:.1f} s; worst logits rel err "
+            f"{worst:.3e}, pool rel err {pool_err:.3e}"
+            + (f", int8 payloads within {level} level(s)" if kv_quant else ""))
+        if worst > PARITY_TOL or pool_err > PARITY_TOL or level > 1:
+            raise AssertionError(f"[{tag}] {label}: card vs CPU beyond "
+                                 f"{PARITY_TOL} (logits {worst:.3e}, pool "
+                                 f"{pool_err:.3e}, int8 levels {level})")
+    del card_model
+    torch.cuda.empty_cache()
+
+
 # kernels that must compile without spills: the head-dim-256 variants
 # (flash_split_kernel, the 256-thread paged_kernel), rglru_scan and
 # mlstm_chunkwise
@@ -1296,13 +1848,39 @@ def check_ptxas(build_log: dict) -> None:
                 raise AssertionError(f"{entry} spills: {line.strip()}")
 
 
+def kernel_table(entries: dict, counts: dict) -> list:
+    """The kernel line's rows: each kernel's timed entry with its launches
+    on its main path (the first path of PATH_KERNELS that runs it) and on
+    every path."""
+    from repro_torch.kernels import ops
+    kernels = []
+    for k in ops.KERNELS:
+        name = k.__name__
+        e = entries[name]
+        src, replaces = SOURCES[name]
+        path = next(p for p, ks in PATH_KERNELS.items() if name in ks)
+        row = {"name": name, "route": "cuda", "source": src,
+               "replaces": replaces, "launches": counts[path][name],
+               "launches_by_path": {p: c[name] for p, c in counts.items()},
+               "max_abs_err": e["max_abs_err"], "ms": e["ms"],
+               "plain_ms": e["plain_ms"], "bound_ms": e["bound_ms"],
+               "bound_by": e["bound_by"], "library_ms": e["library_ms"],
+               "shape": e["shape"]}
+        for key in ("yardstick_ms", "yardstick", "library_error", "hybrid",
+                    "ssm", "prefix", "own"):
+            if key in e:
+                row[key] = e[key]
+        kernels.append(row)
+    return kernels
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card",
               file=sys.stderr)
         return 1
-    from repro_torch.kernels import build, ops
+    from repro_torch.kernels import build
 
     # ---- phase 1: card identity
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -1328,11 +1906,16 @@ def main() -> int:
 
     # ---- phase 4 and 4b: the serving paths, each with the launch
     # counters set to 0 just before it and read just after
-    counts = {"fp": serve_full_width(), "int8": serve_full_width(int8=True)}
+    counts = {}
+    counts["fp"], dense_streams = serve_full_width()
+    counts["int8"] = serve_full_width(int8=True)[0]
     # ---- phase 4c: the hybrid path (recurrentgemma-2b)
     counts["hybrid"] = serve_hybrid()
     # ---- phase 4d: the ssm path (xlstm-350m)
     counts["ssm"] = serve_xlstm()
+    # ---- phase 4e and 4f: the paged pool with prefix reuse, bf16 and INT8
+    counts["paged"] = serve_paged(dense_streams)
+    counts["paged-int8"] = serve_paged(dense_streams, int8=True)
 
     # ---- phase 5 and 5b: card vs CPU at full width, fp and INT8
     parity_full_width(dev)
@@ -1340,25 +1923,10 @@ def main() -> int:
     parity_hybrid(dev)
     # ---- phase 5d: the same for the ssm family, depth cut to 4 layers
     parity_xlstm(dev)
+    # ---- phase 5e: the paged pool (fp and int8), depth cut to 4 layers
+    parity_paged(dev)
 
-    kernels = []
-    for k in ops.KERNELS:
-        name = k.__name__
-        e = entries[name]
-        src, replaces = SOURCES[name]
-        path = next(p for p, ks in PATH_KERNELS.items() if name in ks)
-        row = {"name": name, "route": "cuda", "source": src,
-               "replaces": replaces, "launches": counts[path][name],
-               "launches_by_path": {p: c[name] for p, c in counts.items()},
-               "max_abs_err": e["max_abs_err"], "ms": e["ms"],
-               "plain_ms": e["plain_ms"], "bound_ms": e["bound_ms"],
-               "bound_by": e["bound_by"], "library_ms": e["library_ms"],
-               "shape": e["shape"]}
-        for key in ("yardstick_ms", "yardstick", "library_error", "hybrid",
-                    "ssm"):
-            if key in e:
-                row[key] = e[key]
-        kernels.append(row)
+    kernels = kernel_table(entries, counts)
     log(smi)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

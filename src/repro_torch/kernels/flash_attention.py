@@ -22,9 +22,26 @@ the valid query rows are exact and the padded tail's rows are not (they
 are causally invisible to valid rows and their cache entries are
 invalidated by the scheduler).
 
-A CPU tensor takes the plain version (:func:`plain`); a CUDA tensor
-launches the kernel or raises. ``flash_attention.launches`` counts
-launches.
+INT8 k/v (``k_scale``/``v_scale`` ``[BH, T, 1]`` f32, the TPU kernel's
+``_flash_kernel_q8``) go to the int8 body of the same source
+(:func:`flash_attention_q8`), which widens each int8 element and scales
+it in f32 as the tile is staged, so the fp extent never exists in device
+memory.
+
+:func:`prefix_attention` is the shared-prefix prefill of the paged
+serving path (``models.blocks``): the queries of a suffix attend a
+gathered prefix, fp or int8 with per-token scales and valid below
+``pre_len``, then the fresh fp suffix, causally, with one online softmax.
+``pre_len`` is one int per launch (a shared group has one prefix
+length). An fp prefix launches the fp template, an int8 one the int8
+template, which rounds each dequantised prefix element to ``q.dtype`` as
+the reference casts its dequantised prefix.
+
+A CPU tensor takes the plain version (:func:`plain`,
+:func:`prefix_plain`); a CUDA tensor launches the kernel or raises.
+``flash_attention.launches`` counts the fp template's launches (the fp
+prefix form too), ``flash_attention_q8.launches`` the int8 template's
+(both entries).
 """
 from __future__ import annotations
 
@@ -33,30 +50,62 @@ import math
 
 import torch
 
-from repro_torch.kernels._launch import DTYPE_CODES, check_cuda, launch
+from repro_torch.kernels._launch import (DTYPE_CODES, check_cuda,
+                                         check_device, check_dtype,
+                                         check_float, launch)
 from repro_torch.kernels.ref import flash_attention_ref as plain
+from repro_torch.kernels.ref import prefix_attention_ref as prefix_plain
 
 HEAD_DIMS = (16, 32, 64, 128, 256)
-_VP, _I = ctypes.c_void_p, ctypes.c_int
-_ARGTYPES = (_VP, _VP, _VP, _VP, _I, _I, _I, _I, _I, _I, ctypes.c_float, _I)
+_VP, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_ARGTYPES = (_VP, _VP, _VP, _VP, _I, _I, _I, _I, _I, _I, _F, _I)
+_ARGTYPES_Q8 = (_VP,) * 6 + (_I, _I, _I, _I, _I, _I, _F, _I)
+_ARGTYPES_PREFIX = (_VP,) * 5 + (_I, _I, _VP, _VP, _VP, _I, _I, _I, _F, _I)
+
+
+def _check_scales(name: str, k, v, k_scale, v_scale) -> tuple:
+    """() for fp k/v, else the scales after checking them: both given,
+    [BH, T, 1] f32 for int8 k/v [BH, T, D]."""
+    if (k_scale is None) != (v_scale is None):
+        raise ValueError(f"{name}: pass both scales, or neither")
+    if k_scale is None:
+        return ()
+    want = tuple(k.shape[:2]) + (1,)
+    if tuple(k_scale.shape) != want or tuple(v_scale.shape) != want:
+        raise ValueError(f"{name}: scales {tuple(k_scale.shape)} / "
+                         f"{tuple(v_scale.shape)} for k {tuple(k.shape)}")
+    check_dtype(name, torch.int8, k, v)
+    check_dtype(name, torch.float32, k_scale, v_scale)
+    return k_scale, v_scale
+
+
+def _check_head_dim(name: str, d: int) -> None:
+    if d not in HEAD_DIMS:
+        raise ValueError(f"{name}: head dim {d} not in {HEAD_DIMS}")
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    k_scale: torch.Tensor = None, v_scale: torch.Tensor = None,
                     causal: bool = True, window: int = 0) -> torch.Tensor:
-    """q: [BH, S, D]; k, v: [BH, T, D] -> [BH, S, D] in ``q.dtype``."""
+    """q: [BH, S, D]; k, v: [BH, T, D] (int8 with ``k_scale``/``v_scale``
+    [BH, T, 1] f32) -> [BH, S, D] in ``q.dtype``."""
     if q.dim() != 3 or k.shape != v.shape or k.dim() != 3 \
             or k.shape[0] != q.shape[0] or k.shape[2] != q.shape[2]:
         raise ValueError(f"flash_attention: bad shapes q {tuple(q.shape)} "
                          f"k {tuple(k.shape)} v {tuple(v.shape)}")
     if window < 0:
         raise ValueError(f"flash_attention: window must be >= 0, got {window}")
-    if all(t.device.type == "cpu" for t in (q, k, v)):
-        return plain(q, k, v, causal=causal, window=window)
+    scales = _check_scales("flash_attention", k, v, k_scale, v_scale)
+    if all(t.device.type == "cpu" for t in (q, k, v, *scales)):
+        return plain(q, k, v, k_scale=k_scale, v_scale=v_scale,
+                     causal=causal, window=window)
+    if scales:
+        return flash_attention_q8(q, k, v, *scales, causal=causal,
+                                  window=window)
     check_cuda("flash_attention", q, k, v)
     bh, s, d = q.shape
     t = k.shape[1]
-    if d not in HEAD_DIMS:
-        raise ValueError(f"flash_attention: head dim {d} not in {HEAD_DIMS}")
+    _check_head_dim("flash_attention", d)
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     out = torch.empty_like(q)
     if bh == 0 or s == 0:
@@ -70,4 +119,78 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return out
 
 
+def flash_attention_q8(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                       k_scale: torch.Tensor, v_scale: torch.Tensor, *,
+                       causal: bool = True, window: int = 0) -> torch.Tensor:
+    """The int8 body on CUDA tensors, shapes checked by
+    :func:`flash_attention` (its entry point): int8 k/v, f32 scales, q
+    fp32 or bf16."""
+    check_device("flash_attention_q8", q, k, v, k_scale, v_scale)
+    check_float("flash_attention_q8", q)
+    bh, s, d = q.shape
+    t = k.shape[1]
+    _check_head_dim("flash_attention_q8", d)
+    q, k, v, k_scale, v_scale = (x.contiguous()
+                                 for x in (q, k, v, k_scale, v_scale))
+    out = torch.empty_like(q)
+    if bh == 0 or s == 0:
+        return out
+    if t == 0:
+        raise ValueError("flash_attention_q8: empty key sequence")
+    launch("flash_attention_q8", _ARGTYPES_Q8, q.data_ptr(), k.data_ptr(),
+           v.data_ptr(), k_scale.data_ptr(), v_scale.data_ptr(),
+           out.data_ptr(), bh, s, t, d, int(causal), int(window),
+           1.0 / math.sqrt(d), DTYPE_CODES[q.dtype], source="flash_attention")
+    flash_attention_q8.launches += 1
+    return out
+
+
+def prefix_attention(q: torch.Tensor, pre_k: torch.Tensor,
+                     pre_v: torch.Tensor, pre_len: int, k: torch.Tensor,
+                     v: torch.Tensor, *, pre_k_scale: torch.Tensor = None,
+                     pre_v_scale: torch.Tensor = None) -> torch.Tensor:
+    """q, k, v: [BH, S, D] (the suffix, q at positions ``pre_len + i``);
+    ``pre_k``/``pre_v``: [BH, Lp, D] in ``q.dtype``, or int8 with
+    ``pre_k_scale``/``pre_v_scale`` [BH, Lp, 1] f32; keys below
+    ``pre_len`` (1 <= pre_len <= Lp) are visible. -> [BH, S, D] in
+    ``q.dtype``."""
+    if q.dim() != 3 or k.shape != q.shape or v.shape != q.shape \
+            or pre_k.dim() != 3 or pre_v.shape != pre_k.shape \
+            or pre_k.shape[0] != q.shape[0] or pre_k.shape[2] != q.shape[2]:
+        raise ValueError(f"prefix_attention: bad shapes q {tuple(q.shape)} "
+                         f"k {tuple(k.shape)} v {tuple(v.shape)} prefix "
+                         f"{tuple(pre_k.shape)} / {tuple(pre_v.shape)}")
+    pre_len = int(pre_len)
+    if not 1 <= pre_len <= pre_k.shape[1]:
+        raise ValueError(f"prefix_attention: pre_len {pre_len} outside "
+                         f"[1, {pre_k.shape[1]}]")
+    scales = _check_scales("prefix_attention", pre_k, pre_v, pre_k_scale,
+                           pre_v_scale)
+    if all(t.device.type == "cpu" for t in (q, k, v, pre_k, pre_v, *scales)):
+        return prefix_plain(q, pre_k, pre_v, pre_len, k, v,
+                            pre_k_scale=pre_k_scale, pre_v_scale=pre_v_scale)
+    check_cuda("prefix_attention", q, k, v)
+    check_device("prefix_attention", q, pre_k, pre_v, *scales)
+    if not scales:
+        check_dtype("prefix_attention", q.dtype, pre_k, pre_v)
+    bh, s, d = q.shape
+    _check_head_dim("prefix_attention", d)
+    q, k, v, pre_k, pre_v = (x.contiguous() for x in (q, k, v, pre_k, pre_v))
+    scales = tuple(x.contiguous() for x in scales)
+    out = torch.empty_like(q)
+    if bh == 0 or s == 0:
+        return out
+    ptrs = [x.data_ptr() for x in scales] or [None, None]
+    launch("prefix_attention", _ARGTYPES_PREFIX, q.data_ptr(),
+           pre_k.data_ptr(), pre_v.data_ptr(), *ptrs, pre_k.shape[1],
+           pre_len, k.data_ptr(), v.data_ptr(), out.data_ptr(), bh, s, d,
+           1.0 / math.sqrt(d), DTYPE_CODES[q.dtype], source="flash_attention")
+    if scales:
+        flash_attention_q8.launches += 1
+    else:
+        flash_attention.launches += 1
+    return out
+
+
 flash_attention.launches = 0
+flash_attention_q8.launches = 0

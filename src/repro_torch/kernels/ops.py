@@ -8,7 +8,8 @@ the tensors' device and nothing else.
 from __future__ import annotations
 
 from repro_torch.kernels import ref
-from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.kernels.flash_attention import (  # noqa: F401
+    flash_attention, flash_attention_q8, prefix_attention)
 from repro_torch.kernels.mlstm_chunkwise import (mlstm_chunkwise,
                                                  mlstm_chunkwise_fold)
 from repro_torch.kernels.paged_attention import (paged_attention,
@@ -18,11 +19,14 @@ from repro_torch.kernels.rglru_scan import rglru_scan
 from repro_torch.kernels.xfer_matmul import xfer_matmul
 
 #: every kernel wrapper of the port; each carries a ``launches`` counter
-#: (``paged_attention_q8`` is the int8 body behind ``paged_attention``'s
-#: ``k_scale``/``v_scale``; ``mlstm_chunkwise`` also counts the launches
-#: of ``mlstm_chunkwise_fold``, its entry with a state)
-KERNELS = (xfer_matmul, flash_attention, paged_attention, paged_attention_q8,
-           quant_matmul, rglru_scan, mlstm_chunkwise)
+#: (``paged_attention_q8`` and ``flash_attention_q8`` are the int8 bodies
+#: behind ``paged_attention``'s and ``flash_attention``'s
+#: ``k_scale``/``v_scale``; ``prefix_attention`` counts under
+#: ``flash_attention`` with an fp prefix and under ``flash_attention_q8``
+#: with an int8 one; ``mlstm_chunkwise`` also counts the launches of
+#: ``mlstm_chunkwise_fold``, its entry with a state)
+KERNELS = (xfer_matmul, flash_attention, flash_attention_q8, paged_attention,
+           paged_attention_q8, quant_matmul, rglru_scan, mlstm_chunkwise)
 
 
 # the JAX package's ``ops`` names
@@ -50,6 +54,7 @@ def launch_counts() -> dict:
 matmul_ref = ref.matmul_ref
 int8_matmul_ref = ref.quant_matmul_ref
 attention_ref = ref.flash_attention_ref
+prefix_attention_ref = ref.prefix_attention_ref
 paged_attn_ref = ref.paged_attention_ref
 lru_scan_ref = ref.rglru_scan_ref
 mlstm_ref = ref.mlstm_ref

@@ -8,8 +8,9 @@ what a kernel wrapper runs when it is handed CPU tensors, and what
 
 ``mlstm_chunkwise_ref`` is the plain version of the ``mlstm_chunkwise``
 kernel (its arguments, chunk by chunk); ``mlstm_ref`` is the JAX
-package's strict per-step oracle. The int8 ``k_scale``/``v_scale``
-arguments of ``flash_attention_ref`` arrive with their slice.
+package's strict per-step oracle. ``prefix_attention_ref`` is the plain
+version of the shared-prefix entry of the ``flash_attention`` kernel, the
+attention of ``blocks._shared_prefix_attention`` in the JAX package.
 """
 from __future__ import annotations
 
@@ -35,8 +36,15 @@ def quant_matmul_ref(x: torch.Tensor, w_q: torch.Tensor,
 
 
 def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                        k_scale: torch.Tensor = None,
+                        v_scale: torch.Tensor = None,
                         causal: bool = True, window: int = 0) -> torch.Tensor:
-    """q: [BH, S, D]; k, v: [BH, T, D]; positions of q and k start at 0."""
+    """q: [BH, S, D]; k, v: [BH, T, D]; positions of q and k start at 0.
+    Optional [BH, T, 1] f32 per-token scales dequantise int8 k/v (in
+    f32, not rounded) before attending."""
+    if k_scale is not None:
+        k = k.float() * k_scale
+        v = v.float() * v_scale
     _, sq, d = q.shape
     t = k.shape[1]
     s = torch.einsum("bsd,btd->bst", q.float(), k.float()) / math.sqrt(d)
@@ -50,6 +58,35 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     s = torch.where(mask[None], s, NEG_INF)
     p = torch.softmax(s, dim=-1)
     return torch.einsum("bst,btd->bsd", p, v.float()).to(q.dtype)
+
+
+def prefix_attention_ref(q: torch.Tensor, pre_k: torch.Tensor,
+                         pre_v: torch.Tensor, pre_len: int, k: torch.Tensor,
+                         v: torch.Tensor, *, pre_k_scale: torch.Tensor = None,
+                         pre_v_scale: torch.Tensor = None) -> torch.Tensor:
+    """Queries of a suffix after a shared prefix: q [BH, S, D] at
+    positions ``pre_len + i``; the prefix ``pre_k``/``pre_v`` [BH, Lp, D]
+    (fp, or int8 with [BH, Lp, 1] f32 scales, dequantised and then
+    rounded to ``q.dtype`` as the JAX block's ``pre_k.astype(k.dtype)``
+    does), visible below ``pre_len`` only; the fresh suffix ``k``/``v``
+    [BH, S, D], causal on the local index. f32 scores scaled by
+    1/sqrt(D), one softmax over both segments."""
+    if pre_k_scale is not None:
+        pre_k = pre_k.float() * pre_k_scale
+        pre_v = pre_v.float() * pre_v_scale
+    pre_k, pre_v = pre_k.to(q.dtype), pre_v.to(q.dtype)
+    _, sq, d = q.shape
+    lp = pre_k.shape[1]
+    kc = torch.cat([pre_k.float(), k.float()], dim=1)
+    vc = torch.cat([pre_v.float(), v.float()], dim=1)
+    s = torch.einsum("bsd,btd->bst", q.float(), kc) / math.sqrt(d)
+    qi = torch.arange(sq, device=q.device)[:, None]
+    j = torch.arange(sq, device=q.device)[None, :]
+    mask = torch.cat([(torch.arange(lp, device=q.device) < pre_len)[None]
+                      .expand(sq, lp), j <= qi], dim=1)
+    s = torch.where(mask[None], s, NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    return torch.einsum("bst,btd->bsd", p, vc).to(q.dtype)
 
 
 def paged_attention_ref(q: torch.Tensor, kp: torch.Tensor, vp: torch.Tensor,

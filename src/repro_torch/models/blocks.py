@@ -6,8 +6,10 @@ Mirrors the dense and windowed branches of ``repro/models/blocks.py``:
 ``make_kv_cache`` (with ``window``: a ring of ``min(length, window)``
 slots), ``_project_qkv`` (with the qkv bias), ``attn_apply``'s prefill
 fills (the suffix fill, and ``_ring_exact_fill`` for a windowed prefill
-with true lengths) and decode ring write (``_cache_write``). The paged,
-append, cross-attention and MoE branches arrive with their slices.
+with true lengths), decode ring write (``_cache_write``) and the two
+paged branches (``_paged_decode_attention``, ``_shared_prefix_attention``;
+see ``serving/pages.py``). The append, cross-attention and MoE branches
+arrive with their slices.
 
 A cache is a dict ``{"k", "v": [B, T, G, D], "pos": [B, T] int32}``
 (``pos = -1`` marks an invalid entry). With ``kv_quant`` ``k``/``v`` are
@@ -28,6 +30,7 @@ from torch import nn
 
 from repro_torch import quant as Q
 from repro_torch.configs.base import ArchConfig
+from repro_torch.kernels import ops
 from repro_torch.models import layers as L
 
 
@@ -112,6 +115,36 @@ def _ring_exact_fill(cache: dict, k, v, seq_lens: torch.Tensor) -> dict:
     return out
 
 
+def _paged_decode_attention(q, k, v, pool: dict, page_table: torch.Tensor,
+                            positions: torch.Tensor) -> torch.Tensor:
+    """One decode token per row against a page pool ``{"kp", "vp"[, "kps",
+    "vps"]}``, in place: write the new K/V (quantised for an int8 pool)
+    at ``page_table[pos // ps], pos % ps`` (a position past the table goes
+    to the null page), then attend through the table over ``pos + 1``
+    keys. Inactive slots carry a zeroed table row (the serve step's
+    stale-write gate), so their writes land on the null page."""
+    ps = pool["kp"].shape[1]
+    m = page_table.shape[1]
+    pos = positions[:, 0].long()
+    page = torch.gather(page_table.long(), 1,
+                        (pos // ps).clamp(0, m - 1)[:, None])[:, 0]
+    page = torch.where(pos < m * ps, page, 0)
+    slot = pos % ps
+    if "kps" in pool:
+        kq, vq = Q.quantize_kv(k[:, 0]), Q.quantize_kv(v[:, 0])
+        leaves = (("kp", kq.q), ("kps", kq.scale), ("vp", vq.q),
+                  ("vps", vq.scale))
+    else:
+        leaves = (("kp", k[:, 0]), ("vp", v[:, 0]))
+    for name, u in leaves:
+        pool[name][page, slot] = u.to(pool[name].dtype)
+    lengths = (positions[:, 0] + 1).to(torch.int32)
+    o = ops.paged_attn(q[:, 0], pool["kp"], pool["vp"],
+                       page_table.to(torch.int32), lengths,
+                       k_scale=pool.get("kps"), v_scale=pool.get("vps"))
+    return o[:, None]
+
+
 def _param(*shape, device, dtype) -> nn.Parameter:
     return nn.Parameter(torch.zeros(shape, device=device, dtype=dtype),
                         requires_grad=False)
@@ -178,14 +211,24 @@ class AttnBlock(nn.Module):
     def forward(self, x: torch.Tensor, *, positions: torch.Tensor,
                 cache: Optional[dict] = None,
                 decode_meta: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
-                seq_lens: Optional[torch.Tensor] = None
+                seq_lens: Optional[torch.Tensor] = None,
+                page_table: Optional[torch.Tensor] = None
                 ) -> Tuple[torch.Tensor, Optional[dict]]:
         """Full mode (no cache, or a cache being filled by a prefill): x
         [B, S, D]; ``seq_lens`` [B], the true lengths of a right-padded
         batch, make a windowed block's fill ring-exact
         (:func:`_ring_exact_fill`). Decode mode (a cache and S == 1):
         ``decode_meta`` is the identity page table and lengths of
-        :func:`layers.decode_attention`."""
+        :func:`layers.decode_attention`.
+
+        Paged modes, keyed by the cache's leaves as in the JAX
+        ``attn_apply``: a pool ``{"kp", "vp"[, "kps", "vps"]}`` with
+        ``page_table`` [B, M] int32 is a paged decode step (the pool is
+        written in place and returned); a gathered prefix ``{"pre_k",
+        "pre_v", "pre_len"[, "pre_k_scale", "pre_v_scale"]}`` is the
+        compute-skip suffix prefill, whose returned cache is the suffix's
+        fp row ``{"k", "v", "pos"}`` that the scheduler splices into
+        pages."""
         arch = self.arch
         b, s, _ = x.shape
         h = L.rms_norm(x, self.ln1)
@@ -194,7 +237,18 @@ class AttnBlock(nn.Module):
         k = L.rope(k, positions, arch.rope_theta)
 
         new_cache = None
-        if cache is not None and s == 1:
+        if cache is not None and "kp" in cache:
+            if page_table is None:
+                raise ValueError("paged KV pool given without a page_table")
+            if s != 1:
+                raise NotImplementedError("paged multi-token writes (the "
+                                          "speculative verify) are not ported")
+            o = _paged_decode_attention(q, k, v, cache, page_table, positions)
+            new_cache = cache
+        elif cache is not None and "pre_k" in cache:
+            o = L.prefix_attention(q, k, v, cache)
+            new_cache = {"k": k, "v": v, "pos": positions.to(torch.int32)}
+        elif cache is not None and s == 1:
             _cache_write(cache, k, v, positions)
             table, lengths = decode_meta
             o = L.decode_attention(q, cache, table, lengths)

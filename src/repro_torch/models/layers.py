@@ -4,8 +4,9 @@ and the two attention forms of the serving path.
 Mirrors ``repro/models/layers.py`` function for function where this
 slice needs it. Every ``x @ w`` goes through ``kernels.ops.matmul``
 (``xfer_matmul`` on the card). Attention goes through the kernels too:
-prefill self-attention through ``flash_attention``, single-token decode
-over the dense slot grid through ``paged_attention``. On CPU tensors the
+prefill self-attention through ``flash_attention`` (a suffix after a
+shared prefix through its prefix entry), single-token decode over the
+dense slot grid or a page pool through ``paged_attention``. On CPU tensors the
 kernels' plain versions run, so the CPU path is the same code.
 
 The JAX package's masked ``attention``/``_attend_block``/``_mask`` are
@@ -96,6 +97,32 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         return t.permute(0, 2, 1, 3).reshape(b * h, s, d)
 
     o = ops.attention(fold(q), fold(k), fold(v), causal=True, window=window)
+    return o.reshape(b, h, s, d).permute(0, 2, 1, 3)
+
+
+def prefix_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     pre: dict) -> torch.Tensor:
+    """The compute-skip suffix prefill's attention: q [B, S, H, D] at
+    positions ``pre_len + i`` over the gathered prefix ``pre`` (``pre_k``/
+    ``pre_v`` [B, Lp, G, D], fp or int8 with ``pre_k_scale``/
+    ``pre_v_scale`` [B, Lp, G, 1]; valid below ``pre["pre_len"]``), then
+    the fresh suffix k/v [B, S, G, D], causally -> [B, S, H, D]. KV
+    (and scales) are broadcast across groups and heads folded into the
+    batch for ``flash_attention``'s prefix entry."""
+    b, s, h, d = q.shape
+    g = k.shape[2]
+
+    def fold(t):
+        if t.shape[2] != h:
+            t = t.repeat_interleave(h // g, dim=2)
+        return t.permute(0, 2, 1, 3).reshape(b * h, t.shape[1], t.shape[3])
+
+    scales = {}
+    if "pre_k_scale" in pre:
+        scales = dict(pre_k_scale=fold(pre["pre_k_scale"]),
+                      pre_v_scale=fold(pre["pre_v_scale"]))
+    o = ops.prefix_attention(fold(q), fold(pre["pre_k"]), fold(pre["pre_v"]),
+                             pre["pre_len"], fold(k), fold(v), **scales)
     return o.reshape(b, h, s, d).permute(0, 2, 1, 3)
 
 

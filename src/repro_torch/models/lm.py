@@ -134,7 +134,8 @@ class LM(nn.Module):
     def forward(self, tokens: torch.Tensor, *,
                 caches: Optional[List[dict]] = None,
                 positions: Optional[torch.Tensor] = None,
-                seq_lens: Optional[torch.Tensor] = None
+                seq_lens: Optional[torch.Tensor] = None,
+                page_table: Optional[torch.Tensor] = None
                 ) -> Tuple[torch.Tensor, Optional[List[dict]]]:
         """tokens [B, S] -> (hidden [B, S, D] after the final norm, caches).
 
@@ -144,7 +145,13 @@ class LM(nn.Module):
         is a prefill that returns freshly filled caches. ``positions``
         default to 0..S-1. ``seq_lens`` [B] (the true lengths of a
         right-padded prefill) make the recurrent states and windowed
-        rings length-exact."""
+        rings length-exact.
+
+        ``page_table`` [B, M] int32: a paged decode step, ``caches`` then
+        being the page pools of ``serving.pages.make_paged_caches`` shared
+        by every slot. ``caches`` may also be the gathered prefix blocks of
+        ``serving.pages.gather_prefix``: a suffix prefill at ``positions``
+        past the prefix, returning the suffix's fp rows."""
         x = L.embed_tokens(self.embed, tokens)
         x = x * torch.tensor(self.arch.d_model ** 0.5, dtype=x.dtype)
         b, s, _ = x.shape
@@ -152,7 +159,8 @@ class LM(nn.Module):
             positions = torch.arange(s, dtype=torch.int32,
                                      device=x.device)[None].expand(b, s)
         decode_meta = None
-        if caches is not None and s == 1 and "attn" in self.kinds:
+        if caches is not None and s == 1 and "attn" in self.kinds \
+                and page_table is None:
             # the dense grid read as a page pool: row b is page b; on a
             # ring of t slots the valid length stops growing at t
             t = caches[self.kinds.index("attn")]["k"].shape[1]
@@ -164,7 +172,8 @@ class LM(nn.Module):
             cache = None if caches is None else caches[i]
             if kind == "attn":
                 x, c = layer(x, positions=positions, cache=cache,
-                             decode_meta=decode_meta, seq_lens=seq_lens)
+                             decode_meta=decode_meta, seq_lens=seq_lens,
+                             page_table=page_table)
             else:
                 x, c = layer(x, state=cache, seq_lens=seq_lens)
             if caches is not None:

@@ -9,6 +9,11 @@ The second ``serve_step`` form (``sampling`` given) is the serving
 runtime's fused step: greedy token choice and the per-slot lifecycle
 (EOS, emission budget, position advance) on the device, returning only a
 small per-slot record ``{token, emit, finished}`` for the host to read.
+With ``paged=True`` the state carries a page table and the caches are
+page pools; inactive slots' table rows are zeroed inside the step (the
+stale-write gate), so the host's lagging retire bookkeeping under
+lookahead can never route a write into a freed, possibly re-allocated,
+page.
 """
 from __future__ import annotations
 
@@ -49,8 +54,15 @@ def build_prefill_step(arch: ArchConfig, shape: ShapeConfig,
 
 
 def build_serve_step(arch: ArchConfig, *, sampling=None,
-                     eos_id: Optional[int] = None) -> Callable:
+                     eos_id: Optional[int] = None,
+                     paged: bool = False) -> Callable:
     """Decode-step builder; see the module docstring for the two forms."""
+    if paged and sampling is None:
+        raise ValueError("paged serve steps require the sampling "
+                         "(state-threaded) form")
+    if paged:
+        from repro_torch.serving.pages import check_paged_supported
+        check_paged_supported(arch)
     if sampling is None:
         def serve_step(model: LM, caches, batch):
             hidden, caches = model(batch["tokens"], caches=caches,
@@ -65,8 +77,11 @@ def build_serve_step(arch: ArchConfig, *, sampling=None,
     eos = -1 if eos_id is None else int(eos_id)
 
     def serve_step(model: LM, caches, state: DecodeState):
+        table = None
+        if paged:  # stale-write gate: inactive slots write the null page
+            table = torch.where(state.active[:, None], state.page_table, 0)
         hidden, caches = model(state.tokens, caches=caches,
-                               positions=state.positions)
+                               positions=state.positions, page_table=table)
         nxt = SMP.sample(model.logits(hidden)[:, -1], sampling)
         cur = state.tokens[:, 0]
         active = state.active
@@ -79,7 +94,10 @@ def build_serve_step(arch: ArchConfig, *, sampling=None,
             # inert slots hold token/position so the grid stays fixed-shape
             tokens=torch.where(new_active, nxt, cur)[:, None],
             positions=state.positions + new_active.to(torch.int32)[:, None],
-            active=new_active, emitted=emitted, max_new=state.max_new)
+            active=new_active, emitted=emitted, max_new=state.max_new,
+            page_table=state.page_table,
+            seq_len=(None if state.seq_len is None
+                     else state.seq_len + active.to(torch.int32)))
         record = {"token": torch.where(emit, cur, -1), "emit": emit,
                   "finished": active & ~new_active}
         return state, caches, record

@@ -1,8 +1,8 @@
 """ServeConfig — the serve surface (the port's copy of the fields it reads).
 
-Mirrors ``repro/serving/config.py``. Only the fields this slice reads are
-carried over: the dense slot grid (``PagingConfig.paged`` must stay
-False), greedy sampling, lookahead, INT8 quantisation. Disaggregation,
+Mirrors ``repro/serving/config.py``. Only the fields the port reads are
+carried over: the slot grid or the paged pool (:class:`PagingConfig`),
+greedy sampling, lookahead, INT8 quantisation. Disaggregation,
 speculation and elastic replan arrive with their slices.
 """
 from __future__ import annotations
@@ -15,9 +15,14 @@ from repro_torch.quant import QuantConfig
 
 @dataclasses.dataclass(frozen=True)
 class PagingConfig:
-    """Paged KV (not ported yet: ``paged`` must be False)."""
+    """Paged-KV knobs (see ``serving.pages``). ``page_size`` / ``kv_pages``
+    default (``None``) to ``DEFAULT_PAGE_SIZE`` / ``default_kv_pages``;
+    ``prefix_cache`` turns on prefix reuse through the page registry."""
 
     paged: bool = False
+    page_size: Optional[int] = None
+    kv_pages: Optional[int] = None
+    prefix_cache: bool = True
 
 
 @dataclasses.dataclass(frozen=True)

@@ -12,6 +12,14 @@ host without blocking and a CUDA event is recorded after it; retiring a
 record waits on its event, and a record whose event has completed is
 retired early at no cost (the JAX engine polls ``is_ready`` instead).
 ``lookahead=0`` retires every record in the step that made it.
+
+With ``ServeConfig(paging=PagingConfig(paged=True))`` (the dense family)
+the KV lives in page pools (``serving/pages.py``) and the state carries
+a page table. A finished slot's pages are released when its record is
+retired; under lookahead 1 the step in flight at that moment no longer
+writes them (its table row for the slot is zeroed by the stale-write
+gate of the serve step) and any reuse by a later admission is enqueued
+behind it on the same stream.
 """
 from __future__ import annotations
 
@@ -29,6 +37,7 @@ from repro_torch import quant as Q
 from repro_torch.device import DeviceLike, default_dtype, resolve_device
 from repro_torch.models import registry as REG
 from repro_torch.models.lm import LM
+from repro_torch.serving import pages as PG
 from repro_torch.serving import sampler as SMP
 from repro_torch.serving.config import ServeConfig
 from repro_torch.serving.scheduler import Request, Scheduler
@@ -96,7 +105,16 @@ class ServingEngine:
     K/V, read by the int8 body of ``paged_attention``; with fp weights
     the activations stay in ``dtype``. Weights-only int8 on CUDA needs
     ``dtype=torch.float32`` (the fp decode kernel takes one dtype for q
-    and the grid)."""
+    and the grid).
+
+    ``config.paging`` (:class:`~repro_torch.serving.config.PagingConfig`)
+    with ``paged=True`` replaces the slot grid by page pools of
+    ``page_size`` tokens (default 64) and ``kv_pages`` pages (default
+    the dense equivalent plus the null page), int8 under ``kv="int8"``;
+    ``prefix_cache`` (default True) shares prompt prefixes across
+    requests. Only the dense family pages (the reference's
+    ``PAGED_FAMILIES``): the hybrid and ssm families raise
+    ``ValueError``."""
 
     def __init__(self, arch: ArchConfig, params: LM, *,
                  config: ServeConfig, device: DeviceLike = None,
@@ -104,9 +122,9 @@ class ServingEngine:
         dev = resolve_device(device)
         dtype = default_dtype(dev, dtype)
         config = config.resolve()
-        if config.paging.paged:
-            raise NotImplementedError("paged KV is not ported yet; serve "
-                                      "with PagingConfig(paged=False)")
+        paging = config.paging
+        if paging.paged:
+            PG.check_paged_supported(arch)
         SMP.check_supported(config.sampling)
         quant = config.quant
         if arch.family in ("hybrid", "ssm") \
@@ -133,15 +151,30 @@ class ServingEngine:
         self.model = params.to(device=dev, dtype=dtype)
         if quant.quant_weights:
             Q.quantize_params(self.model)
-        self.caches = self.model.make_caches(self.slots, self.max_len, dtype,
-                                             kv_quant=quant.quant_kv)
-        self.state = make_decode_state(self.slots, dev)
+        self.paged = paging.paged
+        self.page_size = paging.page_size or PG.DEFAULT_PAGE_SIZE
+        self.kv_pages = paging.kv_pages
+        table_len = None
+        if self.paged:
+            if self.kv_pages is None:
+                self.kv_pages = PG.default_kv_pages(self.slots, self.max_len,
+                                                    self.page_size)
+            table_len = PG.num_pages_per_slot(self.max_len, self.page_size)
+            self.caches = PG.make_paged_caches(
+                arch, self.kv_pages, self.page_size, device=dev, dtype=dtype,
+                kv_quant=quant.quant_kv)
+        else:
+            self.caches = self.model.make_caches(self.slots, self.max_len,
+                                                 dtype, kv_quant=quant.quant_kv)
+        self.state = make_decode_state(self.slots, dev, table_len)
         self._serve_step = REG.build_serve_step(arch, sampling=self.sampling,
-                                                eos_id=self.eos_id)
-        self.scheduler = Scheduler(arch, slots=self.slots,
-                                   max_len=self.max_len, cache_dtype=dtype,
-                                   sampling=self.sampling,
-                                   kv_quant=quant.quant_kv)
+                                                eos_id=self.eos_id,
+                                                paged=self.paged)
+        self.scheduler = Scheduler(
+            arch, slots=self.slots, max_len=self.max_len, cache_dtype=dtype,
+            sampling=self.sampling, kv_quant=quant.quant_kv, paged=self.paged,
+            page_size=self.page_size, kv_pages=self.kv_pages,
+            prefix_cache=paging.prefix_cache)
         self.completed: List[Request] = []
         self._pending: deque = deque()  # dispatched, unread step records
         self.step_times = deque(maxlen=4096)
@@ -202,6 +235,8 @@ class ServingEngine:
                 req.finished_at = time.time()
                 self.completed.append(req)
                 self.active[slot] = None
+                if self.paged:
+                    self.scheduler.release_slot(slot)
         return count
 
     def _flush(self) -> int:
@@ -263,13 +298,21 @@ class ServingEngine:
         }
 
     def prefill_stats(self) -> Dict[str, float]:
-        """Per-request and per-dispatch admission wall (host clock)."""
+        """Per-request and per-dispatch admission wall (host clock).
+        ``prefix_hit_rate`` is the fraction of prefix-registry lookups that
+        aliased shared pages (0.0 without a registry);
+        ``shared_dispatches`` counts the dispatches of shared-prefix
+        groups among ``prefill_dispatches``."""
         sched = self.scheduler
         ms = [t * 1e3 for t in sched.prefill_times]
         lens = list(sched.prefill_prompt_lens)
         disp_ms = [t * 1e3 for t in sched.prefill_dispatch_times]
         sizes = list(sched.prefill_batch_sizes)
+        reg = sched.registry
+        looked = (reg.hits + reg.misses) if reg is not None else 0
         return {
+            "prefix_hit_rate": (reg.hits / looked) if looked else 0.0,
+            "shared_dispatches": float(sched.prefill_shared_groups),
             "prefills": float(len(ms)),
             "prefill_p50_ms": percentile(ms, 50),
             "prefill_p95_ms": percentile(ms, 95),

@@ -20,6 +20,17 @@ whole rows of ring and state leaves. The ssm family (xlstm-350m)
 prefills with ``seq_lens`` too; it has no window, so its buckets start
 at ``MIN_BUCKET``, and its mLSTM and sLSTM states are spliced as whole
 rows.
+
+Paged (``paged=True``, the dense family; ``serving/pages.py``): each
+admission reserves pages for prompt + decode budget from a host
+:class:`~repro_torch.serving.pages.PagePool` and the prefill rows are
+spliced into the pools through the slots' page-table rows. With the
+prefix registry a prompt whose prefix is registered aliases the matched
+full pages (and copies a frontier page matched mid-page before writing
+into it), and its group ``("lm_shared", suffix bucket, m)`` prefills
+only the suffix against the gathered prefix (:func:`prefill_shared`).
+An admission the pool cannot hold goes back to the queue head, after
+the registry releases its cold entries, and waits for retiring slots.
 """
 from __future__ import annotations
 
@@ -32,6 +43,7 @@ import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models.lm import LM
+from repro_torch.serving import pages as PG
 from repro_torch.serving import sampler as SMP
 from repro_torch.serving.state import DecodeState, admit_rows
 
@@ -128,6 +140,27 @@ def prefill_rows(model: LM, tokens: torch.Tensor, lens: torch.Tensor,
     return invalidate_padding(rows, lens), logits
 
 
+def prefill_shared(model: LM, pools: List[dict], page_rows: torch.Tensor,
+                   m: int, tokens: torch.Tensor, lens: torch.Tensor
+                   ) -> Tuple[List[dict], torch.Tensor]:
+    """Compute-skip suffix prefill of one shared group: gather the prefix
+    pages ``page_rows [n, span]`` (``pages.gather_prefix``) and run only
+    the suffix tokens [n, bucket] through the stack at positions
+    ``m..m+bucket-1``. ``lens`` [n] are the total prompt lengths. Returns
+    the suffix's fp rows (``pos`` absolute, invalidated past each length:
+    the paged splice routes them past the shared region) and the logits
+    at each row's last position (``lens - m - 1`` in the suffix)."""
+    n, bucket = tokens.shape
+    dev = tokens.device
+    pre = PG.gather_prefix(pools, page_rows, m)
+    positions = m + torch.arange(bucket, dtype=torch.int32,
+                                 device=dev)[None].expand(n, bucket)
+    hidden, rows = model(tokens, caches=pre, positions=positions,
+                         seq_lens=lens)
+    last = hidden[torch.arange(n, device=dev), lens.long() - m - 1]
+    return invalidate_padding(rows, lens), model.logits(last[:, None])
+
+
 class Scheduler:
     """Host-side slot lifecycle; device mutation goes through the model,
     :func:`splice_rows` and :func:`admit_rows`."""
@@ -135,7 +168,9 @@ class Scheduler:
     def __init__(self, arch: ArchConfig, *, slots: int, max_len: int,
                  cache_dtype: torch.dtype,
                  sampling: SMP.SamplingParams = SMP.GREEDY,
-                 min_bucket: int = MIN_BUCKET, kv_quant: bool = False):
+                 min_bucket: int = MIN_BUCKET, kv_quant: bool = False,
+                 paged: bool = False, page_size: int = PG.DEFAULT_PAGE_SIZE,
+                 kv_pages: Optional[int] = None, prefix_cache: bool = True):
         self.arch = arch
         self.slots = slots
         self.max_len = max_len
@@ -145,12 +180,27 @@ class Scheduler:
         self.min_bucket = bucket_floor(arch, max_len, min_bucket)
         self.queue: List[Request] = []
         self.active: Dict[int, Optional[Request]] = {i: None for i in range(slots)}
+        self.paged = paged
+        self.page_size = page_size
+        self.pool: Optional[PG.PagePool] = None
+        self.registry: Optional[PG.PrefixRegistry] = None
+        self.slot_pages: Dict[int, List[int]] = {}
+        self._matches: Dict[int, Tuple[int, Tuple[int, ...], Optional[int]]] = {}
+        if paged:
+            PG.check_paged_supported(arch)
+            self.table_len = PG.num_pages_per_slot(max_len, page_size)
+            if kv_pages is None:
+                kv_pages = PG.default_kv_pages(slots, max_len, page_size)
+            self.pool = PG.PagePool(kv_pages, page_size)
+            if prefix_cache:
+                self.registry = PG.PrefixRegistry(self.pool)
         # host wall per admission (dispatch of prefill + splice + admit);
         # the device work overlaps the in-flight decode step
         self.prefill_times = deque(maxlen=4096)
         self.prefill_prompt_lens = deque(maxlen=4096)
         self.prefill_dispatch_times = deque(maxlen=4096)
         self.prefill_batch_sizes = deque(maxlen=4096)
+        self.prefill_shared_groups = 0  # dispatches of "lm_shared" groups
 
     def submit(self, req: Request) -> None:
         total = len(req.prompt)
@@ -169,9 +219,59 @@ class Scheduler:
     def has_active(self) -> bool:
         return any(r is not None for r in self.active.values())
 
+    # ------------------------- page accounting --------------------------
+    def _alloc_slot_pages(self, req: Request):
+        """Reserve the pages one admission needs: fresh pages covering
+        prompt + decode budget, with a matched prefix's full pages
+        aliased (refcount + 1) ahead of them. Returns ``(row [table_len]
+        int32, owned pages, (cow_dst, cow_src) or None)``; raises
+        :class:`pages.PagePoolExhausted` when the pool cannot hold it."""
+        need = -(-(len(req.prompt) + req.max_new_tokens) // self.page_size)
+        waiting = [req.rid] + [r.rid for r in self.queue]
+        row = np.zeros((self.table_len,), np.int32)
+        match = self._matches.get(req.rid)
+        if match is not None and match[0]:
+            _, chain, frontier = match
+            j = len(chain)
+            fresh = self.pool.alloc(need - j, waiting=waiting)
+            self.pool.retain(chain)
+            row[:j] = chain
+            row[j:need] = fresh
+            # a mid-page match: the suffix continues inside the owner's
+            # frontier page, so it writes into a private copy of it
+            cow = (fresh[0], frontier) if frontier is not None else None
+            return row, list(chain) + fresh, cow
+        pages = self.pool.alloc(need, waiting=waiting)
+        row[:need] = pages
+        return row, pages, None
+
+    def release_slot(self, slot: int) -> None:
+        """Return a retired slot's pages to the pool (refcount - 1; pages
+        still pinned by the prefix registry or a sharer stay resident)."""
+        pages = self.slot_pages.pop(slot, None)
+        if pages is not None:
+            self.pool.release(pages)
+
+    # ---------------------------- admission ----------------------------
+    def _group_key(self, req: Request) -> Tuple[str, int, int]:
+        total = len(req.prompt)
+        if self.registry is not None:
+            m, chain, frontier = self.registry.lookup(
+                np.asarray(req.prompt, np.int32))
+            if m:
+                # only the unmatched suffix runs through prefill, bucketed
+                # on its own length; every member of the group shares m,
+                # so it gathers the same page span
+                self._matches[req.rid] = (m, chain, frontier)
+                return ("lm_shared", bucket_len(total - m, self.max_len,
+                                                min_bucket=self.min_bucket), m)
+        return ("lm", bucket_len(total, self.max_len,
+                                 min_bucket=self.min_bucket), 0)
+
     def admit(self, model: LM, caches: List[dict], state: DecodeState):
         """Fill free slots from the queue; returns updated (caches, state).
-        All waiting requests of one bucket become one batched prefill, one
+        All waiting requests of one group (bucket; with a shared prefix,
+        suffix bucket and prefix length) become one batched prefill, one
         splice and one state scatter."""
         free = [s for s, occ in self.active.items() if occ is None]
         take = min(len(free), len(self.queue))
@@ -179,14 +279,38 @@ class Scheduler:
             return caches, state
         pairs = list(zip(self.queue[:take], free))
         del self.queue[:take]
-        groups: Dict[int, List[Tuple[Request, int]]] = {}
+        self._matches.clear()
+        groups: Dict[Tuple[str, int, int], List[Tuple[Request, int]]] = {}
         for req, slot in pairs:
-            bucket = bucket_len(len(req.prompt), self.max_len,
-                                min_bucket=self.min_bucket)
-            groups.setdefault(bucket, []).append((req, slot))
+            groups.setdefault(self._group_key(req), []).append((req, slot))
 
         dev = model.device
-        for bucket, group in sorted(groups.items()):
+        admitted = set()
+        exhausted = False
+        for (kind, bucket, prefix), group in sorted(groups.items()):
+            if exhausted:
+                break
+            page_rows, owned, cows = [], [], []
+            if self.paged:
+                kept = []
+                for req, slot in group:
+                    try:
+                        row, own, cow = self._alloc_slot_pages(req)
+                    except PG.PagePoolExhausted:
+                        # degrade to queueing: the rest of the wave goes
+                        # back to the queue head and waits for retiring
+                        # slots (or a registry eviction) to free pages
+                        exhausted = True
+                        if self.registry is not None:
+                            self.registry.evict_unreferenced()
+                        break
+                    kept.append((req, slot))
+                    page_rows.append(row)
+                    owned.append(own)
+                    cows.append(cow)
+                group = kept
+                if not group:
+                    continue
             t0 = time.perf_counter()
             n = len(group)
             toks = np.zeros((n, bucket), np.int32)
@@ -195,30 +319,59 @@ class Scheduler:
             max_new = np.zeros((n,), np.int32)
             for i, (req, slot) in enumerate(group):
                 s = len(req.prompt)
-                toks[i, :s] = req.prompt
+                toks[i, :s - prefix] = req.prompt[prefix:]
                 lens[i] = s
                 slots_arr[i] = slot
                 max_new[i] = req.max_new_tokens
             lens_t = torch.from_numpy(lens).to(dev)
             slots_t = torch.from_numpy(slots_arr).to(dev)
-            rows, logits = prefill_rows(model, torch.from_numpy(toks).to(dev),
-                                        lens_t, self.cache_dtype,
-                                        kv_quant=self.kv_quant)
-            splice_rows(caches, rows, slots_t)
+            toks_t = torch.from_numpy(toks).to(dev)
+            rows_t = (torch.from_numpy(np.stack(page_rows)).to(dev)
+                      if self.paged else None)
+            if kind == "lm_shared":
+                pairs_cow = [c for c in cows if c is not None]
+                if pairs_cow:
+                    PG.copy_pages(caches, [d for d, _ in pairs_cow],
+                                  [s_ for _, s_ in pairs_cow])
+                span = -(-prefix // self.page_size)
+                rows, logits = prefill_shared(model, caches, rows_t[:, :span],
+                                              prefix, toks_t, lens_t)
+                self.prefill_shared_groups += 1
+            else:
+                rows, logits = prefill_rows(model, toks_t, lens_t,
+                                            self.cache_dtype,
+                                            kv_quant=self.kv_quant)
+            if self.paged:
+                PG.splice_pages(caches, rows, rows_t)
+            else:
+                splice_rows(caches, rows, slots_t)
             first = SMP.sample(logits[:, -1], self.sampling)
             state = admit_rows(state, slots_t, first, lens_t,
-                               torch.from_numpy(max_new).to(dev))
-            for req, slot in group:
+                               torch.from_numpy(max_new).to(dev),
+                               page_rows=rows_t)
+            for i, (req, slot) in enumerate(group):
                 self.active[slot] = req
+                admitted.add(req.rid)
+                if self.paged:
+                    self.slot_pages[slot] = owned[i]
+                    if self.registry is not None:
+                        cover = -(-len(req.prompt) // self.page_size)
+                        self.registry.register(
+                            np.asarray(req.prompt, np.int32),
+                            page_rows[i][:cover].tolist())
             wall = time.perf_counter() - t0
             self.prefill_dispatch_times.append(wall)
             self.prefill_batch_sizes.append(n)
             for req, _ in group:
                 self.prefill_times.append(wall / n)
                 self.prefill_prompt_lens.append(len(req.prompt))
+        leftover = [req for req, _ in pairs if req.rid not in admitted]
+        if leftover:  # pool exhausted mid-wave: requeue in arrival order
+            self.queue[:0] = leftover
         return caches, state
 
     def reset_stats(self) -> None:
+        self.prefill_shared_groups = 0
         self.prefill_times.clear()
         self.prefill_prompt_lens.clear()
         self.prefill_dispatch_times.clear()

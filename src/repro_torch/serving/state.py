@@ -9,13 +9,22 @@ Mirrors ``repro/serving/state.py`` for the dense greedy engine:
   emitted    [slots]    int32 — tokens emitted so far (EOS never counts)
   max_new    [slots]    int32 — per-request emission budget
 
-The sampling keys and the enc-dec, paged and speculative leaves arrive
-with their slices. Inert slots keep their last token/position so the
-grid stays fixed-shape.
+Paged engines (``serving.pages``) carry two more leaves (None
+otherwise):
+
+  page_table [slots, M] int32 — physical page per logical position block
+                                (M = ceil(max_len / page_size)); 0 is
+                                the reserved null page
+  seq_len    [slots]    int32 — tokens resident in the slot's pages
+
+The sampling keys and the enc-dec and speculative leaves arrive with
+their slices. Inert slots keep their last token/position so the grid
+stays fixed-shape.
 """
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 import torch
 
@@ -27,24 +36,34 @@ class DecodeState:
     active: torch.Tensor
     emitted: torch.Tensor
     max_new: torch.Tensor
+    page_table: Optional[torch.Tensor] = None
+    seq_len: Optional[torch.Tensor] = None
 
 
-def make_decode_state(slots: int, device: torch.device) -> DecodeState:
-    """Fresh all-inert state."""
+def make_decode_state(slots: int, device: torch.device,
+                      table_len: Optional[int] = None) -> DecodeState:
+    """Fresh all-inert state; ``table_len`` (paged engines) adds a zeroed
+    page table of that width and ``seq_len``."""
     i32 = dict(dtype=torch.int32, device=device)
+    paged = table_len is not None
     return DecodeState(
         tokens=torch.zeros((slots, 1), **i32),
         positions=torch.zeros((slots, 1), **i32),
         active=torch.zeros((slots,), dtype=torch.bool, device=device),
         emitted=torch.zeros((slots,), **i32),
         max_new=torch.ones((slots,), **i32),
+        page_table=torch.zeros((slots, table_len), **i32) if paged else None,
+        seq_len=torch.zeros((slots,), **i32) if paged else None,
     )
 
 
 def admit_rows(state: DecodeState, slots: torch.Tensor, tokens: torch.Tensor,
-               positions: torch.Tensor, max_new: torch.Tensor) -> DecodeState:
+               positions: torch.Tensor, max_new: torch.Tensor,
+               page_rows: Optional[torch.Tensor] = None) -> DecodeState:
     """Write ``n`` freshly-prefilled requests at ``slots [n]`` (distinct):
-    one scatter per field."""
+    one scatter per field. Paged engines pass ``page_rows [n, M]``, the
+    slots' page-table rows; ``seq_len`` starts at the prompt length
+    (``positions``)."""
     n = slots.shape[0]
 
     def put(arr, vals):
@@ -59,4 +78,8 @@ def admit_rows(state: DecodeState, slots: torch.Tensor, tokens: torch.Tensor,
         emitted=put(state.emitted, torch.zeros((n,), dtype=torch.int32,
                                                device=slots.device)),
         max_new=put(state.max_new, max_new),
+        page_table=(state.page_table if page_rows is None
+                    else put(state.page_table, page_rows)),
+        seq_len=(state.seq_len if page_rows is None
+                 else put(state.seq_len, positions)),
     )

@@ -40,7 +40,8 @@ def _no_launches():
     ops.reset_launches()
     yield
     counts = ops.launch_counts()
-    assert set(counts) == {"xfer_matmul", "flash_attention", "paged_attention",
+    assert set(counts) == {"xfer_matmul", "flash_attention",
+                           "flash_attention_q8", "paged_attention",
                            "paged_attention_q8", "quant_matmul", "rglru_scan",
                            "mlstm_chunkwise"}
     assert not any(counts.values()), counts

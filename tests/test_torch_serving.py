@@ -182,12 +182,17 @@ def test_run_until_drained_raises_with_unfinished_rids(setup):
 
 
 def test_unported_options_raise(setup):
+    from repro_torch.models.registry import init_params
     from repro_torch.serving import PagingConfig, SamplingParams
     _, _, arch, tree = setup
     model = bridge.from_jax_params(tree, arch, device="cpu")
-    with pytest.raises(NotImplementedError):
-        ServingEngine(arch, model, device="cpu", config=ServeConfig(
-            slots=2, max_len=16, paging=PagingConfig(paged=True)))
+    for family_id in ("recurrentgemma-2b", "xlstm-350m"):  # PAGED_FAMILIES
+        other = get_arch(family_id).reduced()
+        with pytest.raises(ValueError, match="paged KV cache supports"):
+            ServingEngine(other, init_params(other, 0, device="cpu"),
+                          device="cpu", config=ServeConfig(
+                              slots=2, max_len=16,
+                              paging=PagingConfig(paged=True)))
     with pytest.raises(NotImplementedError):
         ServingEngine(arch, model, device="cpu", config=ServeConfig(
             slots=2, max_len=16,
