@@ -8,10 +8,15 @@ Phases (each failure propagates; the process exits non-zero):
 1. card identity: ``nvidia-smi`` name and power limit, TF32 off;
 2. build every kernel from ``src/repro_torch/kernels/csrc`` with nvcc,
    print each kernel's ``ptxas -v`` registers, shared memory and spills,
-   and fail if a head-dim-256 variant, ``rglru_scan`` or
-   ``mlstm_chunkwise`` spills;
+   and fail if a kernel named in ``NO_SPILL`` spills (the head-dim-256
+   variants, ``rglru_scan``, ``mlstm_chunkwise``, ``xfer_matmul``'s
+   streaming and tensor-core kernels, the fp ``paged_attention`` body);
 3. each kernel against its plain PyTorch version on the card, at the
-   serving path's shapes plus one ragged case each, in fp32 (tolerance
+   serving path's shapes plus one ragged case each (``xfer_matmul`` also
+   prints the kernel its route picked; it and the fp ``paged_attention``,
+   which reduce across blocks, must give bit-equal outputs on two calls;
+   every timed bf16 matmul shape is kept in the kernel line under
+   ``shapes``, the paged cases with their every-length times), in fp32 (tolerance
    1e-3: summation order) and bf16 (5e-2, the tests/test_kernels.py bf16
    tolerance), each element's error against its own magnitude plus its
    row's RMS (case tables ``MM_CASES``, ``FA_CASES``, ``PA_CASES``); kernel,
@@ -200,6 +205,17 @@ def compare(name: str, got, want, dtype: str) -> float:
     return max_err
 
 
+def bit_stable(name: str, first, second) -> None:
+    """Two calls on the same inputs give bit-equal outputs: the kernels
+    that reduce across blocks do so in a fixed order, without float
+    atomics."""
+    import torch
+    if not torch.equal(first, second):
+        diff = float((first.float() - second.float()).abs().max())
+        raise AssertionError(f"{name}: two calls on the same inputs differ "
+                             f"(max {diff:.3e})")
+
+
 def iters_for(flops: float):
     """(timed iterations, warm-up calls): fewer for a case of 1e11 flops
     and more."""
@@ -301,6 +317,7 @@ def check_kernels(dev) -> dict:
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import ops
+    from repro_torch.kernels.xfer_matmul import route as xfer_route
 
     gen = torch.Generator(device=dev).manual_seed(0)
     dtypes = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -314,6 +331,8 @@ def check_kernels(dev) -> dict:
         return (time_ms(fn, it, wu), time_ms(plain, it, wu),
                 time_ms(lib, it, wu))
 
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    shapes = entries.setdefault("xfer_matmul", {}).setdefault("shapes", [])
     for label, r, n, m, transposed, dnames, timed, entry in MM_CASES:
         for dname in dnames:
             dt = dtypes[dname]
@@ -322,10 +341,13 @@ def check_kernels(dev) -> dict:
                 w = randn(m, n, dt=dt, scale=n ** -0.5).T  # strided view
             else:
                 w = randn(n, m, dt=dt, scale=n ** -0.5)
+            rt = xfer_route(r, n, m, dt, w.stride(), sms)
             got = ops.matmul(x, w)
             err = compare(f"xfer_matmul {label} {dname}", got,
                           ops.matmul_ref(x, w), dname)
-            line = f"[kernel] xfer_matmul {label} {dname}: max_abs_err {err:.3e}"
+            bit_stable(f"xfer_matmul {label} {dname}", got, ops.matmul(x, w))
+            line = (f"[kernel] xfer_matmul {label} {dname}: route {rt.kernel} "
+                    f"grid {rt.grid} splits {rt.splits}; max_abs_err {err:.3e}")
             if timed and dname == "bfloat16":
                 flops = 2.0 * r * n * m
                 ms, plain, lib = times(lambda: ops.matmul(x, w),
@@ -334,11 +356,15 @@ def check_kernels(dev) -> dict:
                 b, kind = bound_ms((r * n + n * m + r * m) * x.element_size(),
                                    flops, dname)
                 line += (f" ms {ms:.4f} plain_ms {plain:.4f} library_ms "
-                         f"{lib:.4f} bound_ms {b:.4f} ({kind})")
-                record(entries, "xfer_matmul", entry, dict(
-                    shape=f"x[{r},{n}] @ embed.T[{n},{m}] bf16",
-                    max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=b,
-                    bound_by=kind, library_ms=lib))
+                         f"{lib:.4f} bound_ms {b:.4f} ({kind}) kernel/library "
+                         f"{ms / lib:.2f}")
+                row = dict(shape=f"x[{r},{n}] @ {'embed.T' if transposed else 'w'}"
+                                 f"[{n},{m}] bf16",
+                           variant=rt.kernel, max_abs_err=err, ms=ms,
+                           plain_ms=plain, bound_ms=b, bound_by=kind,
+                           library_ms=lib)
+                shapes.append(row)
+                record(entries, "xfer_matmul", entry, row)
             log(line)
             del x, w, got
 
@@ -391,6 +417,8 @@ def check_kernels(dev) -> dict:
             got = ops.paged_attn(q, kp, vp, tb, lens)
             want = ops.paged_attn_ref(q, kp, vp, tb, lens)
             err = compare(f"paged_attention {label} {dname}", got, want, dname)
+            bit_stable(f"paged_attention {label} {dname}", got,
+                       ops.paged_attn(q, kp, vp, tb, lens))
             line = f"[kernel] paged_attention {label} {dname}: max_abs_err {err:.3e}"
             if not (timed and dname == "bfloat16"):
                 log(line)
@@ -417,18 +445,24 @@ def check_kernels(dev) -> dict:
             lib_note = " (SDPA, length mask)" if h == g else \
                 " (SDPA, length mask, GQA)"
             log(line + f" ms {ms:.4f} plain_ms {plain:.4f} library_ms "
-                f"{lib:.4f}{lib_note} bound_ms {nb:.4f} ({kind})")
+                f"{lib:.4f}{lib_note} bound_ms {nb:.4f} ({kind}) "
+                f"kernel/library {ms / lib:.2f}")
+            # every row at the full grid, as most decode steps run it
+            full = torch.full_like(lens, t)
+            full_ms = time_ms(lambda: ops.paged_attn(q, kp, vp, tb, full))
+            full_lib = time_ms(lambda: F.scaled_dot_product_attention(
+                q4, k4, v4, enable_gqa=h != g))
+            full_nb, full_kind = bound(b * t)
+            log(f"[kernel] paged_attention {label}, every length {t}, "
+                f"{dname}: ms {full_ms:.4f} library_ms {full_lib:.4f} (SDPA, "
+                f"no mask) bound_ms {full_nb:.4f} ({full_kind})")
             record(entries, "paged_attention", entry, dict(
                 shape=f"q[{b},{h},{d}] grid[{b},{t},{g},{d}] lengths "
                       f"{lengths} bf16",
                 max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=nb,
-                bound_by=kind, library_ms=lib))
-            # every row at the full grid, as most decode steps run it
-            full = torch.full_like(lens, t)
-            ms = time_ms(lambda: ops.paged_attn(q, kp, vp, tb, full))
-            nb, kind = bound(b * t)
-            log(f"[kernel] paged_attention {label}, every length {t}, "
-                f"{dname}: ms {ms:.4f} bound_ms {nb:.4f} ({kind})")
+                bound_by=kind, library_ms=lib, every_length=dict(
+                    ms=full_ms, library_ms=full_lib, bound_ms=full_nb,
+                    bound_by=full_kind)))
             del q, kp, vp, got, want
     entries.update(check_int8_kernels(dev, gen))
     check_flash_q8(dev, gen, entries)
@@ -1824,10 +1858,13 @@ def parity_paged(dev) -> None:
 
 
 # kernels that must compile without spills: the head-dim-256 variants
-# (flash_split_kernel, the 256-thread paged_kernel), rglru_scan and
-# mlstm_chunkwise
+# (flash_split_kernel, the int8 paged_kernel), rglru_scan,
+# mlstm_chunkwise, xfer_matmul's decode and tensor-core kernels and the fp
+# paged_attention body
 NO_SPILL = ("flash_split_kernel", "paged_kernel", "rglru_kernel",
-            "mlstm_kernel")
+            "mlstm_kernel", "stream_rows_kernel", "stream_mma_kernel",
+            "stream_cols_kernel", "tc_kernel", "wg_kernel",
+            "paged_split_kernel")
 
 
 def check_ptxas(build_log: dict) -> None:
@@ -1867,7 +1904,8 @@ def kernel_table(entries: dict, counts: dict) -> list:
                "bound_by": e["bound_by"], "library_ms": e["library_ms"],
                "shape": e["shape"]}
         for key in ("yardstick_ms", "yardstick", "library_error", "hybrid",
-                    "ssm", "prefix", "own"):
+                    "ssm", "prefix", "own", "variant", "every_length",
+                    "shapes"):
             if key in e:
                 row[key] = e[key]
         kernels.append(row)

@@ -3,7 +3,8 @@ the typed call into a kernel's C entry."""
 from __future__ import annotations
 
 import ctypes
-from typing import Callable, Dict, Optional, Sequence
+import functools
+from typing import Callable, Dict, Optional, Sequence, Tuple
 
 import torch
 
@@ -13,6 +14,38 @@ from repro_torch.kernels import build
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 _entries: Dict[str, Callable[..., int]] = {}
+_scratch: Dict[tuple, Tuple[torch.Tensor, torch.Tensor]] = {}
+
+
+def sm_count(device: torch.device) -> int:
+    """Streaming multiprocessors of a CUDA device (cached)."""
+    return _sm_count(device.index if device.index is not None
+                     else torch.cuda.current_device())
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def scratch(name: str, device: torch.device, floats: int,
+            counters: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """A kernel's cross-block workspace on ``device``: at least ``floats``
+    f32 values and ``counters`` int32 counters. Kept per (kernel, device)
+    and grown, never shrunk; the counters are zeroed once when allocated
+    and every kernel that uses them leaves them at 0 when it exits, so a
+    call costs no memset. Calls on one stream run in order, so one
+    workspace serves them all."""
+    key = (name, device.index)
+    ws, cnt = _scratch.get(key, (None, None))
+    if ws is None or ws.numel() < floats:
+        ws = torch.empty(max(floats, 1 << 16), dtype=torch.float32,
+                         device=device)
+    if cnt is None or cnt.numel() < counters:
+        cnt = torch.zeros(max(counters, 1024), dtype=torch.int32,
+                          device=device)
+    _scratch[key] = (ws, cnt)
+    return ws, cnt
 
 
 def check_device(name: str, *tensors: torch.Tensor) -> None:
@@ -48,20 +81,37 @@ def check_cuda(name: str, *tensors: torch.Tensor) -> None:
     check_dtype(name, tensors[0].dtype, *tensors[1:])
 
 
-def launch(name: str, argtypes: Sequence, *args,
-           source: Optional[str] = None) -> None:
-    """Call the C entry ``<name>_launch`` of ``csrc/<source>.cu``
-    (``source`` defaults to ``name``; built and loaded on first use) with
-    ``args`` and PyTorch's current stream appended. The C entry returns
-    the ``cudaError_t`` of its launch; raise if it is not 0."""
-    source = source or name
+def entry(name: str, argtypes: Sequence,
+          source: Optional[str] = None) -> Callable[..., int]:
+    """The C entry ``<name>_launch`` of ``csrc/<source>.cu`` (``source``
+    defaults to ``name``; built and loaded on first use), typed with
+    ``argtypes`` and the stream after them."""
     fn = _entries.get(name)
     if fn is None:
-        fn = getattr(build.library(source), f"{name}_launch")
+        fn = getattr(build.library(source or name), f"{name}_launch")
         fn.argtypes = [*argtypes, ctypes.c_void_p]
         fn.restype = ctypes.c_int
         _entries[name] = fn
-    rc = fn(*args, torch.cuda.current_stream().cuda_stream)
+    return fn
+
+
+def current_stream(index: int) -> int:
+    """PyTorch's current stream on CUDA device ``index``, as a raw handle."""
+    return torch._C._cuda_getCurrentRawStream(index)
+
+
+def check_rc(name: str, rc: int, source: Optional[str] = None) -> None:
+    """Raise if a C entry returned a CUDA error."""
     if rc != 0:
-        msg = build.library(source).error_string(rc).decode()
+        msg = build.library(source or name).error_string(rc).decode()
         raise RuntimeError(f"{name}: CUDA launch failed with error {rc}: {msg}")
+
+
+def launch(name: str, argtypes: Sequence, *args,
+           source: Optional[str] = None) -> None:
+    """Call the C entry ``<name>_launch`` of ``csrc/<source>.cu`` with
+    ``args`` and PyTorch's current stream appended. The C entry returns
+    the ``cudaError_t`` of its launch; raise if it is not 0."""
+    fn = entry(name, argtypes, source)
+    check_rc(name, fn(*args, current_stream(torch.cuda.current_device())),
+             source)

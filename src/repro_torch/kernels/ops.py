@@ -56,6 +56,7 @@ int8_matmul_ref = ref.quant_matmul_ref
 attention_ref = ref.flash_attention_ref
 prefix_attention_ref = ref.prefix_attention_ref
 paged_attn_ref = ref.paged_attention_ref
+paged_attn_split_ref = ref.paged_attention_split_ref
 lru_scan_ref = ref.rglru_scan_ref
 mlstm_ref = ref.mlstm_ref
 mlstm_fold_ref = ref.mlstm_chunkwise_ref

@@ -8,11 +8,18 @@ D]``, page pools kp/vp ``[P, ps, G, D]``, ``page_table [B, M]`` int32,
 or past ``lengths[b]`` are masked; online softmax across the row.
 
 Bound on the H100: the bytes of the valid K/V rows (4·D flops per
-4·D bytes in bf16). One block per (row, head) reads its own table row
-and length and stops at the length — the TPU grid walked all M pages.
-Head dims that divide 128 run 128-thread blocks; D = 256
-(recurrentgemma-2b) runs 256-thread blocks; the C entry refuses any
-other head dim, and :func:`launch` raises its error.
+4·D bytes in bf16, per query head of a group). The fp body runs one block
+per (row, kv group, chunk of :data:`CHUNK` positions): every query head
+of the group is computed from each K/V tile loaded (the TPU body's
+grouping), tiles are staged through the page table with 16-byte
+``cp.async`` loads, and a row's chunks are merged in chunk order inside
+the same launch by the chunk that arrives last, through a per-device
+workspace (:func:`chunk_plan` gives the grid; the plain mirror of that
+split is ``ref.paged_attention_split_ref``). Chunks past a row's length
+exit at once; the wrapper never reads ``lengths`` or the table on the
+card. Head dims that divide 128, and D = 256 (recurrentgemma-2b), are
+taken; the C entry refuses any other head dim, and :func:`launch` raises
+its error.
 
 The dense serving slot grid ``[slots, max_len, G, D]`` is read as a pool
 of ``P = slots`` pages of ``ps = max_len`` with an identity table
@@ -23,10 +30,10 @@ grid that is the engine's ``positions < max_len``.
 INT8 pools (``QuantConfig(kv="int8")``) pass their per-token f32 scale
 pools ``k_scale``/``v_scale`` ``[P, ps, G, 1]``; they go to the int8
 body of the same source (:func:`paged_attention_q8`, which replaces
-``_paged_kernel_q8``), which dequantises each element in registers in
-f32 before its dot, so the fp extent never exists in device memory. Its
-bound is the valid int8 rows and their scales, about half the bf16
-bytes.
+``_paged_kernel_q8``): one block per (row, head), each element
+dequantised in registers in f32 before its dot, so the fp extent never
+exists in device memory. Its bound is the valid int8 rows and their
+scales, about half the bf16 bytes.
 
 A CPU tensor takes the plain version (:func:`plain`); a CUDA tensor
 launches the kernel or raises. ``paged_attention.launches`` counts the
@@ -41,14 +48,27 @@ import torch
 
 from repro_torch.kernels._launch import (DTYPE_CODES, check_cuda,
                                          check_device, check_dtype,
-                                         check_float, launch)
+                                         check_float, launch, scratch)
 from repro_torch.kernels.ref import paged_attention_ref as plain
 
 
 _VP, _I = ctypes.c_void_p, ctypes.c_int
 _GEOMETRY = (_I, _I, _I, _I, _I, _I, _I, ctypes.c_float, _I)
-_ARGTYPES = (_VP,) * 6 + _GEOMETRY
+_ARGTYPES = (_VP,) * 8 + _GEOMETRY[:7] + (_I,) + _GEOMETRY[7:]
 _ARGTYPES_Q8 = (_VP,) * 8 + _GEOMETRY
+
+#: positions per block of the fp body (its flash-decoding split): two
+#: 64-token pages. recurrentgemma-2b's ring of 2048 on 8 slots then runs
+#: on 128 blocks, about one per SM; at 256 positions it filled 64.
+CHUNK = 128
+
+
+def chunk_plan(table_cols: int, page_size: int) -> tuple:
+    """(chunks per row, positions per chunk) of the fp body for a page
+    table of ``table_cols`` pages of ``page_size`` positions: counted in
+    positions, so the same table width gives the same chunks whatever the
+    page size."""
+    return -(-(table_cols * page_size) // CHUNK), CHUNK
 
 
 def paged_attention(q: torch.Tensor, kp: torch.Tensor, vp: torch.Tensor,
@@ -102,10 +122,13 @@ def paged_attention(q: torch.Tensor, kp: torch.Tensor, vp: torch.Tensor,
     out = torch.empty_like(q)
     if b == 0:
         return out
+    chunks, _ = chunk_plan(m, ps)
+    ws, counters = scratch("paged_attention", q.device,
+                           b * h * chunks * (d + 2), b * g)
     launch("paged_attention", _ARGTYPES, q.data_ptr(), kp.data_ptr(),
            vp.data_ptr(), page_table.data_ptr(), lengths.data_ptr(),
-           out.data_ptr(), b, h, g, d, ps, m, n_pages, 1.0 / math.sqrt(d),
-           DTYPE_CODES[q.dtype])
+           out.data_ptr(), ws.data_ptr(), counters.data_ptr(), b, h, g, d,
+           ps, m, n_pages, CHUNK, 1.0 / math.sqrt(d), DTYPE_CODES[q.dtype])
     paged_attention.launches += 1
     return out
 

@@ -14,9 +14,11 @@ operations-per-byte ridge, so it is bound by the bytes of ``w_q`` — half
 of what ``xfer_matmul`` reads in bf16. The kernel reads each weight byte
 once per block of rows, widened to fp32 in shared memory, coalesced
 along whichever axis of ``w_q`` is contiguous: the tied unembedding
-passes the strided view ``embed.q.T`` with no transposed copy. Like
-``xfer_matmul`` it has 16 column blocks for a 1024-wide decode output,
-too few for 132 SMs (split-K is later work).
+passes the strided view ``embed.q.T`` with no transposed copy. It runs
+the CUDA-core tile kernel that ``xfer_matmul`` keeps for fp32 and
+misaligned shapes: 16 column blocks for a 1024-wide decode output, too
+few for 132 SMs. Moving it onto ``xfer_matmul``'s split-K decode design
+is queued work.
 
 The block is 16 rows high when R <= 16 (decode), else 64. Ragged edges
 are masked in the kernel.

@@ -116,6 +116,49 @@ def paged_attention_ref(q: torch.Tensor, kp: torch.Tensor, vp: torch.Tensor,
     return o.reshape(b, h, d).to(q.dtype)
 
 
+def paged_attention_split_ref(q: torch.Tensor, kp: torch.Tensor,
+                              vp: torch.Tensor, page_table: torch.Tensor,
+                              lengths: torch.Tensor, *,
+                              chunk: int = 256) -> torch.Tensor:
+    """The fp ``paged_attention`` kernel's algorithm in plain PyTorch: the
+    row's positions cut into chunks of ``chunk`` (counted over the whole
+    table width, so chunks past a row's length are empty), each chunk's
+    (m, l, acc) from its own softmax, then the chunks merged in chunk
+    order with weight ``exp(m_c - max m)`` and one division by
+    ``max(l, 1e-30)``. An empty chunk (m = -1e30, l = 0) merges with
+    weight exactly 0. Same arguments and result as
+    :func:`paged_attention_ref` without the scale pools."""
+    b, h, d = q.shape
+    ps, g = kp.shape[1], kp.shape[2]
+    t = page_table.shape[1] * ps
+    rep = h // g
+    table = page_table.long()
+    k = kp[table].reshape(b, t, g, d).float()
+    v = vp[table].reshape(b, t, g, d).float()
+    qg = q.float().reshape(b, g, rep, d) / math.sqrt(d)
+    s = torch.einsum("bgrd,btgd->bgrt", qg, k)
+    valid = (torch.arange(t, device=q.device)[None]
+             < lengths.to(q.device)[:, None])[:, None, None, :]
+    s = torch.where(valid, s, NEG_INF)
+    ms, ls, accs = [], [], []
+    for c0 in range(0, t, chunk):
+        sc, vc = s[..., c0:c0 + chunk], valid[..., c0:c0 + chunk]
+        m = sc.amax(-1)
+        p = torch.where(vc, torch.exp(sc - m[..., None]), 0.0)
+        ms.append(m)
+        ls.append(p.sum(-1))
+        accs.append(torch.einsum("bgrt,btgd->bgrd", p, v[:, c0:c0 + chunk]))
+    m_all = torch.stack(ms).amax(0)
+    l_all = torch.zeros_like(m_all)
+    acc = torch.zeros_like(accs[0])
+    for m, l, a in zip(ms, ls, accs):
+        wgt = torch.exp(m - m_all)
+        l_all = l_all + wgt * l
+        acc = acc + wgt[..., None] * a
+    o = acc / torch.clamp(l_all, min=1e-30)[..., None]
+    return o.reshape(b, h, d).to(q.dtype)
+
+
 def rglru_scan_ref(a: torch.Tensor, b: torch.Tensor,
                    h0: torch.Tensor) -> torch.Tensor:
     """h_t = a_t * h_{t-1} + b_t with an fp32 carry from h0 [B, W], one
