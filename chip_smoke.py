@@ -8,26 +8,38 @@ Phases (each failure propagates; the process exits non-zero):
 1. card identity: ``nvidia-smi`` name and power limit, TF32 off;
 2. build every kernel from ``src/repro_torch/kernels/csrc`` with nvcc,
    print each kernel's ``ptxas -v`` registers, shared memory and spills,
-   and fail if a kernel named in ``NO_SPILL`` spills (the head-dim-256
-   variants, ``rglru_scan``, ``mlstm_chunkwise``, ``xfer_matmul``'s
-   streaming and tensor-core kernels, the fp ``paged_attention`` body);
+   and fail if a kernel named in ``NO_SPILL`` spills (every
+   ``flash_attention`` instance, the int8 ``paged_attention`` body,
+   ``rglru_scan``, ``mlstm_chunkwise``, ``xfer_matmul``'s and
+   ``quant_matmul``'s streaming and tensor-core kernels, the fp
+   ``paged_attention`` body);
 3. each kernel against its plain PyTorch version on the card, at the
-   serving path's shapes plus one ragged case each (``xfer_matmul`` also
-   prints the kernel its route picked; it and the fp ``paged_attention``,
-   which reduce across blocks, must give bit-equal outputs on two calls;
-   every timed bf16 matmul shape is kept in the kernel line under
-   ``shapes``, the paged cases with their every-length times), in fp32 (tolerance
+   serving path's shapes plus ragged cases (``xfer_matmul`` and
+   ``quant_matmul`` also print the kernel their route picked; they and
+   the fp ``paged_attention``, which reduce across blocks, must give
+   bit-equal outputs on two calls; every timed matmul shape is kept in
+   the kernel line under ``shapes``, the paged cases with their
+   every-length times; each ``flash_attention`` line names its kernel
+   instance with its ``ptxas`` registers and spills), in fp32 (tolerance
    1e-3: summation order) and bf16 (5e-2, the tests/test_kernels.py bf16
-   tolerance), each element's error against its own magnitude plus its
-   row's RMS (case tables ``MM_CASES``, ``FA_CASES``, ``PA_CASES``); kernel,
-   plain-version and one-PyTorch-call (yardstick only) times with CUDA
-   events. The INT8 kernels (``quant_matmul``, the int8 body of
-   ``paged_attention``) are checked the same way, with q/x in fp32
-   (the INT8 path's activations) and bf16. ``quant_matmul``'s library
-   call is ``torch._weight_int8pack_mm`` on the weight transposed ahead
-   of time (or the error it raises); no PyTorch call computes the int8
-   attention body. Their labelled yardsticks are ``torch.matmul`` on a
-   weight dequantised ahead of time and SDPA over pre-dequantised K/V.
+   tolerance; it also holds the tensor-core ``flash_attention``'s
+   rounding of P to bf16, which the TPU body does not have), each
+   element's error against its own magnitude plus its row's RMS (case
+   tables ``MM_CASES``, ``FA_CASES``, ``FA_KV_CASES``, ``PA_CASES``,
+   ``QM_CASES``); kernel, plain-version and one-PyTorch-call (yardstick
+   only) times with CUDA events. ``flash_attention`` is timed in bf16 at qwen's prefill
+   [128, 256, 64], at head dim 128 ([256, 2048, 128] causal, entry
+   ``d128``) and at the hybrid's shape below, each beside SDPA. The
+   short calls (decode ``quant_matmul``, qwen's and the shared-prefix
+   ``flash_attention``) also give ``device_ms``: one call's device time,
+   20 calls captured in a CUDA graph, beside the library's. The INT8
+   kernels (``quant_matmul``, the int8 body of ``paged_attention``) are
+   checked the same way, with q/x in fp32 (the INT8 path's activations)
+   and bf16. ``quant_matmul``'s library call is
+   ``torch._weight_int8pack_mm`` on the weight transposed ahead of time
+   (or the error it raises); no PyTorch call computes the int8 attention
+   body. Their labelled yardsticks are ``torch.matmul`` on a weight
+   dequantised ahead of time and SDPA over pre-dequantised K/V.
    Then the kernels at recurrentgemma-2b's shapes: ``rglru_scan`` (fp32
    [8, 2048, 2560] and a ragged [3, 37, 2560], bf16 too, bit-equal to its
    plain version; no PyTorch call computes a linear recurrence, so its
@@ -177,6 +189,27 @@ def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
+def graph_ms(fn, calls: int = 20) -> float:
+    """Device time of one call of ``fn``: ``calls`` calls captured in one
+    CUDA graph, the graph replayed under CUDA events, so that the host's
+    launch path is out of the loop (an eager loop of calls of 0.01-0.03
+    ms times that path as much as the card)."""
+    import torch
+    fn()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    ms = time_ms(graph.replay, 10, 2) / calls
+    del graph
+    return ms
+
+
 def bound_ms(nbytes: float, flops: float, dtype: str):
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / PEAK_FLOPS[dtype] * 1e3
@@ -187,14 +220,15 @@ def compare(name: str, got, want, dtype: str) -> float:
     """Each element within ``tol`` of its own magnitude plus the RMS of
     its row (last axis) of ``want``: the error is held to the output's
     scale, so a zeroed or unmasked row of small values fails, and a
-    row of large values is not held below fp32's resolution."""
+    row of large values is not held below fp32's resolution. A NaN or an
+    infinity in ``got`` fails."""
     import torch
     torch.cuda.synchronize()
     want = want.float()
     err = (got.float() - want).abs()
     rms = want.pow(2).mean(dim=-1, keepdim=True).sqrt()
     tol = TOL[dtype]
-    bad = err > tol * (want.abs() + rms)
+    bad = ~(err <= tol * (want.abs() + rms))
     max_err = float(err.max())
     if bool(bad.any()):
         worst = float((err / (want.abs() + rms)).max())
@@ -224,11 +258,11 @@ def iters_for(flops: float):
 
 def record(entries: dict, name: str, entry, row: dict) -> None:
     """Keep a timed case as the kernel's entry: ``main`` for the first
-    serving path that runs the kernel, ``hybrid`` or ``ssm`` as a
-    sub-entry of that name."""
+    serving path that runs the kernel, ``hybrid``, ``ssm`` or ``d128`` as
+    a sub-entry of that name."""
     if entry == "main":
         entries.setdefault(name, {}).update(row)
-    elif entry in ("hybrid", "ssm"):
+    elif entry in ("hybrid", "ssm", "d128"):
         entries.setdefault(name, {})[entry] = row
 
 
@@ -292,7 +326,17 @@ FA_CASES = [
     ("ragged BH=6 S=300 D=256 window 100", 6, 300, 256, 100, True, BOTH,
      False, None),
     ("BH=4 S=77 D=256", 4, 77, 256, 0, True, BOTH, False, None),
-    ("non-causal BH=3 S=50 D=256", 3, 50, 256, 0, False, BOTH, False, None)]
+    ("non-causal BH=3 S=50 D=256", 3, 50, 256, 0, False, BOTH, False, None),
+    # head dim 128 (the next dense models'): timed in bf16 beside SDPA
+    ("BH=256 S=2048 D=128", 256, 2048, 128, 0, True, BF16, True, "d128"),
+    ("ragged BH=4 S=150 D=128 window 40", 4, 150, 128, 40, True, BOTH, False,
+     None),
+    ("BH=3 S=70 D=16", 3, 70, 16, 0, True, BOTH, False, None),
+    ("non-causal BH=2 S=90 D=32 window 20", 2, 90, 32, 20, False, BOTH,
+     False, None)]
+# and with more keys than queries, non-causal: (label, BH, S, T, D)
+FA_KV_CASES = [("non-causal BH=3 S=40 T=150 D=128", 3, 40, 150, 128),
+               ("non-causal BH=2 S=70 T=200 D=256", 2, 70, 200, 256)]
 
 # paged_attention: (label, B, H, G, D, (pages, page size), table columns
 # (None: the dense grid read through an identity table), lengths,
@@ -316,9 +360,10 @@ def check_kernels(dev) -> dict:
     returns the timed entry per kernel (and its ``hybrid`` sub-entry)."""
     import torch
     import torch.nn.functional as F
-    from repro_torch.kernels import ops
+    from repro_torch.kernels import build, ops
     from repro_torch.kernels.xfer_matmul import route as xfer_route
 
+    flash_table = ptxas_kernels(build.build_log.get("flash_attention", ""))
     gen = torch.Generator(device=dev).manual_seed(0)
     dtypes = {"float32": torch.float32, "bfloat16": torch.bfloat16}
     entries = {}
@@ -375,7 +420,9 @@ def check_kernels(dev) -> dict:
             want = ops.attention_ref(q, k, v, causal=causal, window=window)
             err = compare(f"flash_attention {label} {dname}", got, want, dname)
             del want
-            line = f"[kernel] flash_attention {label} {dname}: max_abs_err {err:.3e}"
+            note = ptxas_note(flash_table, flash_instance(dtypes[dname], d))
+            line = (f"[kernel] flash_attention {label} {dname}: max_abs_err "
+                    f"{err:.3e}; {note}")
             if timed and dname == "bfloat16":
                 # causal (+ window): the visible query-key pairs only
                 pairs = bh * sum(min(i + 1, window or s) for i in range(s))
@@ -393,14 +440,34 @@ def check_kernels(dev) -> dict:
                                    4.0 * d * pairs, dname)
                 lib_note = " (SDPA, window mask)" if window else ""
                 line += (f" ms {ms:.4f} plain_ms {plain:.4f} library_ms "
-                         f"{lib:.4f}{lib_note} bound_ms {b:.4f} ({kind})")
+                         f"{lib:.4f}{lib_note} bound_ms {b:.4f} ({kind}) "
+                         f"kernel/library {ms / lib:.2f}")
                 win = f" window {window}" if window else ""
-                record(entries, "flash_attention", entry, dict(
-                    shape=f"q,k,v[{bh},{s},{d}] causal{win} bf16",
-                    max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=b,
-                    bound_by=kind, library_ms=lib))
+                row = dict(shape=f"q,k,v[{bh},{s},{d}] causal{win} bf16",
+                           max_abs_err=err, ms=ms, plain_ms=plain,
+                           bound_ms=b, bound_by=kind, library_ms=lib,
+                           ptxas=note)
+                if entry == "main":  # a short call: its device time too
+                    row["device_ms"] = graph_ms(
+                        lambda: ops.attention(q, k, v, window=window))
+                    row["library_device_ms"] = graph_ms(
+                        lambda: F.scaled_dot_product_attention(
+                            q4, k4, v4, is_causal=True))
+                    line += (f"; device_ms {row['device_ms']:.4f} "
+                             f"library_device_ms "
+                             f"{row['library_device_ms']:.4f} (CUDA graph)")
+                record(entries, "flash_attention", entry, row)
             log(line)
             del q, k, v, got
+    for label, bh, s, t, d in FA_KV_CASES:
+        for dname, dt in dtypes.items():
+            q = randn(bh, s, d, dt=dt)
+            k, v = randn(bh, t, d, dt=dt), randn(bh, t, d, dt=dt)
+            err = compare(f"flash_attention {label} {dname}",
+                          ops.attention(q, k, v, causal=False),
+                          ops.attention_ref(q, k, v, causal=False), dname)
+            log(f"[kernel] flash_attention {label} {dname}: max_abs_err "
+                f"{err:.3e}; {ptxas_note(flash_table, flash_instance(dt, d))}")
 
     for (label, b, h, g, d, (n_pages, ps), m, lengths, timed,
          entry) in PA_CASES:
@@ -472,6 +539,22 @@ def check_kernels(dev) -> dict:
     return entries
 
 
+# quant_matmul: (label, R, N, M, w_q given as q.T); every INT8 projection
+# at decode (R = slots) and prefill rows, the tied unembedding
+# (embed.q.T, unit scale), and ragged cases: two that the int8 streams
+# take (rows on 16 bytes with a ragged column tile and split; a K-major
+# ragged M) and two that go to tile
+QM_CASES = (
+    [(f"R={r} {n}x{m}", r, n, m, False)
+     for r in (SLOTS, N_PREFILL * BUCKET)
+     for n, m in ((Q_D, Q_D), (Q_D, Q_FF), (Q_FF, Q_D))]
+    + [(f"R={SLOTS} {Q_D}x{Q_VOCAB} (embed.q.T)", SLOTS, Q_D, Q_VOCAB, True),
+       ("ragged R=13 1000x1008", 13, 1000, 1008, False),
+       ("ragged R=13 1024x1001 (q.T)", 13, 1024, 1001, True),
+       ("ragged R=13 1000x1001", 13, 1000, 1001, False),
+       ("ragged R=77 1000x1001 (q.T)", 77, 1000, 1001, True)])
+
+
 def int8pack_ms(x, w_q, scale, want):
     """``torch._weight_int8pack_mm(x, w [M, N] int8, scales [M])``, the
     PyTorch call that computes ``quant_matmul``, with the weight
@@ -494,6 +577,7 @@ def check_int8_kernels(dev, gen) -> dict:
     import torch
     from repro_torch import quant as Q
     from repro_torch.kernels import ops
+    from repro_torch.kernels.quant_matmul import route as qm_route
 
     dtypes = {"float32": torch.float32, "bfloat16": torch.bfloat16}
     entries = {}
@@ -502,15 +586,9 @@ def check_int8_kernels(dev, gen) -> dict:
         return (torch.randn(*shape, generator=gen, device=dev) * scale).to(dt)
 
     # ---- quant_matmul: every projection + the tied unembedding (q.T)
-    d, ff, vocab = 1024, 2816, 151936
-    cases = []
-    for r in (SLOTS, N_PREFILL * BUCKET):
-        for n, m in ((d, d), (d, ff), (ff, d)):
-            cases.append((f"R={r} {n}x{m}", r, n, m, False))
-    cases.append((f"R={SLOTS} {d}x{vocab} (embed.q.T)", SLOTS, d, vocab, True))
-    cases.append(("ragged R=13 1000x1001", 13, 1000, 1001, False))
-    cases.append(("ragged R=77 1000x1001 (q.T)", 77, 1000, 1001, True))
-    for label, r, n, m, transposed in cases:
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    shapes = []
+    for label, r, n, m, transposed in QM_CASES:
         if transposed:  # the unembedding: unit scale, q.T a strided view
             w = Q.quantize(randn(m, n, scale=n ** -0.5), axis=0)
             w_q, scale = w.q.T, torch.ones(1, m, device=dev)
@@ -520,10 +598,15 @@ def check_int8_kernels(dev, gen) -> dict:
         w_deq = Q.dequantize(Q.QTensor(w_q, scale))
         for dname, dt in dtypes.items():
             x = randn(r, n, dt=dt)
+            rt = qm_route(r, n, m, dt, w_q.stride(), sms,
+                          aligned=w_q.data_ptr() % 16 == 0)
             got = ops.int8_matmul(x, w_q, scale)
             want = ops.int8_matmul_ref(x, w_q, scale)
             err = compare(f"quant_matmul {label} {dname}", got, want, dname)
-            line = f"[kernel] quant_matmul {label} {dname}: max_abs_err {err:.3e}"
+            bit_stable(f"quant_matmul {label} {dname}", got,
+                       ops.int8_matmul(x, w_q, scale))
+            line = (f"[kernel] quant_matmul {label} {dname}: route {rt.kernel} "
+                    f"grid {rt.grid} splits {rt.splits}; max_abs_err {err:.3e}")
             if dname == "float32" and not label.startswith("ragged"):
                 ms = time_ms(lambda: ops.int8_matmul(x, w_q, scale))
                 plain = time_ms(lambda: ops.int8_matmul_ref(x, w_q, scale))
@@ -538,16 +621,37 @@ def check_int8_kernels(dev, gen) -> dict:
                          f"{lib_text} yardstick_ms {yard:.4f} (torch.matmul on "
                          f"a weight dequantised ahead of time) bound_ms "
                          f"{b:.4f} ({kind})")
-                if r == SLOTS and m == vocab:
+                if lib is not None:
+                    line += f" kernel/library {ms / lib:.2f}"
+                row = dict(shape=f"x[{r},{n}] fp32 @ "
+                                 f"{'embed.q.T' if transposed else 'w_q'}"
+                                 f"[{n},{m}] int8",
+                           variant=rt.kernel, max_abs_err=err, ms=ms,
+                           plain_ms=plain, bound_ms=b, bound_by=kind,
+                           library_ms=lib, yardstick_ms=yard)
+                if r == SLOTS:  # decode: the device time of one call too
+                    row["device_ms"] = graph_ms(
+                        lambda: ops.int8_matmul(x, w_q, scale))
+                    line += f"; device_ms {row['device_ms']:.4f}"
+                    if lib is not None:
+                        w_t = w_q.T.contiguous()
+                        s8 = scale.reshape(-1).to(x.dtype)
+                        row["library_device_ms"] = graph_ms(
+                            lambda: torch._weight_int8pack_mm(x, w_t, s8))
+                        line += (f" library_device_ms "
+                                 f"{row['library_device_ms']:.4f}")
+                        del w_t
+                    line += " (CUDA graph)"
+                if lib is None:
+                    row["library_error"] = lib_note
+                shapes.append(row)
+                if r == SLOTS and m == Q_VOCAB:
                     entries["quant_matmul"] = dict(
-                        shape=f"x[{r},{n}] fp32 @ embed.q.T[{n},{m}] int8",
-                        max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=b,
-                        bound_by=kind, library_ms=lib, yardstick_ms=yard,
-                        yardstick="torch.matmul on the pre-dequantised weight")
-                    if lib is None:
-                        entries["quant_matmul"]["library_error"] = lib_note
+                        row, yardstick="torch.matmul on the pre-dequantised "
+                                       "weight")
             log(line)
         del x, got, want, w, w_q, w_deq
+    entries["quant_matmul"]["shapes"] = shapes
 
     # ---- paged_attention int8 body: decode over the int8 slot grid
     lengths_main = [1, 17, 64, 128, 129, 200, 233, MAX_LEN]
@@ -793,19 +897,23 @@ def ptxas_kernels(out: str) -> dict:
 def flash_instance(dt, d: int, prefix_q8: bool = False,
                    main_q8: bool = False):
     """(readable name, mangled-name fragment) of the flash_attention.cu
-    kernel that a call with q in ``dt`` and head dim ``d`` launches: its
-    template arguments <T, PK, K, D> as the Itanium ABI writes them
+    kernel that a call with q in ``dt`` and head dim ``d`` launches: bf16
+    with fp k/v takes ``flash_tc_kernel<D>``; the rest ``flash_kernel<T,
+    PK, K, D>`` at D <= 64 and ``flash_split_kernel<T, PK, K, D, D / 32>``
+    at D = 128 and 256, template arguments as the Itanium ABI writes them
     (float ``f``, int8_t ``a``, __nv_bfloat16 once in full, then ``S1_``)."""
     import torch
     bf = dt == torch.bfloat16
+    if bf and not (prefix_q8 or main_q8):
+        return f"flash_tc_kernel<{d}>", f"flash_tc_kernelILi{d}EE"
     names = ("__nv_bfloat16" if bf else "float", "signed char")
     codes = ("13__nv_bfloat16" if bf else "f", "S1_" if bf else "f", "a")
-    kern, tail = (("flash_split_kernel", "Li256ELi8EE") if d == 256
+    kern, tail = (("flash_split_kernel", f"Li{d}ELi{d // 32}EE") if d >= 128
                   else ("flash_kernel", f"Li{d}EE"))
     targs = [names[0], names[prefix_q8], names[main_q8]]
     mangled = (f"{kern}I{codes[0]}{codes[2] if prefix_q8 else codes[1]}"
                f"{codes[2] if main_q8 else codes[1]}{tail}")
-    extra = ", 8" if d == 256 else ""
+    extra = f", {d // 32}" if d >= 128 else ""
     return f"{kern}<{', '.join(targs)}, {d}{extra}>", mangled
 
 
@@ -933,15 +1041,19 @@ def check_flash_q8(dev, gen, entries: dict) -> None:
                     flops = 4.0 * d * bh * (s * pre_len + s * (s + 1) // 2)
                     nb, kind = bound_ms(4 * bh * s * d * esz + pre_bytes,
                                         flops, dname)
+                    dms, yms = graph_ms(lambda: ops.prefix_attention(
+                        *args, **scales)), graph_ms(yard)
                     line += (f" ms {ms:.4f} plain_ms {plain:.4f} yardstick_ms "
                              f"{yd:.4f} ({'dequantise + ' if scales else ''}"
                              f"cat, then SDPA with a boolean mask: two calls) "
-                             f"bound_ms {nb:.4f} ({kind})")
+                             f"bound_ms {nb:.4f} ({kind}); device_ms {dms:.4f} "
+                             f"yardstick_device_ms {yms:.4f} (CUDA graph)")
                     row = dict(
                         shape=f"q,k,v[{bh},{s},{d}] {dname}, {pname} prefix "
                               f"[{bh},{span},{d}] pre_len {pre_len}",
                         max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=nb,
                         bound_by=kind, library_ms=None, yardstick_ms=yd,
+                        device_ms=dms, yardstick_device_ms=yms,
                         yardstick=("dequantise + cat, then SDPA with a "
                                    "boolean mask (two calls)" if scales else
                                    "cat, then SDPA with a boolean mask "
@@ -1857,14 +1969,16 @@ def parity_paged(dev) -> None:
     torch.cuda.empty_cache()
 
 
-# kernels that must compile without spills: the head-dim-256 variants
-# (flash_split_kernel, the int8 paged_kernel), rglru_scan,
-# mlstm_chunkwise, xfer_matmul's decode and tensor-core kernels and the fp
-# paged_attention body
-NO_SPILL = ("flash_split_kernel", "paged_kernel", "rglru_kernel",
-            "mlstm_kernel", "stream_rows_kernel", "stream_mma_kernel",
-            "stream_cols_kernel", "tc_kernel", "wg_kernel",
-            "paged_split_kernel")
+# kernels that must compile without spills: every flash_attention
+# instance (flash_kernel, flash_split_kernel, flash_tc_kernel), the int8
+# paged_kernel, rglru_scan, mlstm_chunkwise, xfer_matmul's and
+# quant_matmul's decode and tensor-core kernels and the fp paged_attention
+# body
+NO_SPILL = ("flash_kernel", "flash_split_kernel", "flash_tc_kernel",
+            "paged_kernel", "rglru_kernel", "mlstm_kernel",
+            "stream_rows_kernel", "stream_mma_kernel", "stream_cols_kernel",
+            "stream_mma_q8_kernel", "stream_cols_q8_kernel", "tc_kernel",
+            "wg_kernel", "paged_split_kernel")
 
 
 def check_ptxas(build_log: dict) -> None:
@@ -1904,8 +2018,8 @@ def kernel_table(entries: dict, counts: dict) -> list:
                "bound_by": e["bound_by"], "library_ms": e["library_ms"],
                "shape": e["shape"]}
         for key in ("yardstick_ms", "yardstick", "library_error", "hybrid",
-                    "ssm", "prefix", "own", "variant", "every_length",
-                    "shapes"):
+                    "ssm", "d128", "prefix", "own", "variant", "every_length",
+                    "shapes", "ptxas", "device_ms", "library_device_ms"):
             if key in e:
                 row[key] = e[key]
         kernels.append(row)

@@ -4,43 +4,54 @@
 // Replaces the TPU kernel repro/kernels/flash_attention.py:
 // flash_attention / _flash_kernel (fp body _flash_body). The TPU grid's
 // sequential kv axis, with running max / sum / accumulator carried in
-// VMEM scratch across grid steps, becomes a loop over kv blocks inside
-// one block per (bh, 64-query block); the running state lives in
+// VMEM scratch across grid steps, becomes a loop over kv tiles inside
+// one block per (bh, query block); the running state lives in
 // registers. Scores are fp32 and scaled by 1/sqrt(D); causal and window
-// masks come from absolute positions; each kv block updates the state
-// from its block maximum, as the TPU body does, and the output is
+// masks come from absolute positions; each kv tile updates the state
+// from its tile maximum, as the TPU body does, and the output is
 // normalised once at the end by max(l, 1e-30).
 //
 // What bounds it on the H100: at the prefill shapes of the serving paths
 // (qwen1.5-0.5b: bucket <= 512, D = 64; recurrentgemma-2b: bucket 2048 or
 // 2560, D = 256, window 2048) the work is 4*D flops per visible
 // query-key pair against 4*S*D*BH*2 bytes, so it is operation bound; the
-// score matrix never reaches device memory. Blocks past the causal diagonal, and blocks
-// wholly before every row's window, are skipped: every row they would
-// touch is fully masked there, so the TPU kernel's result is unchanged.
+// score matrix never reaches device memory. Tiles past the causal
+// diagonal, and tiles wholly before every row's window, are skipped:
+// every row they would touch is fully masked there, so the TPU kernel's
+// result is unchanged.
 //
-// Simple first: one thread per query row, q and the accumulator in
-// registers, k / v tiles and the block's scores in shared memory, fp32
-// FMA on CUDA cores. Tensor cores and TMA are later work.
+// Three kernels, chosen by dtype, storage and head dim:
 //
-// D = 256 (recurrentgemma-2b's local attention) takes a second kernel,
-// flash_split_kernel: one row's q and accumulator (512 floats) would
-// spill out of one thread's registers, and fp32 k / v tiles of 32 keys
-// would take 64 KB, over the 48 KB of static shared memory. There TPR = 8
-// threads share each query row, each owning D / 8 dims as float4 chunks
-// (chunk c of thread `lane` is dims 4 * (c * TPR + lane) .. + 3, so the 8
-// threads of a row read 128 consecutive bytes of a key: no bank
-// conflicts, and the 4 rows of a warp read the same bytes: a broadcast);
-// a row's partial dots are summed by three warp shuffles, so every
-// thread of the row holds the whole score and runs the same online
-// softmax on its own slice of the accumulator. The tile is 32 rows by 16
-// keys (32 KB of shared memory), with the scores of a tile in registers.
+// - flash_tc_kernel<D> (bf16 q with fp k / v, every D: the main causal or
+//   windowed body and the shared-prefix entry with an fp prefix): tensor
+//   cores, wgmma for Q K^T and P V from swizzled shared tiles, K / V
+//   tiles through a cp.async ring; see namespace tc. P is rounded to bf16
+//   before P V, where the TPU body multiplies f32 p by f32 v.
+// - flash_kernel<T, PK, K, D> (D <= 64: fp32, and the int8 forms): one
+//   thread per query row, q and the accumulator in registers, k / v tiles
+//   and the block's scores in shared memory, fp32 FMA on CUDA cores.
+//   fp32 stays off tensor cores (no TF32), for the card-vs-CPU parity
+//   runs and the INT8 path, whose activations are fp32.
+// - flash_split_kernel<T, PK, K, D, TPR> (D = 128 and 256 off tensor
+//   cores): one row's q and accumulator (2 D floats) would spill out of
+//   one thread's registers, and fp32 k / v tiles of 32 keys at D = 256
+//   would take 64 KB, over the 48 KB of static shared memory. There TPR =
+//   D / 32 threads share each query row, each owning D / TPR dims as 8
+//   float4 chunks (chunk c of thread `lane` is dims 4 * (c * TPR + lane)
+//   .. + 3, so the threads of a row read consecutive 16-byte pieces of a
+//   key: no bank conflicts, and the rows of a warp read the same bytes: a
+//   broadcast); a row's partial dots are summed by warp shuffles, so
+//   every thread of the row holds the whole score and runs the same
+//   online softmax on its own slice of the accumulator. The tile is 32
+//   rows by 16 keys, with the scores of a tile in registers.
 //
 // The int8 body (flash_attention_q8_launch) replaces _flash_kernel_q8 of
 // the same TPU file: int8 k / v [BH, T, D] with per-token f32 scales
 // [BH, T, 1]. Each int8 element is widened and multiplied by its row's
 // scale in f32 (not rounded) as the tile is staged into shared memory, so
-// the fp extent never exists in device memory; the loop is the fp body's.
+// the fp extent never exists in device memory; the loop is the fp body's,
+// on CUDA cores for fp32 and bf16 q alike (no rounding the TPU body does
+// not have).
 //
 // The shared-prefix entry (prefix_attention_launch) is the form the paged
 // serving path needs and the TPU kernel lacks: the queries of a suffix
@@ -50,11 +61,11 @@
 // never read: their scores are NEG_INF and their tile rows zeros), then
 // the fresh fp suffix k / v [BH, S, D], causal on the local index. An
 // int8 prefix element is dequantised in f32 and rounded to T, as the
-// reference casts the dequantised prefix to the compute dtype. One
-// template, flash_kernel<T, PK, K, D>, serves every entry: PK is the
+// reference casts the dequantised prefix to the compute dtype. PK is the
 // prefix's storage and K the main segment's (T, or int8_t with scales).
 // Its bound: the int8 prefix is D + 4 bytes a token where a bf16 one is
 // 2 * D, but at the serving shapes the work is operation bound as above.
+#include <cmath>
 #include <cstdint>
 #include <type_traits>
 #include <cuda_runtime.h>
@@ -363,26 +374,414 @@ __global__ void __launch_bounds__(SPLIT_ROWS * TPR) flash_split_kernel(const Arg
   }
 }
 
+// ---- bf16 with fp K / V: tensor cores ------------------------------------
+//
+// flash_tc_kernel<D>: FA2's online softmax on Hopper's warpgroup products
+// (wgmma). A block is two warpgroups of 64 query rows each, three at D =
+// 128 (the 128 or 192 rows of a block share every K / V tile; one block
+// an SM at D >= 128, so a third warpgroup is 12 warps an SM instead of
+// 8); K / V tiles of 64 keys stream through a cp.async ring of 4 stages
+// (2 at D = 256), one block barrier a tile. Q, K and V sit in shared
+// memory in the 128-byte
+// swizzle as 64-dim atoms of 128-byte rows (16-byte chunk c of row r at
+// c ^ (r % 8)), zero-padded to 64 dims at D = 16 and 32. S = Q K^T is
+// wgmma m64n64k16 with both operands read by the tensor cores from
+// shared memory (K-major, as they lie: K is [keys, D]); O += P V is
+// wgmma m64nDk16 with P from registers and V read MN-major (transposed by
+// the instruction). The S accumulator of two adjacent 8-key blocks is,
+// converted to bf16, the A fragment of P V: no trip through shared
+// memory, and no fragment loads by the threads (mma.sync would read every
+// B fragment through ldmatrix, 16 query rows a warp, and be bound by
+// those shared-memory reads). Row max and sum go across the quad of
+// threads that holds a row (__shfl_xor_sync); scores are scaled by
+// log2(e) / sqrt(D) inside the exponent (ex2 of one fma); m and l are
+// f32 as in the TPU body, l summed from the f32 p, and O is rescaled only
+// when some row's max moved. P is rounded to bf16 before
+// P V, where the TPU body multiplies f32 p by f32 v: a rounding the
+// reference does not have, held to the bf16 tolerance. Tiles that no row
+// of the block sees are skipped, and a warpgroup skips the products of a
+// tile that none of its 64 rows sees (or that lies past S): its running
+// state is unchanged there, as the TPU body's would be up to an exact
+// zero; masks are applied element by element only on tiles that cross
+// the diagonal, the window edge, T or pre_len. The O accumulator is D / 2
+// registers a thread (128 at D = 256), S 32.
+namespace tc {
+
+// warpgroups per block: 3 at D = 128 (192 rows; 12 warps an SM where
+// the registers allow one block), else 2 (128 rows)
+__host__ __device__ constexpr int wgs(int d) { return d == 128 ? 3 : 2; }
+__host__ __device__ constexpr int threads(int d) { return wgs(d) * 128; }
+__host__ __device__ constexpr int bq(int d) { return wgs(d) * 64; }
+// head dim as stored: at least one 64-dim atom
+__host__ __device__ constexpr int dp(int d) { return d < 64 ? 64 : d; }
+// stages of the K / V ring: 4 (176 KB with Q at D = 128), 2 at D = 256
+// (Q and two stages take 192 KB)
+__host__ __device__ constexpr int stages(int d) { return d == 256 ? 2 : 4; }
+constexpr int BKV = 64;  // keys per K / V tile
+__host__ __device__ constexpr int q_bytes(int d) { return dp(d) * bq(d) * 2; }
+__host__ __device__ constexpr int kv_bytes(int d) { return dp(d) * BKV * 2; }
+// Q, then stages x (K, V), + 1024 to align the swizzled atoms
+__host__ __device__ constexpr int smem_bytes(int d) {
+  return q_bytes(d) + stages(d) * 2 * kv_bytes(d) + 1024;
+}
+constexpr float LOG2E = 1.4426950408889634f;
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+// 16 bytes global -> shared; only src_bytes (0 or 16) are read, the rest
+// is zeroed
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
+                                           int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+               "l"(src), "r"(src_bytes));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+template <int PENDING>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(PENDING));
+}
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int PENDING>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(PENDING)
+               : "memory");
+}
+// cp.async's writes visible to the async proxy (wgmma)
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+// a shared-memory matrix descriptor with the 128-byte swizzle
+__device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lbo,
+                                              uint32_t sbo) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
+         ((uint64_t)(sbo >> 4) << 32) | (1ull << 62);
+}
+// 2^x, one MUFU.EX2 (subnormal results flush to 0: p that small is far
+// under bf16's resolution beside the row's largest p, which is 1)
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// S += Q K^T: wgmma m64n64k16, A and B K-major from shared memory
+__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da,
+                                             uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, 1, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db));
+}
+
+// O += P V: wgmma m64n64k16, A (P) from registers, B (V) MN-major
+__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32],
+                                             const uint32_t (&a)[4],
+                                             uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, 1, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db));
+}
+
+// O += P V: wgmma m64n128k16, A (P) from registers, B (V) MN-major
+__device__ __forceinline__ void wgmma_rs_n128(float (&d)[64],
+                                             const uint32_t (&a)[4],
+                                             uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, 1, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db));
+}
+
+// O += P V: wgmma m64n256k16, A (P) from registers, B (V) MN-major
+__device__ __forceinline__ void wgmma_rs_n256(float (&d)[128],
+                                             const uint32_t (&a)[4],
+                                             uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, 1, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, %96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, %112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127}, {%128, %129, %130, %131}, %132, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]), "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]), "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]), "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]), "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]), "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]), "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db));
+}
+
+// rows [row0, row0 + ROWS) of a [*, D] bf16 tensor into the swizzled
+// atoms at dst ([DP / 64][ROWS][64]); rows at or past lim and dims past D
+// are zero-filled, not read
+template <int D, int ROWS>
+__device__ __forceinline__ void load_rows(uint32_t dst,
+                                          const __nv_bfloat16* src, int row0,
+                                          int lim) {
+  constexpr int CH = dp(D) / 8;  // 16-byte chunks per stored row
+  for (int i = threadIdx.x; i < ROWS * CH; i += threads(D)) {
+    const int r = i / CH, c = i % CH;
+    const bool ok = row0 + r < lim && c * 8 < D;
+    cp_async16(dst + (c / 8) * (ROWS * 128) + r * 128 + (((c % 8) ^ (r & 7)) * 16),
+               ok ? src + (long long)(row0 + r) * D + c * 8 : src,
+               ok ? 16 : 0);
+  }
+}
+
+// keep registers that an in-flight wgmma reads or writes alive and
+// unmoved up to here (after its wait): the compiler does not know that
+// the instruction is asynchronous
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&v)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(v[i]));
+}
+template <int N>
+__device__ __forceinline__ void fence_regs(uint32_t (&v)[N][4]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) asm volatile("" : "+r"(v[i][e]));
+}
+
+template <int D>
+__global__ void __launch_bounds__(threads(D), 1) flash_tc_kernel(const Args a) {
+  using B = __nv_bfloat16;
+  constexpr int DP = dp(D), STAGES = stages(D), BQ = bq(D);
+  constexpr int NS = BKV / 2;  // S accumulators a thread (m64n64)
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  const uint32_t q_s = (smem_u32(smem_raw) + 1023) & ~1023u;
+  const uint32_t kv_s = q_s + q_bytes(D);  // stage st: K at + st * 2 * kv_bytes, V after it
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int wg = warp / 4;
+  const int g = lane >> 2, t4 = lane & 3;
+  const Rows<B, B, B, D> r(a, blockIdx.y);
+  const int S = a.S, T = a.T, pre_len = a.pre_len;
+  // causal: the longest query blocks first
+  const int qb = a.causal ? gridDim.x - 1 - blockIdx.x : blockIdx.x;
+  const int q0 = qb * BQ;
+
+  // the tiles: prefix keys [0, pre_len), then main keys [kv_begin, kv_end)
+  const int n_pre = (pre_len + BKV - 1) / BKV;
+  const int kv_end = a.causal ? min(T, q0 + BQ) : T;
+  int kv_begin = 0;
+  if (a.window) {
+    const int first = q0 - a.window + 1;
+    kv_begin = first > 0 ? first / BKV * BKV : 0;
+  }
+  const int n_tiles = n_pre + (kv_end - kv_begin + BKV - 1) / BKV;
+
+  auto load_tile = [&](int i, int st) {
+    const bool pre = i < n_pre;
+    const int t0 = pre ? i * BKV : kv_begin + (i - n_pre) * BKV;
+    const int lim = pre ? pre_len : T;
+    const uint32_t ks = kv_s + st * 2 * kv_bytes(D);
+    load_rows<D, BKV>(ks, pre ? r.pk : r.k, t0, lim);
+    load_rows<D, BKV>(ks + kv_bytes(D), pre ? r.pv : r.v, t0, lim);
+  };
+  load_rows<D, BQ>(q_s, r.q, q0, S);
+#pragma unroll
+  for (int st = 0; st < STAGES - 1; ++st) {  // Q rides with tile 0
+    if (st < n_tiles) load_tile(st, st);
+    cp_async_commit();
+  }
+
+  float o[DP / 2];
+#pragma unroll
+  for (int j = 0; j < DP / 2; ++j) o[j] = 0.f;
+  float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f};
+  const float sl2 = a.scale * LOG2E;
+  const int w0 = q0 + wg * 64;                     // the warpgroup's rows
+  const int qi0 = w0 + (warp % 4) * 16 + g;        // this thread's: qi0, + 8
+  const uint32_t qa = q_s + wg * 64 * 128;         // its Q rows in atom 0
+
+  for (int i = 0; i < n_tiles; ++i) {
+    cp_async_wait<STAGES - 2>();  // tile i (and, at i = 0, Q) landed
+    fence_proxy_async();
+    // every warpgroup is here, so done with tile i - 1: its stage takes
+    // tile i + STAGES - 1
+    __syncthreads();
+    if (i + STAGES - 1 < n_tiles)
+      load_tile(i + STAGES - 1, (i + STAGES - 1) % STAGES);
+    cp_async_commit();
+    const bool pre = i < n_pre;
+    const int t0 = pre ? i * BKV : kv_begin + (i - n_pre) * BKV;
+    const bool idle = w0 >= S ||
+        (!pre && a.causal && t0 > w0 + 63) ||
+        (!pre && a.window && t0 + BKV - 1 <= w0 - a.window);
+    if (!idle) {
+      const uint32_t ks = kv_s + (i % STAGES) * 2 * kv_bytes(D);
+      const uint32_t vs = ks + kv_bytes(D);
+      float s[NS];
+#pragma unroll
+      for (int j = 0; j < NS; ++j) s[j] = 0.f;
+      wgmma_fence();
+#pragma unroll
+      for (int j = 0; j < DP / 16; ++j) {
+        const uint64_t da = smem_desc(qa + (j / 4) * (BQ * 128) + (j % 4) * 32, 16, 1024);
+        const uint64_t db = smem_desc(ks + (j / 4) * (BKV * 128) + (j % 4) * 32, 16, 1024);
+        wgmma_ss_n64(s, da, db);
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(s);
+
+      // mask where the tile crosses an edge of visibility (raw scores;
+      // the scale log2(e) / sqrt(D) > 0 is applied in the exponent);
+      // s[4 jb + e]: key t0 + 8 jb + 2 t4 + (e & 1), row qi0 + 8 (e >> 1)
+      bool edge;
+      if (pre)
+        edge = t0 + BKV > pre_len;
+      else
+        edge = t0 + BKV > T || (a.causal && t0 + BKV - 1 > w0) ||
+               (a.window && t0 <= w0 + 63 - a.window);
+      if (edge) {
+#pragma unroll
+        for (int j = 0; j < NS; ++j) {
+          const int kp = t0 + 8 * (j / 4) + 2 * t4 + (j & 1);
+          const int qi = qi0 + 8 * ((j >> 1) & 1);
+          bool ok;
+          if (pre) {
+            ok = kp < pre_len;
+          } else {
+            ok = kp < T;
+            if (a.causal) ok = ok && kp <= qi;
+            if (a.window) ok = ok && (qi - kp) < a.window;
+          }
+          s[j] = ok ? s[j] : -INFINITY;
+        }
+      }
+
+      // online softmax over this tile, rows qi0 (h = 0) and qi0 + 8 (h =
+      // 1), m in scaled (log2) units. A masked score is -inf, so its p is
+      // exactly 0, and m never falls below its start, NEG_INF: a tile that
+      // masks a whole row leaves that row's state as it was, where the TPU
+      // body adds p = 1 terms that the next visible tile scales by exactly
+      // 0 (the same result)
+      float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+      for (int j = 0; j < NS; ++j) mx[(j >> 1) & 1] = fmaxf(mx[(j >> 1) & 1], s[j]);
+      float alpha[2];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
+        mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
+        mx[h] = fmaxf(m[h], mx[h] * sl2);
+        alpha[h] = ex2(m[h] - mx[h]);
+        m[h] = mx[h];
+        l[h] *= alpha[h];
+      }
+      // most tiles leave every row's max where it was: no rescale then
+      if (__any_sync(0xffffffffu, alpha[0] != 1.f || alpha[1] != 1.f)) {
+#pragma unroll
+        for (int j = 0; j < DP / 2; ++j) o[j] *= alpha[(j >> 1) & 1];
+      }
+      uint32_t pa[BKV / 16][4];
+#pragma unroll
+      for (int j = 0; j < NS; j += 2) {
+        const int h = (j >> 1) & 1;
+        const float p0 = ex2(fmaf(s[j], sl2, -m[h]));
+        const float p1 = ex2(fmaf(s[j + 1], sl2, -m[h]));
+        l[h] += p0 + p1;
+        // keys 16 kj .. + 15 are 8-key blocks 2 kj and 2 kj + 1
+        pa[j / 8][(j % 8) / 2] = pack_bf16(p0, p1);
+      }
+
+      // O += P V, P rounded to bf16: 16 keys per k-step
+      wgmma_fence();
+#pragma unroll
+      for (int kj = 0; kj < BKV / 16; ++kj) {
+        const uint64_t db = smem_desc(vs + kj * 16 * 128, BKV * 128, 1024);
+        if constexpr (DP == 64) wgmma_rs_n64(o, pa[kj], db);
+        else if constexpr (DP == 128) wgmma_rs_n128(o, pa[kj], db);
+        else wgmma_rs_n256(o, pa[kj], db);
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(o);
+      fence_regs(pa);
+    }
+  }
+  cp_async_wait<0>();
+
+  // the quad's partial sums, one normalisation, bf16 pairs out;
+  // o[4 jb + 2 h + e]: dim 8 jb + 2 t4 + e of row qi0 + 8 h
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    l[h] += __shfl_xor_sync(0xffffffffu, l[h], 1);
+    l[h] += __shfl_xor_sync(0xffffffffu, l[h], 2);
+    l[h] = fmaxf(l[h], 1e-30f);
+  }
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int qi = qi0 + 8 * h;
+    if (qi >= S) continue;
+    B* ob = r.o + (long long)qi * D + 2 * t4;
+#pragma unroll
+    for (int jb = 0; jb < D / 8; ++jb)
+      *reinterpret_cast<__nv_bfloat162*>(ob + jb * 8) = __floats2bfloat162_rn(
+          o[4 * jb + 2 * h] / l[h], o[4 * jb + 2 * h + 1] / l[h]);
+  }
+}
+
+}  // namespace tc
+
+// a pointer that cp.async may copy 16 bytes from (null: not used)
+bool on16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
+
 template <typename T, typename PK, typename K, int D>
-void launch_d(const Args& a, cudaStream_t stream) {
-  if constexpr (D == 256) {
+cudaError_t launch_d(const Args& a, cudaStream_t stream) {
+  using B = __nv_bfloat16;
+  if constexpr (std::is_same<T, B>::value && std::is_same<PK, B>::value &&
+                std::is_same<K, B>::value) {
+    if (!on16(a.q) || !on16(a.k) || !on16(a.v) || !on16(a.o) ||
+        !on16(a.pk) || !on16(a.pv))
+      return cudaErrorMisalignedAddress;
+    constexpr size_t bytes = tc::smem_bytes(D);
+    static size_t allowed = 48 * 1024;
+    if (bytes > allowed) {
+      const cudaError_t e = cudaFuncSetAttribute(
+          tc::flash_tc_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+          (int)bytes);
+      if (e != cudaSuccess) return e;
+      allowed = bytes;
+    }
+    const dim3 grid((a.S + tc::bq(D) - 1) / tc::bq(D), a.BH);
+    tc::flash_tc_kernel<D><<<grid, tc::threads(D), bytes, stream>>>(a);
+  } else if constexpr (D >= 128) {
+    constexpr int TPR = D / 32;  // 8 float4 chunks of q and of acc a thread
     const dim3 grid((a.S + SPLIT_ROWS - 1) / SPLIT_ROWS, a.BH);
-    flash_split_kernel<T, PK, K, D, 8><<<grid, SPLIT_ROWS * 8, 0, stream>>>(a);
+    flash_split_kernel<T, PK, K, D, TPR>
+        <<<grid, SPLIT_ROWS * TPR, 0, stream>>>(a);
   } else {
     const dim3 grid((a.S + BQ - 1) / BQ, a.BH);
     flash_kernel<T, PK, K, D><<<grid, BQ, 0, stream>>>(a);
   }
+  return cudaSuccess;
 }
 
 template <typename T, typename PK, typename K>
-bool launch_dims(const Args& a, int D, cudaStream_t s) {
+cudaError_t launch_dims(const Args& a, int D, cudaStream_t s) {
   switch (D) {
-    case 16: launch_d<T, PK, K, 16>(a, s); return true;
-    case 32: launch_d<T, PK, K, 32>(a, s); return true;
-    case 64: launch_d<T, PK, K, 64>(a, s); return true;
-    case 128: launch_d<T, PK, K, 128>(a, s); return true;
-    case 256: launch_d<T, PK, K, 256>(a, s); return true;
-    default: return false;
+    case 16: return launch_d<T, PK, K, 16>(a, s);
+    case 32: return launch_d<T, PK, K, 32>(a, s);
+    case 64: return launch_d<T, PK, K, 64>(a, s);
+    case 128: return launch_d<T, PK, K, 128>(a, s);
+    case 256: return launch_d<T, PK, K, 256>(a, s);
+    default: return cudaErrorInvalidValue;
   }
 }
 
@@ -395,18 +794,18 @@ int run(const Args& a, int D, int dtype, bool q8_main, bool q8_prefix,
       || a.pre_len > a.pre_span)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  bool ok = false;
+  cudaError_t e = cudaErrorInvalidValue;
   if (dtype == 0) {
-    ok = q8_main ? launch_dims<float, float, int8_t>(a, D, s)
-         : q8_prefix ? launch_dims<float, int8_t, float>(a, D, s)
-                     : launch_dims<float, float, float>(a, D, s);
+    e = q8_main ? launch_dims<float, float, int8_t>(a, D, s)
+        : q8_prefix ? launch_dims<float, int8_t, float>(a, D, s)
+                    : launch_dims<float, float, float>(a, D, s);
   } else if (dtype == 1) {
     using B = __nv_bfloat16;
-    ok = q8_main ? launch_dims<B, B, int8_t>(a, D, s)
-         : q8_prefix ? launch_dims<B, int8_t, B>(a, D, s)
-                     : launch_dims<B, B, B>(a, D, s);
+    e = q8_main ? launch_dims<B, B, int8_t>(a, D, s)
+        : q8_prefix ? launch_dims<B, int8_t, B>(a, D, s)
+                    : launch_dims<B, B, B>(a, D, s);
   }
-  if (!ok) return (int)cudaErrorInvalidValue;
+  if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
 }
 

@@ -61,15 +61,27 @@
 //   copies). Small outputs (xlstm-350m's 2048x4 gates, 2560x256) split K
 //   across blocks and merge in the same launch, as stream_rows does.
 //   Ragged edges are zero-filled by cp.async's src-size and masked.
-// - tile (fp32 at R > 16, misaligned or odd-strided shapes, and every
-//   quant_matmul call): the CUDA-core template matmul_kernel<T, W, BM>,
-//   fp32 FMA through a padded shared tile, BM = 16 or 64 rows, ragged
-//   edges masked. fp32 never goes to tensor cores (no TF32).
+// - tile (fp32 at R > 16, misaligned or odd-strided shapes, and
+//   quant_matmul at R > 16): the CUDA-core template matmul_kernel<T, W,
+//   BM>, fp32 FMA through a padded shared tile, BM = 16 or 64 rows,
+//   ragged edges masked. fp32 never goes to tensor cores (no TF32).
 //
-// As in the TPU quant_matmul, per-column symmetric scaling commutes with
-// the contraction, (x @ q) * s == x @ (q * s), so int8 tiles are only
-// widened to fp32 inside the loop and the scale multiplies the
-// accumulated tile once at flush.
+// quant_matmul takes the same plan struct through its own entry and its
+// own route (quant_matmul.py: route). At decode its bound is the int8
+// bytes of w, half of bf16's:
+// - stream_mma_q8 (R <= 16, row-major w_q with rows on 16 bytes: every
+//   INT8 projection): stream_mma's split-K streaming and in-launch merge
+//   over an int8 cp.async ring, each weight widened exactly to bf16 in
+//   registers (byte permutes and one subtract) as the mma A operand;
+// - stream_cols_q8 (R <= 16, K-major w_q: the tied unembedding's q.T):
+//   q's rows read straight into registers as the A operand;
+// - tile for the rest (R = 2048 prefill, misaligned shapes).
+// Both streams run fp32 x as three exact bf16 terms (hi, mid, lo) into
+// one fp32 accumulator, so that the result differs from fp32 only in
+// summation order (see stage_terms). As in the TPU quant_matmul,
+// per-column symmetric scaling commutes with the contraction, (x @ q) *
+// s == x @ (q * s), so the scale multiplies each output once, at the
+// merge or the store.
 #include <cstdint>
 #include <type_traits>
 #include <cuda_runtime.h>
@@ -292,11 +304,14 @@ __device__ __forceinline__ void reduce_scatter(float (&v)[NV], int lane,
 // workspace ws [splits][R][M] and the block that arrives last at the
 // tile's counter (atomicAdd after a fence) sums the splits in order: GS
 // groups of threads per output, each over every GS-th split, then the
-// groups in order. It resets the counter to 0 for the next call.
+// groups in order. It resets the counter to 0 for the next call. A
+// non-null scale (quant_matmul's per-column f32 scale) multiplies each
+// output once, as it is stored.
 template <typename T, int RB, int TILE>
 __device__ __forceinline__ void finish_tile(float* red, T* out, float* ws,
                                             int* counters, int R, int M,
-                                            int tile, int split, int splits) {
+                                            int tile, int split, int splits,
+                                            const float* scale = nullptr) {
   __shared__ int is_last;
   const int tid = threadIdx.x;
   __syncthreads();
@@ -307,7 +322,7 @@ __device__ __forceinline__ void finish_tile(float* red, T* out, float* ws,
     for (int wp2 = 0; wp2 < WARPS; ++wp2) s += red[(wp2 * RB + r) * TILE + c];
     if (gc < M) {
       if (splits == 1)
-        store(out + (long long)r * M + gc, s);
+        store(out + (long long)r * M + gc, scale ? s * scale[gc] : s);
       else
         ws[((long long)split * R + r) * M + gc] = s;
     }
@@ -347,7 +362,8 @@ __device__ __forceinline__ void finish_tile(float* red, T* out, float* ws,
     }
     for (int e = 0; e < vw; ++e) {
       if (gs == 1)
-        store(out + (long long)r * M + gc + e, s[e]);
+        store(out + (long long)r * M + gc + e,
+              scale ? s[e] * scale[gc + e] : s[e]);
       else
         red[(sg * vouts + o) * vw + e] = s[e];
     }
@@ -358,7 +374,7 @@ __device__ __forceinline__ void finish_tile(float* red, T* out, float* ws,
       const int r = o / cols, gc = tile * TILE + o % cols;
       float s = 0.f;
       for (int sg = 0; sg < gs; ++sg) s += red[sg * vouts * vw + o];
-      store(out + (long long)r * M + gc, s);
+      store(out + (long long)r * M + gc, scale ? s * scale[gc] : s);
     }
   }
   if (tid == 0) counters[tile] = 0;
@@ -659,6 +675,327 @@ stream_cols_kernel(const T* __restrict__ x, const T* __restrict__ w,
   }
 }
 
+// ---- quant_matmul at decode: int8 weight streaming on tensor cores ------
+//
+// x is staged as TERMS bf16 terms: one for bf16 x; three for fp32 x, hi =
+// bf16(x), mid = bf16(x - hi), lo = bf16(x - hi - mid), whose sum is x
+// exactly for normal values (8 + 8 + 8 significant bits). An int8 weight
+// is exact in bf16, so each product of a term and a weight is exact in
+// fp32, and the result differs from the fp32 reference only in the order
+// of the sums, with no TF32 anywhere. R = 8 rows fill the n = 8 columns
+// of one B tile per term, so the extra terms' products cost issue slots,
+// not bytes.
+
+// v as TERMS bf16 terms at xs[i], xs[i + ts], xs[i + 2 ts]
+template <int TERMS>
+__device__ __forceinline__ void put_terms(__nv_bfloat16* xs, int i, int ts,
+                                          float v) {
+  const __nv_bfloat16 hi = __float2bfloat16(v);
+  xs[i] = hi;
+  if constexpr (TERMS == 3) {
+    const float rest = v - __bfloat162float(hi);
+    const __nv_bfloat16 mid = __float2bfloat16(rest);
+    xs[i + ts] = mid;
+    xs[i + 2 * ts] = __float2bfloat16(rest - __bfloat162float(mid));
+  }
+}
+
+// x [R, N] rows [0, R) x [k0, k0 + klen) as TERMS bf16 terms into
+// xs [TERMS][RB][xld], zero past R and klen: four elements a thread at a
+// time where x's rows and k0 allow 16-byte (fp32) or 8-byte (bf16) loads
+template <typename T, int RB, int TERMS>
+__device__ __forceinline__ void stage_terms(__nv_bfloat16* xs, const T* x,
+                                            int R, int N, int k0, int klen,
+                                            int xld) {
+  const int ts = RB * xld;  // elements per term
+  const bool vec = N % 4 == 0 && k0 % 4 == 0 && klen % 4 == 0 &&
+                   xld % 4 == 0 &&
+                   reinterpret_cast<uintptr_t>(x) % (4 * sizeof(T)) == 0;
+  if (vec) {
+    const int x4 = xld / 4;
+    for (int i = threadIdx.x; i < RB * x4; i += THREADS) {
+      const int r = i / x4, k = 4 * (i % x4);
+      float v[4] = {0.f, 0.f, 0.f, 0.f};
+      if (r < R && k < klen) {
+        const T* src = x + (long long)r * N + k0 + k;
+        if constexpr (sizeof(T) == 4) {
+          const float4 f = __ldg(reinterpret_cast<const float4*>(src));
+          v[0] = f.x; v[1] = f.y; v[2] = f.z; v[3] = f.w;
+        } else {
+          const uint2 u = __ldg(reinterpret_cast<const uint2*>(src));
+          v[0] = __uint_as_float(u.x << 16);
+          v[1] = __uint_as_float(u.x & 0xffff0000u);
+          v[2] = __uint_as_float(u.y << 16);
+          v[3] = __uint_as_float(u.y & 0xffff0000u);
+        }
+      }
+#pragma unroll
+      for (int e = 0; e < 4; ++e) put_terms<TERMS>(xs, i * 4 + e, ts, v[e]);
+    }
+    return;
+  }
+  for (int i = threadIdx.x; i < RB * xld; i += THREADS) {
+    const int r = i / xld, k = i % xld;
+    const float v = (r < R && k < klen)
+                        ? to_f32(x[(long long)r * N + k0 + k]) : 0.f;
+    put_terms<TERMS>(xs, i, ts, v);
+  }
+}
+
+// Byte e of the biased word u (each int8 byte xor 0x80, so 0..255) as an
+// exact float: 0x4B0000uu is 2^23 + u, minus 2^23 + 128.
+__device__ __forceinline__ float q8_float(uint32_t u, int e) {
+  return __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7440 | e)) - 8388736.f;
+}
+// two exact floats -> one bf16x2 (lo in the low half): their top halves
+__device__ __forceinline__ uint32_t bf16x2_hi(float lo, float hi) {
+  return __byte_perm(__float_as_uint(lo), __float_as_uint(hi), 0x7632);
+}
+
+// Row-major int8 w [N, M] with rows on 16 bytes: stream_mma_kernel's
+// split-K streaming, the 64-column tile of w^T the A operand, staged as
+// int8 (4-stage cp.async ring, rows padded to 80 bytes) and widened in
+// registers. The output columns of a warp's four m16 tiles are permuted so
+// that one 8-byte shared load per w row gives a thread every element it
+// needs: fragment row g of tile mi is column 8 g + 2 mi, row g + 8 column
+// 8 g + 2 mi + 1. The scale multiplies each output once in the merge.
+constexpr int QLD = MT + 16;  // bytes per staged row of int8 w
+
+template <int RB, int TERMS>
+__host__ __device__ constexpr int q8_smem(int kc) {
+  return TERMS * RB * mma_x_ld(kc) * 2 + MSTAGES * MBK * QLD;
+}
+
+template <typename T, int RB, int TERMS>
+__global__ void __launch_bounds__(THREADS)
+stream_mma_q8_kernel(const T* __restrict__ x, const int8_t* __restrict__ w,
+                     const float* __restrict__ scale, T* __restrict__ out,
+                     float* __restrict__ ws, int* __restrict__ counters,
+                     int R, int N, int M, long long ldw, int kc, int splits) {
+  constexpr int NI = RB / 8;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int tile = blockIdx.x, split = blockIdx.y;
+  const int c0 = tile * MT;
+  const int k0 = split * kc;
+  const int klen = min(N, k0 + kc) - k0;
+  const int KT = (klen + MBK - 1) / MBK;
+  const int xld = mma_x_ld(kc);
+  __nv_bfloat16* xs = reinterpret_cast<__nv_bfloat16*>(smem_raw);  // [TERMS][RB][xld]
+  int8_t* wst = reinterpret_cast<int8_t*>(xs + TERMS * RB * xld);  // [MSTAGES][MBK][QLD]
+
+  auto load_stage = [&](int st, int kt) {
+    int8_t* d = wst + st * MBK * QLD;
+#pragma unroll
+    for (int i = tid; i < MBK * (MT / 16); i += THREADS) {
+      const int row = i / (MT / 16), ch = i % (MT / 16);
+      const int k = kt * MBK + row, gc = c0 + ch * 16;
+      const bool ok = k < klen && gc < M;
+      cp_async<16>(smem_u32(d + row * QLD + ch * 16),
+                   ok ? w + (long long)(k0 + k) * ldw + gc : w,
+                   ok ? min(16, M - gc) : 0);
+    }
+  };
+#pragma unroll
+  for (int s = 0; s < MSTAGES - 1; ++s) {
+    if (s < KT) load_stage(s, s);
+    cp_async_commit();
+  }
+  stage_terms<T, RB, TERMS>(xs, x, R, N, k0, klen, xld);
+
+  float acc[4][NI][4];
+#pragma unroll
+  for (int mi = 0; mi < 4; ++mi)
+#pragma unroll
+    for (int ni = 0; ni < NI; ++ni)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[mi][ni][e] = 0.f;
+  const int g = lane / 4, t4 = lane % 4;
+
+  for (int kt = 0; kt < KT; ++kt) {
+    cp_async_wait<MSTAGES - 2>();
+    __syncthreads();  // stage kt (and, at kt = 0, the x terms) visible
+    const int pre = kt + MSTAGES - 1;
+    if (pre < KT) load_stage(pre % MSTAGES, pre);
+    cp_async_commit();
+
+    // rows 2 t4, 2 t4 + 1, 2 t4 + 8, 2 t4 + 9 of the warp's 16, bytes
+    // 8 g .. 8 g + 7 of each, biased to unsigned
+    const int8_t* d = wst + (kt % MSTAGES) * MBK * QLD + warp * 16 * QLD + 8 * g;
+    uint2 wr[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      wr[j] = *reinterpret_cast<const uint2*>(d + (2 * t4 + (j & 1) + 8 * (j >> 1)) * QLD);
+      wr[j].x ^= 0x80808080u;
+      wr[j].y ^= 0x80808080u;
+    }
+    uint32_t a[4][4];
+#pragma unroll
+    for (int mi = 0; mi < 4; ++mi) {
+      const int e = 2 * (mi % 2);
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {  // k rows 2 t4 (+1), then 2 t4 + 8 (+9)
+        const uint32_t u0 = mi < 2 ? wr[2 * h].x : wr[2 * h].y;
+        const uint32_t u1 = mi < 2 ? wr[2 * h + 1].x : wr[2 * h + 1].y;
+        a[mi][2 * h] = bf16x2_hi(q8_float(u0, e), q8_float(u1, e));
+        a[mi][2 * h + 1] = bf16x2_hi(q8_float(u0, e + 1), q8_float(u1, e + 1));
+      }
+    }
+    const int kx = kt * MBK + warp * 16 + 2 * t4;
+#pragma unroll
+    for (int term = 0; term < TERMS; ++term)
+#pragma unroll
+      for (int ni = 0; ni < NI; ++ni) {
+        const __nv_bfloat16* xr = xs + (term * RB + ni * 8 + g) * xld + kx;
+        const uint32_t b0 = *reinterpret_cast<const uint32_t*>(xr);
+        const uint32_t b1 = *reinterpret_cast<const uint32_t*>(xr + 8);
+#pragma unroll
+        for (int mi = 0; mi < 4; ++mi) mma_bf16(acc[mi][ni], a[mi], b0, b1);
+      }
+  }
+  cp_async_wait<0>();
+  __syncthreads();  // the stages are free
+
+  // D = out^T: acc[mi][ni] holds columns 8 g + 2 mi (e 0, 1) and
+  // 8 g + 2 mi + 1 (e 2, 3), rows ni * 8 + 2 t4 (+ 1)
+  float* red = reinterpret_cast<float*>(wst);  // [WARPS][RB][MT]
+#pragma unroll
+  for (int mi = 0; mi < 4; ++mi)
+#pragma unroll
+    for (int ni = 0; ni < NI; ++ni) {
+      const int m = 8 * g + 2 * mi, r = ni * 8 + 2 * t4;
+      red[(warp * RB + r) * MT + m] = acc[mi][ni][0];
+      red[(warp * RB + r + 1) * MT + m] = acc[mi][ni][1];
+      red[(warp * RB + r) * MT + m + 1] = acc[mi][ni][2];
+      red[(warp * RB + r + 1) * MT + m + 1] = acc[mi][ni][3];
+    }
+  finish_tile<T, RB, MT>(red, out, ws, counters, R, M, tile, split, splits,
+                         scale);
+}
+
+// K-major int8 w (w[n, m] at w + n + m * swm: the tied unembedding's
+// q.T, q [M, N] row-major with rows on 16 bytes, N % 64 == 0): q's rows
+// are the A operand as they lie. A warp owns 16 output columns at a time
+// (grid-stride, persistent blocks) and walks N in chunks of 64: each
+// thread reads 16 bytes of each of its two q rows per chunk straight into
+// registers, the next QU chunks (of this task or the next) in flight
+// while the current ones are multiplied. The contraction index is
+// permuted so that those 16 bytes are four k16 steps of the thread:
+// fragment k 2 t4, 2 t4 + 1, 2 t4 + 8, 2 t4 + 9 of step s is byte
+// 16 t4 + 4 s + 0 .. 3 of the chunk, and x's B fragments follow the same
+// order (one 8-byte shared load per term and step). x's
+// terms sit in shared memory once per block, rows padded by 4 so that
+// those loads are conflict-free. No split: M of 50,304-256,000 fills the
+// card; the scale multiplies each output at the store.
+constexpr int QCOLS = 16;  // output columns per warp
+constexpr int QU = 4;      // 64-wide chunks per load group
+
+template <int RB, int TERMS>
+__host__ __device__ constexpr size_t q8_cols_smem(int n) {
+  return (size_t)TERMS * RB * (n + 4) * 2;
+}
+
+template <typename T, int RB, int TERMS>
+__global__ void __launch_bounds__(THREADS)
+stream_cols_q8_kernel(const T* __restrict__ x, const int8_t* __restrict__ w,
+                      const float* __restrict__ scale, T* __restrict__ out,
+                      int R, int N, int M, long long swm) {
+  constexpr int NI = RB / 8;
+  constexpr int GK = QU * 64;  // k per load group
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __nv_bfloat16* xs = reinterpret_cast<__nv_bfloat16*>(smem_raw);  // [TERMS][RB][N + 4]
+  const int xld = N + 4;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane / 4, t4 = lane % 4;
+  const int nw = gridDim.x * WARPS;
+  const int ngroups = (N + GK - 1) / GK;
+
+  // group gi of the warp's task at columns c .. c + 15: rows c + g and
+  // c + g + 8 of q (clamped: masked at the store), 16 bytes of each per
+  // 64-wide chunk
+  auto load_group = [&](uint4 (&u)[QU][2], int c, int gi) {
+    const int8_t* q0 = w + (long long)min(c + g, M - 1) * swm + 16 * t4;
+    const int8_t* q1 = w + (long long)min(c + g + 8, M - 1) * swm + 16 * t4;
+#pragma unroll
+    for (int j = 0; j < QU; ++j) {
+      const int n = gi * GK + j * 64;
+      u[j][0] = n < N ? __ldg(reinterpret_cast<const uint4*>(q0 + n))
+                      : make_uint4(0u, 0u, 0u, 0u);
+      u[j][1] = n < N ? __ldg(reinterpret_cast<const uint4*>(q1 + n))
+                      : make_uint4(0u, 0u, 0u, 0u);
+    }
+  };
+  int c0 = (blockIdx.x * WARPS + warp) * QCOLS, gi = 0;
+  uint4 cur[QU][2], nxt[QU][2] = {};
+  if (c0 < M) load_group(cur, c0, 0);  // in flight while x is staged
+  stage_terms<T, RB, TERMS>(xs, x, R, N, 0, N, xld);
+  __syncthreads();
+  if (c0 >= M) return;
+
+  float acc[NI][4];
+#pragma unroll
+  for (int ni = 0; ni < NI; ++ni)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[ni][e] = 0.f;
+  // one stream of (task, group) pairs: the next pair's loads, the next
+  // task's too, are in flight while the current group is multiplied
+  for (;;) {
+    int c1 = c0, g1 = gi + 1;
+    if (g1 == ngroups) {
+      g1 = 0;
+      c1 = c0 + nw * QCOLS;
+    }
+    const bool more = c1 < M;
+    if (more) load_group(nxt, c1, g1);
+#pragma unroll
+    for (int j = 0; j < QU; ++j) {
+      const int n = gi * GK + j * 64;
+      if (n >= N) break;
+      const uint32_t r0[4] = {cur[j][0].x ^ 0x80808080u, cur[j][0].y ^ 0x80808080u,
+                              cur[j][0].z ^ 0x80808080u, cur[j][0].w ^ 0x80808080u};
+      const uint32_t r1[4] = {cur[j][1].x ^ 0x80808080u, cur[j][1].y ^ 0x80808080u,
+                              cur[j][1].z ^ 0x80808080u, cur[j][1].w ^ 0x80808080u};
+#pragma unroll
+      for (int st = 0; st < 4; ++st) {
+        uint32_t a[4];
+        a[0] = bf16x2_hi(q8_float(r0[st], 0), q8_float(r0[st], 1));
+        a[1] = bf16x2_hi(q8_float(r1[st], 0), q8_float(r1[st], 1));
+        a[2] = bf16x2_hi(q8_float(r0[st], 2), q8_float(r0[st], 3));
+        a[3] = bf16x2_hi(q8_float(r1[st], 2), q8_float(r1[st], 3));
+        const int k = n + 16 * t4 + 4 * st;
+#pragma unroll
+        for (int term = 0; term < TERMS; ++term)
+#pragma unroll
+          for (int ni = 0; ni < NI; ++ni) {
+            const uint2 b = *reinterpret_cast<const uint2*>(
+                xs + (term * RB + ni * 8 + g) * xld + k);
+            mma_bf16(acc[ni], a, b.x, b.y);
+          }
+      }
+    }
+    if (gi == ngroups - 1) {
+      // acc[ni]: columns c0 + g (e 0, 1) and c0 + g + 8 (e 2, 3), rows
+      // ni * 8 + 2 t4 (+ 1)
+#pragma unroll
+      for (int ni = 0; ni < NI; ++ni)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int r = ni * 8 + 2 * t4 + (e & 1), gc = c0 + g + 8 * (e >> 1);
+          if (r < R && gc < M)
+            store(out + (long long)r * M + gc, acc[ni][e] * scale[gc]);
+          acc[ni][e] = 0.f;
+        }
+    }
+    if (!more) break;
+#pragma unroll
+    for (int j = 0; j < QU; ++j) {
+      cur[j][0] = nxt[j][0];
+      cur[j][1] = nxt[j][1];
+    }
+    c0 = c1;
+    gi = g1;
+  }
+}
 }  // namespace stream
 
 // ---- prefill, bf16: tensor cores -----------------------------------------
@@ -1263,23 +1600,80 @@ cudaError_t launch_wg(const void* x, const void* w, void* out, int R, int N,
   return cudaSuccess;
 }
 
-// quant_matmul: the tile template with an int8 w
-int dispatch_q8(const void* x, const void* w, const void* scale, void* out,
-                int R, int N, int M, long long swn, long long swm, int dtype,
-                int bm, void* stream) {
-  if ((bm != 16 && bm != 64) || R <= 0 || M <= 0 || N < 0)
-    return (int)cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const float* sc = static_cast<const float*>(scale);
-  if (dtype == 0) {
-    launch_tile<float, int8_t>(x, w, sc, out, R, N, M, swn, swm, bm, s);
-  } else if (dtype == 1) {
-    launch_tile<__nv_bfloat16, int8_t>(x, w, sc, out, R, N, M, swn, swm, bm,
-                                       s);
-  } else {
-    return (int)cudaErrorInvalidValue;
+template <typename T, int RB, int TERMS>
+cudaError_t launch_q8_mma(const void* x, const void* w, const float* scale,
+                          void* out, int R, int N, int M, long long ldw,
+                          int kc, int splits, void* ws, void* counters,
+                          cudaStream_t stream) {
+  if (kc <= 0 || splits <= 0 || (long long)kc * (splits - 1) >= N ||
+      (long long)kc * splits < N || ldw % 16 != 0 ||
+      reinterpret_cast<uintptr_t>(w) % 16 != 0 ||
+      (splits > 1 && (ws == nullptr || counters == nullptr)))
+    return cudaErrorInvalidValue;
+  const size_t bytes = stream::q8_smem<RB, TERMS>(kc);
+  if (bytes > 227 * 1024) return cudaErrorInvalidValue;
+  static size_t allowed = 48 * 1024;
+  const cudaError_t e =
+      allow_smem(stream::stream_mma_q8_kernel<T, RB, TERMS>, bytes, allowed);
+  if (e != cudaSuccess) return e;
+  const dim3 grid((M + stream::MT - 1) / stream::MT, splits);
+  stream::stream_mma_q8_kernel<T, RB, TERMS>
+      <<<grid, stream::THREADS, bytes, stream>>>(
+          static_cast<const T*>(x), static_cast<const int8_t*>(w), scale,
+          static_cast<T*>(out), static_cast<float*>(ws),
+          static_cast<int*>(counters), R, N, M, ldw, kc, splits);
+  return cudaSuccess;
+}
+
+template <typename T, int RB, int TERMS>
+cudaError_t launch_q8_cols(const void* x, const void* w, const float* scale,
+                           void* out, int R, int N, int M, long long swm,
+                           int blocks, cudaStream_t stream) {
+  if (blocks <= 0 || N % 64 != 0 || swm % 16 != 0 ||
+      reinterpret_cast<uintptr_t>(w) % 16 != 0)
+    return cudaErrorInvalidValue;
+  const size_t bytes = stream::q8_cols_smem<RB, TERMS>(N);
+  if (bytes > 227 * 1024) return cudaErrorInvalidValue;
+  static size_t allowed = 48 * 1024;
+  const cudaError_t e =
+      allow_smem(stream::stream_cols_q8_kernel<T, RB, TERMS>, bytes, allowed);
+  if (e != cudaSuccess) return e;
+  stream::stream_cols_q8_kernel<T, RB, TERMS>
+      <<<blocks, stream::THREADS, bytes, stream>>>(
+          static_cast<const T*>(x), static_cast<const int8_t*>(w), scale,
+          static_cast<T*>(out), R, N, M, swm);
+  return cudaSuccess;
+}
+
+// quant_matmul: the int8 routes (xfer_matmul's kernel codes: 0 = tile,
+// 2 = stream_cols on tensor cores for a K-major w, 4 = stream_mma); x as
+// three bf16 terms when fp32 (TERMS = 3), one when bf16
+template <typename T>
+cudaError_t dispatch_q8(const void* x, const void* w, const float* scale,
+                        void* out, int R, int N, int M, long long swn,
+                        long long swm, int kernel, int p0, int p1, void* ws,
+                        void* counters, cudaStream_t s) {
+  constexpr int TERMS = std::is_same<T, float>::value ? 3 : 1;
+  switch (kernel) {
+    case 0:
+      if (p0 != 16 && p0 != 64) return cudaErrorInvalidValue;
+      launch_tile<T, int8_t>(x, w, scale, out, R, N, M, swn, swm, p0, s);
+      return cudaSuccess;
+    case 2:
+      if (R > 16 || swn != 1) return cudaErrorInvalidValue;
+      return R <= 8 ? launch_q8_cols<T, 8, TERMS>(x, w, scale, out, R, N, M,
+                                                  swm, p0, s)
+                    : launch_q8_cols<T, 16, TERMS>(x, w, scale, out, R, N, M,
+                                                   swm, p0, s);
+    case 4:
+      if (R > 16 || swm != 1) return cudaErrorInvalidValue;
+      return R <= 8 ? launch_q8_mma<T, 8, TERMS>(x, w, scale, out, R, N, M,
+                                                 swn, p0, p1, ws, counters, s)
+                    : launch_q8_mma<T, 16, TERMS>(x, w, scale, out, R, N, M,
+                                                  swn, p0, p1, ws, counters, s);
+    default:
+      return cudaErrorInvalidValue;
   }
-  return (int)cudaGetLastError();
 }
 
 template <typename T>
@@ -1374,14 +1768,30 @@ extern "C" int xfer_matmul_launch(const void* x, const void* w, void* out,
   return (int)cudaGetLastError();
 }
 
-// quant_matmul: the int8 tile kernel; dtype and strides as above, scale
-// holds M contiguous floats, bm is 16 or 64.
+// quant_matmul: the same plan (its route in quant_matmul.py), w int8,
+// scale M contiguous floats; kernel 0 = tile (p0 = 16 or 64 rows per
+// block), 2 = stream_cols (K-major w on tensor cores, p0 = blocks), 4 =
+// stream_mma (int8, p0 and p1 as for stream_rows, rows on 16 bytes, a
+// counter per 64 columns).
 extern "C" int quant_matmul_launch(const void* x, const void* w,
-                                   const void* scale, void* out, int R,
-                                   int N, int M, long long swn,
-                                   long long swm, int dtype, int bm,
-                                   void* stream) {
-  return dispatch_q8(x, w, scale, out, R, N, M, swn, swm, dtype, bm, stream);
+                                   const void* scale, void* out,
+                                   const XferPlan* p, void* stream) {
+  if (p->R <= 0 || p->M <= 0 || p->N < 0) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float* sc = static_cast<const float*>(scale);
+  cudaError_t e;
+  if (p->dtype == 0) {
+    e = dispatch_q8<float>(x, w, sc, out, p->R, p->N, p->M, p->swn, p->swm,
+                           p->kernel, p->p0, p->p1, p->ws, p->counters, s);
+  } else if (p->dtype == 1) {
+    e = dispatch_q8<__nv_bfloat16>(x, w, sc, out, p->R, p->N, p->M, p->swn,
+                                   p->swm, p->kernel, p->p0, p->p1, p->ws,
+                                   p->counters, s);
+  } else {
+    return (int)cudaErrorInvalidValue;
+  }
+  if (e != cudaSuccess) return (int)e;
+  return (int)cudaGetLastError();
 }
 
 extern "C" const char* error_string(int code) {

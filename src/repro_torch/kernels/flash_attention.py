@@ -2,20 +2,33 @@
 
 Replaces the TPU kernel ``repro/kernels/flash_attention.py``
 (``flash_attention`` / ``_flash_kernel``, fp body ``_flash_body``) with
-the hand-written CUDA kernel ``csrc/flash_attention.cu``. q ``[BH, S,
+the hand-written CUDA kernels of ``csrc/flash_attention.cu``. q ``[BH, S,
 D]``, k/v ``[BH, T, D]`` (kv already broadcast across groups), query and
 key positions from 0; fp32 scores scaled by 1/sqrt(D), running
 max/sum/accumulator in fp32, one normalisation at the end.
 
 Bound on the H100: at this path's prefill shapes the work is operation
 bound (``4·D`` flops per visible query-key pair); the score matrix
-never reaches device memory, and kv blocks past the causal diagonal are
-skipped. One block per (bh, 64 queries), a loop over kv blocks in place
-of the TPU's sequential grid axis; at D = 256 (recurrentgemma-2b's local
-attention) one block per (bh, 32 queries) with 8 threads sharing each
-query row, so that q and the accumulator fit in registers. The TPU tile
-sizes ``bq``/``bk`` do not carry over: the Hopper tile is fixed by the
-kernel.
+never reaches device memory, and kv tiles past the causal diagonal or
+wholly before the window are skipped. A loop over kv tiles inside one
+block per (bh, query block) takes the place of the TPU's sequential grid
+axis; the TPU tile sizes ``bq``/``bk`` do not carry over. The kernel
+instance follows q's dtype, the storage of k/v and the head dim:
+
+- bf16 q with fp k/v (every serving prefill, the fp shared-prefix entry
+  too), D in 16..256: tensor cores (``wgmma`` for q kᵀ and p v, two
+  warpgroups of 64 queries a block, three at D = 128, k/v tiles of 64
+  keys through a ``cp.async`` ring). P is rounded to bf16 before p v,
+  where the TPU body multiplies f32 p by f32 v: a rounding the reference
+  does not have, held to the bf16 tolerance
+  (:func:`repro_torch.kernels.ref.flash_attention_tiles_ref` is the
+  plain mirror of the tile order and that rounding).
+- fp32 q (the card-vs-CPU parity runs, the INT8 path's activations) and
+  the int8 forms: CUDA cores, fp32 FMA, no TF32: one thread per query row
+  at D <= 64, ``D / 32`` threads per row at D = 128 and 256.
+
+Operands are made contiguous, and copied when their base is off 16
+bytes (the tensor-core kernel copies rows in 16-byte pieces).
 
 Like the TPU kernel it has no length operand: on a right-padded batch
 the valid query rows are exact and the padded tail's rows are not (they
@@ -33,13 +46,13 @@ serving path (``models.blocks``): the queries of a suffix attend a
 gathered prefix, fp or int8 with per-token scales and valid below
 ``pre_len``, then the fresh fp suffix, causally, with one online softmax.
 ``pre_len`` is one int per launch (a shared group has one prefix
-length). An fp prefix launches the fp template, an int8 one the int8
+length). An fp prefix launches the fp kernels, an int8 one the int8
 template, which rounds each dequantised prefix element to ``q.dtype`` as
 the reference casts its dequantised prefix.
 
 A CPU tensor takes the plain version (:func:`plain`,
 :func:`prefix_plain`); a CUDA tensor launches the kernel or raises.
-``flash_attention.launches`` counts the fp template's launches (the fp
+``flash_attention.launches`` counts the fp kernels' launches (the fp
 prefix form too), ``flash_attention_q8.launches`` the int8 template's
 (both entries).
 """
@@ -79,6 +92,15 @@ def _check_scales(name: str, k, v, k_scale, v_scale) -> tuple:
     return k_scale, v_scale
 
 
+def _staged(*tensors: torch.Tensor) -> tuple:
+    """Each operand contiguous, with its base on 16 bytes."""
+    out = []
+    for t in tensors:
+        t = t.contiguous()
+        out.append(t if t.data_ptr() % 16 == 0 else t.clone())
+    return tuple(out)
+
+
 def _check_head_dim(name: str, d: int) -> None:
     if d not in HEAD_DIMS:
         raise ValueError(f"{name}: head dim {d} not in {HEAD_DIMS}")
@@ -106,7 +128,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     bh, s, d = q.shape
     t = k.shape[1]
     _check_head_dim("flash_attention", d)
-    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    q, k, v = _staged(q, k, v)
     out = torch.empty_like(q)
     if bh == 0 or s == 0:
         return out
@@ -130,8 +152,7 @@ def flash_attention_q8(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     bh, s, d = q.shape
     t = k.shape[1]
     _check_head_dim("flash_attention_q8", d)
-    q, k, v, k_scale, v_scale = (x.contiguous()
-                                 for x in (q, k, v, k_scale, v_scale))
+    q, k, v, k_scale, v_scale = _staged(q, k, v, k_scale, v_scale)
     out = torch.empty_like(q)
     if bh == 0 or s == 0:
         return out
@@ -175,8 +196,8 @@ def prefix_attention(q: torch.Tensor, pre_k: torch.Tensor,
         check_dtype("prefix_attention", q.dtype, pre_k, pre_v)
     bh, s, d = q.shape
     _check_head_dim("prefix_attention", d)
-    q, k, v, pre_k, pre_v = (x.contiguous() for x in (q, k, v, pre_k, pre_v))
-    scales = tuple(x.contiguous() for x in scales)
+    q, k, v, pre_k, pre_v = _staged(q, k, v, pre_k, pre_v)
+    scales = _staged(*scales)
     out = torch.empty_like(q)
     if bh == 0 or s == 0:
         return out

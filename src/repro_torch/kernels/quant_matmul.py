@@ -2,26 +2,41 @@
 
 Replaces the TPU kernel ``repro/kernels/quant_matmul.py``
 (``quant_matmul`` / ``_quant_matmul_kernel``) with the hand-written CUDA
-kernel ``quant_matmul_launch`` of ``csrc/xfer_matmul.cu``, the same tile
-loop as ``xfer_matmul`` templated on an int8 weight: ``x [R, N]`` (fp32
-or bf16) ``@ w_q [N, M]`` (int8) with an fp32 accumulator; ``scale [1,
-M]`` (f32) multiplies each output column once at flush; the result is
-cast to ``x.dtype``.
+kernels behind ``quant_matmul_launch`` of ``csrc/xfer_matmul.cu``:
+``x [R, N]`` (fp32 or bf16) ``@ w_q [N, M]`` (int8) with an fp32
+accumulator; ``scale [1, M]`` (f32) multiplies each output column once,
+as the TPU kernel does at flush; the result is cast to ``x.dtype``.
 
 Bound on the H100: on the INT8 serving path it reads every projection's
 int8 weights once per decode step at R = slots, far below the card's
 operations-per-byte ridge, so it is bound by the bytes of ``w_q`` — half
-of what ``xfer_matmul`` reads in bf16. The kernel reads each weight byte
-once per block of rows, widened to fp32 in shared memory, coalesced
-along whichever axis of ``w_q`` is contiguous: the tied unembedding
-passes the strided view ``embed.q.T`` with no transposed copy. It runs
-the CUDA-core tile kernel that ``xfer_matmul`` keeps for fp32 and
-misaligned shapes: 16 column blocks for a 1024-wide decode output, too
-few for 132 SMs. Moving it onto ``xfer_matmul``'s split-K decode design
-is queued work.
+of what ``xfer_matmul`` reads in bf16. :func:`route` picks one of three
+kernels from the shape, the dtype and ``w_q``'s strides:
 
-The block is 16 rows high when R <= 16 (decode), else 64. Ragged edges
-are masked in the kernel.
+- ``stream_mma`` (R <= 16, row-major ``w_q`` with rows on 16 bytes:
+  every INT8 projection at decode): ``xfer_matmul``'s split-K weight
+  streaming on tensor cores over an int8 ``cp.async`` ring; the splits
+  are summed in a fixed order by the last block of each column tile in
+  the same launch, so two calls give bit-equal outputs.
+- ``stream_cols`` (R <= 16, K-major ``w_q``: the tied unembedding passed
+  as ``embed.q.T``, no transposed copy): q's rows read straight into
+  registers as the ``mma.sync`` A operand; no split.
+- ``tile`` (R > 16, misaligned shapes): the CUDA-core template that
+  ``xfer_matmul`` keeps for fp32, fp32 FMA with the int8 tile widened in
+  shared memory; 16 rows per block when R <= 16, else 64.
+
+On tensor cores every int8 weight is widened exactly to bf16. fp32 ``x``
+(the INT8 path's activations) goes in as three bf16 terms, ``hi =
+bf16(x)``, ``mid = bf16(x - hi)``, ``lo = bf16(x - hi - mid)``, which sum
+to ``x`` exactly for normal values; each term times a weight is exact in
+fp32, so the result departs from the fp32 TPU kernel only in the order
+of the sums (no TF32; :func:`repro_torch.kernels.ref.quant_matmul_split_ref`
+is the plain mirror). bf16 ``x`` is one term.
+
+The launch plan (route, split-K workspace and counters from
+``_launch.scratch``, per device) is built once per shape and passed to
+the C entry as one struct. The kernel resets its counters, so the
+pointers stay valid from call to call.
 
 A CPU tensor takes the plain version (:func:`plain`); a CUDA tensor
 launches the kernel or raises. ``quant_matmul.launches`` counts launches.
@@ -29,15 +44,78 @@ launches the kernel or raises. ``quant_matmul.launches`` counts launches.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
 from repro_torch.kernels._launch import (DTYPE_CODES, check_device,
-                                         check_dtype, check_float, launch)
+                                         check_dtype, check_float, check_rc,
+                                         current_stream, entry, scratch,
+                                         sm_count)
 from repro_torch.kernels.ref import quant_matmul_ref as plain
+from repro_torch.kernels.xfer_matmul import (DECODE_ROWS, MMA_TILE, SMEM_MAX,
+                                             STREAM_WARPS, Route, _cdiv,
+                                             _Plan)
 
-_VP, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-_ARGTYPES = (_VP, _VP, _VP, _VP, _I, _I, _I, _LL, _LL, _I, _I)
+_VP = ctypes.c_void_p
+_ARGTYPES = (_VP, _VP, _VP, _VP, _VP)  # x, w_q, scale, out, &plan
+
+#: stream_mma: rows of N per split at most, by x's dtype (fp32 x is
+#: staged as three bf16 terms, so its splits are shorter)
+Q8_KC = {torch.float32: 1024, torch.bfloat16: 2048}
+Q8_COLS_PER_WARP = 16   # stream_cols: output columns per warp
+Q8_CHUNK = 64           # stream_cols: N is read in chunks of this many
+
+
+def x_terms(dtype: torch.dtype) -> int:
+    """bf16 terms the tensor-core routes stage ``x`` as."""
+    return 3 if dtype == torch.float32 else 1
+
+
+@functools.lru_cache(maxsize=None)
+def route(r: int, n: int, m: int, dtype: torch.dtype, strides: tuple,
+          sms: int, *, aligned: bool = True) -> Route:
+    """The kernel and geometry for ``x [r, n] @ w_q [n, m]`` with ``x`` in
+    ``dtype`` and ``w_q``'s element ``strides``, on a card of ``sms`` SMs.
+    ``aligned``: ``w_q``'s base pointer lies on 16 bytes. Needs ``r``,
+    ``m`` > 0."""
+    swn, swm = strides
+    if r <= DECODE_ROWS and n > 0 and aligned:
+        rb = 8 if r <= 8 else 16
+        if swm == 1 and swn % 16 == 0:
+            # xfer_matmul's stream_mma geometry: every SM streams, and as
+            # many splits as the card holds at once
+            tiles = _cdiv(m, MMA_TILE)
+            splits = max(_cdiv(sms, tiles), 2 * sms // tiles)
+            kc = min(Q8_KC[dtype], _cdiv(_cdiv(n, splits), 16) * 16)
+            splits = _cdiv(n, kc)
+            return Route("stream_mma", (tiles, splits), kc=kc, splits=splits)
+        if swn == 1 and swm % 16 == 0 and n % Q8_CHUNK == 0 \
+                and x_terms(dtype) * rb * (n + 4) * 2 <= SMEM_MAX:
+            cols = STREAM_WARPS * Q8_COLS_PER_WARP
+            return Route("stream_cols", (min(_cdiv(m, cols), 2 * sms),))
+    rows = 16 if r <= DECODE_ROWS else 64
+    return Route("tile", (_cdiv(m, 64), _cdiv(r, rows)), rows=rows)
+
+
+def _plan(x: torch.Tensor, w_q: torch.Tensor, aligned: bool) -> tuple:
+    """Fix one shape's launch: (rows, columns, the address of its
+    ``_Plan``, what keeps the plan and the workspace alive)."""
+    r, n = x.shape
+    m = w_q.shape[1]
+    rt = route(r, n, m, x.dtype, w_q.stride(), sm_count(x.device),
+               aligned=aligned)
+    ws = counters = None
+    if rt.splits > 1:  # a counter per 64-column tile
+        ws, counters = scratch("quant_matmul", x.device, rt.splits * r * m,
+                               rt.grid[0])
+    plan = _Plan(r, n, m, DTYPE_CODES[x.dtype], w_q.stride(0), w_q.stride(1),
+                 *rt.c_args, 0, ws.data_ptr() if ws is not None else None,
+                 counters.data_ptr() if counters is not None else None)
+    return r, m, ctypes.addressof(plan), (plan, ws, counters)
+
+
+_plans: dict = {}
 
 
 def quant_matmul(x: torch.Tensor, w_q: torch.Tensor,
@@ -55,17 +133,26 @@ def quant_matmul(x: torch.Tensor, w_q: torch.Tensor,
     check_dtype("quant_matmul", torch.float32, scale)
     if all(t.device.type == "cpu" for t in (x, w_q, scale)):
         return plain(x, w_q, scale)
-    check_device("quant_matmul", x, w_q, scale)
-    check_float("quant_matmul", x)
     x, scale = x.contiguous(), scale.contiguous()
-    r, n = x.shape
-    out = torch.empty((r, m), dtype=x.dtype, device=x.device)
-    if r == 0 or m == 0:
-        return out
-    launch("quant_matmul", _ARGTYPES, x.data_ptr(), w_q.data_ptr(),
-           scale.data_ptr(), out.data_ptr(), r, n, m, w_q.stride(0),
-           w_q.stride(1), DTYPE_CODES[x.dtype], 16 if r <= 16 else 64,
-           source="xfer_matmul")
+    dev = x.device
+    if x.shape[0] == 0 or m == 0:
+        check_device("quant_matmul", x, w_q, scale)
+        check_float("quant_matmul", x)
+        return torch.empty((x.shape[0], m), dtype=x.dtype, device=dev)
+    xp, wp = x.data_ptr(), w_q.data_ptr()
+    index = torch.cuda.current_device()
+    key = (x.shape, w_q.shape, w_q.stride(), x.dtype, dev, w_q.device,
+           scale.device, index, wp % 16 == 0)
+    plan = _plans.get(key)
+    if plan is None:
+        check_device("quant_matmul", x, w_q, scale)
+        check_float("quant_matmul", x)
+        plan = _plans[key] = _plan(x, w_q, key[-1])
+    r, m, addr, _ = plan
+    out = torch.empty((r, m), dtype=x.dtype, device=dev)
+    fn = entry("quant_matmul", _ARGTYPES, "xfer_matmul")
+    check_rc("quant_matmul", fn(xp, wp, scale.data_ptr(), out.data_ptr(),
+                                addr, current_stream(index)), "xfer_matmul")
     quant_matmul.launches += 1
     return out
 

@@ -6,6 +6,11 @@ same ``NEG_INF`` fill, softmax, cast back to the input dtype. They are
 what a kernel wrapper runs when it is handed CPU tensors, and what
 ``chip_smoke.py`` holds each CUDA kernel against on the card.
 
+``quant_matmul_split_ref`` and ``flash_attention_tiles_ref`` are plain
+mirrors of the tensor-core kernels' arithmetic (three bf16 terms of fp32
+x; the flash tile order with P rounded before P·V), held against the JAX
+package in the tests; the wrappers never run them.
+
 ``mlstm_chunkwise_ref`` is the plain version of the ``mlstm_chunkwise``
 kernel (its arguments, chunk by chunk); ``mlstm_ref`` is the JAX
 package's strict per-step oracle. ``prefix_attention_ref`` is the plain
@@ -33,6 +38,102 @@ def quant_matmul_ref(x: torch.Tensor, w_q: torch.Tensor,
     [1, M] f32) in fp32, cast to ``x.dtype``."""
     w = w_q.float() * scale.reshape(1, w_q.shape[1])
     return (x.float() @ w).to(x.dtype)
+
+
+def split_terms(x: torch.Tensor) -> list:
+    """``x`` as the bf16 terms the tensor-core ``quant_matmul`` routes
+    stage it as: fp32 x as ``hi = bf16(x)``, ``mid = bf16(x - hi)``,
+    ``lo = bf16(x - hi - mid)`` (their sum is x exactly for normal
+    values); bf16 x as itself."""
+    if x.dtype != torch.float32:
+        return [x.to(torch.bfloat16)]
+    hi = x.to(torch.bfloat16)
+    rest = x - hi.float()
+    mid = rest.to(torch.bfloat16)
+    return [hi, mid, (rest - mid.float()).to(torch.bfloat16)]
+
+
+def quant_matmul_split_ref(x: torch.Tensor, w_q: torch.Tensor,
+                           scale: torch.Tensor) -> torch.Tensor:
+    """The tensor-core ``quant_matmul`` routes' arithmetic: the sum over
+    :func:`split_terms` of ``term @ w_q`` in fp32 (each product of a bf16
+    term and an int8 weight exact), times ``scale [1, M]`` once, cast to
+    ``x.dtype``. Equal to :func:`quant_matmul_ref` up to the fp32
+    summation order."""
+    w = w_q.float()
+    acc = sum(t.float() @ w for t in split_terms(x))
+    return (acc * scale.reshape(1, w_q.shape[1])).to(x.dtype)
+
+
+#: the tensor-core flash kernel's query rows per block (192 at D = 128;
+#: the result does not depend on it) and keys per K/V tile
+FLASH_BQ, FLASH_BK = 128, 64
+
+
+def flash_attention_tiles_ref(q: torch.Tensor, k: torch.Tensor,
+                              v: torch.Tensor, *, causal: bool = True,
+                              window: int = 0, pre_k: torch.Tensor = None,
+                              pre_v: torch.Tensor = None, pre_len: int = 0,
+                              p_dtype: torch.dtype = None,
+                              bq: int = FLASH_BQ,
+                              bk: int = FLASH_BK) -> torch.Tensor:
+    """The tensor-core ``flash_attention`` kernel's algorithm: for each
+    block of ``bq`` queries, the K/V tiles of ``bk`` keys it visits — the
+    prefix ``pre_k``/``pre_v`` [BH, Lp, D] below ``pre_len`` first (the
+    shared-prefix entry: q then sits at ``pre_len + i``), then the main
+    keys from the tile holding the block's first row's window start to the
+    block's causal end — each updating (m, l, acc) in fp32 from its own
+    maximum, l summed from the f32 p, P rounded to ``p_dtype`` (default
+    ``q.dtype``) before P·V, one division by ``max(l, 1e-30)`` at the end.
+    Keys past a segment's end read as zeros and are masked. A tile that
+    masks a whole row adds p = 1 terms here, as the TPU body does, which
+    the row's next visible tile scales by exactly 0; the kernel leaves
+    the row's state as it was there (the same result). With
+    ``p_dtype`` float32 it equals :func:`flash_attention_ref` (or
+    :func:`prefix_attention_ref`) up to the fp32 summation order."""
+    bh, s, d = q.shape
+    t = k.shape[1]
+    p_dtype = p_dtype or q.dtype
+    qf = q.float()
+    segs = []
+    if pre_k is not None:
+        segs.append((pre_k.float(), pre_v.float(), pre_len, True))
+    segs.append((k.float(), v.float(), t, False))
+    out = torch.empty((bh, s, d), dtype=torch.float32, device=q.device)
+    for q0 in range(0, s, bq):
+        qi = torch.arange(q0, min(q0 + bq, s), device=q.device)[:, None]
+        m = torch.full((bh, len(qi)), NEG_INF, device=q.device)
+        l = torch.zeros_like(m)
+        acc = torch.zeros((bh, len(qi), d), device=q.device)
+        for ks, vs, lim, pre in segs:
+            begin, end = 0, lim
+            if not pre and causal:
+                end = min(lim, q0 + bq)
+            if not pre and window:
+                begin = max(q0 - window + 1, 0) // bk * bk
+            for t0 in range(begin, end, bk):
+                kp = torch.arange(t0, t0 + bk, device=q.device)[None, :]
+                kt = torch.zeros((bh, bk, d), device=q.device)
+                vt = torch.zeros_like(kt)
+                n = min(bk, lim - t0)
+                kt[:, :n], vt[:, :n] = ks[:, t0:t0 + n], vs[:, t0:t0 + n]
+                sc = torch.einsum("bsd,btd->bst", qf[:, q0:q0 + len(qi)],
+                                  kt) / math.sqrt(d)
+                ok = kp < lim
+                if not pre and causal:
+                    ok = ok & (kp <= qi)
+                if not pre and window:
+                    ok = ok & ((qi - kp) < window)
+                sc = torch.where(ok[None], sc, NEG_INF)
+                m_new = torch.maximum(m, sc.amax(-1))
+                p = torch.exp(sc - m_new[..., None])
+                alpha = torch.exp(m - m_new)
+                l = l * alpha + p.sum(-1)
+                acc = acc * alpha[..., None] + torch.einsum(
+                    "bst,btd->bsd", p.to(p_dtype).float(), vt)
+                m = m_new
+        out[:, q0:q0 + len(qi)] = acc / torch.clamp(l, min=1e-30)[..., None]
+    return out.to(q.dtype)
 
 
 def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,

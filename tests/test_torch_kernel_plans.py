@@ -1,13 +1,17 @@
 """The launch plans of the port's redesigned kernels, on the CPU.
 
 ``xfer_matmul.route`` picks the kernel and geometry of every matmul the
-serving paths run (the shapes of ``chip_smoke.py``'s ``MM_CASES``), and
+serving paths run (the shapes of ``chip_smoke.py``'s ``MM_CASES``),
+``quant_matmul.route`` that of every INT8 matmul (``QM_CASES``), and
 ``paged_attention.chunk_plan`` the flash-decoding split of the fp
 ``paged_attention`` body. ``ref.paged_attention_split_ref`` is the plain
 mirror of that split (per-chunk partials, then the merge in chunk order);
-it is held here against the JAX package's ``paged_attention`` (interpret
-mode) and its oracle on inputs made from a numpy seed. The kernels
-themselves run only on the card (``chip_smoke.py`` phase 3).
+``ref.quant_matmul_split_ref`` of the int8 tensor-core routes' arithmetic
+(fp32 x as three exact bf16 terms); ``ref.flash_attention_tiles_ref`` of
+the tensor-core ``flash_attention``'s tile order, with P rounded before
+P·V. Each is held here against the JAX package's kernel (interpret mode)
+or its block on inputs made from a numpy seed. The kernels themselves
+run only on the card (``chip_smoke.py`` phase 3).
 """
 import math
 import os
@@ -20,8 +24,12 @@ import torch
 
 from repro.kernels import ops as jops
 from repro.kernels import ref as jref
+from repro.models import blocks as JB
 from repro_torch.kernels import ops
+from repro_torch.kernels import ref
 from repro_torch.kernels.paged_attention import CHUNK, chunk_plan
+from repro_torch.kernels.quant_matmul import Q8_KC
+from repro_torch.kernels.quant_matmul import route as q8_route
 from repro_torch.kernels.xfer_matmul import (DECODE_ROWS, MMA_KC, MMA_TILE,
                                              TC_SMALL, TC_SPLIT_FLOATS,
                                              X_STAGE, route)
@@ -178,3 +186,179 @@ def test_paged_split_mirror_dense_grid_equals_pool(chunk):
     dense = ops.paged_attn_split_ref(qt, dense_k, dense_v, ident, lt,
                                      chunk=chunk)
     assert torch.equal(pool, dense)
+
+
+# ---------------------------------------------------------------------------
+# quant_matmul: the int8 routes and the three-term split
+# ---------------------------------------------------------------------------
+
+_Q8_CASES = [(label, r, n, m, tr, dname)
+             for label, r, n, m, tr in chip_smoke.QM_CASES
+             for dname in ("float32", "bfloat16")]
+
+
+@pytest.mark.parametrize("label,r,n,m,tr,dname", _Q8_CASES,
+                         ids=[f"{c[0]} {c[5]}" for c in _Q8_CASES])
+def test_q8_route_sends_each_int8_shape_where_the_design_says(
+        label, r, n, m, tr, dname):
+    """Row-major ``w_q`` at R <= 16 with rows on 16 bytes (every INT8
+    projection) -> the int8 ``stream_mma``; the K-major ``embed.q.T`` ->
+    ``stream_cols``; R = 2048 and misaligned shapes -> ``tile``."""
+    strides = _strides(n, m, tr)
+    rt = q8_route(r, n, m, _DT[dname], strides, SMS)
+    if r > DECODE_ROWS:
+        want = "tile"
+    elif not tr:
+        want = "stream_mma" if m % 16 == 0 else "tile"
+    else:
+        want = "stream_cols" if n % 64 == 0 else "tile"
+    assert rt.kernel == want, (label, dname, rt)
+    if rt.kernel == "stream_mma":
+        assert rt.grid == (-(-m // MMA_TILE), rt.splits)
+        assert math.prod(rt.grid) >= SMS
+        assert rt.kc % 16 == 0 and rt.kc <= Q8_KC[_DT[dname]]
+        assert (rt.splits - 1) * rt.kc < n <= rt.splits * rt.kc
+    elif rt.kernel == "stream_cols":
+        assert rt.splits == 1 and 1 <= rt.grid[0] <= 2 * SMS
+    else:
+        assert rt.grid == (-(-m // 64), -(-r // rt.rows))
+    # the serving shapes of the INT8 path, by name
+    if r == chip_smoke.SLOTS and not label.startswith("ragged"):
+        assert rt.kernel == ("stream_cols" if tr else "stream_mma")
+
+
+@pytest.mark.parametrize("r,n,m,strides,aligned,want", [
+    (8, 1024, 1024, (1024, 1), False, "tile"),    # w_q off 16 bytes
+    (8, 1000, 1000, (1000, 1), True, "tile"),     # rows off 16 bytes
+    (8, 1000, 1024, (1, 1000), True, "tile"),     # K-major, N % 64 != 0
+    (16, 1024, 4096, (4096, 1), True, "stream_mma"),
+    (17, 1024, 4096, (4096, 1), True, "tile"),    # past the decode rows
+    (8, 0, 64, (64, 1), True, "tile"),            # empty contraction
+])
+def test_q8_route_edges(r, n, m, strides, aligned, want):
+    assert q8_route(r, n, m, torch.float32, strides, SMS,
+                    aligned=aligned).kernel == want
+
+
+@pytest.mark.parametrize("r,n,m,x_scale", [
+    (8, 512, 256, 1.0), (16, 256, 512, 1e3), (5, 256, 256, 1e-3)])
+def test_quant_split_mirror_matches_jax(r, n, m, x_scale):
+    """fp32 x as hi + mid + lo (bf16 each) sums back to x exactly, and
+    the sum of the terms' products with the int8 weight, scaled once,
+    equals JAX's ``quant_matmul`` (interpret mode) at 1e-5."""
+    rng = np.random.RandomState(r + n + m)
+    x = (x_scale * rng.standard_normal((r, n))).astype(np.float32)
+    w_q = rng.randint(-127, 128, size=(n, m)).astype(np.int8)
+    scale = rng.uniform(1e-3, 2e-2, size=(1, m)).astype(np.float32)
+    xt = torch.from_numpy(x)
+    hi, mid, lo = ref.split_terms(xt)
+    assert all(t.dtype == torch.bfloat16 for t in (hi, mid, lo))
+    assert torch.equal(hi.float() + mid.float() + lo.float(), xt)
+    got = ref.quant_matmul_split_ref(xt, torch.from_numpy(w_q),
+                                     torch.from_numpy(scale))
+    assert got.dtype == torch.float32 and tuple(got.shape) == (r, m)
+    want = np.asarray(jops.int8_matmul(jnp.asarray(x), jnp.asarray(w_q),
+                                       jnp.asarray(scale)))
+    tol = 1e-5 * np.abs(want).max()
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=tol)
+
+
+def test_quant_split_mirror_bf16_is_one_term():
+    rng = np.random.RandomState(3)
+    x = torch.from_numpy(rng.standard_normal((8, 64)).astype(np.float32))
+    xb = x.to(torch.bfloat16)
+    (term,) = ref.split_terms(xb)
+    assert torch.equal(term, xb)
+    w_q = torch.from_numpy(rng.randint(-127, 128, (64, 32)).astype(np.int8))
+    scale = torch.full((1, 32), 0.01)
+    assert torch.equal(ref.quant_matmul_split_ref(xb, w_q, scale),
+                       ref.quant_matmul_ref(xb, w_q, scale))
+
+
+# ---------------------------------------------------------------------------
+# flash_attention: the tensor-core tile order
+# ---------------------------------------------------------------------------
+
+BF16_TOL = chip_smoke.TOL["bfloat16"]
+
+
+def _within_bf16(got: np.ndarray, want: np.ndarray) -> None:
+    """chip_smoke.py's bf16 check: each element within 5e-2 of its own
+    magnitude plus its row's RMS."""
+    rms = np.sqrt((want ** 2).mean(axis=-1, keepdims=True))
+    bad = np.abs(got - want) > BF16_TOL * (np.abs(want) + rms)
+    assert not bad.any(), (np.abs(got - want).max(), int(bad.sum()))
+
+
+_FLASH_CASES = [(3, 77, 64, True, 0), (3, 200, 64, True, 48),
+                (2, 90, 64, False, 0), (2, 300, 256, True, 100),
+                (2, 130, 256, True, 0)]
+
+
+@pytest.mark.parametrize("bh,s,d,causal,window", _FLASH_CASES)
+@pytest.mark.parametrize("p_bf16", [False, True], ids=["p_f32", "p_bf16"])
+def test_flash_tiles_mirror_matches_jax(bh, s, d, causal, window, p_bf16):
+    """The kernel's tile order (blocks of 128 queries, tiles of 64 keys,
+    the same tiles skipped) against JAX's ``flash_attention`` (interpret
+    mode): at 2e-4 with fp32 inputs and P in fp32; with bf16 inputs and
+    P rounded to bf16, at the bf16 tolerance."""
+    rng = np.random.RandomState(bh * s + d)
+    q, k, v = (rng.standard_normal((bh, s, d)).astype(np.float32)
+               for _ in range(3))
+    if p_bf16:
+        jargs = [jnp.asarray(a, jnp.bfloat16) for a in (q, k, v)]
+        targs = [torch.from_numpy(a).to(torch.bfloat16) for a in (q, k, v)]
+    else:
+        jargs = [jnp.asarray(a) for a in (q, k, v)]
+        targs = [torch.from_numpy(a) for a in (q, k, v)]
+    got = ref.flash_attention_tiles_ref(
+        *targs, causal=causal, window=window,
+        p_dtype=None if p_bf16 else torch.float32)
+    assert got.dtype == targs[0].dtype and tuple(got.shape) == (bh, s, d)
+    want = np.asarray(jops.attention(*jargs, causal=causal, window=window),
+                      np.float32)
+    if p_bf16:
+        _within_bf16(got.float().numpy(), want)
+    else:
+        np.testing.assert_allclose(got.numpy(), want, rtol=2e-4, atol=2e-4)
+
+
+@pytest.mark.parametrize("s,d,lp,pre_len", [(37, 64, 96, 70),
+                                            (50, 256, 64, 40)])
+@pytest.mark.parametrize("p_bf16", [False, True], ids=["p_f32", "p_bf16"])
+def test_flash_tiles_mirror_prefix_matches_jax_block(s, d, lp, pre_len,
+                                                     p_bf16):
+    """The shared-prefix entry's tile order (prefix tiles below
+    ``pre_len``, then the causal suffix) against the JAX block's
+    ``_shared_prefix_attention``; rows past ``pre_len`` hold garbage that
+    must not be read."""
+    b, h = 2, 2
+    rng = np.random.RandomState(s + d)
+    q, k, v = (rng.standard_normal((b, s, h, d)).astype(np.float32)
+               for _ in range(3))
+    pk, pv = (rng.standard_normal((b, lp, h, d)).astype(np.float32)
+              for _ in range(2))
+    if p_bf16:  # bf16 values, the reference in fp32 on them
+        q, k, v, pk, pv = (np.asarray(jnp.asarray(a, jnp.bfloat16), np.float32)
+                           for a in (q, k, v, pk, pv))
+    jcache = {"pre_k": jnp.asarray(pk), "pre_v": jnp.asarray(pv),
+              "pre_len": jnp.full((b,), pre_len, jnp.int32)}
+    positions = pre_len + np.tile(np.arange(s, dtype=np.int32), (b, 1))
+    want = np.asarray(JB._shared_prefix_attention(
+        None, jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), jcache,
+        jnp.asarray(positions), jnp.full((b,), pre_len + s, jnp.int32)))
+    pk[:, pre_len:], pv[:, pre_len:] = 1e4, -1e4
+
+    def fold(a):
+        t = torch.from_numpy(np.ascontiguousarray(a)).permute(0, 2, 1, 3)
+        t = t.reshape(b * h, a.shape[1], d)
+        return t.to(torch.bfloat16) if p_bf16 else t
+
+    got = ref.flash_attention_tiles_ref(
+        fold(q), fold(k), fold(v), pre_k=fold(pk), pre_v=fold(pv),
+        pre_len=pre_len, p_dtype=None if p_bf16 else torch.float32)
+    got = got.float().reshape(b, h, s, d).permute(0, 2, 1, 3).numpy()
+    if p_bf16:
+        _within_bf16(got, want)
+    else:
+        np.testing.assert_allclose(got, want, rtol=2e-4, atol=2e-4)
