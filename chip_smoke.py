@@ -9,15 +9,15 @@ Phases (each failure propagates; the process exits non-zero):
 2. build every kernel from ``src/repro_torch/kernels/csrc`` with nvcc,
    print each kernel's ``ptxas -v`` registers, shared memory and spills,
    and fail if a kernel named in ``NO_SPILL`` spills (every
-   ``flash_attention`` instance, the int8 ``paged_attention`` body,
-   ``rglru_scan``, ``mlstm_chunkwise``, ``xfer_matmul``'s and
-   ``quant_matmul``'s streaming and tensor-core kernels, the fp
-   ``paged_attention`` body);
+   ``flash_attention`` instance, ``rglru_scan``, both ``mlstm_chunkwise``
+   kernels, ``xfer_matmul``'s and ``quant_matmul``'s streaming and
+   tensor-core kernels, both ``paged_attention`` bodies);
 3. each kernel against its plain PyTorch version on the card, at the
    serving path's shapes plus ragged cases (``xfer_matmul`` and
-   ``quant_matmul`` also print the kernel their route picked; they and
-   the fp ``paged_attention``, which reduce across blocks, must give
-   bit-equal outputs on two calls; every timed matmul shape is kept in
+   ``quant_matmul`` also print the kernel their route picked; they, both
+   ``paged_attention`` bodies, which reduce across blocks, and
+   ``mlstm_chunkwise`` must give bit-equal outputs on two calls; every
+   timed matmul shape is kept in
    the kernel line under ``shapes``, the paged cases with their
    every-length times; each ``flash_attention`` line names its kernel
    instance with its ``ptxas`` registers and spills), in fp32 (tolerance
@@ -31,11 +31,15 @@ Phases (each failure propagates; the process exits non-zero):
    [128, 256, 64], at head dim 128 ([256, 2048, 128] causal, entry
    ``d128``) and at the hybrid's shape below, each beside SDPA. The
    short calls (decode ``quant_matmul``, qwen's and the shared-prefix
-   ``flash_attention``) also give ``device_ms``: one call's device time,
-   20 calls captured in a CUDA graph, beside the library's. The INT8
-   kernels (``quant_matmul``, the int8 body of ``paged_attention``) are
-   checked the same way, with q/x in fp32 (the INT8 path's activations)
-   and bf16. ``quant_matmul``'s library call is
+   ``flash_attention``, the int8 ``paged_attention``) and
+   ``mlstm_chunkwise`` also give ``device_ms``: one call's device time,
+   calls captured in a CUDA graph, beside the library's or yardstick's.
+   The INT8 kernels (``quant_matmul``, the int8 body of
+   ``paged_attention``: table ``PQ8_CASES``, the INT8 slot grid, GQA on
+   pages of 16, phase 4f's pool of pages of 64 with rows over several
+   chunks, MQA at head dim 256) are checked the same way, with q/x in
+   fp32 (the INT8 path's activations) and bf16. ``quant_matmul``'s
+   library call is
    ``torch._weight_int8pack_mm`` on the weight transposed ahead of time
    (or the error it raises); no PyTorch call computes the int8 attention
    body. Their labelled yardsticks are ``torch.matmul`` on a weight
@@ -57,8 +61,10 @@ Phases (each failure propagates; the process exits non-zero):
    2048, 512] in fp32, head dims 32 and 64, identity-gate tails (the
    outputs before the tail and the final state also equal a run on the
    unpadded prefix) and nonzero initial states; h and the final (C, n,
-   m) against the plain version; no PyTorch call computes the mLSTM, so
-   its library time is null;
+   m) against the plain version (in bf16 its mirror of the tensor-core
+   kernel, ``ref.mlstm_chunkwise_ref(split=True)``), also at head dims
+   96, 256 and 384 (the other tensor-core instances); no PyTorch call
+   computes the mLSTM, so its library time is null;
 4. full-width qwen1.5-0.5b served greedily in bf16 through
    ``ServingEngine.run_until_drained()``: the fp kernels' launch
    counters must rise by their per-step counts, the INT8 ones stay 0;
@@ -258,11 +264,11 @@ def iters_for(flops: float):
 
 def record(entries: dict, name: str, entry, row: dict) -> None:
     """Keep a timed case as the kernel's entry: ``main`` for the first
-    serving path that runs the kernel, ``hybrid``, ``ssm`` or ``d128`` as
-    a sub-entry of that name."""
+    serving path that runs the kernel, ``hybrid``, ``ssm``, ``d128`` or
+    ``pool`` as a sub-entry of that name."""
     if entry == "main":
         entries.setdefault(name, {}).update(row)
-    elif entry in ("hybrid", "ssm", "d128"):
+    elif entry in ("hybrid", "ssm", "d128", "pool"):
         entries.setdefault(name, {})[entry] = row
 
 
@@ -555,6 +561,25 @@ QM_CASES = (
        ("ragged R=77 1000x1001 (q.T)", 77, 1000, 1001, True)])
 
 
+# paged_attention's int8 body: (label, B, H, G, D, (pages, page size),
+# table columns (None: the dense grid through an identity table),
+# lengths, entry of the case timed in fp32 or None); the INT8 path's slot
+# grid, GQA on pages of 16, phase 4f's pool (pages of 64, 65 pages, rows
+# over several 128-position chunks), MQA at head dim 256
+PQ8_CASES = [
+    (f"grid q[{SLOTS},{Q_HEADS},64] int8 pool[{SLOTS},{MAX_LEN},{Q_HEADS},64]",
+     SLOTS, Q_HEADS, Q_HEADS, 64, (SLOTS, MAX_LEN), None,
+     [1, 17, 64, 128, 129, 200, 233, MAX_LEN], "main"),
+    ("ragged GQA H=8 G=2 ps=16", 3, 8, 2, 64, (3 * 9 + 2, 16), 9,
+     [1, 77, 9 * 16], None),
+    (f"pool q[{SLOTS},{Q_HEADS},64] int8 pool[{SLOTS * MAX_LEN // PAGE + 1},"
+     f"{PAGE},{Q_HEADS},64]", SLOTS, Q_HEADS, Q_HEADS, 64,
+     (SLOTS * MAX_LEN // PAGE + 1, PAGE), MAX_LEN // PAGE,
+     [1, 64, 65, 128, 129, 300, 450, MAX_LEN], "pool"),
+    ("ragged MQA D=256 H=10 G=1 ps=16", 3, 10, 1, 256, (3 * 5 + 2, 16), 5,
+     [1, 40, 5 * 16], None)]
+
+
 def int8pack_ms(x, w_q, scale, want):
     """``torch._weight_int8pack_mm(x, w [M, N] int8, scales [M])``, the
     PyTorch call that computes ``quant_matmul``, with the weight
@@ -653,54 +678,70 @@ def check_int8_kernels(dev, gen) -> dict:
         del x, got, want, w, w_q, w_deq
     entries["quant_matmul"]["shapes"] = shapes
 
-    # ---- paged_attention int8 body: decode over the int8 slot grid
-    lengths_main = [1, 17, 64, 128, 129, 200, 233, MAX_LEN]
-    kq = Q.quantize_kv(randn(SLOTS, MAX_LEN, 16, 64))
-    vq = Q.quantize_kv(randn(SLOTS, MAX_LEN, 16, 64))
-    table = torch.arange(SLOTS, device=dev, dtype=torch.int32)[:, None]
-    lens_main = torch.tensor(lengths_main, device=dev, dtype=torch.int32)
-    n_pages, ps, m = 3 * 9 + 2, 16, 9
-    perm = torch.randperm(n_pages - 1, generator=gen, device=dev) + 1
-    rk = Q.quantize_kv(randn(n_pages, ps, 2, 64))
-    rv = Q.quantize_kv(randn(n_pages, ps, 2, 64))
-    for dname, dt in dtypes.items():
-        cases = [(f"grid q[{SLOTS},16,64] int8 pool[{SLOTS},{MAX_LEN},16,64]",
-                  randn(SLOTS, 16, 64, dt=dt), kq, vq, table, lens_main),
-                 ("ragged GQA H=8 G=2 ps=16", randn(3, 8, 64, dt=dt), rk, rv,
-                  perm[:3 * m].reshape(3, m).to(torch.int32),
-                  torch.tensor([1, 77, m * ps], device=dev, dtype=torch.int32))]
-        for label, q, k8, v8, tb, lens in cases:
-            args = (q, k8.q, v8.q, tb, lens)
-            scales = dict(k_scale=k8.scale, v_scale=v8.scale)
+    # ---- paged_attention int8 body: every case of PQ8_CASES, q in fp32
+    # (the INT8 path's) and bf16
+    for label, b, h, g, d, (n_pages, ps), m, lengths, entry in PQ8_CASES:
+        kq = Q.quantize_kv(randn(n_pages, ps, g, d))
+        vq = Q.quantize_kv(randn(n_pages, ps, g, d))
+        if m is None:  # the dense grid: one page per row
+            tb = torch.arange(b, device=dev, dtype=torch.int32)[:, None]
+        else:
+            perm = torch.randperm(n_pages - 1, generator=gen, device=dev) + 1
+            tb = perm[:b * m].reshape(b, m).to(torch.int32)
+        lens = torch.tensor(lengths, device=dev, dtype=torch.int32)
+        scales = dict(k_scale=kq.scale, v_scale=vq.scale)
+        for dname, dt in dtypes.items():
+            q = randn(b, h, d, dt=dt)
+            args = (q, kq.q, vq.q, tb, lens)
             got = ops.paged_attn(*args, **scales)
             want = ops.paged_attn_ref(*args, **scales)
             err = compare(f"paged_attention_q8 {label} {dname}", got, want, dname)
-            line = f"[kernel] paged_attention_q8 {label} {dname}: max_abs_err {err:.3e}"
-            if dname == "float32" and label.startswith("grid"):
+            bit_stable(f"paged_attention_q8 {label} {dname}", got,
+                       ops.paged_attn(*args, **scales))
+            line = (f"[kernel] paged_attention_q8 {label} {dname}: max_abs_err "
+                    f"{err:.3e} (bit-stable)")
+            if entry and dname == "float32":
+                t = tb.shape[1] * ps
                 ms = time_ms(lambda: ops.paged_attn(*args, **scales))
+                dms = graph_ms(lambda: ops.paged_attn(*args, **scales))
                 plain = time_ms(lambda: ops.paged_attn_ref(*args, **scales))
-                # yardstick: SDPA over K/V dequantised ahead of time
+                # yardstick: SDPA over K/V dequantised ahead of time (the
+                # grid's rows in table order)
+                rows = tb.long()
                 q4 = q[:, :, None, :]
-                k4 = Q.dequantize(k8).permute(0, 2, 1, 3)
-                v4 = Q.dequantize(v8).permute(0, 2, 1, 3)
-                mask = (torch.arange(MAX_LEN, device=dev)[None] < lens[:, None])
+                k4, v4 = (Q.dequantize(x)[rows].reshape(b, t, g, d)
+                          .permute(0, 2, 1, 3) for x in (kq, vq))
+                mask = (torch.arange(t, device=dev)[None] < lens[:, None])
                 mask = mask[:, None, None, :]
-                yard = time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
-                    q4, k4, v4, attn_mask=mask))
-                tokens = sum(lengths_main)
-                nbytes = (2 * q.numel() * 4 + tokens * 16 * (2 * 64 + 2 * 4)
+
+                def yard():
+                    return torch.nn.functional.scaled_dot_product_attention(
+                        q4, k4, v4, attn_mask=mask, enable_gqa=h != g)
+
+                yms, ydms = time_ms(yard), graph_ms(yard)
+                tokens = sum(lengths)
+                nbytes = (2 * q.numel() * 4 + tokens * g * (2 * d + 2 * 4)
                           + tb.numel() * 4 + lens.numel() * 4)
-                b, kind = bound_ms(nbytes, 4.0 * 16 * 64 * tokens, dname)
+                nb, kind = bound_ms(nbytes, 4.0 * h * d * tokens, dname)
                 line += (f" ms {ms:.4f} plain_ms {plain:.4f} yardstick_ms "
-                         f"{yard:.4f} (SDPA over pre-dequantised K/V, masked) "
-                         f"bound_ms {b:.4f} ({kind})")
-                entries["paged_attention_q8"] = dict(
-                    shape=f"q[{SLOTS},16,64] fp32 int8 grid[{SLOTS},{MAX_LEN},16,64] "
-                          f"lengths {lengths_main}",
-                    max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=b,
-                    bound_by=kind, library_ms=None, yardstick_ms=yard,
-                    yardstick="SDPA over pre-dequantised K/V")
+                         f"{yms:.4f} (SDPA over pre-dequantised K/V, masked) "
+                         f"bound_ms {nb:.4f} ({kind}); device_ms {dms:.4f} "
+                         f"yardstick_device_ms {ydms:.4f} (CUDA graph) "
+                         f"kernel/yardstick {ms / yms:.2f}")
+                row = dict(
+                    bit_stable=True, shape=f"q[{b},{h},{d}] fp32 int8 "
+                          f"{'grid' if m is None else 'pool'}"
+                          f"[{n_pages},{ps},{g},{d}] table {tuple(tb.shape)} "
+                          f"lengths {lengths}",
+                    max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=nb,
+                    bound_by=kind, library_ms=None, yardstick_ms=yms,
+                    yardstick="SDPA over pre-dequantised K/V",
+                    device_ms=dms, yardstick_device_ms=ydms)
+                record(entries, "paged_attention_q8", entry, row)
+                del k4, v4
             log(line)
+            del q, got, want
+        del kq, vq
     return entries
 
 
@@ -760,6 +801,13 @@ MLSTM_CASES = [
      False),
     ("state [8,200,512]", 8, 200, X_HD, BOTH, 0, True, False),
     ("state + tail D=32 [5,45,32], last 13 identity", 5, 45, 32, BOTH, 13,
+     True, False),
+    # the other tensor-core instances: 6 of 8 warps owning k-steps (D =
+    # 96), 2 and 3 k-steps a warp (D = 256, 384)
+    ("tail D=96 [3,50,96], last 20 identity", 3, 50, 96, BOTH, 20, False,
+     False),
+    ("state D=256 [4,100,256]", 4, 100, 256, BOTH, 0, True, False),
+    ("state + tail D=384 [2,40,384], last 7 identity", 2, 40, 384, BOTH, 7,
      True, False)]
 MLSTM_CHUNK = 16  # the kernel's chunk, for its operation count
 
@@ -782,9 +830,11 @@ def mlstm_bound(bh: int, s: int, d: int, esz: int, dname: str,
 
 def check_mlstm(dev, gen) -> dict:
     """``mlstm_chunkwise`` (its state entry ``mlstm_fold``) on every case
-    of MLSTM_CASES: h and the final (C, n, m) against the plain version;
-    with an identity-gate tail, the outputs before it and the final
-    state against the kernel on the unpadded prefix too."""
+    of MLSTM_CASES: h and the final (C, n, m) against the plain version
+    (in bf16 its mirror of the tensor-core kernel, C and w k as three bf16
+    terms), two calls bit-equal; with an identity-gate tail, the outputs
+    before it and the final state against the kernel on the unpadded
+    prefix too."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import ops
@@ -811,11 +861,16 @@ def check_mlstm(dev, gen) -> dict:
                 it[:, keep:], logf[:, keep:] = -1e30, 0.0
             args = (q, k, v, it, logf, *state)
             got = ops.mlstm_fold(*args)
-            want = ops.mlstm_fold_ref(*args)
+            want = ops.mlstm_fold_ref(*args, split=dname == "bfloat16")
             errs = [compare(f"mlstm_chunkwise {label} {dname} {part}", g, w, dname)
                     for part, g, w in zip(("h", "C", "n", "m"), got, want)]
+            for part, first, second in zip(("h", "C", "n", "m"), got,
+                                           ops.mlstm_fold(*args)):
+                bit_stable(f"mlstm_chunkwise {label} {dname} {part}", first,
+                           second)
             line = (f"[kernel] mlstm_chunkwise {label} {dname}: max_abs_err h "
-                    f"{errs[0]:.3e} C {errs[1]:.3e} n {errs[2]:.3e} m {errs[3]:.3e}")
+                    f"{errs[0]:.3e} C {errs[1]:.3e} n {errs[2]:.3e} m {errs[3]:.3e} "
+                    f"(bit-stable)")
             if tail:
                 pre = ops.mlstm_fold(q[:, :keep], k[:, :keep], v[:, :keep],
                                      it[:, :keep], logf[:, :keep], *state)
@@ -827,16 +882,19 @@ def check_mlstm(dev, gen) -> dict:
             del want
             if timed and dname == "bfloat16":
                 ms = time_ms(lambda: ops.mlstm_fold(*args))
+                dms = graph_ms(lambda: ops.mlstm_fold(*args), calls=5)
                 plain = time_ms(lambda: ops.mlstm_fold_ref(*args), 3, 1)
                 (nb, kind), flops = mlstm_bound(bh, s, d, q.element_size(), dname,
                                                 with_state)
-                line += (f" ms {ms:.4f} plain_ms {plain:.4f} library_ms null (no "
-                         f"PyTorch call computes the mLSTM) bound_ms {nb:.4f} "
-                         f"({kind}; {flops:.4e} flops)")
+                line += (f" ms {ms:.4f} device_ms {dms:.4f} (CUDA graph) plain_ms "
+                         f"{plain:.4f} library_ms null (no PyTorch call computes "
+                         f"the mLSTM) bound_ms {nb:.4f} ({kind}; {flops:.4e} "
+                         f"flops)")
                 entries["mlstm_chunkwise"] = dict(
                     shape=f"q,k,v[{bh},{s},{d}] bf16, gates f32, zero state",
-                    max_abs_err=errs[0], ms=ms, plain_ms=plain, bound_ms=nb,
-                    bound_by=kind, library_ms=None)
+                    max_abs_err=errs[0], ms=ms, device_ms=dms, plain_ms=plain,
+                    bound_ms=nb, bound_by=kind, library_ms=None,
+                    bit_stable=True)
             log(line)
             del q, k, v, got
     return entries
@@ -1970,12 +2028,12 @@ def parity_paged(dev) -> None:
 
 
 # kernels that must compile without spills: every flash_attention
-# instance (flash_kernel, flash_split_kernel, flash_tc_kernel), the int8
-# paged_kernel, rglru_scan, mlstm_chunkwise, xfer_matmul's and
-# quant_matmul's decode and tensor-core kernels and the fp paged_attention
-# body
+# instance (flash_kernel, flash_split_kernel, flash_tc_kernel), rglru_scan,
+# both mlstm_chunkwise kernels (fp32 mlstm_kernel, bf16 mlstm_tc_kernel),
+# xfer_matmul's and quant_matmul's decode and tensor-core kernels and both
+# paged_attention bodies (paged_split_kernel, fp and int8 pools)
 NO_SPILL = ("flash_kernel", "flash_split_kernel", "flash_tc_kernel",
-            "paged_kernel", "rglru_kernel", "mlstm_kernel",
+            "rglru_kernel", "mlstm_kernel", "mlstm_tc_kernel",
             "stream_rows_kernel", "stream_mma_kernel", "stream_cols_kernel",
             "stream_mma_q8_kernel", "stream_cols_q8_kernel", "tc_kernel",
             "wg_kernel", "paged_split_kernel")
@@ -2018,8 +2076,9 @@ def kernel_table(entries: dict, counts: dict) -> list:
                "bound_by": e["bound_by"], "library_ms": e["library_ms"],
                "shape": e["shape"]}
         for key in ("yardstick_ms", "yardstick", "library_error", "hybrid",
-                    "ssm", "d128", "prefix", "own", "variant", "every_length",
-                    "shapes", "ptxas", "device_ms", "library_device_ms"):
+                    "ssm", "d128", "prefix", "own", "pool", "variant",
+                    "every_length", "shapes", "ptxas", "device_ms",
+                    "library_device_ms", "yardstick_device_ms", "bit_stable"):
             if key in e:
                 row[key] = e[key]
         kernels.append(row)

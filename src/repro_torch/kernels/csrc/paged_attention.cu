@@ -42,18 +42,19 @@
 // error instead of reading out of bounds. __trap() is no function call,
 // so unlike assert() it costs the kernel no stack frame and no spills.
 //
-// The int8 body (paged_attention_q8_launch, paged_kernel<T, THREADS>)
-// replaces _paged_kernel_q8 of the same TPU file: kp/vp hold
-// int8 and two f32 scale pools ks/vs [P, ps, G, 1] ride the same
-// page-table indirection (one scale per token per kv group). One block
-// per (row, head) walks the row's positions THREADS at a time (128 for D
-// <= 128, 256 for D = 256), each thread one position, dequantising each
-// element in registers in f32 before its dot (k * ks) or its
-// accumulation (v * vs), as the TPU body rehydrates a page in VMEM; the
-// fp extent never exists in device memory. Its bound is the int8 rows
-// plus their scales: 2*(D+4) bytes per position per group instead of
-// 2*2*D in bf16. It keeps that simple design: grouping and splitting it
-// as the fp body does is later work.
+// The int8 body (paged_attention_q8_launch) replaces _paged_kernel_q8 of
+// the same TPU file: kp/vp hold int8 and two f32 scale pools ks/vs [P,
+// ps, G, 1] ride the same page-table lookup (one scale per token per kv
+// group). It is the fp body's kernel with an int8 stage
+// (paged_split_kernel<T, int8_t, D>): the same grid of (row, kv group,
+// chunk), the same double-buffered tiles, the int8 rows staged with
+// 16-byte cp.async (four vectors a row at D = 64) and their scales with
+// 4-byte ones, each element dequantised in f32 where it is read from
+// shared memory (k * ks before its dot, v * vs before its accumulation),
+// as the TPU body rehydrates a page in VMEM; the fp extent never exists
+// in device memory. The same merge, in the same launch, through its own
+// workspace and counters. Its bound is the int8 rows plus their scales:
+// 2 * (D + 4) bytes per position per group instead of 2 * 2 * D in bf16.
 #include <cstdint>
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -62,114 +63,13 @@ namespace {
 
 constexpr float NEG_INF = -1e30f;
 
-// threads per block (= positions per step) for head dim D
-constexpr int threads_for(int D) { return D <= 128 ? 128 : 256; }
-
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
 __device__ __forceinline__ float to_f32(int8_t v) { return (float)v; }
 __device__ __forceinline__ void store(float* p, float v) { *p = v; }
 __device__ __forceinline__ void store(__nv_bfloat16* p, float v) { *p = __float2bfloat16(v); }
 
-// Block-wide max / sum over WARPS warps; every thread gets the result.
-template <int WARPS>
-__device__ __forceinline__ float block_max(float v, float* red) {
-  for (int off = 16; off > 0; off >>= 1)
-    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, off));
-  if (threadIdx.x % 32 == 0) red[threadIdx.x / 32] = v;
-  __syncthreads();
-  float r = red[0];
-  for (int w = 1; w < WARPS; ++w) r = fmaxf(r, red[w]);
-  __syncthreads();
-  return r;
-}
-
-template <int WARPS>
-__device__ __forceinline__ float block_sum(float v, float* red) {
-  for (int off = 16; off > 0; off >>= 1)
-    v += __shfl_xor_sync(0xffffffffu, v, off);
-  if (threadIdx.x % 32 == 0) red[threadIdx.x / 32] = v;
-  __syncthreads();
-  float r = red[0];
-  for (int w = 1; w < WARPS; ++w) r += red[w];
-  __syncthreads();
-  return r;
-}
-
-// The int8 body. T: q and o; the pools are int8 with the f32 scale pools
-// ks/vs; THREADS: threads_for(D).
-template <typename T, int THREADS>
-__global__ void __launch_bounds__(THREADS)
-paged_kernel(const T* __restrict__ q, const int8_t* __restrict__ kp,
-             const int8_t* __restrict__ vp, const float* __restrict__ ks,
-             const float* __restrict__ vs, const int* __restrict__ table,
-             const int* __restrict__ lengths, T* __restrict__ o, int H,
-             int G, int D, int ps, int M, int P, float scale) {
-  constexpr int WARPS = THREADS / 32;
-  __shared__ float qs[THREADS];
-  __shared__ float prob[THREADS];
-  __shared__ float part[THREADS];
-  __shared__ float red[WARPS];
-
-  const int tid = threadIdx.x;
-  const int h = blockIdx.x;
-  const long long b = blockIdx.y;
-  const int g = h / (H / G);
-  const int len = lengths[b];
-  if (len < 1 || len > M * ps) __trap();
-  const int* trow = table + b * M;
-
-  if (tid < D) qs[tid] = to_f32(q[(b * H + h) * D + tid]) * scale;
-  __syncthreads();
-
-  // V accumulation layout: thread = (stripe, dim); D divides THREADS
-  const int stripes = THREADS / D;
-  const int dim = tid % D;
-  const int stripe = tid / D;
-
-  float m = NEG_INF, l = 0.f, acc = 0.f;
-  for (int t0 = 0; t0 < len; t0 += THREADS) {
-    const int t = t0 + tid;
-    float s = NEG_INF;
-    if (t < len) {
-      const int page = trow[t / ps];
-      if (page < 0 || page >= P) __trap();
-      const long long row = ((long long)page * ps + t % ps) * G + g;
-      const int8_t* krow = kp + row * D;
-      const float sk = ks[row];
-      float dot = 0.f;
-      for (int d = 0; d < D; ++d) dot = fmaf(qs[d], to_f32(krow[d]) * sk, dot);
-      s = dot;
-    }
-    const float m_new = fmaxf(m, block_max<WARPS>(s, red));
-    // t0 < len, so m_new is a real score and masked positions get p = 0
-    const float p = t < len ? expf(s - m_new) : 0.f;
-    prob[tid] = p;
-    const float alpha = expf(m - m_new);
-    l = l * alpha + block_sum<WARPS>(p, red);  // block_sum syncs: prob is visible
-    acc *= alpha;
-    const int n = min(THREADS, len - t0);
-    for (int j = stripe; j < n; j += stripes) {
-      const int tt = t0 + j;
-      const int page = trow[tt / ps];
-      const long long row = ((long long)page * ps + tt % ps) * G + g;
-      const float sv = vs[row];
-      acc = fmaf(prob[j], to_f32(vp[row * D + dim]) * sv, acc);
-    }
-    m = m_new;
-    __syncthreads();  // prob is rewritten by the next step
-  }
-
-  part[tid] = acc;
-  __syncthreads();
-  if (tid < D) {
-    float sum = 0.f;
-    for (int st = 0; st < stripes; ++st) sum += part[st * D + tid];
-    store(o + (b * H + h) * D + tid, sum / fmaxf(l, 1e-30f));
-  }
-}
-
-// ---- the fp body: grouped heads, split positions --------------------------
+// ---- grouped heads, split positions (the fp and the int8 body) ------------
 
 namespace split {
 
@@ -193,6 +93,10 @@ __device__ __forceinline__ uint32_t smem_u32(const void* p) {
 }
 __device__ __forceinline__ void cp_async16(uint32_t dst, const void* src) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst),
+               "l"(src));
+}
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(dst),
                "l"(src));
 }
 __device__ __forceinline__ void cp_async_commit() {
@@ -222,6 +126,17 @@ __device__ __forceinline__ void load_row(const T* p, float (&f)[E]) {
     const uint32_t u = *reinterpret_cast<const uint32_t*>(p);
     f[0] = __uint_as_float(u << 16);
     f[1] = __uint_as_float(u & 0xffff0000u);
+  } else if constexpr (sizeof(T) == 1 && E % 4 == 0) {  // int8
+#pragma unroll
+    for (int e = 0; e < E; e += 4) {
+      const uint32_t u = *reinterpret_cast<const uint32_t*>(p + e);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) f[e + i] = (float)(int8_t)(u >> (8 * i));
+    }
+  } else if constexpr (sizeof(T) == 1 && E == 2) {
+    const uint32_t u = *reinterpret_cast<const uint16_t*>(p);
+    f[0] = (float)(int8_t)u;
+    f[1] = (float)(int8_t)(u >> 8);
   } else if constexpr (sizeof(T) == 4 && E == 2) {
     const float2 u = *reinterpret_cast<const float2*>(p);
     f[0] = u.x;
@@ -277,15 +192,18 @@ __host__ __device__ inline int head_floats(int rep, int D, int tp) {
 // min(len, (c + 1) * chunk)) of row b for the rep = H / G query heads of
 // group g. Single-chunk rows write o directly; longer rows leave (m, l,
 // acc) per chunk in ws and the last chunk to arrive merges them in chunk
-// order.
-template <typename T, int D>
+// order. T: q and o; KV: the pools, T or int8_t (then ksc / vsc are the
+// f32 scale pools [P, ps, G, 1], dequantised at the shared-memory read).
+template <typename T, typename KV, int D>
 __global__ void __launch_bounds__(THREADS, 1)
-paged_split_kernel(const T* __restrict__ q, const T* __restrict__ kp,
-                   const T* __restrict__ vp, const int* __restrict__ table,
+paged_split_kernel(const T* __restrict__ q, const KV* __restrict__ kp,
+                   const KV* __restrict__ vp, const float* __restrict__ ksc,
+                   const float* __restrict__ vsc, const int* __restrict__ table,
                    const int* __restrict__ lengths, T* __restrict__ o,
                    float* __restrict__ ws, int* __restrict__ counters, int H,
                    int G, int ps, int M, int P, int chunk, float scale) {
-  constexpr int TP = tile_positions<T, D>();
+  constexpr bool Q8 = sizeof(KV) == 1;
+  constexpr int TP = tile_positions<KV, D>();
   constexpr int LP = D < 32 ? D : 32;      // lanes per position (q.k)
   constexpr int E = D / LP;                // dims per lane (q.k)
   constexpr int PPW = 32 / LP;             // positions per warp pass
@@ -293,7 +211,7 @@ paged_split_kernel(const T* __restrict__ q, const T* __restrict__ kp,
   constexpr int NV = HG * NPW;             // dots per lane per head pass
   constexpr int DPT = D >= 2 ? 2 : 1;      // p.v: dims per thread
   constexpr int STRIPES = THREADS * DPT / D;  // p.v: position stripes
-  constexpr int CPR = D * (int)sizeof(T) / 16;  // 16-byte chunks per row
+  constexpr int CPR = D * (int)sizeof(KV) / 16;  // 16-byte chunks per row
   static_assert(NPW >= 1 && TP % (WARPS * PPW) == 0, "tile geometry");
   static_assert(D <= THREADS && THREADS % D == 0, "head dim");
 
@@ -319,8 +237,10 @@ paged_split_kernel(const T* __restrict__ q, const T* __restrict__ kp,
   float* al_s = l_s + rep;
   long long* rows_s = reinterpret_cast<long long*>(
       smem + (TP * rep4 + rep4 * D + rep * 2 * THREADS + 3 * rep + 1) / 2 * 2);
-  T* kv = reinterpret_cast<T*>(smem + head_floats(rep, D, TP));
-  // stage st: K at kv + st * 2 * TP * D, V right after it
+  KV* kv = reinterpret_cast<KV*>(smem + head_floats(rep, D, TP));
+  // stage st: K at kv + st * 2 * TP * D, V right after it; int8 pools:
+  // then the scales, stage st's K scales at sc + st * 2 * TP, V's after
+  float* sc = reinterpret_cast<float*>(kv + 4 * TP * D);
 
   for (int i = tid; i < rep4 * D; i += THREADS)
     q_s[i] = i < rep * D
@@ -341,17 +261,22 @@ paged_split_kernel(const T* __restrict__ q, const T* __restrict__ kp,
       const int t = t0 + p;
       const int page = trow[t / ps];
       if (page < 0 || page >= P) __trap();
-      rows_s[p] = (((long long)page * ps + t % ps) * G + g) * D;
+      const long long row = ((long long)page * ps + t % ps) * G + g;
+      rows_s[p] = row * D;
+      if constexpr (Q8) {
+        cp_async4(smem_u32(sc + st * 2 * TP + p), ksc + row);
+        cp_async4(smem_u32(sc + st * 2 * TP + TP + p), vsc + row);
+      }
     }
     __syncthreads();
-    T* ks = kv + st * 2 * TP * D;
-    T* vs = ks + TP * D;
+    KV* ks = kv + st * 2 * TP * D;
+    KV* vs = ks + TP * D;
     if constexpr (CPR >= 1) {
-      constexpr int EV = 16 / sizeof(T);
+      constexpr int EV = 16 / sizeof(KV);
       for (int i = tid; i < 2 * n * CPR; i += THREADS) {
         const int which = i / (n * CPR), j = i % (n * CPR);
         const int p = j / CPR, ch = j % CPR;
-        const T* src = (which ? vp : kp) + rows_s[p] + ch * EV;
+        const KV* src = (which ? vp : kp) + rows_s[p] + ch * EV;
         cp_async16(smem_u32((which ? vs : ks) + p * D + ch * EV), src);
       }
     } else {  // rows under 16 bytes: element by element
@@ -381,8 +306,10 @@ paged_split_kernel(const T* __restrict__ q, const T* __restrict__ kp,
     }
     __syncthreads();
     const int n = min(TP, t_end - (t_begin + it * TP));
-    const T* ks = kv + (it & 1) * 2 * TP * D;
-    const T* vs = ks + TP * D;
+    const KV* ks = kv + (it & 1) * 2 * TP * D;
+    const KV* vs = ks + TP * D;
+    const float* ks_sc = sc + (it & 1) * 2 * TP;  // int8 pools only
+    const float* vs_sc = ks_sc + TP;
 
     // scores: lanes across D, the warp's positions in registers, every
     // head of the group against each K row loaded once; HG heads x NPW
@@ -392,7 +319,12 @@ paged_split_kernel(const T* __restrict__ q, const T* __restrict__ kp,
     for (int j = 0; j < NPW; ++j) {
       const int p = (j * WARPS + warp) * PPW + pp;
       if (p < n) {
-        load_row<T, E>(ks + p * D + li * E, kf[j]);
+        load_row<KV, E>(ks + p * D + li * E, kf[j]);
+        if constexpr (Q8) {
+          const float sk = ks_sc[p];
+#pragma unroll
+          for (int e = 0; e < E; ++e) kf[j][e] *= sk;
+        }
       } else {
 #pragma unroll
         for (int e = 0; e < E; ++e) kf[j][e] = 0.f;
@@ -459,7 +391,12 @@ paged_split_kernel(const T* __restrict__ q, const T* __restrict__ kp,
         for (int e = 0; e < DPT; ++e) t[i][e] = 0.f;
       for (int p = stripe; p < n; p += STRIPES) {
         float v[DPT];
-        load_row<T, DPT>(vs + p * D + dim, v);
+        load_row<KV, DPT>(vs + p * D + dim, v);
+        if constexpr (Q8) {
+          const float sv = vs_sc[p];
+#pragma unroll
+          for (int e = 0; e < DPT; ++e) v[e] *= sv;
+        }
         const float4 pr = *reinterpret_cast<const float4*>(s_s + p * rep4 + r0);
         const float pv[HG] = {pr.x, pr.y, pr.z, pr.w};
 #pragma unroll
@@ -521,7 +458,7 @@ paged_split_kernel(const T* __restrict__ q, const T* __restrict__ kp,
   if (!is_last) return;
   __threadfence();
   const long long row0 = (b * G + g) * NC;
-  float* wm_s = reinterpret_cast<float*>(kv + 4 * TP * D);  // [rep][nc], l [rep]
+  float* wm_s = sc + (Q8 ? 4 * TP : 0);  // [rep][nc], l [rep]
   for (int r = tid; r < rep; r += THREADS) {
     float mx = NEG_INF;
     for (int cc = 0; cc < nc; ++cc)
@@ -578,81 +515,61 @@ paged_split_kernel(const T* __restrict__ q, const T* __restrict__ kp,
 
 }  // namespace split
 
+// head dims 1, 2, 4, ..., 256
 bool bad_geometry(int B, int H, int G, int D, int ps, int M, int P) {
   return B <= 0 || H <= 0 || G <= 0 || H % G != 0 || D <= 0 || D > 256 ||
-         threads_for(D) % D != 0 || ps <= 0 || M <= 0 || P <= 0;
+         (D & (D - 1)) != 0 || ps <= 0 || M <= 0 || P <= 0;
 }
 
-template <typename T, int THREADS>
-void launch_nt(const void* q, const void* kp, const void* vp, const void* ks,
-               const void* vs, const void* table, const void* lengths,
-               void* o, int B, int H, int G, int D, int ps, int M, int P,
-               float scale, cudaStream_t stream) {
-  paged_kernel<T, THREADS><<<dim3(H, B), THREADS, 0, stream>>>(
-      static_cast<const T*>(q), static_cast<const int8_t*>(kp),
-      static_cast<const int8_t*>(vp), static_cast<const float*>(ks),
-      static_cast<const float*>(vs), static_cast<const int*>(table),
-      static_cast<const int*>(lengths), static_cast<T*>(o), H, G, D, ps, M,
-      P, scale);
-}
-
-template <typename T>
-void launch(const void* q, const void* kp, const void* vp, const void* ks,
-            const void* vs, const void* table, const void* lengths, void* o,
-            int B, int H, int G, int D, int ps, int M, int P, float scale,
-            cudaStream_t stream) {
-  if (threads_for(D) == 128) {
-    launch_nt<T, 128>(q, kp, vp, ks, vs, table, lengths, o, B, H, G, D, ps,
-                      M, P, scale, stream);
-  } else {
-    launch_nt<T, 256>(q, kp, vp, ks, vs, table, lengths, o, B, H, G, D, ps,
-                      M, P, scale, stream);
-  }
-}
-
-template <typename T, int D>
+template <typename T, typename KV, int D>
 cudaError_t launch_split_d(const void* q, const void* kp, const void* vp,
-                           const void* table, const void* lengths, void* o,
-                           void* ws, void* counters, int B, int H, int G,
-                           int ps, int M, int P, int chunk, float scale,
+                           const void* ks, const void* vs, const void* table,
+                           const void* lengths, void* o, void* ws,
+                           void* counters, int B, int H, int G, int ps, int M,
+                           int P, int chunk, float scale,
                            cudaStream_t stream) {
-  constexpr int TP = split::tile_positions<T, D>();
+  constexpr int TP = split::tile_positions<KV, D>();
   const int rep = H / G;
   if (chunk <= 0) return cudaErrorInvalidValue;
   const int nc = (M * ps + chunk - 1) / chunk;
-  // head, the two K/V stages, then the merge's chunk weights
+  // head, the two K/V stages (and their scales), then the merge's chunk
+  // weights
   const size_t bytes = split::head_floats(rep, D, TP) * sizeof(float) +
-                       (size_t)2 * 2 * TP * D * sizeof(T) +
+                       (size_t)2 * 2 * TP * D * sizeof(KV) +
+                       (sizeof(KV) == 1 ? (size_t)2 * 2 * TP * sizeof(float) : 0) +
                        (size_t)rep * (nc + 1) * sizeof(float);
   if (bytes > 227 * 1024) return cudaErrorInvalidValue;
   static size_t allowed = 48 * 1024;  // raised as larger calls come
   if (bytes > allowed) {
     const cudaError_t e = cudaFuncSetAttribute(
-        split::paged_split_kernel<T, D>,
+        split::paged_split_kernel<T, KV, D>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
     if (e != cudaSuccess) return e;
     allowed = bytes;
   }
-  split::paged_split_kernel<T, D>
+  split::paged_split_kernel<T, KV, D>
       <<<dim3(nc, G, B), split::THREADS, bytes, stream>>>(
-          static_cast<const T*>(q), static_cast<const T*>(kp),
-          static_cast<const T*>(vp), static_cast<const int*>(table),
+          static_cast<const T*>(q), static_cast<const KV*>(kp),
+          static_cast<const KV*>(vp), static_cast<const float*>(ks),
+          static_cast<const float*>(vs), static_cast<const int*>(table),
           static_cast<const int*>(lengths), static_cast<T*>(o),
           static_cast<float*>(ws), static_cast<int*>(counters), H, G, ps, M,
           P, chunk, scale);
   return cudaSuccess;
 }
 
-template <typename T>
+template <typename T, typename KV>
 cudaError_t launch_split(const void* q, const void* kp, const void* vp,
-                         const void* table, const void* lengths, void* o,
-                         void* ws, void* counters, int B, int H, int G, int D,
-                         int ps, int M, int P, int chunk, float scale,
+                         const void* ks, const void* vs, const void* table,
+                         const void* lengths, void* o, void* ws,
+                         void* counters, int B, int H, int G, int D, int ps,
+                         int M, int P, int chunk, float scale,
                          cudaStream_t s) {
-#define PA_SPLIT_D(DD)                                                     \
-  case DD:                                                                 \
-    return launch_split_d<T, DD>(q, kp, vp, table, lengths, o, ws, counters, \
-                                 B, H, G, ps, M, P, chunk, scale, s);
+#define PA_SPLIT_D(DD)                                                      \
+  case DD:                                                                  \
+    return launch_split_d<T, KV, DD>(q, kp, vp, ks, vs, table, lengths, o,  \
+                                     ws, counters, B, H, G, ps, M, P, chunk, \
+                                     scale, s);
   switch (D) {
     PA_SPLIT_D(1)
     PA_SPLIT_D(2)
@@ -671,11 +588,11 @@ cudaError_t launch_split(const void* q, const void* kp, const void* vp,
 
 }  // namespace
 
-// The fp body. dtype: 0 = float32, 1 = bfloat16; D divides 128, or D =
-// 256; H a multiple of G; all tensors contiguous. scale = 1/sqrt(D);
-// chunk: positions per block. ws holds B * G * ceil(M * ps / chunk) *
-// (H / G) * (D + 2) floats and counters B * G ints, zero at the first call
-// (the kernel leaves them at zero).
+// The fp body. dtype: 0 = float32, 1 = bfloat16 (q, o and the pools); D a
+// power of two up to 256; H a multiple of G; all tensors contiguous. scale
+// = 1/sqrt(D); chunk: positions per block. ws holds B * G * ceil(M * ps /
+// chunk) * (H / G) * (D + 2) floats and counters B * G ints, zero at the
+// first call (the kernel leaves them at zero).
 // Returns the cudaError_t of the launch (0 = success).
 extern "C" int paged_attention_launch(const void* q, const void* kp,
                                       const void* vp, const void* table,
@@ -687,12 +604,13 @@ extern "C" int paged_attention_launch(const void* q, const void* kp,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t e;
   if (dtype == 0) {
-    e = launch_split<float>(q, kp, vp, table, lengths, o, ws, counters, B, H,
-                            G, D, ps, M, P, chunk, scale, s);
+    e = launch_split<float, float>(q, kp, vp, nullptr, nullptr, table,
+                                   lengths, o, ws, counters, B, H, G, D, ps,
+                                   M, P, chunk, scale, s);
   } else if (dtype == 1) {
-    e = launch_split<__nv_bfloat16>(q, kp, vp, table, lengths, o, ws,
-                                    counters, B, H, G, D, ps, M, P, chunk,
-                                    scale, s);
+    e = launch_split<__nv_bfloat16, __nv_bfloat16>(
+        q, kp, vp, nullptr, nullptr, table, lengths, o, ws, counters, B, H, G,
+        D, ps, M, P, chunk, scale, s);
   } else {
     return (int)cudaErrorInvalidValue;
   }
@@ -701,25 +619,31 @@ extern "C" int paged_attention_launch(const void* q, const void* kp,
 }
 
 // The int8 body: kp, vp int8 [P, ps, G, D]; ks, vs f32 [P, ps, G, 1];
-// dtype is q's and o's (0 = float32, 1 = bfloat16); the rest as above.
+// dtype is q's and o's (0 = float32, 1 = bfloat16); the rest as above,
+// with a workspace and counters of its own.
 extern "C" int paged_attention_q8_launch(const void* q, const void* kp,
                                          const void* vp, const void* ks,
                                          const void* vs, const void* table,
-                                         const void* lengths, void* o, int B,
+                                         const void* lengths, void* o,
+                                         void* ws, void* counters, int B,
                                          int H, int G, int D, int ps, int M,
-                                         int P, float scale, int dtype,
-                                         void* stream) {
+                                         int P, int chunk, float scale,
+                                         int dtype, void* stream) {
   if (bad_geometry(B, H, G, D, ps, M, P)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t e;
   if (dtype == 0) {
-    launch<float>(q, kp, vp, ks, vs, table, lengths, o, B, H, G, D, ps, M, P,
-                  scale, s);
+    e = launch_split<float, int8_t>(q, kp, vp, ks, vs, table, lengths, o, ws,
+                                    counters, B, H, G, D, ps, M, P, chunk,
+                                    scale, s);
   } else if (dtype == 1) {
-    launch<__nv_bfloat16>(q, kp, vp, ks, vs, table, lengths, o, B, H, G, D,
-                          ps, M, P, scale, s);
+    e = launch_split<__nv_bfloat16, int8_t>(q, kp, vp, ks, vs, table, lengths,
+                                            o, ws, counters, B, H, G, D, ps, M,
+                                            P, chunk, scale, s);
   } else {
     return (int)cudaErrorInvalidValue;
   }
+  if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
 }
 

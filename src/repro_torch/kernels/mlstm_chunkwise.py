@@ -15,9 +15,14 @@ kernel ``csrc/mlstm_chunkwise.cu``. Two entries:
   ft)`` with forget pre-activations: it applies a stable log-sigmoid
   and returns h from the zero state.
 
-Bound on the H100: operations (~4·BH·S·D² flops for ``q C`` and the
-chunk fold against q/k/v/h read and written once); this first kernel
-runs them on the CUDA cores, one block per (bh, 64-column tile of C).
+Bound on the H100: bytes, barely (q/k/v/h read and written once against
+~4·BH·S·D² flops for ``q C`` and the chunk fold, on the tensor cores).
+One block per (bh, 64-column tile of C) walks the chunks of 16 steps in
+order. bf16 q, k, v run ``mlstm_tc_kernel``: the block's slice of C
+held as fp32 ``mma.sync`` accumulators in registers, the chunk's q kᵀ,
+C q and fold on the tensor cores, C and w·k as three bf16 terms (plain
+mirror: ``ref.mlstm_chunkwise_ref(split=True)``). fp32 runs
+``mlstm_kernel`` on the CUDA cores (no TF32).
 
 A CPU tensor takes the plain version (:func:`plain`, the chunkwise
 ``ref.mlstm_chunkwise_ref``); a CUDA tensor launches the kernel or
@@ -55,9 +60,8 @@ def mlstm_chunkwise_fold(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
                                     torch.Tensor]:
     """-> (h [BH, S, D] in ``q.dtype``, C [BH, D, D], n [BH, D], m [BH]).
-    On the card D must be a multiple of 32 up to 512 (the kernel keeps a
-    D x 64 f32 tile of C in shared memory); its C entry rejects others
-    and the launch raises."""
+    On the card D must be a multiple of 32 up to 512; the C entry
+    rejects others and the launch raises."""
     bh, s, d = q.shape
     if k.shape != q.shape or v.shape != q.shape \
             or tuple(it.shape) != (bh, s) or tuple(logf.shape) != (bh, s):

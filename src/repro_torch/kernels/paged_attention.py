@@ -30,10 +30,13 @@ grid that is the engine's ``positions < max_len``.
 INT8 pools (``QuantConfig(kv="int8")``) pass their per-token f32 scale
 pools ``k_scale``/``v_scale`` ``[P, ps, G, 1]``; they go to the int8
 body of the same source (:func:`paged_attention_q8`, which replaces
-``_paged_kernel_q8``): one block per (row, head), each element
-dequantised in registers in f32 before its dot, so the fp extent never
-exists in device memory. Its bound is the valid int8 rows and their
-scales, about half the bf16 bytes.
+``_paged_kernel_q8``): the fp body's kernel with an int8 stage, the same
+grid, chunks and merge (through a workspace of its own), the int8 rows
+and their scales staged with ``cp.async`` through the same table lookup
+and each element dequantised in f32 where it is read from shared memory,
+so the fp extent never exists in device memory. Its plain mirror is
+``ref.paged_attention_split_ref`` with the scale pools. Its bound is the
+valid int8 rows and their scales, about half the bf16 bytes.
 
 A CPU tensor takes the plain version (:func:`plain`); a CUDA tensor
 launches the kernel or raises. ``paged_attention.launches`` counts the
@@ -55,16 +58,16 @@ from repro_torch.kernels.ref import paged_attention_ref as plain
 _VP, _I = ctypes.c_void_p, ctypes.c_int
 _GEOMETRY = (_I, _I, _I, _I, _I, _I, _I, ctypes.c_float, _I)
 _ARGTYPES = (_VP,) * 8 + _GEOMETRY[:7] + (_I,) + _GEOMETRY[7:]
-_ARGTYPES_Q8 = (_VP,) * 8 + _GEOMETRY
+_ARGTYPES_Q8 = (_VP,) * 10 + _GEOMETRY[:7] + (_I,) + _GEOMETRY[7:]
 
-#: positions per block of the fp body (its flash-decoding split): two
+#: positions per block of both bodies (their flash-decoding split): two
 #: 64-token pages. recurrentgemma-2b's ring of 2048 on 8 slots then runs
 #: on 128 blocks, about one per SM; at 256 positions it filled 64.
 CHUNK = 128
 
 
 def chunk_plan(table_cols: int, page_size: int) -> tuple:
-    """(chunks per row, positions per chunk) of the fp body for a page
+    """(chunks per row, positions per chunk) of both bodies for a page
     table of ``table_cols`` pages of ``page_size`` positions: counted in
     positions, so the same table width gives the same chunks whatever the
     page size."""
@@ -152,10 +155,14 @@ def paged_attention_q8(q: torch.Tensor, kp: torch.Tensor, vp: torch.Tensor,
     out = torch.empty_like(q)
     if b == 0:
         return out
+    chunks, _ = chunk_plan(m, ps)
+    ws, counters = scratch("paged_attention_q8", q.device,
+                           b * h * chunks * (d + 2), b * g)
     launch("paged_attention_q8", _ARGTYPES_Q8, q.data_ptr(), kp.data_ptr(),
            vp.data_ptr(), k_scale.data_ptr(), v_scale.data_ptr(),
-           page_table.data_ptr(), lengths.data_ptr(), out.data_ptr(), b, h,
-           g, d, ps, m, n_pages, 1.0 / math.sqrt(d), DTYPE_CODES[q.dtype],
+           page_table.data_ptr(), lengths.data_ptr(), out.data_ptr(),
+           ws.data_ptr(), counters.data_ptr(), b, h, g, d, ps, m, n_pages,
+           CHUNK, 1.0 / math.sqrt(d), DTYPE_CODES[q.dtype],
            source="paged_attention")
     paged_attention_q8.launches += 1
     return out

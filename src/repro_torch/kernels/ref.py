@@ -219,16 +219,20 @@ def paged_attention_ref(q: torch.Tensor, kp: torch.Tensor, vp: torch.Tensor,
 
 def paged_attention_split_ref(q: torch.Tensor, kp: torch.Tensor,
                               vp: torch.Tensor, page_table: torch.Tensor,
-                              lengths: torch.Tensor, *,
+                              lengths: torch.Tensor,
+                              k_scale: torch.Tensor = None,
+                              v_scale: torch.Tensor = None, *,
                               chunk: int = 256) -> torch.Tensor:
-    """The fp ``paged_attention`` kernel's algorithm in plain PyTorch: the
-    row's positions cut into chunks of ``chunk`` (counted over the whole
-    table width, so chunks past a row's length are empty), each chunk's
-    (m, l, acc) from its own softmax, then the chunks merged in chunk
-    order with weight ``exp(m_c - max m)`` and one division by
+    """The ``paged_attention`` kernel's algorithm (both bodies) in plain
+    PyTorch: the row's positions cut into chunks of ``chunk`` (counted
+    over the whole table width, so chunks past a row's length are empty),
+    each chunk's (m, l, acc) from its own softmax, then the chunks merged
+    in chunk order with weight ``exp(m_c - max m)`` and one division by
     ``max(l, 1e-30)``. An empty chunk (m = -1e30, l = 0) merges with
-    weight exactly 0. Same arguments and result as
-    :func:`paged_attention_ref` without the scale pools."""
+    weight exactly 0. Int8 pools are dequantised in f32 after the gather
+    (``k * k_scale``, ``v * v_scale``), as the int8 body does at its
+    shared-memory read. Same arguments and result as
+    :func:`paged_attention_ref`."""
     b, h, d = q.shape
     ps, g = kp.shape[1], kp.shape[2]
     t = page_table.shape[1] * ps
@@ -236,6 +240,9 @@ def paged_attention_split_ref(q: torch.Tensor, kp: torch.Tensor,
     table = page_table.long()
     k = kp[table].reshape(b, t, g, d).float()
     v = vp[table].reshape(b, t, g, d).float()
+    if k_scale is not None:
+        k = k * k_scale[table].reshape(b, t, g, 1)
+        v = v * v_scale[table].reshape(b, t, g, 1)
     qg = q.float().reshape(b, g, rep, d) / math.sqrt(d)
     s = torch.einsum("bgrd,btgd->bgrt", qg, k)
     valid = (torch.arange(t, device=q.device)[None]
@@ -305,12 +312,18 @@ def mlstm_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 def mlstm_chunkwise_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         it: torch.Tensor, logf: torch.Tensor,
                         C0: torch.Tensor = None, n0: torch.Tensor = None,
-                        m0: torch.Tensor = None, *, bq: int = 16):
+                        m0: torch.Tensor = None, *, bq: int = 16,
+                        split: bool = False):
     """The chunkwise mLSTM of the TPU kernel, chunks of ``bq`` steps (the
     last may be shorter), from the state ``(C0 [BH, D, D], n0 [BH, D],
     m0 [BH])`` (default zeros and ``m0 = -1e30``). ``logf`` is the
     log-forget gate, so ``(logf, it) = (0, -1e30)`` is an identity step.
-    Returns (h [BH, S, D] in ``q.dtype``, C, n, m in f32)."""
+    Returns (h [BH, S, D] in ``q.dtype``, C, n, m in f32).
+
+    With ``split`` it mirrors the bf16 tensor-core kernel's arithmetic: C
+    in ``q C`` and ``w * k`` in the fold enter their products as three
+    bf16 terms (exact for normal values, so only the summation order
+    departs from f32); q, k and v must then hold bf16 values."""
     bh, s, d = q.shape
     dev = q.device
     qf, kf, vf = q.float(), k.float(), v.float()
@@ -336,7 +349,8 @@ def mlstm_chunkwise_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         decay = torch.where(causal, torch.exp(bias - m_i[..., None]), 0.0)
         scores = (qc @ kc.transpose(1, 2)) * decay
         s_coef = torch.exp(w_state - m_i)
-        num = scores @ vc + s_coef[..., None] * (qc @ C)
+        qC = sum(qc @ t.float() for t in split_terms(C)) if split else qc @ C
+        num = scores @ vc + s_coef[..., None] * qC
         den = scores.sum(-1) + s_coef * (qc @ n[:, :, None])[..., 0]
         den = torch.maximum(den.abs(), torch.exp(-m_i))
         out[:, t0:t1] = num / den[..., None]
@@ -347,7 +361,10 @@ def mlstm_chunkwise_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         wts = torch.exp(w_log - m_new[:, None])
         carry = torch.exp(fe + m - m_new)
         kw = kc * wts[..., None]
-        C = carry[:, None, None] * C + kw.transpose(1, 2) @ vc
+        kwt = kw.transpose(1, 2)
+        fold = sum(t.float() @ vc for t in split_terms(kwt)) if split \
+            else kwt @ vc
+        C = carry[:, None, None] * C + fold
         n = carry[:, None] * n + kw.sum(1)
         m = m_new
     return out.to(q.dtype), C, n, m

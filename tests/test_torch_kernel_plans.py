@@ -9,7 +9,9 @@ mirror of that split (per-chunk partials, then the merge in chunk order);
 ``ref.quant_matmul_split_ref`` of the int8 tensor-core routes' arithmetic
 (fp32 x as three exact bf16 terms); ``ref.flash_attention_tiles_ref`` of
 the tensor-core ``flash_attention``'s tile order, with P rounded before
-P·V. Each is held here against the JAX package's kernel (interpret mode)
+P·V; ``ref.mlstm_chunkwise_ref(split=True)`` of the tensor-core
+``mlstm_chunkwise`` (chunks of 16, C and w·k as three bf16 terms); the
+split mirror with scale pools of the int8 ``paged_attention`` body. Each is held here against the JAX package's kernel (interpret mode)
 or its block on inputs made from a numpy seed. The kernels themselves
 run only on the card (``chip_smoke.py`` phase 3).
 """
@@ -25,6 +27,7 @@ import torch
 from repro.kernels import ops as jops
 from repro.kernels import ref as jref
 from repro.models import blocks as JB
+from repro.models import recurrent as JR
 from repro_torch.kernels import ops
 from repro_torch.kernels import ref
 from repro_torch.kernels.paged_attention import CHUNK, chunk_plan
@@ -362,3 +365,186 @@ def test_flash_tiles_mirror_prefix_matches_jax_block(s, d, lp, pre_len,
         _within_bf16(got, want)
     else:
         np.testing.assert_allclose(got, want, rtol=2e-4, atol=2e-4)
+
+
+# ---------------------------------------------------------------------------
+# paged_attention's int8 body: the split mirror over dequantised pools
+# ---------------------------------------------------------------------------
+
+def _q8_pools(rng, n_pages, ps, g, d):
+    """int8 K/V pools and their f32 per-token scale pools [P, ps, G, 1]."""
+    kq, vq = (rng.randint(-127, 128, size=(n_pages, ps, g, d)).astype(np.int8)
+              for _ in range(2))
+    ks, vs = (rng.uniform(2e-3, 3e-2, size=(n_pages, ps, g, 1))
+              .astype(np.float32) for _ in range(2))
+    return kq, vq, ks, vs
+
+
+@pytest.mark.parametrize("layout,b,h,g,d,ps,m,chunk,lengths", [
+    ("grid", 3, 4, 4, 64, 96, 1, 32, [1, 50, 96]),     # one page a row
+    ("grid", 2, 8, 2, 16, 64, 1, 16, [17, 64]),
+    ("pool", 3, 8, 2, 64, 16, 6, 32, [1, 37, 96]),     # GQA, pages of 16
+    ("pool", 2, 8, 2, 32, 16, 5, 128, [80, 16]),       # one chunk a row
+])
+def test_paged_split_mirror_q8_matches_jax(layout, b, h, g, d, ps, m, chunk,
+                                           lengths):
+    """The split mirror with scale pools (the int8 body's arithmetic)
+    equals JAX's ``paged_attention(..., k_scale=, v_scale=)`` (interpret
+    mode) and the plain version at 2e-4 in fp32, on the dense grid read
+    through an identity table and on a pool of pages of 16 with GQA."""
+    rng = np.random.RandomState(b * h + d + ps)
+    n_pages = b if layout == "grid" else b * m + 2
+    q = rng.standard_normal((b, h, d)).astype(np.float32)
+    kq, vq, ks, vs = _q8_pools(rng, n_pages, ps, g, d)
+    if layout == "grid":
+        table = np.arange(b, dtype=np.int32)[:, None]
+    else:
+        table = np.stack([rng.permutation(np.arange(1, n_pages))[:m]
+                          for _ in range(b)]).astype(np.int32)
+    lens = np.asarray(lengths, np.int32)
+    args = (q, kq, vq, table, lens)
+    targs = [torch.from_numpy(a) for a in args]
+    tscales = [torch.from_numpy(a) for a in (ks, vs)]
+    got = ops.paged_attn_split_ref(*targs, *tscales, chunk=chunk)
+    assert got.dtype == torch.float32 and tuple(got.shape) == (b, h, d)
+    assert bool(torch.isfinite(got).all())
+    want = np.asarray(jops.paged_attn(*(jnp.asarray(a) for a in args),
+                                      k_scale=jnp.asarray(ks),
+                                      v_scale=jnp.asarray(vs)))
+    np.testing.assert_allclose(got.numpy(), want, rtol=2e-4, atol=2e-4)
+    np.testing.assert_allclose(
+        got.numpy(), ops.paged_attn_ref(*targs, *tscales).numpy(),
+        rtol=2e-4, atol=2e-4)
+
+
+@pytest.mark.parametrize("chunk", [16, 24, 128])
+def test_paged_split_mirror_q8_dense_grid_equals_pool(chunk):
+    """The same int8 rows and scales as a dense grid (one page of T a
+    row) and as a pool of pages of 16 give bit-equal results."""
+    b, h, g, d, ps, m = 3, 8, 2, 64, 16, 4
+    t = ps * m
+    rng = np.random.RandomState(chunk)
+    kq, vq, ks, vs = (torch.from_numpy(a) for a in
+                      _q8_pools(rng, b * m + 2, ps, g, d))
+    q = torch.from_numpy(rng.standard_normal((b, h, d)).astype(np.float32))
+    table = torch.from_numpy(np.stack(
+        [rng.permutation(np.arange(1, b * m + 2))[:m] for _ in range(b)])
+        .astype(np.int32))
+    lens = torch.tensor([1, 30, t], dtype=torch.int32)
+    tb = table.long()
+    dense = [a[tb].reshape(b, t, g, a.shape[-1]) for a in (kq, vq, ks, vs)]
+    ident = torch.arange(b, dtype=torch.int32)[:, None]
+    pool = ops.paged_attn_split_ref(q, kq, vq, table, lens, ks, vs,
+                                    chunk=chunk)
+    grid = ops.paged_attn_split_ref(q, dense[0], dense[1], ident, lens,
+                                    dense[2], dense[3], chunk=chunk)
+    assert torch.equal(pool, grid)
+
+
+# ---------------------------------------------------------------------------
+# mlstm_chunkwise: the tensor-core kernel's arithmetic
+# ---------------------------------------------------------------------------
+
+_NEG = -1e30
+TOL = dict(rtol=2e-4, atol=2e-4)
+
+
+def _mlstm_inputs(seed, bh, s, d, tail, with_state):
+    """bf16-valued q, k (scaled by 1/sqrt(D)) and v in fp32, f32 gates
+    (forget pre-activations and log-forget), an identity tail of ``tail``
+    steps and an optional nonzero state, from a numpy seed."""
+    rng = np.random.RandomState(seed)
+
+    def bf16_values(a):
+        return torch.from_numpy(a.astype(np.float32)).to(torch.bfloat16).float()
+
+    q = bf16_values(rng.standard_normal((bh, s, d)))
+    k = bf16_values(rng.standard_normal((bh, s, d)) / np.sqrt(d))
+    v = bf16_values(rng.standard_normal((bh, s, d)))
+    it = torch.from_numpy(rng.standard_normal((bh, s)).astype(np.float32))
+    ft = torch.from_numpy((rng.standard_normal((bh, s)) + 2.0).astype(np.float32))
+    logf = torch.nn.functional.logsigmoid(ft)
+    if tail:
+        it[:, s - tail:], logf[:, s - tail:] = _NEG, 0.0
+    state = ()
+    if with_state:
+        state = tuple(torch.from_numpy((scale * rng.standard_normal(shape))
+                                       .astype(np.float32))
+                      for shape, scale in (((bh, d, d), 0.3), ((bh, d), 0.3),
+                                           ((bh,), 1.0)))
+    return q, k, v, it, ft, logf, state
+
+
+@pytest.mark.parametrize("bh,s,d", [(3, 64, 32), (2, 48, 64), (2, 32, 128)])
+def test_mlstm_split_mirror_matches_jax_kernel_and_oracle(bh, s, d):
+    """From the zero state the tensor-core kernel's arithmetic (chunks of
+    16, C and w·k as three bf16 terms) equals JAX's ``mlstm_chunkwise``
+    (interpret mode, chunks of 16) and the strict per-step oracle
+    ``mlstm_ref`` at 2e-4 in fp32."""
+    q, k, v, it, ft, logf, _ = _mlstm_inputs(bh * s + d, bh, s, d, 0, False)
+    h, C, n, m = ref.mlstm_chunkwise_ref(q, k, v, it, logf, split=True)
+    assert h.dtype == torch.float32 and tuple(h.shape) == (bh, s, d)
+    assert (C.shape, n.shape, m.shape) == ((bh, d, d), (bh, d), (bh,))
+    jargs = [jnp.asarray(x.numpy()) for x in (q, k, v, it, ft)]
+    np.testing.assert_allclose(h.numpy(), np.asarray(jops.mlstm(*jargs, bq=16)),
+                               **TOL)
+    np.testing.assert_allclose(h.numpy(), np.asarray(jref.mlstm_ref(*jargs)),
+                               **TOL)
+
+
+@pytest.mark.parametrize("bh,s,d,tail,with_state", [
+    (3, 45, 32, 13, False),   # identity tail from zeros
+    (3, 45, 32, 13, True),    # and from a nonzero state
+    (2, 40, 64, 0, True),     # a state, S not a multiple of 16
+    (2, 37, 64, 21, True),    # a tail longer than a chunk
+])
+def test_mlstm_split_mirror_state_matches_jax_fold(bh, s, d, tail,
+                                                   with_state):
+    """With an identity tail and an initial state: the split mirror's
+    final (C, n, m) equals the JAX reference's ``_mlstm_suffix_state``,
+    which folds the whole sequence at once; its outputs equal the
+    unsplit plain version, and before the tail a run on the unpadded
+    prefix, at 2e-4 in fp32."""
+    q, k, v, it, ft, logf, state = _mlstm_inputs(s + d + tail, bh, s, d,
+                                                 tail, with_state)
+    h, C, n, m = ref.mlstm_chunkwise_ref(q, k, v, it, logf, *state,
+                                         split=True)
+    plain = ref.mlstm_chunkwise_ref(q, k, v, it, logf, *state)
+    for got, want in zip((h, C, n, m), plain):
+        np.testing.assert_allclose(got.numpy(), want.numpy(), **TOL)
+    keep = s - tail
+    pre = ref.mlstm_chunkwise_ref(q[:, :keep], k[:, :keep], v[:, :keep],
+                                  it[:, :keep], logf[:, :keep], *state,
+                                  split=True)
+    np.testing.assert_allclose(h[:, :keep].numpy(), pre[0].numpy(), **TOL)
+    for got, want in zip((C, n, m), pre[1:]):
+        np.testing.assert_allclose(got.numpy(), want.numpy(), **TOL)
+    st = {"C": state[0].numpy()[None] if state else
+          np.zeros((1, bh, d, d), np.float32),
+          "n": state[1].numpy()[None] if state else
+          np.zeros((1, bh, d), np.float32),
+          "m": state[2].numpy()[None] if state else
+          np.full((1, bh), _NEG, np.float32)}
+
+    def bshd(x):  # [BH, S, ...] -> [1, S, BH, ...]: heads = bh
+        return jnp.asarray(x.numpy()).swapaxes(0, 1)[None]
+
+    want = JR._mlstm_suffix_state(None, {key: jnp.asarray(a)
+                                         for key, a in st.items()},
+                                  bshd(k), bshd(v), bshd(it), bshd(logf))
+    for name, got in (("C", C), ("n", n), ("m", m)):
+        np.testing.assert_allclose(got.numpy(), np.asarray(want[name])[0],
+                                   **TOL, err_msg=name)
+
+
+def test_mlstm_split_terms_sum_to_the_state():
+    """The three bf16 terms of an fp32 state sum back to it exactly, so
+    the split mirror departs from the unsplit one only in the summation
+    order."""
+    rng = np.random.RandomState(21)
+    C = torch.from_numpy((rng.standard_normal((4, 64, 64)) *
+                          np.exp(rng.uniform(-8, 8, (4, 64, 64))))
+                         .astype(np.float32))
+    terms = ref.split_terms(C)
+    assert len(terms) == 3 and all(t.dtype == torch.bfloat16 for t in terms)
+    assert torch.equal(sum(t.float() for t in terms[1:]) + terms[0].float(), C)
