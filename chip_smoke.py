@@ -9,14 +9,17 @@ Phases (each failure propagates; the process exits non-zero):
 2. build every kernel from ``src/repro_torch/kernels/csrc`` with nvcc,
    print each kernel's ``ptxas -v`` registers, shared memory and spills,
    and fail if a kernel named in ``NO_SPILL`` spills (every
-   ``flash_attention`` instance, ``rglru_scan``, both ``mlstm_chunkwise``
+   ``flash_attention`` instance, both ``rglru_scan`` routes, both
+   ``mlstm_chunkwise``
    kernels, ``xfer_matmul``'s and ``quant_matmul``'s streaming and
    tensor-core kernels, both ``paged_attention`` bodies);
 3. each kernel against its plain PyTorch version on the card, at the
    serving path's shapes plus ragged cases (``xfer_matmul`` and
    ``quant_matmul`` also print the kernel their route picked; they, both
-   ``paged_attention`` bodies, which reduce across blocks, and
-   ``mlstm_chunkwise`` must give bit-equal outputs on two calls; every
+   ``paged_attention`` bodies, which reduce across blocks,
+   ``flash_attention`` (its terms kernel merges two warpgroups),
+   ``rglru_scan`` and ``mlstm_chunkwise`` must give bit-equal outputs on
+   two calls; every
    timed matmul shape is kept in
    the kernel line under ``shapes``, the paged cases with their
    every-length times; each ``flash_attention`` line names its kernel
@@ -28,10 +31,12 @@ Phases (each failure propagates; the process exits non-zero):
    tables ``MM_CASES``, ``FA_CASES``, ``FA_KV_CASES``, ``PA_CASES``,
    ``QM_CASES``); kernel, plain-version and one-PyTorch-call (yardstick
    only) times with CUDA events. ``flash_attention`` is timed in bf16 at qwen's prefill
-   [128, 256, 64], at head dim 128 ([256, 2048, 128] causal, entry
+   [128, 256, 64] (and in fp32 there, the INT8 path's prefill, entry
+   ``fp32``), at head dim 128 ([256, 2048, 128] causal, entry
    ``d128``) and at the hybrid's shape below, each beside SDPA. The
-   short calls (decode ``quant_matmul``, qwen's and the shared-prefix
-   ``flash_attention``, the int8 ``paged_attention``) and
+   short calls (decode ``quant_matmul``, qwen's, the int8 and the
+   shared-prefix ``flash_attention``, the int8 ``paged_attention``),
+   ``rglru_scan`` and
    ``mlstm_chunkwise`` also give ``device_ms``: one call's device time,
    calls captured in a CUDA graph, beside the library's or yardstick's.
    The INT8 kernels (``quant_matmul``, the int8 body of
@@ -44,9 +49,12 @@ Phases (each failure propagates; the process exits non-zero):
    (or the error it raises); no PyTorch call computes the int8 attention
    body. Their labelled yardsticks are ``torch.matmul`` on a weight
    dequantised ahead of time and SDPA over pre-dequantised K/V.
-   Then the kernels at recurrentgemma-2b's shapes: ``rglru_scan`` (fp32
-   [8, 2048, 2560] and a ragged [3, 37, 2560], bf16 too, bit-equal to its
-   plain version; no PyTorch call computes a linear recurrence, so its
+   Then the kernels at recurrentgemma-2b's shapes: ``rglru_scan`` (table
+   ``RG_CASES``: fp32 and bf16 [8, 2048, 2560] and [1, 2048, 2560], both
+   timed in fp32 with their device time, a ragged [3, 37, 2560], an
+   identity-step tail and a width off 16 bytes that takes the rows route;
+   bit-equal to its plain version and on two calls, its launch plan
+   printed; no PyTorch call computes a linear recurrence, so its
    library time is null), ``flash_attention`` at head dim 256 (bf16
    q,k,v [80, 2560, 256], causal, window 2048, and fp32 at [10, 2560,
    256] with the same window; SDPA with the window mask as its library
@@ -120,7 +128,9 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
-PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}  # dense; fp32 off tensor cores
+# dense peaks: bf16 products on the tensor cores; fp32 FMA off them (the
+# CUDA-core kernels)
+PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 TOL = {"float32": 1e-3, "bfloat16": 5e-2}
 
 # serving-path geometry of full-width qwen1.5-0.5b in this run
@@ -222,6 +232,30 @@ def bound_ms(nbytes: float, flops: float, dtype: str):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def term_products(a: str, b: str) -> int:
+    """bf16 tensor-core products that the flash kernels take for one
+    product of operands in ``a`` and ``b``: an fp32 operand is three
+    exact bf16 terms, a bf16 or int8 one is one; of two split operands
+    the term pairs i + j < 3."""
+    na, nb = (3 if x == "float32" else 1 for x in (a, b))
+    return 6 if na == nb == 3 else na * nb
+
+
+def flash_bound(nbytes: float, parts, dt, d: int, prefix_q8: bool = False,
+                main_q8: bool = False):
+    """``bound_ms`` of a flash_attention call (q in ``dt``, head dim
+    ``d``) on the unit its kernel runs on. ``parts``: (flops, q dtype,
+    k/v storage) of each key segment. ``flash_tc_kernel`` and
+    ``flash_terms_kernel`` take ``term_products`` bf16 products at the
+    bf16 peak for each product of the function; the CUDA-core
+    ``flash_split_kernel`` runs fp32 FMA at the fp32 peak."""
+    from repro_torch.kernels.flash_attention import kernel_for
+    if kernel_for(dt, d, prefix_q8, main_q8) == "flash_split_kernel":
+        return bound_ms(nbytes, sum(f for f, _, _ in parts), "float32")
+    return bound_ms(nbytes, sum(f * term_products(a, b) for f, a, b in parts),
+                    "bfloat16")
+
+
 def compare(name: str, got, want, dtype: str) -> float:
     """Each element within ``tol`` of its own magnitude plus the RMS of
     its row (last axis) of ``want``: the error is held to the output's
@@ -264,11 +298,11 @@ def iters_for(flops: float):
 
 def record(entries: dict, name: str, entry, row: dict) -> None:
     """Keep a timed case as the kernel's entry: ``main`` for the first
-    serving path that runs the kernel, ``hybrid``, ``ssm``, ``d128`` or
-    ``pool`` as a sub-entry of that name."""
+    serving path that runs the kernel, ``hybrid``, ``ssm``, ``d128``,
+    ``pool`` or ``fp32`` as a sub-entry of that name."""
     if entry == "main":
         entries.setdefault(name, {}).update(row)
-    elif entry in ("hybrid", "ssm", "d128", "pool"):
+    elif entry in ("hybrid", "ssm", "d128", "pool", "fp32"):
         entries.setdefault(name, {})[entry] = row
 
 
@@ -425,11 +459,15 @@ def check_kernels(dev) -> dict:
             got = ops.attention(q, k, v, causal=causal, window=window)
             want = ops.attention_ref(q, k, v, causal=causal, window=window)
             err = compare(f"flash_attention {label} {dname}", got, want, dname)
+            bit_stable(f"flash_attention {label} {dname}", got,
+                       ops.attention(q, k, v, causal=causal, window=window))
             del want
             note = ptxas_note(flash_table, flash_instance(dtypes[dname], d))
             line = (f"[kernel] flash_attention {label} {dname}: max_abs_err "
                     f"{err:.3e}; {note}")
-            if timed and dname == "bfloat16":
+            # timed: bf16 cases, and fp32 at the main shape (the INT8
+            # path's prefill, against fp32 SDPA) as the sub-entry fp32
+            if timed and (dname == "bfloat16" or entry == "main"):
                 # causal (+ window): the visible query-key pairs only
                 pairs = bh * sum(min(i + 1, window or s) for i in range(s))
                 pos = torch.arange(s, device=dev)
@@ -442,14 +480,15 @@ def check_kernels(dev) -> dict:
                     lambda: F.scaled_dot_product_attention(
                         q4, k4, v4, attn_mask=mask if window else None,
                         is_causal=not window), 4.0 * d * pairs)
-                b, kind = bound_ms(4 * bh * s * d * q.element_size(),
-                                   4.0 * d * pairs, dname)
+                b, kind = flash_bound(4 * bh * s * d * q.element_size(),
+                                      [(4.0 * d * pairs, dname, dname)],
+                                      q.dtype, d)
                 lib_note = " (SDPA, window mask)" if window else ""
                 line += (f" ms {ms:.4f} plain_ms {plain:.4f} library_ms "
                          f"{lib:.4f}{lib_note} bound_ms {b:.4f} ({kind}) "
                          f"kernel/library {ms / lib:.2f}")
                 win = f" window {window}" if window else ""
-                row = dict(shape=f"q,k,v[{bh},{s},{d}] causal{win} bf16",
+                row = dict(shape=f"q,k,v[{bh},{s},{d}] causal{win} {dname}",
                            max_abs_err=err, ms=ms, plain_ms=plain,
                            bound_ms=b, bound_by=kind, library_ms=lib,
                            ptxas=note)
@@ -462,7 +501,8 @@ def check_kernels(dev) -> dict:
                     line += (f"; device_ms {row['device_ms']:.4f} "
                              f"library_device_ms "
                              f"{row['library_device_ms']:.4f} (CUDA graph)")
-                record(entries, "flash_attention", entry, row)
+                record(entries, "flash_attention",
+                       entry if dname == "bfloat16" else "fp32", row)
             log(line)
             del q, k, v, got
     for label, bh, s, t, d in FA_KV_CASES:
@@ -745,21 +785,38 @@ def check_int8_kernels(dev, gen) -> dict:
     return entries
 
 
+# rglru_scan: (label, (B, S, W), identity-step tail, timed in fp32,
+# entry); every case in fp32 and bf16. The first two are the RG-LRU
+# prefill of a full 8-slot group and of one row; the identity tail is a
+# right-padded prompt's (a, b) = (1, 0); W = 1001 takes the rows route
+RG_CASES = [
+    (f"[{H_SLOTS},{H_WINDOW},{H_WIDTH}]", (H_SLOTS, H_WINDOW, H_WIDTH), 0,
+     True, "main"),
+    (f"n=1 [1,{H_WINDOW},{H_WIDTH}]", (1, H_WINDOW, H_WIDTH), 0, True, "n1"),
+    ("ragged [3,37,2560]", (3, 37, H_WIDTH), 0, False, None),
+    ("tail [2,300,2560], last 87 identity", (2, 300, H_WIDTH), 87, False,
+     None),
+    ("rows route [2,37,1001]", (2, 37, 1001), 0, False, None)]
+
+
 def check_rglru(dev, gen) -> dict:
-    """``rglru_scan`` at every RG-LRU prefill's shape, a, b [n, bucket,
-    2560], and a ragged one: bit-equal to its plain version; timed in
-    fp32, the path's carry dtype."""
+    """``rglru_scan`` on RG_CASES: bit-equal to its plain version and on
+    two calls, its launch plan printed; an identity tail leaves h at its
+    last real step's value; timed in fp32, the path's carry dtype, eager
+    and as device time (CUDA graph)."""
     import torch
     from repro_torch.kernels import ops
+    from repro_torch.kernels._launch import sm_count
+    from repro_torch.kernels.rglru_scan import plan
 
     entries = {}
-    for label, (b, s, w) in ((f"[{H_SLOTS},{H_WINDOW},{H_WIDTH}]",
-                              (H_SLOTS, H_WINDOW, H_WIDTH)),
-                             ("ragged [3,37,2560]", (3, 37, H_WIDTH))):
+    for label, (b, s, w), tail, timed, entry in RG_CASES:
         for dname, dt in (("float32", torch.float32),
                           ("bfloat16", torch.bfloat16)):
             a = torch.rand(b, s, w, generator=gen, device=dev).to(dt)
             bx = torch.randn(b, s, w, generator=gen, device=dev).to(dt)
+            if tail:
+                a[:, s - tail:], bx[:, s - tail:] = 1.0, 0.0
             h0 = torch.randn(b, w, generator=gen, device=dev)
             got = ops.lru_scan(a, bx, h0)
             want = ops.lru_scan_ref(a, bx, h0)
@@ -767,21 +824,37 @@ def check_rglru(dev, gen) -> dict:
             if not torch.equal(got, want):
                 raise AssertionError(f"rglru_scan {label} {dname}: not bit-equal "
                                      f"to its plain version")
-            line = (f"[kernel] rglru_scan {label} {dname}: max_abs_err {err:.3e} "
-                    f"(bit-equal)")
-            if dname == "float32" and not label.startswith("ragged"):
+            bit_stable(f"rglru_scan {label} {dname}", got,
+                       ops.lru_scan(a, bx, h0))
+            if tail and not torch.equal(
+                    got[:, s - tail:],
+                    got[:, s - tail - 1:s - tail].expand(b, tail, w)):
+                raise AssertionError(f"rglru_scan {label} {dname}: identity "
+                                     f"steps moved h")
+            p = plan(b, w, a.element_size(), True, sm_count(a.device))
+            line = (f"[kernel] rglru_scan {label} {dname}: route {p.kernel} "
+                    f"cw {p.cw} grid {p.grid}; max_abs_err {err:.3e} "
+                    f"(bit-equal, bit-stable)")
+            if timed and dname == "float32":
                 ms = time_ms(lambda: ops.lru_scan(a, bx, h0))
+                dms = graph_ms(lambda: ops.lru_scan(a, bx, h0))
                 plain = time_ms(lambda: ops.lru_scan_ref(a, bx, h0), iters=3,
                                 warmup=1)
                 nb, kind = bound_ms(3 * b * s * w * 4 + b * w * 4,
                                     2.0 * b * s * w, dname)
-                line += (f" ms {ms:.4f} plain_ms {plain:.4f} library_ms null "
-                         f"(no PyTorch call computes a linear recurrence) "
-                         f"bound_ms {nb:.4f} ({kind})")
-                entries["rglru_scan"] = dict(
-                    shape=f"a,b[{b},{s},{w}] f32, h0[{b},{w}]", max_abs_err=err,
-                    ms=ms, plain_ms=plain, bound_ms=nb, bound_by=kind,
-                    library_ms=None)
+                line += (f" ms {ms:.4f} device_ms {dms:.4f} (CUDA graph) "
+                         f"plain_ms {plain:.4f} library_ms null (no PyTorch "
+                         f"call computes a linear recurrence) bound_ms "
+                         f"{nb:.4f} ({kind}) bound/device {nb / dms:.2f}")
+                row = dict(shape=f"a,b[{b},{s},{w}] f32, h0[{b},{w}]",
+                           variant=f"{p.kernel} cw {p.cw} grid {p.grid}",
+                           max_abs_err=err, ms=ms, device_ms=dms,
+                           plain_ms=plain, bound_ms=nb, bound_by=kind,
+                           library_ms=None, bit_stable=True)
+                if entry == "main":
+                    entries["rglru_scan"] = row
+                else:
+                    entries["rglru_scan"][entry] = row
             log(line)
             del a, bx, got, want
     return entries
@@ -912,6 +985,9 @@ FQ8_CASES = [
     ("ragged BH=6 S=T=100", 6, 100, 100, 64, True, 0, False),
     ("window BH=6 S=T=200 w=48", 6, 200, 200, 64, True, 48, False),
     ("non-causal BH=4 S=50 T=77", 4, 50, 77, 64, False, 0, False),
+    ("D=16 BH=3 S=T=70", 3, 70, 70, 16, True, 0, False),
+    ("D=32 non-causal BH=2 S=40 T=90 window 20", 2, 40, 90, 32, False, 20,
+     False),
     ("D=128 BH=4 S=T=70", 4, 70, 70, 128, True, 0, False),
     ("D=256 BH=4 S=T=77 window 30", 4, 77, 77, 256, True, 30, False),
     ("D=256 non-causal BH=3 S=40 T=50", 3, 40, 50, 256, False, 0, False)]
@@ -926,6 +1002,7 @@ PREFIX_CASES = [
      64, False),
     ("span = pre_len BH=4 S=33 span 96", 4, 33, 64, 96, 96, False),
     ("pre_len 1 BH=3 S=9 span 64", 3, 9, 64, 64, 1, False),
+    ("D=32 BH=3 S=30 span 100 pre_len 70", 3, 30, 32, 100, 70, False),
     ("D=128 BH=4 S=50 span 100 pre_len 77", 4, 50, 128, 100, 77, False),
     ("D=256 BH=4 S=50 span 64 pre_len 40", 4, 50, 256, 64, 40, False),
     ("D=256 BH=3 S=17 span 48 pre_len 32 (tile edge)", 3, 17, 256, 48, 32,
@@ -955,24 +1032,27 @@ def ptxas_kernels(out: str) -> dict:
 def flash_instance(dt, d: int, prefix_q8: bool = False,
                    main_q8: bool = False):
     """(readable name, mangled-name fragment) of the flash_attention.cu
-    kernel that a call with q in ``dt`` and head dim ``d`` launches: bf16
-    with fp k/v takes ``flash_tc_kernel<D>``; the rest ``flash_kernel<T,
-    PK, K, D>`` at D <= 64 and ``flash_split_kernel<T, PK, K, D, D / 32>``
-    at D = 128 and 256, template arguments as the Itanium ABI writes them
-    (float ``f``, int8_t ``a``, __nv_bfloat16 once in full, then ``S1_``)."""
+    kernel that a call with q in ``dt`` and head dim ``d`` launches
+    (``flash_attention.kernel_for``): ``flash_tc_kernel<D>``,
+    ``flash_terms_kernel<T, PK, K, D>`` or
+    ``flash_split_kernel<T, PK, K, D, D / 32>``, template arguments as the
+    Itanium ABI writes them (float ``f``, int8_t ``a``, __nv_bfloat16 once
+    in full, then ``S1_``)."""
     import torch
-    bf = dt == torch.bfloat16
-    if bf and not (prefix_q8 or main_q8):
+    from repro_torch.kernels.flash_attention import kernel_for
+    kern = kernel_for(dt, d, prefix_q8, main_q8)
+    if kern == "flash_tc_kernel":
         return f"flash_tc_kernel<{d}>", f"flash_tc_kernelILi{d}EE"
+    bf = dt == torch.bfloat16
     names = ("__nv_bfloat16" if bf else "float", "signed char")
     codes = ("13__nv_bfloat16" if bf else "f", "S1_" if bf else "f", "a")
-    kern, tail = (("flash_split_kernel", f"Li{d}ELi{d // 32}EE") if d >= 128
-                  else ("flash_kernel", f"Li{d}EE"))
     targs = [names[0], names[prefix_q8], names[main_q8]]
+    tail, extra = {"flash_terms_kernel": (f"Li{d}EE", f", {d}"),
+                   "flash_split_kernel": (f"Li{d}ELi{d // 32}EE",
+                                          f", {d}, {d // 32}")}[kern]
     mangled = (f"{kern}I{codes[0]}{codes[2] if prefix_q8 else codes[1]}"
                f"{codes[2] if main_q8 else codes[1]}{tail}")
-    extra = f", {d // 32}" if d >= 128 else ""
-    return f"{kern}<{', '.join(targs)}, {d}{extra}>", mangled
+    return f"{kern}<{', '.join(targs)}{extra}>", mangled
 
 
 def ptxas_note(table: dict, instance) -> str:
@@ -1020,6 +1100,8 @@ def check_flash_q8(dev, gen, entries: dict) -> None:
             got = ops.attention(q, k, v, **kw)
             want = ops.attention_ref(q, k, v, **kw)
             err = compare(f"flash_attention_q8 {label} {dname}", got, want, dname)
+            bit_stable(f"flash_attention_q8 {label} {dname}", got,
+                       ops.attention(q, k, v, **kw))
             line = (f"[kernel] flash_attention_q8 {label} {dname}: max_abs_err "
                     f"{err:.3e}; {ptxas_note(table, flash_instance(dt, d, main_q8=True))}")
             if timed and dname == "float32":
@@ -1036,16 +1118,22 @@ def check_flash_q8(dev, gen, entries: dict) -> None:
                 ms = time_ms(lambda: ops.attention(q, k, v, **kw))
                 plain = time_ms(lambda: ops.attention_ref(q, k, v, **kw))
                 yd = time_ms(yard)
-                nb, kind = bound_ms(2 * bh * s * d * 4 + 2 * bh * t * (d + 4),
-                                    4.0 * d * pairs, dname)
+                dms, yms = graph_ms(lambda: ops.attention(q, k, v, **kw)), \
+                    graph_ms(yard)
+                nb, kind = flash_bound(
+                    2 * bh * s * d * 4 + 2 * bh * t * (d + 4),
+                    [(4.0 * d * pairs, dname, "int8")], dt, d, main_q8=True)
                 line += (f" ms {ms:.4f} plain_ms {plain:.4f} yardstick_ms "
                          f"{yd:.4f} (dequantise, then SDPA with a boolean "
-                         f"mask: two calls) bound_ms {nb:.4f} ({kind})")
+                         f"mask: two calls) bound_ms {nb:.4f} ({kind}); "
+                         f"device_ms {dms:.4f} yardstick_device_ms {yms:.4f} "
+                         f"(CUDA graph)")
                 entries["flash_attention_q8"]["own"] = dict(
                     shape=f"q[{bh},{s},{d}] fp32, int8 k,v[{bh},{t},{d}] + "
                           f"f32 scales, causal",
                     max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=nb,
-                    bound_by=kind, library_ms=None, yardstick_ms=yd)
+                    bound_by=kind, library_ms=None, yardstick_ms=yd,
+                    device_ms=dms, yardstick_device_ms=yms)
             log(line)
 
     for label, bh, s, d, span, pre_len, timed in PREFIX_CASES:
@@ -1067,6 +1155,8 @@ def check_flash_q8(dev, gen, entries: dict) -> None:
                 name = "flash_attention_q8" if scales else "flash_attention"
                 err = compare(f"{name} prefix {pname} {label} {dname}", got,
                               want, dname)
+                bit_stable(f"{name} prefix {pname} {label} {dname}", got,
+                           ops.prefix_attention(*args, **scales))
                 inst = flash_instance(dt, d, prefix_q8=bool(scales))
                 line = (f"[kernel] {name} prefix ({pname} prefix) {label} "
                         f"{dname}: max_abs_err {err:.3e}; "
@@ -1096,9 +1186,11 @@ def check_flash_q8(dev, gen, entries: dict) -> None:
                     esz = q.element_size()
                     pre_bytes = (2 * bh * pre_len * (d + 4) if scales
                                  else 2 * bh * pre_len * d * esz)
-                    flops = 4.0 * d * bh * (s * pre_len + s * (s + 1) // 2)
-                    nb, kind = bound_ms(4 * bh * s * d * esz + pre_bytes,
-                                        flops, dname)
+                    parts = [(4.0 * d * bh * s * pre_len, dname,
+                              "int8" if scales else dname),
+                             (4.0 * d * bh * s * (s + 1) // 2, dname, dname)]
+                    nb, kind = flash_bound(4 * bh * s * d * esz + pre_bytes,
+                                           parts, dt, d, bool(scales))
                     dms, yms = graph_ms(lambda: ops.prefix_attention(
                         *args, **scales)), graph_ms(yard)
                     line += (f" ms {ms:.4f} plain_ms {plain:.4f} yardstick_ms "
@@ -2028,12 +2120,14 @@ def parity_paged(dev) -> None:
 
 
 # kernels that must compile without spills: every flash_attention
-# instance (flash_kernel, flash_split_kernel, flash_tc_kernel), rglru_scan,
+# instance (flash_split_kernel, flash_tc_kernel, flash_terms_kernel),
+# both rglru_scan routes,
 # both mlstm_chunkwise kernels (fp32 mlstm_kernel, bf16 mlstm_tc_kernel),
 # xfer_matmul's and quant_matmul's decode and tensor-core kernels and both
 # paged_attention bodies (paged_split_kernel, fp and int8 pools)
-NO_SPILL = ("flash_kernel", "flash_split_kernel", "flash_tc_kernel",
-            "rglru_kernel", "mlstm_kernel", "mlstm_tc_kernel",
+NO_SPILL = ("flash_split_kernel", "flash_tc_kernel", "flash_terms_kernel",
+            "rglru_ring_kernel", "rglru_rows_kernel",
+            "mlstm_kernel", "mlstm_tc_kernel",
             "stream_rows_kernel", "stream_mma_kernel", "stream_cols_kernel",
             "stream_mma_q8_kernel", "stream_cols_q8_kernel", "tc_kernel",
             "wg_kernel", "paged_split_kernel")
@@ -2076,7 +2170,8 @@ def kernel_table(entries: dict, counts: dict) -> list:
                "bound_by": e["bound_by"], "library_ms": e["library_ms"],
                "shape": e["shape"]}
         for key in ("yardstick_ms", "yardstick", "library_error", "hybrid",
-                    "ssm", "d128", "prefix", "own", "pool", "variant",
+                    "ssm", "d128", "fp32", "n1", "prefix", "own", "pool",
+                    "variant",
                     "every_length", "shapes", "ptxas", "device_ms",
                     "library_device_ms", "yardstick_device_ms", "bit_stable"):
             if key in e:

@@ -27,11 +27,13 @@
 //   cores, wgmma for Q K^T and P V from swizzled shared tiles, K / V
 //   tiles through a cp.async ring; see namespace tc. P is rounded to bf16
 //   before P V, where the TPU body multiplies f32 p by f32 v.
-// - flash_kernel<T, PK, K, D> (D <= 64: fp32, and the int8 forms): one
-//   thread per query row, q and the accumulator in registers, k / v tiles
-//   and the block's scores in shared memory, fp32 FMA on CUDA cores.
-//   fp32 stays off tensor cores (no TF32), for the card-vs-CPU parity
-//   runs and the INT8 path, whose activations are fp32.
+// - flash_terms_kernel<T, PK, K, D> (D = 16, 32 and 64, every other
+//   form: fp32 q, and the int8 forms with fp32 or bf16 q): the same wgmma
+//   products on exact bf16 terms (int8 widened, fp32 split in three), the
+//   int8 scales applied in f32 to the scores and folded into p, two
+//   warpgroups a block splitting the K / V tiles of one query block and
+//   merged in order; D = 16 and 32 zero-padded to 64 as the tiles are
+//   staged; see namespace tm.
 // - flash_split_kernel<T, PK, K, D, TPR> (D = 128 and 256 off tensor
 //   cores): one row's q and accumulator (2 D floats) would spill out of
 //   one thread's registers, and fp32 k / v tiles of 32 keys at D = 256
@@ -47,24 +49,23 @@
 //
 // The int8 body (flash_attention_q8_launch) replaces _flash_kernel_q8 of
 // the same TPU file: int8 k / v [BH, T, D] with per-token f32 scales
-// [BH, T, 1]. Each int8 element is widened and multiplied by its row's
-// scale in f32 (not rounded) as the tile is staged into shared memory, so
-// the fp extent never exists in device memory; the loop is the fp body's,
-// on CUDA cores for fp32 and bf16 q alike (no rounding the TPU body does
-// not have).
+// [BH, T, 1]; the fp extent never exists in device memory. On the CUDA-core
+// kernel (D = 128, 256) each int8 element is widened and multiplied by its
+// row's scale in f32 (not rounded) as the tile is staged.
 //
 // The shared-prefix entry (prefix_attention_launch) is the form the paged
 // serving path needs and the TPU kernel lacks: the queries of a suffix
 // sit at positions pre_len + i and attend two key segments with one
 // online softmax: a prefix pk / pv [BH, Lp, D] (fp, or int8 with f32
 // scales [BH, Lp, 1]), visible below pre_len (rows at or past pre_len are
-// never read: their scores are NEG_INF and their tile rows zeros), then
-// the fresh fp suffix k / v [BH, S, D], causal on the local index. An
-// int8 prefix element is dequantised in f32 and rounded to T, as the
-// reference casts the dequantised prefix to the compute dtype. PK is the
-// prefix's storage and K the main segment's (T, or int8_t with scales).
-// Its bound: the int8 prefix is D + 4 bytes a token where a bf16 one is
-// 2 * D, but at the serving shapes the work is operation bound as above.
+// never read, nor their scales: their scores are masked and their tile
+// rows zeros), then the fresh fp suffix k / v [BH, S, D], causal on the local
+// index. On the CUDA-core kernel an int8 prefix element is dequantised in
+// f32 and rounded to T, as the reference casts the dequantised prefix to
+// the compute dtype. PK is the prefix's storage and K the main segment's
+// (T, or int8_t with scales). Its bound: the int8 prefix is D + 4 bytes a
+// token where a bf16 one is 2 * D; at the serving shapes the work is
+// small and latency bound (above).
 #include <cmath>
 #include <cstdint>
 #include <type_traits>
@@ -73,8 +74,6 @@
 
 namespace {
 
-constexpr int BQ = 64;   // query rows per block = threads per block
-constexpr int BK = 32;   // kv rows per shared-memory tile
 constexpr float NEG_INF = -1e30f;
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
@@ -170,90 +169,6 @@ struct Rows {
     vs = a.vs ? a.vs + bh * a.T : nullptr;
   }
 };
-
-template <typename T, typename PK, typename K, int D>
-__global__ void __launch_bounds__(BQ) flash_kernel(const Args a) {
-  __shared__ float ks[BK][D];
-  __shared__ float vs[BK][D];
-  __shared__ float ss[BK][BQ];  // [kv][row]: each thread owns a column
-
-  const int tid = threadIdx.x;
-  const Rows<T, PK, K, D> r(a, blockIdx.y);
-  const int S = a.S, Tkv = a.T, pre_len = a.pre_len;
-  const int q0 = blockIdx.x * BQ;
-  const int qi = q0 + tid;
-  const bool row_ok = qi < S;
-
-  float qr[D], acc[D];
-#pragma unroll
-  for (int d = 0; d < D; ++d) {
-    qr[d] = row_ok ? to_f32(r.q[(long long)qi * D + d]) : 0.f;
-    acc[d] = 0.f;
-  }
-  float m = NEG_INF, l = 0.f;
-
-  int kv_end = Tkv;
-  if (a.causal) kv_end = min(Tkv, q0 + BQ);  // keys past the block's last row
-  int kv_begin = 0;
-  if (a.window) {  // keys before the block's first row's window
-    const int first = q0 - a.window + 1;
-    kv_begin = first > 0 ? (first / BK) * BK : 0;
-  }
-
-  // segment 0: the prefix (keys below pre_len, all visible); segment 1:
-  // the main keys under the causal / window masks
-  for (int seg = 0; seg < 2; ++seg) {
-    const bool pre = seg == 0;
-    const int end = pre ? pre_len : kv_end;
-    for (int t0 = pre ? 0 : kv_begin; t0 < end; t0 += BK) {
-      if (pre)
-        stage<T, true, D, BK, BQ>(ks, vs, r.pk, r.pv, r.pks, r.pvs, t0, pre_len, tid);
-      else
-        stage<T, false, D, BK, BQ>(ks, vs, r.k, r.v, r.ks, r.vs, t0, Tkv, tid);
-      __syncthreads();
-
-      float bmax = NEG_INF;
-      for (int j = 0; j < BK; ++j) {
-        const int kp = t0 + j;
-        float s = 0.f;
-#pragma unroll
-        for (int d = 0; d < D; ++d) s = fmaf(qr[d], ks[j][d], s);
-        s *= a.scale;
-        bool ok;
-        if (pre) {
-          ok = kp < pre_len;
-        } else {
-          ok = kp < Tkv;
-          if (a.causal) ok = ok && kp <= qi;
-          if (a.window) ok = ok && (qi - kp) < a.window;
-        }
-        s = ok ? s : NEG_INF;
-        ss[j][tid] = s;
-        bmax = fmaxf(bmax, s);
-      }
-      const float m_new = fmaxf(m, bmax);
-      const float alpha = expf(m - m_new);
-      l *= alpha;
-#pragma unroll
-      for (int d = 0; d < D; ++d) acc[d] *= alpha;
-      for (int j = 0; j < BK; ++j) {
-        const float p = expf(ss[j][tid] - m_new);
-        l += p;
-#pragma unroll
-        for (int d = 0; d < D; ++d) acc[d] = fmaf(p, vs[j][d], acc[d]);
-      }
-      m = m_new;
-      __syncthreads();
-    }
-  }
-
-  if (row_ok) {
-    const float denom = fmaxf(l, 1e-30f);
-    T* ob = r.o + (long long)qi * D;
-#pragma unroll
-    for (int d = 0; d < D; ++d) store(ob + d, acc[d] / denom);
-  }
-}
 
 constexpr int SPLIT_ROWS = 32;  // query rows per block of flash_split_kernel
 constexpr int SPLIT_BK = 16;    // kv rows per shared-memory tile there
@@ -739,6 +654,468 @@ __global__ void __launch_bounds__(threads(D), 1) flash_tc_kernel(const Args a) {
 
 }  // namespace tc
 
+// ---- fp32 q, or int8 K / V, at D <= 64: tensor cores on bf16 terms ----
+//
+// flash_terms_kernel<T, PK, K, D>: every instance at D = 16, 32 and 64 but
+// the all-bf16 one (fp32 q with fp32 K / V; the int8 body; the
+// shared-prefix entry over an int8 prefix, or over an fp prefix with fp32
+// q). The tiles are [64][64] at every D: dims past D are staged as zeros
+// (as flash_tc_kernel pads D = 16 and 32), Q K^T takes only the D / 16
+// k-steps that hold them, and only the D output dims are stored. The wgmma
+// products of
+// flash_tc_kernel (same swizzled tiles, S = Q K^T from shared memory, O
+// += P V with P from registers, quad-shuffle online softmax, masks only
+// on edge tiles) on operands split into exact bf16 terms:
+//
+// - an int8 value (at most 8 significant bits) is exact in bf16: each
+//   int8 tile is widened once as it is staged (prmt, as quant_matmul
+//   does), and the per-token f32 scales go where the products allow: score
+//   column j is multiplied by k_scale[j] before the softmax, and v_scale[j]
+//   is folded into p before P V (l sums the unscaled p). A bf16 q takes the
+//   int8 prefix this way too, exactly, where the plain version rounds the
+//   dequantised prefix to bf16 (a difference inside the bf16 tolerance);
+// - an fp32 operand (q, p, and the K / V of an fp32 segment) is three bf16
+//   terms hi = bf16(x), mid = bf16(x - hi), lo = bf16(x - hi - mid), whose
+//   sum is x exactly for normal values (ref.split_terms); of the products
+//   of two split operands, the pairs of term indices i + j < 3 are taken
+//   (the dropped ones are below 2^-24 of the product), of a split operand
+//   with an exact one all three. Each product of two bf16 terms is exact
+//   in fp32, so fp32 results depart from the plain version in the order of
+//   the sums and in 2^-24 relative terms, with no TF32 anywhere. A bf16 q
+//   rounds P to bf16 before P V, as flash_tc_kernel does.
+//
+// What bounds it: at the serving shapes, latency. The shared-prefix
+// prefill of the paged INT8 path has one query block per (bh): 112 blocks
+// of 5 tiles. So a block is two warpgroups on the same 64 query rows, each
+// taking every other K / V tile with its own running (m, l, O) and its own
+// staged tiles: its 128 threads load a tile into registers (all loads
+// before any store; int8 and bf16 tiles during the products of the tile
+// before, the first beside Q), then widen or split it into shared memory
+// between two named barriers; warpgroup 1 hands its state to warpgroup
+// 0 through shared memory at the end, merged in that fixed order (no
+// atomics: two calls give equal bits). Shared memory: Q terms, two
+// warpgroups' K and V terms (three at most), scales, the merge area: 140
+// KB with fp32 operands, one block an SM.
+namespace tm {
+
+constexpr int NWG = 2;              // warpgroups a block, on the same rows
+constexpr int THREADS = NWG * 128;
+constexpr int TILE = 64 * 128;      // one swizzled [64][64] bf16 tile
+
+template <typename S>
+__host__ __device__ constexpr int n_terms() {
+  return std::is_same<S, float>::value ? 3 : 1;
+}
+// the shared-memory layout of one instance
+template <typename T, typename PK, typename K>
+struct Geom {
+  static constexpr int QT = n_terms<T>();
+  static constexpr int KT = n_terms<PK>() > n_terms<K>() ? n_terms<PK>()
+                                                         : n_terms<K>();
+  // Q terms at 0; warpgroup w's K terms at kv + w * 2 * KT * TILE, its V
+  // terms after them
+  static constexpr int kv = QT * TILE;
+  static constexpr int sc = kv + NWG * 2 * KT * TILE;  // [NWG][k, v][64] f32
+  static constexpr int mg = sc + NWG * 2 * 64 * 4;     // [36][128] f32
+  static constexpr int bytes = mg + 36 * 128 * 4 + 1024;  // + 1024: alignment
+};
+
+__device__ __forceinline__ void wg_sync(int wg) {
+  asm volatile("bar.sync %0, 128;\n" ::"r"(wg + 1) : "memory");
+}
+// byte e of the biased word u (each int8 byte xor 0x80) as an exact float
+__device__ __forceinline__ float q8_float(uint32_t u, int e) {
+  return __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7440 | e)) - 8388736.f;
+}
+// two exact floats -> one bf16x2 (lo in the low half): their top halves
+__device__ __forceinline__ uint32_t bf16x2_hi(float lo, float hi) {
+  return __byte_perm(__float_as_uint(lo), __float_as_uint(hi), 0x7632);
+}
+// 8 int8 values -> 8 bf16 (exact)
+__device__ __forceinline__ uint4 widen8(uint2 u) {
+  const uint32_t w0 = u.x ^ 0x80808080u, w1 = u.y ^ 0x80808080u;
+  return make_uint4(bf16x2_hi(q8_float(w0, 0), q8_float(w0, 1)),
+                    bf16x2_hi(q8_float(w0, 2), q8_float(w0, 3)),
+                    bf16x2_hi(q8_float(w1, 0), q8_float(w1, 1)),
+                    bf16x2_hi(q8_float(w1, 2), q8_float(w1, 3)));
+}
+// (x0, x1) as N bf16x2 words: the first N of hi = bf16(x), mid =
+// bf16(x - hi), lo = bf16(x - hi - mid) (each subtraction is exact)
+template <int N>
+__device__ __forceinline__ void split2(float x0, float x1, uint32_t (&w)[N]) {
+#pragma unroll
+  for (int t = 0; t < N; ++t) {
+    const __nv_bfloat162 v = __floats2bfloat162_rn(x0, x1);
+    w[t] = *reinterpret_cast<const uint32_t*>(&v);
+    if (t + 1 < N) {
+      const float2 f = __bfloat1622float2(v);
+      x0 -= f.x;
+      x1 -= f.y;
+    }
+  }
+}
+
+// The 16-byte chunks of rows [row0, row0 + 64) of a [*, D] tensor
+// stored as S, padded to 64 dims, that thread idx of NT takes (chunk idx +
+// n NT: row i / 8, dims 8 (i % 8) ..), loaded into registers (rows at or
+// past lim and dims past D are zeros, not read), then written as n_terms<S>() swizzled bf16 tiles at
+// dst (term t at dst + t * TILE; 16-byte chunk c of row r at (c ^ (r %
+// 8)) * 16, as flash_tc_kernel's load_rows lays them): int8 widened,
+// fp32 split. A tile's loads are all issued before any store, so a
+// thread waits on device memory once a tile.
+template <typename S, int NT, int D>
+struct Chunks {
+  static constexpr int N = 64 * 8 / NT;
+  // one chunk's raw bytes: 8 int8, 8 bf16 or 8 fp32
+  using Raw = typename std::conditional<
+      std::is_same<S, int8_t>::value, uint2,
+      typename std::conditional<std::is_same<S, float>::value, float4[2],
+                                uint4>::type>::type;
+  Raw raw[N];
+
+  __device__ __forceinline__ void load(const S* src, int row0, int lim,
+                                       int idx) {
+#pragma unroll
+    for (int n = 0; n < N; ++n) {
+      const int i = idx + n * NT, r = i >> 3, c = i & 7;
+      const bool ok = row0 + r < lim && c * 8 < D;
+      const S* p = src + (long long)(row0 + r) * D + c * 8;
+      if constexpr (std::is_same<S, int8_t>::value) {
+        raw[n] = ok ? __ldg(reinterpret_cast<const uint2*>(p)) : make_uint2(0u, 0u);
+      } else if constexpr (std::is_same<S, float>::value) {
+        const float4 z = make_float4(0.f, 0.f, 0.f, 0.f);
+        raw[n][0] = ok ? __ldg(reinterpret_cast<const float4*>(p)) : z;
+        raw[n][1] = ok ? __ldg(reinterpret_cast<const float4*>(p) + 1) : z;
+      } else {
+        raw[n] = ok ? __ldg(reinterpret_cast<const uint4*>(p))
+                    : make_uint4(0u, 0u, 0u, 0u);
+      }
+    }
+  }
+
+  __device__ __forceinline__ void store(unsigned char* dst, int idx) const {
+#pragma unroll
+    for (int n = 0; n < N; ++n) {
+      const int i = idx + n * NT, r = i >> 3, c = i & 7;
+      const int off = r * 128 + ((c ^ (r & 7)) << 4);
+      if constexpr (std::is_same<S, int8_t>::value) {
+        *reinterpret_cast<uint4*>(dst + off) = widen8(raw[n]);
+      } else if constexpr (std::is_same<S, float>::value) {
+        uint32_t w[4][3];
+        split2<3>(raw[n][0].x, raw[n][0].y, w[0]);
+        split2<3>(raw[n][0].z, raw[n][0].w, w[1]);
+        split2<3>(raw[n][1].x, raw[n][1].y, w[2]);
+        split2<3>(raw[n][1].z, raw[n][1].w, w[3]);
+#pragma unroll
+        for (int t = 0; t < 3; ++t)
+          *reinterpret_cast<uint4*>(dst + t * TILE + off) =
+              make_uint4(w[0][t], w[1][t], w[2][t], w[3][t]);
+      } else {
+        *reinterpret_cast<uint4*>(dst + off) = raw[n];
+      }
+    }
+  }
+};
+
+// the prefix segment's tile registers: its own pair of chunks where its
+// storage differs from the main segment's, else none (it shares theirs)
+template <typename PK, typename K, int D>
+struct PrefixChunks {
+  Chunks<PK, 128, D> k, v;
+};
+template <typename K, int D>
+struct PrefixChunks<K, K, D> {};
+
+__device__ __forceinline__ void store2(float* p, float x, float y) {
+  *reinterpret_cast<float2*>(p) = make_float2(x, y);
+}
+__device__ __forceinline__ void store2(__nv_bfloat16* p, float x, float y) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(x, y);
+}
+
+// One warpgroup's update from one staged tile: QT terms of q, KT of K and
+// V (Q8: int8 with scales). s[4 jb + e] is key t0 + 8 jb + 2 t4 + (e & 1)
+// of row qi0 + 8 (e >> 1); m is in log2 units, as in flash_tc_kernel.
+template <int QT, int KT, bool Q8, int D>
+__device__ __forceinline__ void tile_update(
+    float (&o)[32], float (&m)[2], float (&l)[2], uint32_t q_s, uint32_t k_s,
+    uint32_t v_s, const float* ksc, const float* vsc, const Args& a, bool pre,
+    int t0, int q0, int qi0, int t4, float sl2) {
+  constexpr int NQK = QT > KT ? QT : KT;  // term pairs i + j < NQK
+  constexpr int PT = QT;                  // terms of p
+  constexpr int NPV = PT > KT ? PT : KT;
+  float s[32];
+#pragma unroll
+  for (int j = 0; j < 32; ++j) s[j] = 0.f;
+  tc::wgmma_fence();
+#pragma unroll
+  for (int sum = NQK - 1; sum >= 0; --sum)  // the smallest products first
+#pragma unroll
+    for (int i = 0; i < QT; ++i) {
+      const int j = sum - i;
+      if (j < 0 || j >= KT) continue;
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)  // the k-steps that hold dims < D
+        tc::wgmma_ss_n64(s, tc::smem_desc(q_s + i * TILE + kk * 32, 16, 1024),
+                         tc::smem_desc(k_s + j * TILE + kk * 32, 16, 1024));
+    }
+  tc::wgmma_commit();
+  tc::wgmma_wait<0>();
+  tc::fence_regs(s);
+
+  if constexpr (Q8) {
+#pragma unroll
+    for (int j = 0; j < 32; ++j) s[j] *= ksc[8 * (j / 4) + 2 * t4 + (j & 1)];
+  }
+  bool edge;
+  if (pre)
+    edge = t0 + 64 > a.pre_len;
+  else
+    edge = t0 + 64 > a.T || (a.causal && t0 + 63 > q0) ||
+           (a.window && t0 <= q0 + 63 - a.window);
+  if (edge) {
+#pragma unroll
+    for (int j = 0; j < 32; ++j) {
+      const int kp = t0 + 8 * (j / 4) + 2 * t4 + (j & 1);
+      const int qi = qi0 + 8 * ((j >> 1) & 1);
+      bool ok;
+      if (pre) {
+        ok = kp < a.pre_len;
+      } else {
+        ok = kp < a.T;
+        if (a.causal) ok = ok && kp <= qi;
+        if (a.window) ok = ok && (qi - kp) < a.window;
+      }
+      s[j] = ok ? s[j] : -INFINITY;
+    }
+  }
+
+  // online softmax, as flash_tc_kernel's
+  float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+  for (int j = 0; j < 32; ++j) mx[(j >> 1) & 1] = fmaxf(mx[(j >> 1) & 1], s[j]);
+  float alpha[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
+    mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
+    mx[h] = fmaxf(m[h], mx[h] * sl2);
+    alpha[h] = tc::ex2(m[h] - mx[h]);
+    m[h] = mx[h];
+    l[h] *= alpha[h];
+  }
+  if (__any_sync(0xffffffffu, alpha[0] != 1.f || alpha[1] != 1.f)) {
+#pragma unroll
+    for (int j = 0; j < 32; ++j) o[j] *= alpha[(j >> 1) & 1];
+  }
+  uint32_t pa[PT][4][4];
+#pragma unroll
+  for (int j = 0; j < 32; j += 2) {
+    const int h = (j >> 1) & 1;
+    float p0 = tc::ex2(fmaf(s[j], sl2, -m[h]));
+    float p1 = tc::ex2(fmaf(s[j + 1], sl2, -m[h]));
+    l[h] += p0 + p1;
+    if constexpr (Q8) {
+      const int kp = 8 * (j / 4) + 2 * t4;
+      p0 *= vsc[kp];
+      p1 *= vsc[kp + 1];
+    }
+    uint32_t w[PT];
+    split2<PT>(p0, p1, w);
+#pragma unroll
+    for (int t = 0; t < PT; ++t) pa[t][j / 8][(j % 8) / 2] = w[t];
+  }
+
+  tc::wgmma_fence();
+#pragma unroll
+  for (int sum = NPV - 1; sum >= 0; --sum)
+#pragma unroll
+    for (int i = 0; i < PT; ++i) {
+      const int j = sum - i;
+      if (j < 0 || j >= KT) continue;
+#pragma unroll
+      for (int kj = 0; kj < 4; ++kj)
+        tc::wgmma_rs_n64(o, pa[i][kj],
+                         tc::smem_desc(v_s + j * TILE + kj * 16 * 128, 64 * 128, 1024));
+    }
+  tc::wgmma_commit();
+  tc::wgmma_wait<0>();
+  tc::fence_regs(o);
+#pragma unroll
+  for (int t = 0; t < PT; ++t) tc::fence_regs(pa[t]);
+}
+
+}  // namespace tm
+
+template <typename T, typename PK, typename K, int D>
+__global__ void __launch_bounds__(tm::THREADS, 1) flash_terms_kernel(const Args a) {
+  using G = tm::Geom<T, PK, K>;
+  static_assert(tm::NWG == 2, "the merge below takes two warpgroups");
+  constexpr int TILE = tm::TILE;
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  const uint32_t raw_s = tc::smem_u32(smem_raw);
+  unsigned char* sm = smem_raw + (((raw_s + 1023) & ~1023u) - raw_s);
+  const uint32_t sm_s = tc::smem_u32(sm);
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int wg = warp / 4, wt = tid & 127;
+  const int g = lane >> 2, t4 = lane & 3;
+  const Rows<T, PK, K, D> r(a, blockIdx.y);
+  const int S = a.S, Tn = a.T, pre_len = a.pre_len;
+  // causal: the longest query blocks first
+  const int qb = a.causal ? gridDim.x - 1 - blockIdx.x : blockIdx.x;
+  const int q0 = qb * 64;
+
+  // the tiles: prefix keys [0, pre_len), then main keys [kv_begin, kv_end)
+  const int n_pre = (pre_len + 63) / 64;
+  const int kv_end = a.causal ? min(Tn, q0 + 64) : Tn;
+  int kv_begin = 0;
+  if (a.window) {
+    const int first = q0 - a.window + 1;
+    kv_begin = first > 0 ? first / 64 * 64 : 0;
+  }
+  const int n_tiles = n_pre + max(0, (kv_end - kv_begin + 63) / 64);
+
+  float o[32];
+#pragma unroll
+  for (int j = 0; j < 32; ++j) o[j] = 0.f;
+  float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f};
+  const float sl2 = a.scale * tc::LOG2E;
+  const int qi0 = q0 + (warp % 4) * 16 + g;  // this thread's rows: qi0, + 8
+  const int kv = G::kv + wg * 2 * G::KT * TILE;
+  unsigned char* kbuf = sm + kv;
+  unsigned char* vbuf = kbuf + G::KT * TILE;
+  float* ksc = reinterpret_cast<float*>(sm + G::sc) + wg * 128;
+  float* vsc = ksc + 64;
+
+  // A tile's K / V chunks and, for int8, the one scale a thread stages
+  // (thread wt: k_scale of key wt, or v_scale of key wt - 64; 0 past the
+  // segment's end, where a scale is never read). Loaded into registers,
+  // then stored as terms once the warpgroup's buffers are free.
+  tm::Chunks<K, 128, D> kc, vc;
+  tm::PrefixChunks<PK, K, D> pc;
+  constexpr bool SHARED = std::is_same<PK, K>::value;
+  float scv = 0.f;
+  const int j64 = wt & 63;
+  auto tile_t0 = [&](int i) {
+    return i < n_pre ? i * 64 : kv_begin + (i - n_pre) * 64;
+  };
+  auto load_tile = [&](int i) {
+    const int t0 = tile_t0(i);
+    if (i < n_pre) {
+      if constexpr (SHARED) {
+        kc.load(r.pk, t0, pre_len, wt);
+        vc.load(r.pv, t0, pre_len, wt);
+      } else {
+        pc.k.load(r.pk, t0, pre_len, wt);
+        pc.v.load(r.pv, t0, pre_len, wt);
+      }
+      if constexpr (is_q8<PK>)
+        scv = t0 + j64 < pre_len ? (wt < 64 ? r.pks : r.pvs)[t0 + j64] : 0.f;
+    } else {
+      kc.load(r.k, t0, Tn, wt);
+      vc.load(r.v, t0, Tn, wt);
+      if constexpr (is_q8<K>)
+        scv = t0 + j64 < Tn ? (wt < 64 ? r.ks : r.vs)[t0 + j64] : 0.f;
+    }
+  };
+  auto store_tile = [&](int i) {
+    if (i < n_pre) {
+      if constexpr (SHARED) {
+        kc.store(kbuf, wt);
+        vc.store(vbuf, wt);
+      } else {
+        pc.k.store(kbuf, wt);
+        pc.v.store(vbuf, wt);
+      }
+      if constexpr (is_q8<PK>) (wt < 64 ? ksc : vsc)[j64] = scv;
+    } else {
+      kc.store(kbuf, wt);
+      vc.store(vbuf, wt);
+      if constexpr (is_q8<K>) (wt < 64 ? ksc : vsc)[j64] = scv;
+    }
+  };
+  // int8 and bf16 tiles (8 or 16 registers a matrix) are loaded during the
+  // products of the tile before; fp32 ones (32) after them, registers
+  // being short there
+  auto ahead = [&](int i) {
+    return i < n_pre ? sizeof(PK) < 4 : sizeof(K) < 4;
+  };
+
+  // Q terms, loaded beside the warpgroup's first tile
+  {
+    tm::Chunks<T, tm::THREADS, D> qc;
+    qc.load(r.q, q0, S, tid);
+    if (wg < n_tiles) load_tile(wg);
+    qc.store(sm, tid);
+  }
+  tc::fence_proxy_async();
+  __syncthreads();
+
+  // warpgroup wg takes tiles wg, wg + 2, ...
+  for (int i = wg; i < n_tiles; i += tm::NWG) {
+    const bool pre = i < n_pre;
+    const int t0 = tile_t0(i);
+    tm::wg_sync(wg);  // the warpgroup's products of its last tile are done
+    store_tile(i);
+    tc::fence_proxy_async();
+    tm::wg_sync(wg);
+    const int next = i + tm::NWG;
+    if (next < n_tiles && ahead(next)) load_tile(next);
+    if (pre)
+      tm::tile_update<G::QT, tm::n_terms<PK>(), is_q8<PK>, D>(
+          o, m, l, sm_s, sm_s + kv, sm_s + kv + G::KT * TILE, ksc, vsc, a,
+          true, t0, q0, qi0, t4, sl2);
+    else
+      tm::tile_update<G::QT, tm::n_terms<K>(), is_q8<K>, D>(
+          o, m, l, sm_s, sm_s + kv, sm_s + kv + G::KT * TILE, ksc, vsc, a,
+          false, t0, q0, qi0, t4, sl2);
+    if (next < n_tiles && !ahead(next)) load_tile(next);
+  }
+
+  // the quad's partial sums; warpgroup 1's state to warpgroup 0, merged
+  // as (wg 0) * 2^(m0 - m) + (wg 1) * 2^(m1 - m)
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    l[h] += __shfl_xor_sync(0xffffffffu, l[h], 1);
+    l[h] += __shfl_xor_sync(0xffffffffu, l[h], 2);
+  }
+  float* mg = reinterpret_cast<float*>(sm + G::mg);  // [36][128]
+  if (wg == 1) {
+#pragma unroll
+    for (int j = 0; j < 32; ++j) mg[j * 128 + wt] = o[j];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      mg[(32 + h) * 128 + wt] = m[h];
+      mg[(34 + h) * 128 + wt] = l[h];
+    }
+  }
+  __syncthreads();
+  if (wg != 0) return;
+  float w0[2], w1[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const float m1 = mg[(32 + h) * 128 + wt];
+    const float mm = fmaxf(m[h], m1);
+    w0[h] = tc::ex2(m[h] - mm);
+    w1[h] = tc::ex2(m1 - mm);
+    l[h] = fmaxf(l[h] * w0[h] + mg[(34 + h) * 128 + wt] * w1[h], 1e-30f);
+  }
+#pragma unroll
+  for (int j = 0; j < 32; ++j)
+    o[j] = o[j] * w0[(j >> 1) & 1] + mg[j * 128 + wt] * w1[(j >> 1) & 1];
+  // o[4 jb + 2 h + e]: dim 8 jb + 2 t4 + e of row qi0 + 8 h
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int qi = qi0 + 8 * h;
+    if (qi >= S) continue;
+    T* ob = r.o + (long long)qi * D + 2 * t4;
+#pragma unroll
+    for (int jb = 0; jb < D / 8; ++jb)
+      tm::store2(ob + jb * 8, o[4 * jb + 2 * h] / l[h], o[4 * jb + 2 * h + 1] / l[h]);
+  }
+}
+
 // a pointer that cp.async may copy 16 bytes from (null: not used)
 bool on16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
 
@@ -761,14 +1138,26 @@ cudaError_t launch_d(const Args& a, cudaStream_t stream) {
     }
     const dim3 grid((a.S + tc::bq(D) - 1) / tc::bq(D), a.BH);
     tc::flash_tc_kernel<D><<<grid, tc::threads(D), bytes, stream>>>(a);
-  } else if constexpr (D >= 128) {
+  } else if constexpr (D <= 64) {
+    if (!on16(a.q) || !on16(a.k) || !on16(a.v) || !on16(a.o) ||
+        !on16(a.pk) || !on16(a.pv))
+      return cudaErrorMisalignedAddress;
+    constexpr int bytes = tm::Geom<T, PK, K>::bytes;
+    static bool sized = false;
+    if (!sized) {
+      const cudaError_t e = cudaFuncSetAttribute(
+          flash_terms_kernel<T, PK, K, D>,
+          cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+      if (e != cudaSuccess) return e;
+      sized = true;
+    }
+    const dim3 grid((a.S + 63) / 64, a.BH);
+    flash_terms_kernel<T, PK, K, D><<<grid, tm::THREADS, bytes, stream>>>(a);
+  } else {
     constexpr int TPR = D / 32;  // 8 float4 chunks of q and of acc a thread
     const dim3 grid((a.S + SPLIT_ROWS - 1) / SPLIT_ROWS, a.BH);
     flash_split_kernel<T, PK, K, D, TPR>
         <<<grid, SPLIT_ROWS * TPR, 0, stream>>>(a);
-  } else {
-    const dim3 grid((a.S + BQ - 1) / BQ, a.BH);
-    flash_kernel<T, PK, K, D><<<grid, BQ, 0, stream>>>(a);
   }
   return cudaSuccess;
 }

@@ -23,12 +23,24 @@ instance follows q's dtype, the storage of k/v and the head dim:
   does not have, held to the bf16 tolerance
   (:func:`repro_torch.kernels.ref.flash_attention_tiles_ref` is the
   plain mirror of the tile order and that rounding).
-- fp32 q (the card-vs-CPU parity runs, the INT8 path's activations) and
-  the int8 forms: CUDA cores, fp32 FMA, no TF32: one thread per query row
-  at D <= 64, ``D / 32`` threads per row at D = 128 and 256.
+- every other form at D = 16, 32 and 64 (fp32 q with fp32 k/v, the INT8
+  path's prefill; the int8 body and the int8-prefix entry with fp32 or
+  bf16 q): the same tensor-core products on exact bf16 terms (int8 widened as it
+  is staged, fp32 q, p and k/v split in three), the int8 scales applied
+  in f32 to the scores (``k_scale``) and folded into p (``v_scale``), a
+  query block's k/v tiles split between two warpgroups and merged in a
+  fixed order, D = 16 and 32 zero-padded to 64
+  (:func:`repro_torch.kernels.ref.flash_attention_tiles_ref` with
+  ``terms=True`` is its plain mirror). fp32 results depart from the
+  plain version in the order of the sums and in dropped term products
+  below 2^-24 of each product (no TF32).
+- the rest (fp32 or int8 at D = 128 and 256, no serving path under
+  INT8): CUDA cores, fp32 FMA, ``D / 32`` threads per query row.
+
+:func:`kernel_for` names the kernel instance of a call.
 
 Operands are made contiguous, and copied when their base is off 16
-bytes (the tensor-core kernel copies rows in 16-byte pieces).
+bytes (the tensor-core kernels copy rows in 16-byte pieces).
 
 Like the TPU kernel it has no length operand: on a right-padded batch
 the valid query rows are exact and the padded tail's rows are not (they
@@ -36,19 +48,21 @@ are causally invisible to valid rows and their cache entries are
 invalidated by the scheduler).
 
 INT8 k/v (``k_scale``/``v_scale`` ``[BH, T, 1]`` f32, the TPU kernel's
-``_flash_kernel_q8``) go to the int8 body of the same source
-(:func:`flash_attention_q8`), which widens each int8 element and scales
-it in f32 as the tile is staged, so the fp extent never exists in device
+``_flash_kernel_q8``) go to the int8 instances of the same source
+(:func:`flash_attention_q8`); the fp extent never exists in device
 memory.
 
 :func:`prefix_attention` is the shared-prefix prefill of the paged
 serving path (``models.blocks``): the queries of a suffix attend a
 gathered prefix, fp or int8 with per-token scales and valid below
-``pre_len``, then the fresh fp suffix, causally, with one online softmax.
-``pre_len`` is one int per launch (a shared group has one prefix
-length). An fp prefix launches the fp kernels, an int8 one the int8
-template, which rounds each dequantised prefix element to ``q.dtype`` as
-the reference casts its dequantised prefix.
+``pre_len`` (rows past it, and their scales, are never read), then the
+fresh fp suffix, causally, with one online softmax. ``pre_len`` is one
+int per launch (a shared group has one prefix length). An fp prefix
+launches the fp kernels, an int8 one the int8 instances. Off the
+tensor cores (D >= 128) those round each dequantised prefix element to
+``q.dtype`` as the reference casts its dequantised prefix; the
+tensor-core forms take it exactly, scales in f32, for bf16 q as well (a
+difference inside the bf16 tolerance).
 
 A CPU tensor takes the plain version (:func:`plain`,
 :func:`prefix_plain`); a CUDA tensor launches the kernel or raises.
@@ -74,6 +88,18 @@ _VP, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _ARGTYPES = (_VP, _VP, _VP, _VP, _I, _I, _I, _I, _I, _I, _F, _I)
 _ARGTYPES_Q8 = (_VP,) * 6 + (_I, _I, _I, _I, _I, _I, _F, _I)
 _ARGTYPES_PREFIX = (_VP,) * 5 + (_I, _I, _VP, _VP, _VP, _I, _I, _I, _F, _I)
+
+
+def kernel_for(dtype: torch.dtype, d: int, prefix_q8: bool = False,
+               main_q8: bool = False) -> str:
+    """The ``csrc/flash_attention.cu`` kernel that a call with q in
+    ``dtype`` and head dim ``d`` launches (an int8 prefix, or int8 k/v in
+    the body): ``flash_tc_kernel`` for bf16 with fp k/v,
+    ``flash_terms_kernel`` for every other form at D <= 64,
+    ``flash_split_kernel`` for those at D = 128 and 256."""
+    if dtype == torch.bfloat16 and not (prefix_q8 or main_q8):
+        return "flash_tc_kernel"
+    return "flash_terms_kernel" if d <= 64 else "flash_split_kernel"
 
 
 def _check_scales(name: str, k, v, k_scale, v_scale) -> tuple:

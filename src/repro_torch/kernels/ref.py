@@ -8,7 +8,9 @@ what a kernel wrapper runs when it is handed CPU tensors, and what
 
 ``quant_matmul_split_ref`` and ``flash_attention_tiles_ref`` are plain
 mirrors of the tensor-core kernels' arithmetic (three bf16 terms of fp32
-x; the flash tile order with P rounded before P·V), held against the JAX
+x; the flash tile order with P rounded before P·V, and with
+``terms=True`` the flash form on bf16 terms with the int8 scales on the
+scores and on p and two merged running states), held against the JAX
 package in the tests; the wrappers never run them.
 
 ``mlstm_chunkwise_ref`` is the plain version of the ``mlstm_chunkwise``
@@ -65,74 +67,128 @@ def quant_matmul_split_ref(x: torch.Tensor, w_q: torch.Tensor,
     return (acc * scale.reshape(1, w_q.shape[1])).to(x.dtype)
 
 
-#: the tensor-core flash kernel's query rows per block (192 at D = 128;
-#: the result does not depend on it) and keys per K/V tile
-FLASH_BQ, FLASH_BK = 128, 64
+#: query rows per block of the tensor-core flash kernels: 128 for
+#: ``flash_tc_kernel`` (192 at D = 128; its result does not depend on it),
+#: 64 for ``flash_terms_kernel``, whose two warpgroups take every other
+#: K/V tile of a block with running states of their own; keys per tile
+FLASH_BQ, FLASH_TERMS_BQ, FLASH_TERMS_SPLITS, FLASH_BK = 128, 64, 2, 64
 
 
 def flash_attention_tiles_ref(q: torch.Tensor, k: torch.Tensor,
-                              v: torch.Tensor, *, causal: bool = True,
-                              window: int = 0, pre_k: torch.Tensor = None,
-                              pre_v: torch.Tensor = None, pre_len: int = 0,
-                              p_dtype: torch.dtype = None,
-                              bq: int = FLASH_BQ,
-                              bk: int = FLASH_BK) -> torch.Tensor:
-    """The tensor-core ``flash_attention`` kernel's algorithm: for each
-    block of ``bq`` queries, the K/V tiles of ``bk`` keys it visits — the
+                              v: torch.Tensor, *,
+                              k_scale: torch.Tensor = None,
+                              v_scale: torch.Tensor = None,
+                              causal: bool = True, window: int = 0,
+                              pre_k: torch.Tensor = None,
+                              pre_v: torch.Tensor = None,
+                              pre_k_scale: torch.Tensor = None,
+                              pre_v_scale: torch.Tensor = None,
+                              pre_len: int = 0, p_dtype: torch.dtype = None,
+                              terms: bool = False) -> torch.Tensor:
+    """The tensor-core ``flash_attention`` kernels' algorithm: for each
+    block of queries, the K/V tiles of ``FLASH_BK`` keys it visits — the
     prefix ``pre_k``/``pre_v`` [BH, Lp, D] below ``pre_len`` first (the
     shared-prefix entry: q then sits at ``pre_len + i``), then the main
     keys from the tile holding the block's first row's window start to the
     block's causal end — each updating (m, l, acc) in fp32 from its own
-    maximum, l summed from the f32 p, P rounded to ``p_dtype`` (default
-    ``q.dtype``) before P·V, one division by ``max(l, 1e-30)`` at the end.
-    Keys past a segment's end read as zeros and are masked. A tile that
-    masks a whole row adds p = 1 terms here, as the TPU body does, which
-    the row's next visible tile scales by exactly 0; the kernel leaves
-    the row's state as it was there (the same result). With
-    ``p_dtype`` float32 it equals :func:`flash_attention_ref` (or
-    :func:`prefix_attention_ref`) up to the fp32 summation order."""
+    maximum (masked scores are -inf, so a tile that masks a whole row
+    leaves the row's state as it was), l summed from the f32 p, P rounded
+    to ``p_dtype`` (default ``q.dtype``) before P·V, one division by
+    ``max(l, 1e-30)`` at the end. Keys past a segment's end, and their
+    scales, are never read (zeros). Int8 k/v (``k_scale``/``v_scale``
+    [BH, T, 1], the prefix's ``pre_k_scale``/``pre_v_scale`` [BH, Lp,
+    1]) stay int8 in the products: a score column is multiplied by its k
+    scale, and p by its v scale before P·V (l sums the unscaled p).
+
+    ``terms=False`` is ``flash_tc_kernel`` (blocks of ``FLASH_BQ``
+    queries, fp32 products); with ``p_dtype`` float32 it equals
+    :func:`flash_attention_ref` (or :func:`prefix_attention_ref`) up to
+    the fp32 summation order. ``terms=True`` is ``flash_terms_kernel``:
+    blocks of ``FLASH_TERMS_BQ`` queries, tile ``i`` updating running
+    state ``i % FLASH_TERMS_SPLITS``, the states merged in order at the
+    end with weight ``exp(m_s - max m)``; operands enter the products as
+    bf16 terms (:func:`split_terms`; int8 values exact as they are): of
+    two split operands the term pairs ``i + j < 3``, of a split and an
+    exact one all three. Returns [BH, S, D] in ``q.dtype``."""
     bh, s, d = q.shape
-    t = k.shape[1]
+    dev = q.device
     p_dtype = p_dtype or q.dtype
-    qf = q.float()
+    bq, splits = ((FLASH_TERMS_BQ, FLASH_TERMS_SPLITS) if terms
+                  else (FLASH_BQ, 1))
+    bk = FLASH_BK
+
+    def enter(x):  # an operand as it enters the products
+        if terms and x.dtype != torch.int8:
+            return [y.float() for y in split_terms(x)]
+        return [x.float()]
+
+    def products(xs, ys, spec):  # term pairs i + j < n, smallest first
+        n = max(len(xs), len(ys))
+        pairs = sorted(((i, j) for i in range(len(xs)) for j in range(len(ys))
+                        if i + j < n), key=lambda ij: -(ij[0] + ij[1]))
+        return sum(torch.einsum(spec, xs[i], ys[j]) for i, j in pairs)
+
+    qt = enter(q)
     segs = []
     if pre_k is not None:
-        segs.append((pre_k.float(), pre_v.float(), pre_len, True))
-    segs.append((k.float(), v.float(), t, False))
-    out = torch.empty((bh, s, d), dtype=torch.float32, device=q.device)
+        segs.append((pre_k, pre_v, pre_k_scale, pre_v_scale, pre_len, True))
+    segs.append((k, v, k_scale, v_scale, k.shape[1], False))
+    out = torch.empty((bh, s, d), dtype=torch.float32, device=dev)
     for q0 in range(0, s, bq):
-        qi = torch.arange(q0, min(q0 + bq, s), device=q.device)[:, None]
-        m = torch.full((bh, len(qi)), NEG_INF, device=q.device)
-        l = torch.zeros_like(m)
-        acc = torch.zeros((bh, len(qi), d), device=q.device)
-        for ks, vs, lim, pre in segs:
+        rows = min(bq, s - q0)
+        qi = torch.arange(q0, q0 + rows, device=dev)[:, None]
+        qb = [x[:, q0:q0 + rows] for x in qt]
+        tiles = []
+        for kk, vv, ks, vs, lim, pre in segs:
             begin, end = 0, lim
             if not pre and causal:
                 end = min(lim, q0 + bq)
             if not pre and window:
                 begin = max(q0 - window + 1, 0) // bk * bk
-            for t0 in range(begin, end, bk):
-                kp = torch.arange(t0, t0 + bk, device=q.device)[None, :]
-                kt = torch.zeros((bh, bk, d), device=q.device)
-                vt = torch.zeros_like(kt)
-                n = min(bk, lim - t0)
-                kt[:, :n], vt[:, :n] = ks[:, t0:t0 + n], vs[:, t0:t0 + n]
-                sc = torch.einsum("bsd,btd->bst", qf[:, q0:q0 + len(qi)],
-                                  kt) / math.sqrt(d)
-                ok = kp < lim
-                if not pre and causal:
-                    ok = ok & (kp <= qi)
-                if not pre and window:
-                    ok = ok & ((qi - kp) < window)
-                sc = torch.where(ok[None], sc, NEG_INF)
-                m_new = torch.maximum(m, sc.amax(-1))
-                p = torch.exp(sc - m_new[..., None])
-                alpha = torch.exp(m - m_new)
-                l = l * alpha + p.sum(-1)
-                acc = acc * alpha[..., None] + torch.einsum(
-                    "bst,btd->bsd", p.to(p_dtype).float(), vt)
-                m = m_new
-        out[:, q0:q0 + len(qi)] = acc / torch.clamp(l, min=1e-30)[..., None]
+            tiles += [(kk, vv, ks, vs, lim, pre, t0)
+                      for t0 in range(begin, end, bk)]
+        states = [(torch.full((bh, rows), NEG_INF, device=dev),
+                   torch.zeros((bh, rows), device=dev),
+                   torch.zeros((bh, rows, d), device=dev))
+                  for _ in range(splits)]
+        for i, (kk, vv, ks, vs, lim, pre, t0) in enumerate(tiles):
+            m, l, acc = states[i % splits]
+            n = min(bk, lim - t0)
+            kt = torch.zeros((bh, bk, d), dtype=kk.dtype, device=dev)
+            vt = torch.zeros_like(kt)
+            kt[:, :n], vt[:, :n] = kk[:, t0:t0 + n], vv[:, t0:t0 + n]
+            sc = products(qb, enter(kt), "bsd,btd->bst")
+            if ks is not None:
+                kst = torch.zeros((bh, bk), device=dev)
+                vst = torch.zeros((bh, bk), device=dev)
+                kst[:, :n] = ks[:, t0:t0 + n, 0]
+                vst[:, :n] = vs[:, t0:t0 + n, 0]
+                sc = sc * kst[:, None, :]
+            sc = sc / math.sqrt(d)
+            kp = torch.arange(t0, t0 + bk, device=dev)[None, :]
+            ok = kp < lim
+            if not pre and causal:
+                ok = ok & (kp <= qi)
+            if not pre and window:
+                ok = ok & ((qi - kp) < window)
+            sc = torch.where(ok[None], sc, float("-inf"))
+            m_new = torch.maximum(m, sc.amax(-1))
+            p = torch.exp(sc - m_new[..., None])
+            alpha = torch.exp(m - m_new)
+            l = l * alpha + p.sum(-1)
+            if ks is not None:
+                p = p * vst[:, None, :]
+            acc = acc * alpha[..., None] + products(
+                enter(p.to(p_dtype)), enter(vt), "bst,btd->bsd")
+            states[i % splits] = (m_new, l, acc)
+        m_all = torch.stack([st[0] for st in states]).amax(0)
+        l_all = torch.zeros_like(m_all)
+        acc_all = torch.zeros_like(states[0][2])
+        for m, l, acc in states:
+            w = torch.exp(m - m_all)
+            l_all = l_all + l * w
+            acc_all = acc_all + acc * w[..., None]
+        out[:, q0:q0 + rows] = acc_all / torch.clamp(l_all, min=1e-30)[..., None]
     return out.to(q.dtype)
 
 

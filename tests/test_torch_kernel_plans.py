@@ -9,7 +9,8 @@ mirror of that split (per-chunk partials, then the merge in chunk order);
 ``ref.quant_matmul_split_ref`` of the int8 tensor-core routes' arithmetic
 (fp32 x as three exact bf16 terms); ``ref.flash_attention_tiles_ref`` of
 the tensor-core ``flash_attention``'s tile order, with P rounded before
-P·V; ``ref.mlstm_chunkwise_ref(split=True)`` of the tensor-core
+P·V (with ``terms=True``, of the terms kernel: bf16 terms, int8 scales,
+two merged states); ``ref.mlstm_chunkwise_ref(split=True)`` of the tensor-core
 ``mlstm_chunkwise`` (chunks of 16, C and w·k as three bf16 terms); the
 split mirror with scale pools of the int8 ``paged_attention`` body. Each is held here against the JAX package's kernel (interpret mode)
 or its block on inputs made from a numpy seed. The kernels themselves
@@ -548,3 +549,227 @@ def test_mlstm_split_terms_sum_to_the_state():
     terms = ref.split_terms(C)
     assert len(terms) == 3 and all(t.dtype == torch.bfloat16 for t in terms)
     assert torch.equal(sum(t.float() for t in terms[1:]) + terms[0].float(), C)
+
+
+# ---------------------------------------------------------------------------
+# flash_attention at D = 64 off the bf16 fp form: the terms kernel
+# ---------------------------------------------------------------------------
+
+def _q8_kv(rng, bh, t, d):
+    """int8 K/V [BH, T, D] and their f32 per-token scales [BH, T, 1]."""
+    kq, vq = (rng.randint(-127, 128, size=(bh, t, d)).astype(np.int8)
+              for _ in range(2))
+    ks, vs = (rng.uniform(2e-3, 3e-2, size=(bh, t, 1)).astype(np.float32)
+              for _ in range(2))
+    return kq, vq, ks, vs
+
+
+_TERMS_CASES = [(3, 150, 150, 64, True, 0), (3, 200, 200, 64, True, 48),
+                (2, 50, 77, 64, False, 0), (2, 64, 64, 64, True, 0),
+                (2, 70, 70, 16, True, 0), (2, 90, 90, 32, False, 20)]
+
+
+# (k/v storage, q dtype) of the terms kernel: bf16 q with fp k/v is the
+# bf16 tensor-core form (test_flash_tiles_mirror_matches_jax)
+_TERMS_FORMS = [("int8", "float32"), ("int8", "bfloat16"), ("fp", "float32")]
+
+
+@pytest.mark.parametrize("bh,s,t,d,causal,window", _TERMS_CASES)
+@pytest.mark.parametrize("kv,qdt", _TERMS_FORMS)
+def test_flash_terms_mirror_matches_jax(bh, s, t, d, causal, window, kv,
+                                        qdt):
+    """The terms kernel's arithmetic (D = 16 and 32 zero-padded to 64 in
+    the kernel, which changes no product) (q, p and fp32 k/v as bf16
+    terms, int8 k/v exact with the scales on the scores and on p, two
+    running states merged in order) against JAX's ``flash_attention``
+    (interpret mode; ``k_scale``/``v_scale`` for int8): at 2e-4 with fp32
+    q, at the bf16 tolerance with bf16 q (P rounded to bf16)."""
+    rng = np.random.RandomState(bh * s + t + d)
+    q = rng.standard_normal((bh, s, d)).astype(np.float32)
+    tdt = _DT[qdt]
+    jdt = jnp.bfloat16 if qdt == "bfloat16" else jnp.float32
+    if kv == "int8":
+        kq, vq, ks, vs = _q8_kv(rng, bh, t, d)
+        jkv = dict(k_scale=jnp.asarray(ks), v_scale=jnp.asarray(vs))
+        tkv = dict(k_scale=torch.from_numpy(ks), v_scale=torch.from_numpy(vs))
+        jk, jv = jnp.asarray(kq), jnp.asarray(vq)
+        tk, tv = torch.from_numpy(kq), torch.from_numpy(vq)
+    else:
+        k, v = (rng.standard_normal((bh, t, d)).astype(np.float32)
+                for _ in range(2))
+        jkv, tkv = {}, {}
+        jk, jv = jnp.asarray(k), jnp.asarray(v)
+        tk, tv = torch.from_numpy(k), torch.from_numpy(v)
+    from repro_torch.kernels.flash_attention import kernel_for
+    assert kernel_for(tdt, d, main_q8=kv == "int8") == "flash_terms_kernel"
+    got = ref.flash_attention_tiles_ref(torch.from_numpy(q).to(tdt), tk, tv,
+                                        causal=causal, window=window,
+                                        terms=True, **tkv)
+    assert got.dtype == tdt and tuple(got.shape) == (bh, s, d)
+    want = np.asarray(jops.attention(jnp.asarray(q, jdt), jk, jv,
+                                     causal=causal, window=window, **jkv),
+                      np.float32)
+    if qdt == "bfloat16":
+        _within_bf16(got.float().numpy(), want)
+    else:
+        np.testing.assert_allclose(got.numpy(), want, rtol=2e-4, atol=2e-4)
+
+
+@pytest.mark.parametrize("s,lp,pre_len", [(37, 96, 70), (64, 256, 200),
+                                          (20, 128, 64)])
+@pytest.mark.parametrize("prefix,qdt", _TERMS_FORMS)
+def test_flash_terms_mirror_prefix_matches_jax_block(s, lp, pre_len, prefix,
+                                                     qdt):
+    """The shared-prefix entry on the terms kernel (an int8 prefix with
+    fp32 or bf16 q; an fp prefix with fp32 q) against the JAX block's
+    ``_shared_prefix_attention`` on the dequantised prefix. Prefix rows
+    past ``pre_len`` hold garbage payloads and NaN scales: never read."""
+    b, h, d = 2, 2, 64
+    rng = np.random.RandomState(s + lp + pre_len)
+    q, k, v = (rng.standard_normal((b, s, h, d)).astype(np.float32)
+               for _ in range(3))
+    if qdt == "bfloat16":  # bf16 values, the reference in fp32 on them
+        q, k, v = (np.asarray(jnp.asarray(a, jnp.bfloat16), np.float32)
+                   for a in (q, k, v))
+    if prefix == "int8":
+        pkq, pvq, pks, pvs = (a.reshape(b, h, lp, -1).transpose(0, 2, 1, 3)
+                              for a in _q8_kv(rng, b * h, lp, d))
+        pk, pv = pkq * pks, pvq * pvs   # what the JAX block gathers
+    else:
+        pk, pv = (rng.standard_normal((b, lp, h, d)).astype(np.float32)
+                  for _ in range(2))
+    jcache = {"pre_k": jnp.asarray(pk), "pre_v": jnp.asarray(pv),
+              "pre_len": jnp.full((b,), pre_len, jnp.int32)}
+    positions = pre_len + np.tile(np.arange(s, dtype=np.int32), (b, 1))
+    want = np.asarray(JB._shared_prefix_attention(
+        None, jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), jcache,
+        jnp.asarray(positions), jnp.full((b,), pre_len + s, jnp.int32)))
+
+    def fold(a, dt=None):
+        t = torch.from_numpy(np.ascontiguousarray(a)).permute(0, 2, 1, 3)
+        t = t.reshape(b * h, a.shape[1], a.shape[3])
+        return t.to(dt) if dt is not None else t
+
+    tdt = _DT[qdt]
+    if prefix == "int8":
+        pkq, pvq = pkq.copy(), pvq.copy()
+        pks, pvs = pks.copy(), pvs.copy()
+        pkq[:, pre_len:], pvq[:, pre_len:] = 127, -127
+        pks[:, pre_len:], pvs[:, pre_len:] = np.nan, np.nan
+        pre = dict(pre_k=fold(pkq), pre_v=fold(pvq), pre_k_scale=fold(pks),
+                   pre_v_scale=fold(pvs))
+    else:
+        pk[:, pre_len:], pv[:, pre_len:] = 1e4, -1e4
+        pre = dict(pre_k=fold(pk), pre_v=fold(pv))
+    got = ref.flash_attention_tiles_ref(fold(q, tdt), fold(k, tdt),
+                                        fold(v, tdt), pre_len=pre_len,
+                                        terms=True, **pre)
+    assert bool(torch.isfinite(got.float()).all())
+    got = got.float().reshape(b, h, s, d).permute(0, 2, 1, 3).numpy()
+    if qdt == "bfloat16":
+        _within_bf16(got, want)
+    else:
+        np.testing.assert_allclose(got, want, rtol=2e-4, atol=2e-4)
+
+
+def test_flash_terms_mirror_never_scales_past_pre_len():
+    """Prefix rows at or past ``pre_len``: whatever their payload and
+    scales (NaN, inf, garbage), the result is the same bits, as the
+    kernel stages those rows and their scales as zeros."""
+    rng = np.random.RandomState(5)
+    bh, s, d, lp, pre_len = 3, 40, 64, 192, 130
+    q, k, v = (torch.from_numpy(rng.standard_normal((bh, s, d))
+                                .astype(np.float32)) for _ in range(3))
+    kq, vq, ks, vs = (torch.from_numpy(a) for a in _q8_kv(rng, bh, lp, d))
+    clean = ref.flash_attention_tiles_ref(
+        q, k, v, pre_k=kq, pre_v=vq, pre_k_scale=ks, pre_v_scale=vs,
+        pre_len=pre_len, terms=True)
+    for bad in (float("nan"), float("inf"), 1e30):
+        kq2, vq2, ks2, vs2 = kq.clone(), vq.clone(), ks.clone(), vs.clone()
+        kq2[:, pre_len:], vq2[:, pre_len:] = -128, 127
+        ks2[:, pre_len:], vs2[:, pre_len:] = bad, bad
+        got = ref.flash_attention_tiles_ref(
+            q, k, v, pre_k=kq2, pre_v=vq2, pre_k_scale=ks2, pre_v_scale=vs2,
+            pre_len=pre_len, terms=True)
+        assert torch.equal(got, clean), bad
+
+
+def _flash_calls():
+    """(q dtype, head dim, int8 prefix, int8 body) of every flash case of
+    ``chip_smoke.py``."""
+    calls = set()
+    for _, _, _, d, _, _, dnames, _, _ in chip_smoke.FA_CASES:
+        calls |= {(_DT[n], d, False, False) for n in dnames}
+    for _, _, _, _, d in chip_smoke.FA_KV_CASES:
+        calls |= {(dt, d, False, False) for dt in _DT.values()}
+    for _, _, _, _, d, _, _, _ in chip_smoke.FQ8_CASES:
+        calls |= {(dt, d, False, True) for dt in _DT.values()}
+    for _, _, _, d, _, _, _ in chip_smoke.PREFIX_CASES:
+        calls |= {(dt, d, q8, False) for dt in _DT.values()
+                  for q8 in (False, True)}
+    return sorted(calls, key=str)
+
+
+@pytest.mark.parametrize("dt,d,prefix_q8,main_q8", _flash_calls(),
+                         ids=lambda x: str(x))
+def test_flash_route_sends_d64_fp32_and_int8_to_the_terms_kernel(
+        dt, d, prefix_q8, main_q8):
+    """At D <= 64 every fp32-q call and every int8 form (the body and the
+    int8-prefix entry, either q dtype) takes the tensor-core terms kernel;
+    bf16 with fp k/v takes ``flash_tc_kernel`` at every head dim; the
+    CUDA-core row-split kernel keeps the rest (D = 128, 256). chip_smoke
+    names the same instance."""
+    from repro_torch.kernels.flash_attention import kernel_for
+    kern = kernel_for(dt, d, prefix_q8, main_q8)
+    if dt == torch.bfloat16 and not (prefix_q8 or main_q8):
+        assert kern == "flash_tc_kernel"
+    elif d <= 64:
+        assert kern == "flash_terms_kernel"
+    else:
+        assert kern == "flash_split_kernel"
+    readable, mangled = chip_smoke.flash_instance(dt, d, prefix_q8, main_q8)
+    assert readable.startswith(kern + "<") and mangled.startswith(kern + "I")
+    assert any(k in mangled for k in chip_smoke.NO_SPILL)
+
+
+# ---------------------------------------------------------------------------
+# rglru_scan: the launch plan
+# ---------------------------------------------------------------------------
+
+_RG_SHAPES = [(8, 2048, 2560), (1, 2048, 2560), (2, 2048, 2560),
+              (3, 37, 2560), (2, 37, 1001), (4, 10, 24)]
+
+
+@pytest.mark.parametrize("b,s,w", _RG_SHAPES)
+@pytest.mark.parametrize("esz", [4, 2], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("aligned", [True, False], ids=["on16", "off16"])
+def test_rglru_plan_covers_every_channel_once(b, s, w, esz, aligned):
+    """The grid's channel tiles partition [0, W) and its rows the batch:
+    every (b, w) channel is walked by exactly one thread. The ring route
+    needs a row of a and b on 16 bytes; its tile copies 16 bytes at a
+    time, so ``cw`` elements are a whole number of copies."""
+    from repro_torch.kernels.rglru_scan import RING_WIDTHS, plan
+    p = plan(b, w, esz, aligned, SMS)
+    assert p.grid[1] == b
+    walked = np.zeros(w, np.int64)
+    for i in range(p.grid[0]):
+        walked[i * p.cw:min(w, (i + 1) * p.cw)] += 1
+    assert (walked == 1).all()
+    if aligned and (w * esz) % 16 == 0:
+        assert p.kernel == "ring" and p.cw in RING_WIDTHS
+        assert (p.cw * esz) % 16 == 0
+    else:
+        assert p.kernel == "rows"
+
+
+@pytest.mark.parametrize("b,cw", [(1, 8), (2, 16), (3, 16), (4, 32),
+                                  (8, 32)])
+@pytest.mark.parametrize("esz", [4, 2], ids=["fp32", "bf16"])
+def test_rglru_plan_fills_the_card(b, cw, esz):
+    """At recurrentgemma-2b's width the ring route gives two blocks per
+    SM, down to one batch row, with the widest tile that does (32
+    channels, 128-byte rows of fp32 a step, from 4 rows up)."""
+    from repro_torch.kernels.rglru_scan import plan
+    p = plan(b, chip_smoke.H_WIDTH, esz, True, SMS)
+    assert p.kernel == "ring" and p.grid[0] * p.grid[1] >= 2 * SMS
+    assert p.cw == cw
