@@ -74,8 +74,11 @@ Phases (each failure propagates; the process exits non-zero):
    96, 256 and 384 (the other tensor-core instances); no PyTorch call
    computes the mLSTM, so its library time is null;
 4. full-width qwen1.5-0.5b served greedily in bf16 through
-   ``ServingEngine.run_until_drained()``: the fp kernels' launch
-   counters must rise by their per-step counts, the INT8 ones stay 0;
+   ``ServingEngine.run_until_drained()``, whose decode step replays one
+   CUDA graph captured when the engine is built (phases 4-4f alike; a
+   replay adds its capture's launches to the counters): the fp kernels'
+   launch counters must rise by their per-step counts, the INT8 ones
+   stay 0;
 4b. the same traffic under ``ServeConfig(quant=INT8_SERVE)``:
    ``quant_matmul`` rises by 169 x (decode steps + prefill groups), the
    int8 ``paged_attention`` by 24 x steps, ``flash_attention`` by 24 x
@@ -93,6 +96,18 @@ Phases (each failure propagates; the process exits non-zero):
    ``mlstm_chunkwise`` 12 x prefill groups, ``xfer_matmul`` 109 x
    (decode steps + groups), every other kernel 0; 353,797,216
    parameters, 405,014,016 state bytes;
+4e/4f. qwen1.5-0.5b on the paged pool, bf16 and INT8 (see
+   ``serve_paged``);
+4g. the captured step against the eager one on the six paths (fp, INT8,
+   paged fp and int8 pools, hybrid, ssm; full width, 8 slots): after one
+   admission, 16 eager steps of ``registry.build_serve_step`` on a clone
+   of caches and state and 16 replays on the originals give equal
+   records and bit-equal caches and state, and each replay counts its
+   capture's launches; then 20 steady qwen steps through
+   ``ServingEngine.step()`` traced with ``torch.profiler``, replaying
+   the graph and then dispatching the eager step: the device's idle
+   share of each window, its top device ops and the launches a step
+   that are not the hand-written kernels';
 5. full-width parity: seeded fp32 weights, one batched prefill of 4
    prompts plus 4 greedy decode steps on the card vs on the CPU (plain
    versions): last-position logits within 2e-3 of max |logit|, greedy
@@ -438,16 +453,17 @@ def check_kernels(dev) -> dict:
                 ms, plain, lib = times(lambda: ops.matmul(x, w),
                                        lambda: ops.matmul_ref(x, w),
                                        lambda: torch.matmul(x, w), flops)
+                dev_ms = graph_ms(lambda: ops.matmul(x, w))
                 b, kind = bound_ms((r * n + n * m + r * m) * x.element_size(),
                                    flops, dname)
-                line += (f" ms {ms:.4f} plain_ms {plain:.4f} library_ms "
-                         f"{lib:.4f} bound_ms {b:.4f} ({kind}) kernel/library "
-                         f"{ms / lib:.2f}")
+                line += (f" ms {ms:.4f} device_ms {dev_ms:.4f} plain_ms "
+                         f"{plain:.4f} library_ms {lib:.4f} bound_ms {b:.4f} "
+                         f"({kind}) kernel/library {ms / lib:.2f}")
                 row = dict(shape=f"x[{r},{n}] @ {'embed.T' if transposed else 'w'}"
                                  f"[{n},{m}] bf16",
                            variant=rt.kernel, max_abs_err=err, ms=ms,
-                           plain_ms=plain, bound_ms=b, bound_by=kind,
-                           library_ms=lib)
+                           device_ms=dev_ms, plain_ms=plain, bound_ms=b,
+                           bound_by=kind, library_ms=lib)
                 shapes.append(row)
                 record(entries, "xfer_matmul", entry, row)
             log(line)
@@ -1490,6 +1506,233 @@ def serve_xlstm() -> dict:
 
 
 # --------------------------------------------------------------------------
+# phase 4g: the captured decode step against the eager one, and a trace
+# --------------------------------------------------------------------------
+
+GRAPH_STEPS, TRACE_STEPS = 16, 20
+# the six serving paths at full width: (tag, arch id, slots, max_len,
+# int8, page size or None); 8 prompts of 16-120 tokens each
+GRAPH_PATHS = (("fp", "qwen1.5-0.5b", SLOTS, MAX_LEN, False, None),
+               ("int8", "qwen1.5-0.5b", SLOTS, MAX_LEN, True, None),
+               ("paged", "qwen1.5-0.5b", SLOTS, MAX_LEN, False, PAGE),
+               ("paged-int8", "qwen1.5-0.5b", SLOTS, MAX_LEN, True, PAGE),
+               ("hybrid", "recurrentgemma-2b", H_SLOTS, H_MAX_LEN, False, None),
+               ("ssm", "xlstm-350m", X_SLOTS, X_MAX_LEN, False, None))
+
+
+def graph_engine(models: dict, arch_id: str, slots: int, max_len: int,
+                 int8: bool, page, lookahead: int = 1, new_tokens: int = 64):
+    """A full-width engine of one serving path (seeded weights, shared
+    by the fp paths of one model; an INT8 engine quantises its own) with
+    ``slots`` seeded prompts of 16-120 tokens submitted."""
+    import numpy as np
+    from repro_torch import quant as Q
+    from repro_torch.configs import get_arch
+    from repro_torch.models.registry import init_params
+    from repro_torch.serving import (PagingConfig, Request, ServeConfig,
+                                     ServingEngine)
+    arch = get_arch(arch_id)
+    key = (arch_id, int8 and page)
+    if key not in models:
+        models[key] = init_params(arch, 0)
+    config = ServeConfig(slots=slots, max_len=max_len, seed=0,
+                         lookahead=lookahead,
+                         quant=Q.INT8_SERVE if int8 else Q.QuantConfig(),
+                         paging=PagingConfig(paged=page is not None,
+                                             page_size=page))
+    engine = ServingEngine(arch, models[key], config=config)
+    rng = np.random.RandomState(7)
+    for rid in range(slots):
+        engine.submit(Request(rid=rid, prompt=rng.randint(
+            1, arch.vocab_size, size=int(rng.randint(16, 121))).astype(np.int32),
+            max_new_tokens=new_tokens))
+    return engine
+
+
+def leaf_bytes(engine) -> int:
+    leaves = [t for c in engine.caches for t in c.values()]
+    leaves += [t for t in vars(engine.state).values() if t is not None]
+    return sum(t.numel() * t.element_size() for t in leaves)
+
+
+def graph_vs_eager() -> dict:
+    """Phase 4g, first half: on each of the six paths, after one
+    admission, caches and state are cloned; GRAPH_STEPS eager steps of
+    ``registry.build_serve_step`` run on the clone and as many replays of
+    the engine's captured step on the originals. Records must be equal
+    step by step, caches and state bit-equal at the end, and each
+    replay's launch counts those of its capture. Returns per path the
+    capture's launches per replay."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.models.registry import build_serve_step
+    from repro_torch.serving.captured import pack_record
+
+    models, per_replay = {}, {}
+    for tag, arch_id, slots, max_len, int8, page in GRAPH_PATHS:
+        torch.cuda.synchronize()
+        a0, r0 = torch.cuda.memory_allocated(), torch.cuda.memory_reserved()
+        t0 = time.perf_counter()
+        engine = graph_engine(models, arch_id, slots, max_len, int8, page)
+        torch.cuda.synchronize()
+        built = time.perf_counter() - t0
+        a1, r1 = torch.cuda.memory_allocated(), torch.cuda.memory_reserved()
+        step = engine.decode
+        if step.graph is None:
+            raise AssertionError(f"[graph-{tag}] no CUDA graph captured")
+        engine.scheduler.admit(engine.model, engine.caches, engine.state)
+        caches = [{k: v.clone() for k, v in c.items()} for c in engine.caches]
+        state = type(engine.state)(**{k: None if v is None else v.clone()
+                                      for k, v in vars(engine.state).items()})
+        eager = build_serve_step(engine.arch, sampling=engine.sampling,
+                                 eos_id=engine.eos_id, paged=engine.paged)
+        want = []
+        for _ in range(GRAPH_STEPS):
+            state, caches, rec = eager(engine.model, caches, state)
+            want.append(pack_record(rec))
+        ops.reset_launches()
+        got = [step().clone() for _ in range(GRAPH_STEPS)]
+        counts = ops.launch_counts()
+        torch.cuda.synchronize()
+        expect = {k: GRAPH_STEPS * step.launches.get(k, 0) for k in counts}
+        if counts != expect or not step.launches:
+            raise AssertionError(f"[graph-{tag}] {GRAPH_STEPS} replays counted "
+                                 f"{counts}, the capture {step.launches}")
+        bad = [j for j, (g, w) in enumerate(zip(got, want))
+               if not torch.equal(g, w)]
+        if bad:
+            raise AssertionError(f"[graph-{tag}] records differ from the eager "
+                                 f"step's at steps {bad}")
+        pairs = [(f"caches[{i}].{k}", c[k], engine.caches[i][k])
+                 for i, c in enumerate(caches) for k in c]
+        pairs += [(f"state.{k}", v, getattr(engine.state, k))
+                  for k, v in vars(state).items() if v is not None]
+        off = {name: float((a.float() - b.float()).abs().max())
+               for name, a, b in pairs if not torch.equal(a, b)}
+        if off:
+            raise AssertionError(f"[graph-{tag}] leaves not bit-equal to the "
+                                 f"eager step's (max abs err): {off}")
+        emitted = int(state.emitted.sum())
+        log(f"[graph-{tag}] engine with its capture built in {built:.1f} s "
+            f"(caches + state {leaf_bytes(engine)} bytes; allocated "
+            f"{a1 - a0:+d}, reserved {r1 - r0:+d} bytes); {GRAPH_STEPS} replays "
+            f"= {GRAPH_STEPS} eager steps: records equal ({emitted} tokens), "
+            f"{len(pairs)} leaves bit-equal; launches per replay "
+            f"{step.launches}; workspaces held {len(step.workspaces)}")
+        per_replay[tag] = dict(step.launches)
+        del engine, caches, state, step, got, want
+    del models
+    torch.cuda.empty_cache()
+    return per_replay
+
+
+def trace_window(run, steps: int) -> dict:
+    """``run()`` (``steps`` decode steps ending in a synchronize) under
+    ``torch.profiler``: the device's busy time (union of kernel, memcpy
+    and memset intervals) over the window, device launches per step and
+    the top device ops by total time."""
+    import tempfile
+    import torch
+    from torch.profiler import ProfilerActivity, profile, record_function
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        with record_function("decode_window"):
+            run()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "trace.json")
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            events = json.load(f)["traceEvents"]
+    window = [e for e in events if e.get("name") == "decode_window"
+              and e.get("ph") == "X"]
+    dev = [e for e in events if e.get("ph") == "X" and e.get("cat") in
+           ("kernel", "gpu_memcpy", "gpu_memset")]
+    if not window or not dev:
+        return {"measured": False}
+    t0 = float(window[0]["ts"])
+    t1 = max(t0 + float(window[0]["dur"]),
+             max(float(e["ts"]) + float(e["dur"]) for e in dev))
+    busy, end = 0.0, t0
+    for e in sorted(dev, key=lambda e: float(e["ts"])):
+        a, b = max(float(e["ts"]), end), float(e["ts"]) + float(e["dur"])
+        if b > a:
+            busy += b - a
+            end = b
+    by_name = {}
+    for e in dev:
+        n = e["name"]
+        by_name[n] = by_name.get(n, 0.0) + float(e["dur"])
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    kernels = sum(1 for e in dev if e["cat"] == "kernel")
+    return {"measured": True, "window_ms": (t1 - t0) / 1e3,
+            "busy_ms": busy / 1e3, "idle_share": 1.0 - busy / (t1 - t0),
+            "device_ms_per_step": busy / 1e3 / steps,
+            "kernels_per_step": kernels / steps,
+            "copies_per_step": (len(dev) - kernels) / steps,
+            "top": [(n[:60], round(t / 1e3 / steps, 4)) for n, t in top]}
+
+
+def trace_steps() -> dict:
+    """Phase 4g, second half: TRACE_STEPS steady decode steps of
+    full-width qwen1.5-0.5b in bf16 (8 slots active, no admission)
+    through ``ServingEngine.step()``, traced with ``torch.profiler``:
+    first replaying the captured step, then the same engine dispatching
+    the eager step. Prints the device's idle share of each window, the
+    top device ops and the launches per step that are not the
+    hand-written kernels'."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.models.registry import build_serve_step
+    from repro_torch.serving.captured import pack_record
+
+    engine = graph_engine({}, "qwen1.5-0.5b", SLOTS, MAX_LEN, False, None,
+                          new_tokens=8 * TRACE_STEPS)
+    for _ in range(4):  # admission, then steady steps
+        engine.step()
+    eager = build_serve_step(engine.arch, sampling=engine.sampling,
+                             eos_id=engine.eos_id, paged=engine.paged)
+
+    def eager_decode():
+        return pack_record(eager(engine.model, engine.caches, engine.state)[2])
+
+    def run():
+        for _ in range(TRACE_STEPS):
+            engine.step()
+        torch.cuda.synchronize()
+
+    out = {}
+    for mode in ("graph", "eager"):
+        if mode == "eager":
+            engine.decode = eager_decode
+        run()  # warm
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        run()
+        host_ms = (time.perf_counter() - t0) * 1e3 / TRACE_STEPS
+        ours = sum(ops.launch_counts().values()) / TRACE_STEPS
+        row = trace_window(run, TRACE_STEPS)
+        row.update(host_ms_per_step=host_ms, handwritten_per_step=ours)
+        if row["measured"]:
+            row["other_launches_per_step"] = row["kernels_per_step"] - ours
+            log(f"[trace-{mode}] {TRACE_STEPS} steady qwen1.5-0.5b bf16 steps: "
+                f"host {host_ms:.3f} ms a step untraced; traced window "
+                f"{row['window_ms']:.3f} ms, device busy {row['busy_ms']:.3f} ms,"
+                f" idle share {row['idle_share']:.4f}; a step: device "
+                f"{row['device_ms_per_step']:.4f} ms, {row['kernels_per_step']:.1f}"
+                f" kernels of which {ours:.1f} hand-written and "
+                f"{row['other_launches_per_step']:.1f} not, "
+                f"{row['copies_per_step']:.1f} copies/memsets")
+            log(f"[trace-{mode}] top device ops (ms a step): {row['top']}")
+        else:
+            log(f"[trace-{mode}] host {host_ms:.3f} ms a step; idle share not "
+                f"measured: the trace holds no device events")
+        out[mode] = row
+    log(f"[trace] {json.dumps(out)}")
+    del engine
+    torch.cuda.empty_cache()
+    return out
+
+
+# --------------------------------------------------------------------------
 # phase 5: full-width parity, card vs CPU
 # --------------------------------------------------------------------------
 
@@ -1648,14 +1891,16 @@ def parity_hybrid(dev) -> None:
         grid = model.make_caches(1, H_MAX_LEN)
         splice_rows(grid, rows, torch.arange(1, device=d))
         out = [logits[:, -1].float().cpu()]
-        hs = [[grid[i]["h"].float().cpu() for i in rec]]
+        # clones: on the CPU .float().cpu() is the live leaf, which the
+        # decode steps below update in place
+        hs = [[grid[i]["h"].float().cpu().clone() for i in rec]]
         chosen = [out[-1].argmax(-1).to(torch.int32)]
         pos = torch.from_numpy(lens).to(d)[:, None]
         for j in range(steps):
             tok = (feed[j] if feed is not None else chosen[-1]).to(d)[:, None]
             hidden, grid = model(tok, caches=grid, positions=pos)
             out.append(model.logits(hidden)[:, -1].float().cpu())
-            hs.append([grid[i]["h"].float().cpu() for i in rec])
+            hs.append([grid[i]["h"].float().cpu().clone() for i in rec])
             chosen.append(out[-1].argmax(-1).to(torch.int32))
             pos = pos + 1
         ring = grid[cpu_model.kinds.index("attn")]["pos"].cpu()
@@ -1726,8 +1971,8 @@ def parity_xlstm(dev) -> None:
     toks[0, :prompt_len] = rng.randint(1, arch.vocab_size, size=prompt_len)
     lens = np.array([prompt_len], np.int32)
 
-    def states(grid):
-        out = {f"{i}.{k}": v.float().cpu() for i, c in enumerate(grid)
+    def states(grid):  # copies: decode updates the live leaves in place
+        out = {f"{i}.{k}": v.float().cpu().clone() for i, c in enumerate(grid)
                for k, v in c.items()}
         for i, c in enumerate(grid):
             if "c" in c:  # sLSTM: the normalised cell that h reads
@@ -2222,6 +2467,10 @@ def main() -> int:
     # ---- phase 4e and 4f: the paged pool with prefix reuse, bf16 and INT8
     counts["paged"] = serve_paged(dense_streams)
     counts["paged-int8"] = serve_paged(dense_streams, int8=True)
+    # ---- phase 4g: the captured step against the eager step on every
+    # path, and a trace of steady steps, graph and eager
+    graph_vs_eager()
+    trace_steps()
 
     # ---- phase 5 and 5b: card vs CPU at full width, fp and INT8
     parity_full_width(dev)

@@ -2,9 +2,10 @@
 the typed call into a kernel's C entry."""
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
-from typing import Callable, Dict, Optional, Sequence, Tuple
+from typing import Callable, Dict, Iterator, List, Optional, Sequence, Tuple
 
 import torch
 
@@ -15,6 +16,7 @@ DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 _entries: Dict[str, Callable[..., int]] = {}
 _scratch: Dict[tuple, Tuple[torch.Tensor, torch.Tensor]] = {}
+_holders: List[dict] = []
 
 
 def sm_count(device: torch.device) -> int:
@@ -35,17 +37,45 @@ def scratch(name: str, device: torch.device, floats: int,
     and grown, never shrunk; the counters are zeroed once when allocated
     and every kernel that uses them leaves them at 0 when it exits, so a
     call costs no memset. Calls on one stream run in order, so one
-    workspace serves them all."""
+    workspace serves them all.
+
+    Growing replaces the entry, which frees the old buffers unless
+    something else holds them: a CUDA graph that recorded their addresses
+    holds them through :func:`hold_workspaces`. Nothing may be allocated
+    here while a stream is being captured (the graph would own it and its
+    zeroing would never run): warm up on the same shapes first."""
     key = (name, device.index)
     ws, cnt = _scratch.get(key, (None, None))
-    if ws is None or ws.numel() < floats:
+    grow_ws = ws is None or ws.numel() < floats
+    grow_cnt = cnt is None or cnt.numel() < counters
+    if (grow_ws or grow_cnt) and device.type == "cuda" \
+            and torch.cuda.is_current_stream_capturing():
+        raise RuntimeError(f"{name}: workspace requested during CUDA graph "
+                           f"capture; run the captured work once first")
+    if grow_ws:
         ws = torch.empty(max(floats, 1 << 16), dtype=torch.float32,
                          device=device)
-    if cnt is None or cnt.numel() < counters:
+    if grow_cnt:
         cnt = torch.zeros(max(counters, 1024), dtype=torch.int32,
                           device=device)
     _scratch[key] = (ws, cnt)
+    for held in _holders:
+        held[(ws.data_ptr(), cnt.data_ptr())] = (ws, cnt)
     return ws, cnt
+
+
+@contextlib.contextmanager
+def hold_workspaces() -> Iterator[dict]:
+    """Collect every workspace :func:`scratch` hands out inside the block,
+    keyed by address: whoever keeps the dict keeps the buffers alive (a
+    captured graph, whose recorded pointers must outlive a later, larger
+    request that replaces them)."""
+    held: dict = {}
+    _holders.append(held)
+    try:
+        yield held
+    finally:
+        _holders.remove(held)
 
 
 def check_device(name: str, *tensors: torch.Tensor) -> None:

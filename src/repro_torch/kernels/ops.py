@@ -50,6 +50,14 @@ def launch_counts() -> dict:
     return {k.__name__: k.launches for k in KERNELS}
 
 
+def add_launches(counts: dict) -> None:
+    """Add ``counts`` (kernel name -> launches) to the wrappers' counters:
+    a CUDA graph's replay launches what its capture recorded, without a
+    Python call of the wrappers."""
+    for k in KERNELS:
+        k.launches += counts.get(k.__name__, 0)
+
+
 # plain versions re-exported for tests and chip_smoke.py
 matmul_ref = ref.matmul_ref
 int8_matmul_ref = ref.quant_matmul_ref

@@ -20,6 +20,7 @@ reference's INT8 step does on its dequantised params.
 """
 from __future__ import annotations
 
+import functools
 from typing import List, Optional, Tuple
 
 import torch
@@ -68,6 +69,12 @@ def layer_kinds(arch: ArchConfig) -> List[str]:
     layer ``r * len(pattern) + j``; the suffix blocks follow."""
     pat = pattern(arch)
     return [pat[i % len(pat)] for i in range(arch.num_layers)]
+
+
+@functools.lru_cache(maxsize=None)
+def _scale_in(value: float, dtype: torch.dtype) -> float:
+    """``value`` rounded to ``dtype``, as a Python float."""
+    return float(torch.tensor(value, dtype=dtype))
 
 
 class LM(nn.Module):
@@ -141,7 +148,8 @@ class LM(nn.Module):
 
         With ``caches`` and S == 1 this is a decode step: each attention
         layer writes its token into its grid in place and attends over it,
-        each recurrent layer steps its state. With ``caches`` and S > 1 it
+        each recurrent layer steps its state in place, and ``caches``
+        itself is returned, every leaf at its address. With ``caches`` and S > 1 it
         is a prefill that returns freshly filled caches. ``positions``
         default to 0..S-1. ``seq_lens`` [B] (the true lengths of a
         right-padded prefill) make the recurrent states and windowed
@@ -153,7 +161,10 @@ class LM(nn.Module):
         ``serving.pages.gather_prefix``: a suffix prefill at ``positions``
         past the prefix, returning the suffix's fp rows."""
         x = L.embed_tokens(self.embed, tokens)
-        x = x * torch.tensor(self.arch.d_model ** 0.5, dtype=x.dtype)
+        # sqrt(d_model) rounded to the activation dtype, as a Python
+        # float: the same product as a 0-dim tensor of that dtype, with
+        # no host tensor in the step
+        x = x * _scale_in(self.arch.d_model ** 0.5, x.dtype)
         b, s, _ = x.shape
         if positions is None:
             positions = torch.arange(s, dtype=torch.int32,
@@ -178,6 +189,8 @@ class LM(nn.Module):
                 x, c = layer(x, state=cache, seq_lens=seq_lens)
             if caches is not None:
                 new_caches.append(c)
+        if caches is not None and s == 1:
+            new_caches = caches  # a decode step: every layer wrote in place
         return L.rms_norm(x, self.final_norm), new_caches
 
     def unembed_matrix(self) -> torch.Tensor:

@@ -19,7 +19,9 @@ Decode is the elementwise step ``a·h + b`` in PyTorch, as the reference
 computes it outside any kernel.
 
 A block's state is ``{"h": [B, W] f32, "conv": [B, cw-1, W]}`` (the
-conv window in the cache dtype); decode returns a new state dict.
+conv window in the cache dtype). Decode updates it in place and returns
+the same dict (every leaf keeps its address, as a captured decode step
+needs); a prefill returns a new one. So do the mLSTM and sLSTM blocks.
 
 The mLSTM half mirrors ``mlstm_init`` (:meth:`MLSTMBlock.init_`),
 ``make_mlstm_state``, ``_mlstm_qkvif``, ``mlstm_apply`` and
@@ -186,10 +188,11 @@ class RGLRUBlock(nn.Module):
                                  arch.num_heads)
 
         new_state = None
-        if s == 1 and state is not None:  # decode step
-            h_new = torch.exp(log_a[:, 0]) * state["h"] + bx[:, 0]
-            seq = h_new[:, None, :]
-            new_state = {"h": h_new, "conv": new_conv.to(state["conv"].dtype)}
+        if s == 1 and state is not None:  # decode step, in place
+            h = state["h"].mul_(torch.exp(log_a[:, 0])).add_(bx[:, 0])
+            state["conv"].copy_(new_conv)
+            seq = h[:, None, :]
+            new_state = state
         else:
             if seq_lens is not None:
                 # padded steps become scan identities (a, b) = (1, 0)
@@ -285,20 +288,23 @@ class MLSTMBlock(nn.Module):
         q, k, v, it, ft = self._qkvif(u)
         hd = q.shape[-1]
 
-        if s == 1 and state is not None:  # recurrent decode
+        if s == 1 and state is not None:  # recurrent decode, in place
             logf = F.logsigmoid(ft[:, 0])  # [B, H]
             m_new = torch.maximum(logf + state["m"], it[:, 0])
             fs = torch.exp(logf + state["m"] - m_new)[..., None]
             is_ = torch.exp(it[:, 0] - m_new)[..., None]
             k1, v1, q1 = (t[:, 0].float() for t in (k, v, q))  # [B, H, hd]
-            C = (fs[..., None] * state["C"]
-                 + is_[..., None] * (k1[..., :, None] * v1[..., None, :]))
-            n = fs * state["n"] + is_ * k1
+            # C = f·C + (i·k) v^T in two passes over C, with no C-sized
+            # temporary (the reference forms i·(k v^T): one rounding apart)
+            C = state["C"].mul_(fs[..., None]).addcmul_(
+                (is_ * k1)[..., :, None], v1[..., None, :])
+            n = state["n"].mul_(fs).add_(is_ * k1)
+            state["m"].copy_(m_new)
             num = torch.einsum("bhkv,bhk->bhv", C, q1)
             den = torch.maximum(torch.abs(torch.einsum("bhk,bhk->bh", n, q1)),
                                 torch.exp(-m_new))[..., None]
             hseq = (num / den).reshape(b, 1, heads * hd)
-            new_state = {"C": C, "n": n, "m": m_new}
+            new_state = state
         else:
             st0 = state if state is not None else make_mlstm_state(
                 self.arch, b, device=x.device)
@@ -398,7 +404,12 @@ class SLSTMBlock(nn.Module):
         st = state if state is not None else make_slstm_state(
             self.arch, b, device=x.device)
         if s == 1:
-            st = self._step(st, pre[:, 0])
+            nxt = self._step(st, pre[:, 0])
+            if state is None:
+                st = nxt
+            else:  # decode: the state in place
+                for k, leaf in nxt.items():
+                    st[k].copy_(leaf)
             seq = st["h"][:, None].to(x.dtype)
         else:
             valid = _valid_mask(seq_lens, s, x.device)

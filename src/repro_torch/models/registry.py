@@ -9,6 +9,10 @@ The second ``serve_step`` form (``sampling`` given) is the serving
 runtime's fused step: greedy token choice and the per-slot lifecycle
 (EOS, emission budget, position advance) on the device, returning only a
 small per-slot record ``{token, emit, finished}`` for the host to read.
+It updates the caches and the state in place and returns the same
+objects, so every leaf keeps its address: the form the engine captures
+as one CUDA graph (``serving/captured.py``), where the reference jits
+the step with its caches and state donated.
 With ``paged=True`` the state carries a page table and the caches are
 page pools; inactive slots' table rows are zeroed inside the step (the
 stale-write gate), so the host's lagging retire bookkeeping under
@@ -90,16 +94,16 @@ def build_serve_step(arch: ArchConfig, *, sampling=None,
         emitted = state.emitted + emit.to(torch.int32)
         stop = emit & ((emitted >= state.max_new) | (nxt == eos))
         new_active = emit & ~stop
-        state = DecodeState(
-            # inert slots hold token/position so the grid stays fixed-shape
-            tokens=torch.where(new_active, nxt, cur)[:, None],
-            positions=state.positions + new_active.to(torch.int32)[:, None],
-            active=new_active, emitted=emitted, max_new=state.max_new,
-            page_table=state.page_table,
-            seq_len=(None if state.seq_len is None
-                     else state.seq_len + active.to(torch.int32)))
         record = {"token": torch.where(emit, cur, -1), "emit": emit,
                   "finished": active & ~new_active}
+        # the state in place, after everything that reads it: inert slots
+        # hold token/position so the grid stays fixed-shape
+        state.tokens.copy_(torch.where(new_active, nxt, cur)[:, None])
+        state.positions.add_(new_active.to(torch.int32)[:, None])
+        if state.seq_len is not None:
+            state.seq_len.add_(active.to(torch.int32))
+        state.emitted.copy_(emitted)
+        state.active.copy_(new_active)
         return state, caches, record
 
     return serve_step

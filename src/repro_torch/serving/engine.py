@@ -13,6 +13,13 @@ record waits on its event, and a record whose event has completed is
 retired early at no cost (the JAX engine polls ``is_ready`` instead).
 ``lookahead=0`` retires every record in the step that made it.
 
+The decode step is a :class:`~repro_torch.serving.captured.CapturedStep`:
+on CUDA one CUDA graph, captured when the engine is built and replayed
+by every ``step()``, over caches and a ``DecodeState`` that live at
+fixed addresses and are written in place (admission included); on the
+CPU the same in-place step runs eagerly through the kernels' plain
+versions. Admission (prefill, splice) stays eager.
+
 With ``ServeConfig(paging=PagingConfig(paged=True))`` (the dense family)
 the KV lives in page pools (``serving/pages.py``) and the state carries
 a page table. A finished slot's pages are released when its record is
@@ -39,6 +46,7 @@ from repro_torch.models import registry as REG
 from repro_torch.models.lm import LM
 from repro_torch.serving import pages as PG
 from repro_torch.serving import sampler as SMP
+from repro_torch.serving.captured import CapturedStep
 from repro_torch.serving.config import ServeConfig
 from repro_torch.serving.scheduler import Request, Scheduler
 from repro_torch.serving.state import make_decode_state
@@ -57,12 +65,12 @@ class IncompleteDrainError(RuntimeError):
 class _Record:
     """One step's per-slot record on its way to the host: ``[3, slots]``
     int32 (token, emit, finished), copied without blocking; on the card a
-    CUDA event marks the copy's completion."""
+    CUDA event marks the copy's completion. On the card ``packed`` is the
+    captured step's static output: the copy is enqueued right after the
+    replay that wrote it, on the same stream, so the next replay cannot
+    overwrite it first."""
 
-    def __init__(self, rec: Dict[str, torch.Tensor]):
-        packed = torch.stack([rec["token"].to(torch.int32),
-                              rec["emit"].to(torch.int32),
-                              rec["finished"].to(torch.int32)])
+    def __init__(self, packed: torch.Tensor):
         self.event = None
         if packed.is_cuda:
             self.host = packed.to("cpu", non_blocking=True)
@@ -167,9 +175,11 @@ class ServingEngine:
             self.caches = self.model.make_caches(self.slots, self.max_len,
                                                  dtype, kv_quant=quant.quant_kv)
         self.state = make_decode_state(self.slots, dev, table_len)
-        self._serve_step = REG.build_serve_step(arch, sampling=self.sampling,
-                                                eos_id=self.eos_id,
-                                                paged=self.paged)
+        # on CUDA: captured here, on the all-inactive state
+        self.decode = CapturedStep(
+            REG.build_serve_step(arch, sampling=self.sampling,
+                                 eos_id=self.eos_id, paged=self.paged),
+            self.model, self.caches, self.state)
         self.scheduler = Scheduler(
             arch, slots=self.slots, max_len=self.max_len, cache_dtype=dtype,
             sampling=self.sampling, kv_quant=quant.quant_kv, paged=self.paged,
@@ -210,11 +220,8 @@ class ServingEngine:
             emitted += self._retire_one()
         while self._pending and self._pending[0].ready():
             emitted += self._retire_one()
-        self.caches, self.state = self.scheduler.admit(
-            self.model, self.caches, self.state)
-        self.state, self.caches, record = self._serve_step(
-            self.model, self.caches, self.state)
-        self._pending.append(_Record(record))
+        self.scheduler.admit(self.model, self.caches, self.state)
+        self._pending.append(_Record(self.decode()))
         if self.lookahead == 0:
             emitted += self._flush()
         self.step_times.append(time.perf_counter() - t0)

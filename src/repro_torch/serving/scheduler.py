@@ -269,10 +269,12 @@ class Scheduler:
                                  min_bucket=self.min_bucket), 0)
 
     def admit(self, model: LM, caches: List[dict], state: DecodeState):
-        """Fill free slots from the queue; returns updated (caches, state).
-        All waiting requests of one group (bucket; with a shared prefix,
-        suffix bucket and prefix length) become one batched prefill, one
-        splice and one state scatter."""
+        """Fill free slots from the queue, writing ``caches`` and ``state``
+        in place, and return them (the same objects: a captured decode
+        step reads them at their addresses). All waiting requests of one
+        group (bucket; with a shared prefix, suffix bucket and prefix
+        length) become one batched prefill, one splice and one state
+        scatter."""
         free = [s for s, occ in self.active.items() if occ is None]
         take = min(len(free), len(self.queue))
         if take == 0:
@@ -346,9 +348,8 @@ class Scheduler:
             else:
                 splice_rows(caches, rows, slots_t)
             first = SMP.sample(logits[:, -1], self.sampling)
-            state = admit_rows(state, slots_t, first, lens_t,
-                               torch.from_numpy(max_new).to(dev),
-                               page_rows=rows_t)
+            admit_rows(state, slots_t, first, lens_t,
+                       torch.from_numpy(max_new).to(dev), page_rows=rows_t)
             for i, (req, slot) in enumerate(group):
                 self.active[slot] = req
                 admitted.add(req.rid)

@@ -19,7 +19,9 @@ otherwise):
 
 The sampling keys and the enc-dec and speculative leaves arrive with
 their slices. Inert slots keep their last token/position so the grid
-stays fixed-shape.
+stays fixed-shape. Every field is written in place, by the decode step
+and by admission, so it keeps its address for the life of an engine
+(the reference donates the state to its jitted step instead).
 """
 from __future__ import annotations
 
@@ -59,27 +61,24 @@ def make_decode_state(slots: int, device: torch.device,
 
 def admit_rows(state: DecodeState, slots: torch.Tensor, tokens: torch.Tensor,
                positions: torch.Tensor, max_new: torch.Tensor,
-               page_rows: Optional[torch.Tensor] = None) -> DecodeState:
-    """Write ``n`` freshly-prefilled requests at ``slots [n]`` (distinct):
-    one scatter per field. Paged engines pass ``page_rows [n, M]``, the
-    slots' page-table rows; ``seq_len`` starts at the prompt length
-    (``positions``)."""
+               page_rows: Optional[torch.Tensor] = None) -> None:
+    """Write ``n`` freshly-prefilled requests at ``slots [n]`` (distinct)
+    into ``state`` in place: one scatter per field, every field keeping
+    its address (a captured decode step reads them there). Paged engines
+    pass ``page_rows [n, M]``, the slots' page-table rows; ``seq_len``
+    starts at the prompt length (``positions``)."""
     n = slots.shape[0]
 
     def put(arr, vals):
         vals = vals.to(arr.dtype).reshape((n,) + tuple(arr.shape[1:]))
-        return arr.index_put((slots,), vals)
+        arr.index_put_((slots,), vals)
 
-    return DecodeState(
-        tokens=put(state.tokens, tokens),
-        positions=put(state.positions, positions),
-        active=put(state.active, torch.ones((n,), dtype=torch.bool,
-                                            device=slots.device)),
-        emitted=put(state.emitted, torch.zeros((n,), dtype=torch.int32,
-                                               device=slots.device)),
-        max_new=put(state.max_new, max_new),
-        page_table=(state.page_table if page_rows is None
-                    else put(state.page_table, page_rows)),
-        seq_len=(state.seq_len if page_rows is None
-                 else put(state.seq_len, positions)),
-    )
+    put(state.tokens, tokens)
+    put(state.positions, positions)
+    put(state.active, torch.ones((n,), dtype=torch.bool, device=slots.device))
+    put(state.emitted, torch.zeros((n,), dtype=torch.int32,
+                                   device=slots.device))
+    put(state.max_new, max_new)
+    if page_rows is not None:
+        put(state.page_table, page_rows)
+        put(state.seq_len, positions)
