@@ -72,7 +72,15 @@ Phases (each failure propagates; the process exits non-zero):
    m) against the plain version (in bf16 its mirror of the tensor-core
    kernel, ``ref.mlstm_chunkwise_ref(split=True)``), also at head dims
    96, 256 and 384 (the other tensor-core instances); no PyTorch call
-   computes the mLSTM, so its library time is null;
+   computes the mLSTM, so its library time is null. Then the multi-query
+   form of ``paged_attention`` (the speculative verify; table
+   ``PA_MULTI_CASES``: qwen's grid with lengths 1-512, the last ones
+   clamped, phase 4f's pool of pages of 64 and GQA on pages of 16, at S
+   = 2, 5 and 8, fp32 and bf16, bit-stable), timed in bf16 at S = 5
+   beside S launches of the one-query form and masked SDPA with a [B, H,
+   S, T] mask (the kernel line's ``multi_query`` entry of
+   ``paged_attention``), and ``xfer_matmul`` at the verify's R = 40 for
+   qwen's projections and unembedding;
 4. full-width qwen1.5-0.5b served greedily in bf16 through
    ``ServingEngine.run_until_drained()``, whose decode step replays one
    CUDA graph captured when the engine is built (phases 4-4f alike; a
@@ -98,14 +106,26 @@ Phases (each failure propagates; the process exits non-zero):
    parameters, 405,014,016 state bytes;
 4e/4f. qwen1.5-0.5b on the paged pool, bf16 and INT8 (see
    ``serve_paged``);
-4g. the captured step against the eager one on the six paths (fp, INT8,
-   paged fp and int8 pools, hybrid, ssm; full width, 8 slots): after one
+4h. speculative serving (``serve_spec``): full-width qwen1.5-0.5b with a
+   1-layer draft of its widths, k = 4, on the grid (phase 4's prompts)
+   and the paged pool (phase 4e's shared set), 32 new tokens each;
+   launch counts exact (each replay 5 draft forwards and one verify),
+   step p50, tokens/s, ``accepted_tokens_mean``, ``draft_acceptance``
+   and peak bytes beside phase 4's target-only numbers;
+4i. sampled serving (``serve_sampled``): phase 4's traffic with top-k
+   (k 50, T 0.8) and with temperature (T 0.8); launch counts exact, and
+   every slot's key after the drain equal to the host's threefry chain
+   of its last request; step p50 beside greedy's;
+4g. the captured step against the eager one on nine paths (fp, INT8,
+   paged fp and int8 pools, hybrid, ssm, top-k sampling, speculative on
+   the grid and on the pool; full width, 8 slots): after one
    admission, 16 eager steps of ``registry.build_serve_step`` on a clone
    of caches and state and 16 replays on the originals give equal
    records and bit-equal caches and state, and each replay counts its
    capture's launches; then 20 steady qwen steps through
    ``ServingEngine.step()`` traced with ``torch.profiler``, replaying
-   the graph and then dispatching the eager step: the device's idle
+   the graph, then dispatching the eager step, then replaying a
+   speculative engine's step (k = 4, the 1-layer draft): the device's idle
    share of each window, its top device ops and the launches a step
    that are not the hand-written kernels';
 5. full-width parity: seeded fp32 weights, one batched prefill of 4
@@ -127,6 +147,12 @@ Phases (each failure propagates; the process exits non-zero):
    2048, then 5 decode steps, card vs CPU: logits, every mLSTM state
    leaf and the sLSTM's h, m and c/n within 2e-3 relative, the sLSTM's
    c and n within 2e-2 (``SLSTM_SUM_TOL``), greedy tokens equal;
+5e. the paged pool, card vs CPU (see ``parity_paged``);
+5f. speculative and sampled streams, card vs CPU (see ``parity_spec``):
+   qwen1.5-0.5b at full width, depth 4, a 1-layer draft, k = 3, fp32, on
+   the grid and the pool: greedy and top-k spec streams equal the CPU
+   port's, greedy spec (and a self-draft's) equal target-only on the
+   card;
 6. the kernel table as one JSON line, then the result line.
 
 It imports nothing of JAX and nothing of the JAX package.
@@ -188,8 +214,9 @@ SOURCES = {
 }
 # the kernels each serving path runs (phase 4: fp, phase 4b: INT8,
 # phase 4c: the hybrid, phase 4d: the ssm family, phase 4e: paged, phase
-# 4f: paged under INT8 with int8 pools); a kernel's main path is the
-# first that runs it
+# 4f: paged under INT8 with int8 pools, phase 4h: speculative on the grid
+# and the pool (the multi-query paged_attention), phase 4i: sampled); a
+# kernel's main path is the first that runs it
 PATH_KERNELS = {"fp": ("xfer_matmul", "flash_attention", "paged_attention"),
                 "int8": ("quant_matmul", "flash_attention",
                          "paged_attention_q8"),
@@ -198,7 +225,12 @@ PATH_KERNELS = {"fp": ("xfer_matmul", "flash_attention", "paged_attention"),
                 "ssm": ("xfer_matmul", "mlstm_chunkwise"),
                 "paged": ("xfer_matmul", "flash_attention", "paged_attention"),
                 "paged-int8": ("quant_matmul", "flash_attention",
-                               "flash_attention_q8", "paged_attention_q8")}
+                               "flash_attention_q8", "paged_attention_q8"),
+                "spec": ("xfer_matmul", "flash_attention", "paged_attention"),
+                "spec-paged": ("xfer_matmul", "flash_attention",
+                               "paged_attention"),
+                "sampled": ("xfer_matmul", "flash_attention",
+                            "paged_attention")}
 
 
 def log(msg: str) -> None:
@@ -409,6 +441,165 @@ PA_CASES = [
      [1, 40, 5 * 16], False, None)]
 
 
+# paged_attention's multi-query form (the speculative verify of k + 1
+# positions): (label, B, H, G, D, (pages, page size), table columns
+# (None: the dense grid through an identity table), first-query lengths,
+# entry); every case at S in SPEC_S, in fp32 and bf16. qwen's grid (a
+# length of 509 runs its last queries into the clamp at 512), phase 4f's
+# pool (pages of 64, 65 pages, rows over several 128-position chunks) and
+# GQA on pages of 16
+SPEC_S = (2, 5, 8)
+SPEC_K = 4  # phases 4h and 4g: k = 4 proposals, a verify of S = 5
+PA_MULTI_CASES = [
+    (f"grid q[{SLOTS},S,{Q_HEADS},64] grid[{SLOTS},{MAX_LEN},{Q_HEADS},64]",
+     SLOTS, Q_HEADS, Q_HEADS, 64, (SLOTS, MAX_LEN), None,
+     [1, 17, 64, 128, 129, 200, 509, MAX_LEN], "main"),
+    (f"pool q[{SLOTS},S,{Q_HEADS},64] pool[65,{PAGE},{Q_HEADS},64] table "
+     f"{SLOTS}x{MAX_LEN // PAGE}", SLOTS,
+     Q_HEADS, Q_HEADS, 64, (65, PAGE), MAX_LEN // PAGE,
+     [1, 63, 64, 65, 300, 447, 505, MAX_LEN], "pool"),
+    ("GQA H=8 G=2 ps=16", 3, 8, 2, 64, (3 * 9 + 2, 16), 9, [1, 77, 140],
+     None)]
+# xfer_matmul at the verify's rows, R = slots x (k + 1) = 40: qwen's
+# projections (wq, wk, wv, wo; w_gate, w_up; w_down) and the unembedding
+VERIFY_R = SLOTS * (SPEC_K + 1)
+VERIFY_MM = ((Q_D, Q_D, False), (Q_D, Q_FF, False), (Q_FF, Q_D, False),
+             (Q_D, Q_VOCAB, True))
+
+
+def check_paged_multi(dev, gen, entries: dict) -> None:
+    """Phase 3, the multi-query ``paged_attention`` (PA_MULTI_CASES at
+    every S of SPEC_S): against its plain version (one query position at
+    a time, ``ref.paged_attention_ref``) and bit-stable on two calls.
+    Timed in bf16 at S = SPEC_K + 1: the kernel (eager loop and device
+    time), S launches of the one-query form (yardstick), masked SDPA with
+    a [B, H, S, T] mask (library yardstick, the grid only) and the byte
+    bound (each valid K/V row read once). Then ``xfer_matmul`` at the
+    verify's R = 40 (VERIFY_MM). Keeps the timed grid case as the
+    ``paged_attention`` entry's ``multi_query``, the pool's under it."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.xfer_matmul import route as xfer_route
+
+    dtypes = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+    def randn(*shape, dt, scale=1.0):
+        return (torch.randn(*shape, generator=gen, device=dev) * scale).to(dt)
+
+    multi = {}
+    for (label, b, h, g, d, (n_pages, ps), m, lengths,
+         entry) in PA_MULTI_CASES:
+        for dname, dt in dtypes.items():
+            kp = randn(n_pages, ps, g, d, dt=dt)
+            vp = randn(n_pages, ps, g, d, dt=dt)
+            if m is None:  # the dense grid: one page per row
+                tb = torch.arange(b, device=dev, dtype=torch.int32)[:, None]
+            else:
+                perm = torch.randperm(n_pages - 1, generator=gen, device=dev) + 1
+                tb = perm[:b * m].reshape(b, m).to(torch.int32)
+            t = tb.shape[1] * ps
+            lens = torch.tensor(lengths, device=dev, dtype=torch.int32)
+            for s in SPEC_S:
+                q = randn(b, s, h, d, dt=dt)
+                got = ops.paged_attn(q, kp, vp, tb, lens)
+                err = compare(f"paged_attention S={s} {label} {dname}", got,
+                              ops.paged_attn_ref(q, kp, vp, tb, lens), dname)
+                bit_stable(f"paged_attention S={s} {label} {dname}", got,
+                           ops.paged_attn(q, kp, vp, tb, lens))
+                line = (f"[kernel] paged_attention S={s} {label} {dname}: "
+                        f"max_abs_err {err:.3e}")
+                if not (dname == "bfloat16" and s == SPEC_K + 1 and entry):
+                    log(line)
+                    continue
+                esz = q.element_size()
+                kv_rows = sum(min(n + s - 1, t) for n in lengths)
+                pairs = sum(min(n + j, t) for n in lengths for j in range(s))
+                nb, kind = bound_ms(2 * q.numel() * esz
+                                    + 2 * kv_rows * g * d * esz
+                                    + tb.numel() * 4 + lens.numel() * 4,
+                                    4.0 * h * d * pairs, dname)
+                lens_j = [torch.clamp(lens + j, max=t) for j in range(s)]
+
+                def one_query_each():
+                    for j in range(s):
+                        ops.paged_attn(q[:, j], kp, vp, tb, lens_j[j])
+
+                ms = time_ms(lambda: ops.paged_attn(q, kp, vp, tb, lens))
+                dev_ms = graph_ms(lambda: ops.paged_attn(q, kp, vp, tb, lens))
+                plain = time_ms(lambda: ops.paged_attn_ref(q, kp, vp, tb, lens))
+                yard = time_ms(one_query_each)
+                yard_dev = graph_ms(one_query_each)
+                row = dict(shape=f"{label}, S={s}, lengths {lengths} bf16",
+                           S=s, max_abs_err=err, ms=ms, device_ms=dev_ms,
+                           plain_ms=plain, bound_ms=nb, bound_by=kind,
+                           yardstick="S launches of the one-query form",
+                           yardstick_ms=yard, yardstick_device_ms=yard_dev,
+                           library_ms=None)
+                line += (f" ms {ms:.4f} device_ms {dev_ms:.4f} plain_ms "
+                         f"{plain:.4f} bound_ms {nb:.4f} ({kind}); {s} "
+                         f"one-query launches {yard:.4f} ms, device "
+                         f"{yard_dev:.4f}")
+                if m is None:  # SDPA over the grid, [B, H, S, T] mask
+                    q4 = q.permute(0, 2, 1, 3)
+                    k4, v4 = kp.permute(0, 2, 1, 3), vp.permute(0, 2, 1, 3)
+                    lim = torch.clamp(lens[:, None] + torch.arange(
+                        s, device=dev)[None], max=t)
+                    mask = (torch.arange(t, device=dev)[None, None]
+                            < lim[:, :, None])[:, None]
+                    lib = time_ms(lambda: F.scaled_dot_product_attention(
+                        q4, k4, v4, attn_mask=mask, enable_gqa=h != g))
+                    row["library_ms"] = lib
+                    row["library_device_ms"] = graph_ms(
+                        lambda: F.scaled_dot_product_attention(
+                            q4, k4, v4, attn_mask=mask, enable_gqa=h != g))
+                    line += (f"; library_ms {lib:.4f} (SDPA, [B,H,S,T] mask),"
+                             f" device {row['library_device_ms']:.4f}")
+                log(line)
+                if entry == "main":
+                    multi.update(row)
+                else:
+                    multi[entry] = row
+                del q, got
+            del kp, vp
+    entries["paged_attention"]["multi_query"] = multi
+
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    shapes = entries["xfer_matmul"]["shapes"]
+    for n, m, transposed in VERIFY_MM:
+        x = randn(VERIFY_R, n, dt=torch.bfloat16)
+        if transposed:
+            w = randn(m, n, dt=torch.bfloat16, scale=n ** -0.5).T
+        else:
+            w = randn(n, m, dt=torch.bfloat16, scale=n ** -0.5)
+        rt = xfer_route(VERIFY_R, n, m, torch.bfloat16, w.stride(), sms)
+        got = ops.matmul(x, w)
+        label = f"verify R={VERIFY_R} {n}x{m}" + (" (embed.T)" if transposed
+                                                   else "")
+        err = compare(f"xfer_matmul {label}", got, ops.matmul_ref(x, w),
+                      "bfloat16")
+        bit_stable(f"xfer_matmul {label}", got, ops.matmul(x, w))
+        flops = 2.0 * VERIFY_R * n * m
+        ms = time_ms(lambda: ops.matmul(x, w))
+        dev_ms = graph_ms(lambda: ops.matmul(x, w))
+        plain = time_ms(lambda: ops.matmul_ref(x, w))
+        lib = time_ms(lambda: torch.matmul(x, w))
+        b, kind = bound_ms((VERIFY_R * n + n * m + VERIFY_R * m) * 2, flops,
+                           "bfloat16")
+        log(f"[kernel] xfer_matmul {label} bfloat16: route {rt.kernel} grid "
+            f"{rt.grid} splits {rt.splits}; max_abs_err {err:.3e} ms {ms:.4f} "
+            f"device_ms {dev_ms:.4f} plain_ms {plain:.4f} library_ms "
+            f"{lib:.4f} bound_ms {b:.4f} ({kind}) kernel/library "
+            f"{ms / lib:.2f}")
+        shapes.append(dict(shape=f"x[{VERIFY_R},{n}] @ "
+                                 f"{'embed.T' if transposed else 'w'}[{n},{m}]"
+                                 f" bf16 (verify)",
+                           variant=rt.kernel, max_abs_err=err, ms=ms,
+                           device_ms=dev_ms, plain_ms=plain, bound_ms=b,
+                           bound_by=kind, library_ms=lib))
+        del x, w, got
+
+
 def check_kernels(dev) -> dict:
     """Checks every case of the tables above, ``quant_matmul``, the int8
     ``paged_attention`` body and ``rglru_scan``; prints every case and
@@ -593,6 +784,7 @@ def check_kernels(dev) -> dict:
                     ms=full_ms, library_ms=full_lib, bound_ms=full_nb,
                     bound_by=full_kind)))
             del q, kp, vp, got, want
+    check_paged_multi(dev, gen, entries)
     entries.update(check_int8_kernels(dev, gen))
     check_flash_q8(dev, gen, entries)
     entries.update(check_rglru(dev, gen))
@@ -1317,9 +1509,11 @@ def serve_full_width(int8: bool = False) -> dict:
         f"{int8_bytes}) kv_bytes {kv} peak_allocated_bytes "
         f"{torch.cuda.max_memory_allocated()}")
     log(f"[{tag}] rid=0 out={done[0].out_tokens[:8]}")
+    stats = dict(engine.step_stats(),
+                 peak_allocated_bytes=torch.cuda.max_memory_allocated())
     del engine, model
     torch.cuda.empty_cache()
-    return counts, {r.rid: list(r.out_tokens) for r in done}
+    return counts, {r.rid: list(r.out_tokens) for r in done}, stats
 
 
 # recurrentgemma-2b at full width and depth, as the reference's
@@ -1510,37 +1704,60 @@ def serve_xlstm() -> dict:
 # --------------------------------------------------------------------------
 
 GRAPH_STEPS, TRACE_STEPS = 16, 20
-# the six serving paths at full width: (tag, arch id, slots, max_len,
-# int8, page size or None); 8 prompts of 16-120 tokens each
-GRAPH_PATHS = (("fp", "qwen1.5-0.5b", SLOTS, MAX_LEN, False, None),
-               ("int8", "qwen1.5-0.5b", SLOTS, MAX_LEN, True, None),
-               ("paged", "qwen1.5-0.5b", SLOTS, MAX_LEN, False, PAGE),
-               ("paged-int8", "qwen1.5-0.5b", SLOTS, MAX_LEN, True, PAGE),
-               ("hybrid", "recurrentgemma-2b", H_SLOTS, H_MAX_LEN, False, None),
-               ("ssm", "xlstm-350m", X_SLOTS, X_MAX_LEN, False, None))
+# the serving paths at full width: (tag, arch id, slots, max_len, int8,
+# page size or None, mode: None (greedy), "top_k" (k 50, T 0.8) or "spec"
+# (phase 4h's 1-layer draft, k = SPEC_K)); 8 prompts of 16-120 tokens
+# each, 64 new tokens (128 on the spec paths, so that no slot finishes
+# within the 16 steps)
+GRAPH_PATHS = (("fp", "qwen1.5-0.5b", SLOTS, MAX_LEN, False, None, None),
+               ("int8", "qwen1.5-0.5b", SLOTS, MAX_LEN, True, None, None),
+               ("paged", "qwen1.5-0.5b", SLOTS, MAX_LEN, False, PAGE, None),
+               ("paged-int8", "qwen1.5-0.5b", SLOTS, MAX_LEN, True, PAGE,
+                None),
+               ("hybrid", "recurrentgemma-2b", H_SLOTS, H_MAX_LEN, False, None,
+                None),
+               ("ssm", "xlstm-350m", X_SLOTS, X_MAX_LEN, False, None, None),
+               ("top-k", "qwen1.5-0.5b", SLOTS, MAX_LEN, False, None, "top_k"),
+               ("spec", "qwen1.5-0.5b", SLOTS, MAX_LEN, False, None, "spec"),
+               ("spec-paged", "qwen1.5-0.5b", SLOTS, MAX_LEN, False, PAGE,
+                "spec"))
 
 
 def graph_engine(models: dict, arch_id: str, slots: int, max_len: int,
-                 int8: bool, page, lookahead: int = 1, new_tokens: int = 64):
+                 int8: bool, page, mode=None, lookahead: int = 1,
+                 new_tokens: int = 64):
     """A full-width engine of one serving path (seeded weights, shared
-    by the fp paths of one model; an INT8 engine quantises its own) with
-    ``slots`` seeded prompts of 16-120 tokens submitted."""
+    by the fp paths of one model; an INT8 engine quantises its own; a
+    spec engine takes the 1-layer draft) with ``slots`` seeded prompts of
+    16-120 tokens submitted."""
+    import dataclasses
+
     import numpy as np
     from repro_torch import quant as Q
     from repro_torch.configs import get_arch
     from repro_torch.models.registry import init_params
-    from repro_torch.serving import (PagingConfig, Request, ServeConfig,
-                                     ServingEngine)
+    from repro_torch.serving import (PagingConfig, Request, SamplingParams,
+                                     ServeConfig, ServingEngine, SpecConfig)
     arch = get_arch(arch_id)
     key = (arch_id, int8 and page)
     if key not in models:
         models[key] = init_params(arch, 0)
+    params, extra = models[key], {}
+    if mode == "top_k":
+        extra["sampling"] = SamplingParams("top_k", 0.8, 50)
+    if mode == "spec":
+        draft = dataclasses.replace(arch, num_layers=1)
+        if "draft" not in models:
+            models["draft"] = init_params(draft, 1)
+        params = {"target": params, "draft": models["draft"]}
+        extra["spec"] = SpecConfig(draft=draft, k=SPEC_K)
+        new_tokens = 2 * new_tokens
     config = ServeConfig(slots=slots, max_len=max_len, seed=0,
                          lookahead=lookahead,
                          quant=Q.INT8_SERVE if int8 else Q.QuantConfig(),
                          paging=PagingConfig(paged=page is not None,
-                                             page_size=page))
-    engine = ServingEngine(arch, models[key], config=config)
+                                             page_size=page), **extra)
+    engine = ServingEngine(arch, params, config=config)
     rng = np.random.RandomState(7)
     for rid in range(slots):
         engine.submit(Request(rid=rid, prompt=rng.randint(
@@ -1550,30 +1767,34 @@ def graph_engine(models: dict, arch_id: str, slots: int, max_len: int,
 
 
 def leaf_bytes(engine) -> int:
+    from repro_torch.serving.state import tensors
     leaves = [t for c in engine.caches for t in c.values()]
-    leaves += [t for t in vars(engine.state).values() if t is not None]
+    leaves += list(tensors(engine.state).values())
     return sum(t.numel() * t.element_size() for t in leaves)
 
 
 def graph_vs_eager() -> dict:
-    """Phase 4g, first half: on each of the six paths, after one
+    """Phase 4g, first half: on each path of GRAPH_PATHS, after one
     admission, caches and state are cloned; GRAPH_STEPS eager steps of
     ``registry.build_serve_step`` run on the clone and as many replays of
     the engine's captured step on the originals. Records must be equal
-    step by step, caches and state bit-equal at the end, and each
-    replay's launch counts those of its capture. Returns per path the
-    capture's launches per replay."""
+    step by step, caches and state (the sampling keys and the spec
+    paths' draft grid included) bit-equal at the end, and each replay's
+    launch counts those of its capture. Returns per path the capture's
+    launches per replay."""
     import torch
     from repro_torch.kernels import ops
     from repro_torch.models.registry import build_serve_step
+    from repro_torch.serving import state as ST
     from repro_torch.serving.captured import pack_record
 
     models, per_replay = {}, {}
-    for tag, arch_id, slots, max_len, int8, page in GRAPH_PATHS:
+    for tag, arch_id, slots, max_len, int8, page, mode in GRAPH_PATHS:
         torch.cuda.synchronize()
         a0, r0 = torch.cuda.memory_allocated(), torch.cuda.memory_reserved()
         t0 = time.perf_counter()
-        engine = graph_engine(models, arch_id, slots, max_len, int8, page)
+        engine = graph_engine(models, arch_id, slots, max_len, int8, page,
+                              mode)
         torch.cuda.synchronize()
         built = time.perf_counter() - t0
         a1, r1 = torch.cuda.memory_allocated(), torch.cuda.memory_reserved()
@@ -1582,13 +1803,13 @@ def graph_vs_eager() -> dict:
             raise AssertionError(f"[graph-{tag}] no CUDA graph captured")
         engine.scheduler.admit(engine.model, engine.caches, engine.state)
         caches = [{k: v.clone() for k, v in c.items()} for c in engine.caches]
-        state = type(engine.state)(**{k: None if v is None else v.clone()
-                                      for k, v in vars(engine.state).items()})
+        state = ST.clone(engine.state)
         eager = build_serve_step(engine.arch, sampling=engine.sampling,
-                                 eos_id=engine.eos_id, paged=engine.paged)
+                                 eos_id=engine.eos_id, paged=engine.paged,
+                                 spec=engine.spec)
         want = []
         for _ in range(GRAPH_STEPS):
-            state, caches, rec = eager(engine.model, caches, state)
+            state, caches, rec = eager(engine.params, caches, state)
             want.append(pack_record(rec))
         ops.reset_launches()
         got = [step().clone() for _ in range(GRAPH_STEPS)]
@@ -1605,14 +1826,18 @@ def graph_vs_eager() -> dict:
                                  f"step's at steps {bad}")
         pairs = [(f"caches[{i}].{k}", c[k], engine.caches[i][k])
                  for i, c in enumerate(caches) for k in c]
-        pairs += [(f"state.{k}", v, getattr(engine.state, k))
-                  for k, v in vars(state).items() if v is not None]
+        live = ST.tensors(engine.state)
+        pairs += [(f"state.{k}", v, live[k])
+                  for k, v in ST.tensors(state).items()]
         off = {name: float((a.float() - b.float()).abs().max())
                for name, a, b in pairs if not torch.equal(a, b)}
         if off:
             raise AssertionError(f"[graph-{tag}] leaves not bit-equal to the "
                                  f"eager step's (max abs err): {off}")
         emitted = int(state.emitted.sum())
+        if mode == "spec":
+            emitted = f"{emitted}, accepted {int(state.accepted.sum())} of " \
+                      f"{int(state.proposed.sum())} proposed"
         log(f"[graph-{tag}] engine with its capture built in {built:.1f} s "
             f"(caches + state {leaf_bytes(engine)} bytes; allocated "
             f"{a1 - a0:+d}, reserved {r1 - r0:+d} bytes); {GRAPH_STEPS} replays "
@@ -1676,9 +1901,10 @@ def trace_steps() -> dict:
     full-width qwen1.5-0.5b in bf16 (8 slots active, no admission)
     through ``ServingEngine.step()``, traced with ``torch.profiler``:
     first replaying the captured step, then the same engine dispatching
-    the eager step. Prints the device's idle share of each window, the
-    top device ops and the launches per step that are not the
-    hand-written kernels'."""
+    the eager step; then a speculative engine (phase 4h's 1-layer draft,
+    k = SPEC_K) replaying its captured step. Prints the device's idle
+    share of each window, the top device ops and the launches per step
+    that are not the hand-written kernels'."""
     import torch
     from repro_torch.kernels import ops
     from repro_torch.models.registry import build_serve_step
@@ -1700,9 +1926,15 @@ def trace_steps() -> dict:
         torch.cuda.synchronize()
 
     out = {}
-    for mode in ("graph", "eager"):
+    for mode in ("graph", "eager", "spec"):
         if mode == "eager":
             engine.decode = eager_decode
+        if mode == "spec":  # budgets of 380 for 64 steps of up to k + 1
+            del engine
+            engine = graph_engine({}, "qwen1.5-0.5b", SLOTS, MAX_LEN, False,
+                                  None, mode="spec", new_tokens=190)
+            for _ in range(4):
+                engine.step()
         run()  # warm
         ops.reset_launches()
         t0 = time.perf_counter()
@@ -1713,7 +1945,9 @@ def trace_steps() -> dict:
         row.update(host_ms_per_step=host_ms, handwritten_per_step=ours)
         if row["measured"]:
             row["other_launches_per_step"] = row["kernels_per_step"] - ours
-            log(f"[trace-{mode}] {TRACE_STEPS} steady qwen1.5-0.5b bf16 steps: "
+            log(f"[trace-{mode}] {TRACE_STEPS} steady qwen1.5-0.5b bf16 steps"
+                + (f" (k = {SPEC_K}, 1-layer draft)" if mode == "spec" else "")
+                + ": "
                 f"host {host_ms:.3f} ms a step untraced; traced window "
                 f"{row['window_ms']:.3f} ms, device busy {row['busy_ms']:.3f} ms,"
                 f" idle share {row['idle_share']:.4f}; a step: device "
@@ -2073,11 +2307,11 @@ def top2_margin(model, prompt, prefix) -> float:
 
 
 def compare_streams(tag: str, model, prompts, got: dict, want: dict,
-                    what: str) -> int:
+                    what: str, limit=TOL["bfloat16"]) -> int:
     """Streams of ``got`` against ``want``; a divergence prints the top-2
-    margin where it starts and fails when that margin is over the bf16
-    tolerance (a near-tie may flip under rounding). Returns the count of
-    equal streams."""
+    margin where it starts and fails when that margin is over ``limit``
+    (the bf16 tolerance: a near-tie may flip under rounding; None: only
+    print). Returns the count of equal streams."""
     same = 0
     for rid in sorted(want):
         g, w = got[rid], want[rid]
@@ -2089,10 +2323,10 @@ def compare_streams(tag: str, model, prompts, got: dict, want: dict,
         margin = top2_margin(model, prompts[rid], w[:j])
         log(f"[{tag}] rid {rid} diverges from {what} at token {j}: top-2 "
             f"margin {margin:.3e} of max |logit|")
-        if margin > TOL["bfloat16"]:
+        if limit is not None and margin > limit:
             raise AssertionError(f"[{tag}] rid {rid}: stream differs from "
                                  f"{what} at token {j} with margin "
-                                 f"{margin:.3e} > {TOL['bfloat16']}")
+                                 f"{margin:.3e} > {limit}")
     log(f"[{tag}] {same}/{len(want)} streams equal to {what}")
     return same
 
@@ -2252,6 +2486,216 @@ def serve_paged(dense_streams: dict, int8: bool = False) -> dict:
 
 
 # --------------------------------------------------------------------------
+# phases 4h, 4i: speculative and sampled serving
+# --------------------------------------------------------------------------
+
+def phase4_prompts(vocab: int) -> list:
+    """Phase 4's 16 prompts (16-200 tokens, seed 0)."""
+    import numpy as np
+    rng = np.random.RandomState(0)
+    out = []
+    for _ in range(16):
+        s = int(rng.randint(16, 201))
+        out.append(rng.randint(1, vocab, size=s).astype(np.int32))
+    return out
+
+
+def spec_launches(layers: int, draft_layers: int, k: int) -> tuple:
+    """(per replay, per prefill group) launches of the speculative path:
+    a replay runs k + 1 draft forwards (k with the unembedding) and one
+    target verify; an admission group prefills the target (or its suffix
+    after a shared prefix) and the draft over the full prompts."""
+    per_replay = {"xfer_matmul": (k + 1) * 7 * draft_layers + k
+                  + 7 * layers + 1,
+                  "paged_attention": (k + 1) * draft_layers + layers}
+    per_group = {"xfer_matmul": 7 * layers + 1 + 7 * draft_layers + 1,
+                 "flash_attention": layers + draft_layers}
+    return per_replay, per_group
+
+
+def serve_spec(dense_streams: dict, dense_stats: dict) -> dict:
+    """Phase 4h: full-width qwen1.5-0.5b (24 layers, bf16) served with
+    ``ServeConfig(spec=SpecConfig(draft, k=4))``, the draft qwen's widths
+    at 1 layer (the reference's pairing), both seeded: phase 4's 16
+    prompts on the grid and phase 4e's shared-prefix set on the paged
+    pool (pages of 64), 32 new tokens each. Launch counts exact (each
+    replay SPEC_K + 1 draft forwards and one verify); every request gets
+    its budget. Prints step p50, tokens/s, accepted_tokens_mean,
+    draft_acceptance and peak allocated bytes beside phase 4's
+    target-only numbers, and how many grid streams equal phase 4's (in
+    bf16 the verify's R = 40 products round otherwise than decode's R =
+    8 ones, so a flip is printed with its margin, not failed: phase 5f
+    holds the equality in fp32). Returns the launch counts by path."""
+    import dataclasses
+
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import ops
+    from repro_torch.models.registry import init_params
+    from repro_torch.serving import (PagingConfig, ServeConfig, ServingEngine,
+                                     SpecConfig)
+
+    arch = get_arch("qwen1.5-0.5b")
+    draft = dataclasses.replace(arch, num_layers=1)
+    new_tokens = 32
+    per_replay, per_group = spec_launches(arch.num_layers, draft.num_layers,
+                                          SPEC_K)
+    out = {}
+    for tag, paged in (("spec", False), ("spec-paged", True)):
+        config = ServeConfig(slots=SLOTS, max_len=MAX_LEN, seed=0,
+                             lookahead=1, spec=SpecConfig(draft=draft, k=SPEC_K),
+                             paging=PagingConfig(paged=paged, page_size=PAGE))
+        torch.cuda.reset_peak_memory_stats()
+        model = init_params(arch, 0)  # phase 4's target weights
+        engine = ServingEngine(arch, {"target": model,
+                                      "draft": init_params(draft, 1)},
+                               config=config)
+        if engine.decode.graph is None:
+            raise AssertionError(f"[{tag}] no CUDA graph captured")
+        if engine.decode.launches != per_replay:
+            raise AssertionError(f"[{tag}] a replay launches "
+                                 f"{engine.decode.launches}, expected "
+                                 f"{per_replay}")
+        prompts = (shared_set(arch.vocab_size) if paged
+                   else phase4_prompts(arch.vocab_size))
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        streams, steps, groups, n_shared, peak = drive(engine, prompts,
+                                                       new_tokens, owner=paged)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = ops.launch_counts()
+        for rid, toks in streams.items():
+            if len(toks) != new_tokens or not all(0 <= t < arch.vocab_size
+                                                   for t in toks):
+                raise AssertionError(f"[{tag}] rid {rid}: bad stream {toks}")
+        want = {"xfer_matmul": per_replay["xfer_matmul"] * steps
+                + per_group["xfer_matmul"] * groups,
+                "paged_attention": per_replay["paged_attention"] * steps,
+                "flash_attention": per_group["flash_attention"] * groups}
+        check_paged_counts(tag, counts, PATH_KERNELS[tag], want)
+        stats = engine.step_stats()
+        peak_bytes = torch.cuda.max_memory_allocated()
+        log(f"[{tag}] {len(streams)} requests, {steps} decode steps, {groups} "
+            f"prefill groups ({n_shared} shared), {wall:.3f} s wall; launches "
+            f"{counts} (exact: {per_replay} a replay, {per_group} a group)")
+        log(f"[{tag}] step p50 {stats['step_p50_ms']:.3f} ms (target-only "
+            f"phase 4: {dense_stats['step_p50_ms']:.3f}), tokens/s "
+            f"{stats['tokens_per_s']:.1f} ({dense_stats['tokens_per_s']:.1f}),"
+            f" accepted_tokens_mean {stats['accepted_tokens_mean']:.4f}, "
+            f"draft_acceptance {stats['draft_acceptance']:.4f}, peak allocated"
+            f" {peak_bytes} bytes ({dense_stats['peak_allocated_bytes']}); "
+            f"pages in use at most {peak}")
+        log(f"[{tag}] step_stats {json.dumps(stats)}")
+        log(f"[{tag}] prefill_stats {json.dumps(engine.prefill_stats())}")
+        if not paged:
+            compare_streams(tag, model, prompts, streams, dense_streams,
+                            "phase 4's target-only streams", limit=None)
+        out[tag] = counts
+        del engine, model
+        torch.cuda.empty_cache()
+    return out
+
+
+def host_key(seed: int, rid: int, splits: int):
+    """``split``^splits (the carried half) of ``fold_in(PRNGKey(seed),
+    rid)``, on the host."""
+    import torch
+    from repro_torch.serving import sampler as SMP
+    key = SMP.fold_in(SMP.prng_key(seed), torch.tensor([rid]))
+    for _ in range(splits):
+        key = SMP.split(key)[0]
+    return key[0]
+
+
+def serve_sampled(dense_stats: dict) -> dict:
+    """Phase 4i: full-width qwen1.5-0.5b in bf16 on the grid, phase 4's 16
+    prompts of 32 new tokens, sampled with top-k (k 50, T 0.8) and with
+    temperature (T 0.8), seed 0. Launch counts exact (the greedy path's);
+    every request gets its budget; each slot's key after the drain
+    equals ``split``^n of its last request's ``fold_in(PRNGKey(0), rid)``
+    recomputed on the host, n = 1 (the admission's draw) + the decode
+    steps since that admission (the plain step draws for every slot).
+    Prints step p50 beside greedy's (phase 4): the sampler's cost a
+    step. Returns the launch counts by path."""
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import ops
+    from repro_torch.models.registry import init_params
+    from repro_torch.serving import SamplingParams, ServeConfig, ServingEngine
+
+    arch = get_arch("qwen1.5-0.5b")
+    layers, new_tokens = arch.num_layers, 32
+    per_pass = 7 * layers + 1
+    prompts = phase4_prompts(arch.vocab_size)
+    out = {}
+    for tag, sp in (("top-k", SamplingParams("top_k", 0.8, 50)),
+                    ("temperature", SamplingParams("temperature", 0.8))):
+        torch.cuda.reset_peak_memory_stats()
+        engine = ServingEngine(arch, init_params(arch, 0), config=ServeConfig(
+            slots=SLOTS, max_len=MAX_LEN, seed=0, lookahead=1, sampling=sp))
+        decodes, admitted = [0], {}
+        decode, admit = engine.decode, engine.scheduler.admit
+
+        def counted_decode():
+            decodes[0] += 1
+            return decode()
+
+        def tracked_admit(model, caches, state):
+            before = dict(engine.scheduler.active)
+            result = admit(model, caches, state)
+            for slot, req in engine.scheduler.active.items():
+                if req is not None and before.get(slot) is not req:
+                    admitted[slot] = (req.rid, decodes[0])
+            return result
+
+        engine.decode, engine.scheduler.admit = counted_decode, tracked_admit
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        streams, steps, groups, _, _ = drive(engine, prompts, new_tokens)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = ops.launch_counts()
+        for rid, toks in streams.items():
+            if len(toks) != new_tokens or not all(0 <= t < arch.vocab_size
+                                                   for t in toks):
+                raise AssertionError(f"[sampled-{tag}] rid {rid}: bad stream "
+                                     f"{toks}")
+        check_paged_counts(f"sampled-{tag}", counts, PATH_KERNELS["sampled"],
+                           {"xfer_matmul": per_pass * (steps + groups),
+                            "paged_attention": layers * steps,
+                            "flash_attention": layers * groups})
+        keys = engine.state.rng.cpu()
+        for slot, (rid, at) in sorted(admitted.items()):
+            want = host_key(0, rid, 1 + decodes[0] - at)
+            if not torch.equal(keys[slot], want):
+                raise AssertionError(f"[sampled-{tag}] slot {slot} (rid {rid}) "
+                                     f"holds key {keys[slot].tolist()}, the "
+                                     f"host's chain gives {want.tolist()}")
+        stats = engine.step_stats()
+        distinct = sum(len(set(t)) for t in streams.values()) / len(streams)
+        log(f"[sampled-{tag}] {len(streams)} requests, {steps} decode steps, "
+            f"{groups} prefill groups, {wall:.3f} s wall; launches {counts} "
+            f"(exact); {len(admitted)} slot keys equal the host's chain; "
+            f"{distinct:.1f} distinct tokens a stream")
+        log(f"[sampled-{tag}] step p50 {stats['step_p50_ms']:.3f} ms against "
+            f"greedy's {dense_stats['step_p50_ms']:.3f} (phase 4): "
+            f"{stats['step_p50_ms'] - dense_stats['step_p50_ms']:+.3f} ms a "
+            f"step; tokens/s {stats['tokens_per_s']:.1f} "
+            f"({dense_stats['tokens_per_s']:.1f})")
+        log(f"[sampled-{tag}] step_stats {json.dumps(stats)}")
+        log(f"[sampled-{tag}] prefill_stats "
+            f"{json.dumps(engine.prefill_stats())}; peak_allocated_bytes "
+            f"{torch.cuda.max_memory_allocated()}")
+        out[tag] = counts
+        # the wrappers hold the engine's step and scheduler: drop them too,
+        # so that the next run's peak bytes are its own
+        del engine, decode, admit, counted_decode, tracked_admit
+        torch.cuda.empty_cache()
+    return out
+
+
+# --------------------------------------------------------------------------
 # phase 5e: the paged pool, card vs CPU
 # --------------------------------------------------------------------------
 
@@ -2364,6 +2808,162 @@ def parity_paged(dev) -> None:
     torch.cuda.empty_cache()
 
 
+# --------------------------------------------------------------------------
+# phase 5f: speculative and sampled serving, card vs CPU
+# --------------------------------------------------------------------------
+
+def sample_margin(model, prompt, prefix, rid: int, sp, seed: int = 0) -> float:
+    """The top-2 margin, over max |logits / T|, of ``logits / T + gumbel``
+    (top-k masked) at the draw that gave token ``len(prefix)`` of request
+    ``rid`` (its key: ``fold_in(PRNGKey(seed), rid)`` carried through one
+    split per token before it, then split for the draw); one full causal
+    forward of ``model``, no cache."""
+    import numpy as np
+    import torch
+    from repro_torch.serving import sampler as SMP
+    toks = np.concatenate([prompt, np.asarray(prefix, np.int32)])
+    with torch.no_grad():
+        hidden, _ = model(torch.from_numpy(toks).to(model.device)[None])
+        row = model.logits(hidden[:, -1]).float().cpu() / sp.temperature
+    if sp.method == "top_k":
+        row = SMP.top_k_mask(row, sp.top_k)
+    key = host_key(seed, rid, len(prefix))[None]
+    z = row + SMP.gumbel(SMP.split(key)[1], row.shape[-1])
+    top = torch.topk(z[0], 2).values
+    return float(top[0] - top[1]) / float(row[torch.isfinite(row)].abs().max())
+
+
+def liven_(model, seed: int) -> None:
+    """Seeded norms and qkv biases (0.5 N(0, 1)) and 8x output and down
+    projections on every attention block of ``model``, in place, so that
+    greedy streams of random weights do not repeat one token and a cold
+    draft's proposals are rejected."""
+    import torch
+    gen = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for layer in model.layers:
+            for name in ("ln1", "ln2", "bq", "bk", "bv"):
+                if hasattr(layer, name):
+                    p = getattr(layer, name)
+                    p.copy_(0.5 * torch.randn(p.shape, generator=gen))
+            layer.wo.mul_(8.0)
+            layer.mlp.w_down.mul_(8.0)
+
+
+def parity_spec(dev) -> None:
+    """Phase 5f: qwen1.5-0.5b at full width with the target's depth cut to
+    4 and a 1-layer draft, seeded fp32 weights, k = 3, on the grid and on
+    the paged pool (pages of 64), 4 slots, 4 requests of 16-120 prompt
+    tokens and 12 new ones (norms and biases seeded, ``liven_``; the draft
+    the target's first layer). On the card and on the CPU: speculative
+    greedy streams, and top-k (k 50, T 0.8) speculative streams with the
+    same seed; on the card also the target alone and a self-draft
+    (every proposal accepted), greedy. The card's speculative streams
+    equal the CPU's and (greedy) the card's target-only streams; a
+    divergence is allowed only where its top-2
+    margin (of the logits, or of logits / T + gumbel for the sampled
+    streams, over their max magnitude) is under PARITY_TOL."""
+    import copy
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.models.registry import init_params
+    from repro_torch.serving import (PagingConfig, Request, SamplingParams,
+                                     ServeConfig, ServingEngine, SpecConfig)
+
+    tag = "parity-spec"
+    arch = dataclasses.replace(get_arch("qwen1.5-0.5b"), num_layers=4)
+    draft = dataclasses.replace(arch, num_layers=1)
+    cpu_t = init_params(arch, 1, device="cpu")  # fp32
+    liven_(cpu_t, 3)
+    # the draft: the target's embedding, first layer and final norm, so
+    # that some proposals are accepted and some rejected
+    cpu_d = init_params(draft, 2, device="cpu")
+    cpu_d.load_state_dict({k: v for k, v in cpu_t.state_dict().items()
+                           if not k.startswith("layers.")
+                           or k.startswith("layers.0.")})
+    rng = np.random.RandomState(5)
+    prompts = [rng.randint(1, arch.vocab_size, size=int(rng.randint(16, 121)))
+               .astype(np.int32) for _ in range(4)]
+    top_k = SamplingParams("top_k", 0.8, 50)
+
+    def run(device, paged, sp, spec="layer0"):
+        """Streams and step stats of one engine; ``spec``: the draft (the
+        target's first layer, "self": the target itself) or None."""
+        target = copy.deepcopy(cpu_t)
+        params, cfg = target, None
+        if spec is not None:
+            d_arch, d_model = (arch, cpu_t) if spec == "self" else (draft, cpu_d)
+            params = {"target": target, "draft": copy.deepcopy(d_model)}
+            cfg = SpecConfig(draft=d_arch, k=3)
+        eng = ServingEngine(arch, params, device=device, dtype=torch.float32,
+                            config=ServeConfig(
+                                slots=4, max_len=256, seed=0, lookahead=1,
+                                sampling=sp, spec=cfg,
+                                paging=PagingConfig(paged=paged,
+                                                    page_size=PAGE)))
+        for rid, p in enumerate(prompts):
+            eng.submit(Request(rid=rid, prompt=p, max_new_tokens=12))
+        with torch.no_grad():
+            eng.run_until_drained()
+        streams = {r.rid: list(r.out_tokens) for r in eng.completed}
+        stats = eng.step_stats()
+        del eng
+        return streams, stats
+
+    def check(label, got, want, sp):
+        same = 0
+        for rid in sorted(want):
+            g, w = got[rid], want[rid]
+            if g == w:
+                same += 1
+                continue
+            j = next((i for i, (a, b) in enumerate(zip(g, w)) if a != b),
+                     min(len(g), len(w)))
+            margin = (top2_margin(cpu_t, prompts[rid], w[:j])
+                      if sp.method == "greedy"
+                      else sample_margin(cpu_t, prompts[rid], w[:j], rid, sp))
+            log(f"[{tag}] {label}: rid {rid} diverges at token {j}, top-2 "
+                f"margin {margin:.3e}")
+            if margin > PARITY_TOL:
+                raise AssertionError(f"[{tag}] {label}: rid {rid} differs at "
+                                     f"token {j} with margin {margin:.3e} > "
+                                     f"{PARITY_TOL}")
+        log(f"[{tag}] {label}: {same}/{len(want)} streams equal")
+
+    for paged in (False, True):
+        where = "pool" if paged else "grid"
+        t0 = time.perf_counter()
+        cpu_g, cpu_gs = run("cpu", paged, SamplingParams())
+        card_g, card_gs = run(dev, paged, SamplingParams())
+        card_plain, _ = run(dev, paged, SamplingParams(), spec=None)
+        check(f"{where} greedy spec, card vs CPU", card_g, cpu_g,
+              SamplingParams())
+        check(f"{where} greedy spec vs target-only, card", card_g, card_plain,
+              SamplingParams())
+        card_self, self_stats = run(dev, paged, SamplingParams(), spec="self")
+        check(f"{where} greedy self-draft spec vs target-only, card",
+              card_self, card_plain, SamplingParams())
+        if self_stats["draft_acceptance"] < 0.99:
+            raise AssertionError(f"[{tag}] {where}: the self-draft accepted "
+                                 f"{self_stats['draft_acceptance']:.4f}")
+        cpu_s, _ = run("cpu", paged, top_k)
+        card_s, card_ss = run(dev, paged, top_k)
+        check(f"{where} top-k spec, card vs CPU", card_s, cpu_s, top_k)
+        log(f"[{tag}] {where}: greedy accepted_tokens_mean card "
+            f"{card_gs['accepted_tokens_mean']:.4f} cpu "
+            f"{cpu_gs['accepted_tokens_mean']:.4f}, draft_acceptance card "
+            f"{card_gs['draft_acceptance']:.4f} cpu "
+            f"{cpu_gs['draft_acceptance']:.4f}; self-draft "
+            f"accepted_tokens_mean {self_stats['accepted_tokens_mean']:.4f}; "
+            f"top-k accepted_tokens_mean {card_ss['accepted_tokens_mean']:.4f}; "
+            f"{time.perf_counter() - t0:.1f} s")
+    del cpu_t, cpu_d
+    torch.cuda.empty_cache()
+
+
 # kernels that must compile without spills: every flash_attention
 # instance (flash_split_kernel, flash_tc_kernel, flash_terms_kernel),
 # both rglru_scan routes,
@@ -2416,7 +3016,7 @@ def kernel_table(entries: dict, counts: dict) -> list:
                "shape": e["shape"]}
         for key in ("yardstick_ms", "yardstick", "library_error", "hybrid",
                     "ssm", "d128", "fp32", "n1", "prefix", "own", "pool",
-                    "variant",
+                    "variant", "multi_query",
                     "every_length", "shapes", "ptxas", "device_ms",
                     "library_device_ms", "yardstick_device_ms", "bit_stable"):
             if key in e:
@@ -2432,6 +3032,7 @@ def main() -> int:
               file=sys.stderr)
         return 1
     from repro_torch.kernels import build
+    started = time.perf_counter()
 
     # ---- phase 1: card identity
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -2458,7 +3059,7 @@ def main() -> int:
     # ---- phase 4 and 4b: the serving paths, each with the launch
     # counters set to 0 just before it and read just after
     counts = {}
-    counts["fp"], dense_streams = serve_full_width()
+    counts["fp"], dense_streams, dense_stats = serve_full_width()
     counts["int8"] = serve_full_width(int8=True)[0]
     # ---- phase 4c: the hybrid path (recurrentgemma-2b)
     counts["hybrid"] = serve_hybrid()
@@ -2467,6 +3068,12 @@ def main() -> int:
     # ---- phase 4e and 4f: the paged pool with prefix reuse, bf16 and INT8
     counts["paged"] = serve_paged(dense_streams)
     counts["paged-int8"] = serve_paged(dense_streams, int8=True)
+    # ---- phase 4h: speculative serving, grid and pool (k = 4)
+    counts.update(serve_spec(dense_streams, dense_stats))
+    # ---- phase 4i: sampled serving (top-k, temperature) on the grid
+    sampled = serve_sampled(dense_stats)
+    counts["sampled"] = {name: sum(c[name] for c in sampled.values())
+                         for name in counts["fp"]}
     # ---- phase 4g: the captured step against the eager step on every
     # path, and a trace of steady steps, graph and eager
     graph_vs_eager()
@@ -2480,8 +3087,11 @@ def main() -> int:
     parity_xlstm(dev)
     # ---- phase 5e: the paged pool (fp and int8), depth cut to 4 layers
     parity_paged(dev)
+    # ---- phase 5f: speculative and sampled streams, depth cut to 4 layers
+    parity_spec(dev)
 
     kernels = kernel_table(entries, counts)
+    log(f"[total] {time.perf_counter() - started:.1f} s, the build included")
     log(smi)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

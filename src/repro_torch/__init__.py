@@ -12,7 +12,7 @@ is easy to find:
              wrappers, launch counters and plain PyTorch versions
   models/    the dense and hybrid (RG-LRU + local attention)
              decoder-only LM (layers, blocks, recurrent, lm, registry)
-  serving/   ServeConfig, DecodeState, greedy sampler, scheduler, engine
+  serving/   ServeConfig, DecodeState, sampler, scheduler, engine
   launch/    the serving CLI
   quant.py   INT8 serving: QTensor, quantize / quantize_kv,
              quantize_params, QuantConfig, INT8_SERVE

@@ -15,6 +15,8 @@ sides.
 
 The tree's leaves may be numpy arrays or anything ``numpy.asarray``
 converts (a JAX array does, without importing JAX here).
+:func:`from_jax_spec_params` carries the ``{"target", "draft"}`` pair of
+trees that the reference's speculative engine takes.
 """
 from __future__ import annotations
 
@@ -86,3 +88,17 @@ def from_jax_params(tree: Dict[str, Any], arch: ArchConfig,
                                  f"{tuple(p.shape)}")
             p.copy_(torch.from_numpy(arr).to(device=dev, dtype=p.dtype))
     return model
+
+
+def from_jax_spec_params(trees: Dict[str, Any], arch: ArchConfig,
+                         draft: ArchConfig, device: DeviceLike = None,
+                         dtype: Optional[torch.dtype] = None) -> Dict[str, LM]:
+    """The reference's speculative params ``{"target": tree, "draft":
+    tree}`` as ``{"target": LM, "draft": LM}`` (the pair
+    ``ServingEngine`` takes with ``ServeConfig(spec=...)``); each tree
+    as :func:`from_jax_params` carries it."""
+    if set(trees) != {"target", "draft"}:
+        raise KeyError(f"expected the keys 'target' and 'draft', got "
+                       f"{sorted(trees)}")
+    return {"target": from_jax_params(trees["target"], arch, device, dtype),
+            "draft": from_jax_params(trees["draft"], draft, device, dtype)}

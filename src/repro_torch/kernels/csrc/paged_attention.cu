@@ -1,7 +1,10 @@
-// paged_attention: single-token decode attention through a page table.
-// q [B, H, D]; kp, vp [P, ps, G, D] page pools; page_table [B, M] int32;
-// lengths [B] int32 valid kv count per row. Head h reads kv group
-// h / (H / G). Returns o [B, H, D].
+// paged_attention: decode attention through a page table.
+// q [B, S, H, D] (S query positions per row; S = 1 is one-token decode);
+// kp, vp [P, ps, G, D] page pools; page_table [B, M] int32; lengths [B]
+// int32 valid kv count of the row's first query. Query j of row b sees the
+// positions below min(lengths[b] + j, M * ps) (causal over the S fresh
+// positions p..p+S-1, lengths = p + 1). Head h reads kv group h / (H / G).
+// Returns o [B, S, H, D].
 //
 // The fp body (paged_attention_launch, paged_split_kernel) replaces the
 // TPU kernel repro/kernels/paged_attention.py: paged_attention /
@@ -35,6 +38,18 @@
 //   tiles are counted in positions, not pages, so the dense slot grid
 //   (one page of max_len per row) and a pool of 64-token pages sum the
 //   same values in the same order.
+//
+// S > 1 (the speculative verify of k + 1 positions) is the same kernel:
+// a block carries all S * H / G query rows of its group, query row r
+// being position r / (H / G) and head g * H / G + r % (H / G), so each
+// K/V tile is staged once for every query of every head. Each query row
+// keeps its own limit, its own online-softmax state (m, l, acc) and its
+// own chunk merge; the chunk count and the early exit follow the last
+// query's limit. A query row with no position in a chunk (its limit
+// lies before the chunk) leaves m = -1e30, l = 0, acc = 0 there, which
+// merges with weight exactly 0: chunk 0 holds position 0 for every
+// query. At S = 1 every query row's limit is the row's length and the
+// arithmetic is the one-token kernel's, operation for operation.
 //
 // A row's length must lie in [1, M * ps] and its table entries in
 // [0, P): the kernel traps otherwise (for the dense slot grid that is the
@@ -183,14 +198,16 @@ __device__ __forceinline__ void reduce_scatter(float (&v)[NV], int lane,
 }
 
 // floats of shared memory ahead of the K/V stages (rounded to 16 bytes)
-__host__ __device__ inline int head_floats(int rep, int D, int tp) {
-  const int rep4 = (rep + HG - 1) / HG * HG;
-  return (tp * rep4 + rep4 * D + rep * 2 * THREADS + 3 * rep + 2 * tp + 3) / 4 * 4;
+// for R query rows
+__host__ __device__ inline int head_floats(int R, int D, int tp) {
+  const int R4 = (R + HG - 1) / HG * HG;
+  return (tp * R4 + R4 * D + R * 2 * THREADS + 3 * R + 2 * tp + 3) / 4 * 4;
 }
 
 // Block (chunk c, kv group g, row b): the positions [c * chunk,
-// min(len, (c + 1) * chunk)) of row b for the rep = H / G query heads of
-// group g. Single-chunk rows write o directly; longer rows leave (m, l,
+// min(len + S - 1, (c + 1) * chunk)) of row b for the R = S * H / G query
+// rows of group g (each query row masked at its own limit). Single-chunk
+// rows write o directly; longer rows leave (m, l,
 // acc) per chunk in ws and the last chunk to arrive merges them in chunk
 // order. T: q and o; KV: the pools, T or int8_t (then ksc / vsc are the
 // f32 scale pools [P, ps, G, 1], dequantised at the shared-memory read).
@@ -200,8 +217,8 @@ paged_split_kernel(const T* __restrict__ q, const KV* __restrict__ kp,
                    const KV* __restrict__ vp, const float* __restrict__ ksc,
                    const float* __restrict__ vsc, const int* __restrict__ table,
                    const int* __restrict__ lengths, T* __restrict__ o,
-                   float* __restrict__ ws, int* __restrict__ counters, int H,
-                   int G, int ps, int M, int P, int chunk, float scale) {
+                   float* __restrict__ ws, int* __restrict__ counters, int S,
+                   int H, int G, int ps, int M, int P, int chunk, float scale) {
   constexpr bool Q8 = sizeof(KV) == 1;
   constexpr int TP = tile_positions<KV, D>();
   constexpr int LP = D < 32 ? D : 32;      // lanes per position (q.k)
@@ -220,35 +237,41 @@ paged_split_kernel(const T* __restrict__ q, const KV* __restrict__ kp,
   const long long b = blockIdx.z;
   const int NC = gridDim.x;
   const int rep = H / G;
-  const int rep4 = (rep + HG - 1) / HG * HG;
+  const int R = S * rep;  // query rows of the block: (position, head)
+  const int R4 = (R + HG - 1) / HG * HG;
   const int len = lengths[b];
-  if (len < 1 || len > M * ps) __trap();
-  const int nc = (len + chunk - 1) / chunk;
+  const int t_max = M * ps;
+  if (len < 1 || len > t_max) __trap();
+  const int len_hi = min(len + S - 1, t_max);  // the last query's limit
+  const int nc = (len_hi + chunk - 1) / chunk;
   if (c >= nc) return;  // past the row's length: nothing to read
-  const int t_begin = c * chunk, t_end = min(len, t_begin + chunk);
+  const int t_begin = c * chunk, t_end = min(len_hi, t_begin + chunk);
   const int* trow = table + b * M;
+  // query row r: its element offset in q and o, and its limit
+  auto qrow = [&](int r) {
+    return ((b * S + r / rep) * H + (long long)g * rep + r % rep) * D;
+  };
+  auto limit = [&](int r) { return min(len + r / rep, t_max); };
 
   extern __shared__ __align__(16) float smem[];
-  float* s_s = smem;                  // [TP][rep4]: scores, then p
-  float* q_s = s_s + TP * rep4;       // [rep4][D], scaled (zero past rep)
-  float* acc_s = q_s + rep4 * D;      // [rep][STRIPES][D]
-  float* m_s = acc_s + rep * 2 * THREADS;
-  float* l_s = m_s + rep;
-  float* al_s = l_s + rep;
+  float* s_s = smem;                  // [TP][R4]: scores, then p
+  float* q_s = s_s + TP * R4;       // [R4][D], scaled (zero past R)
+  float* acc_s = q_s + R4 * D;      // [R][STRIPES][D]
+  float* m_s = acc_s + R * 2 * THREADS;
+  float* l_s = m_s + R;
+  float* al_s = l_s + R;
   long long* rows_s = reinterpret_cast<long long*>(
-      smem + (TP * rep4 + rep4 * D + rep * 2 * THREADS + 3 * rep + 1) / 2 * 2);
-  KV* kv = reinterpret_cast<KV*>(smem + head_floats(rep, D, TP));
+      smem + (TP * R4 + R4 * D + R * 2 * THREADS + 3 * R + 1) / 2 * 2);
+  KV* kv = reinterpret_cast<KV*>(smem + head_floats(R, D, TP));
   // stage st: K at kv + st * 2 * TP * D, V right after it; int8 pools:
   // then the scales, stage st's K scales at sc + st * 2 * TP, V's after
   float* sc = reinterpret_cast<float*>(kv + 4 * TP * D);
 
-  for (int i = tid; i < rep4 * D; i += THREADS)
-    q_s[i] = i < rep * D
-                 ? to_f32(q[(b * H + (long long)g * rep) * D + i]) * scale
-                 : 0.f;
-  for (int i = tid; i < TP * rep4; i += THREADS) s_s[i] = 0.f;
-  for (int i = tid; i < rep * STRIPES * D; i += THREADS) acc_s[i] = 0.f;
-  for (int r = tid; r < rep; r += THREADS) {
+  for (int i = tid; i < R4 * D; i += THREADS)
+    q_s[i] = i < R * D ? to_f32(q[qrow(i / D) + i % D]) * scale : 0.f;
+  for (int i = tid; i < TP * R4; i += THREADS) s_s[i] = 0.f;
+  for (int i = tid; i < R * STRIPES * D; i += THREADS) acc_s[i] = 0.f;
+  for (int r = tid; r < R; r += THREADS) {
     m_s[r] = NEG_INF;
     l_s[r] = 0.f;
   }
@@ -305,7 +328,8 @@ paged_split_kernel(const T* __restrict__ q, const KV* __restrict__ kp,
       cp_async_wait<0>();
     }
     __syncthreads();
-    const int n = min(TP, t_end - (t_begin + it * TP));
+    const int t0 = t_begin + it * TP;
+    const int n = min(TP, t_end - t0);
     const KV* ks = kv + (it & 1) * 2 * TP * D;
     const KV* vs = ks + TP * D;
     const float* ks_sc = sc + (it & 1) * 2 * TP;  // int8 pools only
@@ -330,7 +354,7 @@ paged_split_kernel(const T* __restrict__ q, const KV* __restrict__ kp,
         for (int e = 0; e < E; ++e) kf[j][e] = 0.f;
       }
     }
-    for (int r0 = 0; r0 < rep; r0 += HG) {
+    for (int r0 = 0; r0 < R; r0 += HG) {
       float dots[NV];  // [HG][NPW]
 #pragma unroll
       for (int hh = 0; hh < HG; ++hh) {
@@ -350,24 +374,28 @@ paged_split_kernel(const T* __restrict__ q, const KV* __restrict__ kp,
       for (int i = 0; i < (NV > LP ? NV / LP : 1); ++i) {
         const int jj = first + i, hh = jj / NPW, j = jj % NPW;
         const int p = (j * WARPS + warp) * PPW + pp;
-        if (r0 + hh < rep) s_s[p * rep4 + r0 + hh] = p < n ? dots[i] : NEG_INF;
+        if (r0 + hh < R)
+          s_s[p * R4 + r0 + hh] =
+              p < min(n, limit(r0 + hh) - t0) ? dots[i] : NEG_INF;
       }
     }
     __syncthreads();
 
-    // online softmax, one warp per head
-    for (int r = warp; r < rep; r += WARPS) {
+    // online softmax, one warp per query row; positions at or past the
+    // row's limit weigh 0 (a row may have none in this tile)
+    for (int r = warp; r < R; r += WARPS) {
+      const int nr = min(n, limit(r) - t0);
       float tmax = NEG_INF;
-      for (int p = lane; p < n; p += 32) tmax = fmaxf(tmax, s_s[p * rep4 + r]);
+      for (int p = lane; p < nr; p += 32) tmax = fmaxf(tmax, s_s[p * R4 + r]);
 #pragma unroll
       for (int off = 16; off > 0; off >>= 1)
         tmax = fmaxf(tmax, __shfl_xor_sync(0xffffffffu, tmax, off));
       const float m_old = m_s[r];
-      const float m_new = fmaxf(m_old, tmax);  // n >= 1: a real score
+      const float m_new = fmaxf(m_old, tmax);
       float sum = 0.f;
       for (int p = lane; p < TP; p += 32) {
-        const float e = p < n ? expf(s_s[p * rep4 + r] - m_new) : 0.f;
-        s_s[p * rep4 + r] = e;
+        const float e = p < nr ? expf(s_s[p * R4 + r] - m_new) : 0.f;
+        s_s[p * R4 + r] = e;
         sum += e;
       }
 #pragma unroll
@@ -382,8 +410,9 @@ paged_split_kernel(const T* __restrict__ q, const KV* __restrict__ kp,
     }
     __syncthreads();
 
-    // p.v: thread (stripe, DPT dims), HG heads per pass over its positions
-    for (int r0 = 0; r0 < rep; r0 += HG) {
+    // p.v: thread (stripe, DPT dims), HG query rows per pass over its
+    // positions
+    for (int r0 = 0; r0 < R; r0 += HG) {
       float t[HG][DPT];
 #pragma unroll
       for (int i = 0; i < HG; ++i)
@@ -397,7 +426,7 @@ paged_split_kernel(const T* __restrict__ q, const KV* __restrict__ kp,
 #pragma unroll
           for (int e = 0; e < DPT; ++e) v[e] *= sv;
         }
-        const float4 pr = *reinterpret_cast<const float4*>(s_s + p * rep4 + r0);
+        const float4 pr = *reinterpret_cast<const float4*>(s_s + p * R4 + r0);
         const float pv[HG] = {pr.x, pr.y, pr.z, pr.w};
 #pragma unroll
         for (int i = 0; i < HG; ++i)
@@ -406,7 +435,7 @@ paged_split_kernel(const T* __restrict__ q, const KV* __restrict__ kp,
       }
 #pragma unroll
       for (int i = 0; i < HG; ++i) {
-        if (r0 + i >= rep) break;
+        if (r0 + i >= R) break;
 #pragma unroll
         for (int e = 0; e < DPT; ++e) {
           float* a = acc_s + ((r0 + i) * STRIPES + stripe) * D + dim + e;
@@ -417,12 +446,12 @@ paged_split_kernel(const T* __restrict__ q, const KV* __restrict__ kp,
   }
 
   // this chunk's (m, l, acc), stripes summed in order; the workspace holds
-  // acc [B][G][NC][rep][D], then (m, l) [B][G][NC][rep][2]
+  // acc [B][G][NC][R][D], then (m, l) [B][G][NC][R][2]
   constexpr int VO = D % 4 == 0 ? 4 : 1;  // dims per thread below
   __syncthreads();
   const long long slot = (b * G + g) * NC + c;  // this chunk's workspace row
-  float* ws_ml = ws + (long long)gridDim.z * G * NC * rep * D;
-  for (int i = tid; i < rep * D / VO; i += THREADS) {
+  float* ws_ml = ws + (long long)gridDim.z * G * NC * R * D;
+  for (int i = tid; i < R * D / VO; i += THREADS) {
     const int r = i / (D / VO), d = i % (D / VO) * VO;
     float a[VO];
 #pragma unroll
@@ -434,21 +463,20 @@ paged_split_kernel(const T* __restrict__ q, const KV* __restrict__ kp,
     if (nc == 1) {
       const float l = fmaxf(l_s[r], 1e-30f);
 #pragma unroll
-      for (int e = 0; e < VO; ++e)
-        store(o + (b * H + (long long)g * rep + r) * D + d + e, a[e] / l);
+      for (int e = 0; e < VO; ++e) store(o + qrow(r) + d + e, a[e] / l);
     } else {
 #pragma unroll
-      for (int e = 0; e < VO; ++e) ws[(slot * rep + r) * D + d + e] = a[e];
+      for (int e = 0; e < VO; ++e) ws[(slot * R + r) * D + d + e] = a[e];
     }
   }
   if (nc == 1) return;
-  for (int r = tid; r < rep; r += THREADS) {
-    ws_ml[(slot * rep + r) * 2] = m_s[r];
-    ws_ml[(slot * rep + r) * 2 + 1] = l_s[r];
+  for (int r = tid; r < R; r += THREADS) {
+    ws_ml[(slot * R + r) * 2] = m_s[r];
+    ws_ml[(slot * R + r) * 2 + 1] = l_s[r];
   }
 
   // the last chunk of the row to arrive merges chunks 0..nc-1 in order:
-  // per head the chunk weights exp(m_c - max m) and the merged l, then
+  // per query row the chunk weights exp(m_c - max m) and the merged l, then
   // every output as the weighted sum of the chunks' acc
   __shared__ int is_last;
   __threadfence();
@@ -458,23 +486,23 @@ paged_split_kernel(const T* __restrict__ q, const KV* __restrict__ kp,
   if (!is_last) return;
   __threadfence();
   const long long row0 = (b * G + g) * NC;
-  float* wm_s = sc + (Q8 ? 4 * TP : 0);  // [rep][nc], l [rep]
-  for (int r = tid; r < rep; r += THREADS) {
+  float* wm_s = sc + (Q8 ? 4 * TP : 0);  // [R][nc], l [R]
+  for (int r = tid; r < R; r += THREADS) {
     float mx = NEG_INF;
     for (int cc = 0; cc < nc; ++cc)
-      mx = fmaxf(mx, __ldcg(ws_ml + ((row0 + cc) * rep + r) * 2));
+      mx = fmaxf(mx, __ldcg(ws_ml + ((row0 + cc) * R + r) * 2));
     float l = 0.f;
     for (int cc = 0; cc < nc; ++cc) {
-      const float* e = ws_ml + ((row0 + cc) * rep + r) * 2;
+      const float* e = ws_ml + ((row0 + cc) * R + r) * 2;
       const float wgt = expf(__ldcg(e) - mx);
       wm_s[r * nc + cc] = wgt;
       l = fmaf(wgt, __ldcg(e + 1), l);
     }
-    wm_s[rep * nc + r] = l;
+    wm_s[R * nc + r] = l;
   }
   __syncthreads();
   constexpr int BATCH = 8;  // chunk loads in flight per output vector
-  for (int i = tid; i < rep * D / VO; i += THREADS) {
+  for (int i = tid; i < R * D / VO; i += THREADS) {
     const int r = i / (D / VO), d = i % (D / VO) * VO;
     float a[VO];
 #pragma unroll
@@ -483,7 +511,7 @@ paged_split_kernel(const T* __restrict__ q, const KV* __restrict__ kp,
       float v[BATCH][VO];
 #pragma unroll
       for (int j = 0; j < BATCH; ++j) {
-        const float* src = ws + ((row0 + c0 + j) * rep + r) * D + d;
+        const float* src = ws + ((row0 + c0 + j) * R + r) * D + d;
         if (c0 + j >= nc) {
 #pragma unroll
           for (int e = 0; e < VO; ++e) v[j][e] = 0.f;
@@ -505,10 +533,9 @@ paged_split_kernel(const T* __restrict__ q, const KV* __restrict__ kp,
         for (int e = 0; e < VO; ++e) a[e] = fmaf(wgt, v[j][e], a[e]);
       }
     }
-    const float l = fmaxf(wm_s[rep * nc + r], 1e-30f);
+    const float l = fmaxf(wm_s[R * nc + r], 1e-30f);
 #pragma unroll
-    for (int e = 0; e < VO; ++e)
-      store(o + (b * H + (long long)g * rep + r) * D + d + e, a[e] / l);
+    for (int e = 0; e < VO; ++e) store(o + qrow(r) + d + e, a[e] / l);
   }
   if (tid == 0) counters[b * G + g] = 0;
 }
@@ -516,28 +543,28 @@ paged_split_kernel(const T* __restrict__ q, const KV* __restrict__ kp,
 }  // namespace split
 
 // head dims 1, 2, 4, ..., 256
-bool bad_geometry(int B, int H, int G, int D, int ps, int M, int P) {
-  return B <= 0 || H <= 0 || G <= 0 || H % G != 0 || D <= 0 || D > 256 ||
-         (D & (D - 1)) != 0 || ps <= 0 || M <= 0 || P <= 0;
+bool bad_geometry(int B, int S, int H, int G, int D, int ps, int M, int P) {
+  return B <= 0 || S <= 0 || H <= 0 || G <= 0 || H % G != 0 || D <= 0 ||
+         D > 256 || (D & (D - 1)) != 0 || ps <= 0 || M <= 0 || P <= 0;
 }
 
 template <typename T, typename KV, int D>
 cudaError_t launch_split_d(const void* q, const void* kp, const void* vp,
                            const void* ks, const void* vs, const void* table,
                            const void* lengths, void* o, void* ws,
-                           void* counters, int B, int H, int G, int ps, int M,
-                           int P, int chunk, float scale,
+                           void* counters, int B, int S, int H, int G, int ps,
+                           int M, int P, int chunk, float scale,
                            cudaStream_t stream) {
   constexpr int TP = split::tile_positions<KV, D>();
-  const int rep = H / G;
+  const int R = S * (H / G);  // query rows of a block
   if (chunk <= 0) return cudaErrorInvalidValue;
   const int nc = (M * ps + chunk - 1) / chunk;
   // head, the two K/V stages (and their scales), then the merge's chunk
   // weights
-  const size_t bytes = split::head_floats(rep, D, TP) * sizeof(float) +
+  const size_t bytes = split::head_floats(R, D, TP) * sizeof(float) +
                        (size_t)2 * 2 * TP * D * sizeof(KV) +
                        (sizeof(KV) == 1 ? (size_t)2 * 2 * TP * sizeof(float) : 0) +
-                       (size_t)rep * (nc + 1) * sizeof(float);
+                       (size_t)R * (nc + 1) * sizeof(float);
   if (bytes > 227 * 1024) return cudaErrorInvalidValue;
   static size_t allowed = 48 * 1024;  // raised as larger calls come
   if (bytes > allowed) {
@@ -553,8 +580,8 @@ cudaError_t launch_split_d(const void* q, const void* kp, const void* vp,
           static_cast<const KV*>(vp), static_cast<const float*>(ks),
           static_cast<const float*>(vs), static_cast<const int*>(table),
           static_cast<const int*>(lengths), static_cast<T*>(o),
-          static_cast<float*>(ws), static_cast<int*>(counters), H, G, ps, M,
-          P, chunk, scale);
+          static_cast<float*>(ws), static_cast<int*>(counters), S, H, G, ps,
+          M, P, chunk, scale);
   return cudaSuccess;
 }
 
@@ -562,14 +589,14 @@ template <typename T, typename KV>
 cudaError_t launch_split(const void* q, const void* kp, const void* vp,
                          const void* ks, const void* vs, const void* table,
                          const void* lengths, void* o, void* ws,
-                         void* counters, int B, int H, int G, int D, int ps,
-                         int M, int P, int chunk, float scale,
+                         void* counters, int B, int S, int H, int G, int D,
+                         int ps, int M, int P, int chunk, float scale,
                          cudaStream_t s) {
 #define PA_SPLIT_D(DD)                                                      \
   case DD:                                                                  \
     return launch_split_d<T, KV, DD>(q, kp, vp, ks, vs, table, lengths, o,  \
-                                     ws, counters, B, H, G, ps, M, P, chunk, \
-                                     scale, s);
+                                     ws, counters, B, S, H, G, ps, M, P,    \
+                                     chunk, scale, s);
   switch (D) {
     PA_SPLIT_D(1)
     PA_SPLIT_D(2)
@@ -589,28 +616,29 @@ cudaError_t launch_split(const void* q, const void* kp, const void* vp,
 }  // namespace
 
 // The fp body. dtype: 0 = float32, 1 = bfloat16 (q, o and the pools); D a
-// power of two up to 256; H a multiple of G; all tensors contiguous. scale
-// = 1/sqrt(D); chunk: positions per block. ws holds B * G * ceil(M * ps /
-// chunk) * (H / G) * (D + 2) floats and counters B * G ints, zero at the
-// first call (the kernel leaves them at zero).
-// Returns the cudaError_t of the launch (0 = success).
+// power of two up to 256; H a multiple of G; S query positions per row;
+// all tensors contiguous. scale = 1/sqrt(D); chunk: positions per block.
+// ws holds B * G * ceil(M * ps / chunk) * S * (H / G) * (D + 2) floats and
+// counters B * G ints, zero at the first call (the kernel leaves them at
+// zero). Returns the cudaError_t of the launch (0 = success).
 extern "C" int paged_attention_launch(const void* q, const void* kp,
                                       const void* vp, const void* table,
                                       const void* lengths, void* o, void* ws,
-                                      void* counters, int B, int H, int G,
-                                      int D, int ps, int M, int P, int chunk,
-                                      float scale, int dtype, void* stream) {
-  if (bad_geometry(B, H, G, D, ps, M, P)) return (int)cudaErrorInvalidValue;
+                                      void* counters, int B, int S, int H,
+                                      int G, int D, int ps, int M, int P,
+                                      int chunk, float scale, int dtype,
+                                      void* stream) {
+  if (bad_geometry(B, S, H, G, D, ps, M, P)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t e;
   if (dtype == 0) {
     e = launch_split<float, float>(q, kp, vp, nullptr, nullptr, table,
-                                   lengths, o, ws, counters, B, H, G, D, ps,
-                                   M, P, chunk, scale, s);
+                                   lengths, o, ws, counters, B, S, H, G, D,
+                                   ps, M, P, chunk, scale, s);
   } else if (dtype == 1) {
     e = launch_split<__nv_bfloat16, __nv_bfloat16>(
-        q, kp, vp, nullptr, nullptr, table, lengths, o, ws, counters, B, H, G,
-        D, ps, M, P, chunk, scale, s);
+        q, kp, vp, nullptr, nullptr, table, lengths, o, ws, counters, B, S, H,
+        G, D, ps, M, P, chunk, scale, s);
   } else {
     return (int)cudaErrorInvalidValue;
   }
@@ -619,8 +647,9 @@ extern "C" int paged_attention_launch(const void* q, const void* kp,
 }
 
 // The int8 body: kp, vp int8 [P, ps, G, D]; ks, vs f32 [P, ps, G, 1];
-// dtype is q's and o's (0 = float32, 1 = bfloat16); the rest as above,
-// with a workspace and counters of its own.
+// dtype is q's and o's (0 = float32, 1 = bfloat16); one query position
+// per row (S = 1: the wrapper takes no S > 1 for int8 pools); the rest as
+// above, with a workspace and counters of its own.
 extern "C" int paged_attention_q8_launch(const void* q, const void* kp,
                                          const void* vp, const void* ks,
                                          const void* vs, const void* table,
@@ -629,17 +658,17 @@ extern "C" int paged_attention_q8_launch(const void* q, const void* kp,
                                          int H, int G, int D, int ps, int M,
                                          int P, int chunk, float scale,
                                          int dtype, void* stream) {
-  if (bad_geometry(B, H, G, D, ps, M, P)) return (int)cudaErrorInvalidValue;
+  if (bad_geometry(B, 1, H, G, D, ps, M, P)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t e;
   if (dtype == 0) {
     e = launch_split<float, int8_t>(q, kp, vp, ks, vs, table, lengths, o, ws,
-                                    counters, B, H, G, D, ps, M, P, chunk,
+                                    counters, B, 1, H, G, D, ps, M, P, chunk,
                                     scale, s);
   } else if (dtype == 1) {
     e = launch_split<__nv_bfloat16, int8_t>(q, kp, vp, ks, vs, table, lengths,
-                                            o, ws, counters, B, H, G, D, ps, M,
-                                            P, chunk, scale, s);
+                                            o, ws, counters, B, 1, H, G, D, ps,
+                                            M, P, chunk, scale, s);
   } else {
     return (int)cudaErrorInvalidValue;
   }

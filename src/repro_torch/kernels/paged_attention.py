@@ -1,4 +1,4 @@
-"""``paged_attention``: single-token decode attention through a page table.
+"""``paged_attention``: decode attention through a page table.
 
 Replaces the TPU kernel ``repro/kernels/paged_attention.py``
 (``paged_attention`` / ``_paged_kernel``, fp body ``_paged_body``) with
@@ -6,6 +6,16 @@ the hand-written CUDA kernel ``csrc/paged_attention.cu``. q ``[B, H,
 D]``, page pools kp/vp ``[P, ps, G, D]``, ``page_table [B, M]`` int32,
 ``lengths [B]`` int32; head h reads group ``h // (H/G)``; positions at
 or past ``lengths[b]`` are masked; online softmax across the row.
+
+The multi-query form takes q ``[B, S, H, D]``: S fresh positions per row
+(the speculative verify of k + 1 positions), ``lengths [B]`` the first
+query's, and query j sees the positions below ``min(lengths[b] + j,
+M·ps)``, the reference's causal mask over the fresh positions. It is the
+same kernel: a block carries the S·H/G query rows of its group, so each
+K/V tile is staged once for all S queries (S launches of the one-query
+form would read every row S times), each query row with its own limit,
+softmax state and chunk merge. S = 1 with a 3-D q is the one-token form
+and its arithmetic unchanged. The int8 body takes one query per row.
 
 Bound on the H100: the bytes of the valid K/V rows (4·D flops per
 4·D bytes in bf16, per query head of a group). The fp body runs one block
@@ -57,7 +67,7 @@ from repro_torch.kernels.ref import paged_attention_ref as plain
 
 _VP, _I = ctypes.c_void_p, ctypes.c_int
 _GEOMETRY = (_I, _I, _I, _I, _I, _I, _I, ctypes.c_float, _I)
-_ARGTYPES = (_VP,) * 8 + _GEOMETRY[:7] + (_I,) + _GEOMETRY[7:]
+_ARGTYPES = (_VP,) * 8 + (_I,) + _GEOMETRY[:7] + (_I,) + _GEOMETRY[7:]
 _ARGTYPES_Q8 = (_VP,) * 10 + _GEOMETRY[:7] + (_I,) + _GEOMETRY[7:]
 
 #: positions per block of both bodies (their flash-decoding split): two
@@ -78,16 +88,18 @@ def paged_attention(q: torch.Tensor, kp: torch.Tensor, vp: torch.Tensor,
                     page_table: torch.Tensor, lengths: torch.Tensor, *,
                     k_scale: torch.Tensor = None,
                     v_scale: torch.Tensor = None) -> torch.Tensor:
-    """q [B, H, D]; kp, vp [P, ps, G, D]; page_table [B, M] int32;
-    lengths [B] int32; optional ``k_scale``/``v_scale`` [P, ps, G, 1]
-    f32 for int8 pools. Returns [B, H, D] in ``q.dtype``."""
+    """q [B, H, D] (or [B, S, H, D], S query positions per row); kp, vp
+    [P, ps, G, D]; page_table [B, M] int32; lengths [B] int32 (of the
+    first query); optional ``k_scale``/``v_scale`` [P, ps, G, 1] f32 for
+    int8 pools (one query per row). Returns q's shape in ``q.dtype``."""
     if (k_scale is None) != (v_scale is None):
         raise ValueError("paged_attention: pass both k_scale and v_scale, "
                          "or neither")
-    if q.dim() != 3 or kp.dim() != 4 or kp.shape != vp.shape:
+    if q.dim() not in (3, 4) or kp.dim() != 4 or kp.shape != vp.shape:
         raise ValueError(f"paged_attention: bad shapes q {tuple(q.shape)} "
                          f"kp {tuple(kp.shape)} vp {tuple(vp.shape)}")
-    b, h, d = q.shape
+    b, h, d = q.shape[0], q.shape[-2], q.shape[-1]
+    s = q.shape[1] if q.dim() == 4 else 1
     n_pages, ps, g, d2 = kp.shape
     if d2 != d or h % g != 0:
         raise ValueError(f"paged_attention: q {tuple(q.shape)} does not "
@@ -99,6 +111,9 @@ def paged_attention(q: torch.Tensor, kp: torch.Tensor, vp: torch.Tensor,
     if page_table.dtype != torch.int32 or lengths.dtype != torch.int32:
         raise TypeError("paged_attention: page_table and lengths must be int32")
     scales = () if k_scale is None else (k_scale, v_scale)
+    if scales and q.dim() == 4:
+        raise NotImplementedError("paged_attention: the int8 body takes one "
+                                  "query position per row (q [B, H, D])")
     if scales:
         want = (n_pages, ps, g, 1)
         if tuple(k_scale.shape) != want or tuple(v_scale.shape) != want:
@@ -116,6 +131,8 @@ def paged_attention(q: torch.Tensor, kp: torch.Tensor, vp: torch.Tensor,
         return plain(q, kp, vp, page_table, lengths, *scales)
     if scales:
         return paged_attention_q8(q, kp, vp, *scales, page_table, lengths)
+    if s < 1:
+        raise ValueError("paged_attention: no query position")
     check_cuda("paged_attention", q, kp, vp)
     if page_table.device != q.device or lengths.device != q.device:
         raise ValueError("paged_attention: page_table / lengths on another "
@@ -127,11 +144,11 @@ def paged_attention(q: torch.Tensor, kp: torch.Tensor, vp: torch.Tensor,
         return out
     chunks, _ = chunk_plan(m, ps)
     ws, counters = scratch("paged_attention", q.device,
-                           b * h * chunks * (d + 2), b * g)
+                           b * s * h * chunks * (d + 2), b * g)
     launch("paged_attention", _ARGTYPES, q.data_ptr(), kp.data_ptr(),
            vp.data_ptr(), page_table.data_ptr(), lengths.data_ptr(),
-           out.data_ptr(), ws.data_ptr(), counters.data_ptr(), b, h, g, d,
-           ps, m, n_pages, CHUNK, 1.0 / math.sqrt(d), DTYPE_CODES[q.dtype])
+           out.data_ptr(), ws.data_ptr(), counters.data_ptr(), b, s, h, g,
+           d, ps, m, n_pages, CHUNK, 1.0 / math.sqrt(d), DTYPE_CODES[q.dtype])
     paged_attention.launches += 1
     return out
 

@@ -253,7 +253,18 @@ def paged_attention_ref(q: torch.Tensor, kp: torch.Tensor, vp: torch.Tensor,
     """Gather-then-attend: q [B, H, D]; kp, vp [P, ps, G, D];
     page_table [B, M] int32; lengths [B] valid kv count; optional
     [P, ps, G, 1] f32 scale pools dequantise int8 kp/vp after the
-    gather. Returns [B, H, D]."""
+    gather. Returns [B, H, D].
+
+    The multi-query form, q [B, S, H, D], is written out position by
+    position: query j is the one-query form over ``min(lengths + j,
+    M·ps)`` keys. Returns [B, S, H, D]."""
+    if q.dim() == 4:
+        t = page_table.shape[1] * kp.shape[1]
+        return torch.stack([
+            paged_attention_ref(q[:, j], kp, vp, page_table,
+                                torch.clamp(lengths + j, max=t), k_scale,
+                                v_scale)
+            for j in range(q.shape[1])], dim=1)
     b, h, d = q.shape
     ps, g = kp.shape[1], kp.shape[2]
     t = page_table.shape[1] * ps

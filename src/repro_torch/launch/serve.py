@@ -1,9 +1,17 @@
-"""Serving launcher of the port: random seeded weights -> greedy serving.
+"""Serving launcher of the port: random seeded weights -> serving.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --full \\
         --requests 16 --slots 8 --max-len 512
     PYTHONPATH=src python -m repro_torch.launch.serve \\
         --arch recurrentgemma-2b --full --requests 16 --slots 8 --max-len 2560
+    PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \\
+        --temperature 0.7 --top-k 20
+
+Greedy by default; ``--temperature`` samples from softmax(logits / T),
+``--top-k`` over the k largest logits only (temperature 1.0 unless
+given), each request with the key ``fold_in(PRNGKey(--seed), rid)``, as
+the JAX launcher does. Like the JAX launcher it has no flag for
+speculative decoding (``ServeConfig(spec=...)`` in code).
 
 Builds ``ServingEngine(arch, params, config=ServeConfig(...))`` directly
 (the JAX launcher's plan -> compile facade and its ``--xfer`` switch are
@@ -32,13 +40,12 @@ def main(argv=None):
     ap.add_argument("--new-tokens", type=int, default=8)
     ap.add_argument("--reduced", action="store_true", default=True)
     ap.add_argument("--full", dest="reduced", action="store_false")
-    # sampling knobs of the JAX launcher; the port serves greedy only and
-    # the engine raises NotImplementedError when they are set
+    # on-device sampling knobs (greedy when neither is set)
     ap.add_argument("--temperature", type=float, default=None,
-                    help="sample instead of greedy decode (not ported yet)")
+                    help="sample instead of greedy decode (default 1.0 "
+                         "when only --top-k is given)")
     ap.add_argument("--top-k", type=int, default=0,
-                    help="restrict sampling to the k largest logits "
-                         "(not ported yet)")
+                    help="restrict sampling to the k largest logits")
     ap.add_argument("--lookahead", type=int, default=1,
                     help="dispatch depth (1 = double-buffered, 0 = sync)")
     ap.add_argument("--seed", type=int, default=0)
@@ -61,7 +68,8 @@ def main(argv=None):
     params = init_params(arch, config.seed, device=args.device)
     engine = ServingEngine(arch, params, config=config, device=args.device)
     print(f"[serve] {arch.name} on {engine.device} ({params.dtype}), "
-          f"slots={args.slots} max_len={args.max_len}")
+          f"slots={args.slots} max_len={args.max_len}, "
+          f"sampling {engine.sampling}")
 
     rng = np.random.RandomState(0)
     for i in range(args.requests):

@@ -6,10 +6,12 @@ Mirrors the dense and windowed branches of ``repro/models/blocks.py``:
 ``make_kv_cache`` (with ``window``: a ring of ``min(length, window)``
 slots), ``_project_qkv`` (with the qkv bias), ``attn_apply``'s prefill
 fills (the suffix fill, and ``_ring_exact_fill`` for a windowed prefill
-with true lengths), decode ring write (``_cache_write``) and the two
-paged branches (``_paged_decode_attention``, ``_shared_prefix_attention``;
-see ``serving/pages.py``). The append, cross-attention and MoE branches
-arrive with their slices.
+with true lengths), decode ring write (``_cache_write``), the append
+write of S >= 1 fresh positions (``_cache_write_many``, the speculative
+draft and verify) and the two paged branches
+(``_paged_decode_attention``, S >= 1; ``_shared_prefix_attention``; see
+``serving/pages.py``). The cross-attention and MoE branches arrive with
+their families' slices.
 
 A cache is a dict ``{"k", "v": [B, T, G, D], "pos": [B, T] int32}``
 (``pos = -1`` marks an invalid entry). With ``kv_quant`` ``k``/``v`` are
@@ -77,6 +79,36 @@ def _cache_write(cache: dict, k_new, v_new, pos_new) -> None:
     cache["pos"][rows, slot] = pos_new[:, 0].to(torch.int32)
 
 
+def _cache_write_many(cache: dict, k_new, v_new, pos_new) -> None:
+    """Append-mode write of S >= 1 tokens per row (the speculative draft
+    and verify), in place: the slot is the position itself (a
+    non-windowed grid, no wrap), and a write at a position at or past the
+    grid's T slots is dropped (the reference's ``mode="drop"``).
+
+    One scatter per leaf, with no duplicate index holding two values:
+    the positions of a row are the contiguous ``p..p+S-1``, so the
+    dropped ones are a suffix, and each is sent to slot T - 1 with the
+    value that the row's write at T - 1 stores there (its own old value
+    when the whole row is past the grid)."""
+    t = cache["k"].shape[1]
+    b, s = pos_new.shape
+    dev = pos_new.device
+    rows = torch.arange(b, device=dev)[:, None]
+    pos = pos_new.long()
+    first = pos[:, :1]
+    # entry j writes u[jj] at idx: itself while in range, else the
+    # row's last in-range entry (j = T - 1 - p) again
+    jj = torch.minimum(torch.arange(s, device=dev)[None],
+                       (t - 1 - first).clamp(0, s - 1))
+    idx = pos.clamp(max=t - 1)
+    inside = first < t  # [B, 1]: some entry of the row is in range
+    leaves = _kv_leaves(cache, k_new, v_new) + [("pos", pos_new.to(torch.int32))]
+    for name, u in leaves:
+        src = u[rows, jj]
+        keep = inside.reshape((b, 1) + (1,) * (src.dim() - 2))
+        cache[name][rows, idx] = torch.where(keep, src, cache[name][rows, idx])
+
+
 def _prefill_fill(cache: dict, k, v, positions) -> dict:
     """The prefill's cache: the last T positions when S >= T, else the S
     positions padded to T (k/v and scales zeros, pos -1)."""
@@ -117,32 +149,36 @@ def _ring_exact_fill(cache: dict, k, v, seq_lens: torch.Tensor) -> dict:
 
 def _paged_decode_attention(q, k, v, pool: dict, page_table: torch.Tensor,
                             positions: torch.Tensor) -> torch.Tensor:
-    """One decode token per row against a page pool ``{"kp", "vp"[, "kps",
-    "vps"]}``, in place: write the new K/V (quantised for an int8 pool)
-    at ``page_table[pos // ps], pos % ps`` (a position past the table goes
-    to the null page), then attend through the table over ``pos + 1``
-    keys. Inactive slots carry a zeroed table row (the serve step's
-    stale-write gate), so their writes land on the null page."""
+    """S >= 1 decode tokens per row (S > 1: the speculative verify of the
+    contiguous positions ``p..p+S-1``) against a page pool ``{"kp",
+    "vp"[, "kps", "vps"]}``, in place: write the new K/V (quantised for
+    an int8 pool) at ``page_table[pos // ps], pos % ps`` (a position past
+    the table goes to the null page), then attend through the table, the
+    query at ``p + j`` over ``min(p + 1 + j, M·ps)`` keys (positions past
+    a row's reserved pages read the null page: such tokens are past the
+    budget and never committed). Inactive slots carry a zeroed table row
+    (the serve step's stale-write gate), so their writes land on the
+    null page."""
     ps = pool["kp"].shape[1]
     m = page_table.shape[1]
-    pos = positions[:, 0].long()
-    page = torch.gather(page_table.long(), 1,
-                        (pos // ps).clamp(0, m - 1)[:, None])[:, 0]
+    s = positions.shape[1]
+    pos = positions.long()
+    page = torch.gather(page_table.long(), 1, (pos // ps).clamp(0, m - 1))
     page = torch.where(pos < m * ps, page, 0)
     slot = pos % ps
     if "kps" in pool:
-        kq, vq = Q.quantize_kv(k[:, 0]), Q.quantize_kv(v[:, 0])
+        kq, vq = Q.quantize_kv(k), Q.quantize_kv(v)
         leaves = (("kp", kq.q), ("kps", kq.scale), ("vp", vq.q),
                   ("vps", vq.scale))
     else:
-        leaves = (("kp", k[:, 0]), ("vp", v[:, 0]))
+        leaves = (("kp", k), ("vp", v))
     for name, u in leaves:
         pool[name][page, slot] = u.to(pool[name].dtype)
-    lengths = (positions[:, 0] + 1).to(torch.int32)
-    o = ops.paged_attn(q[:, 0], pool["kp"], pool["vp"],
+    lengths = torch.clamp(positions[:, 0] + 1, max=m * ps).to(torch.int32)
+    o = ops.paged_attn(q[:, 0] if s == 1 else q, pool["kp"], pool["vp"],
                        page_table.to(torch.int32), lengths,
                        k_scale=pool.get("kps"), v_scale=pool.get("vps"))
-    return o[:, None]
+    return o[:, None] if s == 1 else o
 
 
 def _param(*shape, device, dtype) -> nn.Parameter:
@@ -212,14 +248,19 @@ class AttnBlock(nn.Module):
                 cache: Optional[dict] = None,
                 decode_meta: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
                 seq_lens: Optional[torch.Tensor] = None,
-                page_table: Optional[torch.Tensor] = None
+                page_table: Optional[torch.Tensor] = None,
+                append: bool = False
                 ) -> Tuple[torch.Tensor, Optional[dict]]:
         """Full mode (no cache, or a cache being filled by a prefill): x
         [B, S, D]; ``seq_lens`` [B], the true lengths of a right-padded
         batch, make a windowed block's fill ring-exact
         (:func:`_ring_exact_fill`). Decode mode (a cache and S == 1):
         ``decode_meta`` is the identity page table and lengths of
-        :func:`layers.decode_attention`.
+        :func:`layers.decode_attention`. ``append=True`` (speculative
+        decoding, non-windowed grids) treats a filled cache as the target
+        of S >= 1 fresh positions per row: they are written at their
+        positions (:func:`_cache_write_many`) and attended like decode
+        tokens, each causally over the grid.
 
         Paged modes, keyed by the cache's leaves as in the JAX
         ``attn_apply``: a pool ``{"kp", "vp"[, "kps", "vps"]}`` with
@@ -240,16 +281,16 @@ class AttnBlock(nn.Module):
         if cache is not None and "kp" in cache:
             if page_table is None:
                 raise ValueError("paged KV pool given without a page_table")
-            if s != 1:
-                raise NotImplementedError("paged multi-token writes (the "
-                                          "speculative verify) are not ported")
             o = _paged_decode_attention(q, k, v, cache, page_table, positions)
             new_cache = cache
         elif cache is not None and "pre_k" in cache:
             o = L.prefix_attention(q, k, v, cache)
             new_cache = {"k": k, "v": v, "pos": positions.to(torch.int32)}
-        elif cache is not None and s == 1:
-            _cache_write(cache, k, v, positions)
+        elif cache is not None and (s == 1 or append):
+            if append:
+                _cache_write_many(cache, k, v, positions)
+            else:
+                _cache_write(cache, k, v, positions)
             table, lengths = decode_meta
             o = L.decode_attention(q, cache, table, lengths)
             new_cache = cache

@@ -5,8 +5,9 @@ Mirrors ``repro/models/layers.py`` function for function where this
 slice needs it. Every ``x @ w`` goes through ``kernels.ops.matmul``
 (``xfer_matmul`` on the card). Attention goes through the kernels too:
 prefill self-attention through ``flash_attention`` (a suffix after a
-shared prefix through its prefix entry), single-token decode over the
-dense slot grid or a page pool through ``paged_attention``. On CPU tensors the
+shared prefix through its prefix entry), decode over the dense slot grid
+or a page pool through ``paged_attention`` (one token, or the S fresh
+positions of a speculative verify). On CPU tensors the
 kernels' plain versions run, so the CPU path is the same code.
 
 The JAX package's masked ``attention``/``_attend_block``/``_mask`` are
@@ -128,11 +129,14 @@ def prefix_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def decode_attention(q: torch.Tensor, cache: dict, table: torch.Tensor,
                      lengths: torch.Tensor) -> torch.Tensor:
-    """One-token decode over the dense slot grid: q [B, 1, H, D]; the
-    cache's grids ``k``/``v`` [B, T, G, D] (int8 with ``k_scale``/
-    ``v_scale`` [B, T, G, 1] when quantised) read as a page pool of B
-    pages of T tokens through the identity ``table`` [B, 1]; ``lengths``
-    [B] = ``min(positions + 1, T)``. Returns [B, 1, H, D].
+    """Decode over the dense slot grid: q [B, S, H, D] at the positions
+    ``p..p+S-1`` of each row (S = 1: one token; S > 1: the speculative
+    draft-and-verify append, non-windowed grids only); the cache's grids
+    ``k``/``v`` [B, T, G, D] (int8 with ``k_scale``/``v_scale`` [B, T, G,
+    1] when quantised, one token per row) read as a page pool of B pages
+    of T tokens through the identity ``table`` [B, 1]; ``lengths`` [B] =
+    ``min(p + 1, T)``, and query j sees ``min(p + 1 + j, T)`` keys.
+    Returns [B, S, H, D].
 
     Equal to the JAX grid mask (``pos >= 0``, ``kv_pos <= q_pos`` and,
     on a windowed ring, ``q_pos - kv_pos < window``). A non-windowed
@@ -143,11 +147,15 @@ def decode_attention(q: torch.Tensor, cache: dict, table: torch.Tensor,
     congruent to each index: before it wraps, index i holds position i
     as above; once it has wrapped, all T slots hold the last T
     positions, each inside the window, and the length is T. Softmax
-    does not depend on the order of the slots."""
-    o = ops.paged_attn(q[:, 0], cache["k"], cache["v"], table, lengths,
-                       k_scale=cache.get("k_scale"),
+    does not depend on the order of the slots. An append of S positions
+    writes all of ``p..p+S-1`` (those below T) before the read, so query j
+    sees every position up to its own: the reference's ``pos >= 0`` and
+    ``kv_pos <= q_pos``."""
+    s = q.shape[1]
+    o = ops.paged_attn(q[:, 0] if s == 1 else q, cache["k"], cache["v"],
+                       table, lengths, k_scale=cache.get("k_scale"),
                        v_scale=cache.get("v_scale"))
-    return o[:, None]
+    return o[:, None] if s == 1 else o
 
 
 def mlp_apply(p, x: torch.Tensor, kind: str) -> torch.Tensor:

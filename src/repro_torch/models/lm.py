@@ -142,7 +142,8 @@ class LM(nn.Module):
                 caches: Optional[List[dict]] = None,
                 positions: Optional[torch.Tensor] = None,
                 seq_lens: Optional[torch.Tensor] = None,
-                page_table: Optional[torch.Tensor] = None
+                page_table: Optional[torch.Tensor] = None,
+                append: bool = False
                 ) -> Tuple[torch.Tensor, Optional[List[dict]]]:
         """tokens [B, S] -> (hidden [B, S, D] after the final norm, caches).
 
@@ -155,25 +156,37 @@ class LM(nn.Module):
         right-padded prefill) make the recurrent states and windowed
         rings length-exact.
 
-        ``page_table`` [B, M] int32: a paged decode step, ``caches`` then
-        being the page pools of ``serving.pages.make_paged_caches`` shared
-        by every slot. ``caches`` may also be the gathered prefix blocks of
+        ``page_table`` [B, M] int32: a paged decode step of S >= 1 tokens
+        per row, ``caches`` then being the page pools of
+        ``serving.pages.make_paged_caches`` shared by every slot. ``caches``
+        may also be the gathered prefix blocks of
         ``serving.pages.gather_prefix``: a suffix prefill at ``positions``
-        past the prefix, returning the suffix's fp rows."""
+        past the prefix, returning the suffix's fp rows.
+
+        ``append=True`` (speculative decoding; the dense family, no
+        window): S >= 1 fresh tokens per row at ``positions`` on filled
+        caches, written in place at their positions (those past the grid
+        dropped) and attended causally over the grid or, with
+        ``page_table``, the pool; ``caches`` itself is returned."""
         x = L.embed_tokens(self.embed, tokens)
         # sqrt(d_model) rounded to the activation dtype, as a Python
         # float: the same product as a 0-dim tensor of that dtype, with
         # no host tensor in the step
         x = x * _scale_in(self.arch.d_model ** 0.5, x.dtype)
         b, s, _ = x.shape
+        if append and (caches is None or self.arch.family != "dense"
+                       or self.arch.window):
+            raise ValueError("append=True needs the caches of a dense, "
+                             "non-windowed LM")
         if positions is None:
             positions = torch.arange(s, dtype=torch.int32,
                                      device=x.device)[None].expand(b, s)
         decode_meta = None
-        if caches is not None and s == 1 and "attn" in self.kinds \
-                and page_table is None:
+        in_place = caches is not None and (s == 1 or append)
+        if in_place and "attn" in self.kinds and page_table is None:
             # the dense grid read as a page pool: row b is page b; on a
-            # ring of t slots the valid length stops growing at t
+            # ring of t slots the valid length stops growing at t (and an
+            # append's first query sees at most the t slots)
             t = caches[self.kinds.index("attn")]["k"].shape[1]
             table = torch.arange(b, dtype=torch.int32, device=x.device)[:, None]
             decode_meta = (table, torch.clamp(positions[:, 0] + 1,
@@ -184,12 +197,12 @@ class LM(nn.Module):
             if kind == "attn":
                 x, c = layer(x, positions=positions, cache=cache,
                              decode_meta=decode_meta, seq_lens=seq_lens,
-                             page_table=page_table)
+                             page_table=page_table, append=append)
             else:
                 x, c = layer(x, state=cache, seq_lens=seq_lens)
             if caches is not None:
                 new_caches.append(c)
-        if caches is not None and s == 1:
+        if in_place or (caches is not None and page_table is not None):
             new_caches = caches  # a decode step: every layer wrote in place
         return L.rms_norm(x, self.final_norm), new_caches
 

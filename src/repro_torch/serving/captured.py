@@ -32,8 +32,10 @@ Two things outlive the capture on the graph's behalf:
   own count is taken back off the counters and added again on every
   replay, as if each replay had called the wrappers.
 
-Each call returns the step's per-slot record packed as ``[3, slots]``
-int32 (token, emit, finished). On CUDA it is the graph's static output,
+Each call returns the step's per-slot record packed as ``[2c + 1, slots]``
+int32 (c rows of tokens, c of emit flags, then finished; c = 1 for the
+plain step, k + 1 for the speculative one). On CUDA it is the graph's
+static output,
 overwritten by the next replay: read it, or copy it, on the same stream
 before that replay (the engine enqueues its device-to-host copy right
 after the replay).
@@ -46,15 +48,25 @@ import torch
 
 from repro_torch.kernels import _launch
 from repro_torch.kernels import ops
-from repro_torch.models.lm import LM
 from repro_torch.serving.state import DecodeState
 
 
 def pack_record(record: Dict[str, torch.Tensor]) -> torch.Tensor:
-    """``{token, emit, finished}`` [slots] -> ``[3, slots]`` int32."""
-    return torch.stack([record["token"].to(torch.int32),
-                        record["emit"].to(torch.int32),
-                        record["finished"].to(torch.int32)])
+    """``{token, emit, finished}`` -> ``[2c + 1, slots]`` int32: token and
+    emit are ``[slots]`` (c = 1) or ``[slots, c]`` (the speculative step's
+    c = k + 1 sub-steps), finished ``[slots]``."""
+    token, emit = record["token"], record["emit"]
+    if token.dim() == 1:
+        token, emit = token[:, None], emit[:, None]
+    return torch.cat([token.T.to(torch.int32), emit.T.to(torch.int32),
+                      record["finished"].to(torch.int32)[None]])
+
+
+def unpack_record(packed):
+    """``pack_record``'s inverse on a host array ``[2c + 1, slots]``:
+    (token ``[slots, c]``, emit ``[slots, c]``, finished ``[slots]``)."""
+    c = (packed.shape[0] - 1) // 2
+    return packed[:c].T, packed[c:2 * c].T, packed[2 * c]
 
 
 def captured_launches(capture: Callable[[], object]) -> Dict[str, int]:
@@ -74,12 +86,13 @@ class CapturedStep:
     every slot by one decode step in place and returns the packed record.
 
     ``step`` is the stateful ``serve_step`` of
-    ``registry.build_serve_step``. On CUDA the graph is captured here:
+    ``registry.build_serve_step`` (plain or speculative; ``model`` is then
+    the ``{"target", "draft"}`` pair). On CUDA the graph is captured here:
     :attr:`graph` is the ``torch.cuda.CUDAGraph``, :attr:`launches` the
     kernel launches of one replay, :attr:`workspaces` the kernel
     workspaces it holds. On the CPU :attr:`graph` is None."""
 
-    def __init__(self, step: Callable, model: LM, caches: List[dict],
+    def __init__(self, step: Callable, model, caches: List[dict],
                  state: DecodeState):
         self.step, self.model = step, model
         self.caches, self.state = caches, state

@@ -2,8 +2,9 @@
 
 Mirrors ``repro/serving/config.py``. Only the fields the port reads are
 carried over: the slot grid or the paged pool (:class:`PagingConfig`),
-greedy sampling, lookahead, INT8 quantisation. Disaggregation,
-speculation and elastic replan arrive with their slices.
+sampling, lookahead, INT8 quantisation and speculative decoding
+(:class:`SpecConfig`). Disaggregation and elastic replan are not
+ported (ROADMAP A14).
 """
 from __future__ import annotations
 
@@ -26,6 +27,31 @@ class PagingConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class SpecConfig:
+    """Speculative decoding (``registry.build_serve_step(spec=...)``).
+
+    A small draft model proposes ``k`` tokens per slot per engine step;
+    the target verifies all ``k + 1`` positions in one batched forward
+    and the longest accepted prefix commits on the device. Greedy
+    streams equal the target-only streams; seeded temperature/top-k
+    advance each request's key once per committed sub-step, so sampled
+    streams equal them too.
+
+    ``draft``: the draft :class:`~repro_torch.configs.base.ArchConfig`
+    (the port has no plan to take one from, so it must be set). Pairing
+    rules: both models dense and non-windowed, with equal vocabularies;
+    the draft runs full-precision on its own dense grid.
+    ``k``: proposals per step (>= 1)."""
+
+    draft: Optional[Any] = None
+    k: int = 4
+
+    def __post_init__(self):
+        if int(self.k) < 1:
+            raise ValueError(f"SpecConfig.k must be >= 1, got {self.k}")
+
+
+@dataclasses.dataclass(frozen=True)
 class ServeConfig:
     """``slots``: decode slot count. ``max_len``: per-slot KV length.
     ``eos_id``: stop token (None -> run to max_new_tokens). ``seed``: base
@@ -35,7 +61,8 @@ class ServeConfig:
     ``paging``: nested :class:`PagingConfig`. ``quant``: nested
     :class:`repro_torch.quant.QuantConfig` — INT8 serving (per-channel
     int8 weights and/or an int8 KV grid with per-token scales); the
-    default quantises nothing."""
+    default quantises nothing. ``spec``: :class:`SpecConfig` — speculative
+    decoding with a draft model (None -> off)."""
 
     slots: Optional[int] = None
     max_len: Optional[int] = None
@@ -45,6 +72,7 @@ class ServeConfig:
     lookahead: int = 1
     paging: PagingConfig = PagingConfig()
     quant: QuantConfig = QuantConfig()
+    spec: Optional[SpecConfig] = None
 
     def resolve(self) -> "ServeConfig":
         """Fill defaults (greedy sampling, lookahead >= 0); ``slots`` and

@@ -1,13 +1,14 @@
 """Serving engine: continuous batching with one-step-lookahead dispatch.
 
-Mirrors the dense greedy path of ``repro/serving/engine.py``. Step N+1 is
+Mirrors the decoder-only paths of ``repro/serving/engine.py`` (greedy,
+seeded temperature/top-k, speculative). Step N+1 is
 enqueued on the card before step N's per-slot record is read back, so
 the host's bookkeeping overlaps the device's decode work:
 
     step N:    [retire N-2] [admit] [dispatch N] --+ device runs N
     step N+1:  [retire N-1] [admit] [dispatch N+1] + host never waits
 
-Each step's record (token / emit / finished per slot) is copied to the
+Each step's record (tokens / emit / finished per slot) is copied to the
 host without blocking and a CUDA event is recorded after it; retiring a
 record waits on its event, and a record whose event has completed is
 retired early at no cost (the JAX engine polls ``is_ready`` instead).
@@ -27,6 +28,14 @@ retired; under lookahead 1 the step in flight at that moment no longer
 writes them (its table row for the slot is zeroed by the stale-write
 gate of the serve step) and any reuse by a later admission is enqueued
 behind it on the same stream.
+
+With ``ServeConfig(spec=SpecConfig(draft=..., k=...))`` (both models
+dense) the step is the speculative one: the draft proposes k tokens, the
+target verifies k + 1 positions in one forward and up to k + 1 tokens
+commit per slot and step; params are ``{"target": LM, "draft": LM}``,
+the draft's dense grid lives in ``state.draft_caches`` (prefilled over
+the full prompt at admission), and the step is captured like the plain
+one.
 """
 from __future__ import annotations
 
@@ -35,7 +44,6 @@ import warnings
 from collections import deque
 from typing import Dict, List, Optional
 
-import numpy as np
 import torch
 
 from repro_torch.configs.base import ArchConfig
@@ -45,8 +53,7 @@ from repro_torch.device import DeviceLike, default_dtype, resolve_device
 from repro_torch.models import registry as REG
 from repro_torch.models.lm import LM
 from repro_torch.serving import pages as PG
-from repro_torch.serving import sampler as SMP
-from repro_torch.serving.captured import CapturedStep
+from repro_torch.serving.captured import CapturedStep, unpack_record
 from repro_torch.serving.config import ServeConfig
 from repro_torch.serving.scheduler import Request, Scheduler
 from repro_torch.serving.state import make_decode_state
@@ -63,8 +70,9 @@ class IncompleteDrainError(RuntimeError):
 
 
 class _Record:
-    """One step's per-slot record on its way to the host: ``[3, slots]``
-    int32 (token, emit, finished), copied without blocking; on the card a
+    """One step's per-slot record on its way to the host: ``[2c + 1,
+    slots]`` int32 (``captured.pack_record``), copied without blocking; on
+    the card a
     CUDA event marks the copy's completion. On the card ``packed`` is the
     captured step's static output: the copy is enqueued right after the
     replay that wrote it, on the same stream, so the next replay cannot
@@ -82,19 +90,34 @@ class _Record:
     def ready(self) -> bool:
         return self.event is None or self.event.query()
 
-    def read(self) -> np.ndarray:
+    def read(self):
+        """(token ``[slots, c]``, emit ``[slots, c]``, finished
+        ``[slots]``) as numpy arrays."""
         if self.event is not None:
             self.event.synchronize()
-        return self.host.numpy()
+        return unpack_record(self.host.numpy())
 
 
 class ServingEngine:
     """``ServingEngine(arch, params, config=ServeConfig(slots=..., max_len=...))``.
 
-    ``params`` is the :class:`~repro_torch.models.lm.LM` to serve. The
+    ``params`` is the :class:`~repro_torch.models.lm.LM` to serve (with
+    ``config.spec``, the pair ``{"target": LM, "draft": LM}``). The
     engine takes it over: it is moved in place (``nn.Module.to``) to
     ``device`` and ``dtype`` and, under int8 weights, quantised in place,
     so a second engine needs a model of its own.
+
+    ``config.sampling`` (:class:`~repro_torch.serving.sampler.SamplingParams`)
+    picks greedy, temperature or top-k; a sampled request draws with the
+    key ``fold_in(PRNGKey(config.seed), rid)``, JAX's, so its stream does
+    not depend on its slot, its step or the lookahead.
+
+    ``config.spec`` (:class:`~repro_torch.serving.config.SpecConfig`)
+    turns on speculative decoding with ``spec.draft`` proposing
+    ``spec.k`` tokens a step (the reference's pairing rules: both dense
+    and non-windowed, one vocabulary). Under a quantising
+    ``config.quant`` it raises ``NotImplementedError`` (ROADMAP).
+
     ``device=None`` means ``cuda`` and raises without a CUDA device; pass
     ``device="cpu"`` to serve on the CPU through the kernels' plain
     versions. ``dtype`` defaults to bf16 on CUDA and fp32 on the CPU and
@@ -133,8 +156,18 @@ class ServingEngine:
         paging = config.paging
         if paging.paged:
             PG.check_paged_supported(arch)
-        SMP.check_supported(config.sampling)
         quant = config.quant
+        spec = config.spec
+        if spec is not None:
+            REG.check_spec_supported(arch, spec.draft)
+            if not (isinstance(params, dict)
+                    and set(params) == {"target", "draft"}):
+                raise TypeError("speculative serving takes params as "
+                                "{'target': LM, 'draft': LM}")
+            if quant.quant_weights or quant.quant_kv:
+                raise NotImplementedError(
+                    "speculative decoding under INT8 is not ported yet (the "
+                    "reference quantises the target only; see ROADMAP A15)")
         if arch.family in ("hybrid", "ssm") \
                 and (quant.quant_weights or quant.quant_kv):
             leaves = ("gate, a_param and conv" if arch.family == "hybrid"
@@ -142,7 +175,7 @@ class ServingEngine:
             raise NotImplementedError(
                 f"{arch.name}: INT8 serving of the {arch.family} family is "
                 f"not ported yet (its {leaves} leaves need their own check; "
-                f"see ROADMAP A5)")
+                f"see ROADMAP A6)")
         if quant.quant_weights and not quant.quant_kv \
                 and dev.type == "cuda" and dtype != torch.float32:
             raise NotImplementedError(
@@ -156,6 +189,11 @@ class ServingEngine:
         self.eos_id = config.eos_id
         self.sampling = config.sampling
         self.lookahead = config.lookahead
+        self.spec = spec
+        self.draft = None
+        if spec is not None:
+            self.draft = params["draft"].to(device=dev, dtype=dtype)
+            params = params["target"]
         self.model = params.to(device=dev, dtype=dtype)
         if quant.quant_weights:
             Q.quantize_params(self.model)
@@ -174,22 +212,36 @@ class ServingEngine:
         else:
             self.caches = self.model.make_caches(self.slots, self.max_len,
                                                  dtype, kv_quant=quant.quant_kv)
-        self.state = make_decode_state(self.slots, dev, table_len)
+        draft_caches = None
+        if self.draft is not None:
+            draft_caches = self.draft.make_caches(self.slots, self.max_len,
+                                                  dtype)
+        self.state = make_decode_state(self.slots, dev, table_len,
+                                       seed=config.seed,
+                                       draft_caches=draft_caches)
+        # the step's params: the model, or the pair the spec step reads
+        self.params = self.model if self.draft is None else \
+            {"target": self.model, "draft": self.draft}
         # on CUDA: captured here, on the all-inactive state
         self.decode = CapturedStep(
             REG.build_serve_step(arch, sampling=self.sampling,
-                                 eos_id=self.eos_id, paged=self.paged),
-            self.model, self.caches, self.state)
+                                 eos_id=self.eos_id, paged=self.paged,
+                                 spec=spec),
+            self.params, self.caches, self.state)
         self.scheduler = Scheduler(
             arch, slots=self.slots, max_len=self.max_len, cache_dtype=dtype,
-            sampling=self.sampling, kv_quant=quant.quant_kv, paged=self.paged,
-            page_size=self.page_size, kv_pages=self.kv_pages,
-            prefix_cache=paging.prefix_cache)
+            sampling=self.sampling, seed=config.seed, kv_quant=quant.quant_kv,
+            paged=self.paged, page_size=self.page_size,
+            kv_pages=self.kv_pages, prefix_cache=paging.prefix_cache,
+            draft=self.draft)
         self.completed: List[Request] = []
         self._pending: deque = deque()  # dispatched, unread step records
         self.step_times = deque(maxlen=4096)
         self.step_token_counts = deque(maxlen=4096)
         self.queue_depths = deque(maxlen=4096)
+        # per retired record: tokens emitted, slots active at dispatch
+        self.retired_emits = deque(maxlen=4096)
+        self.retired_active = deque(maxlen=4096)
 
     # ------------------------- queue / slot views -------------------------
     @property
@@ -228,16 +280,22 @@ class ServingEngine:
         self.step_token_counts.append(emitted)
 
     def _retire_one(self) -> int:
-        """Read one record back and apply it: append emitted tokens, free
+        """Read one record back and apply it: append emitted tokens (up to
+        k + 1 a slot from a speculative step, in commit order), free
         finished slots."""
         token, emit, finished = self._pending.popleft().read()
+        # emit.any(1) | finished: the slots active at dispatch (an active
+        # slot emits, or finishes without emitting on EOS at prefill)
+        self.retired_emits.append(int(emit.sum()))
+        self.retired_active.append(int((emit.any(axis=1) | finished).sum()))
         count = 0
         for slot, req in self.active.items():
             if req is None:
                 continue
-            if emit[slot]:
-                req.out_tokens.append(int(token[slot]))
-                count += 1
+            for j in range(token.shape[1]):
+                if emit[slot, j]:
+                    req.out_tokens.append(int(token[slot, j]))
+                    count += 1
             if finished[slot]:
                 req.finished_at = time.time()
                 self.completed.append(req)
@@ -285,16 +343,23 @@ class ServingEngine:
         self.step_times.clear()
         self.step_token_counts.clear()
         self.queue_depths.clear()
+        self.retired_emits.clear()
+        self.retired_active.clear()
         self.scheduler.reset_stats()
 
     def step_stats(self) -> Dict[str, float]:
         """p50/p95 wall time of ``step()`` calls (host clock) and the token
-        throughput over them."""
+        throughput over them. ``accepted_tokens_mean`` is the tokens
+        committed per active slot-step (1.0 without speculation, up to
+        k + 1 with it); a speculative engine adds ``draft_acceptance``,
+        accepted over proposed draft tokens of the resident requests
+        (the state's counters, zeroed at admission; one device read)."""
         ms = [t * 1e3 for t in self.step_times]
         total_s = sum(self.step_times)
         toks = sum(self.step_token_counts)
         qd = list(self.queue_depths)
-        return {
+        emits, actives = sum(self.retired_emits), sum(self.retired_active)
+        stats = {
             "steps": float(len(ms)),
             "step_p50_ms": percentile(ms, 50),
             "step_p95_ms": percentile(ms, 95),
@@ -302,7 +367,13 @@ class ServingEngine:
             "tokens": float(toks),
             "tokens_per_s": toks / total_s if total_s > 0 else 0.0,
             "queue_depth": (sum(qd) / len(qd)) if qd else 0.0,
+            "accepted_tokens_mean": (emits / actives) if actives else 0.0,
         }
+        if self.spec is not None:
+            acc = float(self.state.accepted.sum())
+            prop = float(self.state.proposed.sum())
+            stats["draft_acceptance"] = acc / prop if prop else 0.0
+        return stats
 
     def prefill_stats(self) -> Dict[str, float]:
         """Per-request and per-dispatch admission wall (host clock).

@@ -31,6 +31,15 @@ into it), and its group ``("lm_shared", suffix bucket, m)`` prefills
 only the suffix against the gathered prefix (:func:`prefill_shared`).
 An admission the pool cannot hold goes back to the queue head, after
 the registry releases its cold entries, and waits for retiring slots.
+
+Each request's first token is drawn at admission with its own key,
+``fold_in(PRNGKey(seed), rid)`` (greedy leaves it as it is), and the key
+after that draw goes into the state: keyed on the request id, a sampled
+stream does not depend on the slot, the step or the lookahead. With a
+speculative draft model (``draft``) every admission also prefills the
+draft over the full prompt on a dense grid of its own (never suffix-only,
+even where the target's prefill reuses a shared prefix) and splices the
+rows into ``state.draft_caches``.
 """
 from __future__ import annotations
 
@@ -167,16 +176,19 @@ class Scheduler:
 
     def __init__(self, arch: ArchConfig, *, slots: int, max_len: int,
                  cache_dtype: torch.dtype,
-                 sampling: SMP.SamplingParams = SMP.GREEDY,
+                 sampling: SMP.SamplingParams = SMP.GREEDY, seed: int = 0,
                  min_bucket: int = MIN_BUCKET, kv_quant: bool = False,
                  paged: bool = False, page_size: int = PG.DEFAULT_PAGE_SIZE,
-                 kv_pages: Optional[int] = None, prefix_cache: bool = True):
+                 kv_pages: Optional[int] = None, prefix_cache: bool = True,
+                 draft: Optional[LM] = None):
         self.arch = arch
         self.slots = slots
         self.max_len = max_len
         self.cache_dtype = cache_dtype
         self.kv_quant = kv_quant
         self.sampling = sampling
+        self.seed = seed
+        self.draft = draft
         self.min_bucket = bucket_floor(arch, max_len, min_bucket)
         self.queue: List[Request] = []
         self.active: Dict[int, Optional[Request]] = {i: None for i in range(slots)}
@@ -319,12 +331,14 @@ class Scheduler:
             lens = np.zeros((n,), np.int32)
             slots_arr = np.zeros((n,), np.int64)
             max_new = np.zeros((n,), np.int32)
+            rids = np.zeros((n,), np.int64)
             for i, (req, slot) in enumerate(group):
                 s = len(req.prompt)
                 toks[i, :s - prefix] = req.prompt[prefix:]
                 lens[i] = s
                 slots_arr[i] = slot
                 max_new[i] = req.max_new_tokens
+                rids[i] = req.rid
             lens_t = torch.from_numpy(lens).to(dev)
             slots_t = torch.from_numpy(slots_arr).to(dev)
             toks_t = torch.from_numpy(toks).to(dev)
@@ -347,9 +361,15 @@ class Scheduler:
                 PG.splice_pages(caches, rows, rows_t)
             else:
                 splice_rows(caches, rows, slots_t)
-            first = SMP.sample(logits[:, -1], self.sampling)
+            # the requests' keys, computed on the host: one copy
+            keys = SMP.fold_in(SMP.prng_key(self.seed),
+                               torch.from_numpy(rids)).to(dev)
+            keys, first = SMP.sample(logits[:, -1], keys, self.sampling)
             admit_rows(state, slots_t, first, lens_t,
-                       torch.from_numpy(max_new).to(dev), page_rows=rows_t)
+                       torch.from_numpy(max_new).to(dev), keys,
+                       page_rows=rows_t)
+            if self.draft is not None:
+                self._admit_draft(state, group, lens, lens_t, slots_t)
             for i, (req, slot) in enumerate(group):
                 self.active[slot] = req
                 admitted.add(req.rid)
@@ -370,6 +390,21 @@ class Scheduler:
         if leftover:  # pool exhausted mid-wave: requeue in arrival order
             self.queue[:0] = leftover
         return caches, state
+
+    def _admit_draft(self, state: DecodeState, group, lens: np.ndarray,
+                     lens_t: torch.Tensor, slots_t: torch.Tensor) -> None:
+        """The draft's prompt KV of one admitted group: a dense prefill of
+        the full prompts, bucketed on the longest (from ``MIN_BUCKET``, as
+        the reference's draft factory), spliced into ``state.draft_caches``
+        in place."""
+        bucket = bucket_len(int(lens.max()), self.max_len)
+        toks = np.zeros((len(group), bucket), np.int32)
+        for i, (req, _) in enumerate(group):
+            toks[i, :len(req.prompt)] = req.prompt
+        rows, _ = prefill_rows(self.draft,
+                               torch.from_numpy(toks).to(lens_t.device),
+                               lens_t, self.cache_dtype)
+        splice_rows(state.draft_caches, rows, slots_t)
 
     def reset_stats(self) -> None:
         self.prefill_shared_groups = 0

@@ -1,6 +1,6 @@
 """DecodeState — per-slot bookkeeping of the serving loop, on the device.
 
-Mirrors ``repro/serving/state.py`` for the dense greedy engine:
+Mirrors ``repro/serving/state.py`` for the decoder-only engines:
 
   tokens     [slots, 1] int32 — current input token per slot (the token
                                 the next step will both emit and consume)
@@ -8,6 +8,11 @@ Mirrors ``repro/serving/state.py`` for the dense greedy engine:
   active     [slots]     bool — slot holds a live request
   emitted    [slots]    int32 — tokens emitted so far (EOS never counts)
   max_new    [slots]    int32 — per-request emission budget
+  rng        [slots, 2] int64 — per-slot sampling key, two uint32 words
+                                (``serving.sampler``): fold_in(PRNGKey(
+                                seed), slot) at init, the request's
+                                fold_in(PRNGKey(seed), rid) split at
+                                admission
 
 Paged engines (``serving.pages``) carry two more leaves (None
 otherwise):
@@ -17,18 +22,29 @@ otherwise):
                                 the reserved null page
   seq_len    [slots]    int32 — tokens resident in the slot's pages
 
-The sampling keys and the enc-dec and speculative leaves arrive with
-their slices. Inert slots keep their last token/position so the grid
-stays fixed-shape. Every field is written in place, by the decode step
-and by admission, so it keeps its address for the life of an engine
-(the reference donates the state to its jitted step instead).
+Speculative engines (``SpecConfig``) carry three more (None otherwise):
+
+  draft_caches  list of dicts — the draft model's dense KV grid,
+                                prefilled at admission and rolled forward
+                                by the draft-k loop of the spec step
+  accepted   [slots] int32    — draft proposals accepted so far (zeroed
+                                at admission)
+  proposed   [slots] int32    — draft proposals made so far
+
+The enc-dec leaves arrive with that family's slice. Inert slots keep
+their last token/position so the grid stays fixed-shape. Every field
+(and every leaf of ``draft_caches``) is written in place, by the decode
+step and by admission, so it keeps its address for the life of an
+engine (the reference donates the state to its jitted step instead).
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import List, Optional
 
 import torch
+
+from repro_torch.serving import sampler as SMP
 
 
 @dataclasses.dataclass
@@ -38,47 +54,93 @@ class DecodeState:
     active: torch.Tensor
     emitted: torch.Tensor
     max_new: torch.Tensor
+    rng: torch.Tensor
     page_table: Optional[torch.Tensor] = None
     seq_len: Optional[torch.Tensor] = None
+    draft_caches: Optional[List[dict]] = None
+    accepted: Optional[torch.Tensor] = None
+    proposed: Optional[torch.Tensor] = None
+
+
+def tensors(state: DecodeState) -> dict:
+    """Every tensor of ``state`` by name (``draft_caches[i].k`` for the
+    draft grid's leaves): what a captured step reads at fixed
+    addresses."""
+    out = {}
+    for name, v in vars(state).items():
+        if name == "draft_caches" and v is not None:
+            out.update({f"draft_caches[{i}].{k}": t
+                        for i, c in enumerate(v) for k, t in c.items()})
+        elif v is not None:
+            out[name] = v
+    return out
+
+
+def clone(state: DecodeState) -> DecodeState:
+    """A deep copy of ``state`` (draft grid included) at new addresses."""
+    kw = {k: None if v is None else v.clone() for k, v in vars(state).items()
+          if k != "draft_caches"}
+    if state.draft_caches is not None:
+        kw["draft_caches"] = [{k: t.clone() for k, t in c.items()}
+                              for c in state.draft_caches]
+    return DecodeState(**kw)
 
 
 def make_decode_state(slots: int, device: torch.device,
-                      table_len: Optional[int] = None) -> DecodeState:
-    """Fresh all-inert state; ``table_len`` (paged engines) adds a zeroed
-    page table of that width and ``seq_len``."""
+                      table_len: Optional[int] = None, seed: int = 0,
+                      draft_caches: Optional[List[dict]] = None
+                      ) -> DecodeState:
+    """Fresh all-inert state; slot i's key is fold_in(PRNGKey(seed), i).
+    ``table_len`` (paged engines) adds a zeroed page table of that width
+    and ``seq_len``; ``draft_caches`` (a fresh dense grid of the draft
+    model) adds the speculative leaves."""
     i32 = dict(dtype=torch.int32, device=device)
     paged = table_len is not None
+    spec = draft_caches is not None
+    keys = SMP.fold_in(SMP.prng_key(seed, device),
+                       torch.arange(slots, device=device))
     return DecodeState(
         tokens=torch.zeros((slots, 1), **i32),
         positions=torch.zeros((slots, 1), **i32),
         active=torch.zeros((slots,), dtype=torch.bool, device=device),
         emitted=torch.zeros((slots,), **i32),
         max_new=torch.ones((slots,), **i32),
+        rng=keys,
         page_table=torch.zeros((slots, table_len), **i32) if paged else None,
         seq_len=torch.zeros((slots,), **i32) if paged else None,
+        draft_caches=draft_caches,
+        accepted=torch.zeros((slots,), **i32) if spec else None,
+        proposed=torch.zeros((slots,), **i32) if spec else None,
     )
 
 
 def admit_rows(state: DecodeState, slots: torch.Tensor, tokens: torch.Tensor,
                positions: torch.Tensor, max_new: torch.Tensor,
+               rng: torch.Tensor,
                page_rows: Optional[torch.Tensor] = None) -> None:
     """Write ``n`` freshly-prefilled requests at ``slots [n]`` (distinct)
     into ``state`` in place: one scatter per field, every field keeping
-    its address (a captured decode step reads them there). Paged engines
-    pass ``page_rows [n, M]``, the slots' page-table rows; ``seq_len``
-    starts at the prompt length (``positions``)."""
+    its address (a captured decode step reads them there). ``rng [n, 2]``
+    are the requests' keys after their first draw. Paged engines pass
+    ``page_rows [n, M]``, the slots' page-table rows; ``seq_len`` starts
+    at the prompt length (``positions``). The acceptance counters restart
+    at 0."""
     n = slots.shape[0]
 
     def put(arr, vals):
         vals = vals.to(arr.dtype).reshape((n,) + tuple(arr.shape[1:]))
         arr.index_put_((slots,), vals)
 
+    zeros = torch.zeros((n,), dtype=torch.int32, device=slots.device)
     put(state.tokens, tokens)
     put(state.positions, positions)
     put(state.active, torch.ones((n,), dtype=torch.bool, device=slots.device))
-    put(state.emitted, torch.zeros((n,), dtype=torch.int32,
-                                   device=slots.device))
+    put(state.emitted, zeros)
     put(state.max_new, max_new)
+    put(state.rng, rng)
     if page_rows is not None:
         put(state.page_table, page_rows)
         put(state.seq_len, positions)
+    if state.accepted is not None:
+        put(state.accepted, zeros)
+        put(state.proposed, zeros)

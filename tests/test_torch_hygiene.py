@@ -107,10 +107,20 @@ def test_serve_cli_runs_on_cpu_when_asked(capsys):
 
 
 @pytest.mark.parametrize("flags", [["--temperature", "0.7"], ["--top-k", "5"]])
-def test_serve_cli_sampling_flags_raise_until_ported(flags):
+def test_serve_cli_sampling_flags_raise_until_ported(flags, capsys):
+    """The sampling flags sample now (they used to raise): the engine
+    takes the method they name, and a rerun with the same seed gives the
+    same streams."""
     from repro_torch.launch import serve
-    with pytest.raises(NotImplementedError, match="greedy only"):
-        serve.main(["--device", "cpu", "--requests", "1", *flags])
+    argv = ["--device", "cpu", "--requests", "2", "--new-tokens", "4", *flags]
+    runs = [serve.main(argv) for _ in range(2)]
+    method = "top_k" if "--top-k" in flags else "temperature"
+    assert runs[0].sampling.method == method
+    assert runs[0].sampling.temperature == (0.7 if method == "temperature"
+                                            else 1.0)
+    streams = [{r.rid: r.out_tokens for r in e.completed} for e in runs]
+    assert streams[0] == streams[1] and len(streams[0]) == 2
+    assert "2/2 requests" in capsys.readouterr().out
 
 
 @pytest.mark.parametrize("alone", [False, True])

@@ -183,7 +183,7 @@ def test_run_until_drained_raises_with_unfinished_rids(setup):
 
 def test_unported_options_raise(setup):
     from repro_torch.models.registry import init_params
-    from repro_torch.serving import PagingConfig, SamplingParams
+    from repro_torch.serving import PagingConfig, SamplingParams, SpecConfig
     _, _, arch, tree = setup
     model = bridge.from_jax_params(tree, arch, device="cpu")
     for family_id in ("recurrentgemma-2b", "xlstm-350m"):  # PAGED_FAMILIES
@@ -193,10 +193,17 @@ def test_unported_options_raise(setup):
                           device="cpu", config=ServeConfig(
                               slots=2, max_len=16,
                               paging=PagingConfig(paged=True)))
-    with pytest.raises(NotImplementedError):
-        ServingEngine(arch, model, device="cpu", config=ServeConfig(
-            slots=2, max_len=16,
-            sampling=SamplingParams(method="temperature", temperature=0.7)))
+    # speculative decoding under INT8 is not ported (ROADMAP A15); the
+    # sampling methods are (tests/test_torch_sampling.py)
+    draft = bridge.from_jax_params(tree, arch, device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        ServingEngine(arch, {"target": model, "draft": draft}, device="cpu",
+                      config=ServeConfig(
+                          slots=2, max_len=16, quant=INT8_SERVE,
+                          sampling=SamplingParams(method="temperature",
+                                                  temperature=0.7),
+                          spec=SpecConfig(draft=arch, k=2)))
+    assert not model.weights_quantized  # refused before anything moved
 
 
 # ---------------------------------------------------------------------------

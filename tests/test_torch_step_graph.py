@@ -5,14 +5,17 @@ On CUDA ``ServingEngine`` replays one captured CUDA graph per step; on
 the CPU the same in-place step runs eagerly, which is what these tests
 reach. They check what the graph relies on and what it must keep:
 
-* every cache leaf and every ``DecodeState`` field keeps its address
+* every cache leaf and every ``DecodeState`` field (the sampling keys
+  and the speculative draft grid's leaves included) keeps its address
   (``data_ptr``) across the steps and admission waves of a churning run
-  (2 slots, 6 requests), on the six serving paths (the fp grid, INT8,
-  the paged pool with fp and int8 pools, the hybrid recurrentgemma-2b
-  and the ssm xlstm-350m, all ``.reduced()``) at lookahead 0 and 1, and
-  the greedy streams still equal the JAX ``ServingEngine``'s with the
-  same configuration on the same bridged weights (a divergence names
-  the top-2 logit margin of the port's model there);
+  (2 slots, 6 requests), on the six greedy serving paths (the fp grid,
+  INT8, the paged pool with fp and int8 pools, the hybrid
+  recurrentgemma-2b and the ssm xlstm-350m, all ``.reduced()``), top-k
+  sampling on the grid, and speculative decoding (a 1-layer draft, k =
+  3) on the grid and the pool, at lookahead 0 and 1, and the streams
+  still equal the JAX ``ServingEngine``'s with the same configuration on
+  the same bridged weights (a divergence names the top-2 logit margin of
+  the port's model there);
 * the eager step of ``registry.build_serve_step`` on a clone of caches
   and state after an admission and the engine's step on the originals
   give equal records and bit-equal caches and state (phase 4g of
@@ -35,8 +38,12 @@ import torch
 from repro import quant as JQ
 from repro.configs import get_arch as jax_get_arch
 from repro.models import registry as JREG
+import dataclasses
+
+from repro.serving import sampler as JS
 from repro.serving.config import PagingConfig as JPagingConfig
 from repro.serving.config import ServeConfig as JServeConfig
+from repro.serving.config import SpecConfig as JSpecConfig
 from repro.serving.engine import Request as JRequest
 from repro.serving.engine import ServingEngine as JServingEngine
 from repro.testing.serving_equiv import _prompts
@@ -45,19 +52,25 @@ from repro_torch import quant as Q
 from repro_torch.configs import get_arch
 from repro_torch.kernels import _launch, ops
 from repro_torch.models import registry as REG
-from repro_torch.serving import (PagingConfig, Request, ServeConfig,
-                                 ServingEngine)
+from repro_torch.serving import (PagingConfig, Request, SamplingParams,
+                                 ServeConfig, ServingEngine, SpecConfig)
 from repro_torch.serving import captured as CS
+from repro_torch.serving import state as ST
 
 SLOTS, N_REQ, MAX_LEN, MAX_NEW, SEED, PS = 2, 6, 48, 6, 0, 8
 
-#: path -> (arch id, int8, paged)
-PATHS = {"fp": ("qwen1.5-0.5b", False, False),
-         "int8": ("qwen1.5-0.5b", True, False),
-         "paged": ("qwen1.5-0.5b", False, True),
-         "paged-int8": ("qwen1.5-0.5b", True, True),
-         "hybrid": ("recurrentgemma-2b", False, False),
-         "ssm": ("xlstm-350m", False, False)}
+#: path -> (arch id, int8, paged, "top_k" (sampled) / "spec" / None)
+PATHS = {"fp": ("qwen1.5-0.5b", False, False, None),
+         "int8": ("qwen1.5-0.5b", True, False, None),
+         "paged": ("qwen1.5-0.5b", False, True, None),
+         "paged-int8": ("qwen1.5-0.5b", True, True, None),
+         "hybrid": ("recurrentgemma-2b", False, False, None),
+         "ssm": ("xlstm-350m", False, False, None),
+         "top-k": ("qwen1.5-0.5b", False, False, "top_k"),
+         "spec": ("qwen1.5-0.5b", False, False, "spec"),
+         "spec-paged": ("qwen1.5-0.5b", False, True, "spec")}
+TOP_K = SamplingParams("top_k", 0.8, 5)
+SPEC_K = 3
 
 
 def _liven(tree: dict, seed: int) -> dict:
@@ -96,6 +109,22 @@ def _tree(arch_id):
     return _TREES[arch_id]
 
 
+def _draft_archs():
+    """The speculative paths' draft: qwen's widths at 1 layer (JAX, port)."""
+    return (dataclasses.replace(jax_get_arch("qwen1.5-0.5b").reduced(),
+                                num_layers=1),
+            dataclasses.replace(get_arch("qwen1.5-0.5b").reduced(),
+                                num_layers=1))
+
+
+def _draft_tree():
+    if "draft" not in _TREES:
+        _TREES["draft"] = _liven(jax.tree.map(np.asarray, JREG.init_params(
+            _draft_archs()[0], jax.random.PRNGKey(SEED + 5), jnp.float32)),
+            SEED + 2)
+    return _TREES["draft"]
+
+
 def _prompts_for(arch_id):
     return _prompts(jax_get_arch(arch_id).reduced(), N_REQ, MAX_LEN, SEED + 1,
                     MAX_NEW)
@@ -125,9 +154,17 @@ _JAX_STREAMS = {}
 
 def _jax_streams(path):
     if path not in _JAX_STREAMS:
-        arch_id, int8, paged = PATHS[path]
+        arch_id, int8, paged, mode = PATHS[path]
         arch_j = jax_get_arch(arch_id).reduced()
         params = jax.tree.map(jnp.asarray, _tree(arch_id))
+        extra = {}
+        if mode == "top_k":
+            extra["sampling"] = JS.SamplingParams("top_k", TOP_K.temperature,
+                                                  TOP_K.top_k)
+        if mode == "spec":
+            params = {"target": params,
+                      "draft": jax.tree.map(jnp.asarray, _draft_tree())}
+            extra["spec"] = JSpecConfig(draft=_draft_archs()[0], k=SPEC_K)
         with warnings.catch_warnings():
             warnings.simplefilter("ignore", DeprecationWarning)
             eng = JServingEngine(arch_j, params, dtype=jnp.float32,
@@ -136,7 +173,7 @@ def _jax_streams(path):
                                      paging=JPagingConfig(paged=paged,
                                                           page_size=PS),
                                      quant=JQ.INT8_SERVE if int8
-                                     else JQ.QuantConfig()))
+                                     else JQ.QuantConfig(), **extra))
         for i, p in enumerate(_prompts_for(arch_id)):
             eng.submit(JRequest(rid=i, prompt=p, max_new_tokens=MAX_NEW))
         eng.run_until_drained(max_steps=2000)
@@ -145,21 +182,29 @@ def _jax_streams(path):
 
 
 def _engine(path, lookahead=1):
-    arch_id, int8, paged = PATHS[path]
+    arch_id, int8, paged, mode = PATHS[path]
     arch = get_arch(arch_id).reduced()
-    model = bridge.from_jax_params(_tree(arch_id), arch, device="cpu")
-    return ServingEngine(arch, model, device="cpu", config=ServeConfig(
+    params = bridge.from_jax_params(_tree(arch_id), arch, device="cpu")
+    extra = {}
+    if mode == "top_k":
+        extra["sampling"] = TOP_K
+    if mode == "spec":
+        draft = _draft_archs()[1]
+        params = {"target": params,
+                  "draft": bridge.from_jax_params(_draft_tree(), draft,
+                                                  device="cpu")}
+        extra["spec"] = SpecConfig(draft=draft, k=SPEC_K)
+    return ServingEngine(arch, params, device="cpu", config=ServeConfig(
         slots=SLOTS, max_len=MAX_LEN, lookahead=lookahead,
         paging=PagingConfig(paged=paged, page_size=PS),
-        quant=Q.INT8_SERVE if int8 else Q.QuantConfig()))
+        quant=Q.INT8_SERVE if int8 else Q.QuantConfig(), **extra))
 
 
 def _addresses(eng) -> dict:
     out = {f"caches[{i}].{k}": v.data_ptr() for i, c in enumerate(eng.caches)
            for k, v in c.items()}
-    for name, v in vars(eng.state).items():
-        if v is not None:
-            out[f"state.{name}"] = v.data_ptr()
+    for name, v in ST.tensors(eng.state).items():
+        out[f"state.{name}"] = v.data_ptr()
     return out
 
 
@@ -222,8 +267,15 @@ def test_caches_and_state_keep_their_addresses(path, lookahead,
         eng.submit(Request(rid=i, prompt=p, max_new_tokens=MAX_NEW))
     eng.run_until_drained(max_steps=2000)
     assert seen["steps"] >= 8 and seen["waves"] >= 2, seen
+    if PATHS[path][3] == "spec":
+        assert any(k.startswith("state.draft_caches") for k in want)
+    assert "state.rng" in want
     got = {r.rid: list(r.out_tokens) for r in eng.completed}
-    bad = _diff(eng.model, prompts, got, _jax_streams(path))
+    if PATHS[path][3] == "top_k":  # the margin of logits / T + gumbel
+        from test_torch_sampling import stream_diff
+        bad = stream_diff(eng.model, prompts, got, _jax_streams(path), TOP_K)
+    else:
+        bad = _diff(eng.model, prompts, got, _jax_streams(path))
     assert not bad, bad
     assert any(len(set(t)) > 2 for t in got.values()), got
 
@@ -239,19 +291,19 @@ def test_engine_step_equals_the_eager_step_on_a_clone(path):
         eng.submit(Request(rid=i, prompt=p, max_new_tokens=MAX_NEW))
     eng.scheduler.admit(eng.model, eng.caches, eng.state)
     caches = [{k: v.clone() for k, v in c.items()} for c in eng.caches]
-    state = type(eng.state)(**{k: None if v is None else v.clone()
-                               for k, v in vars(eng.state).items()})
+    state = ST.clone(eng.state)
     eager = REG.build_serve_step(eng.arch, sampling=eng.sampling,
-                                 eos_id=eng.eos_id, paged=eng.paged)
+                                 eos_id=eng.eos_id, paged=eng.paged,
+                                 spec=eng.spec)
     for _ in range(16):
-        state, caches, rec = eager(eng.model, caches, state)
+        state, caches, rec = eager(eng.params, caches, state)
         assert torch.equal(eng.decode(), CS.pack_record(rec))
     for i, (c, g) in enumerate(zip(caches, eng.caches)):
         for k in c:
             assert torch.equal(c[k], g[k]), f"caches[{i}].{k}"
-    for k, v in vars(state).items():
-        if v is not None:
-            assert torch.equal(v, getattr(eng.state, k)), f"state.{k}"
+    want = ST.tensors(eng.state)
+    for k, v in ST.tensors(state).items():
+        assert torch.equal(v, want[k]), f"state.{k}"
 
 
 class _FakeGraph:
