@@ -80,7 +80,15 @@ Phases (each failure propagates; the process exits non-zero):
    beside S launches of the one-query form and masked SDPA with a [B, H,
    S, T] mask (the kernel line's ``multi_query`` entry of
    ``paged_attention``), and ``xfer_matmul`` at the verify's R = 40 for
-   qwen's projections and unembedding;
+   qwen's projections and unembedding. Then ``xfer_matmul_experts``
+   (table ``EXPERT_CASES``): deepseek-moe-16b's expert products
+   [64, C, 2048] @ [64, 2048, 1408] and [64, C, 1408] @ [64, 1408, 2048]
+   at C = 1, 60 and 240 plus ragged and split-K shapes, fp32 and bf16,
+   bit-stable, timed in bf16 beside ``torch.bmm`` and 64 launches of
+   ``xfer_matmul``. Head dim 128: ``paged_attention`` on deepseek's grid
+   [8, 512, 16, 128] and yi-9b's [8, 512, 4, 128] with 32 query heads
+   (entries ``d128``, ``d128_gqa``), ``flash_attention`` at yi-9b's
+   prefill [256, 512, 128] (entry ``d128_gqa``);
 4. full-width qwen1.5-0.5b served greedily in bf16 through
    ``ServingEngine.run_until_drained()``, whose decode step replays one
    CUDA graph captured when the engine is built (phases 4-4f alike; a
@@ -116,16 +124,28 @@ Phases (each failure propagates; the process exits non-zero):
    (k 50, T 0.8) and with temperature (T 0.8); launch counts exact, and
    every slot's key after the drain equal to the host's threefry chain
    of its last request; step p50 beside greedy's;
-4g. the captured step against the eager one on nine paths (fp, INT8,
+4j. deepseek-moe-16b at full width and depth in bf16 (``serve_moe``):
+   phase 4's 16 prompts on the slot grid, then on the page pool (pages
+   of 64, no prefix registry) on the same weights; launches exactly
+   ``pass_launches`` per decode step and prefill group (224
+   ``xfer_matmul``, 81 ``xfer_matmul_experts``, 28 attention), every
+   request to its budget; step p50/p95, admission p50, tokens/s, peak
+   allocated bytes and the step's byte bound printed;
+4k. the same for minitron-8b (relu2, full depth), yi-9b and
+   phi3-medium-14b (full width, 8 layers), one model at a time on the
+   grid (``serve_dense_d128``);
+4g. the captured step against the eager one on twelve paths (fp, INT8,
    paged fp and int8 pools, hybrid, ssm, top-k sampling, speculative on
-   the grid and on the pool; full width, 8 slots): after one
+   the grid and on the pool, deepseek-moe-16b on the grid and the pool,
+   minitron-8b; full width, 8 slots): after one
    admission, 16 eager steps of ``registry.build_serve_step`` on a clone
    of caches and state and 16 replays on the originals give equal
    records and bit-equal caches and state, and each replay counts its
    capture's launches; then 20 steady qwen steps through
    ``ServingEngine.step()`` traced with ``torch.profiler``, replaying
    the graph, then dispatching the eager step, then replaying a
-   speculative engine's step (k = 4, the 1-layer draft): the device's idle
+   speculative engine's step (k = 4, the 1-layer draft), then 20 steady
+   steps of full-size deepseek-moe-16b's captured step: the device's idle
    share of each window, its top device ops and the launches a step
    that are not the hand-written kernels';
 5. full-width parity: seeded fp32 weights, one batched prefill of 4
@@ -153,6 +173,12 @@ Phases (each failure propagates; the process exits non-zero):
    the grid and the pool: greedy and top-k spec streams equal the CPU
    port's, greedy spec (and a self-draft's) equal target-only on the
    card;
+5g. deepseek-moe-16b at full width cut to 3 layers (its dense prefix
+   layer and 2 MoE layers, capacity factor 1.25: assignments drop) and
+   minitron-8b at full width cut to 2, seeded fp32 weights, card vs CPU
+   (``parity_moe``): logits within 2e-3, greedy tokens equal (a flip
+   only under a top-2 margin of 2e-3), each position's smallest router
+   margin printed;
 6. the kernel table as one JSON line, then the result line.
 
 It imports nothing of JAX and nothing of the JAX package.
@@ -211,6 +237,10 @@ SOURCES = {
                    "src/repro/kernels/rglru_scan.py:19"),
     "mlstm_chunkwise": ("src/repro_torch/kernels/csrc/mlstm_chunkwise.cu",
                         "src/repro/kernels/mlstm_kernel.py:20"),
+    # no TPU kernel: the reference's expert products are jnp.einsum in
+    # _expert_ffn, which is the line named
+    "xfer_matmul_experts": ("src/repro_torch/kernels/csrc/xfer_matmul.cu",
+                            "src/repro/models/blocks.py:550"),
 }
 # the kernels each serving path runs (phase 4: fp, phase 4b: INT8,
 # phase 4c: the hybrid, phase 4d: the ssm family, phase 4e: paged, phase
@@ -230,7 +260,13 @@ PATH_KERNELS = {"fp": ("xfer_matmul", "flash_attention", "paged_attention"),
                 "spec-paged": ("xfer_matmul", "flash_attention",
                                "paged_attention"),
                 "sampled": ("xfer_matmul", "flash_attention",
-                            "paged_attention")}
+                            "paged_attention"),
+                "moe": ("xfer_matmul", "xfer_matmul_experts",
+                        "flash_attention", "paged_attention"),
+                "moe-paged": ("xfer_matmul", "xfer_matmul_experts",
+                              "flash_attention", "paged_attention"),
+                "dense-d128": ("xfer_matmul", "flash_attention",
+                               "paged_attention")}
 
 
 def log(msg: str) -> None:
@@ -349,7 +385,7 @@ def record(entries: dict, name: str, entry, row: dict) -> None:
     ``pool`` or ``fp32`` as a sub-entry of that name."""
     if entry == "main":
         entries.setdefault(name, {}).update(row)
-    elif entry in ("hybrid", "ssm", "d128", "pool", "fp32"):
+    elif entry in ("hybrid", "ssm", "d128", "d128_gqa", "pool", "fp32"):
         entries.setdefault(name, {})[entry] = row
 
 
@@ -362,6 +398,10 @@ BOTH, FP32, BF16 = ("float32", "bfloat16"), ("float32",), ("bfloat16",)
 Q_D, Q_FF, Q_VOCAB, Q_HEADS = 1024, 2816, 151936, 16
 H_FF, H_VOCAB = 7680, 256000
 X_D, X_VOCAB = 1024, 50304  # xlstm-350m (phase 4d)
+# deepseek-moe-16b (phases 4j, 5g): 64 routed experts of width 1408 over
+# d 2048, top 6, 16 heads of 128; yi-9b (phase 4k): 32 heads over 4 KV
+M_E, M_D, M_FF, M_TOPK, M_HEADS = 64, 2048, 1408, 6, 16
+Y_HEADS, Y_KV = 32, 4
 
 # xfer_matmul: (label, R, N, M, w given as a transposed view, dtypes,
 # timed in bf16, entry); every projection at decode (R = slots) and
@@ -414,8 +454,14 @@ FA_CASES = [
      False, None),
     ("BH=4 S=77 D=256", 4, 77, 256, 0, True, BOTH, False, None),
     ("non-causal BH=3 S=50 D=256", 3, 50, 256, 0, False, BOTH, False, None),
-    # head dim 128 (the next dense models'): timed in bf16 beside SDPA
+    # head dim 128 (the MoE and dense models of phases 4j/4k): timed in
+    # bf16 beside SDPA; yi-9b's prefill of 8 prompts of a 512 bucket, 32
+    # query heads over 4 KV groups (layers.attention repeats K/V per
+    # group and folds the heads into the batch: BH = 8 x 32)
     ("BH=256 S=2048 D=128", 256, 2048, 128, 0, True, BF16, True, "d128"),
+    (f"BH={SLOTS * Y_HEADS} S={MAX_LEN} D=128 (yi-9b prefill, GQA "
+     f"{Y_HEADS}/{Y_KV})", SLOTS * Y_HEADS, MAX_LEN, 128, 0, True, BF16,
+     True, "d128_gqa"),
     ("ragged BH=4 S=150 D=128 window 40", 4, 150, 128, 40, True, BOTH, False,
      None),
     ("BH=3 S=70 D=16", 3, 70, 16, 0, True, BOTH, False, None),
@@ -438,7 +484,17 @@ PA_CASES = [
      H_SLOTS, H_HEADS, 1, 256, (H_SLOTS, H_WINDOW), None,
      [1, 17, 255, 256, 257, 1000, H_WINDOW - 1, H_WINDOW], True, "hybrid"),
     ("ragged D=256 H=4 G=2 ps=16", 3, 4, 2, 256, (3 * 5 + 2, 16), 5,
-     [1, 40, 5 * 16], False, None)]
+     [1, 40, 5 * 16], False, None),
+    # head dim 128: deepseek-moe-16b's grid (MHA, 16 heads) and yi-9b's
+    # (32 query heads over 4 KV heads, 8 per group)
+    (f"grid q[{SLOTS},{M_HEADS},128] pool[{SLOTS},{MAX_LEN},{M_HEADS},128]",
+     SLOTS, M_HEADS, M_HEADS, 128, (SLOTS, MAX_LEN), None,
+     [1, 17, 64, 128, 129, 200, 233, MAX_LEN], True, "d128"),
+    (f"grid q[{SLOTS},{Y_HEADS},128] pool[{SLOTS},{MAX_LEN},{Y_KV},128]",
+     SLOTS, Y_HEADS, Y_KV, 128, (SLOTS, MAX_LEN), None,
+     [1, 17, 64, 128, 129, 200, 233, MAX_LEN], True, "d128_gqa"),
+    ("ragged D=128 H=40 G=10 ps=64", 3, 40, 10, 128, (3 * 8 + 2, 64), 8,
+     [1, 300, 8 * 64], False, None)]
 
 
 # paged_attention's multi-query form (the speculative verify of k + 1
@@ -598,6 +654,95 @@ def check_paged_multi(dev, gen, entries: dict) -> None:
                            device_ms=dev_ms, plain_ms=plain, bound_ms=b,
                            bound_by=kind, library_ms=lib))
         del x, w, got
+
+
+# xfer_matmul_experts (the MoE layer's expert products, one launch): (label,
+# E, C, K, N, dtypes, timed in bf16, entry). deepseek-moe-16b's w_gate /
+# w_up ([64, 2048, 1408]) and w_down ([64, 1408, 2048]) at C = 1 (decode
+# at 8 slots: cap = ceil(8 x 6 / 64 x 1.25)), 60 (one 512-token bucket)
+# and 240 (2048 tokens); then ragged shapes and split-K ones, so that
+# every body's per-expert workspace and counters are reached
+EXPERT_CASES = (
+    [(f"[{M_E},{c},{k}] @ [{M_E},{k},{n}]", M_E, c, k, n, BOTH, True,
+      "main" if (c, k) == (1, M_D) else None)
+     for c in (1, 60, 240) for k, n in ((M_D, M_FF), (M_FF, M_D))]
+    + [("ragged E=5 C=13 1000x1001", 5, 13, 1000, 1001, BOTH, False, None),
+       ("ragged E=3 C=77 1000x1001", 3, 77, 1000, 1001, BOTH, False, None),
+       ("E=4 C=17 512x256", 4, 17, 512, 256, BOTH, False, None),
+       ("E=7 C=16 256x128", 7, 16, 256, 128, BOTH, False, None),
+       ("split-K E=2 C=9 4096x64", 2, 9, 4096, 64, BOTH, False, None),
+       ("split-K E=2 C=40 4096x256", 2, 40, 4096, 256, BOTH, False, None)])
+
+
+def check_experts(dev, gen) -> dict:
+    """``xfer_matmul_experts`` on every case of EXPERT_CASES against its
+    plain version (``ref.expert_matmul_ref``, an fp32 einsum over E), two
+    calls bit-equal, the route of each expert's product printed; the
+    timed cases in bf16 beside ``torch.bmm`` (library) and E launches of
+    the dense ``xfer_matmul`` (yardstick), eager and as device time from
+    a CUDA graph."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.xfer_matmul import route as xfer_route
+
+    dtypes = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    entry_rows, shapes = {}, []
+    for label, e, c, k, n, dnames, timed, entry in EXPERT_CASES:
+        for dname in dnames:
+            dt = dtypes[dname]
+            x = (torch.randn(e, c, k, generator=gen, device=dev)).to(dt)
+            w = (torch.randn(e, k, n, generator=gen, device=dev)
+                 * k ** -0.5).to(dt)
+            rt = xfer_route(c, k, n, dt, (n, 1), sms, experts=e)
+            got = ops.expert_matmul(x, w)
+            err = compare(f"xfer_matmul_experts {label} {dname}", got,
+                          ops.expert_matmul_ref(x, w), dname)
+            bit_stable(f"xfer_matmul_experts {label} {dname}", got,
+                       ops.expert_matmul(x, w))
+            line = (f"[kernel] xfer_matmul_experts {label} {dname}: route "
+                    f"{rt.kernel} grid {rt.grid} x {e} experts splits "
+                    f"{rt.splits}; max_abs_err {err:.3e} (bit-stable)")
+            if timed and dname == "bfloat16":
+                flops = 2.0 * e * c * k * n
+                it, wu = iters_for(flops)
+
+                def dense_loop():
+                    for i in range(e):
+                        ops.matmul(x[i], w[i])
+
+                ms = time_ms(lambda: ops.expert_matmul(x, w), it, wu)
+                dev_ms = graph_ms(lambda: ops.expert_matmul(x, w))
+                plain = time_ms(lambda: ops.expert_matmul_ref(x, w), it, wu)
+                lib = time_ms(lambda: torch.bmm(x, w), it, wu)
+                lib_dev = graph_ms(lambda: torch.bmm(x, w))
+                yard = time_ms(dense_loop, it, wu)
+                yard_dev = graph_ms(dense_loop, calls=2)
+                b, kind = bound_ms((e * c * k + e * k * n + e * c * n)
+                                   * x.element_size(), flops, dname)
+                line += (f" ms {ms:.4f} device_ms {dev_ms:.4f} plain_ms "
+                         f"{plain:.4f} library_ms {lib:.4f} (torch.bmm; device "
+                         f"{lib_dev:.4f}) yardstick_ms {yard:.4f} ({e} "
+                         f"xfer_matmul launches; device {yard_dev:.4f}) "
+                         f"bound_ms {b:.4f} ({kind}, {flops:.4e} flops) "
+                         f"kernel/library {ms / lib:.2f}")
+                row = dict(shape=f"x[{e},{c},{k}] @ w[{e},{k},{n}] bf16",
+                           variant=rt.kernel, max_abs_err=err, ms=ms,
+                           device_ms=dev_ms, plain_ms=plain, bound_ms=b,
+                           bound_by=kind, library_ms=lib,
+                           library_device_ms=lib_dev, yardstick_ms=yard,
+                           yardstick_device_ms=yard_dev,
+                           yardstick=f"{e} launches of xfer_matmul",
+                           bit_stable=True)
+                shapes.append(row)
+                if entry == "main":
+                    entry_rows.update(row)
+            log(line)
+            del x, w, got
+    entry_rows["shapes"] = shapes
+    entry_rows["note"] = ("no TPU kernel: the reference's expert products "
+                          "are jnp.einsum in _expert_ffn")
+    return {"xfer_matmul_experts": entry_rows}
 
 
 def check_kernels(dev) -> dict:
@@ -785,6 +930,7 @@ def check_kernels(dev) -> dict:
                     bound_by=full_kind)))
             del q, kp, vp, got, want
     check_paged_multi(dev, gen, entries)
+    entries.update(check_experts(dev, gen))
     entries.update(check_int8_kernels(dev, gen))
     check_flash_q8(dev, gen, entries)
     entries.update(check_rglru(dev, gen))
@@ -1516,6 +1662,150 @@ def serve_full_width(int8: bool = False) -> dict:
     return counts, {r.rid: list(r.out_tokens) for r in done}, stats
 
 
+# --------------------------------------------------------------------------
+# phases 4j, 4k: deepseek-moe-16b and the head-dim-128 dense configs
+# --------------------------------------------------------------------------
+
+def pass_launches(model) -> dict:
+    """The launches of one pass of ``model`` (a decode step or a prefill
+    group) from its config: per attention layer 4 projections and its
+    MLP (3 matmuls gated, 2 relu2; in an MoE layer the router and the
+    shared experts' MLP, and 3 or 2 expert products), one unembedding;
+    one attention per layer, in the step (``paged_attention``) or the
+    group (``flash_attention``)."""
+    arch = model.arch
+    mlp = 2 if arch.mlp == "relu2" else 3
+    n_moe = sum(layer.is_moe for layer in model.layers)
+    shared = mlp if arch.num_shared_experts else 0
+    return {"xfer_matmul": (4 + mlp) * (len(model.layers) - n_moe)
+            + (4 + 1 + shared) * n_moe + 1,
+            "xfer_matmul_experts": mlp * n_moe, "attention": len(model.layers)}
+
+
+def serve_d128(tag: str, arch, model=None, paged: bool = False):
+    """Phases 4j and 4k: phase 4's 16 prompts (16-200 tokens, 32 new
+    tokens each) through ``arch`` at full width in bf16 on 8 slots x 512
+    (pages of 64 when ``paged``: the MoE family keeps no prefix
+    registry), seeded weights (``model``, or made here). Launch counts
+    exact per decode step and per prefill group (``pass_launches``),
+    every request to its budget; prints step p50/p95, admission p50,
+    tokens/s, peak allocated bytes and the step's byte bound (every
+    weight but the embedding table, read once a step: at 8 slots the MoE
+    layers' capacity is 1 and every expert runs). Returns (launch
+    counts, streams, model)."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.models.registry import init_params
+    from repro_torch.serving import PagingConfig, ServeConfig, ServingEngine
+
+    new_tokens = 32
+    config = ServeConfig(slots=SLOTS, max_len=MAX_LEN, seed=0, lookahead=1,
+                         paging=PagingConfig(paged=paged, page_size=PAGE))
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    if model is None:
+        model = init_params(arch, config.seed)  # on the card, bf16
+    engine = ServingEngine(arch, model, config=config)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    weight_bytes = sum(p.numel() * p.element_size() for p in model.parameters())
+    step_bytes = weight_bytes - model.embed.numel() * model.embed.element_size()
+    per = pass_launches(model)
+    log(f"[{tag}] {arch.name}: {arch.num_layers} layers (MoE "
+        f"{sum(layer.is_moe for layer in model.layers)}), d {arch.d_model}, "
+        f"heads {arch.num_heads}/{arch.num_kv_heads} x {arch.head_dim}, mlp "
+        f"{arch.mlp}, {n_params} params ({weight_bytes} bytes), "
+        f"{'pool of pages of %d' % PAGE if paged else 'slot grid'}; params + "
+        f"engine + capture ready in {time.perf_counter() - t0:.1f} s; per "
+        f"pass {per}")
+    prompts = phase4_prompts(arch.vocab_size)
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    streams, steps, groups, _, peak_pages = drive(engine, prompts, new_tokens)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    for rid, toks in streams.items():
+        if len(toks) != new_tokens or not all(0 <= t < arch.vocab_size
+                                               for t in toks):
+            raise AssertionError(f"[{tag}] rid {rid}: bad stream {toks}")
+    path = PATH_KERNELS["moe" if arch.family == "moe" else "dense-d128"]
+    want = {"xfer_matmul": per["xfer_matmul"] * (steps + groups),
+            "xfer_matmul_experts": per["xfer_matmul_experts"] * (steps + groups),
+            "paged_attention": per["attention"] * steps,
+            "flash_attention": per["attention"] * groups}
+    check_paged_counts(tag, counts, path, want)
+    pstats, sstats = engine.prefill_stats(), engine.step_stats()
+    if paged and (engine.scheduler.registry is not None
+                  or pstats["prefix_hit_rate"] != 0):
+        raise AssertionError(f"[{tag}] the MoE pool keeps a prefix registry")
+    bound = step_bytes / HBM_BYTES_PER_S * 1e3
+    log(f"[{tag}] {len(streams)}/{len(prompts)} requests to their budget, "
+        f"{steps} decode steps, {groups} prefill groups, {wall:.3f} s wall; "
+        f"launches {counts} (exact)" + (f"; peak pages in use {peak_pages}"
+                                        if paged else ""))
+    log(f"[{tag}] step_p50_ms {sstats['step_p50_ms']:.4f} step_p95_ms "
+        f"{sstats['step_p95_ms']:.4f} admit_p50_ms {pstats['admit_p50_ms']:.4f} "
+        f"tokens_per_s {sstats['tokens_per_s']:.1f} peak_allocated_bytes "
+        f"{torch.cuda.max_memory_allocated()} step_bound_ms {bound:.4f} "
+        f"(bytes: {step_bytes} weight bytes a step)")
+    log(f"[{tag}] step_stats {json.dumps(sstats)}")
+    log(f"[{tag}] prefill_stats {json.dumps(pstats)}")
+    log(f"[{tag}] rid=0 out={streams[0][:8]}")
+    del engine
+    torch.cuda.empty_cache()
+    return counts, streams, model
+
+
+def serve_moe() -> dict:
+    """Phase 4j: deepseek-moe-16b at full width and depth (one dense
+    layer, 27 MoE layers of 64 experts, top 6, 2 shared) on the slot
+    grid, then on the page pool on the same weights; the pool's streams
+    printed against the grid's (the paged kernel's split differs from
+    the grid's, so a near-tie may part them). Returns the launch counts
+    per path."""
+    import torch
+    from repro_torch.configs import get_arch
+
+    arch = get_arch("deepseek-moe-16b")
+    grid, streams, model = serve_d128("serve-moe", arch)
+    pool, pool_streams, model = serve_d128("serve-moe-paged", arch, model,
+                                           paged=True)
+    compare_streams("serve-moe-paged", model, phase4_prompts(arch.vocab_size),
+                    pool_streams, streams, "the grid's", limit=None)
+    del model
+    torch.cuda.empty_cache()
+    return {"moe": grid, "moe-paged": pool}
+
+
+#: phase 4k: (arch id, layers or None for full depth)
+D128_DENSE = (("minitron-8b", None), ("yi-9b", 8), ("phi3-medium-14b", 8))
+
+
+def serve_dense_d128() -> dict:
+    """Phase 4k: minitron-8b (relu2) at full width and depth, yi-9b and
+    phi3-medium-14b at full width with the depth cut to 8 layers (every
+    kernel instance is the same at any depth), one model at a time on
+    the grid. Returns the launch counts summed over the three."""
+    import dataclasses
+
+    import torch
+    from repro_torch.configs import get_arch
+
+    total = {}
+    for arch_id, layers in D128_DENSE:
+        arch = get_arch(arch_id)
+        if layers:
+            arch = dataclasses.replace(arch, num_layers=layers)
+        counts, _, model = serve_d128(f"serve-{arch_id}", arch)
+        del model
+        torch.cuda.empty_cache()
+        for name, n in counts.items():
+            total[name] = total.get(name, 0) + n
+    return total
+
+
 # recurrentgemma-2b at full width and depth, as the reference's
 # jax.eval_shape of lm.init_params counts it, and its ring KV grid
 HYBRID_PARAMS = 2_682_237_440
@@ -1720,7 +2010,11 @@ GRAPH_PATHS = (("fp", "qwen1.5-0.5b", SLOTS, MAX_LEN, False, None, None),
                ("top-k", "qwen1.5-0.5b", SLOTS, MAX_LEN, False, None, "top_k"),
                ("spec", "qwen1.5-0.5b", SLOTS, MAX_LEN, False, None, "spec"),
                ("spec-paged", "qwen1.5-0.5b", SLOTS, MAX_LEN, False, PAGE,
-                "spec"))
+                "spec"),
+               ("moe", "deepseek-moe-16b", SLOTS, MAX_LEN, False, None, None),
+               ("moe-paged", "deepseek-moe-16b", SLOTS, MAX_LEN, False, PAGE,
+                None),
+               ("relu2", "minitron-8b", SLOTS, MAX_LEN, False, None, None))
 
 
 def graph_engine(models: dict, arch_id: str, slots: int, max_len: int,
@@ -1789,7 +2083,17 @@ def graph_vs_eager() -> dict:
     from repro_torch.serving.captured import pack_record
 
     models, per_replay = {}, {}
-    for tag, arch_id, slots, max_len, int8, page, mode in GRAPH_PATHS:
+    for i, (tag, arch_id, slots, max_len, int8, page, mode) in \
+            enumerate(GRAPH_PATHS):
+        # free the weights no later path reads, so that deepseek's 33 GB
+        # and minitron's 15 GB are never resident beside the others
+        later = GRAPH_PATHS[i:]
+        for key in [k for k in models if k != "draft" and
+                    k[0] not in {p[1] for p in later}]:
+            del models[key]
+        if "draft" in models and not any(p[6] == "spec" for p in later):
+            del models["draft"]
+        torch.cuda.empty_cache()
         torch.cuda.synchronize()
         a0, r0 = torch.cuda.memory_allocated(), torch.cuda.memory_reserved()
         t0 = time.perf_counter()
@@ -1902,9 +2206,10 @@ def trace_steps() -> dict:
     through ``ServingEngine.step()``, traced with ``torch.profiler``:
     first replaying the captured step, then the same engine dispatching
     the eager step; then a speculative engine (phase 4h's 1-layer draft,
-    k = SPEC_K) replaying its captured step. Prints the device's idle
-    share of each window, the top device ops and the launches per step
-    that are not the hand-written kernels'."""
+    k = SPEC_K) replaying its captured step; then full-size
+    deepseek-moe-16b's captured step (phase 4j's model). Prints the
+    device's idle share of each window, the top device ops and the
+    launches per step that are not the hand-written kernels'."""
     import torch
     from repro_torch.kernels import ops
     from repro_torch.models.registry import build_serve_step
@@ -1926,13 +2231,19 @@ def trace_steps() -> dict:
         torch.cuda.synchronize()
 
     out = {}
-    for mode in ("graph", "eager", "spec"):
+    for mode in ("graph", "eager", "spec", "moe"):
         if mode == "eager":
             engine.decode = eager_decode
-        if mode == "spec":  # budgets of 380 for 64 steps of up to k + 1
-            del engine
-            engine = graph_engine({}, "qwen1.5-0.5b", SLOTS, MAX_LEN, False,
-                                  None, mode="spec", new_tokens=190)
+        if mode in ("spec", "moe"):  # spec: budgets of 380 for 64 steps
+            del engine               # of up to k + 1
+            torch.cuda.empty_cache()
+            if mode == "spec":
+                engine = graph_engine({}, "qwen1.5-0.5b", SLOTS, MAX_LEN,
+                                      False, None, mode="spec",
+                                      new_tokens=190)
+            else:
+                engine = graph_engine({}, "deepseek-moe-16b", SLOTS, MAX_LEN,
+                                      False, None, new_tokens=8 * TRACE_STEPS)
             for _ in range(4):
                 engine.step()
         run()  # warm
@@ -1945,7 +2256,8 @@ def trace_steps() -> dict:
         row.update(host_ms_per_step=host_ms, handwritten_per_step=ours)
         if row["measured"]:
             row["other_launches_per_step"] = row["kernels_per_step"] - ours
-            log(f"[trace-{mode}] {TRACE_STEPS} steady qwen1.5-0.5b bf16 steps"
+            log(f"[trace-{mode}] {TRACE_STEPS} steady {engine.arch.name} "
+                f"bf16 steps"
                 + (f" (k = {SPEC_K}, 1-layer draft)" if mode == "spec" else "")
                 + ": "
                 f"host {host_ms:.3f} ms a step untraced; traced window "
@@ -2026,10 +2338,12 @@ def parity_full_width(dev) -> None:
 
 
 def compare_card_cpu(arch, cpu_model, card_model, tag: str, *,
-                     kv_quant: bool) -> None:
+                     kv_quant: bool, note=None) -> None:
     """A batched bucketed prefill of 4 prompts and 4 greedy decode steps
     on the card and on the CPU, fed the same tokens (the CPU's greedy
-    choices); last-position logits within PARITY_TOL of max |logit|."""
+    choices); last-position logits within PARITY_TOL of max |logit|.
+    ``note(j)``, when given, adds a remark on position j to its line and
+    to a failure's message."""
     import numpy as np
     import torch
     from repro_torch.serving.scheduler import prefill_rows, splice_rows
@@ -2072,17 +2386,85 @@ def compare_card_cpu(arch, cpu_model, card_model, tag: str, *,
         worst = max(worst, rel)
         flips = (got_tok[j] != want_tok[j]).nonzero().flatten().tolist()
         line = f"[{tag}] position {j}: max rel err {rel:.3e}"
+        if note is not None:
+            line += f"; {note(j)}"
         for b in flips:
             top = torch.topk(w[b], 2).values
             margin = float(top[0] - top[1]) / scale
             line += f"; row {b} flips with top-2 margin {margin:.3e}"
             if margin > PARITY_TOL:
                 raise AssertionError(f"greedy token differs at position {j} row "
-                                     f"{b} with margin {margin:.3e} > {PARITY_TOL}")
+                                     f"{b} with margin {margin:.3e} > "
+                                     f"{PARITY_TOL} ({line})")
         log(line)
-    if worst > PARITY_TOL:
-        raise AssertionError(f"card vs CPU logits: rel err {worst:.3e} > {PARITY_TOL}")
+        if rel > PARITY_TOL:
+            raise AssertionError(f"card vs CPU logits: rel err {rel:.3e} > "
+                                 f"{PARITY_TOL} ({line})")
     log(f"[{tag}] ok: worst rel err {worst:.3e} (tolerance {PARITY_TOL})")
+
+
+#: phase 5g: (arch id, layers): deepseek-moe-16b cut to its dense prefix
+#: layer and 2 MoE layers, at its own capacity factor 1.25 (assignments
+#: drop), and minitron-8b (relu2) cut to 2 layers, both at full width
+PARITY_D128 = (("deepseek-moe-16b", 3), ("minitron-8b", 2))
+
+
+def parity_moe(dev) -> None:
+    """Phase 5g: seeded fp32 weights (drawn on the card, copied to the
+    CPU), compare_card_cpu's prefill of 4 prompts in a 64 bucket and 4
+    greedy decode steps, card vs CPU: logits within PARITY_TOL, greedy
+    tokens equal (a flip only under a top-2 margin of PARITY_TOL). Each
+    position's line carries the smallest router margin of the CPU's
+    forward there (the k-th against the (k+1)-th probability over every
+    token and MoE layer): a routing flip between the two sides can only
+    come from a margin of the order of fp32's rounding."""
+    import dataclasses
+
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.models import layers as L
+    from repro_torch.models import moe as M
+    from repro_torch.models.lm import LM
+    from repro_torch.models.registry import init_params
+
+    route = M.route
+    margins = []  # (device type, smallest router margin) per route call
+
+    def recording_route(arch, hf, router):
+        gates, idx = route(arch, hf, router)
+        probs = torch.softmax(L.dense(hf, router).float(), dim=-1)
+        top = torch.sort(probs, dim=-1, descending=True).values
+        gap = top[:, arch.top_k - 1] - top[:, arch.top_k]
+        margins.append((hf.device.type, float(gap.min())))
+        return gates, idx
+
+    for arch_id, layers in PARITY_D128:
+        arch = dataclasses.replace(get_arch(arch_id), num_layers=layers)
+        tag = f"parity-{arch_id}"
+        t0 = time.perf_counter()
+        card_model = init_params(arch, 1, dtype=torch.float32)
+        cpu_model = LM(arch, device=torch.device("cpu"), dtype=torch.float32)
+        cpu_model.load_state_dict(card_model.state_dict())
+        n_moe = sum(layer.is_moe for layer in card_model.layers)
+        log(f"[{tag}] {layers} layers ({n_moe} MoE, capacity factor "
+            f"{arch.moe_capacity_factor}), d {arch.d_model}, mlp {arch.mlp}: "
+            f"fp32 weights on card and CPU in {time.perf_counter() - t0:.1f} s")
+
+        def note(j):
+            if not n_moe:
+                return "no router"
+            cpu = [m for d, m in margins if d == "cpu"][j * n_moe:(j + 1) * n_moe]
+            return f"smallest router margin (CPU) {min(cpu):.3e}"
+
+        margins.clear()
+        M.route = recording_route
+        try:
+            compare_card_cpu(arch, cpu_model, card_model, tag, kv_quant=False,
+                             note=note)
+        finally:
+            M.route = route
+        del card_model, cpu_model
+        torch.cuda.empty_cache()
 
 
 def parity_hybrid(dev) -> None:
@@ -3015,7 +3397,8 @@ def kernel_table(entries: dict, counts: dict) -> list:
                "bound_by": e["bound_by"], "library_ms": e["library_ms"],
                "shape": e["shape"]}
         for key in ("yardstick_ms", "yardstick", "library_error", "hybrid",
-                    "ssm", "d128", "fp32", "n1", "prefix", "own", "pool",
+                    "ssm", "d128", "d128_gqa", "fp32", "n1", "prefix", "own",
+                    "pool", "note",
                     "variant", "multi_query",
                     "every_length", "shapes", "ptxas", "device_ms",
                     "library_device_ms", "yardstick_device_ms", "bit_stable"):
@@ -3074,6 +3457,10 @@ def main() -> int:
     sampled = serve_sampled(dense_stats)
     counts["sampled"] = {name: sum(c[name] for c in sampled.values())
                          for name in counts["fp"]}
+    # ---- phase 4j: deepseek-moe-16b at full width and depth, grid and pool
+    counts.update(serve_moe())
+    # ---- phase 4k: minitron-8b, yi-9b and phi3-medium-14b at full width
+    counts["dense-d128"] = serve_dense_d128()
     # ---- phase 4g: the captured step against the eager step on every
     # path, and a trace of steady steps, graph and eager
     graph_vs_eager()
@@ -3089,6 +3476,8 @@ def main() -> int:
     parity_paged(dev)
     # ---- phase 5f: speculative and sampled streams, depth cut to 4 layers
     parity_spec(dev)
+    # ---- phase 5g: the MoE family and relu2 at full width, cut depth
+    parity_moe(dev)
 
     kernels = kernel_table(entries, counts)
     log(f"[total] {time.perf_counter() - started:.1f} s, the build included")

@@ -99,13 +99,28 @@ __device__ __forceinline__ float to_f32(int8_t v) { return (float)v; }
 __device__ __forceinline__ void store(float* p, float v) { *p = v; }
 __device__ __forceinline__ void store(__nv_bfloat16* p, float v) { *p = __float2bfloat16(v); }
 
+// The expert axis of xfer_matmul_experts (x [E, R, N] @ w [E, N, M]): the
+// block of expert e (blockIdx.z; tc: blockIdx.z / splits) reads x, w and
+// writes out, the split-K workspace and the tile counters advanced by e
+// times these element strides. All zero (and one expert) for xfer_matmul.
+struct Group {
+  long long sx, sw, so, sws;
+  int scnt;
+};
+
 // T: x and out; W: w (T, or int8_t with one f32 scale per column)
 template <typename T, typename W, int BM>
 __global__ void __launch_bounds__(THREADS)
 matmul_kernel(const T* __restrict__ x, const W* __restrict__ w,
               const float* __restrict__ scale, T* __restrict__ out, int R,
-              int N, int M, long long swn, long long swm) {
+              int N, int M, long long swn, long long swm, Group grp) {
   constexpr bool Q8 = std::is_same<W, int8_t>::value;
+  {
+    const long long e = blockIdx.z;
+    x += e * grp.sx;
+    w += e * grp.sw;
+    out += e * grp.so;
+  }
   constexpr int TM = BM / 16;  // rows per thread
   constexpr int TN = BN / 16;  // columns per thread
   // +1 padding: the transposing stores below hit distinct banks
@@ -389,7 +404,7 @@ __global__ void __launch_bounds__(THREADS)
 stream_rows_kernel(const T* __restrict__ x, const T* __restrict__ w,
                    T* __restrict__ out, float* __restrict__ ws,
                    int* __restrict__ counters, int R, int N, int M,
-                   long long swn, int kc, int splits) {
+                   long long swn, int kc, int splits, Group grp) {
   constexpr int V = 16 / sizeof(T);
   constexpr int LPR = 8;               // lanes per row
   constexpr int TILE = LPR * V;        // columns per block
@@ -403,6 +418,14 @@ stream_rows_kernel(const T* __restrict__ x, const T* __restrict__ w,
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int rg = lane / LPR, cl = lane % LPR;
   const int tile = blockIdx.x, split = blockIdx.y;
+  {
+    const long long e = blockIdx.z;
+    x += e * grp.sx;
+    w += e * grp.sw;
+    out += e * grp.so;
+    ws += e * grp.sws;
+    counters += e * grp.scnt;
+  }
   const int c0 = tile * TILE + cl * V;
   const int k0 = split * kc;
   const int klen = min(N, k0 + kc) - k0;
@@ -494,11 +517,19 @@ stream_mma_kernel(const __nv_bfloat16* __restrict__ x,
                   const __nv_bfloat16* __restrict__ w,
                   __nv_bfloat16* __restrict__ out, float* __restrict__ ws,
                   int* __restrict__ counters, int R, int N, int M,
-                  long long ldw, int kc, int splits) {
+                  long long ldw, int kc, int splits, Group grp) {
   constexpr int NI = RB / 8;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int tile = blockIdx.x, split = blockIdx.y;
+  {
+    const long long e = blockIdx.z;
+    x += e * grp.sx;
+    w += e * grp.sw;
+    out += e * grp.so;
+    ws += e * grp.sws;
+    counters += e * grp.scnt;
+  }
   const int c0 = tile * MT;
   const int k0 = split * kc;
   const int klen = min(N, k0 + kc) - k0;
@@ -1029,7 +1060,7 @@ __global__ void __launch_bounds__(THREADS)
 tc_kernel(const __nv_bfloat16* __restrict__ x,
           const __nv_bfloat16* __restrict__ w, __nv_bfloat16* __restrict__ out,
           float* __restrict__ ws, int* __restrict__ counters, int R, int N,
-          int M, long long ldw, int kt_per_split) {
+          int M, long long ldw, int kt_per_split, int splits, Group grp) {
   extern __shared__ __align__(16) __nv_bfloat16 smem[];
   __nv_bfloat16* As = smem;                       // [STAGES][BM][A_LD]
   __nv_bfloat16* Bs = smem + STAGES * A_ELEMS;    // [STAGES][b_elems]
@@ -1039,7 +1070,15 @@ tc_kernel(const __nv_bfloat16* __restrict__ x,
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int wm = warp / 2, wn = warp % 2;
   const int r0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
-  const int split = blockIdx.z, splits = gridDim.z;
+  const int split = blockIdx.z % splits;
+  {
+    const long long e = blockIdx.z / splits;
+    x += e * grp.sx;
+    w += e * grp.sw;
+    out += e * grp.so;
+    ws += e * grp.sws;
+    counters += e * grp.scnt;
+  }
   // this block's k-tiles: [kt0, kt0 + KT) of the (N + BK - 1) / BK
   const int kt0 = split * kt_per_split;
   const int KT = min((N + BK - 1) / BK - kt0, kt_per_split);
@@ -1431,16 +1470,16 @@ wg_kernel(const __nv_bfloat16* __restrict__ x,
 template <typename T, typename W>
 void launch_tile(const void* x, const void* w, const float* scale, void* out,
                  int R, int N, int M, long long swn, long long swm, int bm,
-                 cudaStream_t stream) {
-  const dim3 grid((M + BN - 1) / BN, (R + bm - 1) / bm);
+                 cudaStream_t stream, const Group& g = Group{}, int E = 1) {
+  const dim3 grid((M + BN - 1) / BN, (R + bm - 1) / bm, E);
   if (bm == 16) {
     matmul_kernel<T, W, 16><<<grid, THREADS, 0, stream>>>(
         static_cast<const T*>(x), static_cast<const W*>(w), scale,
-        static_cast<T*>(out), R, N, M, swn, swm);
+        static_cast<T*>(out), R, N, M, swn, swm, g);
   } else {
     matmul_kernel<T, W, 64><<<grid, THREADS, 0, stream>>>(
         static_cast<const T*>(x), static_cast<const W*>(w), scale,
-        static_cast<T*>(out), R, N, M, swn, swm);
+        static_cast<T*>(out), R, N, M, swn, swm, g);
   }
 }
 
@@ -1459,7 +1498,7 @@ template <typename T, int RB>
 cudaError_t launch_stream(int kernel, const void* x, const void* w, void* out,
                           int R, int N, int M, long long swn, long long swm,
                           int p0, int p1, void* ws, void* counters,
-                          cudaStream_t stream) {
+                          cudaStream_t stream, const Group& g, int E) {
   const T* xt = static_cast<const T*>(x);
   const T* wt = static_cast<const T*>(w);
   T* ot = static_cast<T*>(out);
@@ -1476,11 +1515,12 @@ cudaError_t launch_stream(int kernel, const void* x, const void* w, void* out,
     const cudaError_t e =
         allow_smem(stream::stream_rows_kernel<T, RB>, bytes, allowed);
     if (e != cudaSuccess) return e;
-    const dim3 grid((M + TILE - 1) / TILE, p1);
+    const dim3 grid((M + TILE - 1) / TILE, p1, E);
     stream::stream_rows_kernel<T, RB><<<grid, stream::THREADS, bytes, stream>>>(
         xt, wt, ot, static_cast<float*>(ws), static_cast<int*>(counters), R,
-        N, M, swn, p0, p1);
+        N, M, swn, p0, p1, g);
   } else {  // stream_cols: p0 = blocks
+    if (E != 1) return cudaErrorInvalidValue;
     static size_t allowed = 48 * 1024;
     const size_t bytes = (size_t)R * N * sizeof(float);
     const cudaError_t e =
@@ -1497,7 +1537,8 @@ cudaError_t launch_stream(int kernel, const void* x, const void* w, void* out,
 template <int RB, int CB>
 cudaError_t launch_stream_mma(const void* x, const void* w, void* out, int R,
                               int N, int M, long long ldw, int kc, int splits,
-                              void* ws, void* counters, cudaStream_t stream) {
+                              void* ws, void* counters, cudaStream_t stream,
+                              const Group& g, int E) {
   if (kc <= 0 || splits <= 0 || (long long)kc * (splits - 1) >= N ||
       (long long)kc * splits < N ||
       (splits > 1 && (ws == nullptr || counters == nullptr)))
@@ -1510,12 +1551,12 @@ cudaError_t launch_stream_mma(const void* x, const void* w, void* out, int R,
   const cudaError_t e =
       allow_smem(stream::stream_mma_kernel<RB, CB>, bytes, allowed);
   if (e != cudaSuccess) return e;
-  const dim3 grid((M + stream::MT - 1) / stream::MT, splits);
+  const dim3 grid((M + stream::MT - 1) / stream::MT, splits, E);
   stream::stream_mma_kernel<RB, CB><<<grid, stream::THREADS, bytes, stream>>>(
       static_cast<const __nv_bfloat16*>(x),
       static_cast<const __nv_bfloat16*>(w), static_cast<__nv_bfloat16*>(out),
       static_cast<float*>(ws), static_cast<int*>(counters), R, N, M, ldw, kc,
-      splits);
+      splits, g);
   return cudaSuccess;
 }
 
@@ -1526,24 +1567,26 @@ template <int RB>
 cudaError_t launch_stream_mma_any(const void* x, const void* w, void* out,
                                   int R, int N, int M, long long ldw, int kc,
                                   int splits, void* ws, void* counters,
-                                  cudaStream_t s) {
-  const uintptr_t a = reinterpret_cast<uintptr_t>(w) | (uintptr_t)(ldw * 2);
+                                  cudaStream_t s, const Group& g, int E) {
+  const uintptr_t a = reinterpret_cast<uintptr_t>(w) | (uintptr_t)(ldw * 2) |
+                      (uintptr_t)(g.sw * 2);
   if (a % 16 == 0)
     return launch_stream_mma<RB, 16>(x, w, out, R, N, M, ldw, kc, splits, ws,
-                                     counters, s);
+                                     counters, s, g, E);
   if (a % 8 == 0)
     return launch_stream_mma<RB, 8>(x, w, out, R, N, M, ldw, kc, splits, ws,
-                                    counters, s);
+                                    counters, s, g, E);
   if (a % 4 == 0)
     return launch_stream_mma<RB, 4>(x, w, out, R, N, M, ldw, kc, splits, ws,
-                                    counters, s);
+                                    counters, s, g, E);
   return cudaErrorInvalidValue;
 }
 
 template <bool KMAJ, int CB>
 cudaError_t launch_tc(const void* x, const void* w, void* out, int R, int N,
                       int M, long long ldw, int splits, void* ws,
-                      void* counters, cudaStream_t stream) {
+                      void* counters, cudaStream_t stream, const Group& g,
+                      int E) {
   static size_t allowed = 48 * 1024;
   constexpr size_t bytes = tc::smem_bytes<KMAJ>();
   const cudaError_t e = allow_smem(tc::tc_kernel<KMAJ, CB>, bytes, allowed);
@@ -1554,12 +1597,12 @@ cudaError_t launch_tc(const void* x, const void* w, void* out, int R, int N,
       (splits > 1 && (ws == nullptr || counters == nullptr)))
     return cudaErrorInvalidValue;
   const dim3 grid((M + tc::BN - 1) / tc::BN, (R + tc::BM - 1) / tc::BM,
-                  splits);
+                  splits * E);
   tc::tc_kernel<KMAJ, CB><<<grid, tc::THREADS, bytes, stream>>>(
       static_cast<const __nv_bfloat16*>(x),
       static_cast<const __nv_bfloat16*>(w), static_cast<__nv_bfloat16*>(out),
       static_cast<float*>(ws), static_cast<int*>(counters), R, N, M, ldw,
-      per);
+      per, splits, g);
   return cudaSuccess;
 }
 
@@ -1567,19 +1610,21 @@ cudaError_t launch_tc(const void* x, const void* w, void* out, int R, int N,
 template <bool KMAJ>
 cudaError_t launch_tc_any(const void* x, const void* w, void* out, int R,
                           int N, int M, long long ldw, int splits, void* ws,
-                          void* counters, cudaStream_t stream) {
-  const uintptr_t a = reinterpret_cast<uintptr_t>(w) | (uintptr_t)(ldw * 2);
+                          void* counters, cudaStream_t stream,
+                          const Group& g, int E) {
+  const uintptr_t a = reinterpret_cast<uintptr_t>(w) | (uintptr_t)(ldw * 2) |
+                      (uintptr_t)(g.sw * 2);
   if (a % 16 == 0)
     return launch_tc<KMAJ, 16>(x, w, out, R, N, M, ldw, splits, ws, counters,
-                               stream);
+                               stream, g, E);
   if (a % 8 == 0)
     return launch_tc<KMAJ, 8>(x, w, out, R, N, M, ldw, splits, ws, counters,
-                              stream);
+                              stream, g, E);
   if (a % 4 == 0)
     return launch_tc<KMAJ, 4>(x, w, out, R, N, M, ldw, splits, ws, counters,
-                              stream);
+                              stream, g, E);
   return launch_tc<KMAJ, 2>(x, w, out, R, N, M, ldw, splits, ws, counters,
-                            stream);
+                            stream, g, E);
 }
 
 template <bool KMAJ, int BN>
@@ -1680,28 +1725,28 @@ template <typename T>
 cudaError_t dispatch_fp(const void* x, const void* w, void* out, int R, int N,
                         int M, long long swn, long long swm, int kernel,
                         int p0, int p1, void* ws, void* counters,
-                        cudaStream_t s) {
+                        cudaStream_t s, const Group& g, int E) {
   constexpr bool BF16 = std::is_same<T, __nv_bfloat16>::value;
   switch (kernel) {
     case 0:
       if (p0 != 16 && p0 != 64) return cudaErrorInvalidValue;
-      launch_tile<T, T>(x, w, nullptr, out, R, N, M, swn, swm, p0, s);
+      launch_tile<T, T>(x, w, nullptr, out, R, N, M, swn, swm, p0, s, g, E);
       return cudaSuccess;
     case 1:
     case 2:
       if (R > 16) return cudaErrorInvalidValue;
       return R <= 8 ? launch_stream<T, 8>(kernel, x, w, out, R, N, M, swn,
-                                          swm, p0, p1, ws, counters, s)
+                                          swm, p0, p1, ws, counters, s, g, E)
                     : launch_stream<T, 16>(kernel, x, w, out, R, N, M, swn,
-                                           swm, p0, p1, ws, counters, s);
+                                           swm, p0, p1, ws, counters, s, g, E);
     case 4:
       if (!BF16 || R > 16 || swm != 1) return cudaErrorInvalidValue;
       return R <= 8 ? launch_stream_mma_any<8>(x, w, out, R, N, M, swn, p0, p1,
-                                               ws, counters, s)
+                                               ws, counters, s, g, E)
                     : launch_stream_mma_any<16>(x, w, out, R, N, M, swn, p0, p1,
-                                                ws, counters, s);
+                                                ws, counters, s, g, E);
     case 5:
-      if (!BF16) return cudaErrorInvalidValue;
+      if (!BF16 || E != 1) return cudaErrorInvalidValue;
       if (p1 != 128 && p1 != 256) return cudaErrorInvalidValue;
       if (swn == 1)
         return p1 == 256 ? launch_wg<true, 256>(x, w, out, R, N, M, swm, s)
@@ -1715,10 +1760,10 @@ cudaError_t dispatch_fp(const void* x, const void* w, void* out, int R, int N,
         return cudaErrorInvalidValue;
       if (swm == 1)
         return launch_tc_any<false>(x, w, out, R, N, M, swn, p1, ws, counters,
-                                    s);
+                                    s, g, E);
       if (swn == 1)
         return launch_tc_any<true>(x, w, out, R, N, M, swm, p1, ws, counters,
-                                   s);
+                                   s, g, E);
       return cudaErrorInvalidValue;
     default:
       return cudaErrorInvalidValue;
@@ -1739,28 +1784,38 @@ cudaError_t dispatch_fp(const void* x, const void* w, void* out, int R, int N,
 // counters one zeroed int per 128 x 128 output tile when p1 > 1), 4 =
 // stream_mma (bf16, p0 and p1 as for stream_rows, w's rows on 4 bytes,
 // a counter per 64 columns), 5 = wgmma (bf16, p1 = 128 or 256 columns per
-// block, rows on 16 bytes).
+// block, rows on 16 bytes). experts > 1 (xfer_matmul_experts, kernels 0,
+// 1, 3 and 4): one launch over that many products, expert e at x + e *
+// sx, w + e * sw, out + e * so, its split-K workspace at ws + e * sws
+// floats and its counters at counters + e * scnt (Group); 0 or 1: one
+// product.
 struct XferPlan {
   int R, N, M, dtype;
   long long swn, swm;
   int kernel, p0, p1, pad;
   void* ws;
   void* counters;
+  int experts, scnt;
+  long long sx, sw, so, sws;
 };
 
 // Returns the cudaError_t of the launch (0 = success).
 extern "C" int xfer_matmul_launch(const void* x, const void* w, void* out,
                                   const XferPlan* p, void* stream) {
-  if (p->R <= 0 || p->M <= 0 || p->N < 0) return (int)cudaErrorInvalidValue;
+  if (p->R <= 0 || p->M <= 0 || p->N < 0 || p->experts > 65535)
+    return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int E = p->experts > 1 ? p->experts : 1;
+  const Group g{p->sx, p->sw, p->so, p->sws, p->scnt};
   cudaError_t e;
   if (p->dtype == 0) {
     e = dispatch_fp<float>(x, w, out, p->R, p->N, p->M, p->swn, p->swm,
-                           p->kernel, p->p0, p->p1, p->ws, p->counters, s);
+                           p->kernel, p->p0, p->p1, p->ws, p->counters, s, g,
+                           E);
   } else if (p->dtype == 1) {
     e = dispatch_fp<__nv_bfloat16>(x, w, out, p->R, p->N, p->M, p->swn,
                                    p->swm, p->kernel, p->p0, p->p1, p->ws,
-                                   p->counters, s);
+                                   p->counters, s, g, E);
   } else {
     return (int)cudaErrorInvalidValue;
   }

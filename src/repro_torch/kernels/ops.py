@@ -16,7 +16,7 @@ from repro_torch.kernels.paged_attention import (paged_attention,
                                                  paged_attention_q8)
 from repro_torch.kernels.quant_matmul import quant_matmul
 from repro_torch.kernels.rglru_scan import rglru_scan
-from repro_torch.kernels.xfer_matmul import xfer_matmul
+from repro_torch.kernels.xfer_matmul import xfer_matmul, xfer_matmul_experts
 
 #: every kernel wrapper of the port; each carries a ``launches`` counter
 #: (``paged_attention_q8`` and ``flash_attention_q8`` are the int8 bodies
@@ -24,13 +24,17 @@ from repro_torch.kernels.xfer_matmul import xfer_matmul
 #: ``k_scale``/``v_scale``; ``prefix_attention`` counts under
 #: ``flash_attention`` with an fp prefix and under ``flash_attention_q8``
 #: with an int8 one; ``mlstm_chunkwise`` also counts the launches of
-#: ``mlstm_chunkwise_fold``, its entry with a state)
+#: ``mlstm_chunkwise_fold``, its entry with a state;
+#: ``xfer_matmul_experts`` is ``xfer_matmul``'s expert axis, the MoE
+#: layer's expert products in one launch, counted on its own)
 KERNELS = (xfer_matmul, flash_attention, flash_attention_q8, paged_attention,
-           paged_attention_q8, quant_matmul, rglru_scan, mlstm_chunkwise)
+           paged_attention_q8, quant_matmul, rglru_scan, mlstm_chunkwise,
+           xfer_matmul_experts)
 
 
 # the JAX package's ``ops`` names
 matmul = xfer_matmul
+expert_matmul = xfer_matmul_experts
 int8_matmul = quant_matmul
 attention = flash_attention
 paged_attn = paged_attention
@@ -60,6 +64,7 @@ def add_launches(counts: dict) -> None:
 
 # plain versions re-exported for tests and chip_smoke.py
 matmul_ref = ref.matmul_ref
+expert_matmul_ref = ref.expert_matmul_ref
 int8_matmul_ref = ref.quant_matmul_ref
 attention_ref = ref.flash_attention_ref
 prefix_attention_ref = ref.prefix_attention_ref

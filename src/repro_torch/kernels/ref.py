@@ -34,6 +34,13 @@ def matmul_ref(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return (x.float() @ w.float()).to(x.dtype)
 
 
+def expert_matmul_ref(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """The expert products of an MoE layer: x [E, C, K] @ w [E, K, N]
+    per expert (the reference's ``einsum("ecd,edf->ecf")``) in fp32,
+    cast to ``x.dtype``."""
+    return torch.einsum("eck,ekn->ecn", x.float(), w.float()).to(x.dtype)
+
+
 def quant_matmul_ref(x: torch.Tensor, w_q: torch.Tensor,
                      scale: torch.Tensor) -> torch.Tensor:
     """Dequantise-then-matmul: x [R, N] fp @ (w_q [N, M] int8 * scale

@@ -54,6 +54,7 @@ import torch
 from repro_torch.kernels._launch import (DTYPE_CODES, check_cuda, check_rc,
                                          current_stream, entry, scratch,
                                          sm_count)
+from repro_torch.kernels.ref import expert_matmul_ref as plain_experts
 from repro_torch.kernels.ref import matmul_ref as plain
 
 _VP, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
@@ -61,10 +62,14 @@ _ARGTYPES = (_VP, _VP, _VP, _VP)  # x, w, out, &plan
 
 
 class _Plan(ctypes.Structure):
-    """The C entry's ``XferPlan``: one shape's launch, built once."""
+    """The C entry's ``XferPlan``: one shape's launch, built once; the
+    last six fields are the expert axis of :func:`xfer_matmul_experts`
+    (0 for one product)."""
     _fields_ = [("R", _I), ("N", _I), ("M", _I), ("dtype", _I),
                 ("swn", _LL), ("swm", _LL), ("kernel", _I), ("p0", _I),
-                ("p1", _I), ("pad", _I), ("ws", _VP), ("counters", _VP)]
+                ("p1", _I), ("pad", _I), ("ws", _VP), ("counters", _VP),
+                ("experts", _I), ("scnt", _I), ("sx", _LL), ("sw", _LL),
+                ("so", _LL), ("sws", _LL)]
 
 #: the C entry's kernel codes
 KERNEL_CODES = {"tile": 0, "stream_rows": 1, "stream_cols": 2, "tc": 3,
@@ -111,12 +116,15 @@ def _cdiv(a: int, b: int) -> int:
 
 @functools.lru_cache(maxsize=None)
 def route(r: int, n: int, m: int, dtype: torch.dtype, strides: tuple,
-          sms: int, *, aligned: bool = True) -> Route:
+          sms: int, *, aligned: bool = True, experts: int = 1) -> Route:
     """The kernel and geometry for ``x [r, n] @ w [n, m]`` in ``dtype``
     with ``w``'s element ``strides`` on a card of ``sms`` SMs.
     ``aligned``: both base pointers lie on 16 bytes (``tc`` and
     ``stream_mma`` copy rows of ``w`` that are off 16 bytes in 8-, 4- or
-    2-byte pieces). Needs ``r``, ``m`` > 0."""
+    2-byte pieces). Needs ``r``, ``m`` > 0. ``experts`` > 1: that many
+    such products in one launch (:func:`xfer_matmul_experts`); their
+    blocks count toward filling the card, and ``stream_cols`` and
+    ``wgmma`` are not taken (the grid's third axis is the expert)."""
     swn, swm = strides
     vec = 16 // dtype.itemsize
     if r <= DECODE_ROWS and n > 0:
@@ -124,23 +132,24 @@ def route(r: int, n: int, m: int, dtype: torch.dtype, strides: tuple,
             # enough splits for every SM, and as many as the card holds at
             # once (2 blocks per SM) so that no block waits for a wave
             tiles = _cdiv(m, MMA_TILE)
-            splits = max(_cdiv(sms, tiles), 2 * sms // tiles)
+            blocks = tiles * experts
+            splits = max(_cdiv(sms, blocks), 2 * sms // blocks)
             kc = min(MMA_KC, _cdiv(_cdiv(n, splits), 8) * 8)  # x on 16 bytes
             splits = _cdiv(n, kc)
             return Route("stream_mma", (tiles, splits), kc=kc, splits=splits)
         if swm == 1:  # 16-byte loads where the rows allow, else scalar
             tiles = _cdiv(m, STREAM_ROW_LANES * vec)
-            kc = max(1, min(X_STAGE // r, n // _cdiv(sms, tiles)))
+            kc = max(1, min(X_STAGE // r, n // _cdiv(sms, tiles * experts)))
             splits = _cdiv(n, kc)
             return Route("stream_rows", (tiles, splits), kc=kc, splits=splits)
         if swn == 1 and swm % vec == 0 and n % vec == 0 and aligned \
-                and r * n * 4 <= SMEM_MAX:
+                and r * n * 4 <= SMEM_MAX and experts == 1:
             cols = STREAM_WARPS * STREAM_COLS_PER_WARP
             return Route("stream_cols", (min(_cdiv(m, cols), 2 * sms),))
     if r > DECODE_ROWS and dtype == torch.bfloat16 and aligned \
             and n % 8 == 0 and (swm == 1 or swn == 1):
-        if r * m >= TC_SMALL and ((swm == 1 and swn % 8 == 0)
-                                  or (swn == 1 and swm % 8 == 0)):
+        if r * m >= TC_SMALL and experts == 1 and (
+                (swm == 1 and swn % 8 == 0) or (swn == 1 and swm % 8 == 0)):
             # wgmma, 128 x 256 tiles where they fill the card three times
             # over (the widest outputs), else 128 x 128
             wbn = 256 if _cdiv(m, 256) * _cdiv(r, 128) >= 3 * sms else 128
@@ -150,9 +159,9 @@ def route(r: int, n: int, m: int, dtype: torch.dtype, strides: tuple,
         # partials stay small, each split at least 2 k-tiles
         bm, bn, bk = TC_TILE
         grid = (_cdiv(m, bn), _cdiv(r, bm))
-        tiles, kts = grid[0] * grid[1], _cdiv(n, bk)
+        tiles, kts = grid[0] * grid[1] * experts, _cdiv(n, bk)
         splits = max(1, min(2 * sms // tiles, kts // 2, 16,
-                            TC_SPLIT_FLOATS // (r * m)))
+                            TC_SPLIT_FLOATS // (r * m * experts)))
         splits = _cdiv(kts, _cdiv(kts, splits))  # no empty split
         return Route("tc", (*grid, splits), rows=bm, splits=splits)
     rows = 16 if r <= DECODE_ROWS else 64
@@ -217,3 +226,71 @@ def xfer_matmul(x: torch.Tensor, w: torch.Tensor, *, tr: int = 256,
 
 
 xfer_matmul.launches = 0
+
+
+def _plan_experts(x: torch.Tensor, w: torch.Tensor, aligned: bool) -> tuple:
+    """``_plan`` of one expert-axis shape: every expert's product takes
+    the route of ``x[e] @ w[e]`` with the card filled by all of them, the
+    split-K workspace and counters one slice per expert."""
+    check_cuda("xfer_matmul_experts", x, w)
+    e, r, n = x.shape
+    m = w.shape[2]
+    rt = route(r, n, m, x.dtype, (m, 1), sm_count(x.device),
+               aligned=aligned, experts=e)
+    ws = counters = None
+    per_ws = per_cnt = 0
+    if rt.splits > 1:
+        per_ws = rt.splits * r * m
+        per_cnt = math.prod(rt.grid[:2]) if rt.kernel == "tc" else rt.grid[0]
+        ws, counters = scratch("xfer_matmul", x.device, e * per_ws,
+                               e * per_cnt)
+    plan = _Plan(r, n, m, DTYPE_CODES[x.dtype], m, 1, *rt.c_args, 0,
+                 ws.data_ptr() if ws is not None else None,
+                 counters.data_ptr() if counters is not None else None,
+                 e, per_cnt, r * n, n * m, r * m, per_ws)
+    return r, m, ctypes.addressof(plan), (plan, ws, counters)
+
+
+def xfer_matmul_experts(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """The expert products of a capacity-routed MoE layer in one launch:
+    x [E, C, K] @ w [E, K, N] -> [E, C, N] in ``x.dtype`` (fp32
+    accumulation), ``w`` contiguous. Block z of the grid is expert z
+    (``tc``: z / splits); each expert's product runs the body that
+    :func:`route` gives its shape (``stream_mma`` or ``stream_rows`` at C
+    <= 16, ``tc`` or ``tile`` above) with its pointers advanced by the
+    expert's offsets. Every expert is multiplied, empty or not, as the
+    reference's ``einsum("ecd,edf->ecf")`` does.
+    ``xfer_matmul_experts.launches`` counts launches."""
+    if x.dim() != 3 or w.dim() != 3 or x.shape[0] != w.shape[0] \
+            or x.shape[2] != w.shape[1]:
+        raise ValueError(f"xfer_matmul_experts: shapes {tuple(x.shape)} @ "
+                         f"{tuple(w.shape)} do not chain per expert")
+    dev = x.device
+    if dev.type == "cpu" and w.device.type == "cpu":
+        return plain_experts(x, w)
+    if not w.is_contiguous():
+        raise ValueError("xfer_matmul_experts: w must be contiguous "
+                         "[E, K, N]")
+    x = x.contiguous()
+    e, r, _ = x.shape
+    m = w.shape[2]
+    if min(e, r, m) == 0:
+        check_cuda("xfer_matmul_experts", x, w)
+        return torch.empty((e, r, m), dtype=x.dtype, device=dev)
+    xp, wp = x.data_ptr(), w.data_ptr()
+    index = torch.cuda.current_device()
+    key = ("experts", x.shape, w.shape, x.dtype, w.dtype, dev, w.device,
+           index, (xp | wp) % 16 == 0)
+    plan = _plans.get(key)
+    if plan is None:
+        plan = _plans[key] = _plan_experts(x, w, key[-1])
+    _, _, addr, _ = plan
+    out = torch.empty((e, r, m), dtype=x.dtype, device=dev)
+    fn = entry("xfer_matmul", _ARGTYPES)
+    check_rc("xfer_matmul", fn(xp, wp, out.data_ptr(), addr,
+                               current_stream(index)))
+    xfer_matmul_experts.launches += 1
+    return out
+
+
+xfer_matmul_experts.launches = 0

@@ -1,6 +1,8 @@
-"""Attention block of the dense and hybrid families: pre-norm GQA/MQA
-attention (causal, or local with a window) + a gated MLP (SwiGLU or
-GeGLU) over a dense slot-grid KV cache.
+"""Attention block of the dense, MoE and hybrid families: pre-norm
+GQA/MQA attention (causal, or local with a window) + an MLP (gated
+SwiGLU or GeGLU, the ungated squared-ReLU ``relu2``, or the MoE
+family's capacity-routed experts, ``models/moe.py``) over a dense
+slot-grid KV cache.
 
 Mirrors the dense and windowed branches of ``repro/models/blocks.py``:
 ``make_kv_cache`` (with ``window``: a ring of ``min(length, window)``
@@ -10,8 +12,8 @@ with true lengths), decode ring write (``_cache_write``), the append
 write of S >= 1 fresh positions (``_cache_write_many``, the speculative
 draft and verify) and the two paged branches
 (``_paged_decode_attention``, S >= 1; ``_shared_prefix_attention``; see
-``serving/pages.py``). The cross-attention and MoE branches arrive with
-their families' slices.
+``serving/pages.py``), and the MoE MLP (``moe_apply``). The
+cross-attention branch arrives with its family's slice.
 
 A cache is a dict ``{"k", "v": [B, T, G, D], "pos": [B, T] int32}``
 (``pos = -1`` marks an invalid entry). With ``kv_quant`` ``k``/``v`` are
@@ -34,6 +36,7 @@ from repro_torch import quant as Q
 from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels import ops
 from repro_torch.models import layers as L
+from repro_torch.models import moe as M
 
 
 def make_kv_cache(arch: ArchConfig, batch: int, length: int, *,
@@ -186,29 +189,47 @@ def _param(*shape, device, dtype) -> nn.Parameter:
                         requires_grad=False)
 
 
-class GatedMLP(nn.Module):
-    """``w_gate``, ``w_up``, ``w_down`` of a SwiGLU or GeGLU MLP."""
+class MLP(nn.Module):
+    """``w_gate``, ``w_up``, ``w_down`` of a SwiGLU or GeGLU MLP, or
+    ``w_up``, ``w_down`` of the ungated ``relu2`` one; with ``experts``
+    each is stacked ``[E, d_in, d_out]`` (the MoE layer's routed
+    experts)."""
 
-    def __init__(self, d_model: int, d_ff: int, *, device, dtype):
+    def __init__(self, d_model: int, d_ff: int, kind: str, *, device, dtype,
+                 experts: int = 0):
         super().__init__()
-        self.w_gate = _param(d_model, d_ff, device=device, dtype=dtype)
-        self.w_up = _param(d_model, d_ff, device=device, dtype=dtype)
-        self.w_down = _param(d_ff, d_model, device=device, dtype=dtype)
+        lead = (experts,) if experts else ()
+        kw = dict(device=device, dtype=dtype)
+        if kind != "relu2":
+            self.w_gate = _param(*lead, d_model, d_ff, **kw)
+        self.w_up = _param(*lead, d_model, d_ff, **kw)
+        self.w_down = _param(*lead, d_ff, d_model, **kw)
+
+    def init_(self, gen: torch.Generator) -> None:
+        """``layers.dense_init``'s distribution over each matrix's d_in."""
+        for w in self.parameters():
+            L.dense_init_(w, w.shape[-2], gen)
 
 
 class AttnBlock(nn.Module):
     """Pre-norm self-attention + MLP. Weights in the JAX layout
     ``[d_in, d_out]``; parameter names mirror the JAX tree
-    (``ln1, wq, wk, wv, wo, bq, bk, bv, ln2, mlp.{w_gate, w_up, w_down}``).
-    ``arch.window`` > 0 (the hybrid family's) makes it a local-attention
-    block over a ring cache."""
+    (``ln1, wq, wk, wv, wo, bq, bk, bv, ln2, mlp.{w_gate, w_up, w_down}``;
+    ``relu2``: ``mlp.{w_up, w_down}``). ``arch.window`` > 0 (the hybrid
+    family's) makes it a local-attention block over a ring cache.
+    ``moe=True`` (the MoE family past its dense prefix layers) replaces
+    ``mlp`` by ``router [D, E]``, the routed experts ``moe.*`` ``[E, D,
+    F]`` / ``[E, F, D]`` (F = ``moe_d_ff``) and, with shared experts,
+    ``shared.*`` of width ``moe_d_ff · num_shared_experts``."""
 
-    def __init__(self, arch: ArchConfig, *, device, dtype):
+    def __init__(self, arch: ArchConfig, *, device, dtype, moe: bool = False):
         super().__init__()
-        if arch.mlp not in ("swiglu", "geglu") or not arch.d_ff:
+        if arch.mlp not in ("swiglu", "geglu", "relu2") or not arch.d_ff:
             raise NotImplementedError(f"{arch.name}: only attention blocks "
-                                      f"with a SwiGLU or GeGLU MLP are ported")
+                                      f"with an MLP (SwiGLU, GeGLU or relu2) "
+                                      f"are ported")
         self.arch = arch
+        self.is_moe = moe
         d, qd, kvd = arch.d_model, arch.q_dim, arch.kv_dim
         kw = dict(device=device, dtype=dtype)
         self.ln1 = _param(d, **kw)
@@ -221,14 +242,25 @@ class AttnBlock(nn.Module):
             self.bk = _param(kvd, **kw)
             self.bv = _param(kvd, **kw)
         self.ln2 = _param(d, **kw)
-        self.mlp = GatedMLP(d, arch.d_ff, **kw)
+        if not moe:
+            self.mlp = MLP(d, arch.d_ff, arch.mlp, **kw)
+            return
+        ff = arch.moe_d_ff or arch.d_ff
+        self.router = _param(d, arch.num_experts, **kw)
+        self.moe = MLP(d, ff, arch.mlp, experts=arch.num_experts, **kw)
+        if arch.num_shared_experts:
+            self.shared = MLP(d, ff * arch.num_shared_experts, arch.mlp, **kw)
 
     def init_(self, gen: torch.Generator) -> None:
         """Random weights with ``layers.dense_init``'s distribution; norms
         and biases stay zero, as in ``blocks.attn_init``."""
-        for w in (self.wq, self.wk, self.wv, self.wo,
-                  self.mlp.w_gate, self.mlp.w_up, self.mlp.w_down):
+        for w in (self.wq, self.wk, self.wv, self.wo):
             L.dense_init_(w, w.shape[0], gen)
+        if self.is_moe:
+            L.dense_init_(self.router, self.router.shape[0], gen)
+        for name in ("mlp", "moe", "shared"):
+            if hasattr(self, name):
+                getattr(self, name).init_(gen)
 
     def _project_qkv(self, h: torch.Tensor):
         arch = self.arch
@@ -301,5 +333,9 @@ class AttnBlock(nn.Module):
             elif cache is not None:
                 new_cache = _prefill_fill(cache, k, v, positions)
         x = x + L.dense(o.reshape(b, s, arch.q_dim), self.wo)
-        x = x + L.mlp_apply(self.mlp, L.rms_norm(x, self.ln2), arch.mlp)
+        h = L.rms_norm(x, self.ln2)
+        if self.is_moe:
+            x = x + M.moe_apply(arch, self, h)
+        else:
+            x = x + L.mlp_apply(self.mlp, h, arch.mlp)
         return x, new_cache

@@ -158,16 +158,23 @@ def decode_attention(q: torch.Tensor, cache: dict, table: torch.Tensor,
     return o[:, None] if s == 1 else o
 
 
-def mlp_apply(p, x: torch.Tensor, kind: str) -> torch.Tensor:
-    """SwiGLU (``silu``) or GeGLU (tanh-approximated ``gelu``, as
-    ``jax.nn.gelu(approximate=True)``) gated MLP."""
+def mlp_act(kind: str):
+    """The gate activation of a gated MLP: ``silu`` (SwiGLU) or the
+    tanh-approximated ``gelu`` (GeGLU, as ``jax.nn.gelu(approximate=True)``)."""
     if kind == "swiglu":
-        act = F.silu
-    elif kind == "geglu":
-        def act(g):
-            return F.gelu(g, approximate="tanh")
-    else:
-        raise NotImplementedError(f"mlp {kind!r} is not ported yet")
+        return F.silu
+    if kind == "geglu":
+        return lambda g: F.gelu(g, approximate="tanh")
+    raise NotImplementedError(f"mlp {kind!r} is not ported yet")
+
+
+def mlp_apply(p, x: torch.Tensor, kind: str) -> torch.Tensor:
+    """SwiGLU or GeGLU gated MLP (``w_gate``, ``w_up``, ``w_down``), or the
+    ungated squared-ReLU MLP ``relu2`` (``w_up``, ``w_down``):
+    ``relu(x @ w_up)² @ w_down``."""
+    if kind == "relu2":
+        return dense(F.relu(dense(x, p.w_up)).square(), p.w_down)
+    act = mlp_act(kind)
     g = dense(x, p.w_gate)
     u = dense(x, p.w_up)
     return dense(act(g) * u, p.w_down)

@@ -1,13 +1,18 @@
-"""Decoder-only LM of the dense, hybrid and ssm families as an ``nn.Module``.
+"""Decoder-only LM of the dense, MoE, hybrid and ssm families as an
+``nn.Module``.
 
-Mirrors ``repro/models/lm.py`` for ``family in ("dense", "hybrid", "ssm")``:
-``forward`` (embedding scaled by sqrt(d_model), the block stack, the
-final norm), ``logits_fn`` (tied embeddings: ``embed.T``) and
-``make_caches``. The JAX package stacks the block pattern's layers into
-a scanned ``body`` of ``repeats`` copies plus unrolled ``suffix`` blocks
-(``stack_structure``; recurrentgemma-2b's 26 layers are 8 x (rglru,
-rglru, attn) + (rglru, rglru)); here they are one ``ModuleList`` in
-layer order, layer i of kind ``pattern[i % len(pattern)]``
+Mirrors ``repro/models/lm.py`` for ``family in ("dense", "moe",
+"hybrid", "ssm")``: ``forward`` (embedding scaled by sqrt(d_model), the
+block stack, the final norm), ``logits_fn`` (tied embeddings:
+``embed.T``) and ``make_caches``. The JAX package keeps unrolled
+``prefix`` layers (the MoE family's ``first_dense_layers``: attention
+blocks with a dense MLP), stacks the block pattern's layers into a
+scanned ``body`` of ``repeats`` copies and keeps unrolled ``suffix``
+blocks (``stack_structure``; deepseek-moe-16b's 28 layers are one dense
+prefix layer + 27 MoE attention blocks, recurrentgemma-2b's 26 are 8 x
+(rglru, rglru, attn) + (rglru, rglru)); here they are one
+``ModuleList`` in layer order: the prefix layers, then layer
+``n_prefix + i`` of kind ``pattern[i % len(pattern)]``
 (``bridge.from_jax_params`` unstacks a JAX tree), and the caches are a
 list of per-layer dicts: a KV grid for an attention block (a ring of
 ``min(length, window)`` slots in the hybrid family), an RG-LRU, mLSTM
@@ -39,8 +44,8 @@ BLOCK_KINDS = {"attn": B.AttnBlock, "rglru": R.RGLRUBlock,
 
 
 def check_supported(arch: ArchConfig) -> None:
-    dense = arch.family == "dense" and not arch.block_pattern \
-        and not arch.window
+    dense = arch.family in ("dense", "moe") and not arch.window \
+        and tuple(arch.block_pattern) in ((), ("attn",))
     hybrid = arch.family == "hybrid" \
         and set(arch.block_pattern) <= {"attn", "rglru"}
     ssm = arch.family == "ssm" and not arch.window \
@@ -48,27 +53,36 @@ def check_supported(arch: ArchConfig) -> None:
     if not (dense or hybrid or ssm):
         raise NotImplementedError(
             f"{arch.name}: family {arch.family!r} is not ported yet (the port "
-            f"serves the dense family, the RG-LRU hybrid family and the "
-            f"xLSTM ssm family)")
+            f"serves the dense family, the MoE family, the RG-LRU hybrid "
+            f"family and the xLSTM ssm family)")
 
 
 def pattern(arch: ArchConfig) -> Tuple[str, ...]:
     return arch.block_pattern or ("attn",)
 
 
-def stack_structure(arch: ArchConfig) -> Tuple[int, List[str]]:
-    """(body repeats, suffix kinds), as the JAX ``stack_structure`` (no
-    prefix layers: those are the MoE family's)."""
+def n_prefix(arch: ArchConfig) -> int:
+    """The leading dense-MLP attention layers of an MoE stack."""
+    return arch.first_dense_layers if arch.family == "moe" else 0
+
+
+def stack_structure(arch: ArchConfig) -> Tuple[List[str], int, List[str]]:
+    """(prefix kinds, body repeats, suffix kinds), as the JAX
+    ``stack_structure``."""
     pat = pattern(arch)
-    repeats, rem = divmod(arch.num_layers, len(pat))
-    return repeats, list(pat[:rem])
+    prefix = ["attn"] * n_prefix(arch)
+    repeats, rem = divmod(arch.num_layers - len(prefix), len(pat))
+    return prefix, repeats, list(pat[:rem])
 
 
 def layer_kinds(arch: ArchConfig) -> List[str]:
-    """The kind of each layer in order: body repeat r, position j is
-    layer ``r * len(pattern) + j``; the suffix blocks follow."""
+    """The kind of each layer in order: the prefix layers, then body
+    repeat r, position j as layer ``n_prefix + r * len(pattern) + j``;
+    the suffix blocks follow."""
     pat = pattern(arch)
-    return [pat[i % len(pat)] for i in range(arch.num_layers)]
+    p = n_prefix(arch)
+    return ["attn"] * p + [pat[i % len(pat)]
+                           for i in range(arch.num_layers - p)]
 
 
 @functools.lru_cache(maxsize=None)
@@ -80,7 +94,9 @@ def _scale_in(value: float, dtype: torch.dtype) -> float:
 class LM(nn.Module):
     """Parameters named as the JAX tree: ``embed [V, D]``, ``final_norm``,
     ``unembed [D, V]`` when embeddings are untied, and ``layers.<i>.*``
-    for the i-th entry of the JAX ``body`` stack."""
+    for the i-th layer (the JAX ``prefix{i}``, then the ``body`` stack's
+    entries, then ``suffix{i}``); in the MoE family every attention
+    layer past the prefix is an MoE block."""
 
     def __init__(self, arch: ArchConfig, *, device: torch.device,
                  dtype: torch.dtype):
@@ -93,8 +109,15 @@ class LM(nn.Module):
         if not arch.tie_embeddings:
             self.unembed = B._param(arch.d_model, arch.vocab_size, **kw)
         self.kinds = layer_kinds(arch)
-        self.layers = nn.ModuleList(BLOCK_KINDS[kind](arch, **kw)
-                                    for kind in self.kinds)
+        p = n_prefix(arch)
+
+        def block(i, kind):
+            if kind == "attn" and arch.family == "moe":
+                return B.AttnBlock(arch, moe=i >= p, **kw)
+            return BLOCK_KINDS[kind](arch, **kw)
+
+        self.layers = nn.ModuleList(block(i, kind)
+                                    for i, kind in enumerate(self.kinds))
 
     @property
     def device(self) -> torch.device:

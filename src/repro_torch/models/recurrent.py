@@ -55,7 +55,7 @@ from torch import nn
 from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels import ops
 from repro_torch.models import layers as L
-from repro_torch.models.blocks import GatedMLP, _param
+from repro_torch.models.blocks import MLP, _param
 
 _LRU_C = 8.0
 
@@ -153,7 +153,7 @@ class RGLRUBlock(nn.Module):
         self.a_param = _param(w, **kw)
         self.w_out = _param(w, d, **kw)
         self.ln2 = _param(d, **kw)
-        self.mlp = GatedMLP(d, arch.d_ff, **kw)
+        self.mlp = MLP(d, arch.d_ff, arch.mlp, **kw)
 
     def init_(self, gen: torch.Generator) -> None:
         """Random weights with ``rglru_init``'s distributions: the dense

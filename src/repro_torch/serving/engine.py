@@ -21,8 +21,9 @@ fixed addresses and are written in place (admission included); on the
 CPU the same in-place step runs eagerly through the kernels' plain
 versions. Admission (prefill, splice) stays eager.
 
-With ``ServeConfig(paging=PagingConfig(paged=True))`` (the dense family)
-the KV lives in page pools (``serving/pages.py``) and the state carries
+With ``ServeConfig(paging=PagingConfig(paged=True))`` (the dense and
+MoE families; the MoE family without prefix reuse) the KV lives in page
+pools (``serving/pages.py``) and the state carries
 a page table. A finished slot's pages are released when its record is
 retired; under lookahead 1 the step in flight at that moment no longer
 writes them (its table row for the slot is zeroed by the stale-write
@@ -143,9 +144,11 @@ class ServingEngine:
     ``page_size`` tokens (default 64) and ``kv_pages`` pages (default
     the dense equivalent plus the null page), int8 under ``kv="int8"``;
     ``prefix_cache`` (default True) shares prompt prefixes across
-    requests. Only the dense family pages (the reference's
-    ``PAGED_FAMILIES``): the hybrid and ssm families raise
-    ``ValueError``."""
+    requests (not in the MoE family, whose routing couples a prefill
+    group's rows). Only the dense and MoE families page (the
+    reference's ``PAGED_FAMILIES``): the hybrid and ssm families raise
+    ``ValueError``. The MoE family under a quantising ``config.quant``
+    raises ``NotImplementedError`` (ROADMAP A16)."""
 
     def __init__(self, arch: ArchConfig, params: LM, *,
                  config: ServeConfig, device: DeviceLike = None,
@@ -168,6 +171,11 @@ class ServingEngine:
                 raise NotImplementedError(
                     "speculative decoding under INT8 is not ported yet (the "
                     "reference quantises the target only; see ROADMAP A15)")
+        if arch.family == "moe" and (quant.quant_weights or quant.quant_kv):
+            raise NotImplementedError(
+                f"{arch.name}: INT8 serving of the moe family is not ported "
+                f"yet (the reference quantises the router and the 4-D "
+                f"stacked expert leaves too; see ROADMAP A16)")
         if arch.family in ("hybrid", "ssm") \
                 and (quant.quant_weights or quant.quant_kv):
             leaves = ("gate, a_param and conv" if arch.family == "hybrid"

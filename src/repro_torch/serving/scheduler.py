@@ -21,7 +21,7 @@ prefills with ``seq_lens`` too; it has no window, so its buckets start
 at ``MIN_BUCKET``, and its mLSTM and sLSTM states are spliced as whole
 rows.
 
-Paged (``paged=True``, the dense family; ``serving/pages.py``): each
+Paged (``paged=True``, the dense and MoE families; ``serving/pages.py``): each
 admission reserves pages for prompt + decode budget from a host
 :class:`~repro_torch.serving.pages.PagePool` and the prefill rows are
 spliced into the pools through the slots' page-table rows. With the
@@ -31,6 +31,14 @@ into it), and its group ``("lm_shared", suffix bucket, m)`` prefills
 only the suffix against the gathered prefix (:func:`prefill_shared`).
 An admission the pool cannot hold goes back to the queue head, after
 the registry releases its cold entries, and waits for retiring slots.
+The MoE family pages without a registry, as the reference does: expert
+capacity couples the rows of a prefill group, so a suffix-only prefill
+would change what its companions' tokens are routed to.
+
+In the MoE family every token of a prefill group, the pad positions of
+its bucket included, is routed and takes expert capacity, as in the
+reference; the groups (bucket and size) are the reference's, so the
+routing is too.
 
 Each request's first token is drawn at admission with its own key,
 ``fold_in(PRNGKey(seed), rid)`` (greedy leaves it as it is), and the key
@@ -204,7 +212,10 @@ class Scheduler:
             if kv_pages is None:
                 kv_pages = PG.default_kv_pages(slots, max_len, page_size)
             self.pool = PG.PagePool(kv_pages, page_size)
-            if prefix_cache:
+            # MoE routing capacity couples the rows of a prefill group, so
+            # a compute-skip suffix prefill would change its companions:
+            # the MoE family pages its KV but keeps no prefix registry
+            if prefix_cache and arch.family != "moe":
                 self.registry = PG.PrefixRegistry(self.pool)
         # host wall per admission (dispatch of prefill + splice + admit);
         # the device work overlaps the in-flight decode step

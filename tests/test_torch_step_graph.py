@@ -11,8 +11,10 @@ reach. They check what the graph relies on and what it must keep:
   (2 slots, 6 requests), on the six greedy serving paths (the fp grid,
   INT8, the paged pool with fp and int8 pools, the hybrid
   recurrentgemma-2b and the ssm xlstm-350m, all ``.reduced()``), top-k
-  sampling on the grid, and speculative decoding (a 1-layer draft, k =
-  3) on the grid and the pool, at lookahead 0 and 1, and the streams
+  sampling on the grid, speculative decoding (a 1-layer draft, k = 3) on
+  the grid and the pool, and the MoE deepseek-moe-16b on the grid and
+  the pool (its expert routing inside the step), at lookahead 0 and 1,
+  and the streams
   still equal the JAX ``ServingEngine``'s with the same configuration on
   the same bridged weights (a divergence names the top-2 logit margin of
   the port's model there);
@@ -68,7 +70,9 @@ PATHS = {"fp": ("qwen1.5-0.5b", False, False, None),
          "ssm": ("xlstm-350m", False, False, None),
          "top-k": ("qwen1.5-0.5b", False, False, "top_k"),
          "spec": ("qwen1.5-0.5b", False, False, "spec"),
-         "spec-paged": ("qwen1.5-0.5b", False, True, "spec")}
+         "spec-paged": ("qwen1.5-0.5b", False, True, "spec"),
+         "moe": ("deepseek-moe-16b", False, False, None),
+         "moe-paged": ("deepseek-moe-16b", False, True, None)}
 TOP_K = SamplingParams("top_k", 0.8, 5)
 SPEC_K = 3
 
