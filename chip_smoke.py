@@ -185,6 +185,7 @@ It imports nothing of JAX and nothing of the JAX package.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import subprocess
@@ -1762,9 +1763,9 @@ def serve_moe() -> dict:
     """Phase 4j: deepseek-moe-16b at full width and depth (one dense
     layer, 27 MoE layers of 64 experts, top 6, 2 shared) on the slot
     grid, then on the page pool on the same weights; the pool's streams
-    printed against the grid's (the paged kernel's split differs from
-    the grid's, so a near-tie may part them). Returns the launch counts
-    per path."""
+    held to the grid's (the paged kernel's split differs from the
+    grid's, so only a near-tie under the bf16 tolerance may part them).
+    Returns the launch counts per path."""
     import torch
     from repro_torch.configs import get_arch
 
@@ -1773,7 +1774,7 @@ def serve_moe() -> dict:
     pool, pool_streams, model = serve_d128("serve-moe-paged", arch, model,
                                            paged=True)
     compare_streams("serve-moe-paged", model, phase4_prompts(arch.vocab_size),
-                    pool_streams, streams, "the grid's", limit=None)
+                    pool_streams, streams, "the grid's")
     del model
     torch.cuda.empty_cache()
     return {"moe": grid, "moe-paged": pool}
@@ -2422,21 +2423,8 @@ def parity_moe(dev) -> None:
 
     import torch
     from repro_torch.configs import get_arch
-    from repro_torch.models import layers as L
-    from repro_torch.models import moe as M
     from repro_torch.models.lm import LM
     from repro_torch.models.registry import init_params
-
-    route = M.route
-    margins = []  # (device type, smallest router margin) per route call
-
-    def recording_route(arch, hf, router):
-        gates, idx = route(arch, hf, router)
-        probs = torch.softmax(L.dense(hf, router).float(), dim=-1)
-        top = torch.sort(probs, dim=-1, descending=True).values
-        gap = top[:, arch.top_k - 1] - top[:, arch.top_k]
-        margins.append((hf.device.type, float(gap.min())))
-        return gates, idx
 
     for arch_id, layers in PARITY_D128:
         arch = dataclasses.replace(get_arch(arch_id), num_layers=layers)
@@ -2450,19 +2438,16 @@ def parity_moe(dev) -> None:
             f"{arch.moe_capacity_factor}), d {arch.d_model}, mlp {arch.mlp}: "
             f"fp32 weights on card and CPU in {time.perf_counter() - t0:.1f} s")
 
-        def note(j):
-            if not n_moe:
-                return "no router"
-            cpu = [m for d, m in margins if d == "cpu"][j * n_moe:(j + 1) * n_moe]
-            return f"smallest router margin (CPU) {min(cpu):.3e}"
+        with router_margins() as margins:
+            def note(j):
+                if not n_moe:
+                    return "no router"
+                cpu = [m for d, m in margins
+                       if d == "cpu"][j * n_moe:(j + 1) * n_moe]
+                return f"smallest router margin (CPU) {min(cpu):.3e}"
 
-        margins.clear()
-        M.route = recording_route
-        try:
             compare_card_cpu(arch, cpu_model, card_model, tag, kv_quant=False,
                              note=note)
-        finally:
-            M.route = route
         del card_model, cpu_model
         torch.cuda.empty_cache()
 
@@ -2675,6 +2660,32 @@ def shared_set(vocab: int):
     return prompts
 
 
+@contextlib.contextmanager
+def router_margins():
+    """Within the block, every MoE routing (``moe.route``) appends (its
+    tokens' device type, its smallest router margin: the k-th against
+    the (k+1)-th probability over its tokens) to the list it yields."""
+    import torch
+    from repro_torch.models import layers as L
+    from repro_torch.models import moe as M
+
+    route, margins = M.route, []
+
+    def recording_route(arch, hf, router):
+        gates, idx = route(arch, hf, router)
+        probs = torch.softmax(L.dense(hf, router).float(), dim=-1)
+        top = torch.sort(probs, dim=-1, descending=True).values
+        gap = top[:, arch.top_k - 1] - top[:, arch.top_k]
+        margins.append((hf.device.type, float(gap.min())))
+        return gates, idx
+
+    M.route = recording_route
+    try:
+        yield margins
+    finally:
+        M.route = route
+
+
 def top2_margin(model, prompt, prefix) -> float:
     """Top-2 logit margin over max |logit| of ``model`` after ``prompt``
     + ``prefix`` (one full causal forward, no cache)."""
@@ -2691,9 +2702,10 @@ def top2_margin(model, prompt, prefix) -> float:
 def compare_streams(tag: str, model, prompts, got: dict, want: dict,
                     what: str, limit=TOL["bfloat16"]) -> int:
     """Streams of ``got`` against ``want``; a divergence prints the top-2
-    margin where it starts and fails when that margin is over ``limit``
-    (the bf16 tolerance: a near-tie may flip under rounding; None: only
-    print). Returns the count of equal streams."""
+    margin where it starts (and, for an MoE model, the smallest router
+    margin of that forward) and fails when the top-2 margin is over
+    ``limit`` (the bf16 tolerance: a near-tie may flip under rounding;
+    None: only print). Returns the count of equal streams."""
     same = 0
     for rid in sorted(want):
         g, w = got[rid], want[rid]
@@ -2702,9 +2714,12 @@ def compare_streams(tag: str, model, prompts, got: dict, want: dict,
             continue
         j = next((i for i, (a, b) in enumerate(zip(g, w)) if a != b),
                  min(len(g), len(w)))
-        margin = top2_margin(model, prompts[rid], w[:j])
+        with router_margins() as routed:
+            margin = top2_margin(model, prompts[rid], w[:j])
         log(f"[{tag}] rid {rid} diverges from {what} at token {j}: top-2 "
-            f"margin {margin:.3e} of max |logit|")
+            f"margin {margin:.3e} of max |logit|" + (
+                f", smallest router margin {min(m for _, m in routed):.3e}"
+                if routed else ""))
         if limit is not None and margin > limit:
             raise AssertionError(f"[{tag}] rid {rid}: stream differs from "
                                  f"{what} at token {j} with margin "

@@ -168,27 +168,60 @@ def route(r: int, n: int, m: int, dtype: torch.dtype, strides: tuple,
     return Route("tile", (_cdiv(m, 64), _cdiv(r, rows)), rows=rows)
 
 
-def _plan(x: torch.Tensor, w: torch.Tensor, aligned: bool) -> tuple:
+def _plan(name: str, x: torch.Tensor, w: torch.Tensor, aligned: bool) -> tuple:
     """Check CUDA operands once per (shapes, strides, dtypes, devices,
-    alignment) and fix the launch: (rows, columns, the address of its
-    ``_Plan``, what keeps the plan and the workspace alive)."""
-    check_cuda("xfer_matmul", x, w)
-    r, n = x.shape
-    m = w.shape[1]
-    rt = route(r, n, m, x.dtype, w.stride(), sm_count(x.device),
-               aligned=aligned)
+    alignment) and fix the launch of ``x [R, N] @ w [N, M]``, or of one
+    such product per expert for ``x [E, R, N] @ w [E, N, M]`` (the card
+    filled by all of them, the split-K workspace and counters one slice
+    per expert): (the address of its ``_Plan``, what keeps the plan and
+    the workspace alive)."""
+    check_cuda(name, x, w)
+    e = x.shape[0] if x.dim() == 3 else 1
+    r, n = x.shape[-2:]
+    m = w.shape[-1]
+    strides = w.stride()[-2:]
+    rt = route(r, n, m, x.dtype, strides, sm_count(x.device),
+               aligned=aligned, experts=e)
     ws = counters = None
+    per_ws = per_cnt = 0
     if rt.splits > 1:  # a counter per column tile (per output tile on tc)
-        ws, counters = scratch("xfer_matmul", x.device, rt.splits * r * m,
-                               math.prod(rt.grid[:2]) if rt.kernel == "tc"
-                               else rt.grid[0])
-    plan = _Plan(r, n, m, DTYPE_CODES[x.dtype], w.stride(0), w.stride(1),
-                 *rt.c_args, 0, ws.data_ptr() if ws is not None else None,
-                 counters.data_ptr() if counters is not None else None)
-    return r, m, ctypes.addressof(plan), (plan, ws, counters)
+        per_ws = rt.splits * r * m
+        per_cnt = math.prod(rt.grid[:2]) if rt.kernel == "tc" else rt.grid[0]
+        ws, counters = scratch("xfer_matmul", x.device, e * per_ws,
+                               e * per_cnt)
+    group = (e, per_cnt, r * n, n * m, r * m, per_ws) if x.dim() == 3 else ()
+    plan = _Plan(r, n, m, DTYPE_CODES[x.dtype], *strides, *rt.c_args, 0,
+                 ws.data_ptr() if ws is not None else None,
+                 counters.data_ptr() if counters is not None else None,
+                 *group)
+    return ctypes.addressof(plan), (plan, ws, counters)
 
 
 _plans: dict = {}
+
+
+def _launch(name: str, x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``x @ w`` (per expert where ``x`` has three axes) through one
+    launch of the C entry, none for an empty output; ``x`` and ``w`` have
+    been checked to chain."""
+    dev = x.device
+    x = x.contiguous()
+    shape = (*x.shape[:-1], w.shape[-1])
+    if 0 in shape:
+        check_cuda(name, x, w)
+        return torch.empty(shape, dtype=x.dtype, device=dev)
+    xp, wp = x.data_ptr(), w.data_ptr()
+    index = torch.cuda.current_device()
+    key = (x.shape, w.shape, w.stride(), x.dtype, w.dtype, dev, w.device,
+           index, (xp | wp) % 16 == 0)
+    plan = _plans.get(key)
+    if plan is None:
+        plan = _plans[key] = _plan(name, x, w, key[-1])
+    out = torch.empty(shape, dtype=x.dtype, device=dev)
+    fn = entry("xfer_matmul", _ARGTYPES)
+    check_rc(name, fn(xp, wp, out.data_ptr(), plan[0], current_stream(index)),
+             source="xfer_matmul")
+    return out
 
 
 def xfer_matmul(x: torch.Tensor, w: torch.Tensor, *, tr: int = 256,
@@ -201,54 +234,15 @@ def xfer_matmul(x: torch.Tensor, w: torch.Tensor, *, tr: int = 256,
     if min(tr, tm, tn) <= 0:
         raise ValueError(f"xfer_matmul: tiles must be positive, got "
                          f"{(tr, tm, tn)}")
-    dev = x.device
-    if dev.type == "cpu" and w.device.type == "cpu":
+    if x.device.type == "cpu" and w.device.type == "cpu":
         return plain(x, w)
-    x = x.contiguous()
-    if x.shape[0] == 0 or w.shape[1] == 0:
-        check_cuda("xfer_matmul", x, w)
-        return torch.empty((x.shape[0], w.shape[1]), dtype=x.dtype,
-                           device=dev)
-    xp, wp = x.data_ptr(), w.data_ptr()
-    index = torch.cuda.current_device()
-    key = (x.shape, w.shape, w.stride(), x.dtype, w.dtype, dev, w.device,
-           index, (xp | wp) % 16 == 0)
-    plan = _plans.get(key)
-    if plan is None:
-        plan = _plans[key] = _plan(x, w, key[-1])
-    r, m, addr, _ = plan
-    out = torch.empty((r, m), dtype=x.dtype, device=dev)
-    fn = entry("xfer_matmul", _ARGTYPES)
-    check_rc("xfer_matmul", fn(xp, wp, out.data_ptr(), addr,
-                               current_stream(index)))
-    xfer_matmul.launches += 1
+    out = _launch("xfer_matmul", x, w)
+    if out.numel():  # launched
+        xfer_matmul.launches += 1
     return out
 
 
 xfer_matmul.launches = 0
-
-
-def _plan_experts(x: torch.Tensor, w: torch.Tensor, aligned: bool) -> tuple:
-    """``_plan`` of one expert-axis shape: every expert's product takes
-    the route of ``x[e] @ w[e]`` with the card filled by all of them, the
-    split-K workspace and counters one slice per expert."""
-    check_cuda("xfer_matmul_experts", x, w)
-    e, r, n = x.shape
-    m = w.shape[2]
-    rt = route(r, n, m, x.dtype, (m, 1), sm_count(x.device),
-               aligned=aligned, experts=e)
-    ws = counters = None
-    per_ws = per_cnt = 0
-    if rt.splits > 1:
-        per_ws = rt.splits * r * m
-        per_cnt = math.prod(rt.grid[:2]) if rt.kernel == "tc" else rt.grid[0]
-        ws, counters = scratch("xfer_matmul", x.device, e * per_ws,
-                               e * per_cnt)
-    plan = _Plan(r, n, m, DTYPE_CODES[x.dtype], m, 1, *rt.c_args, 0,
-                 ws.data_ptr() if ws is not None else None,
-                 counters.data_ptr() if counters is not None else None,
-                 e, per_cnt, r * n, n * m, r * m, per_ws)
-    return r, m, ctypes.addressof(plan), (plan, ws, counters)
 
 
 def xfer_matmul_experts(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -265,31 +259,14 @@ def xfer_matmul_experts(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
             or x.shape[2] != w.shape[1]:
         raise ValueError(f"xfer_matmul_experts: shapes {tuple(x.shape)} @ "
                          f"{tuple(w.shape)} do not chain per expert")
-    dev = x.device
-    if dev.type == "cpu" and w.device.type == "cpu":
+    if x.device.type == "cpu" and w.device.type == "cpu":
         return plain_experts(x, w)
     if not w.is_contiguous():
         raise ValueError("xfer_matmul_experts: w must be contiguous "
                          "[E, K, N]")
-    x = x.contiguous()
-    e, r, _ = x.shape
-    m = w.shape[2]
-    if min(e, r, m) == 0:
-        check_cuda("xfer_matmul_experts", x, w)
-        return torch.empty((e, r, m), dtype=x.dtype, device=dev)
-    xp, wp = x.data_ptr(), w.data_ptr()
-    index = torch.cuda.current_device()
-    key = ("experts", x.shape, w.shape, x.dtype, w.dtype, dev, w.device,
-           index, (xp | wp) % 16 == 0)
-    plan = _plans.get(key)
-    if plan is None:
-        plan = _plans[key] = _plan_experts(x, w, key[-1])
-    _, _, addr, _ = plan
-    out = torch.empty((e, r, m), dtype=x.dtype, device=dev)
-    fn = entry("xfer_matmul", _ARGTYPES)
-    check_rc("xfer_matmul", fn(xp, wp, out.data_ptr(), addr,
-                               current_stream(index)))
-    xfer_matmul_experts.launches += 1
+    out = _launch("xfer_matmul_experts", x, w)
+    if out.numel():  # launched
+        xfer_matmul_experts.launches += 1
     return out
 
 

@@ -42,12 +42,11 @@ from repro_torch.kernels import ops
 from repro_torch.models import layers as L
 
 
-def capacity(arch: ArchConfig, tokens: int,
-             capacity_factor: float = 0.0) -> int:
+def capacity(arch: ArchConfig, tokens: int) -> int:
     """Slots per expert for ``tokens`` routed tokens (the reference's
     expression, evaluated the same way)."""
-    cf = capacity_factor or arch.moe_capacity_factor
-    return max(int(math.ceil(tokens * arch.top_k / arch.num_experts * cf)), 1)
+    return max(int(math.ceil(tokens * arch.top_k / arch.num_experts
+                             * arch.moe_capacity_factor)), 1)
 
 
 def route(arch: ArchConfig, hf: torch.Tensor, router):
@@ -90,13 +89,12 @@ def expert_ffn(arch: ArchConfig, experts, buf: torch.Tensor) -> torch.Tensor:
     return mm(inner, experts.w_down)
 
 
-def moe_apply(arch: ArchConfig, block, h: torch.Tensor,
-              capacity_factor: float = 0.0) -> torch.Tensor:
+def moe_apply(arch: ArchConfig, block, h: torch.Tensor) -> torch.Tensor:
     """The MoE MLP of ``block`` (``router``, ``moe.*``, ``shared.*``) on
     the normed activations ``h`` [B, S, D] -> [B, S, D]."""
     b, s, d = h.shape
     t, e, k = b * s, arch.num_experts, arch.top_k
-    cap = capacity(arch, t, capacity_factor)
+    cap = capacity(arch, t)
     hf = h.reshape(t, d)
     gates, idx = route(arch, hf, block.router)
     order, dest, keep = dispatch(arch, idx, cap)

@@ -75,6 +75,10 @@ def _liven(tree: dict, seed: int) -> dict:
 
 
 _TREES = {}
+# the reference's dense MoE, compiled once per shape (its eager ops would
+# each compile on their own)
+_jax_moe = jax.jit(JB._moe_apply_dense, static_argnums=(0,),
+                   static_argnames=("capacity_factor",))
 
 
 def _pair(arch_id, cf=None):
@@ -82,7 +86,8 @@ def _pair(arch_id, cf=None):
     at capacity factor ``cf`` (default: the reduced config's 8.0)."""
     if arch_id not in _TREES:
         arch_j = jax_get_arch(arch_id).reduced()
-        _TREES[arch_id] = _liven(jax.tree.map(np.asarray, JREG.init_params(
+        init = jax.jit(JREG.init_params, static_argnums=(0, 2))
+        _TREES[arch_id] = _liven(jax.tree.map(np.asarray, init(
             arch_j, jax.random.PRNGKey(SEED), jnp.float32)), SEED + 1)
     arch_j, arch = jax_get_arch(arch_id).reduced(), get_arch(arch_id).reduced()
     if cf is not None:
@@ -112,12 +117,13 @@ def _no_launches():
                                     (1.0, 3, 10), (0.5, 2, 2), (0.5, 2, 16)])
 def test_moe_apply_matches_jax(arch_id, cf, b, s):
     arch_j, p, arch, layer = _moe_block(arch_id)
+    arch = dataclasses.replace(arch, moe_capacity_factor=cf)
     rng = np.random.RandomState(int(cf * 10) + b * 100 + s)
     h = rng.standard_normal((b, s, arch.d_model)).astype(np.float32)
-    want = JB._moe_apply_dense(arch_j, p, jnp.asarray(h), capacity_factor=cf)
-    got = M.moe_apply(arch, layer, torch.from_numpy(h), cf)
+    want = _jax_moe(arch_j, p, jnp.asarray(h), capacity_factor=cf)
+    got = M.moe_apply(arch, layer, torch.from_numpy(h))
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
-    cap = M.capacity(arch, b * s, cf)
+    cap = M.capacity(arch, b * s)
     assert cap == max(int(math.ceil(b * s * arch.top_k / arch.num_experts * cf)), 1)
     assert (cap == 1) == (b * s * arch.top_k * cf <= arch.num_experts)
     _, idx = M.route(arch, torch.from_numpy(h).reshape(b * s, -1), layer.router)
@@ -157,8 +163,9 @@ def test_tied_router_keeps_jax_top_k_order(zero_router):
                                                 1e-9))
     np.testing.assert_allclose(gates.numpy(), want_g, **TOL)
     for cf in (8.0, 1.0):
-        want = JB._moe_apply_dense(arch_j, p, jnp.asarray(h), capacity_factor=cf)
-        got = M.moe_apply(arch, layer, torch.from_numpy(h), cf)
+        want = _jax_moe(arch_j, p, jnp.asarray(h), capacity_factor=cf)
+        got = M.moe_apply(dataclasses.replace(arch, moe_capacity_factor=cf),
+                          layer, torch.from_numpy(h))
         np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
 
 
