@@ -88,7 +88,19 @@ Phases (each failure propagates; the process exits non-zero):
    ``xfer_matmul``. Head dim 128: ``paged_attention`` on deepseek's grid
    [8, 512, 16, 128] and yi-9b's [8, 512, 4, 128] with 32 query heads
    (entries ``d128``, ``d128_gqa``), ``flash_attention`` at yi-9b's
-   prefill [256, 512, 128] (entry ``d128_gqa``);
+   prefill [256, 512, 128] (entry ``d128_gqa``). Then the encdec and vlm
+   forms (``check_encdec_vlm``, table ``FA_FORM_CASES``):
+   ``flash_attention`` with per-row key lengths, non-causal
+   (seamless-m4t-medium's encoder [128, 512, 64] with frame lengths
+   1-512, and its cross-attention prefill [128, 256 -> 512, 64]), and
+   with the prefix-LM mask (paligemma-3b's [64, 512, 256], P = 256),
+   plus ragged cases (a row of length 0 gives 0), fp32 and bf16,
+   bit-stable, the three serving shapes timed beside SDPA with the same
+   boolean mask; ``paged_attention`` over the encoder positions (q [8,
+   16, 64] over [8, 512, 16, 64], lengths with a 0), timed beside masked
+   SDPA; ``xfer_matmul`` at seamless's unembedding [8, 1024] @ [1024,
+   256206] and its cross K/V product [4096, 1024] @ [1024, 1024] (MM_CASES
+   entries ``encdec_unembed``, ``cross_kv``);
 4. full-width qwen1.5-0.5b served greedily in bf16 through
    ``ServingEngine.run_until_drained()``, whose decode step replays one
    CUDA graph captured when the engine is built (phases 4-4f alike; a
@@ -134,10 +146,27 @@ Phases (each failure propagates; the process exits non-zero):
 4k. the same for minitron-8b (relu2, full depth), yi-9b and
    phi3-medium-14b (full width, 8 layers), one model at a time on the
    grid (``serve_dense_d128``);
-4g. the captured step against the eager one on twelve paths (fp, INT8,
+4l. seamless-m4t-medium (encdec) at full width and depth (12 encoder +
+   12 decoder layers) in bf16 on the grid, 8 slots x 512, 512 source
+   frames a slot (``serve_encdec``): phase 4's 16 prompts with 64-512
+   seeded frames each; launches exactly ``pass_launches`` per step (133
+   ``xfer_matmul``, 24 ``paged_attention``: 12 self, 12 cross) and per
+   group (217 ``xfer_matmul``, 36 ``flash_attention``); step p50/p95,
+   admission p50, tokens/s, peak bytes, the step's byte bound (the
+   decoder's weights and the unembedding, ``enc_out`` read by the 24
+   cross K/V products, and those products written and read back:
+   ``step_bytes``) and their operation bound printed;
+4m. paligemma-3b (vlm) at full width and depth (18 layers) in bf16 on
+   the grid, then the pool (pages of 64, the prefix registry on), same
+   weights (``serve_vlm``): 12 requests with 256 seeded patch embeddings
+   and 4 text-only ones that share a 200-token system prompt (two match
+   it on the pool); launches exact (127 ``xfer_matmul`` + 18 attention
+   a step and a group), the pool's streams held to the grid's;
+4g. the captured step against the eager one on fifteen paths (fp, INT8,
    paged fp and int8 pools, hybrid, ssm, top-k sampling, speculative on
    the grid and on the pool, deepseek-moe-16b on the grid and the pool,
-   minitron-8b; full width, 8 slots): after one
+   minitron-8b, seamless-m4t-medium, paligemma-3b on the grid and the
+   pool; full width, 8 slots): after one
    admission, 16 eager steps of ``registry.build_serve_step`` on a clone
    of caches and state and 16 replays on the originals give equal
    records and bit-equal caches and state, and each replay counts its
@@ -179,6 +208,13 @@ Phases (each failure propagates; the process exits non-zero):
    (``parity_moe``): logits within 2e-3, greedy tokens equal (a flip
    only under a top-2 margin of 2e-3), each position's smallest router
    margin printed;
+5h. seamless-m4t-medium at full width cut to 2 + 2 layers and
+   paligemma-3b at full width cut to 2, seeded fp32 weights, card vs CPU
+   (``parity_encdec_vlm``): a prefill of 4 prompts (with source frames,
+   or 256 patches) and 4 greedy decode steps, logits within 2e-3, tokens
+   equal; then 4 requests served on each side on the grid, and for
+   paligemma 6 on the pool (pages of 64; 3 patched, 3 text-only sharing
+   a system prompt through the registry), streams equal;
 6. the kernel table as one JSON line, then the result line.
 
 It imports nothing of JAX and nothing of the JAX package.
@@ -267,7 +303,12 @@ PATH_KERNELS = {"fp": ("xfer_matmul", "flash_attention", "paged_attention"),
                 "moe-paged": ("xfer_matmul", "xfer_matmul_experts",
                               "flash_attention", "paged_attention"),
                 "dense-d128": ("xfer_matmul", "flash_attention",
-                               "paged_attention")}
+                               "paged_attention"),
+                "encdec": ("xfer_matmul", "flash_attention",
+                           "paged_attention"),
+                "vlm": ("xfer_matmul", "flash_attention", "paged_attention"),
+                "vlm-paged": ("xfer_matmul", "flash_attention",
+                              "paged_attention")}
 
 
 def log(msg: str) -> None:
@@ -386,7 +427,8 @@ def record(entries: dict, name: str, entry, row: dict) -> None:
     ``pool`` or ``fp32`` as a sub-entry of that name."""
     if entry == "main":
         entries.setdefault(name, {}).update(row)
-    elif entry in ("hybrid", "ssm", "d128", "d128_gqa", "pool", "fp32"):
+    elif entry in ("hybrid", "ssm", "d128", "d128_gqa", "pool", "fp32",
+                   "encdec_unembed", "cross_kv"):
         entries.setdefault(name, {})[entry] = row
 
 
@@ -414,6 +456,13 @@ MM_CASES = (
     + [(f"R={SLOTS} {Q_D}x{Q_VOCAB} (embed.T)", SLOTS, Q_D, Q_VOCAB, True,
         BOTH, True, "main"),
        ("ragged R=13 1000x1001", 13, 1000, 1001, False, BOTH, False, None),
+       # seamless-m4t-medium: the untied unembedding at decode (256206
+       # columns: its rows are off 16 bytes) and the cross-attention's K
+       # or V product over 8 slots x 512 encoder positions, every step
+       (f"R={SLOTS} 1024x256206 (seamless unembed)", SLOTS, 1024, 256206,
+        False, BOTH, True, "encdec_unembed"),
+       (f"R={SLOTS * 512} 1024x1024 (cross K/V)", SLOTS * 512, 1024, 1024,
+        False, BOTH, True, "cross_kv"),
        ("ragged R=77 1000x1001 (w.T)", 77, 1000, 1001, True, BOTH, False,
         None)]
     # recurrentgemma-2b: w_in; w_out / wq / wo; wk / wv; w_gate / w_up;
@@ -745,6 +794,192 @@ def check_experts(dev, gen) -> dict:
                           "are jnp.einsum in _expert_ffn")
     return {"xfer_matmul_experts": entry_rows}
 
+# --------------------------------------------------------------------------
+# phase 3, the encdec and vlm forms: flash_attention's per-row key lengths
+# and prefix-LM masks, paged_attention over encoder positions
+# --------------------------------------------------------------------------
+
+# seamless-m4t-medium (phases 3, 4l, 5h): 16 heads of 64 over d 1024, 12
+# encoder + 12 decoder layers, an untied 256206-column unembedding; its
+# serving grid is 8 slots x 512 decoder tokens and 512 source frames a slot
+E_HEADS, E_D, E_VOCAB, E_MAX_SRC = 16, 1024, 256206, 512
+E_FRAMES = (64, 512)  # phase 4l source lengths, seeded uniform
+# paligemma-3b (phases 3, 4m, 5h): 8 query heads of 256 over one KV head,
+# d 2048, 256 patch embeddings a patched request
+V_HEADS, V_PATCHES = 8, 256
+# the ragged row lengths of the length-masked cases: frames 1-512, and an
+# inert slot's 0 in the decode case
+E_LENS = [1, 17, 64, 200, 311, 450, 511, 512]
+# flash_attention's masking forms: (label, B, heads, S, T, D, kv_len row
+# lengths or None, prefix-LM length P, timed entry or None); BH = B x
+# heads, every case in fp32 and bf16. The encoder (non-causal, the frames'
+# lengths), the cross-attention prefill (a 256-token decoder bucket over
+# 512 encoder positions) and paligemma's prefix-LM prefill (256 patches
+# and a 256-token prompt bucket, its one KV head repeated to the 8 query
+# heads), then ragged cases: a row of length 0 (its output 0), S and T
+# off the tiles, P inside and past a 64-query block, D = 128 and 256 with
+# lengths
+FA_FORM_CASES = [
+    (f"encoder q,k,v[{SLOTS * E_HEADS},{E_MAX_SRC},64] frame lengths "
+     f"{E_LENS}", SLOTS, E_HEADS, E_MAX_SRC, E_MAX_SRC, 64, E_LENS, 0,
+     "encoder"),
+    (f"cross prefill q[{SLOTS * E_HEADS},{BUCKET},64] k,v"
+     f"[{SLOTS * E_HEADS},{E_MAX_SRC},64] lengths {E_LENS}", SLOTS, E_HEADS,
+     BUCKET, E_MAX_SRC, 64, E_LENS, 0, "cross"),
+    (f"prefix-LM q,k,v[{SLOTS * V_HEADS},{MAX_LEN},256] P={V_PATCHES}",
+     SLOTS, V_HEADS, MAX_LEN, MAX_LEN, 256, None, V_PATCHES, "prefix_lm"),
+    ("ragged lengths B=3 H=2 S=100 T=77 D=64 (a row of 0)", 3, 2, 100, 77,
+     64, [77, 0, 30], 0, None),
+    ("ragged prefix-LM B=2 H=3 S=300 D=64 P=100", 2, 3, 300, 300, 64, None,
+     100, None),
+    ("prefix-LM B=1 H=2 S=150 D=64 P=40", 1, 2, 150, 150, 64, None, 40, None),
+    ("ragged lengths B=2 H=2 S=70 T=200 D=256", 2, 2, 70, 200, 256,
+     [200, 65], 0, None),
+    ("ragged prefix-LM B=2 H=2 S=333 D=256 P=129", 2, 2, 333, 333, 256, None,
+     129, None),
+    ("ragged lengths B=2 H=3 S=90 T=150 D=128 (a row of 0)", 2, 3, 90, 150,
+     128, [0, 99], 0, None),
+    ("ragged prefix-LM B=1 H=4 S=260 D=128 P=200", 1, 4, 260, 260, 128, None,
+     200, None)]
+
+
+def form_mask(dev, bh: int, s: int, t: int, lens, p: int):
+    """The boolean allow-mask [BH, S, T] of a FA_FORM_CASES case (SDPA's
+    attn_mask): keys past the row's length, or the prefix-LM's causal
+    mask with its bidirectional prefix."""
+    import torch
+    kp = torch.arange(t, device=dev)
+    if lens is not None:
+        row = torch.tensor(lens, device=dev).repeat_interleave(bh // len(lens))
+        return (kp[None, None, :] < row[:, None, None]).expand(bh, s, t)
+    qp = torch.arange(s, device=dev)
+    return ((kp[None, :] <= qp[:, None]) | (kp[None, :] < p))[None].expand(
+        bh, s, t)
+
+
+def check_encdec_vlm(dev, gen, entries: dict) -> None:
+    """Phase 3, the encdec and vlm forms: ``flash_attention`` with
+    per-row key lengths (non-causal) and with the prefix-LM mask on
+    FA_FORM_CASES against its plain version, fp32 and bf16, bit-stable
+    on two calls, each case's kernel instance named; the three serving
+    shapes timed in bf16 beside SDPA with the same boolean mask, their
+    bound from the visible query-key pairs. Then ``paged_attention`` at
+    the cross-attention's decode shape (q [8, 16, 64] over 8 rows of 512
+    encoder positions through the identity table, lengths with a 0),
+    timed beside masked SDPA. The unembedding [8, 1024] @ [1024, 256206]
+    and the cross K/V product [4096, 1024] @ [1024, 1024] are MM_CASES
+    rows (entries ``encdec_unembed``, ``cross_kv``). Records the
+    ``encoder``, ``cross`` and ``prefix_lm`` entries of flash_attention
+    and the ``cross`` entry of paged_attention."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import build, ops
+
+    flash_table = ptxas_kernels(build.build_log.get("flash_attention", ""))
+    dtypes = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+    for label, b, h, s, t, d, lens, p, entry in FA_FORM_CASES:
+        bh = b * h
+        kv_len = (None if lens is None else
+                  torch.tensor(lens, device=dev, dtype=torch.int32))
+        kw = dict(causal=lens is None, kv_len=kv_len, prefix_len=p)
+        for dname, dt in dtypes.items():
+            q = torch.randn(bh, s, d, generator=gen, device=dev).to(dt)
+            k = torch.randn(bh, t, d, generator=gen, device=dev).to(dt)
+            v = torch.randn(bh, t, d, generator=gen, device=dev).to(dt)
+            got = ops.attention(q, k, v, **kw)
+            err = compare(f"flash_attention {label} {dname}", got,
+                          ops.attention_ref(q, k, v, **kw), dname)
+            bit_stable(f"flash_attention {label} {dname}", got,
+                       ops.attention(q, k, v, **kw))
+            if lens is not None and 0 in lens:
+                rows = torch.tensor(lens, device=dev).repeat_interleave(h) == 0
+                if got[rows].abs().max() != 0:
+                    raise AssertionError(f"flash_attention {label}: a row of "
+                                         f"length 0 is not 0")
+            note = ptxas_note(flash_table, flash_instance(dt, d))
+            line = (f"[kernel] flash_attention {label} {dname}: max_abs_err "
+                    f"{err:.3e} (bit-stable); {note}")
+            if entry and dname == "bfloat16":
+                mask = form_mask(dev, bh, s, t, lens, p)
+                pairs = float(mask.sum())
+                q4, k4, v4 = (x[None] for x in (q, k, v))
+                it, wu = iters_for(4.0 * d * pairs)
+                ms = time_ms(lambda: ops.attention(q, k, v, **kw), it, wu)
+                dev_ms = graph_ms(lambda: ops.attention(q, k, v, **kw))
+                plain = time_ms(lambda: ops.attention_ref(q, k, v, **kw), it, wu)
+                lib = time_ms(lambda: F.scaled_dot_product_attention(
+                    q4, k4, v4, attn_mask=mask[None]), it, wu)
+                lib_dev = graph_ms(lambda: F.scaled_dot_product_attention(
+                    q4, k4, v4, attn_mask=mask[None]))
+                # bytes: q and o, and the K/V rows some query sees
+                kv_rows = (bh * t if lens is None
+                           else h * sum(min(x, t) for x in lens))
+                nbytes = (2 * bh * s + 2 * kv_rows) * d * q.element_size()
+                bnd, kind = flash_bound(nbytes, [(4.0 * d * pairs, dname,
+                                                  dname)], dt, d)
+                line += (f" ms {ms:.4f} device_ms {dev_ms:.4f} plain_ms "
+                         f"{plain:.4f} library_ms {lib:.4f} (SDPA, the same "
+                         f"boolean mask; device {lib_dev:.4f}) bound_ms "
+                         f"{bnd:.4f} ({kind}, {pairs:.0f} visible pairs) "
+                         f"kernel/library {ms / lib:.2f}")
+                form = (f"kv_len {lens}" if lens is not None
+                        else f"prefix-LM P={p}")
+                entries.setdefault("flash_attention", {})[entry] = dict(
+                    shape=f"q[{bh},{s},{d}] k,v[{bh},{t},{d}] {form} bf16",
+                    max_abs_err=err, ms=ms, device_ms=dev_ms, plain_ms=plain,
+                    bound_ms=bnd, bound_by=kind, library_ms=lib,
+                    library_device_ms=lib_dev, ptxas=note, bit_stable=True)
+            log(line)
+            del q, k, v, got
+
+    # paged_attention over the encoder positions (the cross-attention's
+    # decode): the encoder's K/V [8, 512, 16, 64] read as 8 pages of 512
+    lens = torch.tensor([0] + E_LENS[1:], device=dev, dtype=torch.int32)
+    table = torch.arange(SLOTS, device=dev, dtype=torch.int32)[:, None]
+    for dname, dt in dtypes.items():
+        q = torch.randn(SLOTS, E_HEADS, 64, generator=gen, device=dev).to(dt)
+        kp, vp = (torch.randn(SLOTS, E_MAX_SRC, E_HEADS, 64, generator=gen,
+                              device=dev).to(dt) for _ in range(2))
+        got = ops.paged_attn(q, kp, vp, table, lens)
+        label = (f"cross q[{SLOTS},{E_HEADS},64] enc[{SLOTS},{E_MAX_SRC},"
+                 f"{E_HEADS},64] lengths {lens.tolist()}")
+        err = compare(f"paged_attention {label} {dname}", got,
+                      ops.paged_attn_ref(q, kp, vp, table, lens), dname)
+        bit_stable(f"paged_attention {label} {dname}", got,
+                   ops.paged_attn(q, kp, vp, table, lens))
+        if got[0].abs().max() != 0:
+            raise AssertionError("paged_attention: the row of length 0 is "
+                                 "not 0")
+        line = (f"[kernel] paged_attention {label} {dname}: max_abs_err "
+                f"{err:.3e} (bit-stable; the length-0 row is 0)")
+        if dname == "bfloat16":
+            q4 = q[:, :, None, :]
+            k4, v4 = kp.permute(0, 2, 1, 3), vp.permute(0, 2, 1, 3)
+            mask = (torch.arange(E_MAX_SRC, device=dev)[None]
+                    < lens[:, None])[:, None, None, :]
+            ms = time_ms(lambda: ops.paged_attn(q, kp, vp, table, lens))
+            dev_ms = graph_ms(lambda: ops.paged_attn(q, kp, vp, table, lens))
+            plain = time_ms(lambda: ops.paged_attn_ref(q, kp, vp, table, lens))
+            lib = time_ms(lambda: F.scaled_dot_product_attention(
+                q4, k4, v4, attn_mask=mask))
+            tokens = int(lens.sum())
+            esz = q.element_size()
+            bnd, kind = bound_ms(2 * q.numel() * esz
+                                 + 2 * tokens * E_HEADS * 64 * esz
+                                 + table.numel() * 4 + lens.numel() * 4,
+                                 4.0 * E_HEADS * 64 * tokens, dname)
+            line += (f" ms {ms:.4f} device_ms {dev_ms:.4f} plain_ms "
+                     f"{plain:.4f} library_ms {lib:.4f} (SDPA, length mask; "
+                     f"its length-0 row is NaN) bound_ms {bnd:.4f} ({kind}) "
+                     f"kernel/library {ms / lib:.2f}")
+            entries.setdefault("paged_attention", {})["cross"] = dict(
+                shape=f"q[{SLOTS},{E_HEADS},64] enc[{SLOTS},{E_MAX_SRC},"
+                      f"{E_HEADS},64] lengths {lens.tolist()} bf16",
+                max_abs_err=err, ms=ms, device_ms=dev_ms, plain_ms=plain,
+                bound_ms=bnd, bound_by=kind, library_ms=lib, bit_stable=True)
+        log(line)
+        del q, kp, vp, got
+
 
 def check_kernels(dev) -> dict:
     """Checks every case of the tables above, ``quant_matmul``, the int8
@@ -931,6 +1166,7 @@ def check_kernels(dev) -> dict:
                     bound_by=full_kind)))
             del q, kp, vp, got, want
     check_paged_multi(dev, gen, entries)
+    check_encdec_vlm(dev, gen, entries)
     entries.update(check_experts(dev, gen))
     entries.update(check_int8_kernels(dev, gen))
     check_flash_q8(dev, gen, entries)
@@ -1667,96 +1903,26 @@ def serve_full_width(int8: bool = False) -> dict:
 # phases 4j, 4k: deepseek-moe-16b and the head-dim-128 dense configs
 # --------------------------------------------------------------------------
 
-def pass_launches(model) -> dict:
+def pass_launches(model, group: bool = False) -> dict:
     """The launches of one pass of ``model`` (a decode step or a prefill
     group) from its config: per attention layer 4 projections and its
     MLP (3 matmuls gated, 2 relu2; in an MoE layer the router and the
     shared experts' MLP, and 3 or 2 expert products), one unembedding;
     one attention per layer, in the step (``paged_attention``) or the
-    group (``flash_attention``)."""
+    group (``flash_attention``). An encdec model's decoder layers add 4
+    cross-attention projections and a cross-attention each; its group
+    (``group=True``) also runs the encoder's layers."""
     arch = model.arch
     mlp = 2 if arch.mlp == "relu2" else 3
+    if arch.family == "encdec":
+        dec, enc = arch.dec_layers, arch.enc_layers if group else 0
+        return {"xfer_matmul": (8 + mlp) * dec + (4 + mlp) * enc + 1,
+                "xfer_matmul_experts": 0, "attention": 2 * dec + enc}
     n_moe = sum(layer.is_moe for layer in model.layers)
     shared = mlp if arch.num_shared_experts else 0
     return {"xfer_matmul": (4 + mlp) * (len(model.layers) - n_moe)
             + (4 + 1 + shared) * n_moe + 1,
             "xfer_matmul_experts": mlp * n_moe, "attention": len(model.layers)}
-
-
-def serve_d128(tag: str, arch, model=None, paged: bool = False):
-    """Phases 4j and 4k: phase 4's 16 prompts (16-200 tokens, 32 new
-    tokens each) through ``arch`` at full width in bf16 on 8 slots x 512
-    (pages of 64 when ``paged``: the MoE family keeps no prefix
-    registry), seeded weights (``model``, or made here). Launch counts
-    exact per decode step and per prefill group (``pass_launches``),
-    every request to its budget; prints step p50/p95, admission p50,
-    tokens/s, peak allocated bytes and the step's byte bound (every
-    weight but the embedding table, read once a step: at 8 slots the MoE
-    layers' capacity is 1 and every expert runs). Returns (launch
-    counts, streams, model)."""
-    import numpy as np
-    import torch
-    from repro_torch.kernels import ops
-    from repro_torch.models.registry import init_params
-    from repro_torch.serving import PagingConfig, ServeConfig, ServingEngine
-
-    new_tokens = 32
-    config = ServeConfig(slots=SLOTS, max_len=MAX_LEN, seed=0, lookahead=1,
-                         paging=PagingConfig(paged=paged, page_size=PAGE))
-    torch.cuda.reset_peak_memory_stats()
-    t0 = time.perf_counter()
-    if model is None:
-        model = init_params(arch, config.seed)  # on the card, bf16
-    engine = ServingEngine(arch, model, config=config)
-    torch.cuda.synchronize()
-    n_params = sum(p.numel() for p in model.parameters())
-    weight_bytes = sum(p.numel() * p.element_size() for p in model.parameters())
-    step_bytes = weight_bytes - model.embed.numel() * model.embed.element_size()
-    per = pass_launches(model)
-    log(f"[{tag}] {arch.name}: {arch.num_layers} layers (MoE "
-        f"{sum(layer.is_moe for layer in model.layers)}), d {arch.d_model}, "
-        f"heads {arch.num_heads}/{arch.num_kv_heads} x {arch.head_dim}, mlp "
-        f"{arch.mlp}, {n_params} params ({weight_bytes} bytes), "
-        f"{'pool of pages of %d' % PAGE if paged else 'slot grid'}; params + "
-        f"engine + capture ready in {time.perf_counter() - t0:.1f} s; per "
-        f"pass {per}")
-    prompts = phase4_prompts(arch.vocab_size)
-    ops.reset_launches()
-    t0 = time.perf_counter()
-    streams, steps, groups, _, peak_pages = drive(engine, prompts, new_tokens)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    counts = ops.launch_counts()
-    for rid, toks in streams.items():
-        if len(toks) != new_tokens or not all(0 <= t < arch.vocab_size
-                                               for t in toks):
-            raise AssertionError(f"[{tag}] rid {rid}: bad stream {toks}")
-    path = PATH_KERNELS["moe" if arch.family == "moe" else "dense-d128"]
-    want = {"xfer_matmul": per["xfer_matmul"] * (steps + groups),
-            "xfer_matmul_experts": per["xfer_matmul_experts"] * (steps + groups),
-            "paged_attention": per["attention"] * steps,
-            "flash_attention": per["attention"] * groups}
-    check_paged_counts(tag, counts, path, want)
-    pstats, sstats = engine.prefill_stats(), engine.step_stats()
-    if paged and (engine.scheduler.registry is not None
-                  or pstats["prefix_hit_rate"] != 0):
-        raise AssertionError(f"[{tag}] the MoE pool keeps a prefix registry")
-    bound = step_bytes / HBM_BYTES_PER_S * 1e3
-    log(f"[{tag}] {len(streams)}/{len(prompts)} requests to their budget, "
-        f"{steps} decode steps, {groups} prefill groups, {wall:.3f} s wall; "
-        f"launches {counts} (exact)" + (f"; peak pages in use {peak_pages}"
-                                        if paged else ""))
-    log(f"[{tag}] step_p50_ms {sstats['step_p50_ms']:.4f} step_p95_ms "
-        f"{sstats['step_p95_ms']:.4f} admit_p50_ms {pstats['admit_p50_ms']:.4f} "
-        f"tokens_per_s {sstats['tokens_per_s']:.1f} peak_allocated_bytes "
-        f"{torch.cuda.max_memory_allocated()} step_bound_ms {bound:.4f} "
-        f"(bytes: {step_bytes} weight bytes a step)")
-    log(f"[{tag}] step_stats {json.dumps(sstats)}")
-    log(f"[{tag}] prefill_stats {json.dumps(pstats)}")
-    log(f"[{tag}] rid=0 out={streams[0][:8]}")
-    del engine
-    torch.cuda.empty_cache()
-    return counts, streams, model
 
 
 def serve_moe() -> dict:
@@ -1770,11 +1936,12 @@ def serve_moe() -> dict:
     from repro_torch.configs import get_arch
 
     arch = get_arch("deepseek-moe-16b")
-    grid, streams, model = serve_d128("serve-moe", arch)
-    pool, pool_streams, model = serve_d128("serve-moe-paged", arch, model,
-                                           paged=True)
-    compare_streams("serve-moe-paged", model, phase4_prompts(arch.vocab_size),
-                    pool_streams, streams, "the grid's")
+    prompts = phase4_prompts(arch.vocab_size)
+    grid, streams, model, _ = serve_family("serve-moe", arch, None, prompts)
+    pool, pool_streams, model, _ = serve_family("serve-moe-paged", arch, model,
+                                                prompts, paged=True)
+    compare_streams("serve-moe-paged", model, prompts, pool_streams, streams,
+                    "the grid's")
     del model
     torch.cuda.empty_cache()
     return {"moe": grid, "moe-paged": pool}
@@ -1799,12 +1966,223 @@ def serve_dense_d128() -> dict:
         arch = get_arch(arch_id)
         if layers:
             arch = dataclasses.replace(arch, num_layers=layers)
-        counts, _, model = serve_d128(f"serve-{arch_id}", arch)
+        counts, _, model, _ = serve_family(
+            f"serve-{arch_id}", arch, None, phase4_prompts(arch.vocab_size))
         del model
         torch.cuda.empty_cache()
         for name, n in counts.items():
             total[name] = total.get(name, 0) + n
     return total
+
+
+# --------------------------------------------------------------------------
+# phases 4l, 4m: seamless-m4t-medium (encdec) and paligemma-3b (vlm)
+# --------------------------------------------------------------------------
+
+def encdec_frames(d: int) -> list:
+    """Phase 4l's payloads: 16 seeded source-frame arrays of 64-512 x
+    ``d`` (the stub audio frontend's output), one a request."""
+    import numpy as np
+    rng = np.random.RandomState(5)
+    return [{"src_frames": rng.standard_normal(
+        (int(rng.randint(E_FRAMES[0], E_FRAMES[1] + 1)), d)).astype(np.float32)}
+        for _ in range(16)]
+
+
+#: phase 4m: the text-only requests (the rest carry V_PATCHES patches);
+#: two admitted in the first wave (their prompts registered on the pool),
+#: two in the next (they match the system prompt's full pages)
+V_TEXT_RIDS = (3, 7, 11, 15)
+
+
+def vlm_traffic(arch) -> tuple:
+    """Phase 4m's 16 requests: phase 4's prompts (16-200 tokens) with 256
+    seeded patch embeddings each, except the V_TEXT_RIDS, which are the
+    200-token system prompt plus a tail of 8-120 tokens (the shared set's
+    first sharers) and carry no patches. Returns (prompts, payloads)."""
+    import numpy as np
+    prompts = phase4_prompts(arch.vocab_size)
+    shared = shared_set(arch.vocab_size)
+    rng = np.random.RandomState(6)
+    payloads = []
+    for rid in range(16):
+        if rid in V_TEXT_RIDS:
+            prompts[rid] = shared[1 + V_TEXT_RIDS.index(rid)]
+            payloads.append({})
+        else:
+            payloads.append({"patch_embeds": rng.standard_normal(
+                (V_PATCHES, arch.d_model)).astype(np.float32)})
+    return prompts, payloads
+
+
+def serve_family(tag: str, arch, model, prompts, payloads=None,
+                 paged: bool = False):
+    """Phases 4j-4m: ``prompts`` (with their ``src_frames``/
+    ``patch_embeds`` payloads), 32 new tokens each, through ``arch`` at
+    full width in bf16 on 8 slots x 512 (``max_src_len`` 512 for the
+    encdec family; pages of 64 when ``paged``: the MoE family keeps no
+    prefix registry, and a pool that keeps one must reuse it), seeded
+    weights (``model``, or made here). Launch counts exact per decode
+    step and per prefill group (``pass_launches``), every request to its
+    budget; prints step p50/p95, admission p50, tokens/s, peak allocated
+    bytes and the step's byte bound (step_bytes). Returns (launch counts,
+    streams, model, stats)."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.models.registry import init_params
+    from repro_torch.serving import PagingConfig, ServeConfig, ServingEngine
+
+    new_tokens = 32
+    encdec = arch.family == "encdec"
+    config = ServeConfig(slots=SLOTS, max_len=MAX_LEN, seed=0, lookahead=1,
+                         max_src_len=E_MAX_SRC if encdec else None,
+                         paging=PagingConfig(paged=paged, page_size=PAGE))
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    if model is None:
+        model = init_params(arch, config.seed)  # on the card, bf16
+    engine = ServingEngine(arch, model, config=config)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    weight_bytes = sum(p.numel() * p.element_size() for p in model.parameters())
+    nbytes, what = step_bytes(model, engine)
+    step, group = pass_launches(model), pass_launches(model, group=True)
+    if encdec:
+        depth = f"{arch.enc_layers} + {arch.dec_layers} layers"
+    else:
+        n_moe = sum(layer.is_moe for layer in model.layers)
+        depth = f"{arch.num_layers} layers" + (f" (MoE {n_moe})" if n_moe
+                                               else "")
+    log(f"[{tag}] {arch.name}: {arch.family}, {depth}, d {arch.d_model}, "
+        f"heads {arch.num_heads}/{arch.num_kv_heads} x {arch.head_dim}, mlp "
+        f"{arch.mlp}, vocab {arch.vocab_size}, {n_params} params "
+        f"({weight_bytes} bytes), "
+        f"{'pool of pages of %d' % PAGE if paged else 'slot grid'}; params + "
+        f"engine + capture ready in {time.perf_counter() - t0:.1f} s; "
+        f"launches a step {step}, a group {group}")
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    streams, steps, groups, shared, peak_pages = drive(
+        engine, prompts, new_tokens, payloads=payloads)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    for rid, toks in streams.items():
+        if len(toks) != new_tokens or not all(0 <= t < arch.vocab_size
+                                               for t in toks):
+            raise AssertionError(f"[{tag}] rid {rid}: bad stream {toks}")
+    path = "dense-d128" if arch.family == "dense" else arch.family
+    want = {name: step[name] * steps + group[name] * groups
+            for name in ("xfer_matmul", "xfer_matmul_experts")}
+    want.update(paged_attention=step["attention"] * steps,
+                flash_attention=group["attention"] * groups)
+    check_paged_counts(tag, counts,
+                       PATH_KERNELS[path + ("-paged" if paged else "")], want)
+    pstats, sstats = engine.prefill_stats(), engine.step_stats()
+    if paged:
+        registry = engine.scheduler.registry is not None
+        reused = pstats["prefix_hit_rate"] > 0 and shared >= 1
+        if registry == (arch.family == "moe") or reused != registry:
+            raise AssertionError(
+                f"[{tag}] {arch.family} pool: prefix registry {registry}, "
+                f"reused {reused} ({shared} shared groups, {pstats}); the "
+                f"MoE pool keeps none, any other keeps one and reuses it")
+    bound = nbytes / HBM_BYTES_PER_S * 1e3
+    extra = ""
+    if encdec:
+        kv_flops = 2 * 2.0 * SLOTS * E_MAX_SRC * arch.d_model * arch.kv_dim \
+            * arch.dec_layers
+        extra = (f"; cross K/V operation bound "
+                 f"{kv_flops / PEAK_FLOPS['bfloat16'] * 1e3:.4f} ms "
+                 f"({kv_flops:.4e} flops a step at 989 TFLOP/s)")
+    log(f"[{tag}] {len(streams)}/{len(prompts)} requests to their budget, "
+        f"{steps} decode steps, {groups} prefill groups ({shared} shared), "
+        f"{wall:.3f} s wall; launches {counts} (exact)"
+        + (f"; peak pages in use {peak_pages}" if paged else ""))
+    log(f"[{tag}] step_p50_ms {sstats['step_p50_ms']:.4f} step_p95_ms "
+        f"{sstats['step_p95_ms']:.4f} admit_p50_ms {pstats['admit_p50_ms']:.4f} "
+        f"tokens_per_s {sstats['tokens_per_s']:.1f} peak_allocated_bytes "
+        f"{torch.cuda.max_memory_allocated()} step_bound_ms {bound:.4f} "
+        f"(bytes a step: {what}){extra}")
+    log(f"[{tag}] step_stats {json.dumps(sstats)}")
+    log(f"[{tag}] prefill_stats {json.dumps(pstats)}")
+    log(f"[{tag}] rid=0 out={streams[0][:8]}")
+    stats = dict(sstats, admit_p50_ms=pstats["admit_p50_ms"],
+                 peak_allocated_bytes=torch.cuda.max_memory_allocated(),
+                 step_bound_ms=bound)
+    del engine
+    torch.cuda.empty_cache()
+    return counts, streams, model, stats
+
+
+def step_bytes(model, engine) -> tuple:
+    """The bytes a decode step of ``model`` must move at least, and what
+    they are: every weight read once but an untied embedding table,
+    which is only gathered (at 8 slots an MoE layer's capacity is 1, so
+    every expert runs). An encdec step reads its decoder's weights and
+    the unembedding, not the encoder's; each decoder layer also reads
+    ``enc_out`` twice (the cross K and V products) and writes those
+    products and reads them back whole (the reference recomputes them
+    every step)."""
+    def size(params):
+        return sum(p.numel() * p.element_size() for p in params)
+
+    arch = model.arch
+    if arch.family != "encdec":
+        n = size(model.parameters()) - (0 if arch.tie_embeddings
+                                        else size([model.embed]))
+        return n, f"{n} weight bytes"
+    weights = size(model.dec_layers.parameters()) + size(
+        [model.final_norm, model.unembed])
+    enc = engine.state.enc_out
+    reads = 2 * arch.dec_layers * size([enc])
+    kv = 2 * 2 * arch.dec_layers * enc.shape[0] * enc.shape[1] * arch.kv_dim \
+        * enc.element_size()
+    return weights + reads + kv, (
+        f"{weights} decoder and unembedding weight bytes + {reads} of "
+        f"enc_out read by the cross K/V products + {kv} of those products "
+        f"written and read back")
+
+
+def serve_encdec() -> dict:
+    """Phase 4l: seamless-m4t-medium at full width and depth (12 encoder
+    + 12 decoder layers) on the slot grid, 8 slots x 512, 512 source
+    frames a slot: phase 4's 16 prompts with 64-512 seeded frames each.
+    Returns the launch counts."""
+    import torch
+    from repro_torch.configs import get_arch
+
+    arch = get_arch("seamless-m4t-medium")
+    counts, _, model, _ = serve_family(
+        "serve-encdec", arch, None, phase4_prompts(arch.vocab_size),
+        encdec_frames(arch.d_model))
+    del model
+    torch.cuda.empty_cache()
+    return {"encdec": counts}
+
+
+def serve_vlm() -> dict:
+    """Phase 4m: paligemma-3b at full width and depth (18 layers) on the
+    slot grid, then on the page pool (pages of 64, the prefix registry
+    on) on the same weights: vlm_traffic's 12 patched and 4 text-only
+    requests; the pool's streams held to the grid's (the paged kernel's
+    split differs from the grid's, so only a near-tie under the bf16
+    tolerance may part them). Returns the launch counts per path."""
+    import torch
+    from repro_torch.configs import get_arch
+
+    arch = get_arch("paligemma-3b")
+    prompts, payloads = vlm_traffic(arch)
+    grid, streams, model, _ = serve_family("serve-vlm", arch, None, prompts,
+                                           payloads)
+    pool, pool_streams, model, _ = serve_family("serve-vlm-paged", arch,
+                                                model, prompts, payloads,
+                                                paged=True)
+    compare_streams("serve-vlm-paged", model, prompts, pool_streams, streams,
+                    "the grid's", payloads=payloads)
+    del model
+    torch.cuda.empty_cache()
+    return {"vlm": grid, "vlm-paged": pool}
 
 
 # recurrentgemma-2b at full width and depth, as the reference's
@@ -1999,7 +2377,8 @@ GRAPH_STEPS, TRACE_STEPS = 16, 20
 # page size or None, mode: None (greedy), "top_k" (k 50, T 0.8) or "spec"
 # (phase 4h's 1-layer draft, k = SPEC_K)); 8 prompts of 16-120 tokens
 # each, 64 new tokens (128 on the spec paths, so that no slot finishes
-# within the 16 steps)
+# within the 16 steps); the encdec path's requests carry 64-512 source
+# frames, the vlm paths' even rids 256 patch embeddings
 GRAPH_PATHS = (("fp", "qwen1.5-0.5b", SLOTS, MAX_LEN, False, None, None),
                ("int8", "qwen1.5-0.5b", SLOTS, MAX_LEN, True, None, None),
                ("paged", "qwen1.5-0.5b", SLOTS, MAX_LEN, False, PAGE, None),
@@ -2015,7 +2394,12 @@ GRAPH_PATHS = (("fp", "qwen1.5-0.5b", SLOTS, MAX_LEN, False, None, None),
                ("moe", "deepseek-moe-16b", SLOTS, MAX_LEN, False, None, None),
                ("moe-paged", "deepseek-moe-16b", SLOTS, MAX_LEN, False, PAGE,
                 None),
-               ("relu2", "minitron-8b", SLOTS, MAX_LEN, False, None, None))
+               ("relu2", "minitron-8b", SLOTS, MAX_LEN, False, None, None),
+               ("encdec", "seamless-m4t-medium", SLOTS, MAX_LEN, False, None,
+                None),
+               ("vlm", "paligemma-3b", SLOTS, MAX_LEN, False, None, None),
+               ("vlm-paged", "paligemma-3b", SLOTS, MAX_LEN, False, PAGE,
+                None))
 
 
 def graph_engine(models: dict, arch_id: str, slots: int, max_len: int,
@@ -2048,16 +2432,25 @@ def graph_engine(models: dict, arch_id: str, slots: int, max_len: int,
         extra["spec"] = SpecConfig(draft=draft, k=SPEC_K)
         new_tokens = 2 * new_tokens
     config = ServeConfig(slots=slots, max_len=max_len, seed=0,
-                         lookahead=lookahead,
+                         lookahead=lookahead, max_src_len=E_MAX_SRC,
                          quant=Q.INT8_SERVE if int8 else Q.QuantConfig(),
                          paging=PagingConfig(paged=page is not None,
                                              page_size=page), **extra)
     engine = ServingEngine(arch, params, config=config)
     rng = np.random.RandomState(7)
     for rid in range(slots):
-        engine.submit(Request(rid=rid, prompt=rng.randint(
-            1, arch.vocab_size, size=int(rng.randint(16, 121))).astype(np.int32),
-            max_new_tokens=new_tokens))
+        prompt = rng.randint(1, arch.vocab_size,
+                             size=int(rng.randint(16, 121))).astype(np.int32)
+        payload = {}
+        if arch.family == "encdec":
+            payload["src_frames"] = rng.standard_normal(
+                (int(rng.randint(E_FRAMES[0], E_FRAMES[1] + 1)),
+                 arch.d_model)).astype(np.float32)
+        if arch.family == "vlm" and rid % 2 == 0:
+            payload["patch_embeds"] = rng.standard_normal(
+                (V_PATCHES, arch.d_model)).astype(np.float32)
+        engine.submit(Request(rid=rid, prompt=prompt,
+                              max_new_tokens=new_tokens, **payload))
     return engine
 
 
@@ -2156,11 +2549,13 @@ def graph_vs_eager() -> dict:
     return per_replay
 
 
-def trace_window(run, steps: int) -> dict:
+def trace_window(run, steps: int, share_of: str = None) -> dict:
     """``run()`` (``steps`` decode steps ending in a synchronize) under
     ``torch.profiler``: the device's busy time (union of kernel, memcpy
     and memset intervals) over the window, device launches per step and
-    the top device ops by total time."""
+    the top device ops by total time; with ``share_of``, the device ms a
+    step of the kernels whose name holds it and their share of the
+    busy time."""
     import tempfile
     import torch
     from torch.profiler import ProfilerActivity, profile, record_function
@@ -2193,7 +2588,12 @@ def trace_window(run, steps: int) -> dict:
         by_name[n] = by_name.get(n, 0.0) + float(e["dur"])
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
     kernels = sum(1 for e in dev if e["cat"] == "kernel")
-    return {"measured": True, "window_ms": (t1 - t0) / 1e3,
+    share = {}
+    if share_of:
+        part = sum(t for n, t in by_name.items() if share_of in n)
+        share = {"share_of": share_of, "share_ms_per_step": part / 1e3 / steps,
+                 "share": part / busy}
+    return {**share, "measured": True, "window_ms": (t1 - t0) / 1e3,
             "busy_ms": busy / 1e3, "idle_share": 1.0 - busy / (t1 - t0),
             "device_ms_per_step": busy / 1e3 / steps,
             "kernels_per_step": kernels / steps,
@@ -2208,9 +2608,12 @@ def trace_steps() -> dict:
     first replaying the captured step, then the same engine dispatching
     the eager step; then a speculative engine (phase 4h's 1-layer draft,
     k = SPEC_K) replaying its captured step; then full-size
-    deepseek-moe-16b's captured step (phase 4j's model). Prints the
-    device's idle share of each window, the top device ops and the
-    launches per step that are not the hand-written kernels'."""
+    deepseek-moe-16b's captured step (phase 4j's model); then full-size
+    seamless-m4t-medium's captured step (phase 4l's model), with the
+    share of its step that the cross K/V products take (``wg_kernel``:
+    the only R = 4096 products of a step). Prints the device's idle
+    share of each window, the top device ops and the launches per step
+    that are not the hand-written kernels'."""
     import torch
     from repro_torch.kernels import ops
     from repro_torch.models.registry import build_serve_step
@@ -2232,19 +2635,21 @@ def trace_steps() -> dict:
         torch.cuda.synchronize()
 
     out = {}
-    for mode in ("graph", "eager", "spec", "moe"):
+    for mode in ("graph", "eager", "spec", "moe", "encdec"):
         if mode == "eager":
             engine.decode = eager_decode
-        if mode in ("spec", "moe"):  # spec: budgets of 380 for 64 steps
-            del engine               # of up to k + 1
+        if mode in ("spec", "moe", "encdec"):  # spec: budgets of 380 for
+            del engine                         # 64 steps of up to k + 1
             torch.cuda.empty_cache()
             if mode == "spec":
                 engine = graph_engine({}, "qwen1.5-0.5b", SLOTS, MAX_LEN,
                                       False, None, mode="spec",
                                       new_tokens=190)
             else:
-                engine = graph_engine({}, "deepseek-moe-16b", SLOTS, MAX_LEN,
-                                      False, None, new_tokens=8 * TRACE_STEPS)
+                arch_id = {"moe": "deepseek-moe-16b",
+                           "encdec": "seamless-m4t-medium"}[mode]
+                engine = graph_engine({}, arch_id, SLOTS, MAX_LEN, False,
+                                      None, new_tokens=8 * TRACE_STEPS)
             for _ in range(4):
                 engine.step()
         run()  # warm
@@ -2253,7 +2658,8 @@ def trace_steps() -> dict:
         run()
         host_ms = (time.perf_counter() - t0) * 1e3 / TRACE_STEPS
         ours = sum(ops.launch_counts().values()) / TRACE_STEPS
-        row = trace_window(run, TRACE_STEPS)
+        row = trace_window(run, TRACE_STEPS,
+                           "wg_kernel" if mode == "encdec" else None)
         row.update(host_ms_per_step=host_ms, handwritten_per_step=ours)
         if row["measured"]:
             row["other_launches_per_step"] = row["kernels_per_step"] - ours
@@ -2269,6 +2675,10 @@ def trace_steps() -> dict:
                 f"{row['other_launches_per_step']:.1f} not, "
                 f"{row['copies_per_step']:.1f} copies/memsets")
             log(f"[trace-{mode}] top device ops (ms a step): {row['top']}")
+            if "share" in row:
+                log(f"[trace-{mode}] the cross K/V products ({row['share_of']}"
+                    f"): {row['share_ms_per_step']:.4f} device ms a step, "
+                    f"{row['share']:.4f} of the step's busy time")
         else:
             log(f"[trace-{mode}] host {host_ms:.3f} ms a step; idle share not "
                 f"measured: the trace holds no device events")
@@ -2339,12 +2749,17 @@ def parity_full_width(dev) -> None:
 
 
 def compare_card_cpu(arch, cpu_model, card_model, tag: str, *,
-                     kv_quant: bool, note=None) -> None:
+                     kv_quant: bool, note=None, prefill=None, step=None,
+                     offset: int = 0) -> None:
     """A batched bucketed prefill of 4 prompts and 4 greedy decode steps
     on the card and on the CPU, fed the same tokens (the CPU's greedy
     choices); last-position logits within PARITY_TOL of max |logit|.
     ``note(j)``, when given, adds a remark on position j to its line and
-    to a failure's message."""
+    to a failure's message. ``prefill(model, tokens, lens)`` -> (rows,
+    logits) and ``step(model, tokens, grid, positions)`` -> (hidden,
+    grid) replace the decoder-only LM's (the encdec family's take its
+    source frames, the vlm family's its patches, whose ``offset``
+    positions each row holds ahead of its prompt)."""
     import numpy as np
     import torch
     from repro_torch.serving.scheduler import prefill_rows, splice_rows
@@ -2358,17 +2773,23 @@ def compare_card_cpu(arch, cpu_model, card_model, tag: str, *,
 
     def run(model, feed=None):
         d = model.device
-        rows, logits = prefill_rows(model, torch.from_numpy(toks).to(d),
-                                    torch.from_numpy(lens).to(d),
-                                    kv_quant=kv_quant)
-        grid = model.make_caches(n, cache_len, kv_quant=kv_quant)
+        lens_t = torch.from_numpy(lens + offset).to(d)
+        if prefill is None:
+            rows, logits = prefill_rows(model, torch.from_numpy(toks).to(d),
+                                        lens_t, kv_quant=kv_quant)
+        else:
+            rows, logits = prefill(model, torch.from_numpy(toks).to(d), lens_t)
+        grid = model.make_caches(n, cache_len + offset, kv_quant=kv_quant)
         splice_rows(grid, rows, torch.arange(n, device=d))
         out = [logits[:, -1].float().cpu()]
         chosen = [out[-1].argmax(-1).to(torch.int32)]
-        pos = torch.from_numpy(lens).to(d)[:, None]
+        pos = lens_t[:, None]
         for j in range(steps):
             tok = (feed[j] if feed is not None else chosen[-1]).to(d)[:, None]
-            hidden, grid = model(tok, caches=grid, positions=pos)
+            if step is None:
+                hidden, grid = model(tok, caches=grid, positions=pos)
+            else:
+                hidden, grid = step(model, tok, grid, pos)
             out.append(model.logits(hidden)[:, -1].float().cpu())
             chosen.append(out[-1].argmax(-1).to(torch.int32))
             pos = pos + 1
@@ -2402,6 +2823,132 @@ def compare_card_cpu(arch, cpu_model, card_model, tag: str, *,
             raise AssertionError(f"card vs CPU logits: rel err {rel:.3e} > "
                                  f"{PARITY_TOL} ({line})")
     log(f"[{tag}] ok: worst rel err {worst:.3e} (tolerance {PARITY_TOL})")
+
+
+def parity_encdec_vlm(dev) -> None:
+    """Phase 5h: seamless-m4t-medium at full width cut to 2 encoder + 2
+    decoder layers, and paligemma-3b at full width cut to 2 layers,
+    seeded fp32 weights (drawn on the card, copied to the CPU), card vs
+    CPU. compare_card_cpu's prefill of 4 prompts (with 100 / 512 / 37 /
+    250 source frames, or 256 patches each) and 4 greedy decode steps:
+    logits within PARITY_TOL, greedy tokens equal (a flip only under a
+    top-2 margin of PARITY_TOL). Then 4 requests of 8 new tokens through
+    ``ServingEngine`` on each side (fp32, 4 slots; the vlm's rids 1 and 3
+    text-only), and for the vlm 6 more on the page pool (pages of 64, 2
+    slots; 3 patched, 3 text-only sharing the system prompt, the
+    registry reused on both sides): streams equal, a divergence only at
+    a near-tie under PARITY_TOL."""
+    import copy
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.models.registry import init_params
+    from repro_torch.serving import (PagingConfig, Request, ServeConfig,
+                                     ServingEngine)
+    from repro_torch.serving.scheduler import prefill_encdec, prefill_rows
+
+    rng = np.random.RandomState(8)
+    for arch_id in ("seamless-m4t-medium", "paligemma-3b"):
+        full = get_arch(arch_id)
+        if full.family == "encdec":
+            arch = dataclasses.replace(full, num_layers=4, enc_layers=2,
+                                       dec_layers=2)
+        else:
+            arch = dataclasses.replace(full, num_layers=2)
+        tag = f"parity-{full.family}"
+        t0 = time.perf_counter()
+        card_model = init_params(arch, 1, dtype=torch.float32)
+        cpu_model = copy.deepcopy(card_model).cpu()
+        log(f"[{tag}] {arch.name} cut to "
+            + (f"{arch.enc_layers} + {arch.dec_layers}" if full.family ==
+               "encdec" else f"{arch.num_layers}")
+            + f" layers at full width: fp32 weights on card and CPU in "
+            f"{time.perf_counter() - t0:.1f} s")
+        if full.family == "encdec":
+            counts = (100, E_MAX_SRC, 37, 250)
+            frames = np.zeros((4, E_MAX_SRC, arch.d_model), np.float32)
+            for i, c in enumerate(counts):
+                frames[i, :c] = rng.standard_normal((c, arch.d_model))
+            flens = np.asarray(counts, np.int32)
+            enc = {}
+
+            def prefill(model, toks, lens):
+                d = model.device
+                rows, logits, out = prefill_encdec(
+                    model, torch.from_numpy(frames).to(d),
+                    torch.from_numpy(flens).to(d), toks, lens)
+                enc[d.type] = out
+                return rows, logits
+
+            def step(model, tok, grid, pos):
+                d = model.device
+                return model(tok, enc[d.type], caches=grid, positions=pos,
+                             enc_lens=torch.from_numpy(flens).to(d))
+
+            compare_card_cpu(arch, cpu_model, card_model, tag, kv_quant=False,
+                             prefill=prefill, step=step)
+            payloads = [{"src_frames": frames[i, :c]}
+                        for i, c in enumerate(counts)]
+        else:
+            patches = rng.standard_normal(
+                (4, V_PATCHES, arch.d_model)).astype(np.float32)
+
+            def prefill(model, toks, lens):
+                return prefill_rows(model, toks, lens, patches=torch.from_numpy(
+                    patches).to(model.device))
+
+            compare_card_cpu(arch, cpu_model, card_model, tag, kv_quant=False,
+                             prefill=prefill, offset=V_PATCHES)
+            payloads = [{"patch_embeds": patches[i]} if i % 2 == 0 else {}
+                        for i in range(4)]
+        prompts = [rng.randint(1, arch.vocab_size, size=int(n)).astype(np.int32)
+                   for n in (21, 64, 37, 100)]
+        runs = [(tag, prompts, payloads, 4, False)]
+        if full.family == "vlm":
+            # the pool: patched prompts prefilled dense and spliced into
+            # pages, text-only ones sharing the system prompt, 2 slots so
+            # that rids 3 and 5 match rid 1's registered pages
+            shared = shared_set(arch.vocab_size)
+            runs.append((f"{tag}-paged",
+                         [prompts[0], shared[1], prompts[2], shared[2],
+                          prompts[1], shared[3]],
+                         [{"patch_embeds": patches[i // 2]} if i % 2 == 0
+                          else {} for i in range(6)], 2, True))
+
+        def serve(model, device, prompts, payloads, slots, paged):
+            eng = ServingEngine(arch, model, device=device, dtype=torch.float32,
+                                config=ServeConfig(
+                                    slots=slots, max_len=MAX_LEN,
+                                    max_src_len=E_MAX_SRC, seed=0, lookahead=1,
+                                    paging=PagingConfig(paged=paged,
+                                                        page_size=PAGE)))
+            for rid, (p, kw) in enumerate(zip(prompts, payloads)):
+                eng.submit(Request(rid=rid, prompt=p, max_new_tokens=8, **kw))
+            with torch.no_grad():
+                eng.run_until_drained()
+            st = eng.prefill_stats()
+            if paged and not (st["prefix_hit_rate"] > 0
+                              and st["shared_dispatches"] >= 1):
+                raise AssertionError(f"[{tag}-paged] {device}: the text-only "
+                                     f"prompts did not reuse the registry: "
+                                     f"{st}")
+            return {r.rid: list(r.out_tokens) for r in eng.completed}
+
+        for run_tag, run_prompts, run_payloads, slots, paged in runs:
+            t0 = time.perf_counter()
+            want = serve(copy.deepcopy(cpu_model), "cpu", run_prompts,
+                         run_payloads, slots, paged)
+            got = serve(card_model, dev, run_prompts, run_payloads, slots,
+                        paged)
+            compare_streams(run_tag, cpu_model, run_prompts, got, want,
+                            "the CPU's", limit=PARITY_TOL,
+                            payloads=run_payloads)
+            log(f"[{run_tag}] engine streams card vs CPU in "
+                f"{time.perf_counter() - t0:.1f} s")
+        del card_model, cpu_model
+        torch.cuda.empty_cache()
 
 
 #: phase 5g: (arch id, layers): deepseek-moe-16b cut to its dense prefix
@@ -2686,21 +3233,38 @@ def router_margins():
         M.route = route
 
 
-def top2_margin(model, prompt, prefix) -> float:
+def payload_forward(model, toks, payload=None):
+    """``model``'s hidden states over ``toks`` [1, S] (on its device) with
+    a request's payload: its source frames encoded first (encdec), or its
+    patches ahead of the tokens (vlm)."""
+    import torch
+    payload = payload or {}
+    if "src_frames" in payload:
+        frames = torch.from_numpy(payload["src_frames"]).to(model.device)
+        return model(toks, model.encode(frames[None]))[0]
+    if "patch_embeds" in payload:
+        patches = torch.from_numpy(payload["patch_embeds"]).to(model.device)
+        return model(toks, prefix_embeds=patches[None])[0]
+    return model(toks)[0]
+
+
+def top2_margin(model, prompt, prefix, payload=None) -> float:
     """Top-2 logit margin over max |logit| of ``model`` after ``prompt``
-    + ``prefix`` (one full causal forward, no cache)."""
+    + ``prefix`` (one full causal forward, no cache; with the request's
+    source frames or patches, ``payload``)."""
     import numpy as np
     import torch
     toks = np.concatenate([prompt, np.asarray(prefix, np.int32)])
     with torch.no_grad():
-        hidden, _ = model(torch.from_numpy(toks).to(model.device)[None])
+        hidden = payload_forward(
+            model, torch.from_numpy(toks).to(model.device)[None], payload)
         lg = model.logits(hidden[:, -1]).float()[0]
     top = torch.topk(lg, 2).values
     return float(top[0] - top[1]) / float(lg.abs().max())
 
 
 def compare_streams(tag: str, model, prompts, got: dict, want: dict,
-                    what: str, limit=TOL["bfloat16"]) -> int:
+                    what: str, limit=TOL["bfloat16"], payloads=None) -> int:
     """Streams of ``got`` against ``want``; a divergence prints the top-2
     margin where it starts (and, for an MoE model, the smallest router
     margin of that forward) and fails when the top-2 margin is over
@@ -2715,7 +3279,8 @@ def compare_streams(tag: str, model, prompts, got: dict, want: dict,
         j = next((i for i, (a, b) in enumerate(zip(g, w)) if a != b),
                  min(len(g), len(w)))
         with router_margins() as routed:
-            margin = top2_margin(model, prompts[rid], w[:j])
+            margin = top2_margin(model, prompts[rid], w[:j],
+                                 payloads[rid] if payloads else None)
         log(f"[{tag}] rid {rid} diverges from {what} at token {j}: top-2 "
             f"margin {margin:.3e} of max |logit|" + (
                 f", smallest router margin {min(m for _, m in routed):.3e}"
@@ -2728,9 +3293,11 @@ def compare_streams(tag: str, model, prompts, got: dict, want: dict,
     return same
 
 
-def drive(engine, prompts, new_tokens: int, owner: bool = False):
-    """Submit ``prompts`` (rid = index) and drain. With ``owner``, rid 0
-    is admitted by one step before the rest are submitted. Returns
+def drive(engine, prompts, new_tokens: int, owner: bool = False,
+          payloads=None):
+    """Submit ``prompts`` (rid = index; ``payloads[rid]``: the request's
+    ``src_frames``/``patch_embeds`` keywords) and drain. With ``owner``,
+    rid 0 is admitted by one step before the rest are submitted. Returns
     (streams, decode steps, prefill groups, shared groups, peak pages in
     use; 0 for a dense engine), steps and groups counted over the whole
     drive."""
@@ -2747,16 +3314,18 @@ def drive(engine, prompts, new_tokens: int, owner: bool = False):
     engine.step = sampled_step
     steps = groups = shared = 0
     rest = list(enumerate(prompts))
+    payloads = payloads or [{}] * len(prompts)
     if owner:
         engine.submit(Request(rid=0, prompt=prompts[0],
-                              max_new_tokens=new_tokens))
+                              max_new_tokens=new_tokens, **payloads[0]))
         engine.step()
         st = engine.prefill_stats()
         steps, groups, shared = 1, int(st["prefill_dispatches"]), \
             int(st["shared_dispatches"])
         rest = rest[1:]
     for rid, p in rest:
-        engine.submit(Request(rid=rid, prompt=p, max_new_tokens=new_tokens))
+        engine.submit(Request(rid=rid, prompt=p, max_new_tokens=new_tokens,
+                              **payloads[rid]))
     steps += engine.run_until_drained()
     del engine.step
     st = engine.prefill_stats()
@@ -3413,7 +3982,8 @@ def kernel_table(entries: dict, counts: dict) -> list:
                "shape": e["shape"]}
         for key in ("yardstick_ms", "yardstick", "library_error", "hybrid",
                     "ssm", "d128", "d128_gqa", "fp32", "n1", "prefix", "own",
-                    "pool", "note",
+                    "pool", "note", "encoder", "cross", "prefix_lm",
+                    "encdec_unembed", "cross_kv",
                     "variant", "multi_query",
                     "every_length", "shapes", "ptxas", "device_ms",
                     "library_device_ms", "yardstick_device_ms", "bit_stable"):
@@ -3476,6 +4046,11 @@ def main() -> int:
     counts.update(serve_moe())
     # ---- phase 4k: minitron-8b, yi-9b and phi3-medium-14b at full width
     counts["dense-d128"] = serve_dense_d128()
+    # ---- phase 4l: seamless-m4t-medium (encdec) at full width and depth
+    counts.update(serve_encdec())
+    # ---- phase 4m: paligemma-3b (vlm) at full width and depth, grid and
+    # pool
+    counts.update(serve_vlm())
     # ---- phase 4g: the captured step against the eager step on every
     # path, and a trace of steady steps, graph and eager
     graph_vs_eager()
@@ -3493,6 +4068,8 @@ def main() -> int:
     parity_spec(dev)
     # ---- phase 5g: the MoE family and relu2 at full width, cut depth
     parity_moe(dev)
+    # ---- phase 5h: the encdec and vlm families at full width, cut depth
+    parity_encdec_vlm(dev)
 
     kernels = kernel_table(entries, counts)
     log(f"[total] {time.perf_counter() - started:.1f} s, the build included")

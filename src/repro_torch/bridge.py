@@ -17,6 +17,14 @@ bridge carries ``prefix{i}`` into ``LM.layers[i]``, unstacks
 keeps every weight's ``[d_in, d_out]`` layout, so ``x @ w`` is the same
 product on both sides.
 
+The encdec family's tree (``repro.models.encdec.init_params``) has
+``embed``, ``enc_norm``, ``final_norm``, an untied ``unembed`` and two
+stacks: ``enc_body`` (``enc_layers`` attention blocks) and ``dec_body``
+(``dec_layers`` blocks with the cross-attention leaves ``ln_x``, ``xwq``,
+``xwk``, ``xwv``, ``xwo``), each leaf with a leading layer axis; the
+bridge unstacks them into :class:`~repro_torch.models.encdec.EncDec`'s
+``enc_layers.<i>`` and ``dec_layers.<i>``.
+
 The tree's leaves may be numpy arrays or anything ``numpy.asarray``
 converts (a JAX array does, without importing JAX here).
 :func:`from_jax_spec_params` carries the ``{"target", "draft"}`` pair of
@@ -31,6 +39,7 @@ import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.device import DeviceLike, default_dtype, resolve_device
+from repro_torch.models.encdec import EncDec
 from repro_torch.models.lm import LM, check_supported, pattern, stack_structure
 
 
@@ -44,17 +53,57 @@ def _flatten(tree: Dict[str, Any], prefix: str = "") -> Dict[str, Any]:
     return flat
 
 
+def _unstack(flat: Dict[str, Any], stack: Dict[str, Any], name: str,
+             n: int) -> None:
+    """Entry r of every leaf of the stacked subtree ``stack`` as
+    ``flat["<name>.<r>.<leaf>"]``, for r < ``n``."""
+    for leaf_name, leaf in _flatten(stack).items():
+        leaf = np.asarray(leaf)
+        if leaf.shape[0] != n:
+            raise ValueError(f"stacked leaf {leaf_name} has {leaf.shape[0]} "
+                             f"entries, arch has {n}")
+        for r in range(n):
+            flat[f"{name}.{r}.{leaf_name}"] = leaf[r]
+
+
+def _load(model, flat: Dict[str, Any], dev: torch.device):
+    params = dict(model.named_parameters())
+    if set(flat) != set(params):
+        raise KeyError(f"JAX tree and model parameters differ: only in tree "
+                       f"{sorted(set(flat) - set(params))}, only in model "
+                       f"{sorted(set(params) - set(flat))}")
+    with torch.no_grad():
+        for name, p in params.items():
+            arr = np.asarray(flat[name]).astype(np.float32)
+            if tuple(arr.shape) != tuple(p.shape):
+                raise ValueError(f"{name}: tree shape {arr.shape} vs model "
+                                 f"{tuple(p.shape)}")
+            p.copy_(torch.from_numpy(arr).to(device=dev, dtype=p.dtype))
+    return model
+
+
 def from_jax_params(tree: Dict[str, Any], arch: ArchConfig,
                     device: DeviceLike = None,
-                    dtype: Optional[torch.dtype] = None) -> LM:
-    """The JAX tree of a dense, MoE, hybrid or ssm LM as an :class:`LM` on ``device``
-    (default ``cuda``) in ``dtype`` (bf16 on CUDA, fp32 on the CPU by
-    default).
+                    dtype: Optional[torch.dtype] = None):
+    """The JAX tree of a dense, MoE, hybrid, ssm or vlm LM as an
+    :class:`LM`, or of an encdec model as an :class:`EncDec`, on
+    ``device`` (default ``cuda``) in ``dtype`` (bf16 on CUDA, fp32 on
+    the CPU by default).
     Raises ``KeyError`` unless the tree's leaves and the module's
     parameters correspond one to one, and ``ValueError`` on a shape
     mismatch."""
     check_supported(arch)
     dev = resolve_device(device)
+    if arch.family == "encdec":
+        model = EncDec(arch, device=dev, dtype=default_dtype(dev, dtype))
+        flat = _flatten({k: v for k, v in tree.items()
+                         if k not in ("enc_body", "dec_body")})
+        for key, name, n in (("enc_body", "enc_layers", arch.enc_layers),
+                             ("dec_body", "dec_layers", arch.dec_layers)):
+            if key not in tree:
+                raise KeyError(f"expected {key} in the JAX tree")
+            _unstack(flat, tree[key], name, n)
+        return _load(model, flat, dev)
     model = LM(arch, device=dev, dtype=default_dtype(dev, dtype))
     pat = pattern(arch)
     prefix, repeats, suffix = stack_structure(arch)
@@ -85,19 +134,7 @@ def from_jax_params(tree: Dict[str, Any], arch: ArchConfig,
             raise KeyError(f"expected suffix{i} in the JAX tree")
         for name, leaf in _flatten(tree[f"suffix{i}"]).items():
             flat[f"layers.{n_pre + repeats * len(pat) + i}.{name}"] = leaf
-    params = dict(model.named_parameters())
-    if set(flat) != set(params):
-        raise KeyError(f"JAX tree and LM parameters differ: only in tree "
-                       f"{sorted(set(flat) - set(params))}, only in LM "
-                       f"{sorted(set(params) - set(flat))}")
-    with torch.no_grad():
-        for name, p in params.items():
-            arr = np.asarray(flat[name]).astype(np.float32)
-            if tuple(arr.shape) != tuple(p.shape):
-                raise ValueError(f"{name}: tree shape {arr.shape} vs LM "
-                                 f"{tuple(p.shape)}")
-            p.copy_(torch.from_numpy(arr).to(device=dev, dtype=p.dtype))
-    return model
+    return _load(model, flat, dev)
 
 
 def from_jax_spec_params(trees: Dict[str, Any], arch: ArchConfig,

@@ -3,9 +3,10 @@
 Only the architectures the port can serve are registered: the dense
 family's qwen1.5-0.5b, yi-9b, phi3-medium-14b and minitron-8b (the
 squared-ReLU MLP), the hybrid family's recurrentgemma-2b, the ssm
-family's xlstm-350m and the MoE family's deepseek-moe-16b and
-llama4-maverick-400b-a17b. The last does not fit one card; the port
-serves its ``reduced()`` form. The others arrive with their slices.
+family's xlstm-350m, the MoE family's deepseek-moe-16b and
+llama4-maverick-400b-a17b, the encdec family's seamless-m4t-medium and
+the vlm family's paligemma-3b. llama4-maverick-400b-a17b does not fit
+one card; the port serves its ``reduced()`` form.
 """
 from __future__ import annotations
 
@@ -22,6 +23,8 @@ _ARCH_MODULES = {
     "xlstm-350m": "xlstm_350m",
     "deepseek-moe-16b": "deepseek_moe_16b",
     "llama4-maverick-400b-a17b": "llama4_maverick_400b",
+    "seamless-m4t-medium": "seamless_m4t_medium",
+    "paligemma-3b": "paligemma_3b",
 }
 
 ARCH_IDS = tuple(_ARCH_MODULES)

@@ -47,6 +47,26 @@
 //   online softmax on its own slice of the accumulator. The tile is 32
 //   rows by 16 keys, with the scores of a tile in registers.
 //
+// Two more masking forms of the fp entry (flash_attention_launch), for the
+// encoder-decoder and prefix-LM serving paths; every kernel above takes
+// them (the int8 body and the shared-prefix entry do not):
+//
+// - per-row key lengths kv_len [B] (BH = B * heads: row bh reads
+//   kv_len[bh / heads]): keys at or past the length are masked, the
+//   reference's kv_valid of a right-padded encoder batch. Tiles wholly
+//   past the length are skipped and rows at or past it are never read
+//   (the loads stop at the length, as they stop at T); the tile holding
+//   the length goes through the edge path. A row of length 0 has no
+//   visible key: its output is 0 (the reference averages V there;
+//   serving refuses a request with 0 source frames, so only the inert
+//   slots of a serving grid have such rows, and nothing reads them).
+// - the prefix-LM mask (bidir > 0, with causal): key kp is visible to
+//   query qi when kp <= qi or kp < bidir, the reference's prefix_len
+//   (paligemma's 256 patch tokens attended both ways). A tile past a
+//   block's diagonal is skipped only when it also lies wholly at or past
+//   bidir: the queries inside the prefix see keys up to bidir - 1, past
+//   their own position.
+//
 // The int8 body (flash_attention_q8_launch) replaces _flash_kernel_q8 of
 // the same TPU file: int8 k / v [BH, T, D] with per-token f32 scales
 // [BH, T, 1]; the fp extent never exists in device memory. On the CUDA-core
@@ -125,7 +145,10 @@ __device__ __forceinline__ void stage(float (*ks)[D], float (*vs)[D],
 
 // The operands of one launch. The prefix segment (pk, pv, pre_len > 0)
 // comes first; k / v is the main segment. Scale pointers are null for an
-// fp segment; pk / pv are null when pre_len is 0.
+// fp segment; pk / pv are null when pre_len is 0. kv_len (null: every
+// row has T keys) holds the main segment's valid keys per batch row of
+// `heads` rows bh; with causal, keys below bidir are visible to every
+// query (0: none beyond the causal ones).
 struct Args {
   const void* q;
   const void* pk;
@@ -140,7 +163,28 @@ struct Args {
   void* o;
   int BH, S, T, causal, window;
   float scale;
+  const int* kv_len;
+  int heads, bidir;
 };
+
+// the main segment's valid keys of row bh: T, or its row's length
+// (clamped to [0, T])
+__device__ __forceinline__ int valid_keys(const Args& a, int bh) {
+  return a.kv_len ? min(a.T, max(0, a.kv_len[bh / a.heads])) : a.T;
+}
+// the main segment's end for a block of queries [q0, q0 + rows): causal,
+// the block's last row or bidir, whichever lies further
+__device__ __forceinline__ int main_end(const Args& a, int tn, int q0,
+                                        int rows) {
+  return a.causal ? min(tn, max(q0 + rows, a.bidir)) : tn;
+}
+// key kp visible to query qi in the main segment (kp < the row's length)
+__device__ __forceinline__ bool visible(const Args& a, int kp, int qi, int tn) {
+  bool ok = kp < tn;
+  if (a.causal) ok = ok && (kp <= qi || kp < a.bidir);
+  if (a.window) ok = ok && (qi - kp) < a.window;
+  return ok;
+}
 
 // Pointers of bh's rows: row pointers of the segments, scales per token.
 template <typename T, typename PK, typename K, int D>
@@ -184,7 +228,7 @@ __global__ void __launch_bounds__(SPLIT_ROWS * TPR) flash_split_kernel(const Arg
   const int tid = threadIdx.x;
   const int lane = tid % TPR;  // this thread's slice of D
   const Rows<T, PK, K, D> r(a, blockIdx.y);
-  const int S = a.S, Tkv = a.T, pre_len = a.pre_len;
+  const int S = a.S, Tkv = valid_keys(a, blockIdx.y), pre_len = a.pre_len;
   const int q0 = blockIdx.x * SPLIT_ROWS;
   const int qi = q0 + tid / TPR;
   const bool row_ok = qi < S;
@@ -201,8 +245,7 @@ __global__ void __launch_bounds__(SPLIT_ROWS * TPR) flash_split_kernel(const Arg
   }
   float m = NEG_INF, l = 0.f;
 
-  int kv_end = Tkv;
-  if (a.causal) kv_end = min(Tkv, q0 + SPLIT_ROWS);
+  const int kv_end = main_end(a, Tkv, q0, SPLIT_ROWS);
   int kv_begin = 0;
   if (a.window) {
     const int first = q0 - a.window + 1;
@@ -238,14 +281,7 @@ __global__ void __launch_bounds__(SPLIT_ROWS * TPR) flash_split_kernel(const Arg
           s += __shfl_xor_sync(0xffffffffu, s, off);
         s *= a.scale;
         const int kp = t0 + j;
-        bool ok;
-        if (pre) {
-          ok = kp < pre_len;
-        } else {
-          ok = kp < Tkv;
-          if (a.causal) ok = ok && kp <= qi;
-          if (a.window) ok = ok && (qi - kp) < a.window;
-        }
+        const bool ok = pre ? kp < pre_len : visible(a, kp, qi, Tkv);
         sc[j] = ok ? s : NEG_INF;
         bmax = fmaxf(bmax, sc[j]);
       }
@@ -484,20 +520,20 @@ __global__ void __launch_bounds__(threads(D), 1) flash_tc_kernel(const Args a) {
   const int wg = warp / 4;
   const int g = lane >> 2, t4 = lane & 3;
   const Rows<B, B, B, D> r(a, blockIdx.y);
-  const int S = a.S, T = a.T, pre_len = a.pre_len;
+  const int S = a.S, T = valid_keys(a, blockIdx.y), pre_len = a.pre_len;
   // causal: the longest query blocks first
   const int qb = a.causal ? gridDim.x - 1 - blockIdx.x : blockIdx.x;
   const int q0 = qb * BQ;
 
   // the tiles: prefix keys [0, pre_len), then main keys [kv_begin, kv_end)
   const int n_pre = (pre_len + BKV - 1) / BKV;
-  const int kv_end = a.causal ? min(T, q0 + BQ) : T;
+  const int kv_end = main_end(a, T, q0, BQ);
   int kv_begin = 0;
   if (a.window) {
     const int first = q0 - a.window + 1;
     kv_begin = first > 0 ? first / BKV * BKV : 0;
   }
-  const int n_tiles = n_pre + (kv_end - kv_begin + BKV - 1) / BKV;
+  const int n_tiles = n_pre + max(0, (kv_end - kv_begin + BKV - 1) / BKV);
 
   auto load_tile = [&](int i, int st) {
     const bool pre = i < n_pre;
@@ -535,7 +571,7 @@ __global__ void __launch_bounds__(threads(D), 1) flash_tc_kernel(const Args a) {
     const bool pre = i < n_pre;
     const int t0 = pre ? i * BKV : kv_begin + (i - n_pre) * BKV;
     const bool idle = w0 >= S ||
-        (!pre && a.causal && t0 > w0 + 63) ||
+        (!pre && a.causal && t0 > w0 + 63 && t0 >= a.bidir) ||
         (!pre && a.window && t0 + BKV - 1 <= w0 - a.window);
     if (!idle) {
       const uint32_t ks = kv_s + (i % STAGES) * 2 * kv_bytes(D);
@@ -561,21 +597,15 @@ __global__ void __launch_bounds__(threads(D), 1) flash_tc_kernel(const Args a) {
       if (pre)
         edge = t0 + BKV > pre_len;
       else
-        edge = t0 + BKV > T || (a.causal && t0 + BKV - 1 > w0) ||
+        edge = t0 + BKV > T ||
+               (a.causal && t0 + BKV - 1 > w0 && t0 + BKV > a.bidir) ||
                (a.window && t0 <= w0 + 63 - a.window);
       if (edge) {
 #pragma unroll
         for (int j = 0; j < NS; ++j) {
           const int kp = t0 + 8 * (j / 4) + 2 * t4 + (j & 1);
           const int qi = qi0 + 8 * ((j >> 1) & 1);
-          bool ok;
-          if (pre) {
-            ok = kp < pre_len;
-          } else {
-            ok = kp < T;
-            if (a.causal) ok = ok && kp <= qi;
-            if (a.window) ok = ok && (qi - kp) < a.window;
-          }
+          const bool ok = pre ? kp < pre_len : visible(a, kp, qi, T);
           s[j] = ok ? s[j] : -INFINITY;
         }
       }
@@ -840,7 +870,7 @@ template <int QT, int KT, bool Q8, int D>
 __device__ __forceinline__ void tile_update(
     float (&o)[32], float (&m)[2], float (&l)[2], uint32_t q_s, uint32_t k_s,
     uint32_t v_s, const float* ksc, const float* vsc, const Args& a, bool pre,
-    int t0, int q0, int qi0, int t4, float sl2) {
+    int t0, int q0, int qi0, int t4, float sl2, int tn) {
   constexpr int NQK = QT > KT ? QT : KT;  // term pairs i + j < NQK
   constexpr int PT = QT;                  // terms of p
   constexpr int NPV = PT > KT ? PT : KT;
@@ -871,21 +901,14 @@ __device__ __forceinline__ void tile_update(
   if (pre)
     edge = t0 + 64 > a.pre_len;
   else
-    edge = t0 + 64 > a.T || (a.causal && t0 + 63 > q0) ||
+    edge = t0 + 64 > tn || (a.causal && t0 + 63 > q0 && t0 + 64 > a.bidir) ||
            (a.window && t0 <= q0 + 63 - a.window);
   if (edge) {
 #pragma unroll
     for (int j = 0; j < 32; ++j) {
       const int kp = t0 + 8 * (j / 4) + 2 * t4 + (j & 1);
       const int qi = qi0 + 8 * ((j >> 1) & 1);
-      bool ok;
-      if (pre) {
-        ok = kp < a.pre_len;
-      } else {
-        ok = kp < a.T;
-        if (a.causal) ok = ok && kp <= qi;
-        if (a.window) ok = ok && (qi - kp) < a.window;
-      }
+      const bool ok = pre ? kp < a.pre_len : visible(a, kp, qi, tn);
       s[j] = ok ? s[j] : -INFINITY;
     }
   }
@@ -961,14 +984,14 @@ __global__ void __launch_bounds__(tm::THREADS, 1) flash_terms_kernel(const Args 
   const int wg = warp / 4, wt = tid & 127;
   const int g = lane >> 2, t4 = lane & 3;
   const Rows<T, PK, K, D> r(a, blockIdx.y);
-  const int S = a.S, Tn = a.T, pre_len = a.pre_len;
+  const int S = a.S, Tn = valid_keys(a, blockIdx.y), pre_len = a.pre_len;
   // causal: the longest query blocks first
   const int qb = a.causal ? gridDim.x - 1 - blockIdx.x : blockIdx.x;
   const int q0 = qb * 64;
 
   // the tiles: prefix keys [0, pre_len), then main keys [kv_begin, kv_end)
   const int n_pre = (pre_len + 63) / 64;
-  const int kv_end = a.causal ? min(Tn, q0 + 64) : Tn;
+  const int kv_end = main_end(a, Tn, q0, 64);
   int kv_begin = 0;
   if (a.window) {
     const int first = q0 - a.window + 1;
@@ -1065,11 +1088,11 @@ __global__ void __launch_bounds__(tm::THREADS, 1) flash_terms_kernel(const Args 
     if (pre)
       tm::tile_update<G::QT, tm::n_terms<PK>(), is_q8<PK>, D>(
           o, m, l, sm_s, sm_s + kv, sm_s + kv + G::KT * TILE, ksc, vsc, a,
-          true, t0, q0, qi0, t4, sl2);
+          true, t0, q0, qi0, t4, sl2, Tn);
     else
       tm::tile_update<G::QT, tm::n_terms<K>(), is_q8<K>, D>(
           o, m, l, sm_s, sm_s + kv, sm_s + kv + G::KT * TILE, ksc, vsc, a,
-          false, t0, q0, qi0, t4, sl2);
+          false, t0, q0, qi0, t4, sl2, Tn);
     if (next < n_tiles && !ahead(next)) load_tile(next);
   }
 
@@ -1180,7 +1203,8 @@ cudaError_t launch_dims(const Args& a, int D, cudaStream_t s) {
 int run(const Args& a, int D, int dtype, bool q8_main, bool q8_prefix,
         void* stream) {
   if (a.BH <= 0 || a.S <= 0 || a.T <= 0 || a.pre_len < 0
-      || a.pre_len > a.pre_span)
+      || a.pre_len > a.pre_span || a.bidir < 0 || (a.bidir && !a.causal)
+      || (a.kv_len && (a.heads <= 0 || a.BH % a.heads)))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t e = cudaErrorInvalidValue;
@@ -1203,13 +1227,17 @@ int run(const Args& a, int D, int dtype, bool q8_main, bool q8_prefix,
 // D in {16, 32, 64, 128, 256}; all tensors contiguous. Each entry returns
 // the cudaError_t of its launch (0 = success).
 
-// fp: q, k, v and o of one dtype.
+// fp: q, k, v and o of one dtype. kv_len: null, or [BH / heads] int32
+// valid keys per batch row (heads rows bh each); bidir: with causal, the
+// prefix-LM's bidirectional prefix (0: none).
 extern "C" int flash_attention_launch(const void* q, const void* k,
                                       const void* v, void* o, int BH, int S,
                                       int T_, int D, int causal, int window,
+                                      const int* kv_len, int heads, int bidir,
                                       float scale, int dtype, void* stream) {
   const Args a{q, nullptr, nullptr, nullptr, nullptr, 0, 0, k, v, nullptr,
-               nullptr, o, BH, S, T_, causal, window, scale};
+               nullptr, o, BH, S, T_, causal, window, scale, kv_len, heads,
+               bidir};
   return run(a, D, dtype, false, false, stream);
 }
 
@@ -1222,7 +1250,7 @@ extern "C" int flash_attention_q8_launch(const void* q, const void* k,
                                          void* stream) {
   if (!ks || !vs) return (int)cudaErrorInvalidValue;
   const Args a{q, nullptr, nullptr, nullptr, nullptr, 0, 0, k, v, ks, vs, o,
-               BH, S, T_, causal, window, scale};
+               BH, S, T_, causal, window, scale, nullptr, 1, 0};
   return run(a, D, dtype, true, false, stream);
 }
 
@@ -1240,7 +1268,7 @@ extern "C" int prefix_attention_launch(const void* q, const void* pk,
   if (pre_len < 1 || !pk || !pv || (!pks) != (!pvs))
     return (int)cudaErrorInvalidValue;
   const Args a{q, pk, pv, pks, pvs, pre_span, pre_len, k, v, nullptr,
-               nullptr, o, BH, S, S, 1, 0, scale};
+               nullptr, o, BH, S, S, 1, 0, scale, nullptr, 1, 0};
   return run(a, D, dtype, false, pks != nullptr, stream);
 }
 

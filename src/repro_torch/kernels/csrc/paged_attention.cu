@@ -51,10 +51,13 @@
 // query. At S = 1 every query row's limit is the row's length and the
 // arithmetic is the one-token kernel's, operation for operation.
 //
-// A row's length must lie in [1, M * ps] and its table entries in
+// A row's length must lie in [0, M * ps] and its table entries in
 // [0, P): the kernel traps otherwise (for the dense slot grid that is the
 // serving engine's `positions < max_len`), so the launch fails with an
-// error instead of reading out of bounds. __trap() is no function call,
+// error instead of reading out of bounds. A row of length 0 has no
+// visible position (the encoder-decoder's cross-attention over an inert
+// slot's enc_len = 0): chunk 0 writes zeros to its query rows and reads
+// nothing, where the reference's masked softmax averages V. __trap() is no function call,
 // so unlike assert() it costs the kernel no stack frame and no spills.
 //
 // The int8 body (paged_attention_q8_launch) replaces _paged_kernel_q8 of
@@ -241,16 +244,21 @@ paged_split_kernel(const T* __restrict__ q, const KV* __restrict__ kp,
   const int R4 = (R + HG - 1) / HG * HG;
   const int len = lengths[b];
   const int t_max = M * ps;
-  if (len < 1 || len > t_max) __trap();
+  if (len < 0 || len > t_max) __trap();
+  // query row r: its element offset in q and o, and its limit
+  auto qrow = [&](int r) {
+    return ((b * S + r / rep) * H + (long long)g * rep + r % rep) * D;
+  };
+  if (len == 0) {  // no visible position: zeros, nothing read
+    if (c == 0)
+      for (int i = tid; i < R * D; i += THREADS) store(o + qrow(i / D) + i % D, 0.f);
+    return;
+  }
   const int len_hi = min(len + S - 1, t_max);  // the last query's limit
   const int nc = (len_hi + chunk - 1) / chunk;
   if (c >= nc) return;  // past the row's length: nothing to read
   const int t_begin = c * chunk, t_end = min(len_hi, t_begin + chunk);
   const int* trow = table + b * M;
-  // query row r: its element offset in q and o, and its limit
-  auto qrow = [&](int r) {
-    return ((b * S + r / rep) * H + (long long)g * rep + r % rep) * D;
-  };
   auto limit = [&](int r) { return min(len + r / rep, t_max); };
 
   extern __shared__ __align__(16) float smem[];

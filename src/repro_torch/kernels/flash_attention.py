@@ -1,4 +1,5 @@
-"""``flash_attention``: causal / windowed online-softmax prefill attention.
+"""``flash_attention``: causal / windowed / prefix-LM online-softmax
+prefill attention, with per-row key lengths.
 
 Replaces the TPU kernel ``repro/kernels/flash_attention.py``
 (``flash_attention`` / ``_flash_kernel``, fp body ``_flash_body``) with
@@ -42,10 +43,30 @@ instance follows q's dtype, the storage of k/v and the head dim:
 Operands are made contiguous, and copied when their base is off 16
 bytes (the tensor-core kernels copy rows in 16-byte pieces).
 
-Like the TPU kernel it has no length operand: on a right-padded batch
-the valid query rows are exact and the padded tail's rows are not (they
-are causally invisible to valid rows and their cache entries are
-invalidated by the scheduler).
+Like the TPU kernel its causal form needs no length operand: on a
+right-padded batch the valid query rows are exact and the padded tail's
+rows are not (they are causally invisible to valid rows and their cache
+entries are invalidated by the scheduler). Two masking forms go past the
+TPU kernel, as the reference's ``layers._mask`` has them:
+
+- ``kv_len`` [B] int32 (BH = B · heads, heads folded into the batch as
+  the model's ``layers`` fold them): keys at or past row b's length are
+  masked, with ``causal=False`` the encoder's bidirectional attention
+  over right-padded frames and the decoder's cross-attention prefill
+  (S queries over T ≠ S encoder positions). Keys past a length are
+  never read. A row of length 0 has no visible key: its output is 0
+  (the reference's masked softmax averages V there; serving refuses a
+  request with 0 source frames, so there only inert slots have such
+  rows). The kernel reads the lengths on the card, so
+  they cost no host sync.
+- ``prefix_len`` P > 0 with ``causal=True``: the prefix-LM mask, key kp
+  visible to query qi when ``kp <= qi or kp < P`` (paligemma's patch
+  prefix attended both ways). One int per launch: a vlm prefill group
+  shares one patch count.
+
+Both go to the same fp instances (``flash_tc_kernel``,
+``flash_terms_kernel``, ``flash_split_kernel``); the int8 body and the
+shared-prefix entry take neither.
 
 INT8 k/v (``k_scale``/``v_scale`` ``[BH, T, 1]`` f32, the TPU kernel's
 ``_flash_kernel_q8``) go to the int8 instances of the same source
@@ -85,7 +106,7 @@ from repro_torch.kernels.ref import prefix_attention_ref as prefix_plain
 
 HEAD_DIMS = (16, 32, 64, 128, 256)
 _VP, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-_ARGTYPES = (_VP, _VP, _VP, _VP, _I, _I, _I, _I, _I, _I, _F, _I)
+_ARGTYPES = (_VP, _VP, _VP, _VP, _I, _I, _I, _I, _I, _I, _VP, _I, _I, _F, _I)
 _ARGTYPES_Q8 = (_VP,) * 6 + (_I, _I, _I, _I, _I, _I, _F, _I)
 _ARGTYPES_PREFIX = (_VP,) * 5 + (_I, _I, _VP, _VP, _VP, _I, _I, _I, _F, _I)
 
@@ -132,25 +153,57 @@ def _check_head_dim(name: str, d: int) -> None:
         raise ValueError(f"{name}: head dim {d} not in {HEAD_DIMS}")
 
 
+def _check_forms(bh: int, kv_len, prefix_len: int, causal: bool) -> int:
+    """Heads per ``kv_len`` row (1 without lengths), after checking the
+    two masking forms' operands."""
+    if prefix_len < 0 or (prefix_len and not causal):
+        raise ValueError(f"flash_attention: prefix_len {prefix_len} needs "
+                         f"causal=True and must be >= 0")
+    if kv_len is None:
+        return 1
+    if kv_len.dim() != 1 or kv_len.shape[0] == 0 \
+            or bh % kv_len.shape[0] != 0:
+        raise ValueError(f"flash_attention: kv_len {tuple(kv_len.shape)} "
+                         f"for BH = {bh}")
+    if kv_len.dtype != torch.int32:
+        raise TypeError("flash_attention: kv_len must be int32")
+    return bh // kv_len.shape[0]
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     k_scale: torch.Tensor = None, v_scale: torch.Tensor = None,
-                    causal: bool = True, window: int = 0) -> torch.Tensor:
+                    causal: bool = True, window: int = 0,
+                    kv_len: torch.Tensor = None,
+                    prefix_len: int = 0) -> torch.Tensor:
     """q: [BH, S, D]; k, v: [BH, T, D] (int8 with ``k_scale``/``v_scale``
-    [BH, T, 1] f32) -> [BH, S, D] in ``q.dtype``."""
+    [BH, T, 1] f32) -> [BH, S, D] in ``q.dtype``. ``kv_len`` [B] int32
+    (B dividing BH): row bh's keys at or past ``kv_len[bh // (BH / B)]``
+    masked; ``prefix_len`` (with ``causal``): keys below it visible to
+    every query. Neither with int8 K/V on the card."""
     if q.dim() != 3 or k.shape != v.shape or k.dim() != 3 \
             or k.shape[0] != q.shape[0] or k.shape[2] != q.shape[2]:
         raise ValueError(f"flash_attention: bad shapes q {tuple(q.shape)} "
                          f"k {tuple(k.shape)} v {tuple(v.shape)}")
     if window < 0:
         raise ValueError(f"flash_attention: window must be >= 0, got {window}")
+    prefix_len = int(prefix_len)
+    heads = _check_forms(q.shape[0], kv_len, prefix_len, causal)
     scales = _check_scales("flash_attention", k, v, k_scale, v_scale)
-    if all(t.device.type == "cpu" for t in (q, k, v, *scales)):
+    lens = () if kv_len is None else (kv_len,)
+    if all(t.device.type == "cpu" for t in (q, k, v, *scales, *lens)):
         return plain(q, k, v, k_scale=k_scale, v_scale=v_scale,
-                     causal=causal, window=window)
+                     causal=causal, window=window, kv_len=kv_len,
+                     prefix_len=prefix_len)
     if scales:
+        if lens or prefix_len:
+            raise NotImplementedError("flash_attention: the int8 body takes "
+                                      "neither kv_len nor prefix_len")
         return flash_attention_q8(q, k, v, *scales, causal=causal,
                                   window=window)
     check_cuda("flash_attention", q, k, v)
+    if lens:
+        check_device("flash_attention", q, kv_len)
+        kv_len = kv_len.contiguous()
     bh, s, d = q.shape
     t = k.shape[1]
     _check_head_dim("flash_attention", d)
@@ -162,7 +215,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise ValueError("flash_attention: empty key sequence")
     launch("flash_attention", _ARGTYPES, q.data_ptr(), k.data_ptr(),
            v.data_ptr(), out.data_ptr(), bh, s, t, d, int(causal),
-           int(window), 1.0 / math.sqrt(d), DTYPE_CODES[q.dtype])
+           int(window), kv_len.data_ptr() if lens else None, heads,
+           prefix_len, 1.0 / math.sqrt(d), DTYPE_CODES[q.dtype])
     flash_attention.launches += 1
     return out
 

@@ -33,9 +33,14 @@ its error.
 
 The dense serving slot grid ``[slots, max_len, G, D]`` is read as a pool
 of ``P = slots`` pages of ``ps = max_len`` with an identity table
-(``models.blocks``). Lengths must lie in ``[1, M·ps]``: the kernel
-traps on the card if not, the wrapper checks it on the CPU — for the dense
-grid that is the engine's ``positions < max_len``.
+(``models.blocks``); so is the encoder output of the encoder-decoder's
+cross-attention, ``[slots, max_src_len, G, D]`` with ``lengths = enc_len``.
+Lengths must lie in ``[0, M·ps]``: the kernel traps on the card if not,
+the wrapper checks it on the CPU — for the dense grid that is the
+engine's ``positions < max_len``. A row of length 0 (an inert slot's
+cross-attention, ``enc_len = 0``) has no visible position: its output
+is 0, on the card and in the plain version, where the reference's
+masked softmax averages V; nothing is read for it.
 
 INT8 pools (``QuantConfig(kv="int8")``) pass their per-token f32 scale
 pools ``k_scale``/``v_scale`` ``[P, ps, G, 1]``; they go to the int8
@@ -125,9 +130,9 @@ def paged_attention(q: torch.Tensor, kp: torch.Tensor, vp: torch.Tensor,
     m = page_table.shape[1]
     if all(t.device.type == "cpu"
            for t in (q, kp, vp, page_table, lengths, *scales)):
-        if b and (int(lengths.min()) < 1 or int(lengths.max()) > m * ps):
+        if b and (int(lengths.min()) < 0 or int(lengths.max()) > m * ps):
             raise ValueError(f"paged_attention: lengths must lie in "
-                             f"[1, {m * ps}], got {lengths.tolist()}")
+                             f"[0, {m * ps}], got {lengths.tolist()}")
         return plain(q, kp, vp, page_table, lengths, *scales)
     if scales:
         return paged_attention_q8(q, kp, vp, *scales, page_table, lengths)

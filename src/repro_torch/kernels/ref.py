@@ -18,6 +18,12 @@ kernel (its arguments, chunk by chunk); ``mlstm_ref`` is the JAX
 package's strict per-step oracle. ``prefix_attention_ref`` is the plain
 version of the shared-prefix entry of the ``flash_attention`` kernel, the
 attention of ``blocks._shared_prefix_attention`` in the JAX package.
+
+A row with no visible key (``flash_attention_ref``'s ``kv_len`` of 0,
+``paged_attention_ref``'s length 0: an inert slot's cross-attention)
+gives 0, as the kernels do, where the reference's masked softmax
+averages V. Serving refuses a request with 0 source frames, so only an
+inert slot has such a row there.
 """
 from __future__ import annotations
 
@@ -202,25 +208,35 @@ def flash_attention_tiles_ref(q: torch.Tensor, k: torch.Tensor,
 def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                         k_scale: torch.Tensor = None,
                         v_scale: torch.Tensor = None,
-                        causal: bool = True, window: int = 0) -> torch.Tensor:
+                        causal: bool = True, window: int = 0,
+                        kv_len: torch.Tensor = None,
+                        prefix_len: int = 0) -> torch.Tensor:
     """q: [BH, S, D]; k, v: [BH, T, D]; positions of q and k start at 0.
     Optional [BH, T, 1] f32 per-token scales dequantise int8 k/v (in
-    f32, not rounded) before attending."""
+    f32, not rounded) before attending. ``kv_len`` [B] (B dividing BH):
+    keys at or past row bh's length ``kv_len[bh // (BH / B)]`` masked (the
+    reference's ``kv_valid``); ``prefix_len`` (causal): keys below it
+    visible to every query (the reference's prefix-LM ``prefix_len``).
+    A row with no visible key gives 0."""
     if k_scale is not None:
         k = k.float() * k_scale
         v = v.float() * v_scale
-    _, sq, d = q.shape
+    bh, sq, d = q.shape
     t = k.shape[1]
     s = torch.einsum("bsd,btd->bst", q.float(), k.float()) / math.sqrt(d)
     qp = torch.arange(sq, device=q.device)[:, None]
     kp = torch.arange(t, device=q.device)[None, :]
     mask = torch.ones((sq, t), dtype=torch.bool, device=q.device)
     if causal:
-        mask &= kp <= qp
+        mask &= (kp <= qp) | (kp < prefix_len)
     if window:
         mask &= (qp - kp) < window
-    s = torch.where(mask[None], s, NEG_INF)
-    p = torch.softmax(s, dim=-1)
+    mask = mask[None]
+    if kv_len is not None:
+        lens = kv_len.to(q.device).repeat_interleave(bh // kv_len.shape[0])
+        mask = mask & (kp[None] < lens[:, None, None])
+    s = torch.where(mask, s, NEG_INF)
+    p = torch.where(mask.any(-1, keepdim=True), torch.softmax(s, dim=-1), 0.0)
     return torch.einsum("bst,btd->bsd", p, v.float()).to(q.dtype)
 
 
@@ -264,14 +280,17 @@ def paged_attention_ref(q: torch.Tensor, kp: torch.Tensor, vp: torch.Tensor,
 
     The multi-query form, q [B, S, H, D], is written out position by
     position: query j is the one-query form over ``min(lengths + j,
-    M·ps)`` keys. Returns [B, S, H, D]."""
+    M·ps)`` keys (every query of a row of length 0 gives 0). Returns
+    [B, S, H, D]."""
     if q.dim() == 4:
         t = page_table.shape[1] * kp.shape[1]
-        return torch.stack([
+        o = torch.stack([
             paged_attention_ref(q[:, j], kp, vp, page_table,
                                 torch.clamp(lengths + j, max=t), k_scale,
                                 v_scale)
             for j in range(q.shape[1])], dim=1)
+        empty = (lengths.to(q.device) == 0)[:, None, None, None]
+        return torch.where(empty, torch.zeros_like(o), o)
     b, h, d = q.shape
     ps, g = kp.shape[1], kp.shape[2]
     t = page_table.shape[1] * ps
@@ -286,7 +305,8 @@ def paged_attention_ref(q: torch.Tensor, kp: torch.Tensor, vp: torch.Tensor,
     s = torch.einsum("bgrd,btgd->bgrt", qg, k)
     valid = torch.arange(t, device=q.device)[None] < lengths.to(q.device)[:, None]
     s = torch.where(valid[:, None, None, :], s, NEG_INF)
-    p = torch.softmax(s, dim=-1)
+    p = torch.where(valid.any(-1)[:, None, None, None],
+                    torch.softmax(s, dim=-1), 0.0)
     o = torch.einsum("bgrt,btgd->bgrd", p, v)
     return o.reshape(b, h, d).to(q.dtype)
 

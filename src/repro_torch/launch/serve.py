@@ -13,6 +13,12 @@ given), each request with the key ``fold_in(PRNGKey(--seed), rid)``, as
 the JAX launcher does. Like the JAX launcher it has no flag for
 speculative decoding (``ServeConfig(spec=...)`` in code).
 
+Every registered ``--arch`` is accepted, and the requests are token
+prompts only, as the JAX launcher's are: paligemma-3b serves them
+text-only, and seamless-m4t-medium refuses the first at ``submit`` with
+the reference's ``ValueError`` (an encdec request needs source frames;
+``Request(src_frames=...)`` in code).
+
 Builds ``ServingEngine(arch, params, config=ServeConfig(...))`` directly
 (the JAX launcher's plan -> compile facade and its ``--xfer`` switch are
 not ported yet). Runs on the card by default; ``--device cpu`` runs the

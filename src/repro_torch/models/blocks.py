@@ -1,8 +1,10 @@
-"""Attention block of the dense, MoE and hybrid families: pre-norm
-GQA/MQA attention (causal, or local with a window) + an MLP (gated
-SwiGLU or GeGLU, the ungated squared-ReLU ``relu2``, or the MoE
-family's capacity-routed experts, ``models/moe.py``) over a dense
-slot-grid KV cache.
+"""Attention block of the dense, MoE, hybrid, vlm and encdec families:
+pre-norm GQA/MQA attention (causal, local with a window, prefix-LM, or
+bidirectional over right-padded frames) + an MLP (gated SwiGLU or GeGLU,
+the ungated squared-ReLU ``relu2``, or the MoE family's capacity-routed
+experts, ``models/moe.py``) over a dense slot-grid KV cache; the
+encoder-decoder's decoder block adds cross-attention over the encoder
+output between the two.
 
 Mirrors the dense and windowed branches of ``repro/models/blocks.py``:
 ``make_kv_cache`` (with ``window``: a ring of ``min(length, window)``
@@ -12,8 +14,12 @@ with true lengths), decode ring write (``_cache_write``), the append
 write of S >= 1 fresh positions (``_cache_write_many``, the speculative
 draft and verify) and the two paged branches
 (``_paged_decode_attention``, S >= 1; ``_shared_prefix_attention``; see
-``serving/pages.py``), and the MoE MLP (``moe_apply``). The
-cross-attention branch arrives with its family's slice.
+``serving/pages.py``), the MoE MLP (``moe_apply``), the prefill masks
+of ``attn_apply`` (``causal=False`` with ``seq_lens``: the encoder's
+``kv_valid_in``; ``prefix_len``: the prefix-LM) and the cross-attention
+branch (``cross_attn_apply``: RMSNorm ``ln_x``, ``xwq`` on x, ``xwk``/
+``xwv`` on the encoder output recomputed every call, no RoPE, keys past
+``enc_lens`` masked).
 
 A cache is a dict ``{"k", "v": [B, T, G, D], "pos": [B, T] int32}``
 (``pos = -1`` marks an invalid entry). With ``kv_quant`` ``k``/``v`` are
@@ -220,9 +226,12 @@ class AttnBlock(nn.Module):
     ``moe=True`` (the MoE family past its dense prefix layers) replaces
     ``mlp`` by ``router [D, E]``, the routed experts ``moe.*`` ``[E, D,
     F]`` / ``[E, F, D]`` (F = ``moe_d_ff``) and, with shared experts,
-    ``shared.*`` of width ``moe_d_ff · num_shared_experts``."""
+    ``shared.*`` of width ``moe_d_ff · num_shared_experts``.
+    ``cross=True`` (the encoder-decoder's decoder layers) adds the
+    cross-attention leaves ``ln_x, xwq, xwk, xwv, xwo``."""
 
-    def __init__(self, arch: ArchConfig, *, device, dtype, moe: bool = False):
+    def __init__(self, arch: ArchConfig, *, device, dtype, moe: bool = False,
+                 cross: bool = False):
         super().__init__()
         if arch.mlp not in ("swiglu", "geglu", "relu2") or not arch.d_ff:
             raise NotImplementedError(f"{arch.name}: only attention blocks "
@@ -241,6 +250,13 @@ class AttnBlock(nn.Module):
             self.bq = _param(qd, **kw)
             self.bk = _param(kvd, **kw)
             self.bv = _param(kvd, **kw)
+        self.is_cross = cross
+        if cross:
+            self.ln_x = _param(d, **kw)
+            self.xwq = _param(d, qd, **kw)
+            self.xwk = _param(d, kvd, **kw)
+            self.xwv = _param(d, kvd, **kw)
+            self.xwo = _param(qd, d, **kw)
         self.ln2 = _param(d, **kw)
         if not moe:
             self.mlp = MLP(d, arch.d_ff, arch.mlp, **kw)
@@ -254,7 +270,9 @@ class AttnBlock(nn.Module):
     def init_(self, gen: torch.Generator) -> None:
         """Random weights with ``layers.dense_init``'s distribution; norms
         and biases stay zero, as in ``blocks.attn_init``."""
-        for w in (self.wq, self.wk, self.wv, self.wo):
+        cross = (self.xwq, self.xwk, self.xwv, self.xwo) if self.is_cross \
+            else ()
+        for w in (self.wq, self.wk, self.wv, self.wo) + cross:
             L.dense_init_(w, w.shape[0], gen)
         if self.is_moe:
             L.dense_init_(self.router, self.router.shape[0], gen)
@@ -276,17 +294,55 @@ class AttnBlock(nn.Module):
                 k.reshape(b, s, arch.num_kv_heads, arch.head_dim),
                 v.reshape(b, s, arch.num_kv_heads, arch.head_dim))
 
+    def cross_attend(self, x: torch.Tensor, enc: torch.Tensor,
+                     enc_lens: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """``cross_attn_apply``: x [B, S, D] attends the encoder output
+        ``enc`` [B, T, D] (K/V projected here, every call, as the
+        reference does), keys at or past ``enc_lens`` [B] int32 masked,
+        no RoPE; returns x plus the projected result. S > 1 (a prefill)
+        goes through ``flash_attention``'s non-causal form with per-row
+        lengths, S == 1 (decode) through ``paged_attention`` over the
+        encoder positions."""
+        arch = self.arch
+        b, s, _ = x.shape
+        t = enc.shape[1]
+        h = L.rms_norm(x, self.ln_x)
+        q = L.dense(h, self.xwq).reshape(b, s, arch.num_heads, arch.head_dim)
+        k = L.dense(enc, self.xwk).reshape(b, t, arch.num_kv_heads,
+                                           arch.head_dim)
+        v = L.dense(enc, self.xwv).reshape(b, t, arch.num_kv_heads,
+                                           arch.head_dim)
+        if enc_lens is not None:
+            enc_lens = enc_lens.to(torch.int32)
+        if s == 1:
+            if enc_lens is None:
+                enc_lens = torch.full((b,), t, dtype=torch.int32,
+                                      device=x.device)
+            o = L.cross_decode_attention(q, k, v, enc_lens)
+        else:
+            o = L.attention(q, k, v, causal=False, kv_len=enc_lens)
+        return x + L.dense(o.reshape(b, s, arch.q_dim), self.xwo)
+
     def forward(self, x: torch.Tensor, *, positions: torch.Tensor,
                 cache: Optional[dict] = None,
                 decode_meta: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
                 seq_lens: Optional[torch.Tensor] = None,
                 page_table: Optional[torch.Tensor] = None,
-                append: bool = False
+                append: bool = False, causal: bool = True,
+                prefix_len: int = 0, enc: Optional[torch.Tensor] = None,
+                enc_lens: Optional[torch.Tensor] = None
                 ) -> Tuple[torch.Tensor, Optional[dict]]:
         """Full mode (no cache, or a cache being filled by a prefill): x
         [B, S, D]; ``seq_lens`` [B], the true lengths of a right-padded
         batch, make a windowed block's fill ring-exact
-        (:func:`_ring_exact_fill`). Decode mode (a cache and S == 1):
+        (:func:`_ring_exact_fill`) and, with ``causal=False`` (the
+        encoder), mask the keys at or past them. ``prefix_len`` P > 0
+        (the vlm family's patch prefix) makes the prefill's causal mask
+        the prefix-LM one; a decode token lies past the prefix, where it
+        changes nothing. ``enc`` [B, T, D] (the encoder-decoder's
+        decoder layers): cross-attention over it after self-attention
+        (:meth:`cross_attend`, keys past ``enc_lens`` masked). Decode
+        mode (a cache and S == 1):
         ``decode_meta`` is the identity page table and lengths of
         :func:`layers.decode_attention`. ``append=True`` (speculative
         decoding, non-windowed grids) treats a filled cache as the target
@@ -327,12 +383,17 @@ class AttnBlock(nn.Module):
             o = L.decode_attention(q, cache, table, lengths)
             new_cache = cache
         else:
-            o = L.attention(q, k, v, window=arch.window)
+            kv_len = (seq_lens.to(torch.int32) if not causal and s > 1
+                      and seq_lens is not None else None)
+            o = L.attention(q, k, v, window=arch.window, causal=causal,
+                            kv_len=kv_len, prefix_len=prefix_len)
             if cache is not None and seq_lens is not None and arch.window:
                 new_cache = _ring_exact_fill(cache, k, v, seq_lens)
             elif cache is not None:
                 new_cache = _prefill_fill(cache, k, v, positions)
         x = x + L.dense(o.reshape(b, s, arch.q_dim), self.wo)
+        if enc is not None:
+            x = self.cross_attend(x, enc, enc_lens)
         h = L.rms_norm(x, self.ln2)
         if self.is_moe:
             x = x + M.moe_apply(arch, self, h)

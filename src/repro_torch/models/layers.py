@@ -1,19 +1,21 @@
 """Shared model primitives on tensors: init, norm, RoPE, MLP, embeddings,
-and the two attention forms of the serving path.
+and the attention forms of the serving path.
 
-Mirrors ``repro/models/layers.py`` function for function where this
-slice needs it. Every ``x @ w`` goes through ``kernels.ops.matmul``
+Mirrors ``repro/models/layers.py`` function for function where the port
+needs it. Every ``x @ w`` goes through ``kernels.ops.matmul``
 (``xfer_matmul`` on the card). Attention goes through the kernels too:
-prefill self-attention through ``flash_attention`` (a suffix after a
-shared prefix through its prefix entry), decode over the dense slot grid
-or a page pool through ``paged_attention`` (one token, or the S fresh
-positions of a speculative verify). On CPU tensors the
+prefill attention through ``flash_attention`` (a suffix after a shared
+prefix through its prefix entry), decode over the dense slot grid, a
+page pool or an encoder output through ``paged_attention`` (one token,
+or the S fresh positions of a speculative verify). On CPU tensors the
 kernels' plain versions run, so the CPU path is the same code.
 
 The JAX package's masked ``attention``/``_attend_block``/``_mask`` are
-not carried over: the two kernels take their place, with the causal and
-window masks (prefill) and the length mask (decode) that the dense and
-hybrid paths need.
+not carried over: the two kernels take their place, with the masks the
+serving paths need: causal, window and prefix-LM (``prefix_len``, the
+vlm family's patch prefix), and per-row key lengths (the encoder's
+frames and the decoder's cross-attention, ``kv_len``) in prefill; the
+length mask in decode.
 
 INT8 weights (``quant.quantize_params``) arrive as :class:`QTensor`
 leaves: ``dense`` runs them through ``quant_matmul``, the embedding
@@ -82,11 +84,18 @@ def dense(x: torch.Tensor, w) -> torch.Tensor:
 
 
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-              window: int = 0) -> torch.Tensor:
-    """Causal self-attention over a prefill: q [B, S, H, D], k/v
-    [B, S, G, D], positions 0..S-1 -> [B, S, H, D]; ``window`` > 0 also
-    masks keys ``window`` or more positions back (local attention). KV is
-    broadcast across groups and heads are folded into the batch for
+              window: int = 0, causal: bool = True,
+              kv_len: torch.Tensor = None,
+              prefix_len: int = 0) -> torch.Tensor:
+    """Prefill attention: q [B, S, H, D] at positions 0..S-1, k/v [B, T,
+    G, D] at 0..T-1 -> [B, S, H, D]. ``causal`` (the reference's
+    ``kp <= qp``), with ``prefix_len`` P > 0 the prefix-LM mask (keys
+    below P visible to every query); ``window`` > 0 also masks keys
+    ``window`` or more positions back (local attention); ``kv_len`` [B]
+    int32 masks row b's keys at or past its length (the reference's
+    ``kv_valid`` of a right-padded batch: the encoder, and with T != S
+    the cross-attention; a row of length 0 gives 0). KV is broadcast
+    across groups and heads are folded into the batch for
     ``flash_attention``."""
     b, s, h, d = q.shape
     g = k.shape[2]
@@ -95,9 +104,10 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         v = v.repeat_interleave(h // g, dim=2)
 
     def fold(t):
-        return t.permute(0, 2, 1, 3).reshape(b * h, s, d)
+        return t.permute(0, 2, 1, 3).reshape(b * h, t.shape[1], d)
 
-    o = ops.attention(fold(q), fold(k), fold(v), causal=True, window=window)
+    o = ops.attention(fold(q), fold(k), fold(v), causal=causal, window=window,
+                      kv_len=kv_len, prefix_len=prefix_len)
     return o.reshape(b, h, s, d).permute(0, 2, 1, 3)
 
 
@@ -156,6 +166,20 @@ def decode_attention(q: torch.Tensor, cache: dict, table: torch.Tensor,
                        table, lengths, k_scale=cache.get("k_scale"),
                        v_scale=cache.get("v_scale"))
     return o[:, None] if s == 1 else o
+
+
+def cross_decode_attention(q: torch.Tensor, k: torch.Tensor,
+                           v: torch.Tensor,
+                           lengths: torch.Tensor) -> torch.Tensor:
+    """One decode query per row over its encoder positions: q [B, 1, H,
+    D], k/v [B, T, G, D] (the encoder output's cross K/V), ``lengths``
+    [B] int32 valid positions (``enc_len``; 0 on an inert slot gives 0)
+    -> [B, 1, H, D]. ``paged_attention`` reads k/v as a pool of B pages
+    of T positions through the identity table, as the dense slot grid
+    is read."""
+    b = q.shape[0]
+    table = torch.arange(b, dtype=torch.int32, device=q.device)[:, None]
+    return ops.paged_attn(q[:, 0], k, v, table, lengths)[:, None]
 
 
 def mlp_act(kind: str):

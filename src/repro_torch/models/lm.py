@@ -1,10 +1,12 @@
-"""Decoder-only LM of the dense, MoE, hybrid and ssm families as an
+"""Decoder-only LM of the dense, MoE, hybrid, ssm and vlm families as an
 ``nn.Module``.
 
 Mirrors ``repro/models/lm.py`` for ``family in ("dense", "moe",
-"hybrid", "ssm")``: ``forward`` (embedding scaled by sqrt(d_model), the
-block stack, the final norm), ``logits_fn`` (tied embeddings:
-``embed.T``) and ``make_caches``. The JAX package keeps unrolled
+"hybrid", "ssm", "vlm")``: ``forward`` (embedding scaled by
+sqrt(d_model), a vlm request's patch embeddings ahead of it, the block
+stack, the final norm), ``logits_fn`` (tied embeddings: ``embed.T``)
+and ``make_caches``; the encdec family is ``models/encdec.py``'s. The
+JAX package keeps unrolled
 ``prefix`` layers (the MoE family's ``first_dense_layers``: attention
 blocks with a dense MLP), stacks the block pattern's layers into a
 scanned ``body`` of ``repeats`` copies and keeps unrolled ``suffix``
@@ -44,8 +46,8 @@ BLOCK_KINDS = {"attn": B.AttnBlock, "rglru": R.RGLRUBlock,
 
 
 def check_supported(arch: ArchConfig) -> None:
-    dense = arch.family in ("dense", "moe") and not arch.window \
-        and tuple(arch.block_pattern) in ((), ("attn",))
+    dense = arch.family in ("dense", "moe", "vlm", "encdec") \
+        and not arch.window and tuple(arch.block_pattern) in ((), ("attn",))
     hybrid = arch.family == "hybrid" \
         and set(arch.block_pattern) <= {"attn", "rglru"}
     ssm = arch.family == "ssm" and not arch.window \
@@ -54,7 +56,8 @@ def check_supported(arch: ArchConfig) -> None:
         raise NotImplementedError(
             f"{arch.name}: family {arch.family!r} is not ported yet (the port "
             f"serves the dense family, the MoE family, the RG-LRU hybrid "
-            f"family and the xLSTM ssm family)")
+            f"family, the xLSTM ssm family, the vlm family and the encdec "
+            f"family)")
 
 
 def pattern(arch: ArchConfig) -> Tuple[str, ...]:
@@ -102,6 +105,9 @@ class LM(nn.Module):
                  dtype: torch.dtype):
         super().__init__()
         check_supported(arch)
+        if arch.family == "encdec":
+            raise ValueError(f"{arch.name}: the encdec family is "
+                             f"models.encdec.EncDec, not a decoder-only LM")
         self.arch = arch
         kw = dict(device=device, dtype=dtype)
         self.embed = B._param(arch.vocab_size, arch.d_model, **kw)
@@ -166,9 +172,17 @@ class LM(nn.Module):
                 positions: Optional[torch.Tensor] = None,
                 seq_lens: Optional[torch.Tensor] = None,
                 page_table: Optional[torch.Tensor] = None,
-                append: bool = False
+                append: bool = False,
+                prefix_embeds: Optional[torch.Tensor] = None
                 ) -> Tuple[torch.Tensor, Optional[List[dict]]]:
         """tokens [B, S] -> (hidden [B, S, D] after the final norm, caches).
+
+        ``prefix_embeds`` [B, P, D] (the vlm family's patch embeddings, a
+        stub frontend's output): cast to the activation dtype and put
+        ahead of the scaled token embeddings (they are not scaled), so
+        the sequence is P + S long (positions, ``seq_lens`` and the
+        returned hidden states count the prefix), attended with the
+        prefix-LM mask: every query sees the P patch positions.
 
         With ``caches`` and S == 1 this is a decode step: each attention
         layer writes its token into its grid in place and attends over it,
@@ -196,6 +210,10 @@ class LM(nn.Module):
         # float: the same product as a 0-dim tensor of that dtype, with
         # no host tensor in the step
         x = x * _scale_in(self.arch.d_model ** 0.5, x.dtype)
+        prefix_len = 0
+        if prefix_embeds is not None:
+            x = torch.cat([prefix_embeds.to(x.dtype), x], dim=1)
+            prefix_len = prefix_embeds.shape[1]
         b, s, _ = x.shape
         if append and (caches is None or self.arch.family != "dense"
                        or self.arch.window):
@@ -220,7 +238,8 @@ class LM(nn.Module):
             if kind == "attn":
                 x, c = layer(x, positions=positions, cache=cache,
                              decode_meta=decode_meta, seq_lens=seq_lens,
-                             page_table=page_table, append=append)
+                             page_table=page_table, append=append,
+                             prefix_len=prefix_len)
             else:
                 x, c = layer(x, state=cache, seq_lens=seq_lens)
             if caches is not None:

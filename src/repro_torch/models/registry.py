@@ -1,6 +1,6 @@
 """Step builders of the port (mirrors ``repro/models/registry.py``).
 
-  init_params(arch, seed)                      -> LM (random, seeded)
+  init_params(arch, seed)                      -> LM or EncDec (random, seeded)
   prefill_step(model, tokens)                  -> (caches, last_logits)
   serve_step(model, caches, batch)             -> (next_token, caches)
   serve_step(model, caches, state)             -> (state', caches', record)
@@ -21,6 +21,11 @@ stale-write gate), so the host's lagging retire bookkeeping under
 lookahead can never route a write into a freed, possibly re-allocated,
 page.
 
+For the encdec family (an :class:`~repro_torch.models.encdec.EncDec`)
+the step decodes against the state's ``enc_out`` with its ``enc_len``
+(both written in place at admission, read inside the captured step),
+as the reference's encdec branch does; the record is unchanged.
+
 With ``spec`` the step is the speculative one (:func:`_build_spec_serve_step`):
 the draft model proposes k tokens, the target verifies k + 1 positions
 in one forward, and the longest accepted prefix commits; its record's
@@ -34,16 +39,19 @@ import torch
 
 from repro_torch.configs.base import ArchConfig, ShapeConfig
 from repro_torch.device import DeviceLike, default_dtype, resolve_device
+from repro_torch.models.encdec import EncDec
 from repro_torch.models.lm import LM
 
 
 def init_params(arch: ArchConfig, seed: int = 0, *, device: DeviceLike = None,
-                dtype: Optional[torch.dtype] = None) -> LM:
-    """A randomly initialised ``LM`` on ``device`` (default ``cuda``),
-    drawn from a ``torch.Generator`` on that device seeded with ``seed``
-    (bf16 on CUDA, fp32 on the CPU unless ``dtype`` is given)."""
+                dtype: Optional[torch.dtype] = None):
+    """A randomly initialised ``LM`` (``EncDec`` for the encdec family)
+    on ``device`` (default ``cuda``), drawn from a ``torch.Generator`` on
+    that device seeded with ``seed`` (bf16 on CUDA, fp32 on the CPU
+    unless ``dtype`` is given)."""
     dev = resolve_device(device)
-    model = LM(arch, device=dev, dtype=default_dtype(dev, dtype))
+    cls = EncDec if arch.family == "encdec" else LM
+    model = cls(arch, device=dev, dtype=default_dtype(dev, dtype))
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
     model.init_(gen)
@@ -115,8 +123,16 @@ def build_serve_step(arch: ArchConfig, *, sampling=None,
         table = None
         if paged:  # stale-write gate: inactive slots write the null page
             table = torch.where(state.active[:, None], state.page_table, 0)
-        hidden, caches = model(state.tokens, caches=caches,
-                               positions=state.positions, page_table=table)
+        if arch.family == "encdec":
+            # every slot cross-attends its own enc_out row, padded source
+            # positions masked by enc_len (0 on an inert slot)
+            hidden, caches = model(state.tokens, state.enc_out, caches=caches,
+                                   positions=state.positions,
+                                   enc_lens=state.enc_len)
+        else:
+            hidden, caches = model(state.tokens, caches=caches,
+                                   positions=state.positions,
+                                   page_table=table)
         rng, nxt = SMP.sample(model.logits(hidden)[:, -1], state.rng,
                               sampling)
         cur = state.tokens[:, 0]

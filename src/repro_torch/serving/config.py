@@ -2,7 +2,8 @@
 
 Mirrors ``repro/serving/config.py``. Only the fields the port reads are
 carried over: the slot grid or the paged pool (:class:`PagingConfig`),
-sampling, lookahead, INT8 quantisation and speculative decoding
+sampling, lookahead, the encoder-decoder's source bound
+(``max_src_len``), INT8 quantisation and speculative decoding
 (:class:`SpecConfig`). Disaggregation and elastic replan are not
 ported (ROADMAP A14).
 """
@@ -58,6 +59,9 @@ class ServeConfig:
     seed (random params of the CLI). ``sampling``:
     :class:`repro_torch.serving.sampler.SamplingParams` (None -> greedy).
     ``lookahead``: dispatch depth (1 = double-buffered, 0 = synchronous).
+    ``max_src_len``: the encdec family's per-request bound on source
+    frames, the width of the state's ``enc_out`` rows (None ->
+    ``max_len``).
     ``paging``: nested :class:`PagingConfig`. ``quant``: nested
     :class:`repro_torch.quant.QuantConfig` — INT8 serving (per-channel
     int8 weights and/or an int8 KV grid with per-token scales); the
@@ -70,14 +74,15 @@ class ServeConfig:
     seed: int = 0
     sampling: Optional[Any] = None
     lookahead: int = 1
+    max_src_len: Optional[int] = None
     paging: PagingConfig = PagingConfig()
     quant: QuantConfig = QuantConfig()
     spec: Optional[SpecConfig] = None
 
     def resolve(self) -> "ServeConfig":
-        """Fill defaults (greedy sampling, lookahead >= 0); ``slots`` and
-        ``max_len`` must be set — the port has no planned shape to take
-        them from yet."""
+        """Fill defaults (greedy sampling, lookahead >= 0, ``max_src_len``
+        from ``max_len``); ``slots`` and ``max_len`` must be set — the
+        port has no planned shape to take them from yet."""
         from repro_torch.serving.sampler import GREEDY
         if self.slots is None or self.max_len is None:
             raise ValueError("ServeConfig.slots and ServeConfig.max_len must "
@@ -85,4 +90,6 @@ class ServeConfig:
         return dataclasses.replace(
             self, slots=int(self.slots), max_len=int(self.max_len),
             sampling=self.sampling if self.sampling is not None else GREEDY,
+            max_src_len=(int(self.max_src_len) if self.max_src_len is not None
+                         else int(self.max_len)),
             lookahead=max(0, int(self.lookahead)))

@@ -1,7 +1,7 @@
 """Serving engine: continuous batching with one-step-lookahead dispatch.
 
-Mirrors the decoder-only paths of ``repro/serving/engine.py`` (greedy,
-seeded temperature/top-k, speculative). Step N+1 is
+Mirrors the fused paths of ``repro/serving/engine.py`` (greedy, seeded
+temperature/top-k, speculative; decoder-only and encoder-decoder). Step N+1 is
 enqueued on the card before step N's per-slot record is read back, so
 the host's bookkeeping overlaps the device's decode work:
 
@@ -29,6 +29,14 @@ retired; under lookahead 1 the step in flight at that moment no longer
 writes them (its table row for the slot is zeroed by the stale-write
 gate of the serve step) and any reuse by a later admission is enqueued
 behind it on the same stream.
+
+The encdec family (seamless-m4t-medium, an
+:class:`~repro_torch.models.encdec.EncDec`) serves on the slot grid: its
+state carries each slot's encoder output ``enc_out [slots,
+max_src_len, D]`` and source length ``enc_len``, written at admission
+(``ServeConfig.max_src_len`` bounds a request's frames) and read by the
+captured step. The vlm family (paligemma-3b) serves on the grid and the
+pool; a request's patch embeddings ride in its cache row.
 
 With ``ServeConfig(spec=SpecConfig(draft=..., k=...))`` (both models
 dense) the step is the speculative one: the draft proposes k tokens, the
@@ -145,10 +153,17 @@ class ServingEngine:
     the dense equivalent plus the null page), int8 under ``kv="int8"``;
     ``prefix_cache`` (default True) shares prompt prefixes across
     requests (not in the MoE family, whose routing couples a prefill
-    group's rows). Only the dense and MoE families page (the
-    reference's ``PAGED_FAMILIES``): the hybrid and ssm families raise
+    group's rows; in the vlm family only text-only prompts). Only the
+    dense, MoE and vlm families page (the reference's
+    ``PAGED_FAMILIES``): the hybrid, ssm and encdec families raise
     ``ValueError``. The MoE family under a quantising ``config.quant``
-    raises ``NotImplementedError`` (ROADMAP A16)."""
+    raises ``NotImplementedError`` (ROADMAP A16), the encdec and vlm
+    families too (ROADMAP A6).
+
+    ``config.max_src_len`` (default ``max_len``): the encdec family's
+    bound on a request's source frames, the width of ``state.enc_out``.
+    An encdec request needs ``src_frames`` ([S_src, D], at most
+    ``max_src_len``); a vlm request may carry ``patch_embeds`` ([P, D])."""
 
     def __init__(self, arch: ArchConfig, params: LM, *,
                  config: ServeConfig, device: DeviceLike = None,
@@ -176,14 +191,12 @@ class ServingEngine:
                 f"{arch.name}: INT8 serving of the moe family is not ported "
                 f"yet (the reference quantises the router and the 4-D "
                 f"stacked expert leaves too; see ROADMAP A16)")
-        if arch.family in ("hybrid", "ssm") \
+        if arch.family in ("hybrid", "ssm", "encdec", "vlm") \
                 and (quant.quant_weights or quant.quant_kv):
-            leaves = ("gate, a_param and conv" if arch.family == "hybrid"
-                      else "gate (w_i, w_f, b_i, b_f), r and b")
             raise NotImplementedError(
                 f"{arch.name}: INT8 serving of the {arch.family} family is "
-                f"not ported yet (its {leaves} leaves need their own check; "
-                f"see ROADMAP A6)")
+                f"not ported yet (its leaves need their own check against "
+                f"the reference's quantize_params; see ROADMAP A6)")
         if quant.quant_weights and not quant.quant_kv \
                 and dev.type == "cuda" and dtype != torch.float32:
             raise NotImplementedError(
@@ -224,9 +237,13 @@ class ServingEngine:
         if self.draft is not None:
             draft_caches = self.draft.make_caches(self.slots, self.max_len,
                                                   dtype)
+        self.max_src_len = config.max_src_len
+        enc_shape = ((self.max_src_len, arch.d_model)
+                     if arch.family == "encdec" else None)
         self.state = make_decode_state(self.slots, dev, table_len,
                                        seed=config.seed,
-                                       draft_caches=draft_caches)
+                                       draft_caches=draft_caches,
+                                       enc_shape=enc_shape, enc_dtype=dtype)
         # the step's params: the model, or the pair the spec step reads
         self.params = self.model if self.draft is None else \
             {"target": self.model, "draft": self.draft}
@@ -241,7 +258,7 @@ class ServingEngine:
             sampling=self.sampling, seed=config.seed, kv_quant=quant.quant_kv,
             paged=self.paged, page_size=self.page_size,
             kv_pages=self.kv_pages, prefix_cache=paging.prefix_cache,
-            draft=self.draft)
+            draft=self.draft, max_src_len=self.max_src_len)
         self.completed: List[Request] = []
         self._pending: deque = deque()  # dispatched, unread step records
         self.step_times = deque(maxlen=4096)

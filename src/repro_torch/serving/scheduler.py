@@ -1,6 +1,6 @@
 """Admission, slot lifecycle and batched bucketed prefill.
 
-Mirrors the dense ``"lm"`` path of ``repro/serving/scheduler.py``: a FIFO
+Mirrors ``repro/serving/scheduler.py`` (its fused, single-role paths): a FIFO
 queue, the slot -> request map, and admission that pads each prompt to
 its power-of-two bucket (>= ``MIN_BUCKET``), prefills every waiting
 request of one bucket as one batched forward, splices the rows into the
@@ -40,6 +40,26 @@ its bucket included, is routed and takes expert capacity, as in the
 reference; the groups (bucket and size) are the reference's, so the
 routing is too.
 
+The vlm family (paligemma-3b): a request may carry patch embeddings
+``patch_embeds [P, D]``, which ride in its cache row ahead of the
+prompt: its bucket is taken on P + prompt, its group is ``("vlm",
+bucket, P)`` (one patch count a group, so one prefix-LM length a
+launch), its prefill puts the patches ahead of the scaled token
+embeddings and its decode position starts at P + prompt. A text-only
+request of the same model is an ``"lm"`` request. On the paged pool the
+patched prefill stays dense and bucketed and is spliced into pages;
+patched prompts never enter the prefix registry (their rows hold the
+patches), text-only prompts do.
+
+The encdec family (seamless-m4t-medium): every request carries source
+frames ``src_frames [S_src, D]`` (at most ``max_src_len``), which are
+no cache row. A group ``("encdec", bucket, 0)`` encodes its requests'
+frames, right-padded to ``max_src_len``, in one call with their true
+lengths, prefills the decoder against that output, and admission writes
+each request's encoder output and length into the state's ``enc_out``
+and ``enc_len`` rows, where every decode step reads them. The encdec
+family serves on the slot grid only, as in the reference.
+
 Each request's first token is drawn at admission with its own key,
 ``fold_in(PRNGKey(seed), rid)`` (greedy leaves it as it is), and the key
 after that draw goes into the state: keyed on the request id, a sampled
@@ -68,18 +88,28 @@ MIN_BUCKET = 8
 
 
 class RequestValidationError(ValueError):
-    """A request was rejected at ``submit()``."""
+    """A request was rejected at ``submit()`` (the wrong modality payload
+    for the family, or prompt + budget over the slot's row)."""
 
 
 class Request:
-    """One serving request: a token prompt and an emission budget."""
+    """One serving request: a token prompt and an emission budget, and
+    the family's modality payload: ``src_frames [S_src, D]`` (the encdec
+    family's encoder input, no cache row) or ``patch_embeds [P, D]``
+    (the vlm family's patch embeddings, held in the cache row ahead of
+    the prompt). The reference's deprecated ``frames=`` alias is not
+    carried over."""
 
     def __init__(self, rid: int, prompt: np.ndarray, max_new_tokens: int = 16,
-                 *, out_tokens: Optional[List[int]] = None,
+                 *, src_frames: Optional[np.ndarray] = None,
+                 patch_embeds: Optional[np.ndarray] = None,
+                 out_tokens: Optional[List[int]] = None,
                  submitted_at: float = 0.0, finished_at: float = 0.0):
         self.rid = rid
         self.prompt = prompt
         self.max_new_tokens = max_new_tokens
+        self.src_frames = src_frames
+        self.patch_embeds = patch_embeds
         self.out_tokens: List[int] = [] if out_tokens is None else out_tokens
         self.submitted_at = submitted_at
         self.finished_at = finished_at
@@ -144,17 +174,42 @@ def splice_rows(grid: List[dict], rows: List[dict], slots: torch.Tensor) -> None
 
 def prefill_rows(model: LM, tokens: torch.Tensor, lens: torch.Tensor,
                  cache_dtype: Optional[torch.dtype] = None,
-                 kv_quant: bool = False) -> Tuple[List[dict], torch.Tensor]:
-    """Batched bucketed prefill: tokens [n, bucket] right-padded, ``lens``
-    [n] true lengths. Returns the length-exact cache rows (``pos`` past
-    each length invalidated; int8 with scales when ``kv_quant``) and the
-    logits at each row's last valid position, [n, 1, V]."""
-    n, bucket = tokens.shape
+                 kv_quant: bool = False,
+                 patches: Optional[torch.Tensor] = None
+                 ) -> Tuple[List[dict], torch.Tensor]:
+    """Batched bucketed prefill: tokens [n, width] right-padded, ``lens``
+    [n] true lengths. With ``patches`` [n, P, D] (a vlm group) the rows
+    are P + width long, the patches first, and ``lens`` counts them.
+    Returns the length-exact cache rows (``pos`` past each length
+    invalidated; int8 with scales when ``kv_quant``) and the logits at
+    each row's last valid position, [n, 1, V]."""
+    n, width = tokens.shape
+    bucket = width + (0 if patches is None else patches.shape[1])
     caches = model.make_caches(n, bucket, cache_dtype, kv_quant=kv_quant)
-    hidden, rows = model(tokens, caches=caches, seq_lens=lens)
+    extra = {} if patches is None else {"prefix_embeds": patches}
+    hidden, rows = model(tokens, caches=caches, seq_lens=lens, **extra)
     last = hidden[torch.arange(n, device=hidden.device), lens.long() - 1]
     logits = model.logits(last[:, None])
     return invalidate_padding(rows, lens), logits
+
+
+def prefill_encdec(model, frames: torch.Tensor, flens: torch.Tensor,
+                   tokens: torch.Tensor, lens: torch.Tensor,
+                   cache_dtype: Optional[torch.dtype] = None
+                   ) -> Tuple[List[dict], torch.Tensor, torch.Tensor]:
+    """An encdec group's prefill: the frames [n, max_src_len, D],
+    right-padded past their true lengths ``flens`` [n], encoded in one
+    call; the decoder prefilled over tokens [n, bucket] (true lengths
+    ``lens``) against that output. Returns the decoder's length-exact
+    cache rows, the logits at each row's last position [n, 1, V] and the
+    encoder output [n, max_src_len, D] (what admission writes into the
+    state's ``enc_out``)."""
+    n, bucket = tokens.shape
+    enc_out = model.encode(frames, flens)
+    caches = model.make_caches(n, bucket, cache_dtype)
+    hidden, rows = model(tokens, enc_out, caches=caches, enc_lens=flens)
+    last = hidden[torch.arange(n, device=hidden.device), lens.long() - 1]
+    return invalidate_padding(rows, lens), model.logits(last[:, None]), enc_out
 
 
 def prefill_shared(model: LM, pools: List[dict], page_rows: torch.Tensor,
@@ -188,10 +243,12 @@ class Scheduler:
                  min_bucket: int = MIN_BUCKET, kv_quant: bool = False,
                  paged: bool = False, page_size: int = PG.DEFAULT_PAGE_SIZE,
                  kv_pages: Optional[int] = None, prefix_cache: bool = True,
-                 draft: Optional[LM] = None):
+                 draft: Optional[LM] = None,
+                 max_src_len: Optional[int] = None):
         self.arch = arch
         self.slots = slots
         self.max_len = max_len
+        self.max_src_len = max_len if max_src_len is None else max_src_len
         self.cache_dtype = cache_dtype
         self.kv_quant = kv_quant
         self.sampling = sampling
@@ -226,11 +283,40 @@ class Scheduler:
         self.prefill_shared_groups = 0  # dispatches of "lm_shared" groups
 
     def submit(self, req: Request) -> None:
-        total = len(req.prompt)
+        arch = self.arch
+        if arch.family == "encdec":
+            if req.patch_embeds is not None:
+                raise RequestValidationError(
+                    f"request {req.rid}: patch_embeds is a vlm payload; "
+                    f"encdec arch {arch.name} takes src_frames")
+            if req.src_frames is None:
+                raise RequestValidationError(
+                    f"request {req.rid}: encdec arch {arch.name} needs "
+                    f"source frames ([S_src, {arch.d_model}]) to encode")
+            if len(req.src_frames) > self.max_src_len:
+                raise RequestValidationError(
+                    f"request {req.rid}: {len(req.src_frames)} source frames "
+                    f"exceed max_src_len {self.max_src_len}")
+            if len(req.src_frames) == 0:
+                # the reference admits it, and its masked softmax then
+                # averages V over the padding; the kernels give 0 there
+                raise RequestValidationError(
+                    f"request {req.rid}: 0 source frames; an encdec request "
+                    f"needs at least one frame to encode")
+        elif req.src_frames is not None:
+            raise RequestValidationError(
+                f"request {req.rid}: src_frames is an encdec payload; "
+                f"{arch.family} arch {arch.name} takes patch_embeds")
+        if self.draft is not None and req.patch_embeds is not None:
+            raise RequestValidationError(
+                f"request {req.rid}: speculative serving drafts token "
+                f"prompts only; patch_embeds are unsupported with a "
+                f"draft model")
+        total = len(req.prompt) + self._prefix_len(req)
         if total > self.max_len:
             raise RequestValidationError(
-                f"request {req.rid}: prompt length {total} exceeds max_len "
-                f"{self.max_len}")
+                f"request {req.rid}: prompt length {total} (incl. prefix) "
+                f"exceeds max_len {self.max_len}")
         if total + req.max_new_tokens > self.max_len:
             raise RequestValidationError(
                 f"request {req.rid}: prompt {total} + max_new_tokens "
@@ -238,6 +324,12 @@ class Scheduler:
                 f"(the slot's KV row holds prompt and decoded tokens)")
         req.submitted_at = time.time()
         self.queue.append(req)
+
+    @staticmethod
+    def _prefix_len(req: Request) -> int:
+        """Positions the cache row holds ahead of the prompt: a vlm
+        request's patches (encdec frames are no cache row)."""
+        return 0 if req.patch_embeds is None else len(req.patch_embeds)
 
     def has_active(self) -> bool:
         return any(r is not None for r in self.active.values())
@@ -249,7 +341,8 @@ class Scheduler:
         aliased (refcount + 1) ahead of them. Returns ``(row [table_len]
         int32, owned pages, (cow_dst, cow_src) or None)``; raises
         :class:`pages.PagePoolExhausted` when the pool cannot hold it."""
-        need = -(-(len(req.prompt) + req.max_new_tokens) // self.page_size)
+        total = len(req.prompt) + self._prefix_len(req)
+        need = -(-(total + req.max_new_tokens) // self.page_size)
         waiting = [req.rid] + [r.rid for r in self.queue]
         row = np.zeros((self.table_len,), np.int32)
         match = self._matches.get(req.rid)
@@ -277,7 +370,12 @@ class Scheduler:
 
     # ---------------------------- admission ----------------------------
     def _group_key(self, req: Request) -> Tuple[str, int, int]:
-        total = len(req.prompt)
+        total = len(req.prompt) + self._prefix_len(req)
+        bucket = bucket_len(total, self.max_len, min_bucket=self.min_bucket)
+        if self.arch.family == "encdec":
+            return ("encdec", bucket, 0)
+        if req.patch_embeds is not None:
+            return ("vlm", bucket, len(req.patch_embeds))
         if self.registry is not None:
             m, chain, frontier = self.registry.lookup(
                 np.asarray(req.prompt, np.int32))
@@ -288,16 +386,27 @@ class Scheduler:
                 self._matches[req.rid] = (m, chain, frontier)
                 return ("lm_shared", bucket_len(total - m, self.max_len,
                                                 min_bucket=self.min_bucket), m)
-        return ("lm", bucket_len(total, self.max_len,
-                                 min_bucket=self.min_bucket), 0)
+        return ("lm", bucket, 0)
+
+    def _marshal_frames(self, group) -> Tuple[np.ndarray, np.ndarray]:
+        """The host's [n, max_src_len, D] frame grid (right-padded with
+        zeros) and true lengths [n] of an encdec group."""
+        n = len(group)
+        frames = np.zeros((n, self.max_src_len, self.arch.d_model),
+                          np.float32)
+        flens = np.zeros((n,), np.int32)
+        for i, (req, _) in enumerate(group):
+            flens[i] = len(req.src_frames)
+            frames[i, :flens[i]] = req.src_frames
+        return frames, flens
 
     def admit(self, model: LM, caches: List[dict], state: DecodeState):
         """Fill free slots from the queue, writing ``caches`` and ``state``
         in place, and return them (the same objects: a captured decode
         step reads them at their addresses). All waiting requests of one
         group (bucket; with a shared prefix, suffix bucket and prefix
-        length) become one batched prefill, one splice and one state
-        scatter."""
+        length; with patches, bucket and patch count) become one batched
+        prefill, one splice and one state scatter."""
         free = [s for s, occ in self.active.items() if occ is None]
         take = min(len(free), len(self.queue))
         if take == 0:
@@ -338,15 +447,19 @@ class Scheduler:
                     continue
             t0 = time.perf_counter()
             n = len(group)
-            toks = np.zeros((n, bucket), np.int32)
+            # a vlm row's patches take the first `prefix` positions of
+            # the bucket; a shared group runs the suffix past `prefix`
+            width = bucket - prefix if kind == "vlm" else bucket
+            skip = prefix if kind == "lm_shared" else 0
+            toks = np.zeros((n, width), np.int32)
             lens = np.zeros((n,), np.int32)
             slots_arr = np.zeros((n,), np.int64)
             max_new = np.zeros((n,), np.int32)
             rids = np.zeros((n,), np.int64)
             for i, (req, slot) in enumerate(group):
                 s = len(req.prompt)
-                toks[i, :s - prefix] = req.prompt[prefix:]
-                lens[i] = s
+                toks[i, :s - skip] = req.prompt[skip:]
+                lens[i] = s + prefix if kind == "vlm" else s
                 slots_arr[i] = slot
                 max_new[i] = req.max_new_tokens
                 rids[i] = req.rid
@@ -355,7 +468,22 @@ class Scheduler:
             toks_t = torch.from_numpy(toks).to(dev)
             rows_t = (torch.from_numpy(np.stack(page_rows)).to(dev)
                       if self.paged else None)
-            if kind == "lm_shared":
+            enc = {}
+            if kind == "encdec":
+                frames, flens = self._marshal_frames(group)
+                flens_t = torch.from_numpy(flens).to(dev)
+                rows, logits, enc_out = prefill_encdec(
+                    model, torch.from_numpy(frames).to(dev), flens_t, toks_t,
+                    lens_t, self.cache_dtype)
+                enc = dict(enc_out=enc_out, enc_len=flens_t)
+            elif kind == "vlm":
+                patches = np.stack([req.patch_embeds for req, _ in group]
+                                   ).astype(np.float32)
+                rows, logits = prefill_rows(
+                    model, toks_t, lens_t, self.cache_dtype,
+                    kv_quant=self.kv_quant,
+                    patches=torch.from_numpy(patches).to(dev))
+            elif kind == "lm_shared":
                 pairs_cow = [c for c in cows if c is not None]
                 if pairs_cow:
                     PG.copy_pages(caches, [d for d, _ in pairs_cow],
@@ -378,7 +506,7 @@ class Scheduler:
             keys, first = SMP.sample(logits[:, -1], keys, self.sampling)
             admit_rows(state, slots_t, first, lens_t,
                        torch.from_numpy(max_new).to(dev), keys,
-                       page_rows=rows_t)
+                       page_rows=rows_t, **enc)
             if self.draft is not None:
                 self._admit_draft(state, group, lens, lens_t, slots_t)
             for i, (req, slot) in enumerate(group):
@@ -386,7 +514,8 @@ class Scheduler:
                 admitted.add(req.rid)
                 if self.paged:
                     self.slot_pages[slot] = owned[i]
-                    if self.registry is not None:
+                    # a patched row holds its patches: never a prefix
+                    if self.registry is not None and req.patch_embeds is None:
                         cover = -(-len(req.prompt) // self.page_size)
                         self.registry.register(
                             np.asarray(req.prompt, np.int32),

@@ -190,10 +190,19 @@ def test_paged_attention_rejects_lengths_outside_the_table():
     q = torch.zeros(2, 4, 16)
     pool = torch.zeros(2, 8, 4, 16)
     table = torch.arange(2, dtype=torch.int32)[:, None]
-    for bad in ([0, 3], [3, 9]):
+    for bad in ([-1, 3], [3, 9]):
         with pytest.raises(ValueError, match="lengths"):
             ops.paged_attn(q, pool, pool, table,
                            torch.tensor(bad, dtype=torch.int32))
+    # a row of length 0 (an inert slot's cross-attention) is in range and
+    # gives 0; the row beside it is the one-row result
+    pool = torch.randn(2, 8, 4, 16, generator=torch.Generator().manual_seed(0))
+    q = torch.randn(2, 4, 16, generator=torch.Generator().manual_seed(1))
+    lens = torch.tensor([0, 3], dtype=torch.int32)
+    got = ops.paged_attn(q, pool, pool, table, lens)
+    assert not got[0].any()
+    torch.testing.assert_close(
+        got[1:], ops.paged_attn(q[1:], pool, pool, table[1:], lens[1:]))
 
 
 def test_wrappers_validate_shapes():

@@ -12,8 +12,12 @@ reach. They check what the graph relies on and what it must keep:
   INT8, the paged pool with fp and int8 pools, the hybrid
   recurrentgemma-2b and the ssm xlstm-350m, all ``.reduced()``), top-k
   sampling on the grid, speculative decoding (a 1-layer draft, k = 3) on
-  the grid and the pool, and the MoE deepseek-moe-16b on the grid and
-  the pool (its expert routing inside the step), at lookahead 0 and 1,
+  the grid and the pool, the MoE deepseek-moe-16b on the grid and
+  the pool (its expert routing inside the step), the encdec
+  seamless-m4t-medium (source frames of mixed lengths: the state's
+  ``enc_out``/``enc_len`` written at admission, read in the step) and
+  the vlm paligemma-3b on the grid and the pool (patched and text-only
+  requests mixed), at lookahead 0 and 1,
   and the streams
   still equal the JAX ``ServingEngine``'s with the same configuration on
   the same bridged weights (a divergence names the top-2 logit margin of
@@ -48,7 +52,7 @@ from repro.serving.config import ServeConfig as JServeConfig
 from repro.serving.config import SpecConfig as JSpecConfig
 from repro.serving.engine import Request as JRequest
 from repro.serving.engine import ServingEngine as JServingEngine
-from repro.testing.serving_equiv import _prompts
+from repro.testing.serving_equiv import _frames, _prompts
 from repro_torch import bridge
 from repro_torch import quant as Q
 from repro_torch.configs import get_arch
@@ -72,7 +76,10 @@ PATHS = {"fp": ("qwen1.5-0.5b", False, False, None),
          "spec": ("qwen1.5-0.5b", False, False, "spec"),
          "spec-paged": ("qwen1.5-0.5b", False, True, "spec"),
          "moe": ("deepseek-moe-16b", False, False, None),
-         "moe-paged": ("deepseek-moe-16b", False, True, None)}
+         "moe-paged": ("deepseek-moe-16b", False, True, None),
+         "encdec": ("seamless-m4t-medium", False, False, None),
+         "vlm": ("paligemma-3b", False, False, None),
+         "vlm-paged": ("paligemma-3b", False, True, None)}
 TOP_K = SamplingParams("top_k", 0.8, 5)
 SPEC_K = 3
 
@@ -84,8 +91,8 @@ def _liven(tree: dict, seed: int) -> dict:
 
     def block(b):
         b = dict(b)
-        for k in ("ln1", "ln2", "ln_inner", "conv_b", "gate_b", "bq", "bk",
-                  "bv", "b_i", "b_f", "b"):
+        for k in ("ln1", "ln2", "ln_x", "ln_inner", "conv_b", "gate_b", "bq",
+                  "bk", "bv", "b_i", "b_f", "b"):
             if k in b:
                 b[k] = (0.5 * rng.standard_normal(b[k].shape)).astype(np.float32)
         for k in ("wo", "w_out", "w_down"):
@@ -96,8 +103,10 @@ def _liven(tree: dict, seed: int) -> dict:
         return b
 
     tree = dict(tree)
-    tree["body"] = {k: block(v) for k, v in tree["body"].items()}
-    for k in [k for k in tree if k.startswith("suffix")]:
+    if "body" in tree:
+        tree["body"] = {k: block(v) for k, v in tree["body"].items()}
+    for k in [k for k in tree if k.startswith("suffix")
+              or k in ("enc_body", "dec_body")]:
         tree[k] = block(tree[k])
     return tree
 
@@ -132,6 +141,22 @@ def _draft_tree():
 def _prompts_for(arch_id):
     return _prompts(jax_get_arch(arch_id).reduced(), N_REQ, MAX_LEN, SEED + 1,
                     MAX_NEW)
+
+
+def _payloads_for(arch_id):
+    """Each request's modality payload as ``Request`` keywords: source
+    frames of 2-48 positions (encdec), patch embeddings on the even rids
+    (vlm; the odd ones text-only), none otherwise."""
+    arch = jax_get_arch(arch_id).reduced()
+    if arch.family == "encdec":
+        return [{"src_frames": f}
+                for f in _frames(arch, N_REQ, MAX_LEN, SEED + 1)]
+    if arch.family == "vlm":
+        rng = np.random.RandomState(SEED + 3)
+        return [{"patch_embeds": rng.standard_normal(
+            (arch.frontend_tokens, arch.d_model)).astype(np.float32)}
+            if i % 2 == 0 else {} for i in range(N_REQ)]
+    return [{}] * N_REQ
 
 
 @pytest.fixture
@@ -178,8 +203,9 @@ def _jax_streams(path):
                                                           page_size=PS),
                                      quant=JQ.INT8_SERVE if int8
                                      else JQ.QuantConfig(), **extra))
-        for i, p in enumerate(_prompts_for(arch_id)):
-            eng.submit(JRequest(rid=i, prompt=p, max_new_tokens=MAX_NEW))
+        for i, (p, kw) in enumerate(zip(_prompts_for(arch_id),
+                                        _payloads_for(arch_id))):
+            eng.submit(JRequest(rid=i, prompt=p, max_new_tokens=MAX_NEW, **kw))
         eng.run_until_drained(max_steps=2000)
         _JAX_STREAMS[path] = {r.rid: list(r.out_tokens) for r in eng.completed}
     return _JAX_STREAMS[path]
@@ -212,17 +238,28 @@ def _addresses(eng) -> dict:
     return out
 
 
-def _margin(model, prompt, prefix) -> float:
+def _margin(model, prompt, prefix, payload=None) -> float:
     """Top-2 logit margin, relative to the largest |logit|, of the port's
-    model at the next position after ``prompt + prefix``."""
-    toks = np.concatenate([prompt, np.asarray(prefix, np.int32)])
-    hidden, _ = model(torch.from_numpy(toks.astype(np.int32))[None])
+    model at the next position after ``prompt + prefix`` (with the
+    request's source frames or patches, ``payload``)."""
+    toks = torch.from_numpy(np.concatenate(
+        [prompt, np.asarray(prefix, np.int32)]).astype(np.int32))[None]
+    payload = payload or {}
+    with torch.no_grad():
+        if "src_frames" in payload:
+            enc = model.encode(torch.from_numpy(payload["src_frames"])[None])
+            hidden, _ = model(toks, enc)
+        elif "patch_embeds" in payload:
+            hidden, _ = model(toks, prefix_embeds=torch.from_numpy(
+                payload["patch_embeds"])[None])
+        else:
+            hidden, _ = model(toks)
     logits = model.logits(hidden[:, -1]).float()[0]
     top = torch.topk(logits, 2).values
     return float(top[0] - top[1]) / float(logits.abs().max())
 
 
-def _diff(model, prompts, got, want):
+def _diff(model, prompts, got, want, payloads=None):
     bad = []
     for rid in sorted(want):
         g, w = got.get(rid) or [], want[rid]
@@ -230,8 +267,9 @@ def _diff(model, prompts, got, want):
             continue
         j = next((i for i, (a, b) in enumerate(zip(g, w)) if a != b),
                  min(len(g), len(w)))
+        payload = payloads[rid] if payloads else None
         bad.append(f"rid={rid}: port={g} jax={w} (first diff at {j}, top-2 "
-                   f"margin {_margin(model, prompts[rid], w[:j]):.3e})")
+                   f"margin {_margin(model, prompts[rid], w[:j], payload):.3e})")
     if set(got) != set(want):
         bad.append(f"completed sets differ: {sorted(got)} vs {sorted(want)}")
     return bad
@@ -267,19 +305,22 @@ def test_caches_and_state_keep_their_addresses(path, lookahead,
 
     eng.step = checked_step
     prompts = _prompts_for(PATHS[path][0])
-    for i, p in enumerate(prompts):
-        eng.submit(Request(rid=i, prompt=p, max_new_tokens=MAX_NEW))
+    payloads = _payloads_for(PATHS[path][0])
+    for i, (p, kw) in enumerate(zip(prompts, payloads)):
+        eng.submit(Request(rid=i, prompt=p, max_new_tokens=MAX_NEW, **kw))
     eng.run_until_drained(max_steps=2000)
     assert seen["steps"] >= 8 and seen["waves"] >= 2, seen
     if PATHS[path][3] == "spec":
         assert any(k.startswith("state.draft_caches") for k in want)
     assert "state.rng" in want
+    if eng.arch.family == "encdec":
+        assert "state.enc_out" in want and "state.enc_len" in want
     got = {r.rid: list(r.out_tokens) for r in eng.completed}
     if PATHS[path][3] == "top_k":  # the margin of logits / T + gumbel
         from test_torch_sampling import stream_diff
         bad = stream_diff(eng.model, prompts, got, _jax_streams(path), TOP_K)
     else:
-        bad = _diff(eng.model, prompts, got, _jax_streams(path))
+        bad = _diff(eng.model, prompts, got, _jax_streams(path), payloads)
     assert not bad, bad
     assert any(len(set(t)) > 2 for t in got.values()), got
 
@@ -291,8 +332,10 @@ def test_engine_step_equals_the_eager_step_on_a_clone(path):
     of caches and state give equal records and bit-equal leaves."""
     eng = _engine(path)
     prompts = _prompts_for(PATHS[path][0])
+    payloads = _payloads_for(PATHS[path][0])
     for i, p in enumerate(prompts[:SLOTS]):
-        eng.submit(Request(rid=i, prompt=p, max_new_tokens=MAX_NEW))
+        eng.submit(Request(rid=i, prompt=p, max_new_tokens=MAX_NEW,
+                           **payloads[i]))
     eng.scheduler.admit(eng.model, eng.caches, eng.state)
     caches = [{k: v.clone() for k, v in c.items()} for c in eng.caches]
     state = ST.clone(eng.state)
