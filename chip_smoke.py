@@ -12,7 +12,8 @@ Phases (each failure propagates; the process exits non-zero):
    ``flash_attention`` instance, both ``rglru_scan`` routes, both
    ``mlstm_chunkwise``
    kernels, ``xfer_matmul``'s and ``quant_matmul``'s streaming and
-   tensor-core kernels, both ``paged_attention`` bodies);
+   tensor-core kernels, the expert axis's and the int8 ``wgmma`` ones
+   too, both ``paged_attention`` bodies);
 3. each kernel against its plain PyTorch version on the card, at the
    serving path's shapes plus ragged cases (``xfer_matmul`` and
    ``quant_matmul`` also print the kernel their route picked; they, both
@@ -43,8 +44,9 @@ Phases (each failure propagates; the process exits non-zero):
    ``paged_attention``: table ``PQ8_CASES``, the INT8 slot grid, GQA on
    pages of 16, phase 4f's pool of pages of 64 with rows over several
    chunks, MQA at head dim 256) are checked the same way, with q/x in
-   fp32 (the INT8 path's activations) and bf16. ``quant_matmul``'s
-   library call is
+   fp32 (the INT8 path's activations) and bf16; R = 2048 takes the int8
+   ``wgmma`` route, bounded by its three bf16 term products at the bf16
+   peak. ``quant_matmul``'s library call is
    ``torch._weight_int8pack_mm`` on the weight transposed ahead of time
    (or the error it raises); no PyTorch call computes the int8 attention
    body. Their labelled yardsticks are ``torch.matmul`` on a weight
@@ -83,9 +85,15 @@ Phases (each failure propagates; the process exits non-zero):
    qwen's projections and unembedding. Then ``xfer_matmul_experts``
    (table ``EXPERT_CASES``): deepseek-moe-16b's expert products
    [64, C, 2048] @ [64, 2048, 1408] and [64, C, 1408] @ [64, 1408, 2048]
-   at C = 1, 60 and 240 plus ragged and split-K shapes, fp32 and bf16,
-   bit-stable, timed in bf16 beside ``torch.bmm`` and 64 launches of
-   ``xfer_matmul``. Head dim 128: ``paged_attention`` on deepseek's grid
+   at C = 1, 60 and 240 with every row live, at C = 1 with the live rows
+   of a seeded top-6 routing of 8 tokens (the main entry, bounded on
+   the live experts' bytes, timed in both orders of the expert axis) and
+   with one live expert, at C = 60 and 240 with live rows below C, plus
+   ragged, split-K and ``wgmma`` shapes with and without live rows,
+   fp32 and bf16, bit-stable, rows past the live ones +0 and, on a
+   dispatched buffer, bit-equal to the call without counts; timed in
+   bf16 beside ``torch.bmm`` and 64 launches of ``xfer_matmul``. Head
+   dim 128: ``paged_attention`` on deepseek's grid
    [8, 512, 16, 128] and yi-9b's [8, 512, 4, 128] with 32 query heads
    (entries ``d128``, ``d128_gqa``), ``flash_attention`` at yi-9b's
    prefill [256, 512, 128] (entry ``d128_gqa``). Then the encdec and vlm
@@ -174,9 +182,10 @@ Phases (each failure propagates; the process exits non-zero):
    ``ServingEngine.step()`` traced with ``torch.profiler``, replaying
    the graph, then dispatching the eager step, then replaying a
    speculative engine's step (k = 4, the 1-layer draft), then 20 steady
-   steps of full-size deepseek-moe-16b's captured step: the device's idle
-   share of each window, its top device ops and the launches a step
-   that are not the hand-written kernels';
+   steps of full-size deepseek-moe-16b's captured step (with the device
+   ms a step of its expert products) and of seamless-m4t-medium's: the
+   device's idle share of each window, its top device ops and the
+   launches a step that are not the hand-written kernels';
 5. full-width parity: seeded fp32 weights, one batched prefill of 4
    prompts plus 4 greedy decode steps on the card vs on the CPU (plain
    versions): last-position logits within 2e-3 of max |logit|, greedy
@@ -707,52 +716,127 @@ def check_paged_multi(dev, gen, entries: dict) -> None:
 
 
 # xfer_matmul_experts (the MoE layer's expert products, one launch): (label,
-# E, C, K, N, dtypes, timed in bf16, entry). deepseek-moe-16b's w_gate /
-# w_up ([64, 2048, 1408]) and w_down ([64, 1408, 2048]) at C = 1 (decode
-# at 8 slots: cap = ceil(8 x 6 / 64 x 1.25)), 60 (one 512-token bucket)
-# and 240 (2048 tokens); then ragged shapes and split-K ones, so that
-# every body's per-expert workspace and counters are reached
+# E, C, K, N, dtypes, timed in bf16, entry, live rows: None for every row,
+# else a kind of expert_live_rows). deepseek-moe-16b's w_gate / w_up
+# ([64, 2048, 1408]) and w_down ([64, 1408, 2048]) at C = 1 (decode at 8
+# slots: cap = ceil(8 x 6 / 64 x 1.25)), 60 (one 512-token bucket) and 240
+# (2048 tokens), every row live; C = 1 with the live rows of a seeded top-6
+# routing of 8 tokens (a decode step, the main entry) and with one live
+# expert; C = 60 and 240 with seeded live rows below C (part-filled and
+# empty row tiles of wgmma); then ragged shapes and split-K ones, so that
+# every body's per-expert workspace and counters are reached, with and
+# without live rows
 EXPERT_CASES = (
-    [(f"[{M_E},{c},{k}] @ [{M_E},{k},{n}]", M_E, c, k, n, BOTH, True,
-      "main" if (c, k) == (1, M_D) else None)
+    [(f"[{M_E},{c},{k}] @ [{M_E},{k},{n}]", M_E, c, k, n, BOTH, True, None,
+      None)
      for c in (1, 60, 240) for k, n in ((M_D, M_FF), (M_FF, M_D))]
-    + [("ragged E=5 C=13 1000x1001", 5, 13, 1000, 1001, BOTH, False, None),
-       ("ragged E=3 C=77 1000x1001", 3, 77, 1000, 1001, BOTH, False, None),
-       ("E=4 C=17 512x256", 4, 17, 512, 256, BOTH, False, None),
-       ("E=7 C=16 256x128", 7, 16, 256, 128, BOTH, False, None),
-       ("split-K E=2 C=9 4096x64", 2, 9, 4096, 64, BOTH, False, None),
-       ("split-K E=2 C=40 4096x256", 2, 40, 4096, 256, BOTH, False, None)])
+    + [(f"[{M_E},1,{k}] @ [{M_E},{k},{n}] routed (8 tokens, top {M_TOPK})",
+        M_E, 1, k, n, BOTH, True, "main" if k == M_D else None, "routed")
+       for k, n in ((M_D, M_FF), (M_FF, M_D))]
+    + [(f"[{M_E},1,{M_D}] @ [{M_E},{M_D},{M_FF}] one live expert", M_E, 1,
+        M_D, M_FF, BOTH, False, None, "single")]
+    + [(f"[{M_E},{c},{k}] @ [{M_E},{k},{n}] live rows below C", M_E, c, k, n,
+        BOTH, True, None, "partial")
+       for c in (60, 240) for k, n in ((M_D, M_FF), (M_FF, M_D))]
+    + [("ragged E=5 C=13 1000x1001", 5, 13, 1000, 1001, BOTH, False, None,
+        None),
+       ("ragged E=3 C=77 1000x1001", 3, 77, 1000, 1001, BOTH, False, None,
+        "partial"),
+       ("E=4 C=17 512x256", 4, 17, 512, 256, BOTH, False, None, None),
+       ("E=7 C=16 256x128", 7, 16, 256, 128, BOTH, False, None, "partial"),
+       ("split-K E=2 C=9 4096x64", 2, 9, 4096, 64, BOTH, False, None, None),
+       ("split-K E=3 C=9 4096x64", 3, 9, 4096, 64, BOTH, False, None,
+        "partial"),
+       ("split-K E=2 C=40 4096x256", 2, 40, 4096, 256, BOTH, False, None,
+        None),
+       ("split-K E=3 C=40 4096x256", 3, 40, 4096, 256, BOTH, False, None,
+        "partial"),
+       ("wgmma E=16 C=33 512x2048", 16, 33, 512, 2048, BOTH, False, None,
+        "partial"),
+       ("wgmma E=12 C=77 1024x1152", 12, 77, 1024, 1152, BOTH, False, None,
+        "partial")])
+
+
+def expert_live_rows(kind: str, e: int, c: int, seed: int = 0) -> list:
+    """Each expert's live rows (``counts`` of ``xfer_matmul_experts``) for
+    a case: ``routed``, 8 tokens each choosing M_TOPK distinct experts
+    uniformly (seeded), each expert's share capped at C (a decode step's
+    ``moe.expert_counts``); ``single``, expert 3 alone, full; ``partial``,
+    seeded uniform in [0, C] with expert 0 empty, expert 1 full and
+    expert 2 at one row."""
+    import numpy as np
+    rng = np.random.RandomState(seed)
+    if kind == "routed":
+        hits = np.zeros(e, np.int64)
+        for _ in range(SLOTS):
+            hits[rng.choice(e, size=min(M_TOPK, e), replace=False)] += 1
+        return np.minimum(hits, c).tolist()
+    if kind == "single":
+        return [c if i == 3 % e else 0 for i in range(e)]
+    live = rng.randint(0, c + 1, size=e)
+    live[:3] = (0, c, 1)[:e]
+    return live.tolist()
+
+
+def expert_bound(e: int, c: int, k: int, n: int, live, esz: int, dname: str):
+    """``bound_ms`` of one ``xfer_matmul_experts`` call: the weights of the
+    experts with a live row, their live rows of x, the whole output
+    written once; the products of the live rows (every row where ``live``
+    is None)."""
+    live = live if live is not None else [c] * e
+    rows = sum(live)
+    busy = sum(1 for v in live if v > 0)
+    return bound_ms((rows * k + busy * k * n + e * c * n) * esz,
+                    2.0 * rows * k * n, dname)
 
 
 def check_experts(dev, gen) -> dict:
     """``xfer_matmul_experts`` on every case of EXPERT_CASES against its
-    plain version (``ref.expert_matmul_ref``, an fp32 einsum over E), two
-    calls bit-equal, the route of each expert's product printed; the
-    timed cases in bf16 beside ``torch.bmm`` (library) and E launches of
-    the dense ``xfer_matmul`` (yardstick), eager and as device time from
-    a CUDA graph."""
+    plain version (``ref.expert_matmul_ref``, an fp32 einsum over E, rows
+    past the live ones zeroed), two calls bit-equal, the route of each
+    expert's product printed; with live rows, also on the case's x with
+    its dead rows zeroed (as ``moe.dispatch`` leaves them) against the
+    call without counts, bit-equal. The timed cases in bf16 beside
+    ``torch.bmm`` (library, every row) and E launches of the dense
+    ``xfer_matmul`` (yardstick), eager and as device time from a CUDA
+    graph; the routed ones in both orders of the expert axis
+    (``EXPERT_ORDER``), and bounded on the live experts' bytes."""
     import torch
     from repro_torch.kernels import ops
-    from repro_torch.kernels.xfer_matmul import route as xfer_route
+    from repro_torch.kernels import xfer_matmul as XM
 
     dtypes = {"float32": torch.float32, "bfloat16": torch.bfloat16}
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     entry_rows, shapes = {}, []
-    for label, e, c, k, n, dnames, timed, entry in EXPERT_CASES:
+    for label, e, c, k, n, dnames, timed, entry, kind in EXPERT_CASES:
+        live = expert_live_rows(kind, e, c) if kind else None
+        counts = (torch.tensor(live, dtype=torch.int32, device=dev)
+                  if live else None)
         for dname in dnames:
             dt = dtypes[dname]
             x = (torch.randn(e, c, k, generator=gen, device=dev)).to(dt)
             w = (torch.randn(e, k, n, generator=gen, device=dev)
                  * k ** -0.5).to(dt)
-            rt = xfer_route(c, k, n, dt, (n, 1), sms, experts=e)
-            got = ops.expert_matmul(x, w)
-            err = compare(f"xfer_matmul_experts {label} {dname}", got,
-                          ops.expert_matmul_ref(x, w), dname)
-            bit_stable(f"xfer_matmul_experts {label} {dname}", got,
-                       ops.expert_matmul(x, w))
-            line = (f"[kernel] xfer_matmul_experts {label} {dname}: route "
-                    f"{rt.kernel} grid {rt.grid} x {e} experts splits "
-                    f"{rt.splits}; max_abs_err {err:.3e} (bit-stable)")
+            rt = XM.route(c, k, n, dt, (n, 1), sms, experts=e)
+            name = f"xfer_matmul_experts {label} {dname}"
+            got = ops.expert_matmul(x, w, counts)
+            err = compare(name, got, ops.expert_matmul_ref(x, w, counts),
+                          dname)
+            bit_stable(name, got, ops.expert_matmul(x, w, counts))
+            line = (f"[kernel] {name}: route {rt.kernel} grid {rt.grid} x "
+                    f"{e} experts splits {rt.splits}"
+                    + (f" rows {rt.rows}" if rt.kernel == "wgmma" else "")
+                    + f"; max_abs_err {err:.3e} (bit-stable)")
+            if live:
+                rows = torch.arange(c, device=dev)[None, :, None]
+                xd = torch.where(rows < counts[:, None, None], x, 0)
+                bit_stable(f"{name}: live rows vs every row on a dispatched "
+                           f"buffer", ops.expert_matmul(xd, w, counts),
+                           ops.expert_matmul(xd, w))
+                line += (f"; {sum(1 for v in live if v)} of {e} experts "
+                         f"live, {sum(live)} of {e * c} rows; equal to the "
+                         f"call without counts on a dispatched buffer")
+                del xd
             if timed and dname == "bfloat16":
                 flops = 2.0 * e * c * k * n
                 it, wu = iters_for(flops)
@@ -761,29 +845,52 @@ def check_experts(dev, gen) -> dict:
                     for i in range(e):
                         ops.matmul(x[i], w[i])
 
-                ms = time_ms(lambda: ops.expert_matmul(x, w), it, wu)
-                dev_ms = graph_ms(lambda: ops.expert_matmul(x, w))
-                plain = time_ms(lambda: ops.expert_matmul_ref(x, w), it, wu)
+                def kern():
+                    return ops.expert_matmul(x, w, counts)
+
+                ms = time_ms(kern, it, wu)
+                dev_ms = graph_ms(kern)
+                plain = time_ms(lambda: ops.expert_matmul_ref(x, w, counts),
+                                it, wu)
                 lib = time_ms(lambda: torch.bmm(x, w), it, wu)
                 lib_dev = graph_ms(lambda: torch.bmm(x, w))
                 yard = time_ms(dense_loop, it, wu)
                 yard_dev = graph_ms(dense_loop, calls=2)
-                b, kind = bound_ms((e * c * k + e * k * n + e * c * n)
-                                   * x.element_size(), flops, dname)
+                b, bkind = expert_bound(e, c, k, n, live, x.element_size(),
+                                        dname)
                 line += (f" ms {ms:.4f} device_ms {dev_ms:.4f} plain_ms "
-                         f"{plain:.4f} library_ms {lib:.4f} (torch.bmm; device "
-                         f"{lib_dev:.4f}) yardstick_ms {yard:.4f} ({e} "
-                         f"xfer_matmul launches; device {yard_dev:.4f}) "
-                         f"bound_ms {b:.4f} ({kind}, {flops:.4e} flops) "
-                         f"kernel/library {ms / lib:.2f}")
-                row = dict(shape=f"x[{e},{c},{k}] @ w[{e},{k},{n}] bf16",
+                         f"{plain:.4f} library_ms {lib:.4f} (torch.bmm, every "
+                         f"row; device {lib_dev:.4f}) yardstick_ms {yard:.4f} "
+                         f"({e} xfer_matmul launches; device {yard_dev:.4f}) "
+                         f"bound_ms {b:.4f} ({bkind}"
+                         + (", live experts' bytes" if live else "")
+                         + f") kernel/library {ms / lib:.2f}")
+                row = dict(shape=f"x[{e},{c},{k}] @ w[{e},{k},{n}] bf16"
+                                 + (f" {kind} live rows" if live else ""),
                            variant=rt.kernel, max_abs_err=err, ms=ms,
                            device_ms=dev_ms, plain_ms=plain, bound_ms=b,
-                           bound_by=kind, library_ms=lib,
+                           bound_by=bkind, library_ms=lib,
                            library_device_ms=lib_dev, yardstick_ms=yard,
                            yardstick_device_ms=yard_dev,
                            yardstick=f"{e} launches of xfer_matmul",
                            bit_stable=True)
+                if live:
+                    row["live_rows"] = live
+                if kind == "routed":  # the other order of the expert axis
+                    order = XM.EXPERT_ORDER
+                    other = "live_first" if order == "early" else "early"
+                    XM.EXPERT_ORDER = other
+                    try:
+                        bit_stable(f"{name}: {other} order vs {order}",
+                                   got, kern())
+                        row["order"] = order
+                        row[f"{other}_ms"] = time_ms(kern, it, wu)
+                        row[f"{other}_device_ms"] = graph_ms(kern)
+                    finally:
+                        XM.EXPERT_ORDER = order
+                    line += (f"; order {order}, {other} ms "
+                             f"{row[other + '_ms']:.4f} device_ms "
+                             f"{row[other + '_device_ms']:.4f}")
                 shapes.append(row)
                 if entry == "main":
                     entry_rows.update(row)
@@ -791,7 +898,8 @@ def check_experts(dev, gen) -> dict:
             del x, w, got
     entry_rows["shapes"] = shapes
     entry_rows["note"] = ("no TPU kernel: the reference's expert products "
-                          "are jnp.einsum in _expert_ffn")
+                          "are jnp.einsum in _expert_ffn; the main entry is "
+                          "a decode step's routed live rows")
     return {"xfer_matmul_experts": entry_rows}
 
 # --------------------------------------------------------------------------
@@ -1234,6 +1342,7 @@ def check_int8_kernels(dev, gen) -> dict:
     from repro_torch import quant as Q
     from repro_torch.kernels import ops
     from repro_torch.kernels.quant_matmul import route as qm_route
+    from repro_torch.kernels.quant_matmul import x_terms
 
     dtypes = {"float32": torch.float32, "bfloat16": torch.bfloat16}
     entries = {}
@@ -1255,7 +1364,8 @@ def check_int8_kernels(dev, gen) -> dict:
         for dname, dt in dtypes.items():
             x = randn(r, n, dt=dt)
             rt = qm_route(r, n, m, dt, w_q.stride(), sms,
-                          aligned=w_q.data_ptr() % 16 == 0)
+                          aligned=w_q.data_ptr() % 16 == 0,
+                          x_aligned=x.data_ptr() % 16 == 0)
             got = ops.int8_matmul(x, w_q, scale)
             want = ops.int8_matmul_ref(x, w_q, scale)
             err = compare(f"quant_matmul {label} {dname}", got, want, dname)
@@ -1268,8 +1378,14 @@ def check_int8_kernels(dev, gen) -> dict:
                 plain = time_ms(lambda: ops.int8_matmul_ref(x, w_q, scale))
                 lib, lib_note = int8pack_ms(x, w_q, scale, want)
                 yard = time_ms(lambda: torch.matmul(x, w_deq))
-                b, kind = bound_ms(r * n * 4 + n * m + m * 4 + r * m * 4,
-                                   2.0 * r * n * m, dname)
+                # the prefill wgmma route runs x's bf16 terms on the
+                # tensor cores: x_terms products at the bf16 peak
+                nbytes = r * n * 4 + n * m + m * 4 + r * m * 4
+                if rt.kernel == "wgmma":
+                    b, kind = bound_ms(nbytes, 2.0 * r * n * m * x_terms(dt),
+                                       "bfloat16")
+                else:
+                    b, kind = bound_ms(nbytes, 2.0 * r * n * m, dname)
                 lib_text = (f"{lib:.4f} (torch._weight_int8pack_mm, max_abs_err "
                             f"{lib_note:.3e})" if lib is not None else
                             f"null (torch._weight_int8pack_mm raises: {lib_note})")
@@ -2554,8 +2670,9 @@ def trace_window(run, steps: int, share_of: str = None) -> dict:
     ``torch.profiler``: the device's busy time (union of kernel, memcpy
     and memset intervals) over the window, device launches per step and
     the top device ops by total time; with ``share_of``, the device ms a
-    step of the kernels whose name holds it and their share of the
-    busy time."""
+    step of the kernels whose name holds it (a string) or that it holds
+    true for (a (label, test of a trace event) pair) and their share of
+    the busy time."""
     import tempfile
     import torch
     from torch.profiler import ProfilerActivity, profile, record_function
@@ -2589,16 +2706,36 @@ def trace_window(run, steps: int, share_of: str = None) -> dict:
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
     kernels = sum(1 for e in dev if e["cat"] == "kernel")
     share = {}
-    if share_of:
+    if isinstance(share_of, str):
         part = sum(t for n, t in by_name.items() if share_of in n)
         share = {"share_of": share_of, "share_ms_per_step": part / 1e3 / steps,
                  "share": part / busy}
+    elif share_of and not any("grid" in e.get("args", {}) for e in dev):
+        share = {"share_of": share_of[0], "share_measured": False}
+    elif share_of:
+        label, test = share_of
+        hits = [e for e in dev if test(e)]
+        part = sum(float(e["dur"]) for e in hits)
+        share = {"share_of": label, "share_ms_per_step": part / 1e3 / steps,
+                 "share": part / busy, "share_launches_per_step":
+                 len(hits) / steps}
     return {**share, "measured": True, "window_ms": (t1 - t0) / 1e3,
             "busy_ms": busy / 1e3, "idle_share": 1.0 - busy / (t1 - t0),
             "device_ms_per_step": busy / 1e3 / steps,
             "kernels_per_step": kernels / steps,
             "copies_per_step": (len(dev) - kernels) / steps,
             "top": [(n[:60], round(t / 1e3 / steps, 4)) for n, t in top]}
+
+
+def expert_launch(event: dict) -> bool:
+    """A trace event of a hand-written matmul launched over an expert
+    axis (grid z > 1): ``xfer_matmul_experts``. No other matmul kernel
+    has a third grid axis but ``tc``'s split-K, which no step runs."""
+    grid = event.get("args", {}).get("grid") or (1, 1, 1)
+    return event.get("cat") == "kernel" and grid[2] > 1 and any(
+        k in event["name"] for k in ("stream_mma_kernel", "stream_rows_kernel",
+                                     "wg_kernel", "tc_kernel",
+                                     "matmul_kernel"))
 
 
 def trace_steps() -> dict:
@@ -2611,7 +2748,9 @@ def trace_steps() -> dict:
     deepseek-moe-16b's captured step (phase 4j's model); then full-size
     seamless-m4t-medium's captured step (phase 4l's model), with the
     share of its step that the cross K/V products take (``wg_kernel``:
-    the only R = 4096 products of a step). Prints the device's idle
+    the only R = 4096 products of a step), and deepseek's with the share
+    of its expert products (the only kernels launched over an expert
+    axis, grid z > 1: ``expert_launch``). Prints the device's idle
     share of each window, the top device ops and the launches per step
     that are not the hand-written kernels'."""
     import torch
@@ -2659,7 +2798,9 @@ def trace_steps() -> dict:
         host_ms = (time.perf_counter() - t0) * 1e3 / TRACE_STEPS
         ours = sum(ops.launch_counts().values()) / TRACE_STEPS
         row = trace_window(run, TRACE_STEPS,
-                           "wg_kernel" if mode == "encdec" else None)
+                           {"encdec": "wg_kernel",
+                            "moe": ("xfer_matmul_experts (grid z > 1)",
+                                    expert_launch)}.get(mode))
         row.update(host_ms_per_step=host_ms, handwritten_per_step=ours)
         if row["measured"]:
             row["other_launches_per_step"] = row["kernels_per_step"] - ours
@@ -2676,9 +2817,16 @@ def trace_steps() -> dict:
                 f"{row['copies_per_step']:.1f} copies/memsets")
             log(f"[trace-{mode}] top device ops (ms a step): {row['top']}")
             if "share" in row:
-                log(f"[trace-{mode}] the cross K/V products ({row['share_of']}"
+                what = {"encdec": "the cross K/V products",
+                        "moe": "the expert products"}[mode]
+                log(f"[trace-{mode}] {what} ({row['share_of']}"
                     f"): {row['share_ms_per_step']:.4f} device ms a step, "
-                    f"{row['share']:.4f} of the step's busy time")
+                    f"{row['share']:.4f} of the step's busy time"
+                    + (f", {row['share_launches_per_step']:.1f} launches a "
+                       f"step" if "share_launches_per_step" in row else ""))
+            elif "share_measured" in row:
+                log(f"[trace-{mode}] {row['share_of']}: not measured, the "
+                    f"trace's kernel events carry no grid")
         else:
             log(f"[trace-{mode}] host {host_ms:.3f} ms a step; idle share not "
                 f"measured: the trace holds no device events")
@@ -3934,14 +4082,16 @@ def parity_spec(dev) -> None:
 # instance (flash_split_kernel, flash_tc_kernel, flash_terms_kernel),
 # both rglru_scan routes,
 # both mlstm_chunkwise kernels (fp32 mlstm_kernel, bf16 mlstm_tc_kernel),
-# xfer_matmul's and quant_matmul's decode and tensor-core kernels and both
-# paged_attention bodies (paged_split_kernel, fp and int8 pools)
+# xfer_matmul's and quant_matmul's decode and tensor-core kernels (every
+# wg_kernel instance, the expert axis's 64-row one too, and the int8
+# wg_q8_kernel) and both paged_attention bodies (paged_split_kernel, fp
+# and int8 pools)
 NO_SPILL = ("flash_split_kernel", "flash_tc_kernel", "flash_terms_kernel",
             "rglru_ring_kernel", "rglru_rows_kernel",
             "mlstm_kernel", "mlstm_tc_kernel",
             "stream_rows_kernel", "stream_mma_kernel", "stream_cols_kernel",
             "stream_mma_q8_kernel", "stream_cols_q8_kernel", "tc_kernel",
-            "wg_kernel", "paged_split_kernel")
+            "wg_kernel", "wg_q8_kernel", "paged_split_kernel")
 
 
 def check_ptxas(build_log: dict) -> None:

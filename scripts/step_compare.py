@@ -8,7 +8,8 @@ Each TREE is the root of a checkout (``.`` for this one; an older commit
 unpacked with ``git archive`` into a directory that ``.gitignore`` lists).
 For each, in a fresh process, it runs that checkout's own
 ``chip_smoke.py`` serving phases: 4 (qwen1.5-0.5b, bf16), 4b (the same
-under INT8), 4c (recurrentgemma-2b) and 4d (xlstm-350m), kernels built
+under INT8), 4c (recurrentgemma-2b), 4d (xlstm-350m) and 4j
+(deepseek-moe-16b on the slot grid, then the page pool), kernels built
 from that checkout's sources. It prints one JSON line per tree and phase with the
 ``step_stats``, ``prefill_stats`` and ``peak_allocated_bytes`` that the
 phase logged. Give the trees
@@ -34,9 +35,10 @@ cs.serve_full_width()
 cs.serve_full_width(int8=True)
 cs.serve_hybrid()
 cs.serve_xlstm()
+cs.serve_moe()
 """
 _TAGS = {"serve": "4", "serve-int8": "4b", "serve-hybrid": "4c",
-         "serve-ssm": "4d"}
+         "serve-ssm": "4d", "serve-moe": "4j", "serve-moe-paged": "4j-pool"}
 
 
 def run_tree(tree: str) -> list:

@@ -100,13 +100,64 @@ __device__ __forceinline__ void store(float* p, float v) { *p = v; }
 __device__ __forceinline__ void store(__nv_bfloat16* p, float v) { *p = __float2bfloat16(v); }
 
 // The expert axis of xfer_matmul_experts (x [E, R, N] @ w [E, N, M]): the
-// block of expert e (blockIdx.z; tc: blockIdx.z / splits) reads x, w and
-// writes out, the split-K workspace and the tile counters advanced by e
-// times these element strides. All zero (and one expert) for xfer_matmul.
+// block of expert e reads x, w and writes out, the split-K workspace and
+// the tile counters advanced by e times these element strides. All zero
+// (and one expert) for xfer_matmul. counts (null: every row live) holds
+// each expert's live rows: rows at or past counts[e] are read as zero, so
+// they come out +0, and a block whose rows are all dead loads no weight
+// and writes its tile as +0 (one block per tile where K is split), which
+// leaves the split-K counters at 0 for the next call. Grid z (tc: z /
+// splits) is expert z, or, with live_first, the z-th expert in the order
+// live ones first, then dead ones (block_expert).
 struct Group {
   long long sx, sw, so, sws;
   int scnt;
+  const int* counts;
+  int live_first;
 };
+
+// The expert of expert-axis index z of E. Every warp of the block walks
+// counts in 32-expert chunks with ballots (all lanes must be active):
+// first the number of live experts, then the z-th live expert, or the
+// (z - live)-th dead one.
+__device__ __forceinline__ int block_expert(const Group& g, int z, int E) {
+  if (g.counts == nullptr || !g.live_first) return z;
+  const int lane = threadIdx.x & 31;
+  int live = 0;
+  for (int b = 0; b < E; b += 32) {
+    const int i = b + lane;
+    live += __popc(__ballot_sync(0xffffffffu, i < E && __ldg(g.counts + i) > 0));
+  }
+  const bool want_live = z < live;
+  int rank = want_live ? z : z - live;
+  for (int b = 0; b < E; b += 32) {
+    const int i = b + lane;
+    unsigned m = __ballot_sync(
+        0xffffffffu, i < E && (__ldg(g.counts + i) > 0) == want_live);
+    const int n = __popc(m);
+    if (rank < n) {
+      for (int j = 0; j < rank; ++j) m &= m - 1;  // drop the lowest rank bits
+      return b + __ffs(m) - 1;
+    }
+    rank -= n;
+  }
+  return z;  // not reached: the two orders cover [0, E)
+}
+
+// expert e's live rows of R
+__device__ __forceinline__ int live_rows(const Group& g, int e, int R) {
+  return g.counts == nullptr ? R : min(R, max(__ldg(g.counts + e), 0));
+}
+
+// a dead block's output tile: rows [r0, min(r1, R)) x columns [c0,
+// min(c1, M)) of out [R, M] as +0, by the whole block
+template <typename T>
+__device__ __forceinline__ void zero_tile(T* out, int R, int M, int r0,
+                                          int r1, int c0, int c1) {
+  const int rows = min(r1, R) - r0, cols = min(c1, M) - c0;
+  for (int o = threadIdx.x; o < rows * cols; o += blockDim.x)
+    store(out + (long long)(r0 + o / cols) * M + c0 + o % cols, 0.f);
+}
 
 // T: x and out; W: w (T, or int8_t with one f32 scale per column)
 template <typename T, typename W, int BM>
@@ -115,12 +166,11 @@ matmul_kernel(const T* __restrict__ x, const W* __restrict__ w,
               const float* __restrict__ scale, T* __restrict__ out, int R,
               int N, int M, long long swn, long long swm, Group grp) {
   constexpr bool Q8 = std::is_same<W, int8_t>::value;
-  {
-    const long long e = blockIdx.z;
-    x += e * grp.sx;
-    w += e * grp.sw;
-    out += e * grp.so;
-  }
+  const int e = block_expert(grp, blockIdx.z, gridDim.z);
+  x += e * grp.sx;
+  w += e * grp.sw;
+  out += e * grp.so;
+  const int RL = live_rows(grp, e, R);
   constexpr int TM = BM / 16;  // rows per thread
   constexpr int TN = BN / 16;  // columns per thread
   // +1 padding: the transposing stores below hit distinct banks
@@ -133,6 +183,7 @@ matmul_kernel(const T* __restrict__ x, const W* __restrict__ w,
   const int r0 = blockIdx.y * BM;
   const int c0 = blockIdx.x * BN;
   const bool w_kmajor = (swn == 1 && swm != 1);
+  const int KN = r0 < RL ? N : 0;  // a tile of dead rows stores zeros
 
   float acc[TM][TN];
 #pragma unroll
@@ -140,12 +191,12 @@ matmul_kernel(const T* __restrict__ x, const W* __restrict__ w,
 #pragma unroll
     for (int j = 0; j < TN; ++j) acc[i][j] = 0.f;
 
-  for (int k0 = 0; k0 < N; k0 += BK) {
+  for (int k0 = 0; k0 < KN; k0 += BK) {
     // x tile [BM, BK]: consecutive threads read consecutive k
     for (int idx = tid; idx < BM * BK; idx += THREADS) {
       const int r = idx / BK, kk = idx % BK;
       const int gr = r0 + r, gk = k0 + kk;
-      xs[kk][r] = (gr < R && gk < N) ? to_f32(x[(long long)gr * N + gk]) : 0.f;
+      xs[kk][r] = (gr < RL && gk < N) ? to_f32(x[(long long)gr * N + gk]) : 0.f;
     }
     // w tile [BK, BN]: consecutive threads walk w's contiguous axis
     for (int idx = tid; idx < BK * BN; idx += THREADS) {
@@ -418,17 +469,18 @@ stream_rows_kernel(const T* __restrict__ x, const T* __restrict__ w,
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int rg = lane / LPR, cl = lane % LPR;
   const int tile = blockIdx.x, split = blockIdx.y;
-  {
-    const long long e = blockIdx.z;
-    x += e * grp.sx;
-    w += e * grp.sw;
-    out += e * grp.so;
-    ws += e * grp.sws;
-    counters += e * grp.scnt;
-  }
+  const int e = block_expert(grp, blockIdx.z, gridDim.z);
+  x += e * grp.sx;
+  w += e * grp.sw;
+  out += e * grp.so;
+  ws += e * grp.sws;
+  counters += e * grp.scnt;
+  // an expert with no live row reads no weight: its blocks take no rows
+  // of w and store (or merge) zeros
+  const int RL = live_rows(grp, e, R);
   const int c0 = tile * TILE + cl * V;
   const int k0 = split * kc;
-  const int klen = min(N, k0 + kc) - k0;
+  const int klen = RL == 0 ? 0 : min(N, k0 + kc) - k0;
 
   const int valid = M - c0;
   const bool vec_ok =
@@ -449,7 +501,7 @@ stream_rows_kernel(const T* __restrict__ x, const T* __restrict__ w,
 
   for (int i = tid; i < R * klen; i += THREADS) {
     const int r = i / klen, k = i % klen;
-    buf[r * kc + k] = to_f32(x[(long long)r * N + k0 + k]);
+    buf[r * kc + k] = r < RL ? to_f32(x[(long long)r * N + k0 + k]) : 0.f;
   }
   __syncthreads();
 
@@ -522,13 +574,16 @@ stream_mma_kernel(const __nv_bfloat16* __restrict__ x,
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int tile = blockIdx.x, split = blockIdx.y;
-  {
-    const long long e = blockIdx.z;
-    x += e * grp.sx;
-    w += e * grp.sw;
-    out += e * grp.so;
-    ws += e * grp.sws;
-    counters += e * grp.scnt;
+  const int e = block_expert(grp, blockIdx.z, gridDim.z);
+  x += e * grp.sx;
+  w += e * grp.sw;
+  out += e * grp.so;
+  ws += e * grp.sws;
+  counters += e * grp.scnt;
+  const int RL = live_rows(grp, e, R);
+  if (RL == 0) {  // no weight read; the counters stay at 0
+    if (split == 0) zero_tile(out, R, M, 0, R, tile * MT, (tile + 1) * MT);
+    return;
   }
   const int c0 = tile * MT;
   const int k0 = split * kc;
@@ -557,7 +612,7 @@ stream_mma_kernel(const __nv_bfloat16* __restrict__ x,
   if (N % 8 == 0 && k0 % 8 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0) {
     for (int i = tid; i < RB * (xld / 8); i += THREADS) {
       const int r = i / (xld / 8), k = i % (xld / 8) * 8;
-      const bool ok = r < R && k < klen;
+      const bool ok = r < RL && k < klen;
       cp_async<16>(smem_u32(xs + r * xld + k),
                    ok ? x + (long long)r * N + k0 + k : x,
                    ok ? min(16, (klen - k) * 2) : 0);
@@ -566,7 +621,7 @@ stream_mma_kernel(const __nv_bfloat16* __restrict__ x,
     const __nv_bfloat16 zero = __float2bfloat16(0.f);
     for (int i = tid; i < RB * xld; i += THREADS) {
       const int r = i / xld, k = i % xld;
-      xs[i] = (r < R && k < klen) ? x[(long long)r * N + k0 + k] : zero;
+      xs[i] = (r < RL && k < klen) ? x[(long long)r * N + k0 + k] : zero;
     }
   }
 #pragma unroll
@@ -1071,13 +1126,16 @@ tc_kernel(const __nv_bfloat16* __restrict__ x,
   const int wm = warp / 2, wn = warp % 2;
   const int r0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
   const int split = blockIdx.z % splits;
-  {
-    const long long e = blockIdx.z / splits;
-    x += e * grp.sx;
-    w += e * grp.sw;
-    out += e * grp.so;
-    ws += e * grp.sws;
-    counters += e * grp.scnt;
+  const int e = block_expert(grp, blockIdx.z / splits, gridDim.z / splits);
+  x += e * grp.sx;
+  w += e * grp.sw;
+  out += e * grp.so;
+  ws += e * grp.sws;
+  counters += e * grp.scnt;
+  const int RL = live_rows(grp, e, R);
+  if (r0 >= RL) {  // no weight read; the tile's counter stays at 0
+    if (split == 0) zero_tile(out, R, M, r0, r0 + BM, n0, n0 + BN);
+    return;
   }
   // this block's k-tiles: [kt0, kt0 + KT) of the (N + BK - 1) / BK
   const int kt0 = split * kt_per_split;
@@ -1092,7 +1150,7 @@ tc_kernel(const __nv_bfloat16* __restrict__ x,
     for (int i = tid; i < BM * (BK / 8); i += THREADS) {
       const int row = i / (BK / 8), ch = i % (BK / 8);
       const int gr = r0 + row, gk = k0 + ch * 8;
-      const bool ok = gr < R;
+      const bool ok = gr < RL;
       const __nv_bfloat16* src = ok ? x + (long long)gr * N + gk : x;
       cp_async<16>(smem_u32(as + row * A_LD + ch * 8), src,
                    ok ? clamp_bytes<16>(N - gk) : 0);
@@ -1332,53 +1390,65 @@ __device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lbo,
          ((uint64_t)(sbo >> 4) << 32) | (1ull << 62);
 }
 
-constexpr int WBM = 128, WBK = 64;
-// stages of the ring: 3 for 128-column tiles (96 KB: two blocks per SM),
-// 4 for 256 (one block per SM either way); all but two loaded ahead, one
-// wgmma group in flight
+constexpr int WBK = 64;
+// stages of the ring: 3 for 128-column tiles (96 KB with 128 rows: two
+// blocks per SM; 72 KB with 64: three), 4 for 256 (one block per SM
+// either way); all but two loaded ahead, one wgmma group in flight
 __host__ __device__ constexpr int w_stages(int bn) { return bn == 256 ? 4 : 3; }
-constexpr int WTHREADS = 256;  // 2 warpgroups, 64 rows each
-constexpr int W_A_BYTES = WBM * 128;  // 128 rows of 128 B
-// a stage: A, then B (BN rows, or BN / 64 column groups, of 128 B)
-__host__ __device__ constexpr int w_stage_bytes(int bn) {
-  return W_A_BYTES + bn * 128;
+// a stage: A (BM rows of 128 B), then B (BN rows, or BN / 64 column
+// groups, of 128 B)
+__host__ __device__ constexpr int w_stage_bytes(int bn, int bm) {
+  return bm * 128 + bn * 128;
 }
-__host__ __device__ constexpr int w_smem(int bn) {
-  return w_stages(bn) * w_stage_bytes(bn) + 1024;  // + alignment
+__host__ __device__ constexpr int w_smem(int bn, int bm) {
+  return w_stages(bn) * w_stage_bytes(bn, bm) + 1024;  // + alignment
 }
 
 // x [R, N] row-major, N % 8 == 0; w K-major (KMAJ: w[n, m] at
 // w + n + m * ldw) or row-major (at w + n * ldw + m), ldw % 8 == 0, x and
-// w on 16 bytes. Block tile 128 x BN x 64: two warpgroups of 64 rows, one
-// wgmma m64nBNk16 per 16 of depth (B transposed by the instruction for a
-// row-major w), a cp.async ring (w_stages) with all but two stages loaded
-// ahead and one wgmma group in flight. Tiles are stored with the 128-byte swizzle: A and
-// a K-major B as rows of 64 k (128 bytes; 16-byte chunk c of row r at
-// c ^ (r % 8)), a row-major B as 64-column groups [64 k][64 n] (8 KB each).
-template <bool KMAJ, int BN>
-__global__ void __launch_bounds__(WTHREADS)
+// w on 16 bytes. Block tile BM x BN x 64: BM / 64 warpgroups (two, or one
+// for the expert products of C <= 64) of 64 rows, one wgmma m64nBNk16
+// per 16 of depth (B transposed by the instruction for a row-major w), a
+// cp.async ring (w_stages) with all but two stages loaded ahead and one
+// wgmma group in flight. Tiles are stored with the 128-byte swizzle: A
+// and a K-major B as rows of 64 k (128 bytes; 16-byte chunk c of row r at
+// c ^ (r % 8)), a row-major B as 64-column groups [64 k][64 n] (8 KB
+// each). Over an expert axis (grid z, Group) a tile whose rows all lie at
+// or past the expert's live rows loads nothing and stores +0.
+template <bool KMAJ, int BN, int BM>
+__global__ void __launch_bounds__(BM * 2)
 wg_kernel(const __nv_bfloat16* __restrict__ x,
           const __nv_bfloat16* __restrict__ w, __nv_bfloat16* __restrict__ out,
-          int R, int N, int M, long long ldw) {
+          int R, int N, int M, long long ldw, Group grp) {
   extern __shared__ __align__(1024) unsigned char wsmem_raw[];
   const uint32_t base =
       (smem_u32(wsmem_raw) + 1023) & ~1023u;  // 1024-byte aligned stages
+  constexpr int WTHREADS = BM * 2, A_BYTES = BM * 128;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int wg = warp / 4;
-  constexpr int STAGE = w_stage_bytes(BN);
+  constexpr int STAGE = w_stage_bytes(BN, BM);
   constexpr int WSTAGES = w_stages(BN), WAHEAD = WSTAGES - 2;
-  const int r0 = blockIdx.y * WBM, n0 = blockIdx.x * BN;
+  const int r0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
   const int KT = (N + WBK - 1) / WBK;
+  const int e = block_expert(grp, blockIdx.z, gridDim.z);
+  x += e * grp.sx;
+  w += e * grp.sw;
+  out += e * grp.so;
+  const int RL = live_rows(grp, e, R);
+  if (r0 >= RL) {
+    zero_tile(out, R, M, r0, r0 + BM, n0, n0 + BN);
+    return;
+  }
 
   auto load_stage = [&](int st, int kt) {
     const int k0 = kt * WBK;
     const uint32_t a_s = base + st * STAGE;
-    const uint32_t b_s = a_s + W_A_BYTES;
+    const uint32_t b_s = a_s + A_BYTES;
 #pragma unroll
-    for (int i = tid; i < 128 * 8; i += WTHREADS) {  // A: 128 rows x 8 chunks
+    for (int i = tid; i < BM * 8; i += WTHREADS) {  // A: BM rows x 8 chunks
       const int r = i / 8, c = i % 8;
       const int gr = r0 + r, gk = k0 + c * 8;
-      const bool ok = gr < R && gk < N;
+      const bool ok = gr < RL && gk < N;
       cp_async<16>(a_s + r * 128 + ((c ^ (r & 7)) * 16),
                    ok ? x + (long long)gr * N + gk : x, ok ? 16 : 0);
     }
@@ -1422,7 +1492,7 @@ wg_kernel(const __nv_bfloat16* __restrict__ x,
     cp_async_commit();
 
     const uint32_t a_s = base + (kt % WSTAGES) * STAGE + wg * 64 * 128;
-    const uint32_t b_s = base + (kt % WSTAGES) * STAGE + W_A_BYTES;
+    const uint32_t b_s = base + (kt % WSTAGES) * STAGE + A_BYTES;
     wgmma_fence();
 #pragma unroll
     for (int j = 0; j < WBK / 16; ++j) {
@@ -1460,6 +1530,200 @@ wg_kernel(const __nv_bfloat16* __restrict__ x,
         if (gc < M) *o = __float2bfloat16(v0);
         if (gc + 1 < M) o[1] = __float2bfloat16(v1);
       }
+    }
+  }
+}
+
+// ---- quant_matmul at prefill: wgmma on exact bf16 terms ----------------
+//
+// x [R, N] (fp32 or bf16) @ w_q [N, M] int8 row-major (rows and base on
+// 16 bytes, M % 16 == 0, N % 8 == 0), times scale[M]: the int8 prefill
+// projections of the INT8 serving path. Above the card's ridge in bf16,
+// so bound by the tensor cores over TERMS term products (fp32 x as hi,
+// mid, lo as stage_terms splits it; bf16 x as itself), each term times
+// an int8 weight exact in fp32: the result is quant_matmul_split_ref's up
+// to the fp32 summation order, with no TF32 and no quantisation of x.
+// Block tile 128 x 128 x 64, two warpgroups of 64 rows, one fp32
+// accumulator over the terms: per 16 of depth one wgmma m64n128k16 per
+// term on the same B. The terms are written as their own A tiles rather
+// than split in registers for wgmma's register-A form: a register A
+// fragment may not change until its wgmma group retires, which would
+// serialise the split with the products, while shared A tiles let the
+// next k-tile's split run under this one's products. The next k-tile's
+// x (fp32 or bf16) and int8 w are loaded into registers while the
+// products run, then x split into terms and w widened exactly to bf16
+// (byte permutes) into the other of two shared buffers, in the 128-byte
+// swizzle of wg_kernel (A rows of 64 k; B as 64-column groups [64 k][64
+// n]). Two buffers of (TERMS + 1) x 16 KB: 129 KB for fp32 x, one block
+// per SM; 65 KB for bf16. The scale multiplies each output once, at the
+// store, then the cast to x's dtype.
+constexpr int QBM = 128, QBN = 128, QTHREADS = 256;
+constexpr int Q_A_BYTES = QBM * 128;  // one term's A tile: 128 rows of 64 k
+constexpr int Q_B_BYTES = QBN * 128;  // widened B: two groups [64 k][64 n]
+__host__ __device__ constexpr int q_stage_bytes(int terms) {
+  return terms * Q_A_BYTES + Q_B_BYTES;
+}
+__host__ __device__ constexpr int q_smem(int terms) {
+  return 2 * q_stage_bytes(terms) + 1024;  // + alignment
+}
+
+__device__ __forceinline__ void st_shared_v4(uint32_t addr, uint32_t a,
+                                             uint32_t b, uint32_t c,
+                                             uint32_t d) {
+  asm volatile("st.shared.v4.b32 [%0], {%1, %2, %3, %4};\n" ::"r"(addr),
+               "r"(a), "r"(b), "r"(c), "r"(d)
+               : "memory");
+}
+// v as stage_terms' three bf16 terms hi, mid, lo (their bits)
+__device__ __forceinline__ void split3(float v, uint32_t (&t)[3]) {
+  const __nv_bfloat16 hi = __float2bfloat16(v);
+  const float rest = v - __bfloat162float(hi);
+  const __nv_bfloat16 mid = __float2bfloat16(rest);
+  t[0] = __bfloat16_as_ushort(hi);
+  t[1] = __bfloat16_as_ushort(mid);
+  t[2] = __bfloat16_as_ushort(__float2bfloat16(rest - __bfloat162float(mid)));
+}
+
+template <typename T, int TERMS>
+__global__ void __launch_bounds__(QTHREADS, 1)
+wg_q8_kernel(const T* __restrict__ x, const int8_t* __restrict__ w,
+             const float* __restrict__ scale, T* __restrict__ out, int R,
+             int N, int M, long long ldw) {
+  extern __shared__ __align__(1024) unsigned char qsmem_raw[];
+  const uint32_t base = (smem_u32(qsmem_raw) + 1023) & ~1023u;
+  constexpr int STAGE = q_stage_bytes(TERMS);
+  constexpr int XV = sizeof(T) == 4 ? 2 : 1;  // 16-byte loads per 8 of x
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int wg = warp / 4;
+  const int r0 = blockIdx.y * QBM, n0 = blockIdx.x * QBN;
+  const int KT = (N + WBK - 1) / WBK;
+  // a thread stages 8 k of x rows sr, sr + 32, ... (chunk sc) and 16
+  // columns (chunk sc) of w rows sr and sr + 32 of each k-tile
+  const int sr = tid / 8, sc = tid % 8;
+  const uint4 zero = make_uint4(0u, 0u, 0u, 0u);
+
+  uint4 xr[4][XV], wr[2];
+  auto load = [&](int kt) {
+    const int k0 = kt * WBK;
+#pragma unroll
+    for (int p = 0; p < 4; ++p) {
+      const int gr = r0 + p * 32 + sr, gk = k0 + sc * 8;
+      const bool ok = gr < R && gk < N;
+      const uint4* src =
+          reinterpret_cast<const uint4*>(x + (ok ? (long long)gr * N + gk : 0));
+#pragma unroll
+      for (int v = 0; v < XV; ++v) xr[p][v] = ok ? __ldg(src + v) : zero;
+    }
+#pragma unroll
+    for (int p = 0; p < 2; ++p) {
+      const int gk = k0 + p * 32 + sr, gc = n0 + sc * 16;
+      const bool ok = gk < N && gc < M;
+      wr[p] = ok ? __ldg(reinterpret_cast<const uint4*>(
+                       w + (long long)gk * ldw + gc))
+                 : zero;
+    }
+  };
+  auto store = [&](int buf) {
+    const uint32_t s = base + buf * STAGE;
+#pragma unroll
+    for (int p = 0; p < 4; ++p) {
+      const int r = p * 32 + sr;
+      const uint32_t a = s + r * 128 + ((sc ^ (r & 7)) * 16);
+      if constexpr (TERMS == 1) {
+        st_shared_v4(a, xr[p][0].x, xr[p][0].y, xr[p][0].z, xr[p][0].w);
+      } else {
+        const uint32_t u[8] = {xr[p][0].x, xr[p][0].y, xr[p][0].z, xr[p][0].w,
+                               xr[p][1].x, xr[p][1].y, xr[p][1].z, xr[p][1].w};
+        uint32_t t[3][4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {  // elements 2 i (low half), 2 i + 1
+          uint32_t a[3], b[3];
+          split3(__uint_as_float(u[2 * i]), a);
+          split3(__uint_as_float(u[2 * i + 1]), b);
+#pragma unroll
+          for (int term = 0; term < 3; ++term)
+            t[term][i] = a[term] | (b[term] << 16);
+        }
+#pragma unroll
+        for (int term = 0; term < 3; ++term)
+          st_shared_v4(a + term * Q_A_BYTES, t[term][0], t[term][1],
+                       t[term][2], t[term][3]);
+      }
+    }
+    // w: 16 int8 of row k, columns 16 sc .. 16 sc + 15, as 16 bf16: chunks
+    // 2 (sc % 4) and + 1 of column group sc / 4
+#pragma unroll
+    for (int p = 0; p < 2; ++p) {
+      const int k = p * 32 + sr;
+      const uint32_t u[4] = {wr[p].x ^ 0x80808080u, wr[p].y ^ 0x80808080u,
+                             wr[p].z ^ 0x80808080u, wr[p].w ^ 0x80808080u};
+      uint32_t b[8];
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        b[2 * q] = stream::bf16x2_hi(stream::q8_float(u[q], 0),
+                                     stream::q8_float(u[q], 1));
+        b[2 * q + 1] = stream::bf16x2_hi(stream::q8_float(u[q], 2),
+                                         stream::q8_float(u[q], 3));
+      }
+      const int c0 = (sc % 4) * 2;
+      const uint32_t row = s + TERMS * Q_A_BYTES + (sc / 4) * 8192 + k * 128;
+      st_shared_v4(row + ((c0 ^ (k & 7)) * 16), b[0], b[1], b[2], b[3]);
+      st_shared_v4(row + (((c0 + 1) ^ (k & 7)) * 16), b[4], b[5], b[6], b[7]);
+    }
+  };
+
+  float acc[64];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) acc[i] = 0.f;
+
+  load(0);
+  store(0);
+  fence_proxy_async();
+  __syncthreads();
+  for (int kt = 0; kt < KT; ++kt) {
+    const bool more = kt + 1 < KT;
+    if (more) load(kt + 1);  // in flight under this k-tile's products
+    const uint32_t s = base + (kt & 1) * STAGE;
+    wgmma_fence();
+#pragma unroll
+    for (int j = 0; j < WBK / 16; ++j) {
+      const uint64_t db =
+          smem_desc(s + TERMS * Q_A_BYTES + j * 16 * 128, 8192, 1024);
+#pragma unroll
+      for (int term = 0; term < TERMS; ++term)
+        wgmma_m64n128k16<1>(
+            acc, smem_desc(s + term * Q_A_BYTES + wg * 64 * 128 + j * 32, 16,
+                           1024),
+            db);
+    }
+    wgmma_commit();
+    // the other buffer was read by the previous k-tile's products, which
+    // retired before the barrier that ended it
+    if (more) store((kt + 1) & 1);
+    wgmma_wait<0>();
+    fence_proxy_async();
+    __syncthreads();
+  }
+
+  // acc as in wg_kernel: rows 16 (warp % 4) + g (+ 8) of the warpgroup's
+  // 64, columns 8 jb + 2 (lane % 4) (+ 1); M % 16 == 0, so a pair is whole
+  const int g = lane / 4, cq = 2 * (lane % 4);
+#pragma unroll
+  for (int jb = 0; jb < QBN / 8; ++jb) {
+    const int gc = n0 + jb * 8 + cq;
+    if (gc >= M) continue;
+    const float s0 = scale[gc], s1 = scale[gc + 1];
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int gr = r0 + wg * 64 + (warp % 4) * 16 + g + half * 8;
+      if (gr >= R) continue;
+      const float v0 = acc[4 * jb + 2 * half] * s0;
+      const float v1 = acc[4 * jb + 2 * half + 1] * s1;
+      T* o = out + (long long)gr * M + gc;
+      if constexpr (sizeof(T) == 4)
+        *reinterpret_cast<float2*>(o) = make_float2(v0, v1);
+      else
+        *reinterpret_cast<__nv_bfloat162*>(o) = __floats2bfloat162_rn(v0, v1);
     }
   }
 }
@@ -1627,21 +1891,44 @@ cudaError_t launch_tc_any(const void* x, const void* w, void* out, int R,
                             stream, g, E);
 }
 
-template <bool KMAJ, int BN>
+// an expert axis needs every expert's x and w on 16 bytes too
+template <bool KMAJ, int BN, int BM>
 cudaError_t launch_wg(const void* x, const void* w, void* out, int R, int N,
-                      int M, long long ldw, cudaStream_t stream) {
+                      int M, long long ldw, cudaStream_t stream,
+                      const Group& g, int E) {
   if (N % 8 != 0 || ldw % 8 != 0 || reinterpret_cast<uintptr_t>(w) % 16 ||
-      reinterpret_cast<uintptr_t>(x) % 16)
+      reinterpret_cast<uintptr_t>(x) % 16 || g.sx % 8 != 0 || g.sw % 8 != 0)
     return cudaErrorInvalidValue;
   static size_t allowed = 48 * 1024;
-  constexpr size_t bytes = wg::w_smem(BN);
-  const cudaError_t e = allow_smem(wg::wg_kernel<KMAJ, BN>, bytes, allowed);
+  constexpr size_t bytes = wg::w_smem(BN, BM);
+  const cudaError_t e =
+      allow_smem(wg::wg_kernel<KMAJ, BN, BM>, bytes, allowed);
   if (e != cudaSuccess) return e;
-  const dim3 grid((M + BN - 1) / BN, (R + wg::WBM - 1) / wg::WBM);
-  wg::wg_kernel<KMAJ, BN><<<grid, wg::WTHREADS, bytes, stream>>>(
+  const dim3 grid((M + BN - 1) / BN, (R + BM - 1) / BM, E);
+  wg::wg_kernel<KMAJ, BN, BM><<<grid, BM * 2, bytes, stream>>>(
       static_cast<const __nv_bfloat16*>(x),
       static_cast<const __nv_bfloat16*>(w), static_cast<__nv_bfloat16*>(out),
-      R, N, M, ldw);
+      R, N, M, ldw, g);
+  return cudaSuccess;
+}
+
+template <typename T, int TERMS>
+cudaError_t launch_q8_wg(const void* x, const void* w, const float* scale,
+                         void* out, int R, int N, int M, long long ldw,
+                         cudaStream_t stream) {
+  if (N % 8 != 0 || M % 16 != 0 || ldw % 16 != 0 ||
+      reinterpret_cast<uintptr_t>(w) % 16 != 0 ||
+      reinterpret_cast<uintptr_t>(x) % 16 != 0)
+    return cudaErrorInvalidValue;
+  static size_t allowed = 48 * 1024;
+  constexpr size_t bytes = wg::q_smem(TERMS);
+  const cudaError_t e =
+      allow_smem(wg::wg_q8_kernel<T, TERMS>, bytes, allowed);
+  if (e != cudaSuccess) return e;
+  const dim3 grid((M + wg::QBN - 1) / wg::QBN, (R + wg::QBM - 1) / wg::QBM);
+  wg::wg_q8_kernel<T, TERMS><<<grid, wg::QTHREADS, bytes, stream>>>(
+      static_cast<const T*>(x), static_cast<const int8_t*>(w), scale,
+      static_cast<T*>(out), R, N, M, ldw);
   return cudaSuccess;
 }
 
@@ -1691,8 +1978,9 @@ cudaError_t launch_q8_cols(const void* x, const void* w, const float* scale,
 }
 
 // quant_matmul: the int8 routes (xfer_matmul's kernel codes: 0 = tile,
-// 2 = stream_cols on tensor cores for a K-major w, 4 = stream_mma); x as
-// three bf16 terms when fp32 (TERMS = 3), one when bf16
+// 2 = stream_cols on tensor cores for a K-major w, 4 = stream_mma, 5 =
+// wgmma at prefill); x as three bf16 terms when fp32 (TERMS = 3), one
+// when bf16
 template <typename T>
 cudaError_t dispatch_q8(const void* x, const void* w, const float* scale,
                         void* out, int R, int N, int M, long long swn,
@@ -1716,6 +2004,10 @@ cudaError_t dispatch_q8(const void* x, const void* w, const float* scale,
                                                  swn, p0, p1, ws, counters, s)
                     : launch_q8_mma<T, 16, TERMS>(x, w, scale, out, R, N, M,
                                                   swn, p0, p1, ws, counters, s);
+    case 5:
+      if (R <= 16 || swm != 1 || p0 != wg::QBM || p1 != wg::QBN)
+        return cudaErrorInvalidValue;
+      return launch_q8_wg<T, TERMS>(x, w, scale, out, R, N, M, swn, s);
     default:
       return cudaErrorInvalidValue;
   }
@@ -1745,15 +2037,22 @@ cudaError_t dispatch_fp(const void* x, const void* w, void* out, int R, int N,
                                                ws, counters, s, g, E)
                     : launch_stream_mma_any<16>(x, w, out, R, N, M, swn, p0, p1,
                                                 ws, counters, s, g, E);
-    case 5:
-      if (!BF16 || E != 1) return cudaErrorInvalidValue;
-      if (p1 != 128 && p1 != 256) return cudaErrorInvalidValue;
+    case 5:  // p0 = rows per block (128; 64 for a row-major w at 128
+             // columns), p1 = columns
+      if (!BF16 || (p1 != 128 && p1 != 256)) return cudaErrorInvalidValue;
+      if (p0 == 64) {
+        if (swm != 1 || p1 != 128) return cudaErrorInvalidValue;
+        return launch_wg<false, 128, 64>(x, w, out, R, N, M, swn, s, g, E);
+      }
+      if (p0 != 128) return cudaErrorInvalidValue;
       if (swn == 1)
-        return p1 == 256 ? launch_wg<true, 256>(x, w, out, R, N, M, swm, s)
-                         : launch_wg<true, 128>(x, w, out, R, N, M, swm, s);
+        return p1 == 256
+                   ? launch_wg<true, 256, 128>(x, w, out, R, N, M, swm, s, g, E)
+                   : launch_wg<true, 128, 128>(x, w, out, R, N, M, swm, s, g, E);
       if (swm == 1)
-        return p1 == 256 ? launch_wg<false, 256>(x, w, out, R, N, M, swn, s)
-                         : launch_wg<false, 128>(x, w, out, R, N, M, swn, s);
+        return p1 == 256
+                   ? launch_wg<false, 256, 128>(x, w, out, R, N, M, swn, s, g, E)
+                   : launch_wg<false, 128, 128>(x, w, out, R, N, M, swn, s, g, E);
       return cudaErrorInvalidValue;
     case 3:
       if (!BF16 || N % 8 != 0 || reinterpret_cast<uintptr_t>(x) % 16 != 0)
@@ -1783,12 +2082,14 @@ cudaError_t dispatch_fp(const void* x, const void* w, void* out, int R, int N,
 // tc (bf16; p1 = splits of the k-tiles, ws holds p1 * R * M floats and
 // counters one zeroed int per 128 x 128 output tile when p1 > 1), 4 =
 // stream_mma (bf16, p0 and p1 as for stream_rows, w's rows on 4 bytes,
-// a counter per 64 columns), 5 = wgmma (bf16, p1 = 128 or 256 columns per
-// block, rows on 16 bytes). experts > 1 (xfer_matmul_experts, kernels 0,
-// 1, 3 and 4): one launch over that many products, expert e at x + e *
+// a counter per 64 columns), 5 = wgmma (bf16, p0 = 128 rows per block, or
+// 64 for a row-major w at 128 columns, p1 = 128 or 256 columns per
+// block, rows on 16 bytes). experts > 1 (xfer_matmul_experts, every
+// kernel but 2): one launch over that many products, expert e at x + e *
 // sx, w + e * sw, out + e * so, its split-K workspace at ws + e * sws
-// floats and its counters at counters + e * scnt (Group); 0 or 1: one
-// product.
+// floats and its counters at counters + e * scnt (Group), grid z walking
+// the experts in index order or, with live_first, the live ones first;
+// 0 or 1: one product.
 struct XferPlan {
   int R, N, M, dtype;
   long long swn, swm;
@@ -1797,16 +2098,22 @@ struct XferPlan {
   void* counters;
   int experts, scnt;
   long long sx, sw, so, sws;
+  int live_first, pad2;
 };
 
-// Returns the cudaError_t of the launch (0 = success).
-extern "C" int xfer_matmul_launch(const void* x, const void* w, void* out,
+// counts: null, or (expert axis only) E ints on the device, each
+// expert's live rows (Group). Returns the cudaError_t of the launch (0 =
+// success).
+extern "C" int xfer_matmul_launch(const void* x, const void* w,
+                                  const void* counts, void* out,
                                   const XferPlan* p, void* stream) {
-  if (p->R <= 0 || p->M <= 0 || p->N < 0 || p->experts > 65535)
+  if (p->R <= 0 || p->M <= 0 || p->N < 0 || p->experts > 65535 ||
+      (counts != nullptr && p->experts < 1))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int E = p->experts > 1 ? p->experts : 1;
-  const Group g{p->sx, p->sw, p->so, p->sws, p->scnt};
+  const Group g{p->sx, p->sw, p->so, p->sws, p->scnt,
+                static_cast<const int*>(counts), p->live_first};
   cudaError_t e;
   if (p->dtype == 0) {
     e = dispatch_fp<float>(x, w, out, p->R, p->N, p->M, p->swn, p->swm,
@@ -1827,7 +2134,8 @@ extern "C" int xfer_matmul_launch(const void* x, const void* w, void* out,
 // scale M contiguous floats; kernel 0 = tile (p0 = 16 or 64 rows per
 // block), 2 = stream_cols (K-major w on tensor cores, p0 = blocks), 4 =
 // stream_mma (int8, p0 and p1 as for stream_rows, rows on 16 bytes, a
-// counter per 64 columns).
+// counter per 64 columns), 5 = wgmma (R > 16, row-major w with rows on
+// 16 bytes, M % 16 == 0, N % 8 == 0, x on 16 bytes; p0 = p1 = 128).
 extern "C" int quant_matmul_launch(const void* x, const void* w,
                                    const void* scale, void* out,
                                    const XferPlan* p, void* stream) {

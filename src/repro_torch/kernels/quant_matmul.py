@@ -10,8 +10,10 @@ as the TPU kernel does at flush; the result is cast to ``x.dtype``.
 Bound on the H100: on the INT8 serving path it reads every projection's
 int8 weights once per decode step at R = slots, far below the card's
 operations-per-byte ridge, so it is bound by the bytes of ``w_q`` — half
-of what ``xfer_matmul`` reads in bf16. :func:`route` picks one of three
-kernels from the shape, the dtype and ``w_q``'s strides:
+of what ``xfer_matmul`` reads in bf16. At prefill (R = a group's 2048
+tokens) it is above the ridge, bound by the tensor cores over x's bf16
+terms. :func:`route` picks one of four kernels from the shape, the dtype
+and ``w_q``'s strides:
 
 - ``stream_mma`` (R <= 16, row-major ``w_q`` with rows on 16 bytes:
   every INT8 projection at decode): ``xfer_matmul``'s split-K weight
@@ -21,7 +23,14 @@ kernels from the shape, the dtype and ``w_q``'s strides:
 - ``stream_cols`` (R <= 16, K-major ``w_q``: the tied unembedding passed
   as ``embed.q.T``, no transposed copy): q's rows read straight into
   registers as the ``mma.sync`` A operand; no split.
-- ``tile`` (R > 16, misaligned shapes): the CUDA-core template that
+- ``wgmma`` (R > 16, row-major ``w_q`` with rows on 16 bytes, M % 16 ==
+  0, N % 8 == 0, ``x`` and ``w_q`` on 16 bytes: every INT8 prefill
+  projection): warpgroup products (``wgmma`` m64n128k16, 128 x 128
+  tiles) on x's terms as shared A tiles and the int8 tile widened
+  exactly to bf16 in ``xfer_matmul``'s swizzled B layout, the next
+  k-tile loaded and split while the current one's products run; one
+  fp32 accumulator over the terms, the scale at the store.
+- ``tile`` (misaligned shapes): the CUDA-core template that
   ``xfer_matmul`` keeps for fp32, fp32 FMA with the int8 tile widened in
   shared memory; 16 rows per block when R <= 16, else 64.
 
@@ -65,6 +74,7 @@ _ARGTYPES = (_VP, _VP, _VP, _VP, _VP)  # x, w_q, scale, out, &plan
 Q8_KC = {torch.float32: 1024, torch.bfloat16: 2048}
 Q8_COLS_PER_WARP = 16   # stream_cols: output columns per warp
 Q8_CHUNK = 64           # stream_cols: N is read in chunks of this many
+Q8_WG_TILE = 128        # wgmma: rows and columns per block
 
 
 def x_terms(dtype: torch.dtype) -> int:
@@ -74,11 +84,11 @@ def x_terms(dtype: torch.dtype) -> int:
 
 @functools.lru_cache(maxsize=None)
 def route(r: int, n: int, m: int, dtype: torch.dtype, strides: tuple,
-          sms: int, *, aligned: bool = True) -> Route:
+          sms: int, *, aligned: bool = True, x_aligned: bool = True) -> Route:
     """The kernel and geometry for ``x [r, n] @ w_q [n, m]`` with ``x`` in
     ``dtype`` and ``w_q``'s element ``strides``, on a card of ``sms`` SMs.
-    ``aligned``: ``w_q``'s base pointer lies on 16 bytes. Needs ``r``,
-    ``m`` > 0."""
+    ``aligned``: ``w_q``'s base pointer lies on 16 bytes; ``x_aligned``:
+    ``x``'s does. Needs ``r``, ``m`` > 0."""
     swn, swm = strides
     if r <= DECODE_ROWS and n > 0 and aligned:
         rb = 8 if r <= 8 else 16
@@ -94,17 +104,22 @@ def route(r: int, n: int, m: int, dtype: torch.dtype, strides: tuple,
                 and x_terms(dtype) * rb * (n + 4) * 2 <= SMEM_MAX:
             cols = STREAM_WARPS * Q8_COLS_PER_WARP
             return Route("stream_cols", (min(_cdiv(m, cols), 2 * sms),))
+    if r > DECODE_ROWS and n > 0 and swm == 1 and swn % 16 == 0 \
+            and m % 16 == 0 and n % 8 == 0 and aligned and x_aligned:
+        return Route("wgmma", (_cdiv(m, Q8_WG_TILE), _cdiv(r, Q8_WG_TILE)),
+                     rows=Q8_WG_TILE, cols=Q8_WG_TILE)
     rows = 16 if r <= DECODE_ROWS else 64
     return Route("tile", (_cdiv(m, 64), _cdiv(r, rows)), rows=rows)
 
 
-def _plan(x: torch.Tensor, w_q: torch.Tensor, aligned: bool) -> tuple:
+def _plan(x: torch.Tensor, w_q: torch.Tensor, aligned: bool,
+          x_aligned: bool) -> tuple:
     """Fix one shape's launch: (rows, columns, the address of its
     ``_Plan``, what keeps the plan and the workspace alive)."""
     r, n = x.shape
     m = w_q.shape[1]
     rt = route(r, n, m, x.dtype, w_q.stride(), sm_count(x.device),
-               aligned=aligned)
+               aligned=aligned, x_aligned=x_aligned)
     ws = counters = None
     if rt.splits > 1:  # a counter per 64-column tile
         ws, counters = scratch("quant_matmul", x.device, rt.splits * r * m,
@@ -142,12 +157,12 @@ def quant_matmul(x: torch.Tensor, w_q: torch.Tensor,
     xp, wp = x.data_ptr(), w_q.data_ptr()
     index = torch.cuda.current_device()
     key = (x.shape, w_q.shape, w_q.stride(), x.dtype, dev, w_q.device,
-           scale.device, index, wp % 16 == 0)
+           scale.device, index, wp % 16 == 0, xp % 16 == 0)
     plan = _plans.get(key)
     if plan is None:
         check_device("quant_matmul", x, w_q, scale)
         check_float("quant_matmul", x)
-        plan = _plans[key] = _plan(x, w_q, key[-1])
+        plan = _plans[key] = _plan(x, w_q, *key[-2:])
     r, m, addr, _ = plan
     out = torch.empty((r, m), dtype=x.dtype, device=dev)
     fn = entry("quant_matmul", _ARGTYPES, "xfer_matmul")

@@ -40,11 +40,20 @@ def matmul_ref(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return (x.float() @ w.float()).to(x.dtype)
 
 
-def expert_matmul_ref(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+def expert_matmul_ref(x: torch.Tensor, w: torch.Tensor,
+                      counts: torch.Tensor = None) -> torch.Tensor:
     """The expert products of an MoE layer: x [E, C, K] @ w [E, K, N]
     per expert (the reference's ``einsum("ecd,edf->ecf")``) in fp32,
-    cast to ``x.dtype``."""
-    return torch.einsum("eck,ekn->ecn", x.float(), w.float()).to(x.dtype)
+    cast to ``x.dtype``. ``counts`` [E] (int): expert e's rows at or past
+    ``counts[e]`` are not live and come out +0 (the MoE layer's rows
+    there are zero already, so the product is unchanged); ``None``:
+    every row is live."""
+    out = torch.einsum("eck,ekn->ecn", x.float(), w.float())
+    if counts is not None:
+        rows = torch.arange(x.shape[1], device=x.device)
+        live = rows[None, :] < counts.to(x.device, torch.int64)[:, None]
+        out = torch.where(live[..., None], out, 0.0)
+    return out.to(x.dtype)
 
 
 def quant_matmul_ref(x: torch.Tensor, w_q: torch.Tensor,

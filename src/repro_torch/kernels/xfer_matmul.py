@@ -28,7 +28,8 @@ one of six kernels from the shape, the dtype and ``w``'s strides:
 - ``wgmma`` (bf16, R > 16, outputs of 2^20 elements and more, rows on 16
   bytes): warpgroup tensor-core products from 128-byte-swizzled shared
   tiles (``wgmma`` m64n128k16 or m64n256k16, ``w`` in either layout),
-  a 3- or 4-stage ``cp.async`` ring with one ``wgmma`` group in flight.
+  a 3- or 4-stage ``cp.async`` ring with one ``wgmma`` group in flight;
+  128-row tiles, 64 (one warpgroup) for expert products of C <= 64.
 - ``tc`` (bf16, R > 16, the other shapes with N a multiple of 8):
   ``mma.sync`` m16n8k16 from ``ldmatrix``, a 3-stage ``cp.async`` ring,
   block tile 128x128x64, split-K for small outputs.
@@ -38,6 +39,17 @@ one of six kernels from the shape, the dtype and ``w``'s strides:
 ``tr``/``tm``/``tn`` keep the planner's tiling signature; the Hopper
 tiles are fixed by the route. One call is one launch and reads nothing
 back to the host.
+
+:func:`xfer_matmul_experts` runs the same bodies over an expert axis
+(grid z) and takes ``counts`` [E] int32, each expert's live rows, on the
+device: rows at or past ``counts[e]`` are read as zero and come out +0,
+and a block whose rows are all dead (every block of an expert with no
+row) loads no weight and writes its tile as +0. At decode that skips the
+weights of the experts the step routed nothing to. ``EXPERT_ORDER``
+picks how grid z meets the experts: ``"early"`` (block z is expert z, a
+dead block returns at once) or ``"live_first"`` (block z walks the live
+experts first, then the dead ones, from ``counts``); ``chip_smoke.py``
+times both.
 
 A CPU tensor takes the plain version (:func:`plain`); a CUDA tensor
 launches the kernel or raises. ``xfer_matmul.launches`` counts launches.
@@ -58,18 +70,19 @@ from repro_torch.kernels.ref import expert_matmul_ref as plain_experts
 from repro_torch.kernels.ref import matmul_ref as plain
 
 _VP, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-_ARGTYPES = (_VP, _VP, _VP, _VP)  # x, w, out, &plan
+_ARGTYPES = (_VP, _VP, _VP, _VP, _VP)  # x, w, counts, out, &plan
 
 
 class _Plan(ctypes.Structure):
     """The C entry's ``XferPlan``: one shape's launch, built once; the
-    last six fields are the expert axis of :func:`xfer_matmul_experts`
+    last eight fields are the expert axis of :func:`xfer_matmul_experts`
     (0 for one product)."""
     _fields_ = [("R", _I), ("N", _I), ("M", _I), ("dtype", _I),
                 ("swn", _LL), ("swm", _LL), ("kernel", _I), ("p0", _I),
                 ("p1", _I), ("pad", _I), ("ws", _VP), ("counters", _VP),
                 ("experts", _I), ("scnt", _I), ("sx", _LL), ("sw", _LL),
-                ("so", _LL), ("sws", _LL)]
+                ("so", _LL), ("sws", _LL), ("live_first", _I),
+                ("pad2", _I)]
 
 #: the C entry's kernel codes
 KERNEL_CODES = {"tile": 0, "stream_rows": 1, "stream_cols": 2, "tc": 3,
@@ -85,12 +98,16 @@ SMEM_MAX = 232448       # bytes of shared memory a block may use
 TC_TILE = (128, 128, 64)  # tc: rows x columns x depth
 TC_SMALL = 1 << 20       # outputs under this go to tc, not wgmma
 TC_SPLIT_FLOATS = 1 << 23  # tc: split-K partials at most (f32, 32 MB)
+WG_ROWS = 128            # wgmma: rows per block (two warpgroups)
+WG_ROWS_SMALL = 64       # wgmma over experts of C <= 64: one warpgroup
+#: how grid z meets the experts of xfer_matmul_experts (module docstring)
+EXPERT_ORDER = "early"
 
 
 class Route(NamedTuple):
     """The kernel a call runs and its geometry: ``grid`` in blocks;
-    ``rows`` the tile and tc kernels' rows per block, ``cols`` wgmma's
-    columns per block; ``kc`` and ``splits`` the split-K of
+    ``rows`` the tile, tc and wgmma kernels' rows per block, ``cols``
+    wgmma's columns per block; ``kc`` and ``splits`` the split-K of
     ``stream_rows``/``stream_mma`` (rows of N per split, number of splits)
     and ``tc``'s splits of its 64-row k-tiles."""
     kernel: str
@@ -105,7 +122,7 @@ class Route(NamedTuple):
         """(kernel code, p0, p1) of the C entry."""
         p0 = {"tile": self.rows, "stream_rows": self.kc,
               "stream_cols": self.grid[0], "tc": 0, "stream_mma": self.kc,
-              "wgmma": 0}[self.kernel]
+              "wgmma": self.rows}[self.kernel]
         p1 = self.cols if self.kernel == "wgmma" else self.splits
         return KERNEL_CODES[self.kernel], p0, p1
 
@@ -122,9 +139,10 @@ def route(r: int, n: int, m: int, dtype: torch.dtype, strides: tuple,
     ``aligned``: both base pointers lie on 16 bytes (``tc`` and
     ``stream_mma`` copy rows of ``w`` that are off 16 bytes in 8-, 4- or
     2-byte pieces). Needs ``r``, ``m`` > 0. ``experts`` > 1: that many
-    such products in one launch (:func:`xfer_matmul_experts`); their
-    blocks count toward filling the card, and ``stream_cols`` and
-    ``wgmma`` are not taken (the grid's third axis is the expert)."""
+    such products in one launch (:func:`xfer_matmul_experts`, the grid's
+    third axis the expert); their blocks and outputs count toward
+    filling the card, ``stream_cols`` is not taken, and ``wgmma`` takes
+    64-row tiles at ``r`` <= 64."""
     swn, swm = strides
     vec = 16 // dtype.itemsize
     if r <= DECODE_ROWS and n > 0:
@@ -148,12 +166,19 @@ def route(r: int, n: int, m: int, dtype: torch.dtype, strides: tuple,
             return Route("stream_cols", (min(_cdiv(m, cols), 2 * sms),))
     if r > DECODE_ROWS and dtype == torch.bfloat16 and aligned \
             and n % 8 == 0 and (swm == 1 or swn == 1):
-        if r * m >= TC_SMALL and experts == 1 and (
+        if r * m * experts >= TC_SMALL and (
                 (swm == 1 and swn % 8 == 0) or (swn == 1 and swm % 8 == 0)):
+            if experts > 1 and r <= WG_ROWS_SMALL:
+                # C <= 64 rows of each expert: one warpgroup's 64-row
+                # tile, 128 columns (three blocks per SM)
+                return Route("wgmma", (_cdiv(m, 128), 1),
+                             rows=WG_ROWS_SMALL, cols=128)
             # wgmma, 128 x 256 tiles where they fill the card three times
             # over (the widest outputs), else 128 x 128
-            wbn = 256 if _cdiv(m, 256) * _cdiv(r, 128) >= 3 * sms else 128
-            return Route("wgmma", (_cdiv(m, wbn), _cdiv(r, 128)), cols=wbn)
+            tiles = _cdiv(m, 256) * _cdiv(r, WG_ROWS) * experts
+            wbn = 256 if tiles >= 3 * sms else 128
+            return Route("wgmma", (_cdiv(m, wbn), _cdiv(r, WG_ROWS)),
+                         rows=WG_ROWS, cols=wbn)
         # mma.sync for small outputs and rows off 16 bytes; split-K where
         # the tiles alone leave the card's 2 blocks per SM idle and the f32
         # partials stay small, each split at least 2 k-tiles
@@ -168,13 +193,15 @@ def route(r: int, n: int, m: int, dtype: torch.dtype, strides: tuple,
     return Route("tile", (_cdiv(m, 64), _cdiv(r, rows)), rows=rows)
 
 
-def _plan(name: str, x: torch.Tensor, w: torch.Tensor, aligned: bool) -> tuple:
+def _plan(name: str, x: torch.Tensor, w: torch.Tensor, aligned: bool,
+          live_first: bool) -> tuple:
     """Check CUDA operands once per (shapes, strides, dtypes, devices,
     alignment) and fix the launch of ``x [R, N] @ w [N, M]``, or of one
     such product per expert for ``x [E, R, N] @ w [E, N, M]`` (the card
     filled by all of them, the split-K workspace and counters one slice
     per expert): (the address of its ``_Plan``, what keeps the plan and
-    the workspace alive)."""
+    the workspace alive). ``live_first``: the expert axis walks the live
+    experts first (``EXPERT_ORDER``)."""
     check_cuda(name, x, w)
     e = x.shape[0] if x.dim() == 3 else 1
     r, n = x.shape[-2:]
@@ -189,7 +216,8 @@ def _plan(name: str, x: torch.Tensor, w: torch.Tensor, aligned: bool) -> tuple:
         per_cnt = math.prod(rt.grid[:2]) if rt.kernel == "tc" else rt.grid[0]
         ws, counters = scratch("xfer_matmul", x.device, e * per_ws,
                                e * per_cnt)
-    group = (e, per_cnt, r * n, n * m, r * m, per_ws) if x.dim() == 3 else ()
+    group = ((e, per_cnt, r * n, n * m, r * m, per_ws, int(live_first))
+             if x.dim() == 3 else ())
     plan = _Plan(r, n, m, DTYPE_CODES[x.dtype], *strides, *rt.c_args, 0,
                  ws.data_ptr() if ws is not None else None,
                  counters.data_ptr() if counters is not None else None,
@@ -200,10 +228,11 @@ def _plan(name: str, x: torch.Tensor, w: torch.Tensor, aligned: bool) -> tuple:
 _plans: dict = {}
 
 
-def _launch(name: str, x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """``x @ w`` (per expert where ``x`` has three axes) through one
-    launch of the C entry, none for an empty output; ``x`` and ``w`` have
-    been checked to chain."""
+def _launch(name: str, x: torch.Tensor, w: torch.Tensor,
+            counts: torch.Tensor = None) -> torch.Tensor:
+    """``x @ w`` (per expert where ``x`` has three axes, ``counts`` its
+    live rows) through one launch of the C entry, none for an empty
+    output; ``x`` and ``w`` have been checked to chain."""
     dev = x.device
     x = x.contiguous()
     shape = (*x.shape[:-1], w.shape[-1])
@@ -212,15 +241,17 @@ def _launch(name: str, x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
         return torch.empty(shape, dtype=x.dtype, device=dev)
     xp, wp = x.data_ptr(), w.data_ptr()
     index = torch.cuda.current_device()
+    live_first = counts is not None and EXPERT_ORDER == "live_first"
     key = (x.shape, w.shape, w.stride(), x.dtype, w.dtype, dev, w.device,
-           index, (xp | wp) % 16 == 0)
+           index, live_first, (xp | wp) % 16 == 0)
     plan = _plans.get(key)
     if plan is None:
-        plan = _plans[key] = _plan(name, x, w, key[-1])
+        plan = _plans[key] = _plan(name, x, w, key[-1], live_first)
     out = torch.empty(shape, dtype=x.dtype, device=dev)
     fn = entry("xfer_matmul", _ARGTYPES)
-    check_rc(name, fn(xp, wp, out.data_ptr(), plan[0], current_stream(index)),
-             source="xfer_matmul")
+    cp = counts.data_ptr() if counts is not None else None
+    check_rc(name, fn(xp, wp, cp, out.data_ptr(), plan[0],
+                      current_stream(index)), source="xfer_matmul")
     return out
 
 
@@ -245,26 +276,42 @@ def xfer_matmul(x: torch.Tensor, w: torch.Tensor, *, tr: int = 256,
 xfer_matmul.launches = 0
 
 
-def xfer_matmul_experts(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+def xfer_matmul_experts(x: torch.Tensor, w: torch.Tensor,
+                        counts: torch.Tensor = None) -> torch.Tensor:
     """The expert products of a capacity-routed MoE layer in one launch:
     x [E, C, K] @ w [E, K, N] -> [E, C, N] in ``x.dtype`` (fp32
-    accumulation), ``w`` contiguous. Block z of the grid is expert z
-    (``tc``: z / splits); each expert's product runs the body that
-    :func:`route` gives its shape (``stream_mma`` or ``stream_rows`` at C
-    <= 16, ``tc`` or ``tile`` above) with its pointers advanced by the
-    expert's offsets. Every expert is multiplied, empty or not, as the
-    reference's ``einsum("ecd,edf->ecf")`` does.
+    accumulation), ``w`` contiguous. Grid z is the expert axis
+    (``tc``: z / splits; ``EXPERT_ORDER``); each expert's product runs
+    the body that :func:`route` gives its shape (``stream_mma`` or
+    ``stream_rows`` at C <= 16, ``wgmma``, ``tc`` or ``tile`` above) with
+    its pointers advanced by the expert's offsets. ``counts`` [E] int32
+    on ``x``'s device: expert e's rows at or past ``counts[e]`` are read
+    as zero and come out +0, and an expert with no live row reads none of
+    its weights; ``None``: every row is live, every expert multiplied,
+    as the reference's ``einsum("ecd,edf->ecf")`` does.
     ``xfer_matmul_experts.launches`` counts launches."""
     if x.dim() != 3 or w.dim() != 3 or x.shape[0] != w.shape[0] \
             or x.shape[2] != w.shape[1]:
         raise ValueError(f"xfer_matmul_experts: shapes {tuple(x.shape)} @ "
                          f"{tuple(w.shape)} do not chain per expert")
-    if x.device.type == "cpu" and w.device.type == "cpu":
-        return plain_experts(x, w)
+    if counts is not None and (counts.dim() != 1
+                               or counts.numel() != x.shape[0]):
+        raise ValueError(f"xfer_matmul_experts: counts {tuple(counts.shape)} "
+                         f"for {x.shape[0]} experts")
+    if all(t.device.type == "cpu" for t in (x, w) +
+           ((counts,) if counts is not None else ())):
+        return plain_experts(x, w, counts)
     if not w.is_contiguous():
         raise ValueError("xfer_matmul_experts: w must be contiguous "
                          "[E, K, N]")
-    out = _launch("xfer_matmul_experts", x, w)
+    if counts is not None:
+        if counts.dtype != torch.int32 or not counts.is_contiguous():
+            raise TypeError("xfer_matmul_experts: counts must be a "
+                            "contiguous int32 tensor")
+        if counts.device != x.device:
+            raise ValueError(f"xfer_matmul_experts: counts on "
+                             f"{counts.device}, x on {x.device}")
+    out = _launch("xfer_matmul_experts", x, w, counts)
     if out.numel():  # launched
         xfer_matmul_experts.launches += 1
     return out

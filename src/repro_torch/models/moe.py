@@ -18,7 +18,11 @@ included: they are routed and take capacity there too):
    dropped;
 3. the kept tokens scattered into an [E, cap, D] buffer (a dropped one
    goes to a spare row that nothing reads), the expert FFN over it
-   through ``xfer_matmul_experts``, one launch per product;
+   through ``xfer_matmul_experts``, one launch per product. Expert e's
+   kept assignments fill its rows ``[0, counts[e])`` and leave the rest
+   zero (:func:`expert_counts`); the products take ``counts`` and read
+   no weight of an expert that holds no row, which is bit-equal, since
+   a zero row times ``w`` is +0 and act(0)·0 = 0;
 4. the combine: each assignment's output row times its gate value,
    rounded to the activation dtype, zero where dropped; a token's k
    terms summed in a fixed order, by ascending expert id, which is the
@@ -76,11 +80,30 @@ def dispatch(arch: ArchConfig, idx: torch.Tensor, cap: int):
     return order, dest, keep
 
 
-def expert_ffn(arch: ArchConfig, experts, buf: torch.Tensor) -> torch.Tensor:
+def expert_counts(arch: ArchConfig, idx: torch.Tensor,
+                  cap: int) -> torch.Tensor:
+    """Kept assignments per expert, [E] int32: each expert's share of the
+    top-k ids ``idx``, at most ``cap`` (:func:`dispatch` keeps the first
+    ``cap`` of each expert). A fixed-shape ``scatter_add_`` on the
+    device: no read back to the host, no shape taken from the data, so
+    it runs inside the captured decode step."""
+    eid = idx.reshape(-1)
+    ones = torch.ones(eid.numel(), dtype=torch.int32, device=eid.device)
+    counts = torch.zeros(arch.num_experts, dtype=torch.int32,
+                         device=eid.device)
+    return counts.scatter_add_(0, eid, ones).clamp_(max=cap)
+
+
+def expert_ffn(arch: ArchConfig, experts, buf: torch.Tensor,
+               counts: torch.Tensor = None) -> torch.Tensor:
     """The routed experts' MLP over ``buf`` [E, cap, D] -> [E, cap, D]:
     ``act(buf @ w_gate) * (buf @ w_up) @ w_down`` per expert (SwiGLU or
-    GeGLU), or ``relu(buf @ w_up)² @ w_down`` (relu2)."""
-    mm = ops.expert_matmul
+    GeGLU), or ``relu(buf @ w_up)² @ w_down`` (relu2). ``counts`` [E]:
+    each expert's live rows (:func:`expert_counts`; ``None``: all), the
+    rest zero in ``buf`` and +0 out of every product."""
+    def mm(a, w):
+        return ops.expert_matmul(a, w, counts)
+
     if arch.mlp == "relu2":
         inner = torch.relu(mm(buf, experts.w_up)).square()
     else:
@@ -102,7 +125,8 @@ def moe_apply(arch: ArchConfig, block, h: torch.Tensor) -> torch.Tensor:
 
     buf = torch.zeros((e * cap + 1, d), dtype=h.dtype, device=h.device)
     buf[dest] = hf[src_tok]  # dropped assignments all land on the spare row
-    out = expert_ffn(arch, block.moe, buf[:e * cap].reshape(e, cap, d))
+    out = expert_ffn(arch, block.moe, buf[:e * cap].reshape(e, cap, d),
+                     expert_counts(arch, idx, cap))
 
     out_flat = out.reshape(e * cap, d)
     contrib = torch.where(keep[:, None],

@@ -207,11 +207,13 @@ def test_q8_route_sends_each_int8_shape_where_the_design_says(
         label, r, n, m, tr, dname):
     """Row-major ``w_q`` at R <= 16 with rows on 16 bytes (every INT8
     projection) -> the int8 ``stream_mma``; the K-major ``embed.q.T`` ->
-    ``stream_cols``; R = 2048 and misaligned shapes -> ``tile``."""
+    ``stream_cols``; R = 2048 with a row-major ``w_q`` on 16 bytes (every
+    INT8 prefill projection) -> ``wgmma``, 128 x 128 tiles; misaligned
+    shapes -> ``tile``."""
     strides = _strides(n, m, tr)
     rt = q8_route(r, n, m, _DT[dname], strides, SMS)
     if r > DECODE_ROWS:
-        want = "tile"
+        want = "wgmma" if not tr and m % 16 == 0 and n % 8 == 0 else "tile"
     elif not tr:
         want = "stream_mma" if m % 16 == 0 else "tile"
     else:
@@ -224,11 +226,17 @@ def test_q8_route_sends_each_int8_shape_where_the_design_says(
         assert (rt.splits - 1) * rt.kc < n <= rt.splits * rt.kc
     elif rt.kernel == "stream_cols":
         assert rt.splits == 1 and 1 <= rt.grid[0] <= 2 * SMS
+    elif rt.kernel == "wgmma":
+        assert (rt.rows, rt.cols, rt.splits) == (128, 128, 1)
+        assert rt.grid == (-(-m // 128), -(-r // 128))
+        assert rt.c_args == (5, 128, 128)
     else:
         assert rt.grid == (-(-m // 64), -(-r // rt.rows))
     # the serving shapes of the INT8 path, by name
     if r == chip_smoke.SLOTS and not label.startswith("ragged"):
         assert rt.kernel == ("stream_cols" if tr else "stream_mma")
+    if r == chip_smoke.N_PREFILL * chip_smoke.BUCKET:
+        assert rt.kernel == "wgmma"
 
 
 @pytest.mark.parametrize("r,n,m,strides,aligned,want", [
@@ -236,12 +244,25 @@ def test_q8_route_sends_each_int8_shape_where_the_design_says(
     (8, 1000, 1000, (1000, 1), True, "tile"),     # rows off 16 bytes
     (8, 1000, 1024, (1, 1000), True, "tile"),     # K-major, N % 64 != 0
     (16, 1024, 4096, (4096, 1), True, "stream_mma"),
-    (17, 1024, 4096, (4096, 1), True, "tile"),    # past the decode rows
+    (17, 1024, 4096, (4096, 1), True, "wgmma"),   # past the decode rows
     (8, 0, 64, (64, 1), True, "tile"),            # empty contraction
+    (2048, 0, 64, (64, 1), True, "tile"),         # empty contraction
+    (2048, 1024, 1024, (1024, 1), False, "tile"),  # w_q off 16 bytes
+    (2048, 1024, 1000, (1000, 1), True, "tile"),  # rows off 16 bytes
+    (2048, 1024, 1000, (1008, 1), True, "tile"),  # M not a multiple of 16
+    (2048, 1004, 1024, (1024, 1), True, "tile"),  # N not a multiple of 8
+    (2048, 1024, 1024, (1, 1024), True, "tile"),  # K-major (q.T)
 ])
 def test_q8_route_edges(r, n, m, strides, aligned, want):
     assert q8_route(r, n, m, torch.float32, strides, SMS,
                     aligned=aligned).kernel == want
+
+
+def test_q8_route_takes_wgmma_only_with_x_on_16_bytes():
+    assert q8_route(2048, 1024, 1024, torch.float32, (1024, 1), SMS,
+                    x_aligned=False).kernel == "tile"
+    assert q8_route(8, 1024, 1024, torch.float32, (1024, 1), SMS,
+                    x_aligned=False).kernel == "stream_mma"
 
 
 @pytest.mark.parametrize("r,n,m,x_scale", [

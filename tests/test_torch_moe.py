@@ -134,6 +134,92 @@ def test_moe_apply_matches_jax(arch_id, cf, b, s):
         assert not bool(keep.all())  # some assignments dropped
 
 
+def _dispatched(arch, layer, h):
+    """moe_apply's dispatch of ``h`` [B, S, D]: (the [E, cap, D] buffer
+    of kept tokens, zero elsewhere, keep, the sorted expert ids, cap)."""
+    b, s, d = h.shape
+    t, e = b * s, arch.num_experts
+    cap = M.capacity(arch, t)
+    hf = h.reshape(t, d)
+    _, idx = M.route(arch, hf, layer.router)
+    order, dest, keep = M.dispatch(arch, idx, cap)
+    buf = torch.zeros((e * cap + 1, d), dtype=h.dtype)
+    buf[dest] = hf[order // arch.top_k]
+    eid_s = torch.sort(idx.reshape(-1), stable=True).values
+    return buf[:e * cap].reshape(e, cap, d), idx, keep, eid_s, cap
+
+
+@pytest.mark.parametrize("cf,b,s", [(8.0, 2, 12), (1.0, 1, 2), (1.0, 3, 10),
+                                    (0.5, 2, 16), (0.25, 4, 9)])
+def test_expert_counts_are_the_kept_assignments(cf, b, s):
+    """``expert_counts`` equals a host count of ``dispatch``'s kept
+    assignments per expert, with drops (cf <= 1) and without (8.0); the
+    buffer's rows at or past an expert's count are zero."""
+    _, _, arch, layer = _moe_block(DEEPSEEK)
+    arch = dataclasses.replace(arch, moe_capacity_factor=cf)
+    rng = np.random.RandomState(int(cf * 100) + b * 10 + s)
+    h = torch.from_numpy(rng.standard_normal((b, s, arch.d_model))
+                         .astype(np.float32))
+    buf, idx, keep, eid_s, cap = _dispatched(arch, layer, h)
+    counts = M.expert_counts(arch, idx, cap)
+    assert counts.dtype == torch.int32
+    assert tuple(counts.shape) == (arch.num_experts,)
+    want = np.zeros(arch.num_experts, np.int64)
+    np.add.at(want, eid_s.numpy(), keep.numpy().astype(np.int64))
+    np.testing.assert_array_equal(counts.numpy(), want)
+    assert int(counts.max()) <= cap
+    assert (cf == 8.0) == bool(keep.all())
+    rows = torch.arange(cap)[None, :] >= counts[:, None]
+    assert not bool(buf[rows].any())
+
+
+@pytest.mark.parametrize("cf,b,s,mlp", [(8.0, 1, 1, "swiglu"),
+                                        (8.0, 2, 12, "swiglu"),
+                                        (1.0, 3, 10, "swiglu"),
+                                        (0.5, 2, 16, "relu2")])
+def test_expert_matmul_counts_on_dispatched_buffers(cf, b, s, mlp):
+    """On a dispatched buffer ``expert_matmul_ref(x, w, counts)`` equals
+    the unmasked form bit for bit (the dead rows are zero already) and
+    gives zeros for experts with no row; so does the expert FFN with and
+    without counts, and the wrapper on CPU tensors is the plain version."""
+    _, _, arch, layer = _moe_block(DEEPSEEK)
+    arch = dataclasses.replace(arch, moe_capacity_factor=cf, mlp=mlp)
+    rng = np.random.RandomState(b * 100 + s)
+    h = torch.from_numpy(rng.standard_normal((b, s, arch.d_model))
+                         .astype(np.float32))
+    buf, idx, _, _, cap = _dispatched(arch, layer, h)
+    counts = M.expert_counts(arch, idx, cap)
+    w = layer.moe.w_up
+    masked = ops.expert_matmul_ref(buf, w, counts)
+    assert torch.equal(masked, ops.expert_matmul_ref(buf, w))
+    assert torch.equal(ops.expert_matmul(buf, w, counts), masked)
+    empty = counts == 0
+    assert bool(empty.any()) or b * s > 1  # one token: top k of E experts
+    assert not bool(masked[empty].any())
+    assert torch.equal(M.expert_ffn(arch, layer.moe, buf, counts),
+                       M.expert_ffn(arch, layer.moe, buf))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_expert_matmul_ref_zeroes_rows_past_counts(dtype):
+    """With random rows everywhere, the rows at or past ``counts[e]``
+    come out +0 and the rest equal the unmasked product."""
+    rng = np.random.RandomState(11)
+    x = torch.from_numpy(rng.standard_normal((5, 7, 24)).astype(np.float32))
+    w = torch.from_numpy(rng.standard_normal((5, 24, 16)).astype(np.float32))
+    x, w = x.to(dtype), w.to(dtype)
+    counts = torch.tensor([0, 7, 3, 1, 9], dtype=torch.int32)
+    got = ops.expert_matmul_ref(x, w, counts)
+    full = ops.expert_matmul_ref(x, w)
+    for e, c in enumerate(counts.tolist()):
+        c = min(c, 7)
+        assert torch.equal(got[e, :c], full[e, :c])
+        assert torch.equal(got[e, c:], torch.zeros_like(got[e, c:]))
+        assert not bool(torch.signbit(got[e, c:]).any())  # +0
+    with pytest.raises(ValueError, match="counts"):
+        ops.expert_matmul(x, w, counts[:3])
+
+
 @pytest.mark.parametrize("zero_router", [False, True])
 def test_tied_router_keeps_jax_top_k_order(zero_router):
     """Columns 1, 3, 5 of the router copy 0, 2, 4 (and a zero router ties
@@ -341,9 +427,10 @@ def test_expert_routes():
     """``xfer_matmul_experts``'s launch plan (plain Python): deepseek's
     expert products at decode stream the weights (bf16 ``stream_mma``,
     fp32 ``stream_rows``) with no split, since 64 experts' column tiles
-    already fill the card; prefill groups take ``tc`` (bf16) or
-    ``tile`` (fp32), never ``wgmma`` or ``stream_cols``; one expert is
-    the dense route, unchanged."""
+    already fill the card; bf16 prefill groups take ``wgmma`` with the
+    expert on grid z (64-row tiles of 128 columns at C <= 64, 128-row
+    tiles above), fp32 ones ``tile``, never ``stream_cols``; one expert
+    is the dense route, unchanged."""
     from repro_torch.kernels.xfer_matmul import route
     bf16, f32 = torch.bfloat16, torch.float32
     for k, n in ((2048, 1408), (1408, 2048)):
@@ -352,7 +439,11 @@ def test_expert_routes():
         assert route(8, k, n, f32, (n, 1), 132, experts=64).kernel == \
             "stream_rows"
         for c in (60, 240, 480):
-            assert route(c, k, n, bf16, (n, 1), 132, experts=64).kernel == "tc"
+            rt = route(c, k, n, bf16, (n, 1), 132, experts=64)
+            rows = 64 if c <= 64 else 128
+            assert (rt.kernel, rt.rows, rt.splits) == ("wgmma", rows, 1)
+            assert rt.grid == (-(-n // rt.cols), -(-c // rows))
+            assert rt.cols == 128 or c > 64
             assert route(c, k, n, f32, (n, 1), 132, experts=64).kernel == "tile"
     assert route(2048, 2048, 1408, bf16, (1408, 1), 132).kernel == "wgmma"
     assert route(2048, 2048, 1408, bf16, (1408, 1), 132, experts=1) == \
