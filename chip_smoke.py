@@ -87,9 +87,9 @@ Phases (each failure propagates; the process exits non-zero):
    [64, C, 2048] @ [64, 2048, 1408] and [64, C, 1408] @ [64, 1408, 2048]
    at C = 1, 60 and 240 with every row live, at C = 1 with the live rows
    of a seeded top-6 routing of 8 tokens (the main entry, bounded on
-   the live experts' bytes, timed in both orders of the expert axis) and
-   with one live expert, at C = 60 and 240 with live rows below C, plus
-   ragged, split-K and ``wgmma`` shapes with and without live rows,
+   the live experts' bytes) and with one live expert, at C = 60 and 240
+   with live rows below C, plus ragged, split-K and ``wgmma`` shapes
+   with and without live rows,
    fp32 and bf16, bit-stable, rows past the live ones +0 and, on a
    dispatched buffer, bit-equal to the call without counts; timed in
    bf16 beside ``torch.bmm`` and 64 launches of ``xfer_matmul``. Head
@@ -799,11 +799,10 @@ def check_experts(dev, gen) -> dict:
     call without counts, bit-equal. The timed cases in bf16 beside
     ``torch.bmm`` (library, every row) and E launches of the dense
     ``xfer_matmul`` (yardstick), eager and as device time from a CUDA
-    graph; the routed ones in both orders of the expert axis
-    (``EXPERT_ORDER``), and bounded on the live experts' bytes."""
+    graph; the routed ones bounded on the live experts' bytes."""
     import torch
     from repro_torch.kernels import ops
-    from repro_torch.kernels import xfer_matmul as XM
+    from repro_torch.kernels.xfer_matmul import route as xfer_route
 
     dtypes = {"float32": torch.float32, "bfloat16": torch.bfloat16}
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
@@ -817,7 +816,7 @@ def check_experts(dev, gen) -> dict:
             x = (torch.randn(e, c, k, generator=gen, device=dev)).to(dt)
             w = (torch.randn(e, k, n, generator=gen, device=dev)
                  * k ** -0.5).to(dt)
-            rt = XM.route(c, k, n, dt, (n, 1), sms, experts=e)
+            rt = xfer_route(c, k, n, dt, (n, 1), sms, experts=e)
             name = f"xfer_matmul_experts {label} {dname}"
             got = ops.expert_matmul(x, w, counts)
             err = compare(name, got, ops.expert_matmul_ref(x, w, counts),
@@ -876,21 +875,6 @@ def check_experts(dev, gen) -> dict:
                            bit_stable=True)
                 if live:
                     row["live_rows"] = live
-                if kind == "routed":  # the other order of the expert axis
-                    order = XM.EXPERT_ORDER
-                    other = "live_first" if order == "early" else "early"
-                    XM.EXPERT_ORDER = other
-                    try:
-                        bit_stable(f"{name}: {other} order vs {order}",
-                                   got, kern())
-                        row["order"] = order
-                        row[f"{other}_ms"] = time_ms(kern, it, wu)
-                        row[f"{other}_device_ms"] = graph_ms(kern)
-                    finally:
-                        XM.EXPERT_ORDER = order
-                    line += (f"; order {order}, {other} ms "
-                             f"{row[other + '_ms']:.4f} device_ms "
-                             f"{row[other + '_device_ms']:.4f}")
                 shapes.append(row)
                 if entry == "main":
                     entry_rows.update(row)

@@ -26,7 +26,7 @@
 // - stream_rows (R <= 16, the other row-major w: fp32, rows of odd stride).
 //   Weight streaming: 8 lanes side by side read one 128-byte line of a w row
 //   (16-byte vectors of 8 bf16 or 4 fp32 columns), so a warp reads 4 rows
-//   and a block of 8 warps 32 rows per pass, 4 passes in flight, over a
+//   and a block of 8 warps 32 rows per pass, 3 passes in flight, over a
 //   64-column (bf16) tile; the R rows of x for the block's K range sit in
 //   shared memory and each thread keeps R x 8 fp32 accumulators. Rows of
 //   an odd stride are read element by element. N is split across blocks
@@ -54,6 +54,7 @@
 //   the 128-byte swizzle, described by matrix descriptors; a row-major w
 //   is transposed by the instruction, the K-major embed.T is not. A
 //   cp.async ring keeps tiles ahead while one wgmma group is in flight.
+//   The expert products of C <= 64 rows take one warpgroup's 64-row tile.
 // - tc (bf16, R > 16, the other shapes with N % 8 == 0): mma.sync
 //   m16n8k16 from ldmatrix fragments, block tile 128x128x64, 4 warps of
 //   64x64, a 3-stage cp.async ring in padded (conflict-free) shared
@@ -62,23 +63,27 @@
 //   across blocks and merge in the same launch, as stream_rows does.
 //   Ragged edges are zero-filled by cp.async's src-size and masked.
 // - tile (fp32 at R > 16, misaligned or odd-strided shapes, and
-//   quant_matmul at R > 16): the CUDA-core template matmul_kernel<T, W,
-//   BM>, fp32 FMA through a padded shared tile, BM = 16 or 64 rows,
-//   ragged edges masked. fp32 never goes to tensor cores (no TF32).
+//   quant_matmul's misaligned ones): the CUDA-core template
+//   matmul_kernel<T, W, BM>, fp32 FMA through a padded shared tile, BM =
+//   16 or 64 rows, ragged edges masked. fp32 never goes to tensor cores
+//   (no TF32).
 //
 // quant_matmul takes the same plan struct through its own entry and its
 // own route (quant_matmul.py: route). At decode its bound is the int8
-// bytes of w, half of bf16's:
+// bytes of w, half of bf16's; at prefill the tensor cores over x's terms:
 // - stream_mma_q8 (R <= 16, row-major w_q with rows on 16 bytes: every
 //   INT8 projection): stream_mma's split-K streaming and in-launch merge
 //   over an int8 cp.async ring, each weight widened exactly to bf16 in
 //   registers (byte permutes and one subtract) as the mma A operand;
 // - stream_cols_q8 (R <= 16, K-major w_q: the tied unembedding's q.T):
 //   q's rows read straight into registers as the A operand;
-// - tile for the rest (R = 2048 prefill, misaligned shapes).
-// Both streams run fp32 x as three exact bf16 terms (hi, mid, lo) into
-// one fp32 accumulator, so that the result differs from fp32 only in
-// summation order (see stage_terms). As in the TPU quant_matmul,
+// - wg_q8 (R > 16, row-major w_q with rows on 16 bytes: every INT8
+//   prefill projection): wgmma on x's terms staged as swizzled A tiles,
+//   the int8 tile widened to bf16 in wgmma's B layout (see the kernel);
+// - tile for the rest (misaligned shapes).
+// Every tensor-core route runs fp32 x as three exact bf16 terms (hi,
+// mid, lo) into one fp32 accumulator, so that the result differs from
+// fp32 only in summation order (see stage_terms). As in the TPU quant_matmul,
 // per-column symmetric scaling commutes with the contraction, (x @ q) *
 // s == x @ (q * s), so the scale multiplies each output once, at the
 // merge or the store.
@@ -100,49 +105,20 @@ __device__ __forceinline__ void store(float* p, float v) { *p = v; }
 __device__ __forceinline__ void store(__nv_bfloat16* p, float v) { *p = __float2bfloat16(v); }
 
 // The expert axis of xfer_matmul_experts (x [E, R, N] @ w [E, N, M]): the
-// block of expert e reads x, w and writes out, the split-K workspace and
-// the tile counters advanced by e times these element strides. All zero
-// (and one expert) for xfer_matmul. counts (null: every row live) holds
-// each expert's live rows: rows at or past counts[e] are read as zero, so
-// they come out +0, and a block whose rows are all dead loads no weight
-// and writes its tile as +0 (one block per tile where K is split), which
-// leaves the split-K counters at 0 for the next call. Grid z (tc: z /
-// splits) is expert z, or, with live_first, the z-th expert in the order
-// live ones first, then dead ones (block_expert).
+// block of expert e (blockIdx.z; tc: blockIdx.z / splits) reads x, w and
+// writes out, the split-K workspace and the tile counters advanced by e
+// times these element strides. All zero (and one expert) for xfer_matmul.
+// counts (null: every row live) holds each expert's live rows: rows at or
+// past counts[e] come out +0, and a block whose rows are all dead returns
+// at once, loading no weight and storing its tile as +0 (the first split
+// where K is split), so the split-K counters stay at 0 for the next call.
+// (Walking grid z over the live experts first was slower at decode and
+// cost the stream kernels registers.)
 struct Group {
   long long sx, sw, so, sws;
   int scnt;
   const int* counts;
-  int live_first;
 };
-
-// The expert of expert-axis index z of E. Every warp of the block walks
-// counts in 32-expert chunks with ballots (all lanes must be active):
-// first the number of live experts, then the z-th live expert, or the
-// (z - live)-th dead one.
-__device__ __forceinline__ int block_expert(const Group& g, int z, int E) {
-  if (g.counts == nullptr || !g.live_first) return z;
-  const int lane = threadIdx.x & 31;
-  int live = 0;
-  for (int b = 0; b < E; b += 32) {
-    const int i = b + lane;
-    live += __popc(__ballot_sync(0xffffffffu, i < E && __ldg(g.counts + i) > 0));
-  }
-  const bool want_live = z < live;
-  int rank = want_live ? z : z - live;
-  for (int b = 0; b < E; b += 32) {
-    const int i = b + lane;
-    unsigned m = __ballot_sync(
-        0xffffffffu, i < E && (__ldg(g.counts + i) > 0) == want_live);
-    const int n = __popc(m);
-    if (rank < n) {
-      for (int j = 0; j < rank; ++j) m &= m - 1;  // drop the lowest rank bits
-      return b + __ffs(m) - 1;
-    }
-    rank -= n;
-  }
-  return z;  // not reached: the two orders cover [0, E)
-}
 
 // expert e's live rows of R
 __device__ __forceinline__ int live_rows(const Group& g, int e, int R) {
@@ -166,7 +142,7 @@ matmul_kernel(const T* __restrict__ x, const W* __restrict__ w,
               const float* __restrict__ scale, T* __restrict__ out, int R,
               int N, int M, long long swn, long long swm, Group grp) {
   constexpr bool Q8 = std::is_same<W, int8_t>::value;
-  const int e = block_expert(grp, blockIdx.z, gridDim.z);
+  const int e = blockIdx.z;
   x += e * grp.sx;
   w += e * grp.sw;
   out += e * grp.so;
@@ -372,12 +348,13 @@ __device__ __forceinline__ void reduce_scatter(float (&v)[NV], int lane,
 // groups of threads per output, each over every GS-th split, then the
 // groups in order. It resets the counter to 0 for the next call. A
 // non-null scale (quant_matmul's per-column f32 scale) multiplies each
-// output once, as it is stored.
+// output once, as it is stored; rows at or past live are stored as +0.
 template <typename T, int RB, int TILE>
 __device__ __forceinline__ void finish_tile(float* red, T* out, float* ws,
                                             int* counters, int R, int M,
                                             int tile, int split, int splits,
-                                            const float* scale = nullptr) {
+                                            const float* scale = nullptr,
+                                            int live = 1 << 30) {
   __shared__ int is_last;
   const int tid = threadIdx.x;
   __syncthreads();
@@ -388,7 +365,8 @@ __device__ __forceinline__ void finish_tile(float* red, T* out, float* ws,
     for (int wp2 = 0; wp2 < WARPS; ++wp2) s += red[(wp2 * RB + r) * TILE + c];
     if (gc < M) {
       if (splits == 1)
-        store(out + (long long)r * M + gc, scale ? s * scale[gc] : s);
+        store(out + (long long)r * M + gc,
+              r >= live ? 0.f : scale ? s * scale[gc] : s);
       else
         ws[((long long)split * R + r) * M + gc] = s;
     }
@@ -429,7 +407,7 @@ __device__ __forceinline__ void finish_tile(float* red, T* out, float* ws,
     for (int e = 0; e < vw; ++e) {
       if (gs == 1)
         store(out + (long long)r * M + gc + e,
-              scale ? s[e] * scale[gc + e] : s[e]);
+              r >= live ? 0.f : scale ? s[e] * scale[gc + e] : s[e]);
       else
         red[(sg * vouts + o) * vw + e] = s[e];
     }
@@ -440,7 +418,8 @@ __device__ __forceinline__ void finish_tile(float* red, T* out, float* ws,
       const int r = o / cols, gc = tile * TILE + o % cols;
       float s = 0.f;
       for (int sg = 0; sg < gs; ++sg) s += red[sg * vouts * vw + o];
-      store(out + (long long)r * M + gc, scale ? s * scale[gc] : s);
+      store(out + (long long)r * M + gc,
+            r >= live ? 0.f : scale ? s * scale[gc] : s);
     }
   }
   if (tid == 0) counters[tile] = 0;
@@ -460,7 +439,7 @@ stream_rows_kernel(const T* __restrict__ x, const T* __restrict__ w,
   constexpr int LPR = 8;               // lanes per row
   constexpr int TILE = LPR * V;        // columns per block
   constexpr int RPP = WARPS * 32 / LPR;  // rows per block pass
-  constexpr int U = 4;                 // passes in flight
+  constexpr int U = 3;                 // passes in flight
   constexpr int NV = RB * V;           // accumulators per thread
   constexpr int NF = NV / 4;           // kept after the 4-group scatter
   // x stage [R][kc], then the warps' partials [WARPS][RB][TILE]
@@ -469,18 +448,21 @@ stream_rows_kernel(const T* __restrict__ x, const T* __restrict__ w,
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int rg = lane / LPR, cl = lane % LPR;
   const int tile = blockIdx.x, split = blockIdx.y;
-  const int e = block_expert(grp, blockIdx.z, gridDim.z);
-  x += e * grp.sx;
-  w += e * grp.sw;
-  out += e * grp.so;
-  ws += e * grp.sws;
-  counters += e * grp.scnt;
-  // an expert with no live row reads no weight: its blocks take no rows
-  // of w and store (or merge) zeros
-  const int RL = live_rows(grp, e, R);
+  {
+    const long long e = blockIdx.z;
+    x += e * grp.sx;
+    w += e * grp.sw;
+    out += e * grp.so;
+    ws += e * grp.sws;
+    counters += e * grp.scnt;
+  }
+  if (live_rows(grp, blockIdx.z, R) == 0) {  // no weight read
+    if (split == 0) zero_tile(out, R, M, 0, R, tile * TILE, (tile + 1) * TILE);
+    return;
+  }
   const int c0 = tile * TILE + cl * V;
   const int k0 = split * kc;
-  const int klen = RL == 0 ? 0 : min(N, k0 + kc) - k0;
+  const int klen = min(N, k0 + kc) - k0;
 
   const int valid = M - c0;
   const bool vec_ok =
@@ -501,7 +483,7 @@ stream_rows_kernel(const T* __restrict__ x, const T* __restrict__ w,
 
   for (int i = tid; i < R * klen; i += THREADS) {
     const int r = i / klen, k = i % klen;
-    buf[r * kc + k] = r < RL ? to_f32(x[(long long)r * N + k0 + k]) : 0.f;
+    buf[r * kc + k] = to_f32(x[(long long)r * N + k0 + k]);
   }
   __syncthreads();
 
@@ -539,8 +521,11 @@ stream_rows_kernel(const T* __restrict__ x, const T* __restrict__ w,
     const int j = first + i, r = j / V, v = j % V;
     red[(warp * RB + r) * TILE + cl * V + v] = acc[i];
   }
+  // rows past the live ones are multiplied (R <= 16 rows of x; the bytes
+  // are w's) and stored as +0; their count is read again here, so that
+  // no register holds it through the loop
   finish_tile<T, RB, TILE>(red, out, ws, counters, R, M, tile, split,
-                           splits);
+                           splits, nullptr, live_rows(grp, blockIdx.z, R));
 }
 
 // bf16, row-major w with rows on 4 bytes: the same split-K streaming,
@@ -553,7 +538,9 @@ stream_rows_kernel(const T* __restrict__ x, const T* __restrict__ w,
 // w's rows allow (8 or 4 bytes otherwise); x is staged while the
 // first stages are in flight. The mma leaves the SM's FMA pipes free, so
 // the kernel is bound by the bytes of w at R = 8 where the CUDA-core loop
-// (R x 8 FMAs per 16 bytes) is not.
+// (R x 8 FMAs per 16 bytes) is not. EX: the expert axis (Group) and its
+// live rows. A decode step's single products take the instance without
+// it: the expert prologue made each of those launches measurably slower.
 constexpr int MT = 64;              // output columns per block
 constexpr int MBK = WARPS * 16;     // rows of w per stage
 constexpr int MLD = MT + 8;         // padded stage row: ldmatrix conflict-free
@@ -563,7 +550,7 @@ __host__ __device__ constexpr int mma_x_ld(int kc) {
   return (kc + MBK - 1) / MBK * MBK + 8;  // x stage row: b loads conflict-free
 }
 
-template <int RB, int CB>
+template <int RB, int CB, bool EX>
 __global__ void __launch_bounds__(THREADS)
 stream_mma_kernel(const __nv_bfloat16* __restrict__ x,
                   const __nv_bfloat16* __restrict__ w,
@@ -574,16 +561,19 @@ stream_mma_kernel(const __nv_bfloat16* __restrict__ x,
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int tile = blockIdx.x, split = blockIdx.y;
-  const int e = block_expert(grp, blockIdx.z, gridDim.z);
-  x += e * grp.sx;
-  w += e * grp.sw;
-  out += e * grp.so;
-  ws += e * grp.sws;
-  counters += e * grp.scnt;
-  const int RL = live_rows(grp, e, R);
-  if (RL == 0) {  // no weight read; the counters stay at 0
-    if (split == 0) zero_tile(out, R, M, 0, R, tile * MT, (tile + 1) * MT);
-    return;
+  int RL = R;  // rows of x staged, the rest zero
+  if constexpr (EX) {
+    const int e = blockIdx.z;
+    x += e * grp.sx;
+    w += e * grp.sw;
+    out += e * grp.so;
+    ws += e * grp.sws;
+    counters += e * grp.scnt;
+    RL = live_rows(grp, e, R);
+    if (RL == 0) {  // no weight read
+      if (split == 0) zero_tile(out, R, M, 0, R, tile * MT, (tile + 1) * MT);
+      return;
+    }
   }
   const int c0 = tile * MT;
   const int k0 = split * kc;
@@ -1126,14 +1116,14 @@ tc_kernel(const __nv_bfloat16* __restrict__ x,
   const int wm = warp / 2, wn = warp % 2;
   const int r0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
   const int split = blockIdx.z % splits;
-  const int e = block_expert(grp, blockIdx.z / splits, gridDim.z / splits);
+  const int e = blockIdx.z / splits;
   x += e * grp.sx;
   w += e * grp.sw;
   out += e * grp.so;
   ws += e * grp.sws;
   counters += e * grp.scnt;
   const int RL = live_rows(grp, e, R);
-  if (r0 >= RL) {  // no weight read; the tile's counter stays at 0
+  if (r0 >= RL) {  // no weight read
     if (split == 0) zero_tile(out, R, M, r0, r0 + BM, n0, n0 + BN);
     return;
   }
@@ -1391,17 +1381,21 @@ __device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lbo,
 }
 
 constexpr int WBK = 64;
-// stages of the ring: 3 for 128-column tiles (96 KB with 128 rows: two
-// blocks per SM; 72 KB with 64: three), 4 for 256 (one block per SM
-// either way); all but two loaded ahead, one wgmma group in flight
-__host__ __device__ constexpr int w_stages(int bn) { return bn == 256 ? 4 : 3; }
+// stages of the ring: 3 for 128 x 128 tiles (96 KB: two blocks per SM),
+// 4 for 256 columns (one block per SM either way) and for 64 x 128 (96
+// KB: two blocks per SM with two stages in flight each, which streams the
+// experts' weights faster than three blocks with one); all but two loaded
+// ahead, one wgmma group in flight
+__host__ __device__ constexpr int w_stages(int bn, int bm) {
+  return bn == 256 || bm == 64 ? 4 : 3;
+}
 // a stage: A (BM rows of 128 B), then B (BN rows, or BN / 64 column
 // groups, of 128 B)
 __host__ __device__ constexpr int w_stage_bytes(int bn, int bm) {
   return bm * 128 + bn * 128;
 }
 __host__ __device__ constexpr int w_smem(int bn, int bm) {
-  return w_stages(bn) * w_stage_bytes(bn, bm) + 1024;  // + alignment
+  return w_stages(bn, bm) * w_stage_bytes(bn, bm) + 1024;  // + alignment
 }
 
 // x [R, N] row-major, N % 8 == 0; w K-major (KMAJ: w[n, m] at
@@ -1427,10 +1421,10 @@ wg_kernel(const __nv_bfloat16* __restrict__ x,
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int wg = warp / 4;
   constexpr int STAGE = w_stage_bytes(BN, BM);
-  constexpr int WSTAGES = w_stages(BN), WAHEAD = WSTAGES - 2;
+  constexpr int WSTAGES = w_stages(BN, BM), WAHEAD = WSTAGES - 2;
   const int r0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
   const int KT = (N + WBK - 1) / WBK;
-  const int e = block_expert(grp, blockIdx.z, gridDim.z);
+  const int e = blockIdx.z;
   x += e * grp.sx;
   w += e * grp.sw;
   out += e * grp.so;
@@ -1798,7 +1792,7 @@ cudaError_t launch_stream(int kernel, const void* x, const void* w, void* out,
   return cudaSuccess;
 }
 
-template <int RB, int CB>
+template <int RB, int CB, bool EX>
 cudaError_t launch_stream_mma(const void* x, const void* w, void* out, int R,
                               int N, int M, long long ldw, int kc, int splits,
                               void* ws, void* counters, cudaStream_t stream,
@@ -1813,15 +1807,28 @@ cudaError_t launch_stream_mma(const void* x, const void* w, void* out, int R,
   if (bytes > 227 * 1024) return cudaErrorInvalidValue;
   static size_t allowed = 48 * 1024;
   const cudaError_t e =
-      allow_smem(stream::stream_mma_kernel<RB, CB>, bytes, allowed);
+      allow_smem(stream::stream_mma_kernel<RB, CB, EX>, bytes, allowed);
   if (e != cudaSuccess) return e;
   const dim3 grid((M + stream::MT - 1) / stream::MT, splits, E);
-  stream::stream_mma_kernel<RB, CB><<<grid, stream::THREADS, bytes, stream>>>(
+  stream::stream_mma_kernel<RB, CB, EX><<<grid, stream::THREADS, bytes, stream>>>(
       static_cast<const __nv_bfloat16*>(x),
       static_cast<const __nv_bfloat16*>(w), static_cast<__nv_bfloat16*>(out),
       static_cast<float*>(ws), static_cast<int*>(counters), R, N, M, ldw, kc,
       splits, g);
   return cudaSuccess;
+}
+
+// the instance with the expert axis where there is one
+template <int RB, int CB>
+cudaError_t launch_stream_mma_ex(const void* x, const void* w, void* out,
+                                 int R, int N, int M, long long ldw, int kc,
+                                 int splits, void* ws, void* counters,
+                                 cudaStream_t s, const Group& g, int E) {
+  return E > 1 || g.counts != nullptr
+             ? launch_stream_mma<RB, CB, true>(x, w, out, R, N, M, ldw, kc,
+                                               splits, ws, counters, s, g, E)
+             : launch_stream_mma<RB, CB, false>(x, w, out, R, N, M, ldw, kc,
+                                                splits, ws, counters, s, g, E);
 }
 
 // the widest cp.async (16, 8 or 4 bytes) that w's base and row stride
@@ -1835,14 +1842,14 @@ cudaError_t launch_stream_mma_any(const void* x, const void* w, void* out,
   const uintptr_t a = reinterpret_cast<uintptr_t>(w) | (uintptr_t)(ldw * 2) |
                       (uintptr_t)(g.sw * 2);
   if (a % 16 == 0)
-    return launch_stream_mma<RB, 16>(x, w, out, R, N, M, ldw, kc, splits, ws,
-                                     counters, s, g, E);
+    return launch_stream_mma_ex<RB, 16>(x, w, out, R, N, M, ldw, kc, splits,
+                                        ws, counters, s, g, E);
   if (a % 8 == 0)
-    return launch_stream_mma<RB, 8>(x, w, out, R, N, M, ldw, kc, splits, ws,
-                                    counters, s, g, E);
+    return launch_stream_mma_ex<RB, 8>(x, w, out, R, N, M, ldw, kc, splits,
+                                       ws, counters, s, g, E);
   if (a % 4 == 0)
-    return launch_stream_mma<RB, 4>(x, w, out, R, N, M, ldw, kc, splits, ws,
-                                    counters, s, g, E);
+    return launch_stream_mma_ex<RB, 4>(x, w, out, R, N, M, ldw, kc, splits,
+                                       ws, counters, s, g, E);
   return cudaErrorInvalidValue;
 }
 
@@ -2087,9 +2094,8 @@ cudaError_t dispatch_fp(const void* x, const void* w, void* out, int R, int N,
 // block, rows on 16 bytes). experts > 1 (xfer_matmul_experts, every
 // kernel but 2): one launch over that many products, expert e at x + e *
 // sx, w + e * sw, out + e * so, its split-K workspace at ws + e * sws
-// floats and its counters at counters + e * scnt (Group), grid z walking
-// the experts in index order or, with live_first, the live ones first;
-// 0 or 1: one product.
+// floats and its counters at counters + e * scnt (Group); 0 or 1: one
+// product.
 struct XferPlan {
   int R, N, M, dtype;
   long long swn, swm;
@@ -2098,7 +2104,6 @@ struct XferPlan {
   void* counters;
   int experts, scnt;
   long long sx, sw, so, sws;
-  int live_first, pad2;
 };
 
 // counts: null, or (expert axis only) E ints on the device, each
@@ -2113,7 +2118,7 @@ extern "C" int xfer_matmul_launch(const void* x, const void* w,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int E = p->experts > 1 ? p->experts : 1;
   const Group g{p->sx, p->sw, p->so, p->sws, p->scnt,
-                static_cast<const int*>(counts), p->live_first};
+                static_cast<const int*>(counts)};
   cudaError_t e;
   if (p->dtype == 0) {
     e = dispatch_fp<float>(x, w, out, p->R, p->N, p->M, p->swn, p->swm,

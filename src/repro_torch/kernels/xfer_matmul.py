@@ -42,14 +42,10 @@ back to the host.
 
 :func:`xfer_matmul_experts` runs the same bodies over an expert axis
 (grid z) and takes ``counts`` [E] int32, each expert's live rows, on the
-device: rows at or past ``counts[e]`` are read as zero and come out +0,
-and a block whose rows are all dead (every block of an expert with no
-row) loads no weight and writes its tile as +0. At decode that skips the
-weights of the experts the step routed nothing to. ``EXPERT_ORDER``
-picks how grid z meets the experts: ``"early"`` (block z is expert z, a
-dead block returns at once) or ``"live_first"`` (block z walks the live
-experts first, then the dead ones, from ``counts``); ``chip_smoke.py``
-times both.
+device: rows at or past ``counts[e]`` come out +0, and a block whose rows
+are all dead (every block of an expert with no row) returns at once,
+loading no weight and writing its tile as +0. At decode that skips the
+weights of the experts the step routed nothing to.
 
 A CPU tensor takes the plain version (:func:`plain`); a CUDA tensor
 launches the kernel or raises. ``xfer_matmul.launches`` counts launches.
@@ -75,14 +71,13 @@ _ARGTYPES = (_VP, _VP, _VP, _VP, _VP)  # x, w, counts, out, &plan
 
 class _Plan(ctypes.Structure):
     """The C entry's ``XferPlan``: one shape's launch, built once; the
-    last eight fields are the expert axis of :func:`xfer_matmul_experts`
+    last six fields are the expert axis of :func:`xfer_matmul_experts`
     (0 for one product)."""
     _fields_ = [("R", _I), ("N", _I), ("M", _I), ("dtype", _I),
                 ("swn", _LL), ("swm", _LL), ("kernel", _I), ("p0", _I),
                 ("p1", _I), ("pad", _I), ("ws", _VP), ("counters", _VP),
                 ("experts", _I), ("scnt", _I), ("sx", _LL), ("sw", _LL),
-                ("so", _LL), ("sws", _LL), ("live_first", _I),
-                ("pad2", _I)]
+                ("so", _LL), ("sws", _LL)]
 
 #: the C entry's kernel codes
 KERNEL_CODES = {"tile": 0, "stream_rows": 1, "stream_cols": 2, "tc": 3,
@@ -100,8 +95,6 @@ TC_SMALL = 1 << 20       # outputs under this go to tc, not wgmma
 TC_SPLIT_FLOATS = 1 << 23  # tc: split-K partials at most (f32, 32 MB)
 WG_ROWS = 128            # wgmma: rows per block (two warpgroups)
 WG_ROWS_SMALL = 64       # wgmma over experts of C <= 64: one warpgroup
-#: how grid z meets the experts of xfer_matmul_experts (module docstring)
-EXPERT_ORDER = "early"
 
 
 class Route(NamedTuple):
@@ -193,15 +186,13 @@ def route(r: int, n: int, m: int, dtype: torch.dtype, strides: tuple,
     return Route("tile", (_cdiv(m, 64), _cdiv(r, rows)), rows=rows)
 
 
-def _plan(name: str, x: torch.Tensor, w: torch.Tensor, aligned: bool,
-          live_first: bool) -> tuple:
+def _plan(name: str, x: torch.Tensor, w: torch.Tensor, aligned: bool) -> tuple:
     """Check CUDA operands once per (shapes, strides, dtypes, devices,
     alignment) and fix the launch of ``x [R, N] @ w [N, M]``, or of one
     such product per expert for ``x [E, R, N] @ w [E, N, M]`` (the card
     filled by all of them, the split-K workspace and counters one slice
     per expert): (the address of its ``_Plan``, what keeps the plan and
-    the workspace alive). ``live_first``: the expert axis walks the live
-    experts first (``EXPERT_ORDER``)."""
+    the workspace alive)."""
     check_cuda(name, x, w)
     e = x.shape[0] if x.dim() == 3 else 1
     r, n = x.shape[-2:]
@@ -216,8 +207,7 @@ def _plan(name: str, x: torch.Tensor, w: torch.Tensor, aligned: bool,
         per_cnt = math.prod(rt.grid[:2]) if rt.kernel == "tc" else rt.grid[0]
         ws, counters = scratch("xfer_matmul", x.device, e * per_ws,
                                e * per_cnt)
-    group = ((e, per_cnt, r * n, n * m, r * m, per_ws, int(live_first))
-             if x.dim() == 3 else ())
+    group = (e, per_cnt, r * n, n * m, r * m, per_ws) if x.dim() == 3 else ()
     plan = _Plan(r, n, m, DTYPE_CODES[x.dtype], *strides, *rt.c_args, 0,
                  ws.data_ptr() if ws is not None else None,
                  counters.data_ptr() if counters is not None else None,
@@ -241,12 +231,11 @@ def _launch(name: str, x: torch.Tensor, w: torch.Tensor,
         return torch.empty(shape, dtype=x.dtype, device=dev)
     xp, wp = x.data_ptr(), w.data_ptr()
     index = torch.cuda.current_device()
-    live_first = counts is not None and EXPERT_ORDER == "live_first"
     key = (x.shape, w.shape, w.stride(), x.dtype, w.dtype, dev, w.device,
-           index, live_first, (xp | wp) % 16 == 0)
+           index, (xp | wp) % 16 == 0)
     plan = _plans.get(key)
     if plan is None:
-        plan = _plans[key] = _plan(name, x, w, key[-1], live_first)
+        plan = _plans[key] = _plan(name, x, w, key[-1])
     out = torch.empty(shape, dtype=x.dtype, device=dev)
     fn = entry("xfer_matmul", _ARGTYPES)
     cp = counts.data_ptr() if counts is not None else None
@@ -280,15 +269,15 @@ def xfer_matmul_experts(x: torch.Tensor, w: torch.Tensor,
                         counts: torch.Tensor = None) -> torch.Tensor:
     """The expert products of a capacity-routed MoE layer in one launch:
     x [E, C, K] @ w [E, K, N] -> [E, C, N] in ``x.dtype`` (fp32
-    accumulation), ``w`` contiguous. Grid z is the expert axis
-    (``tc``: z / splits; ``EXPERT_ORDER``); each expert's product runs
-    the body that :func:`route` gives its shape (``stream_mma`` or
-    ``stream_rows`` at C <= 16, ``wgmma``, ``tc`` or ``tile`` above) with
-    its pointers advanced by the expert's offsets. ``counts`` [E] int32
-    on ``x``'s device: expert e's rows at or past ``counts[e]`` are read
-    as zero and come out +0, and an expert with no live row reads none of
-    its weights; ``None``: every row is live, every expert multiplied,
-    as the reference's ``einsum("ecd,edf->ecf")`` does.
+    accumulation), ``w`` contiguous. Block z of the grid is expert z
+    (``tc``: z / splits); each expert's product runs the body that
+    :func:`route` gives its shape (``stream_mma`` or ``stream_rows`` at C
+    <= 16, ``wgmma``, ``tc`` or ``tile`` above) with its pointers
+    advanced by the expert's offsets. ``counts`` [E] int32 on ``x``'s
+    device: expert e's rows at or past ``counts[e]`` come out +0, and an
+    expert with no live row reads none of its weights; ``None``: every
+    row is live, every expert multiplied, as the reference's
+    ``einsum("ecd,edf->ecf")`` does.
     ``xfer_matmul_experts.launches`` counts launches."""
     if x.dim() != 3 or w.dim() != 3 or x.shape[0] != w.shape[0] \
             or x.shape[2] != w.shape[1]:

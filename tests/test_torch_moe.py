@@ -10,6 +10,9 @@ CPU, at 2e-4 (the tests/test_kernels.py fp32 tolerance).
   sort) in ``jax.lax.top_k``'s order, lowest expert first;
 * the expert FFN through ``ref.expert_matmul_ref`` (the plain version of
   ``xfer_matmul_experts``) against ``_expert_ffn``, gated and relu2;
+* each expert's live rows (``moe.expert_counts``) against a host count of
+  ``dispatch``'s kept assignments, and the plain expert product with
+  them: equal to the full one on dispatched buffers, +0 past them;
 * ``LM.forward``'s hidden states and logits against the JAX ``forward``;
 * greedy and top-k streams against the JAX ``ServingEngine`` on the
   slot grid and the page pool (pages of 4), prompts pinned to bucket ==
