@@ -287,6 +287,13 @@ SOURCES = {
     # _expert_ffn, which is the line named
     "xfer_matmul_experts": ("src/repro_torch/kernels/csrc/xfer_matmul.cu",
                             "src/repro/models/blocks.py:550"),
+    # quant_matmul's expert axis: the same einsum on dequantised weights
+    "quant_matmul_experts": ("src/repro_torch/kernels/csrc/xfer_matmul.cu",
+                             "src/repro/models/blocks.py:550"),
+    # the int8 body's multi-query form (the verify over an int8 grid)
+    "paged_attention_q8_multi": (
+        "src/repro_torch/kernels/csrc/paged_attention.cu",
+        "src/repro/kernels/paged_attention.py:81"),
 }
 # the kernels each serving path runs (phase 4: fp, phase 4b: INT8,
 # phase 4c: the hybrid, phase 4d: the ssm family, phase 4e: paged, phase
@@ -317,7 +324,30 @@ PATH_KERNELS = {"fp": ("xfer_matmul", "flash_attention", "paged_attention"),
                            "paged_attention"),
                 "vlm": ("xfer_matmul", "flash_attention", "paged_attention"),
                 "vlm-paged": ("xfer_matmul", "flash_attention",
-                              "paged_attention")}
+                              "paged_attention"),
+                # phase 4n: INT8_SERVE on every other family, and spec
+                # under INT8 (the target int8, the draft fp)
+                "moe-int8": ("quant_matmul", "quant_matmul_experts",
+                             "flash_attention", "paged_attention_q8"),
+                "moe-int8-paged": ("quant_matmul", "quant_matmul_experts",
+                                   "flash_attention", "paged_attention_q8"),
+                "hybrid-int8": ("quant_matmul", "flash_attention",
+                                "paged_attention_q8", "rglru_scan"),
+                "ssm-int8": ("quant_matmul", "mlstm_chunkwise"),
+                "encdec-int8": ("quant_matmul", "flash_attention",
+                                "paged_attention", "paged_attention_q8"),
+                "vlm-int8": ("quant_matmul", "flash_attention",
+                             "paged_attention_q8"),
+                "vlm-int8-paged": ("quant_matmul", "flash_attention",
+                                   "flash_attention_q8",
+                                   "paged_attention_q8"),
+                "spec-int8": ("xfer_matmul", "quant_matmul",
+                              "flash_attention", "paged_attention",
+                              "paged_attention_q8_multi"),
+                "spec-int8-paged": ("xfer_matmul", "quant_matmul",
+                                    "flash_attention", "flash_attention_q8",
+                                    "paged_attention",
+                                    "paged_attention_q8_multi")}
 
 
 def log(msg: str) -> None:
@@ -886,6 +916,270 @@ def check_experts(dev, gen) -> dict:
                           "a decode step's routed live rows")
     return {"xfer_matmul_experts": entry_rows}
 
+# quant_matmul_experts (the MoE layer's expert products under INT8
+# weights, one launch): (label, E, C, K, N, timed in fp32, entry, live
+# rows: None for every row, else a kind of expert_live_rows).
+# deepseek-moe-16b's w_gate / w_up ([64, 2048, 1408] int8) and w_down
+# ([64, 1408, 2048]) at C = 1 (decode at 8 slots), 60 and 240, every row
+# live; C = 1 with the live rows of a seeded top-6 routing of 8 tokens
+# (the main entry); C = 60 and 240 with live rows below C; then a split-K
+# case, a wgmma case with part-filled row tiles and two misaligned cases
+# that take tile. Every case with fp32 x (the INT8 path's activations)
+# and bf16 x, one column scale for all experts.
+QME_CASES = (
+    [(f"[{M_E},{c},{k}] @ int8 [{M_E},{k},{n}]", M_E, c, k, n, True, None,
+      None) for c in (1, 60, 240) for k, n in ((M_D, M_FF), (M_FF, M_D))]
+    + [(f"[{M_E},1,{k}] @ int8 [{M_E},{k},{n}] routed (8 tokens, top "
+        f"{M_TOPK})", M_E, 1, k, n, True, "main" if k == M_D else None,
+        "routed") for k, n in ((M_D, M_FF), (M_FF, M_D))]
+    + [(f"[{M_E},{c},{M_D}] @ int8 [{M_E},{M_D},{M_FF}] live rows below C",
+        M_E, c, M_D, M_FF, False, None, "partial") for c in (60, 240)]
+    + [("split-K E=3 C=9 4096x64", 3, 9, 4096, 64, False, None, "partial"),
+       ("wgmma E=12 C=77 1024x1152", 12, 77, 1024, 1152, False, None,
+        "partial"),
+       ("ragged E=5 C=13 1000x1001 (tile)", 5, 13, 1000, 1001, False, None,
+        "partial"),
+       ("ragged E=3 C=77 1000x1001 (tile)", 3, 77, 1000, 1001, False, None,
+        None)])
+
+
+def check_quant_experts(dev, gen) -> dict:
+    """``quant_matmul_experts`` on every case of QME_CASES against its
+    plain version (``ref.quant_matmul_experts_ref``: the fp32 einsum on
+    weights dequantised with the one column scale, rows past the live
+    ones zeroed), two calls bit-equal, each route printed; with live
+    rows, also on the case's x with its dead rows zeroed against the call
+    without counts, bit-equal. The timed cases in fp32 beside
+    ``torch.bmm`` on weights dequantised ahead of time (a labelled
+    yardstick; no PyTorch call computes int8 expert products, so the
+    library time is null), eager and as device time from a CUDA graph;
+    bounded on the live experts' int8 bytes and, on the tensor-core
+    routes, x's bf16 terms' products at the bf16 peak."""
+    import torch
+    from repro_torch import quant as Q
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.quant_matmul import route as qm_route
+    from repro_torch.kernels.quant_matmul import x_terms
+
+    dtypes = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    entry_rows, shapes = {}, []
+    for label, e, c, k, n, timed, entry, kind in QME_CASES:
+        live = expert_live_rows(kind, e, c) if kind else None
+        counts = (torch.tensor(live, dtype=torch.int32, device=dev)
+                  if live else None)
+        # one stacked leaf of 2 layers: the scale [1, 1, N] over both
+        w = Q.quantize(torch.randn(2, e, k, n, generator=gen, device=dev)
+                       * k ** -0.5, axis=(0, 1, 2))
+        w_q, scale = w.q[1].contiguous(), w.scale[0]
+        del w
+        for dname, dt in dtypes.items():
+            x = torch.randn(e, c, k, generator=gen, device=dev).to(dt)
+            rt = qm_route(c, k, n, dt, (n, 1), sms,
+                          aligned=(w_q.data_ptr() | k * n) % 16 == 0,
+                          x_aligned=(x.data_ptr() | c * k * x.element_size())
+                          % 16 == 0, experts=e)
+            name = f"quant_matmul_experts {label} {dname}"
+            got = ops.int8_expert_matmul(x, w_q, scale, counts)
+            err = compare(name, got, ops.int8_expert_matmul_ref(
+                x, w_q, scale, counts), dname)
+            bit_stable(name, got, ops.int8_expert_matmul(x, w_q, scale,
+                                                         counts))
+            line = (f"[kernel] {name}: route {rt.kernel} grid {rt.grid} x "
+                    f"{e} experts splits {rt.splits}; max_abs_err {err:.3e} "
+                    f"(bit-stable)")
+            if live:
+                rows = torch.arange(c, device=dev)[None, :, None]
+                xd = torch.where(rows < counts[:, None, None], x, 0)
+                bit_stable(f"{name}: live rows vs every row on a dispatched "
+                           f"buffer", ops.int8_expert_matmul(xd, w_q, scale,
+                                                             counts),
+                           ops.int8_expert_matmul(xd, w_q, scale))
+                line += (f"; {sum(1 for v in live if v)} of {e} experts "
+                         f"live, {sum(live)} of {e * c} rows; equal to the "
+                         f"call without counts on a dispatched buffer")
+                del xd
+            if timed and dname == "float32":
+                w_deq = w_q.float() * scale.reshape(1, 1, n)
+                live_c = live if live is not None else [c] * e
+                rows_live = sum(live_c)
+                busy = sum(1 for v in live_c if v > 0)
+                nbytes = (rows_live * k * 4 + busy * k * n + n * 4
+                          + e * c * n * 4)
+                flops = 2.0 * rows_live * k * n
+                if rt.kernel in ("stream_mma", "wgmma"):
+                    b, bkind = bound_ms(nbytes, flops * x_terms(dt),
+                                        "bfloat16")
+                else:
+                    b, bkind = bound_ms(nbytes, flops, "float32")
+                it, wu = iters_for(flops * 3)
+
+                def kern():
+                    return ops.int8_expert_matmul(x, w_q, scale, counts)
+
+                ms = time_ms(kern, it, wu)
+                dev_ms = graph_ms(kern)
+                plain = time_ms(lambda: ops.int8_expert_matmul_ref(
+                    x, w_q, scale, counts), it, wu)
+                yard = time_ms(lambda: torch.bmm(x, w_deq), it, wu)
+                yard_dev = graph_ms(lambda: torch.bmm(x, w_deq))
+                line += (f" ms {ms:.4f} device_ms {dev_ms:.4f} plain_ms "
+                         f"{plain:.4f} yardstick_ms {yard:.4f} (fp32 "
+                         f"torch.bmm on weights dequantised ahead of time, "
+                         f"every row; device {yard_dev:.4f}) bound_ms "
+                         f"{b:.4f} ({bkind}, live experts' int8 bytes) "
+                         f"kernel/yardstick {ms / yard:.2f}")
+                row = dict(shape=f"x[{e},{c},{k}] fp32 @ w_q[{e},{k},{n}] "
+                                 f"int8" + (f" {kind} live rows" if live
+                                            else ""),
+                           variant=rt.kernel, max_abs_err=err, ms=ms,
+                           device_ms=dev_ms, plain_ms=plain, bound_ms=b,
+                           bound_by=bkind, library_ms=None,
+                           yardstick="fp32 torch.bmm on weights dequantised "
+                                     "ahead of time",
+                           yardstick_ms=yard, yardstick_device_ms=yard_dev,
+                           bit_stable=True)
+                if live:
+                    row["live_rows"] = live
+                shapes.append(row)
+                if entry == "main":
+                    entry_rows.update(row)
+                del w_deq
+            log(line)
+            del x, got
+        del w_q, scale
+    entry_rows["shapes"] = shapes
+    entry_rows["note"] = ("no TPU kernel: quant_matmul's expert axis; the "
+                          "reference's expert products are jnp.einsum in "
+                          "_expert_ffn on dequantised weights; the main "
+                          "entry is a decode step's routed live rows")
+    return {"quant_matmul_experts": entry_rows}
+
+
+# paged_attention's int8 body in its multi-query form (the speculative
+# verify over an INT8 target's grid or pool): (label, B, H, G, D, (pages,
+# page size), table columns (None: the dense grid through an identity
+# table), first-query lengths, entry); every case at S in SPEC_S with q
+# in fp32 (the INT8 path's) and bf16. qwen's int8 grid (a length of 509
+# runs its last queries into the clamp at 512), phase 4f's int8 pool
+# (pages of 64, 65 pages) and GQA on pages of 16
+PQ8_MULTI_CASES = [
+    (f"grid q[{SLOTS},S,{Q_HEADS},64] int8 grid[{SLOTS},{MAX_LEN},"
+     f"{Q_HEADS},64]", SLOTS, Q_HEADS, Q_HEADS, 64, (SLOTS, MAX_LEN), None,
+     [1, 17, 64, 128, 129, 200, 509, MAX_LEN], "main"),
+    (f"pool q[{SLOTS},S,{Q_HEADS},64] int8 pool[65,{PAGE},{Q_HEADS},64] "
+     f"table {SLOTS}x{MAX_LEN // PAGE}", SLOTS, Q_HEADS, Q_HEADS, 64,
+     (65, PAGE), MAX_LEN // PAGE, [1, 63, 64, 65, 300, 447, 505, MAX_LEN],
+     "pool"),
+    ("GQA H=8 G=2 ps=16", 3, 8, 2, 64, (3 * 9 + 2, 16), 9, [1, 77, 140],
+     None)]
+
+
+def check_paged_q8_multi(dev, gen) -> dict:
+    """Phase 3, the int8 multi-query ``paged_attention``
+    (``paged_attention_q8_multi``; PQ8_MULTI_CASES at every S of
+    SPEC_S): against its plain version (one query position at a time
+    over the dequantised pools) and bit-stable on two calls. Timed in
+    fp32 at S = SPEC_K + 1: the kernel (eager and device
+    time), S launches of the one-query int8 form and SDPA over K/V
+    dequantised ahead of time with a [B, H, S, T] mask (both labelled
+    yardsticks; no PyTorch call reads int8 K/V), the byte bound (each
+    valid int8 row and its scale read once). Returns the kernel's entry
+    (the grid case, the pool's under ``pool``)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch import quant as Q
+    from repro_torch.kernels import ops
+
+    dtypes = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+    multi = {}
+    for (label, b, h, g, d, (n_pages, ps), m, lengths,
+         entry) in PQ8_MULTI_CASES:
+        kq = Q.quantize_kv(torch.randn(n_pages, ps, g, d, generator=gen,
+                                       device=dev))
+        vq = Q.quantize_kv(torch.randn(n_pages, ps, g, d, generator=gen,
+                                       device=dev))
+        scales = dict(k_scale=kq.scale, v_scale=vq.scale)
+        if m is None:
+            tb = torch.arange(b, device=dev, dtype=torch.int32)[:, None]
+        else:
+            perm = torch.randperm(n_pages - 1, generator=gen, device=dev) + 1
+            tb = perm[:b * m].reshape(b, m).to(torch.int32)
+        t = tb.shape[1] * ps
+        lens = torch.tensor(lengths, device=dev, dtype=torch.int32)
+        lens_j = [torch.clamp(lens + j, max=t) for j in range(max(SPEC_S))]
+        for dname, dt in dtypes.items():
+            for s in SPEC_S:
+                q = torch.randn(b, s, h, d, generator=gen, device=dev).to(dt)
+                args = (q, kq.q, vq.q, tb, lens)
+                name = f"paged_attention_q8_multi S={s} {label} {dname}"
+                got = ops.paged_attn(*args, **scales)
+                err = compare(name, got, ops.paged_attn_ref(*args, **scales),
+                              dname)
+                bit_stable(name, got, ops.paged_attn(*args, **scales))
+                line = f"[kernel] {name}: max_abs_err {err:.3e} (bit-stable)"
+                if not (dname == "float32" and s == SPEC_K + 1 and entry):
+                    log(line)
+                    continue
+                kv_rows = sum(min(n + s - 1, t) for n in lengths)
+                pairs = sum(min(n + j, t) for n in lengths for j in range(s))
+                nb, kind = bound_ms(2 * q.numel() * 4
+                                    + kv_rows * g * (2 * d + 2 * 4)
+                                    + tb.numel() * 4 + lens.numel() * 4,
+                                    4.0 * h * d * pairs, dname)
+
+                def one_query_each():
+                    for j in range(s):
+                        ops.paged_attn(q[:, j], kq.q, vq.q, tb, lens_j[j],
+                                       **scales)
+
+                ms = time_ms(lambda: ops.paged_attn(*args, **scales))
+                dev_ms = graph_ms(lambda: ops.paged_attn(*args, **scales))
+                plain = time_ms(lambda: ops.paged_attn_ref(*args, **scales))
+                yard = time_ms(one_query_each)
+                yard_dev = graph_ms(one_query_each)
+                rows = tb.long()
+                q4 = q.permute(0, 2, 1, 3)
+                k4, v4 = (Q.dequantize(x)[rows].reshape(b, t, g, d)
+                          .permute(0, 2, 1, 3) for x in (kq, vq))
+                lim = torch.stack(lens_j[:s], dim=1)
+                mask = (torch.arange(t, device=dev)[None, None]
+                        < lim[:, :, None])[:, None]
+
+                def sdpa():
+                    return F.scaled_dot_product_attention(
+                        q4, k4, v4, attn_mask=mask, enable_gqa=h != g)
+
+                sd, sd_dev = time_ms(sdpa), graph_ms(sdpa)
+                row = dict(shape=f"{label}, S={s}, lengths {lengths}, fp32 q",
+                           S=s, max_abs_err=err, ms=ms, device_ms=dev_ms,
+                           plain_ms=plain, bound_ms=nb, bound_by=kind,
+                           library_ms=None,
+                           yardstick=f"{s} launches of the one-query int8 "
+                                     f"body; SDPA over K/V dequantised ahead "
+                                     f"of time, [B,H,S,T] mask",
+                           yardstick_ms=yard, yardstick_device_ms=yard_dev,
+                           sdpa_dequantised_ms=sd,
+                           sdpa_dequantised_device_ms=sd_dev,
+                           bit_stable=True)
+                line += (f" ms {ms:.4f} device_ms {dev_ms:.4f} plain_ms "
+                         f"{plain:.4f} bound_ms {nb:.4f} ({kind}); {s} "
+                         f"one-query int8 launches {yard:.4f} ms, device "
+                         f"{yard_dev:.4f}; SDPA over pre-dequantised K/V "
+                         f"{sd:.4f} ms, device {sd_dev:.4f}")
+                log(line)
+                if entry == "main":
+                    multi.update(row)
+                else:
+                    multi[entry] = row
+                del k4, v4, mask
+            del q, got
+        del kq, vq
+    multi["note"] = ("the int8 body's multi-query form; the reference's "
+                     "verify gathers and dequantises in jnp "
+                     "(src/repro/models/blocks.py:125-160)")
+    return {"paged_attention_q8_multi": multi}
+
 # --------------------------------------------------------------------------
 # phase 3, the encdec and vlm forms: flash_attention's per-row key lengths
 # and prefix-LM masks, paged_attention over encoder positions
@@ -1261,6 +1555,8 @@ def check_kernels(dev) -> dict:
     check_encdec_vlm(dev, gen, entries)
     entries.update(check_experts(dev, gen))
     entries.update(check_int8_kernels(dev, gen))
+    entries.update(check_quant_experts(dev, gen))
+    entries.update(check_paged_q8_multi(dev, gen))
     check_flash_q8(dev, gen, entries)
     entries.update(check_rglru(dev, gen))
     entries.update(check_mlstm(dev, gen))
@@ -1278,6 +1574,12 @@ QM_CASES = (
      for r in (SLOTS, N_PREFILL * BUCKET)
      for n, m in ((Q_D, Q_D), (Q_D, Q_FF), (Q_FF, Q_D))]
     + [(f"R={SLOTS} {Q_D}x{Q_VOCAB} (embed.q.T)", SLOTS, Q_D, Q_VOCAB, True),
+       # the INT8 speculative verify's rows, R = slots x (k + 1)
+       (f"verify R={SLOTS * 5} {Q_D}x{Q_D}", SLOTS * 5, Q_D, Q_D, False),
+       (f"verify R={SLOTS * 5} {Q_D}x{Q_FF}", SLOTS * 5, Q_D, Q_FF, False),
+       (f"verify R={SLOTS * 5} {Q_FF}x{Q_D}", SLOTS * 5, Q_FF, Q_D, False),
+       (f"verify R={SLOTS * 5} {Q_D}x{Q_VOCAB} (embed.q.T)", SLOTS * 5, Q_D,
+        Q_VOCAB, True),
        ("ragged R=13 1000x1008", 13, 1000, 1008, False),
        ("ragged R=13 1024x1001 (q.T)", 13, 1024, 1001, True),
        ("ragged R=13 1000x1001", 13, 1000, 1001, False),
@@ -1697,7 +1999,11 @@ PREFIX_CASES = [
     ("D=128 BH=4 S=50 span 100 pre_len 77", 4, 50, 128, 100, 77, False),
     ("D=256 BH=4 S=50 span 64 pre_len 40", 4, 50, 256, 64, 40, False),
     ("D=256 BH=3 S=17 span 48 pre_len 32 (tile edge)", 3, 17, 256, 48, 32,
-     False)]
+     False),
+    # paligemma-3b's shared prefill on its pool (phase 4n under INT8: two
+    # sharers x 8 query heads over its one KV head, head dim 256)
+    (f"D=256 BH={2 * V_HEADS} S=64 span {4 * PAGE} pre_len {SYS_LEN} "
+     f"(paligemma's pool)", 2 * V_HEADS, 64, 256, 4 * PAGE, SYS_LEN, False)]
 
 
 def ptxas_kernels(out: str) -> dict:
@@ -2217,31 +2523,40 @@ def serve_family(tag: str, arch, model, prompts, payloads=None,
 
 def step_bytes(model, engine) -> tuple:
     """The bytes a decode step of ``model`` must move at least, and what
-    they are: every weight read once but an untied embedding table,
-    which is only gathered (at 8 slots an MoE layer's capacity is 1, so
-    every expert runs). An encdec step reads its decoder's weights and
-    the unembedding, not the encoder's; each decoder layer also reads
-    ``enc_out`` twice (the cross K and V products) and writes those
-    products and reads them back whole (the reference recomputes them
-    every step)."""
-    def size(params):
-        return sum(p.numel() * p.element_size() for p in params)
+    they are: every weight leaf read once (a quantised one's int8
+    payload, f32 scale and the fp32 values of a leaf read in fp) but an
+    untied embedding table, which is only gathered (at 8 slots an MoE
+    layer's capacity is 1, so every expert runs). An encdec step reads
+    its decoder's weights and the unembedding, not the encoder's; each
+    decoder layer also reads ``enc_out`` twice (the cross K and V
+    products) and writes those products (fp32 under int8 weights) and
+    reads them back whole (the reference recomputes them every step)."""
+    from repro_torch import quant as Q
+
+    def size(leaf):
+        if not Q.is_qtensor(leaf):
+            return leaf.numel() * leaf.element_size()
+        extra = leaf.values.numel() * 4 if leaf.values is not None else 0
+        return leaf.q.numel() + leaf.scale.numel() * 4 + extra
 
     arch = model.arch
+    int8 = model.weights_quantized
+    kind = "int8 " if int8 else ""
+    leaves = Q.named_leaves(model)
+    skip = set() if arch.tie_embeddings else {"embed"}
     if arch.family != "encdec":
-        n = size(model.parameters()) - (0 if arch.tie_embeddings
-                                        else size([model.embed]))
-        return n, f"{n} weight bytes"
-    weights = size(model.dec_layers.parameters()) + size(
-        [model.final_norm, model.unembed])
+        n = sum(size(v) for name, v in leaves.items() if name not in skip)
+        return n, f"{n} {kind}weight bytes"
+    weights = sum(size(v) for name, v in leaves.items()
+                  if name not in skip and not name.startswith("enc_"))
     enc = engine.state.enc_out
-    reads = 2 * arch.dec_layers * size([enc])
-    kv = 2 * 2 * arch.dec_layers * enc.shape[0] * enc.shape[1] * arch.kv_dim \
-        * enc.element_size()
+    reads = 2 * arch.dec_layers * size(enc)
+    kv = 2 * 2 * arch.dec_layers * enc.shape[0] * enc.shape[1] \
+        * arch.kv_dim * (4 if int8 else enc.element_size())
     return weights + reads + kv, (
-        f"{weights} decoder and unembedding weight bytes + {reads} of "
-        f"enc_out read by the cross K/V products + {kv} of those products "
-        f"written and read back")
+        f"{weights} {kind}decoder and unembedding weight bytes + {reads} "
+        f"of enc_out read by the cross K/V products + {kv} of those "
+        f"products written and read back")
 
 
 def serve_encdec() -> dict:
@@ -2285,6 +2600,265 @@ def serve_vlm() -> dict:
     return {"vlm": grid, "vlm-paged": pool}
 
 
+# --------------------------------------------------------------------------
+# phase 4n: INT8_SERVE on the moe, hybrid, ssm, encdec and vlm families,
+# and speculative decoding under INT8
+# --------------------------------------------------------------------------
+
+def int8_pass_launches(model, group: bool = False,
+                       shared: bool = False) -> dict:
+    """The launches of one pass of a quantised ``model`` under INT8_SERVE
+    (a decode step, or with ``group`` a prefill group; ``shared``: a
+    suffix prefill after a shared int8 prefix), every kernel named: each
+    projection in ``quant_matmul`` (an attention layer 4 and its MLP, an
+    MoE layer 4, the router and its shared experts' MLP; RG-LRU 5, mLSTM
+    7, sLSTM 2; one unembedding), the MoE layer's expert products in
+    ``quant_matmul_experts``; a step's self-attention in the int8
+    ``paged_attention`` body, a group's in ``flash_attention`` (fp32 q
+    over the fresh fp K/V; after a shared int8 prefix its int8 entry); a
+    group's recurrences in ``rglru_scan`` and ``mlstm_chunkwise`` (a
+    step's are elementwise). An encdec model's decoder layers add 4
+    cross projections and a cross-attention over the fp32 K/V of
+    ``enc_out`` (the fp ``paged_attention`` in a step); its group runs
+    the encoder's layers too."""
+    from repro_torch.kernels import ops
+    arch = model.arch
+    mlp = 2 if arch.mlp == "relu2" else 3
+    out = {k.__name__: 0 for k in ops.KERNELS}
+    if arch.family == "encdec":
+        dec, enc = arch.dec_layers, arch.enc_layers if group else 0
+        out["quant_matmul"] = (8 + mlp) * dec + (4 + mlp) * enc + 1
+        if group:
+            out["flash_attention"] = 2 * dec + enc
+        else:
+            out.update(paged_attention_q8=dec, paged_attention=dec)
+        return out
+    per_kind = {"rglru": 5, "mlstm": 7, "slstm": 2}
+    shared_mlp = mlp if arch.num_shared_experts else 0
+    n_moe = 0
+    out["quant_matmul"] = 1
+    for kind, layer in zip(model.kinds, model.layers):
+        if kind != "attn":
+            out["quant_matmul"] += per_kind[kind]
+        elif layer.is_moe:
+            out["quant_matmul"] += 5 + shared_mlp
+            n_moe += 1
+        else:
+            out["quant_matmul"] += 4 + mlp
+    out["quant_matmul_experts"] = mlp * n_moe
+    n_attn = model.kinds.count("attn")
+    if group:
+        out["flash_attention_q8" if shared else "flash_attention"] = n_attn
+        out["rglru_scan"] = model.kinds.count("rglru")
+        out["mlstm_chunkwise"] = model.kinds.count("mlstm")
+    else:
+        out["paged_attention_q8"] = n_attn
+    return out
+
+
+def spec_int8_launches(layers: int, draft_layers: int, k: int) -> tuple:
+    """(per replay, per prefill group, per shared prefill group) launches
+    of the speculative path under INT8: a replay runs k + 1 fp draft
+    forwards (k with the unembedding) and one int8 target verify (the
+    int8 multi-query ``paged_attention``); a group prefills the int8
+    target (after a shared int8 prefix through ``flash_attention``'s
+    int8 entry) and the fp draft."""
+    from repro_torch.kernels import ops
+    zero = {kern.__name__: 0 for kern in ops.KERNELS}
+    per_replay = dict(zero, xfer_matmul=(k + 1) * 7 * draft_layers + k,
+                      paged_attention=(k + 1) * draft_layers,
+                      quant_matmul=7 * layers + 1,
+                      paged_attention_q8_multi=layers)
+    per_group = dict(zero, xfer_matmul=7 * draft_layers + 1,
+                     quant_matmul=7 * layers + 1,
+                     flash_attention=layers + draft_layers)
+    per_shared = dict(per_group, flash_attention=draft_layers,
+                      flash_attention_q8=layers)
+    return per_replay, per_group, per_shared
+
+
+def long_prompts(vocab: int, span, fixed) -> list:
+    """Phase 4c's (or 4d's) 16 prompts: lengths seeded uniform in
+    ``span``, the first ones ``fixed``, drawn as those phases draw them."""
+    import numpy as np
+    rng = np.random.RandomState(0)
+    lens = [int(x) for x in rng.randint(span[0], span[1] + 1, size=16)]
+    lens[:len(fixed)] = fixed
+    return [rng.randint(1, vocab, size=s).astype(np.int32) for s in lens]
+
+
+def serve_int8(tag: str, arch, model, prompts, payloads=None,
+               paged: bool = False, slots: int = SLOTS,
+               max_len: int = MAX_LEN, draft=None, owner: bool = False):
+    """One phase-4n run: ``prompts`` (with their payloads), 32 new tokens
+    each, through ``arch`` at full width under ``INT8_SERVE`` (bf16
+    engine; int8 weights quantised on the card, int8 grid or pool),
+    seeded weights (``model``, or made here; a model quantised already
+    is served as it is), ``draft`` (an fp LM) for the speculative path
+    (k = SPEC_K). Launch counts exact for every kernel per decode step
+    and prefill group (``int8_pass_launches``, ``spec_int8_launches``),
+    every request to its budget. Prints step p50/p95, admission p50,
+    tokens/s, the int8 byte bound (``step_bytes``), and peak allocated
+    bytes over the
+    phase (the bf16 draw before quantising included) and over the
+    serving alone. Returns (counts, streams, model, stats)."""
+    import torch
+    from repro_torch import quant as Q
+    from repro_torch.kernels import ops
+    from repro_torch.models.registry import init_params
+    from repro_torch.serving import (PagingConfig, ServeConfig, ServingEngine,
+                                     SpecConfig)
+
+    new_tokens = 32
+    encdec = arch.family == "encdec"
+    spec = SpecConfig(draft=draft.arch, k=SPEC_K) if draft is not None \
+        else None
+    config = ServeConfig(slots=slots, max_len=max_len, seed=0, lookahead=1,
+                         max_src_len=E_MAX_SRC if encdec else None,
+                         quant=Q.INT8_SERVE, spec=spec,
+                         paging=PagingConfig(paged=paged, page_size=PAGE))
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    if model is None:
+        model = init_params(arch, config.seed)  # on the card, bf16
+    params = model if draft is None else {"target": model, "draft": draft}
+    engine = ServingEngine(arch, params, config=config)
+    torch.cuda.synchronize()
+    built = time.perf_counter() - t0
+    build_peak = torch.cuda.max_memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    nbytes, what = step_bytes(model, engine)
+    if draft is not None:
+        per_step, per_group, per_shared = spec_int8_launches(
+            arch.num_layers, draft.arch.num_layers, SPEC_K)
+    else:
+        per_step = int8_pass_launches(model)
+        per_group = int8_pass_launches(model, group=True)
+        per_shared = int8_pass_launches(model, group=True, shared=True)
+    if engine.decode.graph is None or engine.decode.launches != {
+            k: v for k, v in per_step.items() if v}:
+        raise AssertionError(f"[{tag}] a replay launches "
+                             f"{engine.decode.launches}, expected {per_step}")
+    log(f"[{tag}] {arch.name}: {arch.family}, INT8_SERVE, "
+        f"{'pool of pages of %d' % PAGE if paged else 'slot grid'} "
+        f"{slots} x {max_len}" + (f", spec k = {SPEC_K} with an fp "
+                                  f"{draft.arch.num_layers}-layer draft"
+                                  if draft is not None else "")
+        + f"; int8 leaf bytes {Q.leaf_bytes(model)}; params + quantisation "
+        f"+ engine + capture in {built:.1f} s (peak allocated {build_peak}); "
+        f"launches a step {per_step['quant_matmul']} quant_matmul")
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    streams, steps, groups, shared, peak_pages = drive(
+        engine, prompts, new_tokens, owner=owner, payloads=payloads)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    for rid, toks in streams.items():
+        if len(toks) != new_tokens or not all(0 <= t < arch.vocab_size
+                                               for t in toks):
+            raise AssertionError(f"[{tag}] rid {rid}: bad stream {toks}")
+    want = {name: per_step[name] * steps + per_group[name] * (groups - shared)
+            + per_shared[name] * shared for name in counts}
+    path = PATH_KERNELS[tag.replace("serve-", "")]
+    check_paged_counts(tag, counts, path, want)
+    pstats, sstats = engine.prefill_stats(), engine.step_stats()
+    bound = nbytes / HBM_BYTES_PER_S * 1e3
+    serve_peak = torch.cuda.max_memory_allocated()
+    log(f"[{tag}] {len(streams)}/{len(prompts)} requests to their budget, "
+        f"{steps} decode steps, {groups} prefill groups ({shared} shared), "
+        f"{wall:.3f} s wall; launches {counts} (exact)"
+        + (f"; peak pages in use {peak_pages}" if paged else ""))
+    extra = ""
+    if draft is not None:
+        extra = (f" accepted_tokens_mean {sstats['accepted_tokens_mean']:.4f}"
+                 f" draft_acceptance {sstats['draft_acceptance']:.4f}")
+    log(f"[{tag}] step_p50_ms {sstats['step_p50_ms']:.4f} step_p95_ms "
+        f"{sstats['step_p95_ms']:.4f} admit_p50_ms "
+        f"{pstats['admit_p50_ms']:.4f} tokens_per_s "
+        f"{sstats['tokens_per_s']:.1f} step_bound_ms {bound:.4f} (bytes a "
+        f"step: {what}) peak_allocated_bytes "
+        f"{serve_peak} serving, {build_peak} with the bf16 draw{extra}")
+    log(f"[{tag}] step_stats {json.dumps(sstats)}")
+    log(f"[{tag}] prefill_stats {json.dumps(pstats)}")
+    log(f"[{tag}] rid=0 out={streams[0][:8]}")
+    stats = dict(sstats, admit_p50_ms=pstats["admit_p50_ms"],
+                 peak_allocated_bytes=serve_peak, build_peak_bytes=build_peak,
+                 step_bound_ms=bound)
+    del engine
+    torch.cuda.empty_cache()
+    return counts, streams, model, stats
+
+
+def serve_int8_families() -> dict:
+    """Phase 4n: INT8_SERVE at full width: deepseek-moe-16b at full depth
+    on the grid, then the pool on the same quantised weights (phase 4j's
+    prompts; the pool's streams held to the grid's at the bf16
+    tolerance), recurrentgemma-2b (phase 4c's traffic, 8 slots x 2560),
+    xlstm-350m (8 x 2048; phase 4's prompts of 16-200 tokens: its sLSTM
+    prefill loop takes seconds a group at 4d's 2000 tokens),
+    seamless-m4t-medium (phase 4l's prompts and frames) and paligemma-3b
+    on the grid and the pool (phase 4m's traffic), then qwen1.5-0.5b
+    speculative with its fp 1-layer draft, k = SPEC_K, on the grid
+    (phase 4's prompts) and the pool (the shared set). Returns the
+    launch counts by path."""
+    import dataclasses
+
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.models.registry import init_params
+
+    out = {}
+    arch = get_arch("deepseek-moe-16b")
+    prompts = phase4_prompts(arch.vocab_size)
+    out["moe-int8"], streams, model, _ = serve_int8(
+        "serve-moe-int8", arch, None, prompts)
+    out["moe-int8-paged"], pool, model, _ = serve_int8(
+        "serve-moe-int8-paged", arch, model, prompts, paged=True)
+    compare_streams("serve-moe-int8-paged", model, prompts, pool, streams,
+                    "the grid's")
+    del model
+    torch.cuda.empty_cache()
+    arch = get_arch("recurrentgemma-2b")
+    out["hybrid-int8"], _, model, _ = serve_int8(
+        "serve-hybrid-int8", arch, None,
+        long_prompts(arch.vocab_size, H_PROMPT_RANGE, H_PROMPTS_FIXED),
+        slots=H_SLOTS, max_len=H_MAX_LEN)
+    del model
+    arch = get_arch("xlstm-350m")
+    out["ssm-int8"], _, model, _ = serve_int8(
+        "serve-ssm-int8", arch, None, phase4_prompts(arch.vocab_size),
+        slots=X_SLOTS, max_len=X_MAX_LEN)
+    del model
+    arch = get_arch("seamless-m4t-medium")
+    out["encdec-int8"], _, model, _ = serve_int8(
+        "serve-encdec-int8", arch, None, phase4_prompts(arch.vocab_size),
+        encdec_frames(arch.d_model))
+    del model
+    arch = get_arch("paligemma-3b")
+    prompts, payloads = vlm_traffic(arch)
+    out["vlm-int8"], streams, model, _ = serve_int8(
+        "serve-vlm-int8", arch, None, prompts, payloads)
+    out["vlm-int8-paged"], pool, model, _ = serve_int8(
+        "serve-vlm-int8-paged", arch, model, prompts, payloads, paged=True)
+    compare_streams("serve-vlm-int8-paged", model, prompts, pool, streams,
+                    "the grid's", payloads=payloads)
+    del model
+    torch.cuda.empty_cache()
+    arch = get_arch("qwen1.5-0.5b")
+    draft = init_params(dataclasses.replace(arch, num_layers=1), 1)
+    model = init_params(arch, 0)
+    out["spec-int8"], _, model, _ = serve_int8(
+        "serve-spec-int8", arch, model, phase4_prompts(arch.vocab_size),
+        draft=draft)
+    out["spec-int8-paged"], _, model, _ = serve_int8(
+        "serve-spec-int8-paged", arch, model, shared_set(arch.vocab_size),
+        paged=True, draft=draft, owner=True)
+    del model, draft
+    torch.cuda.empty_cache()
+    return out
+
+
 # recurrentgemma-2b at full width and depth, as the reference's
 # jax.eval_shape of lm.init_params counts it, and its ring KV grid
 HYBRID_PARAMS = 2_682_237_440
@@ -2297,7 +2871,6 @@ def serve_hybrid() -> dict:
     buckets 2048 and 2560). Rids 0 and 1 (2400, 2300 tokens) wrap the
     ring at the fill, rid 2 (2040) during decode. Returns the kernels'
     launch counts over the run, after checking them exactly."""
-    import numpy as np
     import torch
     from repro_torch.configs import get_arch
     from repro_torch.kernels import ops
@@ -2321,14 +2894,10 @@ def serve_hybrid() -> dict:
     if n_params != HYBRID_PARAMS:
         raise AssertionError(f"{n_params} parameters, the reference has "
                              f"{HYBRID_PARAMS}")
-    rng = np.random.RandomState(0)
-    lo, hi = H_PROMPT_RANGE
-    lens = [int(x) for x in rng.randint(lo, hi + 1, size=n_req)]
-    lens[:len(H_PROMPTS_FIXED)] = H_PROMPTS_FIXED
-    for rid, s in enumerate(lens):
-        engine.submit(Request(rid=rid, prompt=rng.randint(
-            1, arch.vocab_size, size=s).astype(np.int32), max_new_tokens=new_tokens))
-    log(f"[{tag}] prompt lengths {lens}")
+    prompts = long_prompts(arch.vocab_size, H_PROMPT_RANGE, H_PROMPTS_FIXED)
+    for rid, p in enumerate(prompts):
+        engine.submit(Request(rid=rid, prompt=p, max_new_tokens=new_tokens))
+    log(f"[{tag}] prompt lengths {[len(p) for p in prompts]}")
 
     ops.reset_launches()
     t0 = time.perf_counter()
@@ -2389,7 +2958,6 @@ def serve_xlstm() -> dict:
     """Phase 4d: 16 requests through full-width, full-depth xlstm-350m in
     bf16 on 8 slots of 2048 tokens. Returns the kernels' launch counts
     over the run, after checking them exactly."""
-    import numpy as np
     import torch
     from repro_torch.configs import get_arch
     from repro_torch.kernels import ops
@@ -2413,14 +2981,10 @@ def serve_xlstm() -> dict:
     if n_params != XLSTM_PARAMS:
         raise AssertionError(f"{n_params} parameters, the reference has "
                              f"{XLSTM_PARAMS}")
-    rng = np.random.RandomState(0)
-    lo, hi = X_PROMPT_RANGE
-    lens = [int(x) for x in rng.randint(lo, hi + 1, size=n_req)]
-    lens[0] = X_PROMPT_FIXED
-    for rid, s in enumerate(lens):
-        engine.submit(Request(rid=rid, prompt=rng.randint(
-            1, arch.vocab_size, size=s).astype(np.int32), max_new_tokens=new_tokens))
-    log(f"[{tag}] prompt lengths {lens}")
+    prompts = long_prompts(arch.vocab_size, X_PROMPT_RANGE, (X_PROMPT_FIXED,))
+    for rid, p in enumerate(prompts):
+        engine.submit(Request(rid=rid, prompt=p, max_new_tokens=new_tokens))
+    log(f"[{tag}] prompt lengths {[len(p) for p in prompts]}")
 
     ops.reset_launches()
     t0 = time.perf_counter()
@@ -2499,15 +3063,46 @@ GRAPH_PATHS = (("fp", "qwen1.5-0.5b", SLOTS, MAX_LEN, False, None, None),
                 None),
                ("vlm", "paligemma-3b", SLOTS, MAX_LEN, False, None, None),
                ("vlm-paged", "paligemma-3b", SLOTS, MAX_LEN, False, PAGE,
-                None))
+                None),
+               # phase 4n's paths under INT8_SERVE (deepseek's depth cut:
+               # GRAPH_DEPTH)
+               ("moe-int8", "deepseek-moe-16b", SLOTS, MAX_LEN, True, None,
+                None),
+               ("moe-int8-paged", "deepseek-moe-16b", SLOTS, MAX_LEN, True,
+                PAGE, None),
+               ("hybrid-int8", "recurrentgemma-2b", H_SLOTS, H_MAX_LEN, True,
+                None, None),
+               ("ssm-int8", "xlstm-350m", X_SLOTS, X_MAX_LEN, True, None,
+                None),
+               ("encdec-int8", "seamless-m4t-medium", SLOTS, MAX_LEN, True,
+                None, None),
+               ("vlm-int8", "paligemma-3b", SLOTS, MAX_LEN, True, None, None),
+               ("vlm-int8-paged", "paligemma-3b", SLOTS, MAX_LEN, True, PAGE,
+                None),
+               ("spec-int8", "qwen1.5-0.5b", SLOTS, MAX_LEN, True, None,
+                "spec"),
+               ("spec-int8-paged", "qwen1.5-0.5b", SLOTS, MAX_LEN, True, PAGE,
+                "spec"))
+#: phase 4g's depth cuts: the INT8 deepseek paths run its dense prefix
+#: layer and 3 MoE layers (full depth serves in phase 4n; every kernel
+#: instance is the same at any depth)
+GRAPH_DEPTH = {"moe-int8": 4, "moe-int8-paged": 4}
+
+
+def graph_model_key(arch_id: str, int8: bool, layers=None) -> tuple:
+    """The weights a GRAPH_PATHS entry shares with the others: one seeded
+    model per arch, depth and precision (the INT8 paths' quantised in
+    place by the first engine, served as they are by the next)."""
+    return (arch_id, bool(int8), layers)
 
 
 def graph_engine(models: dict, arch_id: str, slots: int, max_len: int,
                  int8: bool, page, mode=None, lookahead: int = 1,
-                 new_tokens: int = 64):
+                 new_tokens: int = 64, layers=None):
     """A full-width engine of one serving path (seeded weights, shared
-    by the fp paths of one model; an INT8 engine quantises its own; a
-    spec engine takes the 1-layer draft) with ``slots`` seeded prompts of
+    by the paths of one model and precision, ``graph_model_key``; the
+    first INT8 engine quantises them; a spec engine takes the fp 1-layer
+    draft; ``layers``: a depth cut) with ``slots`` seeded prompts of
     16-120 tokens submitted."""
     import dataclasses
 
@@ -2518,7 +3113,9 @@ def graph_engine(models: dict, arch_id: str, slots: int, max_len: int,
     from repro_torch.serving import (PagingConfig, Request, SamplingParams,
                                      ServeConfig, ServingEngine, SpecConfig)
     arch = get_arch(arch_id)
-    key = (arch_id, int8 and page)
+    if layers:
+        arch = dataclasses.replace(arch, num_layers=layers)
+    key = graph_model_key(arch_id, int8, layers)
     if key not in models:
         models[key] = init_params(arch, 0)
     params, extra = models[key], {}
@@ -2582,8 +3179,9 @@ def graph_vs_eager() -> dict:
         # free the weights no later path reads, so that deepseek's 33 GB
         # and minitron's 15 GB are never resident beside the others
         later = GRAPH_PATHS[i:]
-        for key in [k for k in models if k != "draft" and
-                    k[0] not in {p[1] for p in later}]:
+        keep = {graph_model_key(p[1], p[4], GRAPH_DEPTH.get(p[0]))
+                for p in later}
+        for key in [k for k in models if k != "draft" and k not in keep]:
             del models[key]
         if "draft" in models and not any(p[6] == "spec" for p in later):
             del models["draft"]
@@ -2592,7 +3190,7 @@ def graph_vs_eager() -> dict:
         a0, r0 = torch.cuda.memory_allocated(), torch.cuda.memory_reserved()
         t0 = time.perf_counter()
         engine = graph_engine(models, arch_id, slots, max_len, int8, page,
-                              mode)
+                              mode, layers=GRAPH_DEPTH.get(tag))
         torch.cuda.synchronize()
         built = time.perf_counter() - t0
         a1, r1 = torch.cuda.memory_allocated(), torch.cuda.memory_reserved()
@@ -2713,13 +3311,15 @@ def trace_window(run, steps: int, share_of: str = None) -> dict:
 
 def expert_launch(event: dict) -> bool:
     """A trace event of a hand-written matmul launched over an expert
-    axis (grid z > 1): ``xfer_matmul_experts``. No other matmul kernel
-    has a third grid axis but ``tc``'s split-K, which no step runs."""
+    axis (grid z > 1): ``xfer_matmul_experts`` or
+    ``quant_matmul_experts``. No other matmul kernel has a third grid
+    axis but ``tc``'s split-K, which no step runs."""
     grid = event.get("args", {}).get("grid") or (1, 1, 1)
     return event.get("cat") == "kernel" and grid[2] > 1 and any(
         k in event["name"] for k in ("stream_mma_kernel", "stream_rows_kernel",
                                      "wg_kernel", "tc_kernel",
-                                     "matmul_kernel"))
+                                     "matmul_kernel", "stream_mma_q8_kernel",
+                                     "wg_q8_kernel"))
 
 
 def trace_steps() -> dict:
@@ -2729,11 +3329,14 @@ def trace_steps() -> dict:
     first replaying the captured step, then the same engine dispatching
     the eager step; then a speculative engine (phase 4h's 1-layer draft,
     k = SPEC_K) replaying its captured step; then full-size
-    deepseek-moe-16b's captured step (phase 4j's model); then full-size
+    deepseek-moe-16b's captured step (phase 4j's model), then the same
+    under INT8_SERVE (phase 4n's), then the speculative engine under
+    INT8 (its target int8, the draft fp); then full-size
     seamless-m4t-medium's captured step (phase 4l's model), with the
     share of its step that the cross K/V products take (``wg_kernel``:
-    the only R = 4096 products of a step), and deepseek's with the share
-    of its expert products (the only kernels launched over an expert
+    the only R = 4096 products of a step), and deepseek's (both
+    precisions) with the share of its expert products (the only kernels
+    launched over an expert
     axis, grid z > 1: ``expert_launch``). Prints the device's idle
     share of each window, the top device ops and the launches per step
     that are not the hand-written kernels'."""
@@ -2758,20 +3361,23 @@ def trace_steps() -> dict:
         torch.cuda.synchronize()
 
     out = {}
-    for mode in ("graph", "eager", "spec", "moe", "encdec"):
+    for mode in ("graph", "eager", "spec", "moe", "moe-int8", "spec-int8",
+                 "encdec"):
         if mode == "eager":
             engine.decode = eager_decode
-        if mode in ("spec", "moe", "encdec"):  # spec: budgets of 380 for
-            del engine                         # 64 steps of up to k + 1
+        int8 = mode.endswith("-int8")
+        if mode not in ("graph", "eager"):  # spec: budgets of 380 for
+            del engine                      # 64 steps of up to k + 1
             torch.cuda.empty_cache()
-            if mode == "spec":
+            if mode.startswith("spec"):
                 engine = graph_engine({}, "qwen1.5-0.5b", SLOTS, MAX_LEN,
-                                      False, None, mode="spec",
+                                      int8, None, mode="spec",
                                       new_tokens=190)
             else:
                 arch_id = {"moe": "deepseek-moe-16b",
+                           "moe-int8": "deepseek-moe-16b",
                            "encdec": "seamless-m4t-medium"}[mode]
-                engine = graph_engine({}, arch_id, SLOTS, MAX_LEN, False,
+                engine = graph_engine({}, arch_id, SLOTS, MAX_LEN, int8,
                                       None, new_tokens=8 * TRACE_STEPS)
             for _ in range(4):
                 engine.step()
@@ -2784,13 +3390,16 @@ def trace_steps() -> dict:
         row = trace_window(run, TRACE_STEPS,
                            {"encdec": "wg_kernel",
                             "moe": ("xfer_matmul_experts (grid z > 1)",
-                                    expert_launch)}.get(mode))
+                                    expert_launch),
+                            "moe-int8": ("quant_matmul_experts (grid z > 1)",
+                                         expert_launch)}.get(mode))
         row.update(host_ms_per_step=host_ms, handwritten_per_step=ours)
         if row["measured"]:
             row["other_launches_per_step"] = row["kernels_per_step"] - ours
             log(f"[trace-{mode}] {TRACE_STEPS} steady {engine.arch.name} "
-                f"bf16 steps"
-                + (f" (k = {SPEC_K}, 1-layer draft)" if mode == "spec" else "")
+                + ("INT8_SERVE" if int8 else "bf16") + " steps"
+                + (f" (k = {SPEC_K}, 1-layer draft)" if mode.startswith(
+                    "spec") else "")
                 + ": "
                 f"host {host_ms:.3f} ms a step untraced; traced window "
                 f"{row['window_ms']:.3f} ms, device busy {row['busy_ms']:.3f} ms,"
@@ -2802,7 +3411,8 @@ def trace_steps() -> dict:
             log(f"[trace-{mode}] top device ops (ms a step): {row['top']}")
             if "share" in row:
                 what = {"encdec": "the cross K/V products",
-                        "moe": "the expert products"}[mode]
+                        "moe": "the expert products",
+                        "moe-int8": "the int8 expert products"}[mode]
                 log(f"[trace-{mode}] {what} ({row['share_of']}"
                     f"): {row['share_ms_per_step']:.4f} device ms a step, "
                     f"{row['share']:.4f} of the step's busy time"
@@ -2852,9 +3462,22 @@ def parity_full_width(dev) -> None:
     log(f"[parity] fp32 weights on CPU and card in {time.perf_counter() - t0:.1f} s")
     compare_card_cpu(arch, cpu_model, card_model, "parity", kv_quant=False)
 
-    t0 = time.perf_counter()
     cpu_q = Q.quantize_params(copy.deepcopy(cpu_model))
     del cpu_model
+    card_q = quantise_both(cpu_q, card_model, "parity-int8")
+    compare_card_cpu(arch, cpu_q, card_q, "parity-int8", kv_quant=True)
+    del card_q
+    torch.cuda.empty_cache()
+
+
+def quantise_both(cpu_q, card_model, tag: str):
+    """Quantise ``card_model`` on the card and hold its leaves to
+    ``cpu_q`` (the same fp32 weights quantised on the CPU): int8 payloads,
+    scales, fp leaves and the fp32 values of fp-read leaves bit-equal.
+    Returns the quantised card model."""
+    import torch
+    from repro_torch import quant as Q
+    t0 = time.perf_counter()
     card_q = Q.quantize_params(card_model)
     torch.cuda.synchronize()
     want, got = Q.named_leaves(cpu_q), Q.named_leaves(card_q)
@@ -2863,8 +3486,12 @@ def parity_full_width(dev) -> None:
     n_q = 0
     for name, w in want.items():
         g = got[name]
-        for part, a, b in ((("q", w.q, g.q), ("scale", w.scale, g.scale))
-                           if Q.is_qtensor(w) else (("fp", w, g),)):
+        parts = (("fp", w, g),)
+        if Q.is_qtensor(w):
+            parts = (("q", w.q, g.q), ("scale", w.scale, g.scale))
+            if w.values is not None:
+                parts += (("values", w.values, g.values),)
+        for part, a, b in parts:
             b = b.cpu()
             if not torch.equal(a, b):
                 diff = (a.float() - b.float()).abs()
@@ -2873,11 +3500,9 @@ def parity_full_width(dev) -> None:
                     f"{int((diff > 0).sum())} of {a.numel()} elements "
                     f"(max {float(diff.max()):.3e})")
         n_q += Q.is_qtensor(w)
-    log(f"[parity-int8] {n_q} int8 leaves (payloads and scales) bit-equal on "
+    log(f"[{tag}] {n_q} int8 leaves (payloads and scales) bit-equal on "
         f"card and CPU; quantised in {time.perf_counter() - t0:.1f} s")
-    compare_card_cpu(arch, cpu_q, card_q, "parity-int8", kv_quant=True)
-    del card_q
-    torch.cuda.empty_cache()
+    return card_q
 
 
 def compare_card_cpu(arch, cpu_model, card_model, tag: str, *,
@@ -3128,6 +3753,102 @@ def parity_moe(dev) -> None:
             compare_card_cpu(arch, cpu_model, card_model, tag, kv_quant=False,
                              note=note)
         del card_model, cpu_model
+        torch.cuda.empty_cache()
+
+
+#: phase 5i: (arch id, layers, or (encoder, decoder) layers): each family
+#: under INT8 at full width, the depth cut as phases 5c, 5d, 5g and 5h cut
+#: it
+PARITY_INT8 = (("deepseek-moe-16b", 3), ("recurrentgemma-2b", 4),
+               ("xlstm-350m", 4), ("seamless-m4t-medium", (2, 2)),
+               ("paligemma-3b", 2))
+
+
+def parity_int8(dev) -> None:
+    """Phase 5i: each family under INT8 at full width and cut depth
+    (PARITY_INT8), seeded fp32 weights drawn on the card and copied to
+    the CPU, quantised on each side (payloads, scales and fp32 values
+    bit-equal), then compare_card_cpu over int8 grids: a prefill of 4
+    prompts (with source frames, or 256 patches) and 4 greedy decode
+    steps, logits within PARITY_TOL of max |logit|, greedy tokens equal
+    (a flip only under a top-2 margin of PARITY_TOL); deepseek's lines
+    carry the smallest router margin of the CPU's forward (its router
+    logits fp32, through quant_matmul)."""
+    import copy
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from repro_torch import quant as Q
+    from repro_torch.configs import get_arch
+    from repro_torch.models.registry import init_params
+    from repro_torch.serving.scheduler import prefill_encdec, prefill_rows
+
+    rng = np.random.RandomState(9)
+    for arch_id, layers in PARITY_INT8:
+        full = get_arch(arch_id)
+        if full.family == "encdec":
+            arch = dataclasses.replace(full, num_layers=sum(layers),
+                                       enc_layers=layers[0],
+                                       dec_layers=layers[1])
+        else:
+            arch = dataclasses.replace(full, num_layers=layers)
+        tag = f"parity-int8-{full.family}"
+        t0 = time.perf_counter()
+        card_model = init_params(arch, 1, dtype=torch.float32)
+        cpu_q = Q.quantize_params(copy.deepcopy(card_model).cpu())
+        log(f"[{tag}] {arch.name} at full width, {layers} layers: fp32 "
+            f"weights on card and CPU, CPU quantised, in "
+            f"{time.perf_counter() - t0:.1f} s")
+        card_q = quantise_both(cpu_q, card_model, tag)
+        kw = {}
+        if full.family == "encdec":
+            counts = (100, E_MAX_SRC, 37, 250)
+            frames = np.zeros((4, E_MAX_SRC, arch.d_model), np.float32)
+            for i, c in enumerate(counts):
+                frames[i, :c] = rng.standard_normal((c, arch.d_model))
+            flens = np.asarray(counts, np.int32)
+            enc = {}
+
+            def prefill(model, toks, lens):
+                d = model.device
+                rows, logits, out = prefill_encdec(
+                    model, torch.from_numpy(frames).to(d),
+                    torch.from_numpy(flens).to(d), toks, lens,
+                    kv_quant=True)
+                # the state's enc_out: the engine's dtype (fp32 here)
+                enc[d.type] = out.to(model.dtype)
+                return rows, logits
+
+            def step(model, tok, grid, pos):
+                d = model.device
+                return model(tok, enc[d.type], caches=grid, positions=pos,
+                             enc_lens=torch.from_numpy(flens).to(d))
+
+            kw = dict(prefill=prefill, step=step)
+        elif full.family == "vlm":
+            patches = rng.standard_normal(
+                (4, V_PATCHES, arch.d_model)).astype(np.float32)
+
+            def prefill(model, toks, lens):
+                return prefill_rows(model, toks, lens, kv_quant=True,
+                                    patches=torch.from_numpy(patches).to(
+                                        model.device))
+
+            kw = dict(prefill=prefill, offset=V_PATCHES)
+        with router_margins() as margins:
+            n_moe = sum(getattr(layer, "is_moe", False)
+                        for layer in card_q.layers) \
+                if full.family == "moe" else 0
+
+            def note(j):
+                cpu = [m for d, m in margins
+                       if d == "cpu"][j * n_moe:(j + 1) * n_moe]
+                return f"smallest router margin (CPU) {min(cpu):.3e}"
+
+            compare_card_cpu(arch, cpu_q, card_q, tag, kv_quant=True,
+                             note=note if n_moe else None, **kw)
+        del card_model, card_q, cpu_q
         torch.cuda.empty_cache()
 
 
@@ -4076,13 +4797,27 @@ NO_SPILL = ("flash_split_kernel", "flash_tc_kernel", "flash_terms_kernel",
             "stream_rows_kernel", "stream_mma_kernel", "stream_cols_kernel",
             "stream_mma_q8_kernel", "stream_cols_q8_kernel", "tc_kernel",
             "wg_kernel", "wg_q8_kernel", "paged_split_kernel")
+#: instances that the INT8 expert products and the int8 multi-query
+#: attention run, which must be in the build (and, by NO_SPILL's names,
+#: spill-free): stream_mma_q8_kernel with the expert axis (EX true) for
+#: fp32 and bf16 x, wg_q8_kernel (its expert axis on grid z), and the
+#: int8 paged body at qwen's head dim
+NEW_INSTANCES = (("xfer_matmul", "stream_mma_q8_kernelIfLi8ELi3ELb1E"),
+                 ("xfer_matmul", "stream_mma_q8_kernelI13__nv_bfloat16Li8E"
+                                 "Li1ELb1E"),
+                 ("xfer_matmul", "wg_q8_kernelIfLi3E"),
+                 ("paged_attention", "paged_split_kernelIfaLi64E"))
 
 
 def check_ptxas(build_log: dict) -> None:
     """Print each compiled kernel's ``ptxas -v`` lines (registers, shared
     memory, stack and spills) and fail if a kernel named in NO_SPILL
-    spills."""
+    spills or an instance of NEW_INSTANCES is missing."""
     import re
+    for source, fragment in NEW_INSTANCES:
+        if fragment not in build_log.get(source, ""):
+            raise AssertionError(f"{source}: no kernel instance {fragment} "
+                                 f"in the build log")
     for name, out in build_log.items():
         entry = None
         for line in out.splitlines():
@@ -4120,7 +4855,9 @@ def kernel_table(entries: dict, counts: dict) -> list:
                     "encdec_unembed", "cross_kv",
                     "variant", "multi_query",
                     "every_length", "shapes", "ptxas", "device_ms",
-                    "library_device_ms", "yardstick_device_ms", "bit_stable"):
+                    "library_device_ms", "yardstick_device_ms", "bit_stable",
+                    "sdpa_dequantised_ms", "sdpa_dequantised_device_ms",
+                    "live_rows"):
             if key in e:
                 row[key] = e[key]
         kernels.append(row)
@@ -4155,55 +4892,90 @@ def main() -> int:
         f"{time.perf_counter() - t0:.1f} s: {seconds}")
     check_ptxas(build.build_log)
 
+    last = [started]
+
+    def mark(phase: str) -> None:
+        now = time.perf_counter()
+        log(f"[time] phase {phase}: {now - last[0]:.1f} s")
+        last[0] = now
+
+    mark("1, 2")
     # ---- phase 3: kernels vs plain versions
     entries = check_kernels(dev)
+    mark("3")
 
     # ---- phase 4 and 4b: the serving paths, each with the launch
     # counters set to 0 just before it and read just after
     counts = {}
     counts["fp"], dense_streams, dense_stats = serve_full_width()
     counts["int8"] = serve_full_width(int8=True)[0]
+    mark("4, 4b")
     # ---- phase 4c: the hybrid path (recurrentgemma-2b)
     counts["hybrid"] = serve_hybrid()
+    mark("4c")
     # ---- phase 4d: the ssm path (xlstm-350m)
     counts["ssm"] = serve_xlstm()
+    mark("4d")
     # ---- phase 4e and 4f: the paged pool with prefix reuse, bf16 and INT8
     counts["paged"] = serve_paged(dense_streams)
     counts["paged-int8"] = serve_paged(dense_streams, int8=True)
+    mark("4e, 4f")
     # ---- phase 4h: speculative serving, grid and pool (k = 4)
     counts.update(serve_spec(dense_streams, dense_stats))
+    mark("4h")
     # ---- phase 4i: sampled serving (top-k, temperature) on the grid
     sampled = serve_sampled(dense_stats)
     counts["sampled"] = {name: sum(c[name] for c in sampled.values())
                          for name in counts["fp"]}
     # ---- phase 4j: deepseek-moe-16b at full width and depth, grid and pool
+    mark("4i")
     counts.update(serve_moe())
+    mark("4j")
     # ---- phase 4k: minitron-8b, yi-9b and phi3-medium-14b at full width
     counts["dense-d128"] = serve_dense_d128()
+    mark("4k")
     # ---- phase 4l: seamless-m4t-medium (encdec) at full width and depth
     counts.update(serve_encdec())
+    mark("4l")
     # ---- phase 4m: paligemma-3b (vlm) at full width and depth, grid and
     # pool
     counts.update(serve_vlm())
+    mark("4m")
+    # ---- phase 4n: INT8_SERVE on the moe, hybrid, ssm, encdec and vlm
+    # families and speculative decoding under INT8
+    counts.update(serve_int8_families())
+    mark("4n")
     # ---- phase 4g: the captured step against the eager step on every
     # path, and a trace of steady steps, graph and eager
     graph_vs_eager()
+    mark("4g replays")
     trace_steps()
+    mark("4g traces")
 
     # ---- phase 5 and 5b: card vs CPU at full width, fp and INT8
     parity_full_width(dev)
+    mark("5, 5b")
     # ---- phase 5c: the same for the hybrid, depth cut to 4 layers
     parity_hybrid(dev)
+    mark("5c")
     # ---- phase 5d: the same for the ssm family, depth cut to 4 layers
     parity_xlstm(dev)
+    mark("5d")
     # ---- phase 5e: the paged pool (fp and int8), depth cut to 4 layers
     parity_paged(dev)
+    mark("5e")
     # ---- phase 5f: speculative and sampled streams, depth cut to 4 layers
     parity_spec(dev)
+    mark("5f")
     # ---- phase 5g: the MoE family and relu2 at full width, cut depth
     parity_moe(dev)
+    mark("5g")
     # ---- phase 5h: the encdec and vlm families at full width, cut depth
     parity_encdec_vlm(dev)
+    mark("5h")
+    # ---- phase 5i: every family under INT8, card vs CPU, cut depth
+    parity_int8(dev)
+    mark("5i")
 
     kernels = kernel_table(entries, counts)
     log(f"[total] {time.perf_counter() - started:.1f} s, the build included")

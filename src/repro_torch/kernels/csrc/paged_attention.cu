@@ -655,27 +655,27 @@ extern "C" int paged_attention_launch(const void* q, const void* kp,
 }
 
 // The int8 body: kp, vp int8 [P, ps, G, D]; ks, vs f32 [P, ps, G, 1];
-// dtype is q's and o's (0 = float32, 1 = bfloat16); one query position
-// per row (S = 1: the wrapper takes no S > 1 for int8 pools); the rest as
-// above, with a workspace and counters of its own.
+// dtype is q's and o's (0 = float32, 1 = bfloat16); S query positions per
+// row (S > 1: the speculative verify over an int8 grid or pool); the rest
+// as above, with a workspace and counters of its own.
 extern "C" int paged_attention_q8_launch(const void* q, const void* kp,
                                          const void* vp, const void* ks,
                                          const void* vs, const void* table,
                                          const void* lengths, void* o,
                                          void* ws, void* counters, int B,
-                                         int H, int G, int D, int ps, int M,
-                                         int P, int chunk, float scale,
+                                         int S, int H, int G, int D, int ps,
+                                         int M, int P, int chunk, float scale,
                                          int dtype, void* stream) {
-  if (bad_geometry(B, 1, H, G, D, ps, M, P)) return (int)cudaErrorInvalidValue;
+  if (bad_geometry(B, S, H, G, D, ps, M, P)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t e;
   if (dtype == 0) {
     e = launch_split<float, int8_t>(q, kp, vp, ks, vs, table, lengths, o, ws,
-                                    counters, B, 1, H, G, D, ps, M, P, chunk,
+                                    counters, B, S, H, G, D, ps, M, P, chunk,
                                     scale, s);
   } else if (dtype == 1) {
     e = launch_split<__nv_bfloat16, int8_t>(q, kp, vp, ks, vs, table, lengths,
-                                            o, ws, counters, B, 1, H, G, D, ps,
+                                            o, ws, counters, B, S, H, G, D, ps,
                                             M, P, chunk, scale, s);
   } else {
     return (int)cudaErrorInvalidValue;

@@ -834,7 +834,9 @@ __device__ __forceinline__ uint32_t bf16x2_hi(float lo, float hi) {
 // registers. The output columns of a warp's four m16 tiles are permuted so
 // that one 8-byte shared load per w row gives a thread every element it
 // needs: fragment row g of tile mi is column 8 g + 2 mi, row g + 8 column
-// 8 g + 2 mi + 1. The scale multiplies each output once in the merge.
+// 8 g + 2 mi + 1. The scale multiplies each output once in the merge. EX:
+// the expert axis of quant_matmul_experts (Group; the scale is shared by
+// the experts) and its live rows, as stream_mma_kernel's.
 constexpr int QLD = MT + 16;  // bytes per staged row of int8 w
 
 template <int RB, int TERMS>
@@ -842,16 +844,31 @@ __host__ __device__ constexpr int q8_smem(int kc) {
   return TERMS * RB * mma_x_ld(kc) * 2 + MSTAGES * MBK * QLD;
 }
 
-template <typename T, int RB, int TERMS>
+template <typename T, int RB, int TERMS, bool EX>
 __global__ void __launch_bounds__(THREADS)
 stream_mma_q8_kernel(const T* __restrict__ x, const int8_t* __restrict__ w,
                      const float* __restrict__ scale, T* __restrict__ out,
                      float* __restrict__ ws, int* __restrict__ counters,
-                     int R, int N, int M, long long ldw, int kc, int splits) {
+                     int R, int N, int M, long long ldw, int kc, int splits,
+                     Group grp) {
   constexpr int NI = RB / 8;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int tile = blockIdx.x, split = blockIdx.y;
+  int RL = R;  // rows of x staged, the rest zero
+  if constexpr (EX) {
+    const int e = blockIdx.z;
+    x += e * grp.sx;
+    w += e * grp.sw;
+    out += e * grp.so;
+    ws += e * grp.sws;
+    counters += e * grp.scnt;
+    RL = live_rows(grp, e, R);
+    if (RL == 0) {  // no weight read
+      if (split == 0) zero_tile(out, R, M, 0, R, tile * MT, (tile + 1) * MT);
+      return;
+    }
+  }
   const int c0 = tile * MT;
   const int k0 = split * kc;
   const int klen = min(N, k0 + kc) - k0;
@@ -877,7 +894,7 @@ stream_mma_q8_kernel(const T* __restrict__ x, const int8_t* __restrict__ w,
     if (s < KT) load_stage(s, s);
     cp_async_commit();
   }
-  stage_terms<T, RB, TERMS>(xs, x, R, N, k0, klen, xld);
+  stage_terms<T, RB, TERMS>(xs, x, RL, N, k0, klen, xld);
 
   float acc[4][NI][4];
 #pragma unroll
@@ -1550,7 +1567,10 @@ wg_kernel(const __nv_bfloat16* __restrict__ x,
 // swizzle of wg_kernel (A rows of 64 k; B as 64-column groups [64 k][64
 // n]). Two buffers of (TERMS + 1) x 16 KB: 129 KB for fp32 x, one block
 // per SM; 65 KB for bf16. The scale multiplies each output once, at the
-// store, then the cast to x's dtype.
+// store, then the cast to x's dtype. Over an expert axis (grid z, Group;
+// quant_matmul_experts, the scale shared by the experts) a tile whose
+// rows all lie at or past the expert's live rows loads nothing and stores
+// +0, and rows past them are loaded as zeros.
 constexpr int QBM = 128, QBN = 128, QTHREADS = 256;
 constexpr int Q_A_BYTES = QBM * 128;  // one term's A tile: 128 rows of 64 k
 constexpr int Q_B_BYTES = QBN * 128;  // widened B: two groups [64 k][64 n]
@@ -1582,7 +1602,7 @@ template <typename T, int TERMS>
 __global__ void __launch_bounds__(QTHREADS, 1)
 wg_q8_kernel(const T* __restrict__ x, const int8_t* __restrict__ w,
              const float* __restrict__ scale, T* __restrict__ out, int R,
-             int N, int M, long long ldw) {
+             int N, int M, long long ldw, Group grp) {
   extern __shared__ __align__(1024) unsigned char qsmem_raw[];
   const uint32_t base = (smem_u32(qsmem_raw) + 1023) & ~1023u;
   constexpr int STAGE = q_stage_bytes(TERMS);
@@ -1590,6 +1610,15 @@ wg_q8_kernel(const T* __restrict__ x, const int8_t* __restrict__ w,
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int wg = warp / 4;
   const int r0 = blockIdx.y * QBM, n0 = blockIdx.x * QBN;
+  const int e = blockIdx.z;
+  x += e * grp.sx;
+  w += e * grp.sw;
+  out += e * grp.so;
+  const int RL = live_rows(grp, e, R);
+  if (r0 >= RL) {
+    zero_tile(out, R, M, r0, r0 + QBM, n0, n0 + QBN);
+    return;
+  }
   const int KT = (N + WBK - 1) / WBK;
   // a thread stages 8 k of x rows sr, sr + 32, ... (chunk sc) and 16
   // columns (chunk sc) of w rows sr and sr + 32 of each k-tile
@@ -1602,7 +1631,7 @@ wg_q8_kernel(const T* __restrict__ x, const int8_t* __restrict__ w,
 #pragma unroll
     for (int p = 0; p < 4; ++p) {
       const int gr = r0 + p * 32 + sr, gk = k0 + sc * 8;
-      const bool ok = gr < R && gk < N;
+      const bool ok = gr < RL && gk < N;
       const uint4* src =
           reinterpret_cast<const uint4*>(x + (ok ? (long long)gr * N + gk : 0));
 #pragma unroll
@@ -1919,49 +1948,68 @@ cudaError_t launch_wg(const void* x, const void* w, void* out, int R, int N,
   return cudaSuccess;
 }
 
+// an expert axis needs every expert's x and w on 16 bytes too
 template <typename T, int TERMS>
 cudaError_t launch_q8_wg(const void* x, const void* w, const float* scale,
                          void* out, int R, int N, int M, long long ldw,
-                         cudaStream_t stream) {
+                         cudaStream_t stream, const Group& g, int E) {
   if (N % 8 != 0 || M % 16 != 0 || ldw % 16 != 0 ||
       reinterpret_cast<uintptr_t>(w) % 16 != 0 ||
-      reinterpret_cast<uintptr_t>(x) % 16 != 0)
+      reinterpret_cast<uintptr_t>(x) % 16 != 0 ||
+      (g.sx * (long long)sizeof(T)) % 16 != 0 || g.sw % 16 != 0)
     return cudaErrorInvalidValue;
   static size_t allowed = 48 * 1024;
   constexpr size_t bytes = wg::q_smem(TERMS);
   const cudaError_t e =
       allow_smem(wg::wg_q8_kernel<T, TERMS>, bytes, allowed);
   if (e != cudaSuccess) return e;
-  const dim3 grid((M + wg::QBN - 1) / wg::QBN, (R + wg::QBM - 1) / wg::QBM);
+  const dim3 grid((M + wg::QBN - 1) / wg::QBN, (R + wg::QBM - 1) / wg::QBM,
+                  E);
   wg::wg_q8_kernel<T, TERMS><<<grid, wg::QTHREADS, bytes, stream>>>(
       static_cast<const T*>(x), static_cast<const int8_t*>(w), scale,
-      static_cast<T*>(out), R, N, M, ldw);
+      static_cast<T*>(out), R, N, M, ldw, g);
   return cudaSuccess;
 }
 
-template <typename T, int RB, int TERMS>
+template <typename T, int RB, int TERMS, bool EX>
 cudaError_t launch_q8_mma(const void* x, const void* w, const float* scale,
                           void* out, int R, int N, int M, long long ldw,
                           int kc, int splits, void* ws, void* counters,
-                          cudaStream_t stream) {
+                          cudaStream_t stream, const Group& g, int E) {
   if (kc <= 0 || splits <= 0 || (long long)kc * (splits - 1) >= N ||
       (long long)kc * splits < N || ldw % 16 != 0 ||
-      reinterpret_cast<uintptr_t>(w) % 16 != 0 ||
+      reinterpret_cast<uintptr_t>(w) % 16 != 0 || g.sw % 16 != 0 ||
       (splits > 1 && (ws == nullptr || counters == nullptr)))
     return cudaErrorInvalidValue;
   const size_t bytes = stream::q8_smem<RB, TERMS>(kc);
   if (bytes > 227 * 1024) return cudaErrorInvalidValue;
   static size_t allowed = 48 * 1024;
-  const cudaError_t e =
-      allow_smem(stream::stream_mma_q8_kernel<T, RB, TERMS>, bytes, allowed);
+  const cudaError_t e = allow_smem(
+      stream::stream_mma_q8_kernel<T, RB, TERMS, EX>, bytes, allowed);
   if (e != cudaSuccess) return e;
-  const dim3 grid((M + stream::MT - 1) / stream::MT, splits);
-  stream::stream_mma_q8_kernel<T, RB, TERMS>
+  const dim3 grid((M + stream::MT - 1) / stream::MT, splits, E);
+  stream::stream_mma_q8_kernel<T, RB, TERMS, EX>
       <<<grid, stream::THREADS, bytes, stream>>>(
           static_cast<const T*>(x), static_cast<const int8_t*>(w), scale,
           static_cast<T*>(out), static_cast<float*>(ws),
-          static_cast<int*>(counters), R, N, M, ldw, kc, splits);
+          static_cast<int*>(counters), R, N, M, ldw, kc, splits, g);
   return cudaSuccess;
+}
+
+// the instance with the expert axis where there is one (a decode step's
+// single products keep the one without its prologue)
+template <typename T, int RB, int TERMS>
+cudaError_t launch_q8_mma_ex(const void* x, const void* w, const float* scale,
+                             void* out, int R, int N, int M, long long ldw,
+                             int kc, int splits, void* ws, void* counters,
+                             cudaStream_t s, const Group& g, int E) {
+  return E > 1 || g.counts != nullptr
+             ? launch_q8_mma<T, RB, TERMS, true>(x, w, scale, out, R, N, M,
+                                                 ldw, kc, splits, ws,
+                                                 counters, s, g, E)
+             : launch_q8_mma<T, RB, TERMS, false>(x, w, scale, out, R, N, M,
+                                                  ldw, kc, splits, ws,
+                                                  counters, s, g, E);
 }
 
 template <typename T, int RB, int TERMS>
@@ -1987,34 +2035,40 @@ cudaError_t launch_q8_cols(const void* x, const void* w, const float* scale,
 // quant_matmul: the int8 routes (xfer_matmul's kernel codes: 0 = tile,
 // 2 = stream_cols on tensor cores for a K-major w, 4 = stream_mma, 5 =
 // wgmma at prefill); x as three bf16 terms when fp32 (TERMS = 3), one
-// when bf16
+// when bf16. Over an expert axis (quant_matmul_experts: every route but
+// stream_cols) the scale is one for all experts.
 template <typename T>
 cudaError_t dispatch_q8(const void* x, const void* w, const float* scale,
                         void* out, int R, int N, int M, long long swn,
                         long long swm, int kernel, int p0, int p1, void* ws,
-                        void* counters, cudaStream_t s) {
+                        void* counters, cudaStream_t s, const Group& g,
+                        int E) {
   constexpr int TERMS = std::is_same<T, float>::value ? 3 : 1;
   switch (kernel) {
     case 0:
       if (p0 != 16 && p0 != 64) return cudaErrorInvalidValue;
-      launch_tile<T, int8_t>(x, w, scale, out, R, N, M, swn, swm, p0, s);
+      launch_tile<T, int8_t>(x, w, scale, out, R, N, M, swn, swm, p0, s, g,
+                             E);
       return cudaSuccess;
     case 2:
-      if (R > 16 || swn != 1) return cudaErrorInvalidValue;
+      if (R > 16 || swn != 1 || E != 1 || g.counts != nullptr)
+        return cudaErrorInvalidValue;
       return R <= 8 ? launch_q8_cols<T, 8, TERMS>(x, w, scale, out, R, N, M,
                                                   swm, p0, s)
                     : launch_q8_cols<T, 16, TERMS>(x, w, scale, out, R, N, M,
                                                    swm, p0, s);
     case 4:
       if (R > 16 || swm != 1) return cudaErrorInvalidValue;
-      return R <= 8 ? launch_q8_mma<T, 8, TERMS>(x, w, scale, out, R, N, M,
-                                                 swn, p0, p1, ws, counters, s)
-                    : launch_q8_mma<T, 16, TERMS>(x, w, scale, out, R, N, M,
-                                                  swn, p0, p1, ws, counters, s);
+      return R <= 8 ? launch_q8_mma_ex<T, 8, TERMS>(x, w, scale, out, R, N, M,
+                                                    swn, p0, p1, ws, counters,
+                                                    s, g, E)
+                    : launch_q8_mma_ex<T, 16, TERMS>(x, w, scale, out, R, N,
+                                                     M, swn, p0, p1, ws,
+                                                     counters, s, g, E);
     case 5:
       if (R <= 16 || swm != 1 || p0 != wg::QBM || p1 != wg::QBN)
         return cudaErrorInvalidValue;
-      return launch_q8_wg<T, TERMS>(x, w, scale, out, R, N, M, swn, s);
+      return launch_q8_wg<T, TERMS>(x, w, scale, out, R, N, M, swn, s, g, E);
     default:
       return cudaErrorInvalidValue;
   }
@@ -2141,20 +2195,30 @@ extern "C" int xfer_matmul_launch(const void* x, const void* w,
 // stream_mma (int8, p0 and p1 as for stream_rows, rows on 16 bytes, a
 // counter per 64 columns), 5 = wgmma (R > 16, row-major w with rows on
 // 16 bytes, M % 16 == 0, N % 8 == 0, x on 16 bytes; p0 = p1 = 128).
+// experts > 1 or counts (quant_matmul_experts, every kernel but 2): the
+// expert axis as xfer_matmul_launch takes it, one scale for all experts
+// (no expert stride), every expert's w on 16 bytes for kernels 4 and 5.
 extern "C" int quant_matmul_launch(const void* x, const void* w,
-                                   const void* scale, void* out,
-                                   const XferPlan* p, void* stream) {
-  if (p->R <= 0 || p->M <= 0 || p->N < 0) return (int)cudaErrorInvalidValue;
+                                   const void* scale, const void* counts,
+                                   void* out, const XferPlan* p,
+                                   void* stream) {
+  if (p->R <= 0 || p->M <= 0 || p->N < 0 || p->experts > 65535 ||
+      (counts != nullptr && p->experts < 1))
+    return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* sc = static_cast<const float*>(scale);
+  const int E = p->experts > 1 ? p->experts : 1;
+  const Group g{p->sx, p->sw, p->so, p->sws, p->scnt,
+                static_cast<const int*>(counts)};
   cudaError_t e;
   if (p->dtype == 0) {
     e = dispatch_q8<float>(x, w, sc, out, p->R, p->N, p->M, p->swn, p->swm,
-                           p->kernel, p->p0, p->p1, p->ws, p->counters, s);
+                           p->kernel, p->p0, p->p1, p->ws, p->counters, s, g,
+                           E);
   } else if (p->dtype == 1) {
     e = dispatch_q8<__nv_bfloat16>(x, w, sc, out, p->R, p->N, p->M, p->swn,
                                    p->swm, p->kernel, p->p0, p->p1, p->ws,
-                                   p->counters, s);
+                                   p->counters, s, g, E);
   } else {
     return (int)cudaErrorInvalidValue;
   }

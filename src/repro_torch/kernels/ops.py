@@ -13,8 +13,10 @@ from repro_torch.kernels.flash_attention import (  # noqa: F401
 from repro_torch.kernels.mlstm_chunkwise import (mlstm_chunkwise,
                                                  mlstm_chunkwise_fold)
 from repro_torch.kernels.paged_attention import (paged_attention,
-                                                 paged_attention_q8)
-from repro_torch.kernels.quant_matmul import quant_matmul
+                                                 paged_attention_q8,
+                                                 paged_attention_q8_multi)
+from repro_torch.kernels.quant_matmul import (quant_matmul,
+                                               quant_matmul_experts)
 from repro_torch.kernels.rglru_scan import rglru_scan
 from repro_torch.kernels.xfer_matmul import xfer_matmul, xfer_matmul_experts
 
@@ -26,16 +28,21 @@ from repro_torch.kernels.xfer_matmul import xfer_matmul, xfer_matmul_experts
 #: with an int8 one; ``mlstm_chunkwise`` also counts the launches of
 #: ``mlstm_chunkwise_fold``, its entry with a state;
 #: ``xfer_matmul_experts`` is ``xfer_matmul``'s expert axis, the MoE
-#: layer's expert products in one launch, counted on its own)
+#: layer's expert products in one launch, counted on its own, and
+#: ``quant_matmul_experts`` ``quant_matmul``'s, the same under INT8
+#: weights; ``paged_attention_q8_multi`` is the int8 body's multi-query
+#: form, the speculative verify over an int8 grid or pool)
 KERNELS = (xfer_matmul, flash_attention, flash_attention_q8, paged_attention,
            paged_attention_q8, quant_matmul, rglru_scan, mlstm_chunkwise,
-           xfer_matmul_experts)
+           xfer_matmul_experts, quant_matmul_experts,
+           paged_attention_q8_multi)
 
 
 # the JAX package's ``ops`` names
 matmul = xfer_matmul
 expert_matmul = xfer_matmul_experts
 int8_matmul = quant_matmul
+int8_expert_matmul = quant_matmul_experts
 attention = flash_attention
 paged_attn = paged_attention
 lru_scan = rglru_scan
@@ -66,6 +73,7 @@ def add_launches(counts: dict) -> None:
 matmul_ref = ref.matmul_ref
 expert_matmul_ref = ref.expert_matmul_ref
 int8_matmul_ref = ref.quant_matmul_ref
+int8_expert_matmul_ref = ref.quant_matmul_experts_ref
 attention_ref = ref.flash_attention_ref
 prefix_attention_ref = ref.prefix_attention_ref
 paged_attn_ref = ref.paged_attention_ref

@@ -15,7 +15,9 @@ same kernel: a block carries the S·H/G query rows of its group, so each
 K/V tile is staged once for all S queries (S launches of the one-query
 form would read every row S times), each query row with its own limit,
 softmax state and chunk merge. S = 1 with a 3-D q is the one-token form
-and its arithmetic unchanged. The int8 body takes one query per row.
+and its arithmetic unchanged. The int8 body has the same multi-query
+form (:func:`paged_attention_q8_multi`: the verify over an INT8 target's
+grid or pool).
 
 Bound on the H100: the bytes of the valid K/V rows (4·D flops per
 4·D bytes in bf16, per query head of a group). The fp body runs one block
@@ -55,7 +57,9 @@ valid int8 rows and their scales, about half the bf16 bytes.
 
 A CPU tensor takes the plain version (:func:`plain`); a CUDA tensor
 launches the kernel or raises. ``paged_attention.launches`` counts the
-fp body's launches, ``paged_attention_q8.launches`` the int8 body's.
+fp body's launches (both forms), ``paged_attention_q8.launches`` the int8
+body's one-query ones and ``paged_attention_q8_multi.launches`` its
+multi-query ones.
 """
 from __future__ import annotations
 
@@ -73,7 +77,7 @@ from repro_torch.kernels.ref import paged_attention_ref as plain
 _VP, _I = ctypes.c_void_p, ctypes.c_int
 _GEOMETRY = (_I, _I, _I, _I, _I, _I, _I, ctypes.c_float, _I)
 _ARGTYPES = (_VP,) * 8 + (_I,) + _GEOMETRY[:7] + (_I,) + _GEOMETRY[7:]
-_ARGTYPES_Q8 = (_VP,) * 10 + _GEOMETRY[:7] + (_I,) + _GEOMETRY[7:]
+_ARGTYPES_Q8 = (_VP,) * 10 + (_I,) + _GEOMETRY[:7] + (_I,) + _GEOMETRY[7:]
 
 #: positions per block of both bodies (their flash-decoding split): two
 #: 64-token pages. recurrentgemma-2b's ring of 2048 on 8 slots then runs
@@ -96,7 +100,7 @@ def paged_attention(q: torch.Tensor, kp: torch.Tensor, vp: torch.Tensor,
     """q [B, H, D] (or [B, S, H, D], S query positions per row); kp, vp
     [P, ps, G, D]; page_table [B, M] int32; lengths [B] int32 (of the
     first query); optional ``k_scale``/``v_scale`` [P, ps, G, 1] f32 for
-    int8 pools (one query per row). Returns q's shape in ``q.dtype``."""
+    int8 pools. Returns q's shape in ``q.dtype``."""
     if (k_scale is None) != (v_scale is None):
         raise ValueError("paged_attention: pass both k_scale and v_scale, "
                          "or neither")
@@ -116,9 +120,6 @@ def paged_attention(q: torch.Tensor, kp: torch.Tensor, vp: torch.Tensor,
     if page_table.dtype != torch.int32 or lengths.dtype != torch.int32:
         raise TypeError("paged_attention: page_table and lengths must be int32")
     scales = () if k_scale is None else (k_scale, v_scale)
-    if scales and q.dim() == 4:
-        raise NotImplementedError("paged_attention: the int8 body takes one "
-                                  "query position per row (q [B, H, D])")
     if scales:
         want = (n_pages, ps, g, 1)
         if tuple(k_scale.shape) != want or tuple(v_scale.shape) != want:
@@ -134,10 +135,12 @@ def paged_attention(q: torch.Tensor, kp: torch.Tensor, vp: torch.Tensor,
             raise ValueError(f"paged_attention: lengths must lie in "
                              f"[0, {m * ps}], got {lengths.tolist()}")
         return plain(q, kp, vp, page_table, lengths, *scales)
-    if scales:
-        return paged_attention_q8(q, kp, vp, *scales, page_table, lengths)
     if s < 1:
         raise ValueError("paged_attention: no query position")
+    if scales:
+        body = paged_attention_q8_multi if q.dim() == 4 \
+            else paged_attention_q8
+        return body(q, kp, vp, *scales, page_table, lengths)
     check_cuda("paged_attention", q, kp, vp)
     if page_table.device != q.device or lengths.device != q.device:
         raise ValueError("paged_attention: page_table / lengths on another "
@@ -164,11 +167,38 @@ def paged_attention_q8(q: torch.Tensor, kp: torch.Tensor, vp: torch.Tensor,
                        lengths: torch.Tensor) -> torch.Tensor:
     """The int8 body on CUDA tensors, shapes checked by
     :func:`paged_attention` (its entry point): int8 kp/vp, f32 scale
-    pools, q fp32 or bf16."""
-    check_device("paged_attention_q8", q, kp, vp, k_scale, v_scale,
-                 page_table, lengths)
-    check_float("paged_attention_q8", q)
-    b, h, d = q.shape
+    pools, q [B, H, D] fp32 or bf16."""
+    out = _launch_q8("paged_attention_q8", q, kp, vp, k_scale, v_scale,
+                     page_table, lengths)
+    if out.shape[0]:  # launched
+        paged_attention_q8.launches += 1
+    return out
+
+
+def paged_attention_q8_multi(q: torch.Tensor, kp: torch.Tensor,
+                             vp: torch.Tensor, k_scale: torch.Tensor,
+                             v_scale: torch.Tensor, page_table: torch.Tensor,
+                             lengths: torch.Tensor) -> torch.Tensor:
+    """The int8 body's multi-query form on CUDA tensors (the speculative
+    verify over an INT8 target's grid or pool): q [B, S, H, D], query j
+    over the positions below ``min(lengths + j, M·ps)``, each K/V tile
+    staged and dequantised once for all S queries of a group; shapes
+    checked by :func:`paged_attention`."""
+    out = _launch_q8("paged_attention_q8_multi", q, kp, vp, k_scale,
+                     v_scale, page_table, lengths)
+    if out.shape[0]:  # launched
+        paged_attention_q8_multi.launches += 1
+    return out
+
+
+def _launch_q8(name: str, q, kp, vp, k_scale, v_scale, page_table,
+               lengths) -> torch.Tensor:
+    """One launch of the int8 body for q [B, H, D] or [B, S, H, D]
+    (none for B = 0)."""
+    check_device(name, q, kp, vp, k_scale, v_scale, page_table, lengths)
+    check_float(name, q)
+    b, h, d = q.shape[0], q.shape[-2], q.shape[-1]
+    s = q.shape[1] if q.dim() == 4 else 1
     n_pages, ps, g, _ = kp.shape
     m = page_table.shape[1]
     q, kp, vp, k_scale, v_scale, page_table, lengths = (
@@ -179,16 +209,16 @@ def paged_attention_q8(q: torch.Tensor, kp: torch.Tensor, vp: torch.Tensor,
         return out
     chunks, _ = chunk_plan(m, ps)
     ws, counters = scratch("paged_attention_q8", q.device,
-                           b * h * chunks * (d + 2), b * g)
+                           b * s * h * chunks * (d + 2), b * g)
     launch("paged_attention_q8", _ARGTYPES_Q8, q.data_ptr(), kp.data_ptr(),
            vp.data_ptr(), k_scale.data_ptr(), v_scale.data_ptr(),
            page_table.data_ptr(), lengths.data_ptr(), out.data_ptr(),
-           ws.data_ptr(), counters.data_ptr(), b, h, g, d, ps, m, n_pages,
+           ws.data_ptr(), counters.data_ptr(), b, s, h, g, d, ps, m, n_pages,
            CHUNK, 1.0 / math.sqrt(d), DTYPE_CODES[q.dtype],
            source="paged_attention")
-    paged_attention_q8.launches += 1
     return out
 
 
 paged_attention.launches = 0
 paged_attention_q8.launches = 0
+paged_attention_q8_multi.launches = 0

@@ -47,8 +47,21 @@ The launch plan (route, split-K workspace and counters from
 the C entry as one struct. The kernel resets its counters, so the
 pointers stay valid from call to call.
 
+:func:`quant_matmul_experts` runs the same bodies over an expert axis
+(grid z), the int8 counterpart of ``xfer_matmul_experts``: the MoE
+family's expert products under INT8 weights, ``x [E, C, K] @ w_q [E, K,
+N]`` with one column scale for all experts (the reference quantises the
+stacked expert leaf ``[L, E, K, N]`` with one scale per column over
+layers, experts and rows) and ``counts`` [E] int32, each expert's live
+rows: rows past them come out +0, and an expert with no live row reads
+none of its weight bytes (``stream_mma`` at C <= 16, every block of it
+returns at once; ``wgmma`` above, where a 128-row tile past the live rows
+does). ``tile`` takes the misaligned shapes; ``stream_cols`` is not
+taken over experts.
+
 A CPU tensor takes the plain version (:func:`plain`); a CUDA tensor
-launches the kernel or raises. ``quant_matmul.launches`` counts launches.
+launches the kernel or raises. ``quant_matmul.launches`` and
+``quant_matmul_experts.launches`` count launches.
 """
 from __future__ import annotations
 
@@ -61,13 +74,14 @@ from repro_torch.kernels._launch import (DTYPE_CODES, check_device,
                                          check_dtype, check_float, check_rc,
                                          current_stream, entry, scratch,
                                          sm_count)
+from repro_torch.kernels.ref import quant_matmul_experts_ref as plain_experts
 from repro_torch.kernels.ref import quant_matmul_ref as plain
 from repro_torch.kernels.xfer_matmul import (DECODE_ROWS, MMA_TILE, SMEM_MAX,
                                              STREAM_WARPS, Route, _cdiv,
-                                             _Plan)
+                                             _Plan, check_counts)
 
 _VP = ctypes.c_void_p
-_ARGTYPES = (_VP, _VP, _VP, _VP, _VP)  # x, w_q, scale, out, &plan
+_ARGTYPES = (_VP,) * 6  # x, w_q, scale, counts, out, &plan
 
 #: stream_mma: rows of N per split at most, by x's dtype (fp32 x is
 #: staged as three bf16 terms, so its splits are shorter)
@@ -84,11 +98,15 @@ def x_terms(dtype: torch.dtype) -> int:
 
 @functools.lru_cache(maxsize=None)
 def route(r: int, n: int, m: int, dtype: torch.dtype, strides: tuple,
-          sms: int, *, aligned: bool = True, x_aligned: bool = True) -> Route:
+          sms: int, *, aligned: bool = True, x_aligned: bool = True,
+          experts: int = 1) -> Route:
     """The kernel and geometry for ``x [r, n] @ w_q [n, m]`` with ``x`` in
     ``dtype`` and ``w_q``'s element ``strides``, on a card of ``sms`` SMs.
     ``aligned``: ``w_q``'s base pointer lies on 16 bytes; ``x_aligned``:
-    ``x``'s does. Needs ``r``, ``m`` > 0."""
+    ``x``'s does (over experts: every expert's). Needs ``r``, ``m`` > 0.
+    ``experts`` > 1: that many products in one launch
+    (:func:`quant_matmul_experts`); their blocks count toward filling the
+    card, and ``stream_cols`` is not taken."""
     swn, swm = strides
     if r <= DECODE_ROWS and n > 0 and aligned:
         rb = 8 if r <= 8 else 16
@@ -96,12 +114,14 @@ def route(r: int, n: int, m: int, dtype: torch.dtype, strides: tuple,
             # xfer_matmul's stream_mma geometry: every SM streams, and as
             # many splits as the card holds at once
             tiles = _cdiv(m, MMA_TILE)
-            splits = max(_cdiv(sms, tiles), 2 * sms // tiles)
+            blocks = tiles * experts
+            splits = max(_cdiv(sms, blocks), 2 * sms // blocks)
             kc = min(Q8_KC[dtype], _cdiv(_cdiv(n, splits), 16) * 16)
             splits = _cdiv(n, kc)
             return Route("stream_mma", (tiles, splits), kc=kc, splits=splits)
         if swn == 1 and swm % 16 == 0 and n % Q8_CHUNK == 0 \
-                and x_terms(dtype) * rb * (n + 4) * 2 <= SMEM_MAX:
+                and x_terms(dtype) * rb * (n + 4) * 2 <= SMEM_MAX \
+                and experts == 1:
             cols = STREAM_WARPS * Q8_COLS_PER_WARP
             return Route("stream_cols", (min(_cdiv(m, cols), 2 * sms),))
     if r > DECODE_ROWS and n > 0 and swm == 1 and swn % 16 == 0 \
@@ -114,20 +134,27 @@ def route(r: int, n: int, m: int, dtype: torch.dtype, strides: tuple,
 
 def _plan(x: torch.Tensor, w_q: torch.Tensor, aligned: bool,
           x_aligned: bool) -> tuple:
-    """Fix one shape's launch: (rows, columns, the address of its
-    ``_Plan``, what keeps the plan and the workspace alive)."""
-    r, n = x.shape
-    m = w_q.shape[1]
-    rt = route(r, n, m, x.dtype, w_q.stride(), sm_count(x.device),
-               aligned=aligned, x_aligned=x_aligned)
+    """Fix one shape's launch of ``x [R, N] @ w_q [N, M]``, or of one
+    such product per expert for ``x [E, R, N] @ w_q [E, N, M]`` (the
+    split-K workspace and counters one slice per expert): (the address
+    of its ``_Plan``, what keeps the plan and the workspace alive)."""
+    e = x.shape[0] if x.dim() == 3 else 1
+    r, n = x.shape[-2:]
+    m = w_q.shape[-1]
+    rt = route(r, n, m, x.dtype, w_q.stride()[-2:], sm_count(x.device),
+               aligned=aligned, x_aligned=x_aligned, experts=e)
     ws = counters = None
+    per_ws = per_cnt = 0
     if rt.splits > 1:  # a counter per 64-column tile
-        ws, counters = scratch("quant_matmul", x.device, rt.splits * r * m,
-                               rt.grid[0])
-    plan = _Plan(r, n, m, DTYPE_CODES[x.dtype], w_q.stride(0), w_q.stride(1),
+        per_ws, per_cnt = rt.splits * r * m, rt.grid[0]
+        ws, counters = scratch("quant_matmul", x.device, e * per_ws,
+                               e * per_cnt)
+    group = (e, per_cnt, r * n, n * m, r * m, per_ws) if x.dim() == 3 else ()
+    plan = _Plan(r, n, m, DTYPE_CODES[x.dtype], *w_q.stride()[-2:],
                  *rt.c_args, 0, ws.data_ptr() if ws is not None else None,
-                 counters.data_ptr() if counters is not None else None)
-    return r, m, ctypes.addressof(plan), (plan, ws, counters)
+                 counters.data_ptr() if counters is not None else None,
+                 *group)
+    return ctypes.addressof(plan), (plan, ws, counters)
 
 
 _plans: dict = {}
@@ -148,28 +175,79 @@ def quant_matmul(x: torch.Tensor, w_q: torch.Tensor,
     check_dtype("quant_matmul", torch.float32, scale)
     if all(t.device.type == "cpu" for t in (x, w_q, scale)):
         return plain(x, w_q, scale)
+    out = _launch("quant_matmul", x, w_q, scale)
+    if out.numel():  # launched
+        quant_matmul.launches += 1
+    return out
+
+
+def _launch(name: str, x: torch.Tensor, w_q: torch.Tensor,
+            scale: torch.Tensor, counts: torch.Tensor = None) -> torch.Tensor:
+    """``x @ w_q`` times the scale (per expert where ``x`` has three
+    axes, ``counts`` its live rows) through one launch of the C entry,
+    none for an empty output; the operands have been checked to chain."""
     x, scale = x.contiguous(), scale.contiguous()
     dev = x.device
-    if x.shape[0] == 0 or m == 0:
-        check_device("quant_matmul", x, w_q, scale)
-        check_float("quant_matmul", x)
-        return torch.empty((x.shape[0], m), dtype=x.dtype, device=dev)
+    shape = (*x.shape[:-1], w_q.shape[-1])
+    if 0 in shape:
+        check_device(name, x, w_q, scale)
+        check_float(name, x)
+        return torch.empty(shape, dtype=x.dtype, device=dev)
     xp, wp = x.data_ptr(), w_q.data_ptr()
+    # over experts every expert's x and w_q start on 16 bytes too
+    x_step = x.shape[1] * x.shape[2] * x.element_size() if x.dim() == 3 \
+        else 0
+    w_step = w_q.shape[1] * w_q.shape[2] if w_q.dim() == 3 else 0
     index = torch.cuda.current_device()
     key = (x.shape, w_q.shape, w_q.stride(), x.dtype, dev, w_q.device,
-           scale.device, index, wp % 16 == 0, xp % 16 == 0)
+           scale.device, index, (wp | w_step) % 16 == 0,
+           (xp | x_step) % 16 == 0)
     plan = _plans.get(key)
     if plan is None:
-        check_device("quant_matmul", x, w_q, scale)
-        check_float("quant_matmul", x)
+        check_device(name, x, w_q, scale)
+        check_float(name, x)
         plan = _plans[key] = _plan(x, w_q, *key[-2:])
-    r, m, addr, _ = plan
-    out = torch.empty((r, m), dtype=x.dtype, device=dev)
+    out = torch.empty(shape, dtype=x.dtype, device=dev)
     fn = entry("quant_matmul", _ARGTYPES, "xfer_matmul")
-    check_rc("quant_matmul", fn(xp, wp, scale.data_ptr(), out.data_ptr(),
-                                addr, current_stream(index)), "xfer_matmul")
-    quant_matmul.launches += 1
+    cp = counts.data_ptr() if counts is not None else None
+    check_rc(name, fn(xp, wp, scale.data_ptr(), cp, out.data_ptr(), plan[0],
+                      current_stream(index)), "xfer_matmul")
+    return out
+
+
+def quant_matmul_experts(x: torch.Tensor, w_q: torch.Tensor,
+                         scale: torch.Tensor,
+                         counts: torch.Tensor = None) -> torch.Tensor:
+    """The int8 expert products of a capacity-routed MoE layer in one
+    launch: x [E, C, K] fp @ w_q [E, K, N] int8 (contiguous), times
+    ``scale`` (N f32 values, e.g. ``[1, 1, N]``, one for every expert)
+    -> [E, C, N] in ``x.dtype`` (fp32 accumulation). ``counts`` [E]
+    int32 on ``x``'s device: expert e's rows at or past ``counts[e]``
+    come out +0, and an expert with no live row reads none of its
+    weights; ``None``: every row live, as the reference's
+    ``einsum("ecd,edf->ecf")`` on its dequantised weights.
+    ``quant_matmul_experts.launches`` counts launches."""
+    if x.dim() != 3 or w_q.dim() != 3 or x.shape[0] != w_q.shape[0] \
+            or x.shape[2] != w_q.shape[1]:
+        raise ValueError(f"quant_matmul_experts: shapes {tuple(x.shape)} @ "
+                         f"{tuple(w_q.shape)} do not chain per expert")
+    if scale.numel() != w_q.shape[2]:
+        raise ValueError(f"quant_matmul_experts: scale {tuple(scale.shape)} "
+                         f"for {w_q.shape[2]} columns")
+    check_counts("quant_matmul_experts", x, counts)
+    check_dtype("quant_matmul_experts", torch.int8, w_q)
+    check_dtype("quant_matmul_experts", torch.float32, scale)
+    if all(t.device.type == "cpu" for t in (x, w_q, scale) +
+           ((counts,) if counts is not None else ())):
+        return plain_experts(x, w_q, scale, counts)
+    if not w_q.is_contiguous():
+        raise ValueError("quant_matmul_experts: w_q must be contiguous "
+                         "[E, K, N]")
+    out = _launch("quant_matmul_experts", x, w_q, scale.reshape(-1), counts)
+    if out.numel():  # launched
+        quant_matmul_experts.launches += 1
     return out
 
 
 quant_matmul.launches = 0
+quant_matmul_experts.launches = 0

@@ -64,6 +64,17 @@ def quant_matmul_ref(x: torch.Tensor, w_q: torch.Tensor,
     return (x.float() @ w).to(x.dtype)
 
 
+def quant_matmul_experts_ref(x: torch.Tensor, w_q: torch.Tensor,
+                             scale: torch.Tensor,
+                             counts: torch.Tensor = None) -> torch.Tensor:
+    """The int8 expert products: x [E, C, K] fp @ (w_q [E, K, N] int8 *
+    scale, N f32 values shared by every expert) per expert in fp32 (the
+    reference's ``einsum("ecd,edf->ecf")`` on its dequantised weights),
+    cast to ``x.dtype``; ``counts`` as :func:`expert_matmul_ref`'s."""
+    w = w_q.float() * scale.reshape(1, 1, w_q.shape[2]).float()
+    return expert_matmul_ref(x.float(), w, counts).to(x.dtype)
+
+
 def split_terms(x: torch.Tensor) -> list:
     """``x`` as the bf16 terms the tensor-core ``quant_matmul`` routes
     stage it as: fp32 x as ``hi = bf16(x)``, ``mid = bf16(x - hi)``,

@@ -265,6 +265,21 @@ def xfer_matmul(x: torch.Tensor, w: torch.Tensor, *, tr: int = 256,
 xfer_matmul.launches = 0
 
 
+def check_counts(name: str, x: torch.Tensor, counts: torch.Tensor) -> None:
+    """``counts`` (of an expert product over ``x`` [E, C, K]): None, or
+    E int32 values, contiguous, on ``x``'s device."""
+    if counts is None:
+        return
+    if counts.dim() != 1 or counts.numel() != x.shape[0]:
+        raise ValueError(f"{name}: counts {tuple(counts.shape)} for "
+                         f"{x.shape[0]} experts")
+    if counts.dtype != torch.int32 or not counts.is_contiguous():
+        raise TypeError(f"{name}: counts must be a contiguous int32 tensor")
+    if counts.device != x.device:
+        raise ValueError(f"{name}: counts on {counts.device}, x on "
+                         f"{x.device}")
+
+
 def xfer_matmul_experts(x: torch.Tensor, w: torch.Tensor,
                         counts: torch.Tensor = None) -> torch.Tensor:
     """The expert products of a capacity-routed MoE layer in one launch:
@@ -283,23 +298,13 @@ def xfer_matmul_experts(x: torch.Tensor, w: torch.Tensor,
             or x.shape[2] != w.shape[1]:
         raise ValueError(f"xfer_matmul_experts: shapes {tuple(x.shape)} @ "
                          f"{tuple(w.shape)} do not chain per expert")
-    if counts is not None and (counts.dim() != 1
-                               or counts.numel() != x.shape[0]):
-        raise ValueError(f"xfer_matmul_experts: counts {tuple(counts.shape)} "
-                         f"for {x.shape[0]} experts")
+    check_counts("xfer_matmul_experts", x, counts)
     if all(t.device.type == "cpu" for t in (x, w) +
            ((counts,) if counts is not None else ())):
         return plain_experts(x, w, counts)
     if not w.is_contiguous():
         raise ValueError("xfer_matmul_experts: w must be contiguous "
                          "[E, K, N]")
-    if counts is not None:
-        if counts.dtype != torch.int32 or not counts.is_contiguous():
-            raise TypeError("xfer_matmul_experts: counts must be a "
-                            "contiguous int32 tensor")
-        if counts.device != x.device:
-            raise ValueError(f"xfer_matmul_experts: counts on "
-                             f"{counts.device}, x on {x.device}")
     out = _launch("xfer_matmul_experts", x, w, counts)
     if out.numel():  # launched
         xfer_matmul_experts.launches += 1

@@ -31,6 +31,7 @@ from typing import List, Optional, Tuple
 import torch
 from torch import nn
 
+from repro_torch import quant as Q
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import blocks as B
 from repro_torch.models import layers as L
@@ -69,6 +70,10 @@ class EncDec(nn.Module):
     def dtype(self) -> torch.dtype:
         return self.final_norm.dtype
 
+    @property
+    def weights_quantized(self) -> bool:
+        return Q.is_qtensor(self.embed)
+
     def init_(self, gen: torch.Generator) -> None:
         """Random weights with the JAX init's distribution
         (``encdec.init_params``): the embedding scaled by 1/sqrt(d_model),
@@ -90,10 +95,13 @@ class EncDec(nn.Module):
     def encode(self, frames: torch.Tensor,
                enc_lens: Optional[torch.Tensor] = None) -> torch.Tensor:
         """frames [B, S_src, D] -> the encoder output [B, S_src, D] in the
-        model's dtype. ``enc_lens`` [B]: the true frame count of each row
-        of a right-padded batch; keys at or past it are masked, so a
+        model's dtype, or in fp32 under int8 weights (the reference's
+        INT8 step encodes its fp32 frames with fp32 dequantised params;
+        serving casts the output to the state's ``enc_out`` dtype where
+        it writes it). ``enc_lens`` [B]: the true frame count of each
+        row of a right-padded batch; keys at or past it are masked, so a
         valid position's output equals the unpadded row's."""
-        x = frames.to(self.dtype)
+        x = frames.to(torch.float32 if self.weights_quantized else self.dtype)
         b, s, _ = x.shape
         positions = torch.arange(s, dtype=torch.int32,
                                  device=x.device)[None].expand(b, s)
@@ -142,5 +150,6 @@ class EncDec(nn.Module):
         return L.rms_norm(x, self.final_norm), new_caches
 
     def logits(self, hidden: torch.Tensor) -> torch.Tensor:
-        """``hidden @ unembed`` through ``xfer_matmul``."""
+        """``hidden @ unembed`` through ``xfer_matmul`` (``quant_matmul``
+        for int8 weights)."""
         return L.unembed_logits(self.unembed, hidden)

@@ -18,7 +18,8 @@ included: they are routed and take capacity there too):
    dropped;
 3. the kept tokens scattered into an [E, cap, D] buffer (a dropped one
    goes to a spare row that nothing reads), the expert FFN over it
-   through ``xfer_matmul_experts``, one launch per product. Expert e's
+   through ``xfer_matmul_experts`` (``quant_matmul_experts`` for int8
+   expert leaves), one launch per product. Expert e's
    kept assignments fill its rows ``[0, counts[e])`` and leave the rest
    zero (:func:`expert_counts`); the products take ``counts`` and read
    no weight of an expert that holds no row, which is bit-equal, since
@@ -41,6 +42,7 @@ import math
 
 import torch
 
+from repro_torch import quant as Q
 from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels import ops
 from repro_torch.models import layers as L
@@ -56,7 +58,8 @@ def capacity(arch: ArchConfig, tokens: int) -> int:
 def route(arch: ArchConfig, hf: torch.Tensor, router):
     """Top-k routing of ``hf`` [T, D]: (gate values [T, k] fp32,
     renormalised; expert ids [T, k] int64, by descending probability,
-    ties lowest id first)."""
+    ties lowest id first). An int8 ``router`` goes through
+    ``quant_matmul``, whose logits are fp32 under INT8 weights."""
     logits = L.dense(hf, router).float()
     probs = torch.softmax(logits, dim=-1)
     vals, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
@@ -100,8 +103,12 @@ def expert_ffn(arch: ArchConfig, experts, buf: torch.Tensor,
     ``act(buf @ w_gate) * (buf @ w_up) @ w_down`` per expert (SwiGLU or
     GeGLU), or ``relu(buf @ w_up)² @ w_down`` (relu2). ``counts`` [E]:
     each expert's live rows (:func:`expert_counts`; ``None``: all), the
-    rest zero in ``buf`` and +0 out of every product."""
+    rest zero in ``buf`` and +0 out of every product. An int8 expert
+    leaf (a :class:`~repro_torch.quant.QTensor`, one column scale for
+    every expert) goes through ``quant_matmul_experts``."""
     def mm(a, w):
+        if Q.is_qtensor(w):
+            return ops.int8_expert_matmul(a, w.q, w.scale, counts)
         return ops.expert_matmul(a, w, counts)
 
     if arch.mlp == "relu2":

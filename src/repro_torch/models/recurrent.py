@@ -52,6 +52,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from repro_torch import quant as Q
 from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels import ops
 from repro_torch.models import layers as L
@@ -117,10 +118,10 @@ def _rglru_gates(gate_w: torch.Tensor, gate_b: torch.Tensor,
     b, s, w = xr.shape
     hw = w // heads
     xh = xr.reshape(b, s, heads, hw)
-    g = torch.einsum("bshd,hde->bshe", xh, gate_w) + gate_b
+    g = torch.einsum("bshd,hde->bshe", xh, Q.fp(gate_w)) + Q.fp(gate_b)
     r, i = torch.split(g.reshape(b, s, 2 * w), w, dim=-1)
     r, i = torch.sigmoid(r.float()), torch.sigmoid(i.float())
-    log_a = -_LRU_C * F.softplus(a_param.float()) * r
+    log_a = -_LRU_C * F.softplus(Q.fp(a_param).float()) * r
     gated_x = xr.float() * i
     scale = torch.sqrt(torch.clamp(1.0 - torch.exp(2.0 * log_a), min=1e-12))
     return log_a, scale * gated_x
@@ -131,6 +132,11 @@ class RGLRUBlock(nn.Module):
     ``ln1, w_in [d, 2w], conv_w [cw, w], conv_b [w], gate_w [heads, hw,
     2hw], gate_b [heads, 2hw], a_param [w], w_out [w, d], ln2,
     mlp.{w_gate, w_up, w_down}``."""
+
+    #: leaves of two or more dims that the forward reads in fp, not
+    #: through ``quant_matmul`` (``quant.quantize_params`` keeps their
+    #: dequantised values)
+    fp_leaves = ("conv_w", "gate_w", "gate_b")
 
     def __init__(self, arch: ArchConfig, *, device, dtype):
         super().__init__()
@@ -181,7 +187,7 @@ class RGLRUBlock(nn.Module):
         u = L.dense(h, self.w_in)
         y_branch, xr = torch.chunk(u, 2, dim=-1)
         xr, new_conv = _causal_conv(
-            xr, self.conv_w, self.conv_b,
+            xr, Q.fp(self.conv_w), Q.fp(self.conv_b),
             None if state is None else state["conv"],
             seq_lens=None if s == 1 else seq_lens)
         log_a, bx = _rglru_gates(self.gate_w, self.gate_b, self.a_param, xr,
@@ -271,8 +277,8 @@ class MLSTMBlock(nn.Module):
         q = L.dense(u, self.wq).reshape(b, s, heads, hd)
         k = L.dense(u, self.wk).reshape(b, s, heads, hd) / math.sqrt(hd)
         v = L.dense(u, self.wv).reshape(b, s, heads, hd)
-        it = (L.dense(u, self.w_i) + self.b_i).float()
-        ft = (L.dense(u, self.w_f) + self.b_f).float()
+        it = (L.dense(u, self.w_i) + Q.fp(self.b_i)).float()
+        ft = (L.dense(u, self.w_f) + Q.fp(self.b_f)).float()
         return q, k, v, it, ft
 
     def forward(self, x: torch.Tensor, *, state: Optional[dict] = None,
@@ -354,6 +360,9 @@ class SLSTMBlock(nn.Module):
     """Pre-norm sLSTM block. Parameter names mirror the JAX tree: ``ln1
     [d], w [d, 4d], r [heads, hd, 4hd], b [4d], w_out [d, d]``."""
 
+    #: read in fp by the recurrence (see :attr:`RGLRUBlock.fp_leaves`)
+    fp_leaves = ("r",)
+
     def __init__(self, arch: ArchConfig, *, device, dtype):
         super().__init__()
         self.arch = arch
@@ -382,8 +391,9 @@ class SLSTMBlock(nn.Module):
         d = self.arch.d_model
         heads = self.arch.num_heads
         hprev = st["h"].reshape(b, heads, d // heads).to(xt.dtype)
-        rec = torch.einsum("bhd,hde->bhe", hprev, self.r).reshape(b, 4 * d)
-        pre = (xt + rec + self.b).float()
+        rec = torch.einsum("bhd,hde->bhe", hprev,
+                           Q.fp(self.r)).reshape(b, 4 * d)
+        pre = (xt + rec + Q.fp(self.b)).float()
         i_, f_, z_, o_ = torch.chunk(pre, 4, dim=-1)
         m_new = torch.maximum(f_ + st["m"], i_)
         ip = torch.exp(i_ - m_new)

@@ -131,39 +131,81 @@ def _replace(model: nn.Module, name: str, value: QTensor) -> None:
 
 
 def _quantize_stack(leaves: List[torch.Tensor]) -> List[QTensor]:
-    """Quantise the per-layer copies of one body leaf as the JAX package
-    quantises its stacked ``[L, ...]`` leaf: one scale per output column,
-    shared by all layers (the amax runs over the layer axis too), so a
-    1-D norm scale or bias of each layer is quantised as well. Each
+    """Quantise the per-layer copies of one stacked leaf as the JAX
+    package quantises its stacked ``[L, ...]`` leaf: one scale per output
+    column, shared by all layers (the amax runs over the layer axis too),
+    so a 1-D norm scale or bias of each layer is quantised as well. Each
     layer's scale keeps that layer's rank."""
     axes = _weight_axis(leaves[0])
     amax = None
     for x in leaves:
         a = _amax(x.float(), axes)
         amax = a if amax is None else torch.maximum(amax, a)
-    out = [_quantize_with(x.float(), amax) for x in leaves]
-    if leaves[0].dim() == 1:  # norm scales and biases: read in fp32
-        out = [qt._replace(values=dequantize(qt)) for qt in out]
-    return out
+    return [_quantize_with(x.float(), amax) for x in leaves]
+
+
+def _stacks(model: nn.Module) -> Tuple[List[List[str]], List[str]]:
+    """The reference's stack structure over the port's unstacked layers:
+    (stacks, each the module names of one stacked ``[L, ...]`` subtree of
+    the JAX tree; layers the JAX tree keeps unstacked). An LM's body
+    position j (``b{j}_{kind}``) is one stack over its ``repeats``
+    layers ``n_prefix + r * len(pattern) + j``; its prefix and suffix
+    layers stand alone. An EncDec's ``enc_layers`` and ``dec_layers``
+    are the ``enc_body`` and ``dec_body`` stacks."""
+    if hasattr(model, "enc_layers"):
+        return ([[f"enc_layers.{i}" for i in range(len(model.enc_layers))],
+                 [f"dec_layers.{i}" for i in range(len(model.dec_layers))]],
+                [])
+    from repro_torch.models.lm import pattern, stack_structure
+    prefix, repeats, suffix = stack_structure(model.arch)
+    p, n = len(prefix), len(pattern(model.arch))
+    stacks = [[f"layers.{p + r * n + j}" for r in range(repeats)]
+              for j in range(n)] if repeats else []
+    alone = [f"layers.{i}" for i in range(p)] + \
+        [f"layers.{p + repeats * n + i}" for i in range(len(suffix))]
+    return stacks, alone
+
+
+def _fp_read(model: nn.Module, name: str, qt: QTensor) -> QTensor:
+    """``qt`` with its fp32 ``values`` when the forward reads the leaf in
+    fp rather than through ``quant_matmul``: a 1-D norm scale or bias, or
+    a leaf that its module names in ``fp_leaves`` (RG-LRU's conv and gates,
+    the sLSTM's recurrence)."""
+    path, _, leaf = name.rpartition(".")
+    mod = model.get_submodule(path) if path else model
+    if qt.q.dim() == 1 or leaf in getattr(mod, "fp_leaves", ()):
+        return qt._replace(values=dequantize(qt))
+    return qt
+
+
+def _quantizable(p) -> bool:
+    return p.dim() >= 2 and p.is_floating_point()
 
 
 @torch.no_grad()
 def quantize_params(model: nn.Module) -> nn.Module:
-    """``repro.quant.quantize_params`` on the port's LM, in place.
+    """``repro.quant.quantize_params`` on the port's LM or EncDec, in
+    place.
 
     The reference quantises its stacked parameter tree: every floating
-    leaf of two or more dims becomes a per-channel :class:`QTensor`.
-    Its ``body`` leaves carry a leading layer axis, so each is
-    quantised across all layers with one shared scale and its 1-D norm
-    scales and biases (2-D once stacked) are int8 too; of the top-level
-    leaves only the matrices (``embed``, ``unembed``) are, and
-    ``final_norm`` stays fp. The port unstacks the body into
-    ``layers.<i>`` and reproduces exactly that (a caveat of the
-    reference, not fixed here). The 1-D norm scales and biases keep
-    their fp32 dequantised values beside the int8 pair (``values``),
-    since the forward reads them in fp. For a tied unembedding the
-    module also gains ``unembed_ones`` ([1, V] f32), the unit column
-    scale its logits pass to ``quant_matmul``.
+    leaf of two or more dims becomes a per-channel :class:`QTensor`. A
+    stacked subtree's leaves carry a leading layer axis (:func:`_stacks`:
+    an LM's body positions ``b{j}_{kind}``, an EncDec's ``enc_body`` and
+    ``dec_body``), so each is quantised across its layers with one
+    shared scale, and its 1-D norm scales and biases (2-D once stacked)
+    are int8 too; the MoE family's expert leaves ``[E, D, F]`` get one
+    scale per column ``[1, 1, F]`` over layers, experts and rows. A
+    layer the reference keeps unstacked (the MoE family's dense prefix
+    layer, the hybrid's suffix RG-LRU blocks) is quantised alone: its
+    matrices get per-channel scales of their own and its 1-D leaves stay
+    fp. Of the top-level leaves only the matrices are (``embed``,
+    ``unembed``); ``final_norm`` and ``enc_norm`` stay fp. The port
+    unstacks the layers and reproduces exactly that (a caveat of the
+    reference, not fixed here). A quantised leaf the forward reads in fp
+    (:func:`_fp_read`) keeps its fp32 dequantised values beside the int8
+    pair (``values``). For a tied unembedding the module also gains
+    ``unembed_ones`` ([1, V] f32), the unit column scale its logits pass
+    to ``quant_matmul``.
 
     Each fp parameter is dropped once its int8 copy exists, and the
     :class:`QTensor` leaves are plain attributes: ``module.to()``,
@@ -173,16 +215,24 @@ def quantize_params(model: nn.Module) -> nn.Module:
     leaves = named_leaves(model)
     if any(is_qtensor(v) for v in leaves.values()):
         raise ValueError("quantize_params: the model is already quantised")
-    n_layers = len(model.layers)
-    body = {name.split(".", 2)[2] for name in leaves
-            if name.startswith("layers.")}
-    for sub in sorted(body):
-        stacked = [leaves[f"layers.{i}.{sub}"] for i in range(n_layers)]
-        for i, qt in enumerate(_quantize_stack(stacked)):
-            _replace(model, f"layers.{i}.{sub}", qt)
+    stacks, alone = _stacks(model)
+    for layers in stacks:
+        subs = sorted({name[len(layers[0]) + 1:] for name in leaves
+                       if name.startswith(layers[0] + ".")})
+        for sub in subs:
+            names = [f"{layer}.{sub}" for layer in layers]
+            stacked = [leaves.pop(n) for n in names]
+            for name, qt in zip(names, _quantize_stack(stacked)):
+                _replace(model, name, _fp_read(model, name, qt))
+            del stacked
+    for layer in alone:
+        for name in [n for n in leaves if n.startswith(layer + ".")]:
+            p = leaves.pop(name)
+            if _quantizable(p):
+                qt = quantize(p, axis=_weight_axis(p))
+                _replace(model, name, _fp_read(model, name, qt))
     for name, p in leaves.items():
-        if not name.startswith("layers.") and p.dim() >= 2 \
-                and p.is_floating_point():
+        if "." not in name and _quantizable(p):
             _replace(model, name, quantize(p, axis=_weight_axis(p)))
     arch = getattr(model, "arch", None)
     if arch is not None and arch.tie_embeddings:

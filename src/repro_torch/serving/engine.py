@@ -44,7 +44,8 @@ target verifies k + 1 positions in one forward and up to k + 1 tokens
 commit per slot and step; params are ``{"target": LM, "draft": LM}``,
 the draft's dense grid lives in ``state.draft_caches`` (prefilled over
 the full prompt at admission), and the step is captured like the plain
-one.
+one. Under INT8 only the target is quantised (its weights, its grid or
+pool), as in the reference; the draft and its grid stay fp in ``dtype``.
 """
 from __future__ import annotations
 
@@ -124,8 +125,8 @@ class ServingEngine:
     ``config.spec`` (:class:`~repro_torch.serving.config.SpecConfig`)
     turns on speculative decoding with ``spec.draft`` proposing
     ``spec.k`` tokens a step (the reference's pairing rules: both dense
-    and non-windowed, one vocabulary). Under a quantising
-    ``config.quant`` it raises ``NotImplementedError`` (ROADMAP).
+    and non-windowed, one vocabulary). A quantising ``config.quant``
+    applies to the target only; the draft stays fp.
 
     ``device=None`` means ``cuda`` and raises without a CUDA device; pass
     ``device="cpu"`` to serve on the CPU through the kernels' plain
@@ -133,19 +134,23 @@ class ServingEngine:
     is the dtype of the params and the KV grid.
 
     ``config.quant`` (:class:`~repro_torch.quant.QuantConfig`, e.g.
-    ``INT8_SERVE``) selects INT8 serving. ``weights="int8"`` quantises
-    the params once, on the device and after the move to ``dtype``
-    (per-channel, with the reference's layer-stack-wide scales; the fp
-    copies are dropped); every projection then runs through
-    ``quant_matmul``. As in the reference, whose INT8 step dequantises
-    its params to fp32, the activations of that forward are fp32
-    whatever ``dtype`` is (the embedding, norms, attention); only the
-    KV grid and ``final_norm`` keep ``dtype``. ``kv="int8"`` makes the
-    grid int8 with per-token f32 scales, filled by quantising the fresh
-    K/V, read by the int8 body of ``paged_attention``; with fp weights
-    the activations stay in ``dtype``. Weights-only int8 on CUDA needs
-    ``dtype=torch.float32`` (the fp decode kernel takes one dtype for q
-    and the grid).
+    ``INT8_SERVE``) selects INT8 serving, for every family the port
+    serves. ``weights="int8"`` quantises the params once, on the device
+    and after the move to ``dtype`` (per-channel, with the reference's
+    stack-wide scales, ``quant.quantize_params``; the fp copies are
+    dropped; a model quantised already is served as it is); every
+    projection then runs through ``quant_matmul`` (the MoE family's
+    expert products through ``quant_matmul_experts``). As in the
+    reference, whose INT8 step dequantises its params to fp32, the
+    activations of that forward are fp32 whatever ``dtype`` is (the
+    embedding, norms, attention, the recurrences, the encoder); only the
+    KV grid, the recurrent states' conv window, the encdec family's
+    ``enc_out`` and ``final_norm`` keep ``dtype``. ``kv="int8"`` makes
+    the grid (or pool) int8 with per-token f32 scales, filled by
+    quantising the fresh K/V, read by the int8 body of
+    ``paged_attention``; with fp weights the activations stay in
+    ``dtype``. Weights-only int8 on CUDA needs ``dtype=torch.float32``
+    (the fp decode kernel takes one dtype for q and the grid).
 
     ``config.paging`` (:class:`~repro_torch.serving.config.PagingConfig`)
     with ``paged=True`` replaces the slot grid by page pools of
@@ -156,9 +161,7 @@ class ServingEngine:
     group's rows; in the vlm family only text-only prompts). Only the
     dense, MoE and vlm families page (the reference's
     ``PAGED_FAMILIES``): the hybrid, ssm and encdec families raise
-    ``ValueError``. The MoE family under a quantising ``config.quant``
-    raises ``NotImplementedError`` (ROADMAP A16), the encdec and vlm
-    families too (ROADMAP A6).
+    ``ValueError``.
 
     ``config.max_src_len`` (default ``max_len``): the encdec family's
     bound on a request's source frames, the width of ``state.enc_out``.
@@ -182,21 +185,6 @@ class ServingEngine:
                     and set(params) == {"target", "draft"}):
                 raise TypeError("speculative serving takes params as "
                                 "{'target': LM, 'draft': LM}")
-            if quant.quant_weights or quant.quant_kv:
-                raise NotImplementedError(
-                    "speculative decoding under INT8 is not ported yet (the "
-                    "reference quantises the target only; see ROADMAP A15)")
-        if arch.family == "moe" and (quant.quant_weights or quant.quant_kv):
-            raise NotImplementedError(
-                f"{arch.name}: INT8 serving of the moe family is not ported "
-                f"yet (the reference quantises the router and the 4-D "
-                f"stacked expert leaves too; see ROADMAP A16)")
-        if arch.family in ("hybrid", "ssm", "encdec", "vlm") \
-                and (quant.quant_weights or quant.quant_kv):
-            raise NotImplementedError(
-                f"{arch.name}: INT8 serving of the {arch.family} family is "
-                f"not ported yet (its leaves need their own check against "
-                f"the reference's quantize_params; see ROADMAP A6)")
         if quant.quant_weights and not quant.quant_kv \
                 and dev.type == "cuda" and dtype != torch.float32:
             raise NotImplementedError(
@@ -216,8 +204,8 @@ class ServingEngine:
             self.draft = params["draft"].to(device=dev, dtype=dtype)
             params = params["target"]
         self.model = params.to(device=dev, dtype=dtype)
-        if quant.quant_weights:
-            Q.quantize_params(self.model)
+        if quant.quant_weights and not self.model.weights_quantized:
+            Q.quantize_params(self.model)  # the target only
         self.paged = paging.paged
         self.page_size = paging.page_size or PG.DEFAULT_PAGE_SIZE
         self.kv_pages = paging.kv_pages

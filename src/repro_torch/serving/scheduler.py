@@ -195,18 +195,21 @@ def prefill_rows(model: LM, tokens: torch.Tensor, lens: torch.Tensor,
 
 def prefill_encdec(model, frames: torch.Tensor, flens: torch.Tensor,
                    tokens: torch.Tensor, lens: torch.Tensor,
-                   cache_dtype: Optional[torch.dtype] = None
+                   cache_dtype: Optional[torch.dtype] = None,
+                   kv_quant: bool = False
                    ) -> Tuple[List[dict], torch.Tensor, torch.Tensor]:
     """An encdec group's prefill: the frames [n, max_src_len, D],
     right-padded past their true lengths ``flens`` [n], encoded in one
     call; the decoder prefilled over tokens [n, bucket] (true lengths
     ``lens``) against that output. Returns the decoder's length-exact
-    cache rows, the logits at each row's last position [n, 1, V] and the
-    encoder output [n, max_src_len, D] (what admission writes into the
-    state's ``enc_out``)."""
+    cache rows (int8 with scales when ``kv_quant``), the logits at each
+    row's last position [n, 1, V] and the encoder output [n,
+    max_src_len, D] (what admission writes into the state's ``enc_out``,
+    cast to its dtype; the prefill itself reads it uncast, as the
+    reference's does)."""
     n, bucket = tokens.shape
     enc_out = model.encode(frames, flens)
-    caches = model.make_caches(n, bucket, cache_dtype)
+    caches = model.make_caches(n, bucket, cache_dtype, kv_quant=kv_quant)
     hidden, rows = model(tokens, enc_out, caches=caches, enc_lens=flens)
     last = hidden[torch.arange(n, device=hidden.device), lens.long() - 1]
     return invalidate_padding(rows, lens), model.logits(last[:, None]), enc_out
@@ -474,7 +477,7 @@ class Scheduler:
                 flens_t = torch.from_numpy(flens).to(dev)
                 rows, logits, enc_out = prefill_encdec(
                     model, torch.from_numpy(frames).to(dev), flens_t, toks_t,
-                    lens_t, self.cache_dtype)
+                    lens_t, self.cache_dtype, kv_quant=self.kv_quant)
                 enc = dict(enc_out=enc_out, enc_len=flens_t)
             elif kind == "vlm":
                 patches = np.stack([req.patch_embeds for req, _ in group]

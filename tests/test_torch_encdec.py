@@ -18,7 +18,8 @@ tests/test_kernels.py fp32 tolerance):
   against the JAX engine (``tests/test_serving.py``'s mixed encdec
   workload) at lookahead 0 and 1, and one top-k stream set;
 * submit validation (frames required, ``max_src_len``, the wrong
-  payload for the family) and the refusals (INT8, speculative decoding,
+  payload for the family), INT8 streams against the JAX quantised engine
+  and the refusals (speculative decoding,
   the paged pool).
 """
 import dataclasses
@@ -42,7 +43,7 @@ from repro.serving.engine import ServingEngine as JServingEngine
 from repro_torch import bridge
 from repro_torch.configs import get_arch
 from repro_torch.kernels import ops
-from repro_torch.quant import INT8_SERVE
+from repro_torch.quant import INT8_SERVE, QuantConfig
 from repro_torch.serving import (PagingConfig, Request,
                                  RequestValidationError, SamplingParams,
                                  ServeConfig, ServingEngine, SpecConfig)
@@ -254,11 +255,14 @@ def _workload(arch):
 _JAX_STREAMS = {}
 
 
-def _jax_streams(sampled, lookahead):
-    key = (sampled, lookahead)
+def _jax_streams(sampled, lookahead, int8=False):
+    key = (sampled, lookahead, int8)
     if key not in _JAX_STREAMS:
         arch_j, params, _, _ = _pair()
         extra = {}
+        if int8:
+            from repro import quant as JQ
+            extra["quant"] = JQ.INT8_SERVE
         if sampled:
             extra["sampling"] = JS.SamplingParams("top_k", TOP_K.temperature,
                                                   TOP_K.top_k)
@@ -278,11 +282,12 @@ def _jax_streams(sampled, lookahead):
     return _JAX_STREAMS[key]
 
 
-def _port_streams(sampled, lookahead):
+def _port_streams(sampled, lookahead, int8=False):
     _, _, arch, _ = _pair()
     eng = ServingEngine(arch, _model(), device="cpu", config=ServeConfig(
         slots=SLOTS, max_len=MAX_LEN, max_src_len=MAX_SRC,
-        lookahead=lookahead, sampling=TOP_K if sampled else None))
+        lookahead=lookahead, sampling=TOP_K if sampled else None,
+        quant=INT8_SERVE if int8 else QuantConfig()))
     prompts, frames = _workload(arch)
     for i, (p, f) in enumerate(zip(prompts, frames)):
         eng.submit(Request(rid=i, prompt=p.copy(), src_frames=f,
@@ -409,10 +414,19 @@ def test_zero_frame_request_refused_where_the_jax_engine_admits_it():
 
 
 def test_refusals():
+    """INT8 serves (it raised before the encdec leaves were quantised by
+    the reference's ``enc_body``/``dec_body`` stacks): greedy streams
+    equal the JAX quantised engine's, the decoder grid int8, ``enc_out``
+    in the engine's dtype, written from the fp32 encoder; speculative
+    decoding still raises."""
     _, _, arch, _ = _pair()
-    with pytest.raises(NotImplementedError, match="ROADMAP A6"):
-        ServingEngine(arch, _model(), device="cpu", config=ServeConfig(
-            slots=2, max_len=16, quant=INT8_SERVE))
+    eng, got = _port_streams(False, 1, int8=True)
+    bad = _stream_diff(eng, got, _jax_streams(False, 1, int8=True))
+    assert not bad, bad
+    assert eng.model.weights_quantized
+    assert eng.caches[0]["k"].dtype == torch.int8
+    assert eng.state.enc_out.dtype == torch.float32  # the engine's dtype
+    assert len(got) == 5 and all(len(t) == MAX_NEW for t in got.values())
     with pytest.raises(NotImplementedError, match="dense-attention"):
         ServingEngine(arch, {"target": _model(), "draft": _model()},
                       device="cpu", config=ServeConfig(

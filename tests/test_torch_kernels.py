@@ -43,7 +43,9 @@ def _no_launches():
     assert set(counts) == {"xfer_matmul", "flash_attention",
                            "flash_attention_q8", "paged_attention",
                            "paged_attention_q8", "quant_matmul", "rglru_scan",
-                           "mlstm_chunkwise", "xfer_matmul_experts"}
+                           "mlstm_chunkwise", "xfer_matmul_experts",
+                           "quant_matmul_experts",
+                           "paged_attention_q8_multi"}
     assert not any(counts.values()), counts
 
 

@@ -19,9 +19,14 @@ CPU, at 2e-4 (the tests/test_kernels.py fp32 tolerance).
   ``max_len`` as ``repro.testing.serving_equiv`` pins them for the MoE
   family (expert capacity scales with the prefill's token count), at the
   same lookahead, at the reduced capacity factor and at a dropping one;
-* the refusals: INT8 (ROADMAP A16) and speculative decoding raise, and
-  the pool keeps no prefix registry (``prefix_hit_rate`` 0 on prompts
-  that share a prefix).
+* INT8 (``INT8_SERVE``): the expert leaves quantised with one column
+  scale over layers and experts, the plain ``quant_matmul_experts``
+  against the reference's ``einsum`` on dequantised weights with live
+  rows, its launch plan, and greedy streams against the JAX quantised
+  engine on the grid and the pool;
+* the refusals: speculative decoding raises, and the pool keeps no
+  prefix registry (``prefix_hit_rate`` 0 on prompts that share a
+  prefix).
 """
 import dataclasses
 import math
@@ -398,10 +403,16 @@ def test_top_k_streams_match_jax_engine(arch_id, paged):
 def test_refusals_and_no_prefix_reuse():
     _, _, arch, tree = _pair(DEEPSEEK)
     model = bridge.from_jax_params(tree, arch, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP A16"):
-        ServingEngine(arch, model, device="cpu", config=ServeConfig(
-            slots=2, max_len=16, quant=INT8_SERVE))
-    assert not model.weights_quantized  # refused before anything moved
+    # INT8 serves (it raised before quant_matmul_experts): router and
+    # experts int8, the experts' scale one per column for every expert
+    eng = ServingEngine(arch, model, device="cpu", config=ServeConfig(
+        slots=2, max_len=16, quant=INT8_SERVE))
+    experts = eng.model.layers[1].moe
+    assert model.weights_quantized and eng.caches[0]["k"].dtype == torch.int8
+    assert experts.w_up.q.dtype == torch.int8
+    assert tuple(experts.w_up.scale.shape) == (1, 1, arch.moe_d_ff)
+    assert eng.model.layers[1].router.q.dtype == torch.int8
+    model = bridge.from_jax_params(tree, arch, device="cpu")
     draft = bridge.from_jax_params(tree, arch, device="cpu")
     with pytest.raises(NotImplementedError, match="speculative decoding"):
         ServingEngine(arch, {"target": model, "draft": draft}, device="cpu",
@@ -424,6 +435,94 @@ def test_refusals_and_no_prefix_reuse():
     assert sorted(r.rid for r in eng.completed) == [0, 1, 2]
     stats = eng.prefill_stats()
     assert stats["prefix_hit_rate"] == 0.0 and stats["shared_dispatches"] == 0
+
+
+_QSTREAMS = {}
+
+
+@pytest.mark.parametrize("paged", [False, True])
+def test_int8_streams_match_jax_engine(paged):
+    """``INT8_SERVE`` on deepseek-moe-16b's reduced config: greedy
+    streams equal the JAX quantised engine's on the grid and on the pool
+    (a flip only as a near-tie, the margin taken on the quantised
+    model); the expert products run through ``quant_matmul_experts``'s
+    plain version."""
+    from repro import quant as JQ
+    from test_torch_recurrent import NEAR_TIE
+    from test_torch_step_graph import _margin
+    prompts = _stream_prompts(DEEPSEEK)
+    if paged not in _QSTREAMS:
+        arch_j, params, _, _ = _pair(DEEPSEEK)
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore", DeprecationWarning)
+            jeng = JServingEngine(arch_j, params, dtype=jnp.float32,
+                                  config=JServeConfig(
+                                      slots=SLOTS, max_len=MAX_LEN,
+                                      quant=JQ.INT8_SERVE,
+                                      paging=JPagingConfig(paged=paged,
+                                                           page_size=PS)))
+        for i, p in enumerate(prompts):
+            jeng.submit(JRequest(rid=i, prompt=p, max_new_tokens=MAX_NEW))
+        jeng.run_until_drained(max_steps=2000)
+        _QSTREAMS[paged] = {r.rid: list(r.out_tokens) for r in jeng.completed}
+    want = _QSTREAMS[paged]
+    _, _, arch, tree = _pair(DEEPSEEK)
+    model = bridge.from_jax_params(tree, arch, device="cpu")
+    eng = ServingEngine(arch, model, device="cpu", config=ServeConfig(
+        slots=SLOTS, max_len=MAX_LEN, quant=INT8_SERVE,
+        paging=PagingConfig(paged=paged, page_size=PS)))
+    got = _drive(eng, prompts)
+    assert set(got) == set(want)
+    for rid in sorted(want):
+        g, w = got[rid], want[rid]
+        if g != w:
+            j = next(i for i, (a, b) in enumerate(zip(g, w)) if a != b)
+            margin = _margin(model, prompts[rid], w[:j])
+            assert margin < NEAR_TIE and len(g) == len(w), \
+                f"rid={rid}: port={g} jax={w} (first diff at {j}, top-2 " \
+                f"margin {margin:.3e})"
+            warnings.warn(f"rid={rid}: near-tie flip at {j} ({margin:.3e})")
+    assert any(len(set(t)) > 2 for t in got.values()), got
+    assert ("kps" in eng.caches[0]) == paged
+
+
+def test_quant_expert_matmul_plain_version_matches_einsum():
+    """``quant_matmul_experts``'s plain version against the reference's
+    ``einsum("ecd,edf->ecf")`` on weights dequantised as
+    ``dequantize_params`` does (one column scale for every expert), with
+    live rows: rows past them +0; on CPU tensors the wrapper is it."""
+    from repro import quant as JQ
+    from repro_torch import quant as Q
+    rng = np.random.RandomState(7)
+    e, c, k, n = 8, 5, 64, 48
+    x = rng.standard_normal((e, c, k)).astype(np.float32)
+    w = rng.standard_normal((2, e, k, n)).astype(np.float32)  # 2 layers
+    wq = JQ.quantize(jnp.asarray(w), axis=(0, 1, 2))
+    want = np.asarray(jnp.einsum("ecd,edf->ecf", x, JQ.dequantize(wq)[1]))
+    counts = np.array([0, 5, 1, 3, 5, 2, 0, 4], np.int32)
+    live = np.arange(c)[None, :, None] < counts[:, None, None]
+    q_t = torch.from_numpy(np.array(wq.q[1]))
+    s_t = torch.from_numpy(np.array(wq.scale[0]))  # [1, 1, N]
+    got = ops.int8_expert_matmul_ref(torch.from_numpy(x), q_t, s_t,
+                                     torch.from_numpy(counts))
+    np.testing.assert_allclose(got.numpy(), np.where(live, want, 0.0), **TOL)
+    assert (got.numpy()[~np.broadcast_to(live, got.shape)] == 0).all()
+    assert not np.signbit(got.numpy()[~np.broadcast_to(live, got.shape)]).any()
+    full = ops.int8_expert_matmul(torch.from_numpy(x), q_t, s_t)
+    np.testing.assert_allclose(full.numpy(), want, **TOL)
+    # the MoE FFN takes it for int8 expert leaves
+    down = Q.quantize(torch.from_numpy(
+        rng.standard_normal((e, n, k)).astype(np.float32)), axis=(0, 1))
+    experts = type("Experts", (), dict(w_up=Q.QTensor(q_t, s_t),
+                                       w_down=down))
+    arch = dataclasses.replace(get_arch(DEEPSEEK).reduced(), mlp="relu2")
+    h = M.expert_ffn(arch, experts, torch.from_numpy(x),
+                     torch.from_numpy(counts))
+    assert tuple(h.shape) == (e, c, k)
+    with pytest.raises(ValueError, match="do not chain"):
+        ops.int8_expert_matmul(torch.from_numpy(x), q_t[:, :3], s_t)
+    with pytest.raises(ValueError, match="scale"):
+        ops.int8_expert_matmul(torch.from_numpy(x), q_t, s_t[..., :3])
 
 
 def test_expert_routes():
@@ -454,3 +553,18 @@ def test_expert_routes():
     # few experts of a long contraction split K as the dense route does
     rt = route(9, 4096, 64, bf16, (64, 1), 132, experts=2)
     assert rt.kernel == "stream_mma" and rt.splits > 1
+    # quant_matmul_experts: int8 stream_mma at decode (fp32 x splits K at
+    # 1024 rows, its three bf16 terms' stage), wgmma on x's terms at
+    # prefill with the expert on grid z, tile off 16 bytes
+    from repro_torch.kernels.quant_matmul import route as qroute
+    for dt, kc in ((f32, 1024), (bf16, 2048)):
+        rt = qroute(1, 2048, 1408, dt, (1408, 1), 132, experts=64)
+        assert (rt.kernel, rt.kc, rt.splits) == ("stream_mma", kc,
+                                                 2048 // kc)
+        for c in (60, 240):
+            rt = qroute(c, 2048, 1408, dt, (1408, 1), 132, experts=64)
+            assert rt.kernel == "wgmma" and rt.grid == (11, -(-c // 128))
+    assert qroute(1, 1000, 1001, f32, (1001, 1), 132, aligned=False,
+                  experts=5).kernel == "tile"
+    assert qroute(1, 1024, 1024, f32, (1, 1024), 132,
+                  experts=2).kernel != "stream_cols"

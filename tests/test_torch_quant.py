@@ -69,60 +69,132 @@ def test_quantize_clips_to_127():
     assert int(q.max()) == 127 and int(q.min()) == -127
 
 
+#: one reduced arch per family the port serves
+FAMILY_ARCHS = {"dense": ARCH_ID, "moe": "deepseek-moe-16b",
+                "hybrid": "recurrentgemma-2b", "ssm": "xlstm-350m",
+                "encdec": "seamless-m4t-medium", "vlm": "paligemma-3b"}
+_TREES = {}
+
+
+def _tree(arch_id):
+    """The reduced arch and a JAX tree (as numpy) whose all-zero leaves
+    (norms, biases) are seeded non-zero: zeros would hide the stacking."""
+    if arch_id not in _TREES:
+        arch_j = jax_get_arch(arch_id).reduced()
+        init = jax.jit(JREG.init_params, static_argnums=(0, 2))
+        tree = jax.tree.map(np.asarray, init(arch_j, jax.random.PRNGKey(3),
+                                             jnp.float32))
+        rng = np.random.RandomState(4)
+        tree = jax.tree.map(
+            lambda x: rng.standard_normal(x.shape).astype(np.float32)
+            if not x.any() else x, tree)
+        _TREES[arch_id] = (get_arch(arch_id).reduced(), tree)
+    return _TREES[arch_id]
+
+
 @pytest.fixture(scope="module")
 def trees():
-    """The reduced arch and a JAX tree (as numpy) with non-zero seeded
-    norms and biases."""
-    arch_j = jax_get_arch(ARCH_ID).reduced()
-    arch = get_arch(ARCH_ID).reduced()
-    params = jax.tree.map(np.asarray, JREG.init_params(
-        arch_j, jax.random.PRNGKey(3), jnp.float32))
-    rng = np.random.RandomState(4)
-    body = params["body"]["b0_attn"]
-    for name in ("ln1", "ln2", "bq", "bk", "bv"):
-        body[name] = rng.standard_normal(body[name].shape).astype(np.float32)
-    params["final_norm"] = rng.standard_normal(
-        params["final_norm"].shape).astype(np.float32)
-    return arch, params
+    return _tree(ARCH_ID)
 
 
-def test_quantize_params_is_bit_equal_to_jax_leaf_for_leaf(trees):
-    arch, params = trees
-    want = JQ.quantize_params(jax.tree.map(jnp.asarray, params))
-    model = Q.quantize_params(bridge.from_jax_params(params, arch,
+def _jax_leaves(arch, tree):
+    """Each leaf of the stacked JAX tree as ``(port name, leaf, layer
+    index in its stack or None)``: ``body.b{j}_{kind}`` entry r is layer
+    ``n_prefix + r * len(pattern) + j``, ``prefix{i}`` layer i,
+    ``suffix{i}`` the layers after the body, ``enc_body``/``dec_body``
+    entry r ``enc_layers.r``/``dec_layers.r``."""
+    from repro_torch.models.lm import pattern, stack_structure
+    out = []
+
+    def walk(t, path):
+        if isinstance(t, dict):
+            for k, v in t.items():
+                walk(v, path + [k])
+            return
+        top, rest = path[0], ".".join(path[1:])
+        if top in ("enc_body", "dec_body"):
+            n = t.shape[0] if not isinstance(t, JQ.QTensor) else t.q.shape[0]
+            name = "enc_layers" if top == "enc_body" else "dec_layers"
+            out.extend((f"{name}.{r}.{rest}", t, r) for r in range(n))
+        elif top == "body":
+            prefix, repeats, _ = stack_structure(arch)
+            pat = pattern(arch)
+            j = int(path[1][1:].split("_")[0])
+            rest = ".".join(path[2:])
+            out.extend((f"layers.{len(prefix) + r * len(pat) + j}.{rest}",
+                        t, r) for r in range(repeats))
+        elif top.startswith("prefix"):
+            out.append((f"layers.{int(top[6:])}.{rest}", t, None))
+        elif top.startswith("suffix"):
+            prefix, repeats, _ = stack_structure(arch)
+            i = len(prefix) + repeats * len(pattern(arch)) + int(top[6:])
+            out.append((f"layers.{i}.{rest}", t, None))
+        else:
+            out.append((".".join(path), t, None))
+
+    walk(tree, [])
+    return out
+
+
+@pytest.mark.parametrize("family", list(FAMILY_ARCHS))
+def test_quantize_params_is_bit_equal_to_jax_leaf_for_leaf(family):
+    """Payloads and scales of every leaf equal ``repro.quant.
+    quantize_params`` on the stacked JAX tree: a stacked leaf's one
+    scale per column for every layer of its stack (1-D leaves quantised
+    too, read in fp32 through ``values``), a prefix or suffix layer's
+    own per-channel scales with fp 1-D leaves, fp top-level norms."""
+    arch, tree = _tree(FAMILY_ARCHS[family])
+    want = JQ.quantize_params(jax.tree.map(jnp.asarray, tree))
+    model = Q.quantize_params(bridge.from_jax_params(tree, arch,
                                                      device="cpu"))
     got = Q.named_leaves(model)
-    assert not isinstance(got["final_norm"], Q.QTensor)  # 1-D, unstacked
-    np.testing.assert_array_equal(got["final_norm"].detach().numpy(),
-                                  params["final_norm"])
-    _same(got["embed"], want["embed"])
-    assert tuple(got["embed"].scale.shape) == (1, arch.d_model)
-    jbody = want["body"]["b0_attn"]
-    names = {"ln1", "ln2", "bq", "bk", "bv", "wq", "wk", "wv", "wo",
-             "mlp.w_gate", "mlp.w_up", "mlp.w_down"}
-    assert {n.split(".", 2)[2] for n in got if n.startswith("layers.")} == names
-    for name in names:
-        leaf = jbody
-        for part in name.split("."):
-            leaf = leaf[part]
-        assert isinstance(leaf, JQ.QTensor), name
-        # the stacked leaf's scale [1, ..., M] is one scale per column
-        # for every layer
-        scale = np.asarray(leaf.scale)
-        assert scale.shape[0] == 1 and scale.size == leaf.q.shape[-1]
-        for i in range(arch.num_layers):
-            qt = got[f"layers.{i}.{name}"]
-            assert isinstance(qt, Q.QTensor), name
-            np.testing.assert_array_equal(qt.q.numpy(), np.asarray(leaf.q[i]))
-            np.testing.assert_array_equal(qt.scale.numpy().reshape(-1),
-                                          scale.reshape(-1))
-            if name in {"ln1", "ln2", "bq", "bk", "bv"}:  # read in fp32
-                np.testing.assert_array_equal(
-                    Q.fp(qt).numpy(), np.asarray(JQ.dequantize(leaf))[i])
-                assert qt.values is not None, name
-    # the data makes the stacking show: a per-layer amax would differ
-    ln1 = np.abs(params["body"]["b0_attn"]["ln1"])
-    assert (ln1.max(axis=0) != ln1[0]).any()
+    pairs = _jax_leaves(arch, jax.tree.map(
+        lambda x: JQ.QTensor(np.asarray(x.q), np.asarray(x.scale))
+        if isinstance(x, JQ.QTensor) else np.asarray(x), want,
+        is_leaf=lambda x: isinstance(x, JQ.QTensor)))
+    assert sorted(n for n, _, _ in pairs) == sorted(got)
+    kinds = set()
+    for name, leaf, r in pairs:
+        port = got[name]
+        if not isinstance(leaf, JQ.QTensor):  # fp in the reference
+            assert not isinstance(port, Q.QTensor), name
+            np.testing.assert_array_equal(
+                port.detach().numpy(), leaf if r is None else leaf[r])
+            kinds.add("fp")
+            continue
+        assert isinstance(port, Q.QTensor), name
+        q, scale = np.asarray(leaf.q), np.asarray(leaf.scale)
+        if r is not None:  # stacked: one scale per column for every layer
+            assert scale.shape[0] == 1
+            q, scale = q[r], scale[0]
+            kinds.add("stacked")
+        else:
+            kinds.add("alone")
+        np.testing.assert_array_equal(port.q.numpy(), q, err_msg=name)
+        assert port.q.dtype == torch.int8
+        np.testing.assert_array_equal(port.scale.numpy(), scale, err_msg=name)
+        if port.q.dim() == 1:  # read in fp32
+            assert port.values is not None, name
+        if port.values is not None:
+            np.testing.assert_array_equal(
+                port.values.numpy(), q.astype(np.float32) * scale)
+    assert {"stacked", "fp"} <= kinds
+    if family == "moe":  # the prefix layer alone, the experts stacked
+        assert not Q.is_qtensor(got["layers.0.ln1"])
+        assert tuple(got["layers.1.moe.w_gate"].scale.shape) == \
+            (1, 1, arch.moe_d_ff)
+        assert Q.is_qtensor(got["layers.1.router"])
+    if family == "hybrid":  # the unstacked suffix keeps fp norms
+        last = f"layers.{arch.num_layers - 1}"
+        assert not Q.is_qtensor(got[f"{last}.ln1"])
+        assert Q.is_qtensor(got[f"{last}.conv_w"])
+        assert got[f"{last}.gate_w"].values is not None
+    if family == "encdec":
+        assert not Q.is_qtensor(got["enc_norm"])
+        assert Q.is_qtensor(got["dec_layers.0.xwk"])
+    if family == "dense":  # the data makes the stacking show
+        ln1 = np.abs(tree["body"]["b0_attn"]["ln1"])
+        assert (ln1.max(axis=0) != ln1[0]).any()
 
 
 def test_quantize_params_drops_fp_copies_and_refuses_twice(trees):

@@ -482,14 +482,59 @@ def test_greedy_streams_match_jax_engines(pair, scenario, lookahead):
         assert max(len(p) for p in prompts) + MAX_NEW > get_arch(ARCH_ID).reduced().window
 
 
-def test_hybrid_int8_serving_raises(pair):
+_QSTREAMS = {}
+
+
+def _jax_int8_streams(pair, quant):
+    """Streams of the JAX ``ServingEngine`` under ``quant`` (the basic
+    scenario, fp32)."""
+    from repro import quant as JQ
+    key = (quant.weights, quant.kv)
+    if key not in _QSTREAMS:
+        arch_j, params, _, _, _ = pair
+        prompts, slots = _scenario("basic")
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore", DeprecationWarning)
+            eng = JServingEngine(arch_j, params, dtype=jnp.float32,
+                                 config=JServeConfig(
+                                     slots=slots, max_len=MAX_LEN,
+                                     quant=JQ.QuantConfig(*key)))
+        for i, p in enumerate(prompts):
+            eng.submit(JRequest(rid=i, prompt=p, max_new_tokens=MAX_NEW))
+        eng.run_until_drained(max_steps=2000)
+        _QSTREAMS[key] = {r.rid: list(r.out_tokens) for r in eng.completed}
+    return _QSTREAMS[key]
+
+
+@pytest.mark.parametrize("lookahead", [0, 1])
+@pytest.mark.parametrize("quant", ["int8", "kv"])
+def test_hybrid_int8_serving_raises(pair, quant, lookahead):
+    """INT8 serving of the hybrid family (it raised before the family's
+    leaves were quantised by the reference's stack structure): under
+    ``INT8_SERVE`` and ``QuantConfig(kv="int8")`` the streams equal the
+    JAX quantised engine's, the ring an int8 grid with scales, the
+    RG-LRU recurrence in fp32; a flip only as a near-tie."""
     from repro_torch.quant import INT8_SERVE, QuantConfig
     _, _, arch, tree, _ = pair
-    for quant in (INT8_SERVE, QuantConfig(kv="int8")):
-        model = bridge.from_jax_params(tree, arch, device="cpu")
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            ServingEngine(arch, model, device="cpu",
-                          config=ServeConfig(slots=2, max_len=32, quant=quant))
+    config = INT8_SERVE if quant == "int8" else QuantConfig(kv="int8")
+    prompts, slots = _scenario("basic")
+    model = bridge.from_jax_params(tree, arch, device="cpu")
+    eng = ServingEngine(arch, model, device="cpu", config=ServeConfig(
+        slots=slots, max_len=MAX_LEN, lookahead=lookahead, quant=config))
+    for i, p in enumerate(prompts):
+        eng.submit(Request(rid=i, prompt=p, max_new_tokens=MAX_NEW))
+    eng.run_until_drained(max_steps=2000)
+    got = {r.rid: list(r.out_tokens) for r in eng.completed}
+    faults, ties = _flips(model, prompts, got, _jax_int8_streams(pair, config))
+    assert not faults, faults
+    if ties:
+        warnings.warn(f"near-tie flips: {ties}")
+    assert model.weights_quantized == config.quant_weights
+    attn = [c for c in eng.caches if "k" in c]
+    assert attn and all(c["k"].dtype == torch.int8 and "k_scale" in c
+                        for c in attn)
+    assert all(c["h"].dtype == torch.float32 for c in eng.caches if "h" in c)
+    assert any(len(set(t)) > 4 for t in got.values()), got
 
 
 def test_serve_launcher_runs_the_hybrid_on_cpu(capsys):

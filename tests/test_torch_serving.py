@@ -193,17 +193,19 @@ def test_unported_options_raise(setup):
                           device="cpu", config=ServeConfig(
                               slots=2, max_len=16,
                               paging=PagingConfig(paged=True)))
-    # speculative decoding under INT8 is not ported (ROADMAP A15); the
-    # sampling methods are (tests/test_torch_sampling.py)
+    # speculative decoding under INT8 serves (it raised before the int8
+    # multi-query paged_attention): the target is quantised, the draft
+    # and its grid stay fp (streams: tests/test_torch_spec.py)
     draft = bridge.from_jax_params(tree, arch, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ServingEngine(arch, {"target": model, "draft": draft}, device="cpu",
-                      config=ServeConfig(
-                          slots=2, max_len=16, quant=INT8_SERVE,
-                          sampling=SamplingParams(method="temperature",
-                                                  temperature=0.7),
-                          spec=SpecConfig(draft=arch, k=2)))
-    assert not model.weights_quantized  # refused before anything moved
+    eng = ServingEngine(arch, {"target": model, "draft": draft},
+                        device="cpu", config=ServeConfig(
+                            slots=2, max_len=16, quant=INT8_SERVE,
+                            sampling=SamplingParams(method="temperature",
+                                                    temperature=0.7),
+                            spec=SpecConfig(draft=arch, k=2)))
+    assert model.weights_quantized and not draft.weights_quantized
+    assert eng.caches[0]["k"].dtype == torch.int8
+    assert eng.state.draft_caches[0]["k"].dtype == torch.float32
 
 
 # ---------------------------------------------------------------------------

@@ -17,7 +17,11 @@ CPU.
   test), a cold 1-layer draft (rejections) and top-k sampling; the
   acceptance counters ``accepted``/``proposed`` and the slot keys equal
   JAX's.
-* The pairing rules (the INT8 refusal is in ``tests/test_torch_serving.py``).
+* INT8 (``INT8_SERVE``, the target quantised, the draft fp): the int8
+  multi-query form's plain version is one query per position; streams
+  and the acceptance counters equal the JAX quantised spec engine's on
+  the grid and the pool.
+* The pairing rules.
 """
 import dataclasses
 import os
@@ -159,8 +163,9 @@ def test_append_on_the_pool_equals_jax(block, firsts, reserved, s):
 
 def test_multi_query_plain_version_is_one_query_per_position():
     """``paged_attention`` with q [B, S, H, D] on CPU tensors: query j is
-    the one-query form over ``min(lengths + j, M·ps)`` keys; the int8
-    body takes one query per row."""
+    the one-query form over ``min(lengths + j, M·ps)`` keys, over fp
+    pools and over int8 pools with their scale pools (the int8 body's
+    multi-query form, the verify of an INT8 target)."""
     rng = np.random.RandomState(3)
     b, s, h, g, d, ps, m = 3, 5, 8, 2, 16, 4, 6
     q = torch.from_numpy(rng.standard_normal((b, s, h, d)).astype(np.float32))
@@ -173,10 +178,21 @@ def test_multi_query_plain_version_is_one_query_per_position():
         want = ops.paged_attn(q[:, j], kp, vp, table,
                               torch.clamp(lengths + j, max=m * ps))
         assert torch.equal(got[:, j], want)
-    scales = torch.ones((20, ps, g, 1))
-    with pytest.raises(NotImplementedError, match="one query"):
-        ops.paged_attn(q, kp.to(torch.int8), vp.to(torch.int8), table, lengths,
-                       k_scale=scales, v_scale=scales)
+    kq = (kp * 30).round().clamp(-127, 127).to(torch.int8)
+    vq = (vp * 30).round().clamp(-127, 127).to(torch.int8)
+    ks = torch.from_numpy(rng.uniform(0.01, 0.05, (20, ps, g, 1))
+                          .astype(np.float32))
+    vs = torch.from_numpy(rng.uniform(0.01, 0.05, (20, ps, g, 1))
+                          .astype(np.float32))
+    got = ops.paged_attn(q, kq, vq, table, lengths, k_scale=ks, v_scale=vs)
+    for j in range(s):
+        want = ops.paged_attn(q[:, j], kq, vq, table,
+                              torch.clamp(lengths + j, max=m * ps),
+                              k_scale=ks, v_scale=vs)
+        assert torch.equal(got[:, j], want)
+    # the plain version dequantises the pools, as the reference's gather
+    deq = ops.paged_attn(q, kq.float() * ks, vq.float() * vs, table, lengths)
+    np.testing.assert_allclose(got.numpy(), deq.numpy(), rtol=TOL, atol=TOL)
 
 
 # ---------------------------------------------------------------------------
@@ -222,7 +238,8 @@ def _drain(eng, request):
     return {r.rid: list(r.out_tokens) for r in eng.completed}
 
 
-def _jax_spec(draft, k, paged, method):
+def _jax_spec(draft, k, paged, method, int8=False):
+    from repro import quant as JQ
     arch_j, _, draft_j, _ = _archs(draft)
     trees = _trees()
     params = {"target": jax.tree.map(jnp.asarray, trees["target"]),
@@ -235,11 +252,13 @@ def _jax_spec(draft, k, paged, method):
             slots=SLOTS, max_len=MAX_LEN, seed=SEED, lookahead=0,
             sampling=JS.SamplingParams(sp.method, sp.temperature, sp.top_k),
             paging=JPagingConfig(paged=paged, page_size=PS),
-            spec=JSpecConfig(draft=draft_j, k=k)))
+            spec=JSpecConfig(draft=draft_j, k=k),
+            quant=JQ.INT8_SERVE if int8 else JQ.QuantConfig()))
     return eng, _drain(eng, JRequest)
 
 
-def _port(draft, k, paged, method, lookahead=0):
+def _port(draft, k, paged, method, lookahead=0, int8=False):
+    from repro_torch.quant import INT8_SERVE, QuantConfig
     _, arch, _, draft_t = _archs(draft)
     trees = _trees()
     spec = None
@@ -256,7 +275,7 @@ def _port(draft, k, paged, method, lookahead=0):
     eng = ServingEngine(arch, params, device="cpu", config=ServeConfig(
         slots=SLOTS, max_len=MAX_LEN, seed=SEED, lookahead=lookahead,
         sampling=_sp(method), paging=PagingConfig(paged=paged, page_size=PS),
-        spec=spec))
+        spec=spec, quant=INT8_SERVE if int8 else QuantConfig()))
     return eng, model, _drain(eng, Request)
 
 
@@ -305,6 +324,31 @@ def test_spec_streams_equal_jax_spec_engine_and_target_only(
     if method == "top_k":  # sampled verify: some proposals rejected
         assert 0 < int(eng.state.proposed.sum())
     assert int(eng.state.accepted.sum()) <= int(eng.state.proposed.sum())
+
+
+@pytest.mark.parametrize("draft,k,paged", [("cold", 3, False),
+                                            ("self", 2, True)])
+def test_int8_spec_streams_and_counters_equal_jax(draft, k, paged):
+    """Speculative decoding under ``INT8_SERVE``: the target's weights
+    and grid (or pool) int8, the draft and its grid fp, as the reference
+    quantises the target only; greedy streams, ``accepted``,
+    ``proposed`` and the stats equal the JAX quantised spec engine's
+    (a flip only as a near-tie), and the verify reads the int8 grid
+    through the int8 body's multi-query form."""
+    jeng, want = _jax_spec(draft, k, paged, "greedy", int8=True)
+    eng, model, got = _port(draft, k, paged, "greedy", int8=True)
+    bad = stream_diff(model, _prompt_set(), got, want, _sp("greedy"))
+    assert not bad, bad
+    assert model.weights_quantized and not eng.draft.weights_quantized
+    assert eng.caches[0]["kp" if paged else "k"].dtype == torch.int8
+    assert eng.state.draft_caches[0]["k"].dtype == torch.float32
+    for name in ("accepted", "proposed"):
+        assert np.array_equal(getattr(eng.state, name).numpy(),
+                              np.asarray(getattr(jeng.state, name))), name
+    stats, jstats = eng.step_stats(), jeng.step_stats()
+    for name in ("draft_acceptance", "accepted_tokens_mean"):
+        assert stats[name] == pytest.approx(jstats[name]), name
+    assert all(len(t) == MAX_NEW for t in got.values())
 
 
 def test_spec_state_leaves_and_record_shape():

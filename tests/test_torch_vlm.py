@@ -15,7 +15,8 @@ fp32 on the CPU, at 2e-4 (the tests/test_kernels.py fp32 tolerance):
 * admission: positions after one step (``tests/test_serving.py``'s 5
   and 11), batched equal to serial, patched prompts kept out of the
   prefix registry;
-* the refusals (INT8, speculative decoding).
+* INT8 streams against the JAX quantised engine, grid and pool;
+* the refusals (speculative decoding).
 """
 import dataclasses
 import warnings
@@ -38,7 +39,8 @@ from repro.serving.engine import ServingEngine as JServingEngine
 from repro_torch import bridge
 from repro_torch.configs import get_arch
 from repro_torch.kernels import ops
-from repro_torch.quant import INT8_SERVE
+from repro_torch.quant import INT8_SERVE, QuantConfig
+from test_torch_paging import jax_int8_shared_prefill  # noqa: F401
 from repro_torch.serving import (PagingConfig, Request, SamplingParams,
                                  ServeConfig, ServingEngine, SpecConfig)
 from repro_torch.serving import sampler as S
@@ -163,11 +165,14 @@ def _workload(arch):
 _JAX_STREAMS = {}
 
 
-def _jax_streams(paged, sampled, lookahead):
-    key = (paged, sampled, lookahead)
+def _jax_streams(paged, sampled, lookahead, int8=False):
+    key = (paged, sampled, lookahead, int8)
     if key not in _JAX_STREAMS:
         arch_j, params, _, _ = _pair()
         extra = {}
+        if int8:
+            from repro import quant as JQ
+            extra["quant"] = JQ.INT8_SERVE
         if sampled:
             extra["sampling"] = JS.SamplingParams("top_k", TOP_K.temperature,
                                                   TOP_K.top_k)
@@ -189,12 +194,13 @@ def _jax_streams(paged, sampled, lookahead):
     return _JAX_STREAMS[key]
 
 
-def _port_engine(paged, sampled, lookahead, slots=SLOTS):
+def _port_engine(paged, sampled, lookahead, slots=SLOTS, int8=False):
     _, _, arch, _ = _pair()
     return ServingEngine(arch, _model(), device="cpu", config=ServeConfig(
         slots=slots, max_len=MAX_LEN, lookahead=lookahead,
         sampling=TOP_K if sampled else None,
-        paging=PagingConfig(paged=paged, page_size=PS)))
+        paging=PagingConfig(paged=paged, page_size=PS),
+        quant=INT8_SERVE if int8 else QuantConfig()))
 
 
 def _drive(eng, prompts, patches):
@@ -308,8 +314,24 @@ def test_admission_positions_and_batching():
     assert not torch.allclose(model.logits(h0[:, -1]), model.logits(h1[:, -1]))
 
 
-def test_submit_and_refusals():
+@pytest.mark.parametrize("paged", [False, True])
+def test_submit_and_refusals(paged, jax_int8_shared_prefill):
+    """Submit validation; INT8 serves (it raised before the vlm leaves
+    were quantised by the reference's stack structure): greedy streams
+    equal the JAX quantised engine's on the grid and the pool (the
+    registry's shared-prefix prefill included), patches cast to the fp32
+    activations; speculative decoding still raises."""
     _, _, arch, _ = _pair()
+    qeng = _port_engine(paged, False, 1, int8=True)
+    prompts, patches = _workload(qeng.arch)
+    got = _drive(qeng, prompts, patches)
+    bad = _stream_diff(qeng.model, got, _jax_streams(paged, False, 1,
+                                                     int8=True))
+    assert not bad, bad
+    assert qeng.model.weights_quantized
+    assert qeng.caches[0]["kp" if paged else "k"].dtype == torch.int8
+    if paged:
+        assert qeng.prefill_stats()["shared_dispatches"] >= 1
     eng = _port_engine(False, False, 1)
     assert eng.state.enc_out is None and eng.state.enc_len is None
     prompt = np.arange(1, 4, dtype=np.int32)
@@ -320,9 +342,6 @@ def test_submit_and_refusals():
         eng.submit(Request(rid=1, prompt=np.arange(1, 30, dtype=np.int32),
                            patch_embeds=np.zeros((8, arch.d_model),
                                                  np.float32)))
-    with pytest.raises(NotImplementedError, match="ROADMAP A6"):
-        ServingEngine(arch, _model(), device="cpu", config=ServeConfig(
-            slots=2, max_len=16, quant=INT8_SERVE))
     with pytest.raises(NotImplementedError, match="dense-attention"):
         ServingEngine(arch, {"target": _model(), "draft": _model()},
                       device="cpu", config=ServeConfig(

@@ -499,14 +499,51 @@ def test_greedy_streams_match_jax_engines(pair, scenario, lookahead):
         assert any(len(set(t)) > 4 for t in got.values()), got
 
 
-def test_ssm_int8_serving_raises(pair):
+_QSTREAMS = {}
+
+
+@pytest.mark.parametrize("lookahead", [0, 1])
+def test_ssm_int8_serving_raises(pair, lookahead):
+    """INT8 serving of the ssm family (it raised before the family's
+    leaves were quantised by the reference's stack structure): under
+    ``INT8_SERVE`` the streams equal the JAX quantised engine's, the
+    mLSTM and sLSTM recurrences in fp32 on int8 weights; a flip only as
+    a near-tie. ``QuantConfig(kv="int8")`` alone serves as the fp engine
+    does: the family holds no KV cache."""
+    from repro import quant as JQ
     from repro_torch.quant import INT8_SERVE, QuantConfig
-    _, _, arch, tree, _ = pair
+    arch_j, params, arch, tree, _ = pair
+    prompts, slots = _scenario("basic")
+    if "int8" not in _QSTREAMS:
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore", DeprecationWarning)
+            jeng = JServingEngine(arch_j, params, dtype=jnp.float32,
+                                  config=JServeConfig(
+                                      slots=slots, max_len=MAX_LEN,
+                                      quant=JQ.INT8_SERVE))
+        for i, p in enumerate(prompts):
+            jeng.submit(JRequest(rid=i, prompt=p, max_new_tokens=MAX_NEW))
+        jeng.run_until_drained(max_steps=2000)
+        _QSTREAMS["int8"] = {r.rid: list(r.out_tokens) for r in jeng.completed}
+    want = _QSTREAMS["int8"]
+    streams = {}
     for quant in (INT8_SERVE, QuantConfig(kv="int8")):
         model = bridge.from_jax_params(tree, arch, device="cpu")
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            ServingEngine(arch, model, device="cpu",
-                          config=ServeConfig(slots=2, max_len=32, quant=quant))
+        eng = ServingEngine(arch, model, device="cpu", config=ServeConfig(
+            slots=slots, max_len=MAX_LEN, lookahead=lookahead, quant=quant))
+        for i, p in enumerate(prompts):
+            eng.submit(Request(rid=i, prompt=p, max_new_tokens=MAX_NEW))
+        eng.run_until_drained(max_steps=2000)
+        streams[quant] = {r.rid: list(r.out_tokens) for r in eng.completed}
+        assert model.weights_quantized == quant.quant_weights
+        if quant is INT8_SERVE:
+            faults, ties = _flips(model, prompts, streams[quant], want)
+            assert not faults, faults
+            if ties:
+                warnings.warn(f"near-tie flips: {ties}")
+    assert any(len(set(t)) > 4 for t in streams[INT8_SERVE].values())
+    _, _, fp = _port_streams(pair, "basic", lookahead)
+    assert streams[QuantConfig(kv="int8")] == fp
 
 
 def test_serve_launcher_runs_xlstm_on_cpu(capsys):
