@@ -13,7 +13,8 @@ Phases (each failure propagates; the process exits non-zero):
    ``mlstm_chunkwise``
    kernels, ``xfer_matmul``'s and ``quant_matmul``'s streaming and
    tensor-core kernels, the expert axis's and the int8 ``wgmma`` ones
-   too, both ``paged_attention`` bodies);
+   too, both ``paged_attention`` bodies, the training forward's
+   instances and the ``flash_attention_bwd`` kernels);
 3. each kernel against its plain PyTorch version on the card, at the
    serving path's shapes plus ragged cases (``xfer_matmul`` and
    ``quant_matmul`` also print the kernel their route picked; they, both
@@ -224,7 +225,37 @@ Phases (each failure propagates; the process exits non-zero):
    equal; then 4 requests served on each side on the grid, and for
    paligemma 6 on the pool (pages of 64; 3 patched, 3 text-only sharing
    a system prompt through the registry), streams equal;
-6. the kernel table as one JSON line, then the result line.
+3t. the training kernels (``check_train_kernels``, table
+   ``FA_BWD_CASES``): ``flash_attention``'s training forward
+   (``csrc/flash_attention_train.cu``: the output and each row's
+   log-sum-exp)
+   and ``flash_attention_bwd`` against their plain versions on the card
+   (dq, dk, dv within 5e-2 in bf16, 2e-3 in fp32 of each element's
+   magnitude plus its head's RMS, TF32 off; bit-stable
+   on two calls) at qwen1.5-0.5b's training shape [128, 512, 64]
+   (bf16, the main entry, and fp32) and [64, 512, 128] bf16, timed
+   beside the plain backward and SDPA's backward alone, plus ragged
+   cases; the serving instances' ``ptxas`` registers asserted unchanged
+   (``SERVING_REGISTERS``); ``xfer_matmul``'s dgrad (``dy @ w.T``) and
+   wgrad (``x.T @ dy``, with the copy of ``x.T``) at qwen's projections
+   and tied unembedding at 4096 rows, against the plain version and
+   ``torch.matmul`` (the kernel line's ``train`` entry of
+   ``xfer_matmul``);
+6. full-width training (``train_full_width``): qwen1.5-0.5b, 24 layers,
+   bf16 params, fp32 AdamW state, B = 8, S = 512, six steps of
+   ``launch.train``'s driver with a checkpoint every 3 in a directory
+   under build/: every loss finite, launches exactly
+   ``train_launches`` a step (forward, remat forward, backward) and no
+   other kernel; a second driver on the directory resumes at step 6
+   with params and state bit-equal; 8 steps on one batch end below the
+   first; step p50, tokens/s, the share of 989 TFLOP/s (6 N tokens),
+   peak allocated bytes and one traced step (idle share, top device
+   ops, the backward kernels' share);
+6b. a train step card vs CPU (``parity_train``): full width, 2 layers,
+   fp32, B = 2, S = 256: the loss within 2e-3 relative, each gradient
+   leaf within 2e-3 of its max |g|, then ``adamw_update`` on the same
+   gradients within 1e-5;
+7. the kernel table as one JSON line, then the result line.
 
 It imports nothing of JAX and nothing of the JAX package.
 """
@@ -294,6 +325,11 @@ SOURCES = {
     "paged_attention_q8_multi": (
         "src/repro_torch/kernels/csrc/paged_attention.cu",
         "src/repro/kernels/paged_attention.py:81"),
+    # no TPU kernel: jax.grad differentiates the reference's jnp attention
+    # (_attend_block), which is the line named
+    "flash_attention_bwd": (
+        "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+        "src/repro/models/layers.py:88"),
 }
 # the kernels each serving path runs (phase 4: fp, phase 4b: INT8,
 # phase 4c: the hybrid, phase 4d: the ssm family, phase 4e: paged, phase
@@ -347,7 +383,29 @@ PATH_KERNELS = {"fp": ("xfer_matmul", "flash_attention", "paged_attention"),
                 "spec-int8-paged": ("xfer_matmul", "quant_matmul",
                                     "flash_attention", "flash_attention_q8",
                                     "paged_attention",
-                                    "paged_attention_q8_multi")}
+                                    "paged_attention_q8_multi"),
+                # phase 6: training the dense family (the training
+                # forward counts under flash_attention)
+                "train": ("xfer_matmul", "flash_attention",
+                          "flash_attention_bwd")}
+
+
+def train_launches(layers: int, seq: int, chunk: int = 512,
+                   accum: int = 1) -> dict:
+    """The kernel launches of one dense train step (swiglu, every layer
+    rematerialised, the loss over ``seq // chunk'`` chunks, chunk' the
+    largest divisor of ``seq`` up to ``chunk``), per microbatch: each of
+    the 7 projections a layer and the chunk's unembedding launches
+    ``xfer_matmul`` in the forward, again in the remat forward and twice
+    in the backward (dgrad, wgrad); each layer's attention launches the
+    training forward twice and ``flash_attention_bwd`` once
+    (``tests/test_torch_train.py`` counts the wrappers' calls on the CPU)."""
+    c = min(chunk, seq)
+    while seq % c:
+        c -= 1
+    return {"xfer_matmul": accum * 4 * (7 * layers + seq // c),
+            "flash_attention": accum * 2 * layers,
+            "flash_attention_bwd": accum * layers}
 
 
 def log(msg: str) -> None:
@@ -420,8 +478,9 @@ def flash_bound(nbytes: float, parts, dt, d: int, prefix_q8: bool = False,
                     "bfloat16")
 
 
-def compare(name: str, got, want, dtype: str) -> float:
-    """Each element within ``tol`` of its own magnitude plus the RMS of
+def compare(name: str, got, want, dtype: str, tol: float = None) -> float:
+    """Each element within ``tol`` (default ``TOL[dtype]``) of its own
+    magnitude plus the RMS of
     its row (last axis) of ``want``: the error is held to the output's
     scale, so a zeroed or unmasked row of small values fails, and a
     row of large values is not held below fp32's resolution. A NaN or an
@@ -431,7 +490,7 @@ def compare(name: str, got, want, dtype: str) -> float:
     want = want.float()
     err = (got.float() - want).abs()
     rms = want.pow(2).mean(dim=-1, keepdim=True).sqrt()
-    tol = TOL[dtype]
+    tol = TOL[dtype] if tol is None else tol
     bad = ~(err <= tol * (want.abs() + rms))
     max_err = float(err.max())
     if bool(bad.any()):
@@ -4791,12 +4850,366 @@ def parity_spec(dev) -> None:
 # wg_kernel instance, the expert axis's 64-row one too, and the int8
 # wg_q8_kernel) and both paged_attention bodies (paged_split_kernel, fp
 # and int8 pools)
+# --------------------------------------------------------------------------
+# phases 3t, 6 and 6b: training (the dense family)
+# --------------------------------------------------------------------------
+
+# flash_attention_bwd: (label, BH, S, D, dtypes, entry); the first three
+# are timed (qwen1.5-0.5b's training shape, B = 8 x 16 heads at S = 512,
+# in bf16 (the main entry) and fp32; yi-9b's head dim at [64, 512, 128]),
+# the rest ragged (S off the 64-row tiles)
+FA_BWD_CASES = [("qwen train", 128, 512, 64, BOTH, "main"),
+                ("d128 train", 64, 512, 128, BF16, "d128"),
+                ("ragged", 6, 77, 64, BOTH, None),
+                ("ragged d128", 5, 100, 128, BOTH, None),
+                ("two rows", 3, 2, 64, BOTH, None)]
+FA_BWD_TOL = {"float32": 2e-3, "bfloat16": 5e-2}
+# the serving instances' ptxas registers (PERF.md, PRs 17-23): the
+# training forward's hooks in flash_attention.cu must leave them
+# unchanged
+SERVING_REGISTERS = {"flash_tc_kernelILi64EE": 136,
+                     "flash_tc_kernelILi128EE": 168,
+                     "flash_tc_kernelILi256EE": 251,
+                     "flash_terms_kernelIfffLi64EE": 255}
+# qwen1.5-0.5b's projections (N, M) and the tied unembedding at the
+# training step's rows B x S = 4096: the forward x @ w, the dgrad dy @
+# w.T, the wgrad x.T @ dy (x.T copied K-major first)
+TRAIN_B, TRAIN_S = 8, 512
+TRAIN_MM = (("qkvo", Q_D, Q_D), ("gate_up", Q_D, Q_FF), ("down", Q_FF, Q_D),
+            ("unembed", Q_D, Q_VOCAB))
+# phase 6: steps, checkpoint interval, steps on one batch; phase 6b: cut
+# depth, batch, sequence
+TRAIN_STEPS, TRAIN_CKPT_EVERY, TRAIN_FIXED_STEPS = 6, 3, 8
+PARITY_TRAIN = (2, 2, 256)
+TRAIN_PARITY_TOL, ADAMW_PARITY_TOL = 2e-3, 1e-5
+
+
+def fa_bwd_bound(bh: int, s: int, d: int, esz: int, dname: str):
+    """bound_ms of the causal backward: q, k, v, o, dO read once, lse
+    read, dq, dk, dv written; FA-2's five products (S, dP, dV, dK, dQ) of
+    2 D flops over each visible pair, at the bf16 tensor-core peak, or
+    the fp32 peak for the CUDA-core instance."""
+    pairs = bh * s * (s + 1) / 2
+    nbytes = 8 * bh * s * d * esz + 4 * bh * s
+    return bound_ms(nbytes, 5 * 2.0 * d * pairs, dname)
+
+
+def check_train_kernels(dev) -> dict:
+    """Phase 3t: ``flash_attention``'s training forward (the lse
+    instances) and ``flash_attention_bwd`` against their plain versions
+    on the card (FA_BWD_CASES, bit-stable), the serving instances'
+    registers unchanged, and ``xfer_matmul``'s dgrad and wgrad products
+    at qwen's training shapes against the plain version and
+    ``torch.matmul``. Returns the ``flash_attention_bwd`` entry and
+    ``xfer_matmul``'s ``train`` sub-entry."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import build, ops
+    from repro_torch.kernels.xfer_matmul import route as xfer_route
+
+    fwd_table = ptxas_kernels(build.build_log.get("flash_attention", ""))
+    for frag, regs in SERVING_REGISTERS.items():
+        hits = [v for n, v in fwd_table.items() if frag in n]
+        if fwd_table and (not hits or hits[0].get("registers") != regs):
+            raise AssertionError(f"serving instance {frag}: {hits} registers, "
+                                 f"expected {regs} (unchanged)")
+    lse_regs = ptxas_kernels(build.build_log.get("flash_attention_train", ""))
+    bwd_table = ptxas_kernels(build.build_log.get("flash_attention_bwd", ""))
+    log(f"[3t] ptxas: serving instances unchanged {SERVING_REGISTERS}; lse "
+        f"instances {lse_regs}; backward {bwd_table}")
+    gen = torch.Generator(device=dev).manual_seed(3)
+    dtypes = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+    entry = {"ptxas": {"lse": lse_regs, "backward": bwd_table}}
+
+    def randn(*shape, dt, scale=1.0):
+        return (torch.randn(*shape, generator=gen, device=dev) * scale).to(dt)
+
+    for label, bh, s, d, dnames, timed in FA_BWD_CASES:
+        for dname in dnames:
+            dt = dtypes[dname]
+            q, k, v, do = (randn(bh, s, d, dt=dt) for _ in range(4))
+            out, lse = ops.flash_attention_lse(q, k, v)
+            want_o, want_lse = ops.attention_lse_ref(q, k, v)
+            name = f"flash_attention lse {label} {dname} [{bh},{s},{d}]"
+            compare(name + " out", out, want_o, dname)
+            lse_err = float((lse - want_lse).abs().max())
+            if not lse_err <= 1e-3 * float(want_lse.abs().max()):
+                raise AssertionError(f"{name}: lse off by {lse_err:.3e}")
+            got = ops.flash_attention_bwd(q, k, v, out, do, lse)
+            want = ops.attention_bwd_ref(q, k, v, out, do, lse)
+            name = f"flash_attention_bwd {label} {dname} [{bh},{s},{d}]"
+            # each head's gradient as one row: the first query's dq is
+            # 0 up to rounding (P = 1 there, so dS = 0), a row with no
+            # scale of its own
+            errs = [compare(f"{name} {part}", g.reshape(bh, -1),
+                            w.reshape(bh, -1), dname, tol=FA_BWD_TOL[dname])
+                    for part, g, w in zip(("dq", "dk", "dv"), got, want)]
+            again = ops.flash_attention_bwd(q, k, v, out, do, lse)
+            for part, g, h in zip(("dq", "dk", "dv"), got, again):
+                bit_stable(f"{name} {part}", g, h)
+            line = (f"[3t] {name}: max_abs_err dq/dk/dv "
+                    + "/".join(f"{e:.3e}" for e in errs)
+                    + f", lse {lse_err:.3e}, bit-stable")
+            if timed:
+                bwd = lambda: ops.flash_attention_bwd(q, k, v, out, do, lse)
+                ms = time_ms(bwd, 10, 2)
+                dev_ms = graph_ms(bwd, 10)
+                plain = time_ms(lambda: ops.attention_bwd_ref(
+                    q, k, v, out, do, lse), 3, 1)
+                fwd_ms = time_ms(lambda: ops.flash_attention_lse(q, k, v), 10, 2)
+                qs, ks, vs = (t.detach().reshape(1, bh, s, d).requires_grad_()
+                              for t in (q, k, v))
+                ys = F.scaled_dot_product_attention(qs, ks, vs, is_causal=True)
+                g4 = do.reshape(1, bh, s, d)
+                lib = time_ms(lambda: torch.autograd.grad(
+                    ys, (qs, ks, vs), g4, retain_graph=True), 10, 2)
+                b, kind = fa_bwd_bound(bh, s, d, q.element_size(), dname)
+                row = dict(shape=f"q,k,v,o,dO [{bh},{s},{d}] {dname} causal",
+                           max_abs_err=max(errs), ms=ms, device_ms=dev_ms,
+                           plain_ms=plain, bound_ms=b, bound_by=kind,
+                           library_ms=lib, forward_lse_ms=fwd_ms,
+                           bit_stable=True)
+                line += (f" ms {ms:.4f} device_ms {dev_ms:.4f} plain_ms "
+                         f"{plain:.4f} library_ms (SDPA backward) {lib:.4f} "
+                         f"bound_ms {b:.4f} ({kind}); training forward "
+                         f"{fwd_ms:.4f}")
+                if dname == "float32":
+                    entry["fp32"] = row
+                elif timed == "main":
+                    entry.update(row)
+                else:
+                    entry[timed] = row
+                del qs, ks, vs, ys
+            log(line)
+            del q, k, v, do, out, lse, got, want, again
+
+    # xfer_matmul's training products at qwen's shapes (bf16)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    r = TRAIN_B * TRAIN_S
+    rows = []
+    for label, n, m in TRAIN_MM:
+        x = randn(r, n, dt=torch.bfloat16)
+        w = randn(n, m, dt=torch.bfloat16, scale=n ** -0.5)
+        if label == "unembed":  # the tied embed [V, D], used as embed.T
+            w = randn(m, n, dt=torch.bfloat16, scale=n ** -0.5).T
+        dy = randn(r, m, dt=torch.bfloat16, scale=m ** -0.5)
+        xt = x.T.contiguous()
+        copy_ms = time_ms(lambda: x.T.contiguous(), 10, 2)
+        for kind, a, b in (("dgrad", dy, w.T), ("wgrad", xt, dy)):
+            rt = xfer_route(a.shape[0], a.shape[1], b.shape[1], a.dtype,
+                            b.stride(), sms)
+            got = ops.matmul(a, b)
+            name = f"xfer_matmul {kind} {label} [{a.shape[0]},{a.shape[1]}]@[{b.shape[0]},{b.shape[1]}]"
+            err = compare(name, got, ops.matmul_ref(a, b), "bfloat16")
+            bit_stable(name, got, ops.matmul(a, b))
+            flops = 2.0 * a.shape[0] * a.shape[1] * b.shape[1]
+            it, wu = iters_for(flops)
+            ms = time_ms(lambda: ops.matmul(a, b), it, wu)
+            plain = time_ms(lambda: ops.matmul_ref(a, b), 3, 1)
+            lib = time_ms(lambda: torch.matmul(a, b), it, wu)
+            bd, by = bound_ms((a.numel() + b.numel() + got.numel()) * 2,
+                              flops, "bfloat16")
+            row = dict(shape=name[len("xfer_matmul "):], variant=rt.kernel,
+                       max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bd,
+                       bound_by=by, library_ms=lib)
+            if kind == "wgrad":
+                row["x_transpose_copy_ms"] = copy_ms
+            rows.append(row)
+            log(f"[3t] {name} bf16: route {rt.kernel} grid {rt.grid}; "
+                f"max_abs_err {err:.3e} ms {ms:.4f} plain_ms {plain:.4f} "
+                f"library_ms {lib:.4f} bound_ms {bd:.4f} ({by})"
+                + (f"; x.T copy {copy_ms:.4f} ms" if kind == "wgrad" else ""))
+            del got
+        del x, w, dy, xt
+    torch.cuda.empty_cache()
+    return {"flash_attention_bwd": entry, "xfer_matmul_train": rows}
+
+
+def param_count(model) -> int:
+    return sum(p.numel() for p in model.parameters())
+
+
+def train_full_width() -> dict:
+    """Phase 6: full-width qwen1.5-0.5b (24 layers, bf16 params, fp32
+    AdamW state) trained through ``launch.train.build_driver``: B = 8, S =
+    512, TRAIN_STEPS steps with a checkpoint every TRAIN_CKPT_EVERY in a
+    directory under build/. Checks every loss finite, the launch counts
+    exact (``train_launches`` a step, no other kernel), a second driver on
+    the directory resuming at the last step with params and state
+    bit-equal to the first's, and TRAIN_FIXED_STEPS steps on one batch
+    ending below the first; prints step p50, tokens/s, the share of 989
+    TFLOP/s (6 N tokens a step), peak allocated bytes and one traced
+    step. Returns the launch counts of the TRAIN_STEPS steps."""
+    import shutil
+    import tempfile
+    import torch
+    from repro_torch.checkpoint.checkpointer import flatten
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.kernels import ops
+    from repro_torch.launch.train import build_driver
+    from repro_torch.models.registry import build_train_step
+    from repro_torch.optim import adamw as OPT
+
+    arch = get_arch("qwen1.5-0.5b")
+    shape = ShapeConfig("train_smoke", TRAIN_S, TRAIN_B, "train")
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    ckdir = tempfile.mkdtemp(prefix="train_ckpt_", dir=os.path.join(ROOT, "build"))
+    try:
+        kw = dict(steps=TRAIN_STEPS, ckpt_dir=ckdir,
+                  ckpt_every=TRAIN_CKPT_EVERY, device="cuda")
+        driver = build_driver(arch, shape, seed=0, **kw)
+        model = driver.params
+        n_params = param_count(model)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        result = driver.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = ops.launch_counts()
+        peak = torch.cuda.max_memory_allocated()
+        losses = [m["loss"] for m in result["log"]]
+        times = sorted(m["time_s"] for m in result["log"])
+        if len(losses) != TRAIN_STEPS or not all(
+                l == l and abs(l) < float("inf") for l in losses):
+            raise AssertionError(f"phase 6: losses {losses}")
+        if result["restarts"]:
+            raise AssertionError(f"phase 6: {result['restarts']} restarts")
+        per_step = train_launches(arch.num_layers, TRAIN_S)
+        for name, n in counts.items():
+            want = TRAIN_STEPS * per_step.get(name, 0)
+            if n != want:
+                raise AssertionError(f"phase 6: {name} launched {n} times, "
+                                     f"expected {want} ({TRAIN_STEPS} steps "
+                                     f"of {per_step})")
+        p50 = times[len(times) // 2] if len(times) % 2 else \
+            (times[len(times) // 2 - 1] + times[len(times) // 2]) / 2
+        tokens = TRAIN_B * TRAIN_S
+        share = 6.0 * n_params * tokens / p50 / PEAK_FLOPS["bfloat16"]
+        stats = {"losses": losses, "step_times_s": [m["time_s"] for m in
+                                                     result["log"]],
+                 "step_p50_ms": p50 * 1e3, "tokens_per_s": tokens / p50,
+                 "share_of_989_tflops": share, "params": n_params,
+                 "peak_allocated_bytes": peak, "run_wall_s": wall,
+                 "launches": counts, "opt_state_bytes":
+                 OPT.state_bytes(driver.opt_state)}
+        log(f"[6] train qwen1.5-0.5b full width, bf16 params, fp32 AdamW, "
+            f"B {TRAIN_B} x S {TRAIN_S}: {json.dumps(stats)}")
+
+        # a second driver on the same directory resumes at the last step
+        saved = [(k, v.clone()) for k, v in flatten(
+            {"params": model.state_dict(), "opt": driver.opt_state})]
+        second = build_driver(arch, shape, seed=1, **kw)
+        t0 = time.perf_counter()
+        r2 = second.run()
+        resume_s = time.perf_counter() - t0
+        if r2["log"] or second.pipeline.state.step != TRAIN_STEPS:
+            raise AssertionError(f"phase 6 resume: ran {r2['log']}, data step "
+                                 f"{second.pipeline.state.step}")
+        restored = flatten({"params": second.params.state_dict(),
+                            "opt": second.opt_state})
+        for (k, a), (_, b) in zip(saved, restored):
+            if not torch.equal(a, b):
+                raise AssertionError(f"phase 6 resume: {k} differs")
+        log(f"[6] resume: a second driver restored step {TRAIN_STEPS} in "
+            f"{resume_s:.2f} s, {len(saved)} leaves bit-equal")
+        del second, restored, saved
+        torch.cuda.empty_cache()
+
+        # steps on one fixed batch
+        cfg = OPT.AdamWConfig(lr=1e-3)
+        step = build_train_step(arch, cfg)
+        opt = driver.opt_state
+        batch = driver.pipeline.next_batch()
+        fixed = [float(step(model, opt, batch)[2]["loss"])
+                 for _ in range(TRAIN_FIXED_STEPS)]
+        if not fixed[-1] < fixed[0]:
+            raise AssertionError(f"phase 6: loss on one batch did not fall: "
+                                 f"{fixed}")
+        log(f"[6] {TRAIN_FIXED_STEPS} steps on one batch: losses {fixed}")
+
+        # one traced step
+        def one():
+            step(model, opt, batch)
+            torch.cuda.synchronize()
+        trace = trace_window(one, 1, share_of=(
+            "flash_attention_bwd", lambda e: e.get("cat") == "kernel" and any(
+                k in e["name"] for k in ("dkdv_", "dq_", "bwd_prep"))))
+        log(f"[6] traced step: {json.dumps(trace)}")
+        return counts
+    finally:
+        shutil.rmtree(ckdir, ignore_errors=True)
+
+
+def parity_train(dev) -> None:
+    """Phase 6b: one train step of qwen1.5-0.5b at full width, depth cut
+    to PARITY_TRAIN[0] layers, fp32, card vs CPU on the same seeded
+    params and batch: the loss within 2e-3 relative, every gradient leaf
+    within 2e-3 of its leaf's max |g|; then ``adamw_update`` on the same
+    (CPU) gradients on both sides: params and state within 1e-5."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data.pipeline import TokenPipeline
+    from repro_torch.models import lm as LM
+    from repro_torch.models.registry import batch_to_device, init_params
+    from repro_torch.optim import adamw as OPT
+
+    layers, b, s = PARITY_TRAIN
+    arch = dataclasses.replace(get_arch("qwen1.5-0.5b"), num_layers=layers)
+    cpu = init_params(arch, 5, device="cpu", dtype=torch.float32)
+    card = init_params(arch, 5, device=dev, dtype=torch.float32)
+    card.load_state_dict(cpu.state_dict())
+    batch = TokenPipeline(arch, ShapeConfig("p", s, b, "train"),
+                          seed=2).next_batch()
+    out = {}
+    for tag, model in (("cpu", cpu), ("card", card)):
+        model.requires_grad_(True)
+        bt = batch_to_device(batch, model.device)
+        loss = LM.loss_fn(model, bt["tokens"], bt["labels"])
+        grads = torch.autograd.grad(loss, list(model.parameters()))
+        out[tag] = (float(loss.detach()), dict(zip(
+            [n for n, _ in model.named_parameters()], grads)))
+    (lc, gc), (lg, gg) = out["cpu"], out["card"]
+    rel = abs(lg - lc) / abs(lc)
+    worst = max(float((gg[n].cpu() - g).abs().max()) /
+                max(float(g.abs().max()), 1e-30) for n, g in gc.items())
+    log(f"[6b] loss card {lg:.6f} cpu {lc:.6f} (rel {rel:.3e}); worst grad "
+        f"leaf err / its max |g| {worst:.3e}")
+    if not (rel <= TRAIN_PARITY_TOL and worst <= TRAIN_PARITY_TOL):
+        raise AssertionError(f"phase 6b: loss rel {rel:.3e}, grads {worst:.3e}"
+                             f" (limit {TRAIN_PARITY_TOL})")
+    cfg = OPT.AdamWConfig(lr=3e-4)
+    states = {}
+    for tag, model in (("cpu", cpu), ("card", card)):
+        st = OPT.adamw_init(model, cfg)
+        grads = {n: g.to(model.device) for n, g in gc.items()}
+        OPT.adamw_update(model, grads, st, cfg, torch.tensor(3e-4))
+        states[tag] = st
+    diff = 0.0
+    for n, p in cpu.named_parameters():
+        diff = max(diff, float((dict(card.named_parameters())[n].detach().cpu()
+                                - p.detach()).abs().max()))
+        for key in ("m", "v"):
+            diff = max(diff, float((states["card"][key][n].cpu()
+                                    - states["cpu"][key][n]).abs().max()))
+    log(f"[6b] adamw_update on the same grads: max |card - cpu| {diff:.3e} "
+        f"over params, m and v")
+    if not diff <= ADAMW_PARITY_TOL:
+        raise AssertionError(f"phase 6b: adamw_update differs by {diff:.3e}")
+
+
 NO_SPILL = ("flash_split_kernel", "flash_tc_kernel", "flash_terms_kernel",
             "rglru_ring_kernel", "rglru_rows_kernel",
             "mlstm_kernel", "mlstm_tc_kernel",
             "stream_rows_kernel", "stream_mma_kernel", "stream_cols_kernel",
             "stream_mma_q8_kernel", "stream_cols_q8_kernel", "tc_kernel",
-            "wg_kernel", "wg_q8_kernel", "paged_split_kernel")
+            "wg_kernel", "wg_q8_kernel", "paged_split_kernel",
+            "dkdv_tc_kernel", "dq_tc_kernel", "dkdv_fp_kernel", "dq_fp_kernel",
+            "bwd_prep_kernel")
 #: instances that the INT8 expert products and the int8 multi-query
 #: attention run, which must be in the build (and, by NO_SPILL's names,
 #: spill-free): stream_mma_q8_kernel with the expert axis (EX true) for
@@ -4857,7 +5270,7 @@ def kernel_table(entries: dict, counts: dict) -> list:
                     "every_length", "shapes", "ptxas", "device_ms",
                     "library_device_ms", "yardstick_device_ms", "bit_stable",
                     "sdpa_dequantised_ms", "sdpa_dequantised_device_ms",
-                    "live_rows"):
+                    "live_rows", "train", "forward_lse_ms"):
             if key in e:
                 row[key] = e[key]
         kernels.append(row)
@@ -4976,6 +5389,18 @@ def main() -> int:
     # ---- phase 5i: every family under INT8, card vs CPU, cut depth
     parity_int8(dev)
     mark("5i")
+
+    # ---- phase 3t: the training kernels against their plain versions
+    train = check_train_kernels(dev)
+    entries["flash_attention_bwd"] = train["flash_attention_bwd"]
+    entries["xfer_matmul"]["train"] = train["xfer_matmul_train"]
+    mark("3t")
+    # ---- phase 6: full-width qwen1.5-0.5b trained through the driver
+    counts["train"] = train_full_width()
+    mark("6")
+    # ---- phase 6b: a train step, card vs CPU, fp32, cut depth
+    parity_train(dev)
+    mark("6b")
 
     kernels = kernel_table(entries, counts)
     log(f"[total] {time.perf_counter() - started:.1f} s, the build included")

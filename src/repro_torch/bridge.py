@@ -27,6 +27,9 @@ bridge unstacks them into :class:`~repro_torch.models.encdec.EncDec`'s
 
 The tree's leaves may be numpy arrays or anything ``numpy.asarray``
 converts (a JAX array does, without importing JAX here).
+:func:`from_jax_tree` applies the same unstacking to any tree shaped
+like the params (gradients, AdamW's ``m`` and ``v``, int8 ones too),
+so tests compare them leaf by leaf.
 :func:`from_jax_spec_params` carries the ``{"target", "draft"}`` pair of
 trees that the reference's speculative engine takes.
 """
@@ -82,20 +85,10 @@ def _load(model, flat: Dict[str, Any], dev: torch.device):
     return model
 
 
-def from_jax_params(tree: Dict[str, Any], arch: ArchConfig,
-                    device: DeviceLike = None,
-                    dtype: Optional[torch.dtype] = None):
-    """The JAX tree of a dense, MoE, hybrid, ssm or vlm LM as an
-    :class:`LM`, or of an encdec model as an :class:`EncDec`, on
-    ``device`` (default ``cuda``) in ``dtype`` (bf16 on CUDA, fp32 on
-    the CPU by default).
-    Raises ``KeyError`` unless the tree's leaves and the module's
-    parameters correspond one to one, and ``ValueError`` on a shape
-    mismatch."""
-    check_supported(arch)
-    dev = resolve_device(device)
+def _port_flat(tree: Dict[str, Any], arch: ArchConfig) -> Dict[str, Any]:
+    """Every leaf of a tree shaped like the JAX params, keyed by the port's
+    parameter name (stacked leaves unstacked along their layer axis)."""
     if arch.family == "encdec":
-        model = EncDec(arch, device=dev, dtype=default_dtype(dev, dtype))
         flat = _flatten({k: v for k, v in tree.items()
                          if k not in ("enc_body", "dec_body")})
         for key, name, n in (("enc_body", "enc_layers", arch.enc_layers),
@@ -103,8 +96,7 @@ def from_jax_params(tree: Dict[str, Any], arch: ArchConfig,
             if key not in tree:
                 raise KeyError(f"expected {key} in the JAX tree")
             _unstack(flat, tree[key], name, n)
-        return _load(model, flat, dev)
-    model = LM(arch, device=dev, dtype=default_dtype(dev, dtype))
+        return flat
     pat = pattern(arch)
     prefix, repeats, suffix = stack_structure(arch)
     n_pre, n_suffix = len(prefix), len(suffix)
@@ -134,7 +126,70 @@ def from_jax_params(tree: Dict[str, Any], arch: ArchConfig,
             raise KeyError(f"expected suffix{i} in the JAX tree")
         for name, leaf in _flatten(tree[f"suffix{i}"]).items():
             flat[f"layers.{n_pre + repeats * len(pat) + i}.{name}"] = leaf
-    return _load(model, flat, dev)
+    return flat
+
+
+def from_jax_params(tree: Dict[str, Any], arch: ArchConfig,
+                    device: DeviceLike = None,
+                    dtype: Optional[torch.dtype] = None):
+    """The JAX tree of a dense, MoE, hybrid, ssm or vlm LM as an
+    :class:`LM`, or of an encdec model as an :class:`EncDec`, on
+    ``device`` (default ``cuda``) in ``dtype`` (bf16 on CUDA, fp32 on
+    the CPU by default).
+    Raises ``KeyError`` unless the tree's leaves and the module's
+    parameters correspond one to one, and ``ValueError`` on a shape
+    mismatch."""
+    check_supported(arch)
+    dev = resolve_device(device)
+    cls = EncDec if arch.family == "encdec" else LM
+    model = cls(arch, device=dev, dtype=default_dtype(dev, dtype))
+    return _load(model, _port_flat(tree, arch), dev)
+
+
+def _is_qleaf(x) -> bool:
+    return hasattr(x, "q") and hasattr(x, "scale") and not isinstance(x, dict)
+
+
+def _split_q(tree, part: str, stacked: int = 0):
+    """The ``q`` (or ``scale``) tree of a tree with int8 leaves; a
+    per-tensor scale inside a stacked subtree is repeated along the layer
+    axis (``stacked``: its length), so it unstacks like the payload."""
+    if isinstance(tree, dict):
+        return {k: _split_q(v, part, stacked) for k, v in tree.items()}
+    if not _is_qleaf(tree):
+        return tree
+    x = np.asarray(getattr(tree, part))
+    if part == "scale" and stacked and (x.ndim == 0 or x.shape[0] != stacked):
+        x = np.broadcast_to(x, (stacked,) + x.shape)
+    return x
+
+
+def from_jax_tree(tree: Dict[str, Any], arch: ArchConfig) -> Dict[str, Any]:
+    """Any tree shaped like the JAX params (grads, AdamW's ``m`` / ``v``)
+    as ``{port parameter name: CPU tensor}``, unstacked as
+    :func:`from_jax_params` unstacks the params; an int8 leaf (``q`` and
+    ``scale``: the int8 AdamW state) becomes a
+    :class:`~repro_torch.quant.QTensor`, a stacked leaf's per-tensor
+    scale repeated for each of its layers."""
+    from repro_torch.quant import QTensor
+
+    def tensors(t):
+        return {k: torch.from_numpy(np.array(v)) for k, v in
+                _port_flat(t, arch).items()}
+
+    def has_q(t):
+        return any(has_q(v) for v in t.values()) if isinstance(t, dict) \
+            else _is_qleaf(t)
+
+    if not has_q(tree):
+        return tensors(tree)
+    stacks = {"body": stack_structure(arch)[1]} if arch.family != "encdec" \
+        else {"enc_body": arch.enc_layers, "dec_body": arch.dec_layers}
+    scales = {k: _split_q(v, "scale", stacks.get(k, 0))
+              for k, v in tree.items()}
+    qs, ss = tensors(_split_q(tree, "q")), tensors(scales)
+    return {k: QTensor(qs[k], ss[k]) if qs[k].dtype == torch.int8 else qs[k]
+            for k in qs}
 
 
 def from_jax_spec_params(trees: Dict[str, Any], arch: ArchConfig,

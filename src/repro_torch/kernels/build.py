@@ -1,6 +1,8 @@
 """Build the CUDA kernels with ``nvcc`` at first use and load them by ctypes.
 
-Each ``csrc/<name>.cu`` has a plain C interface (no PyTorch headers), so
+Each ``csrc/<name>.cu`` (one library each; ``flash_attention_train.cu``
+compiles ``flash_attention.cu`` again with the training forward's hooks
+on) has a plain C interface (no PyTorch headers), so
 one ``nvcc`` call per source takes seconds. All missing libraries are
 compiled together, one ``nvcc`` process per source started at once,
 into ``build/repro_torch_kernels/`` at the repository root (listed in
@@ -15,6 +17,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -24,7 +27,7 @@ from typing import Dict
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
 NAMES = ("xfer_matmul", "flash_attention", "paged_attention", "rglru_scan",
-         "mlstm_chunkwise")
+         "mlstm_chunkwise", "flash_attention_bwd", "flash_attention_train")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -45,8 +48,17 @@ def _nvcc() -> str:
                        "the port's kernels")
 
 
-def lib_path(name: str) -> Path:
+def _source_bytes(name: str) -> bytes:
+    """A source and the csrc files it includes by name (flash_attention_train.cu
+    is flash_attention.cu compiled again), so that editing either rebuilds."""
     src = (CSRC / f"{name}.cu").read_bytes()
+    for inc in re.findall(rb'#include "([^"]+)"', src):
+        src += (CSRC / inc.decode()).read_bytes()
+    return src
+
+
+def lib_path(name: str) -> Path:
+    src = _source_bytes(name)
     key = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return BUILD_DIR / f"{name}-{key}.so"
 

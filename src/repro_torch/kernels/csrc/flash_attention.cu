@@ -73,6 +73,17 @@
 // kernel (D = 128, 256) each int8 element is widened and multiplied by its
 // row's scale in f32 (not rounded) as the tile is staged.
 //
+// The training forward is this file compiled a second time, with
+// FLASH_TRAIN defined (flash_attention_train.cu): Args then carries lse
+// [BH, S] f32, each kernel stores every row's log-sum-exp of the scaled
+// scores (natural log) at its end (FLASH_LSE_STORE), flash_tc_kernel
+// takes two warpgroups at D = 128 (three would leave a thread 168
+// registers, and the store spills there), and the library exports
+// flash_attention_lse_launch only (causal fp, D = 64 and 128, the forms
+// flash_attention_bwd.cu differentiates). Without FLASH_TRAIN every hook
+// below expands to what the file held before the training forward
+// existed, so the serving kernels compile to the same code.
+//
 // The shared-prefix entry (prefix_attention_launch) is the form the paged
 // serving path needs and the TPU kernel lacks: the queries of a suffix
 // sit at positions pre_len + i and attend two key segments with one
@@ -91,6 +102,17 @@
 #include <type_traits>
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
+
+#ifdef FLASH_TRAIN
+#define FLASH_ARGS_LSE float* lse;
+#define FLASH_TC_WGS_128 2
+#define FLASH_LSE_STORE(cond, row, value) \
+  if (cond) a.lse[(long long)blockIdx.y * a.S + (row)] = (value);
+#else
+#define FLASH_ARGS_LSE
+#define FLASH_TC_WGS_128 3
+#define FLASH_LSE_STORE(cond, row, value)
+#endif
 
 namespace {
 
@@ -165,6 +187,7 @@ struct Args {
   float scale;
   const int* kv_len;
   int heads, bidir;
+  FLASH_ARGS_LSE
 };
 
 // the main segment's valid keys of row bh: T, or its row's length
@@ -322,6 +345,7 @@ __global__ void __launch_bounds__(SPLIT_ROWS * TPR) flash_split_kernel(const Arg
       store(dst + 2, acc[c].z / denom);
       store(dst + 3, acc[c].w / denom);
     }
+    FLASH_LSE_STORE(lane == 0, qi, m + __logf(denom))
   }
 }
 
@@ -360,7 +384,9 @@ namespace tc {
 
 // warpgroups per block: 3 at D = 128 (192 rows; 12 warps an SM where
 // the registers allow one block), else 2 (128 rows)
-__host__ __device__ constexpr int wgs(int d) { return d == 128 ? 3 : 2; }
+__host__ __device__ constexpr int wgs(int d) {
+  return d == 128 ? FLASH_TC_WGS_128 : 2;
+}
 __host__ __device__ constexpr int threads(int d) { return wgs(d) * 128; }
 __host__ __device__ constexpr int bq(int d) { return wgs(d) * 64; }
 // head dim as stored: at least one 64-dim atom
@@ -376,6 +402,16 @@ __host__ __device__ constexpr int smem_bytes(int d) {
   return q_bytes(d) + stages(d) * 2 * kv_bytes(d) + 1024;
 }
 constexpr float LOG2E = 1.4426950408889634f;
+#ifdef FLASH_TRAIN
+// lse = (m + log2 l) ln 2, m in log2 units of the scaled scores; log2 is
+// one MUFU.LG2
+constexpr float LN2 = 0.6931471805599453f;
+__device__ __forceinline__ float lg2(float x) {
+  float y;
+  asm("lg2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+#endif
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -674,6 +710,7 @@ __global__ void __launch_bounds__(threads(D), 1) flash_tc_kernel(const Args a) {
   for (int h = 0; h < 2; ++h) {
     const int qi = qi0 + 8 * h;
     if (qi >= S) continue;
+    FLASH_LSE_STORE(t4 == 0, qi, (m[h] + lg2(l[h])) * LN2)
     B* ob = r.o + (long long)qi * D + 2 * t4;
 #pragma unroll
     for (int jb = 0; jb < D / 8; ++jb)
@@ -1123,6 +1160,8 @@ __global__ void __launch_bounds__(tm::THREADS, 1) flash_terms_kernel(const Args 
     w0[h] = tc::ex2(m[h] - mm);
     w1[h] = tc::ex2(m1 - mm);
     l[h] = fmaxf(l[h] * w0[h] + mg[(34 + h) * 128 + wt] * w1[h], 1e-30f);
+    FLASH_LSE_STORE(t4 == 0 && qi0 + 8 * h < S, qi0 + 8 * h,
+                    (mm + tc::lg2(l[h])) * tc::LN2)
   }
 #pragma unroll
   for (int j = 0; j < 32; ++j)
@@ -1197,6 +1236,7 @@ cudaError_t launch_dims(const Args& a, int D, cudaStream_t s) {
   }
 }
 
+#ifndef FLASH_TRAIN
 // dtype: 0 = float32, 1 = bfloat16 (q, o and every fp segment); the
 // three storage variants: fp everywhere, an int8 main segment, an int8
 // prefix.
@@ -1221,9 +1261,11 @@ int run(const Args& a, int D, int dtype, bool q8_main, bool q8_prefix,
   if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
 }
+#endif
 
 }  // namespace
 
+#ifndef FLASH_TRAIN
 // D in {16, 32, 64, 128, 256}; all tensors contiguous. Each entry returns
 // the cudaError_t of its launch (0 = success).
 
@@ -1271,6 +1313,31 @@ extern "C" int prefix_attention_launch(const void* q, const void* pk,
                nullptr, o, BH, S, S, 1, 0, scale, nullptr, 1, 0};
   return run(a, D, dtype, false, pks != nullptr, stream);
 }
+
+#else
+// The training forward: causal flash_attention_launch over fp q, k, v and
+// o of one dtype (0 = float32, 1 = bfloat16) that also writes lse [BH,
+// S] f32, each row's natural log of the sum of exp(scale q k) over its
+// visible keys. D = 64 or 128.
+extern "C" int flash_attention_lse_launch(const void* q, const void* k,
+                                          const void* v, void* o, float* lse,
+                                          int BH, int S, int T_, int D,
+                                          float scale, int dtype,
+                                          void* stream) {
+  if (!lse || BH <= 0 || S <= 0 || T_ <= 0) return (int)cudaErrorInvalidValue;
+  const Args a{q, nullptr, nullptr, nullptr, nullptr, 0, 0, k, v, nullptr,
+               nullptr, o, BH, S, T_, 1, 0, scale, nullptr, 1, 0, lse};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  using B = __nv_bfloat16;
+  cudaError_t e = cudaErrorInvalidValue;
+  if (dtype == 0 && D == 64) e = launch_d<float, float, float, 64>(a, s);
+  if (dtype == 0 && D == 128) e = launch_d<float, float, float, 128>(a, s);
+  if (dtype == 1 && D == 64) e = launch_d<B, B, B, 64>(a, s);
+  if (dtype == 1 && D == 128) e = launch_d<B, B, B, 128>(a, s);
+  if (e != cudaSuccess) return (int)e;
+  return (int)cudaGetLastError();
+}
+#endif
 
 extern "C" const char* error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));

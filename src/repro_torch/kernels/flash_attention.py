@@ -85,11 +85,25 @@ tensor cores (D >= 128) those round each dequantised prefix element to
 tensor-core forms take it exactly, scales in f32, for bf16 q as well (a
 difference inside the bf16 tolerance).
 
+Training (``torch.is_grad_enabled()`` and q, k or v requiring grad)
+goes through an ``autograd.Function``: its forward launches the causal
+fp kernels as ``csrc/flash_attention_train.cu`` builds them
+(:func:`flash_attention_lse`: ``flash_attention.cu`` with its training
+hooks on, also writing each row's log-sum-exp ``lse`` [BH, S] f32), its
+backward the hand-written :func:`flash_attention_bwd`
+(``csrc/flash_attention_bwd.cu``, FlashAttention-2's backward from
+``lse``), at head dims 64 and 128. The forms with no backward kernel
+(``window``, ``kv_len``, ``prefix_len``, non-causal, int8 K/V, other
+head dims on the card) raise ``NotImplementedError`` at the forward.
+On CPU tensors the same Function runs :func:`ref.flash_attention_lse_ref`
+and :func:`ref.flash_attention_bwd_ref`.
+
 A CPU tensor takes the plain version (:func:`plain`,
 :func:`prefix_plain`); a CUDA tensor launches the kernel or raises.
 ``flash_attention.launches`` counts the fp kernels' launches (the fp
-prefix form too), ``flash_attention_q8.launches`` the int8 template's
-(both entries).
+prefix form and the training forward too), ``flash_attention_q8.launches``
+the int8 template's (both entries), ``flash_attention_bwd.launches`` the
+backward's (one C entry: its three kernels).
 """
 from __future__ import annotations
 
@@ -101,6 +115,8 @@ import torch
 from repro_torch.kernels._launch import (DTYPE_CODES, check_cuda,
                                          check_device, check_dtype,
                                          check_float, launch)
+from repro_torch.kernels.ref import flash_attention_bwd_ref as bwd_plain
+from repro_torch.kernels.ref import flash_attention_lse_ref as lse_plain
 from repro_torch.kernels.ref import flash_attention_ref as plain
 from repro_torch.kernels.ref import prefix_attention_ref as prefix_plain
 
@@ -109,6 +125,13 @@ _VP, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _ARGTYPES = (_VP, _VP, _VP, _VP, _I, _I, _I, _I, _I, _I, _VP, _I, _I, _F, _I)
 _ARGTYPES_Q8 = (_VP,) * 6 + (_I, _I, _I, _I, _I, _I, _F, _I)
 _ARGTYPES_PREFIX = (_VP,) * 5 + (_I, _I, _VP, _VP, _VP, _I, _I, _I, _F, _I)
+_ARGTYPES_LSE = (_VP,) * 5 + (_I, _I, _I, _I, _F, _I)
+_ARGTYPES_BWD = (_VP,) * 10 + (_I, _I, _I, _F, _I)
+#: head dims of the training kernels on the card (qwen1.5-0.5b's 64; yi-9b,
+#: phi3-medium-14b and minitron-8b's 128)
+TRAIN_HEAD_DIMS = (64, 128)
+#: the ROADMAP item that ports the forms without a backward kernel
+TRAIN_TODO = "ROADMAP A12b"
 
 
 def kernel_for(dtype: torch.dtype, d: int, prefix_q8: bool = False,
@@ -186,6 +209,11 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                          f"k {tuple(k.shape)} v {tuple(v.shape)}")
     if window < 0:
         raise ValueError(f"flash_attention: window must be >= 0, got {window}")
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        _check_trainable(q, k, causal=causal, window=window, kv_len=kv_len,
+                         prefix_len=int(prefix_len),
+                         int8=k_scale is not None or v_scale is not None)
+        return _Attention.apply(q, k, v)
     prefix_len = int(prefix_len)
     heads = _check_forms(q.shape[0], kv_len, prefix_len, causal)
     scales = _check_scales("flash_attention", k, v, k_scale, v_scale)
@@ -293,5 +321,108 @@ def prefix_attention(q: torch.Tensor, pre_k: torch.Tensor,
     return out
 
 
+def _check_trainable(q, k, *, causal, window, kv_len, prefix_len,
+                     int8) -> None:
+    """Raise ``NotImplementedError`` for a form that needs a gradient and
+    has no backward kernel: only causal fp self-attention (S = T) has
+    one, at head dims 64 and 128 on the card."""
+    forms = [name for name, on in (("window", window), ("kv_len",
+             kv_len is not None), ("prefix_len", prefix_len),
+             ("causal=False", not causal), ("int8 K/V", int8)) if on]
+    if k.shape[1] != q.shape[1]:
+        forms.append(f"S = {q.shape[1]} queries over T = {k.shape[1]} keys")
+    if q.device.type == "cuda" and q.shape[2] not in TRAIN_HEAD_DIMS:
+        forms.append(f"head dim {q.shape[2]} on the card (the backward "
+                     f"kernel takes {TRAIN_HEAD_DIMS})")
+    if forms:
+        raise NotImplementedError(
+            f"flash_attention: no backward kernel for {', '.join(forms)}; "
+            f"only causal fp self-attention trains ({TRAIN_TODO})")
+
+
+def flash_attention_lse(q: torch.Tensor, k: torch.Tensor,
+                        v: torch.Tensor) -> tuple:
+    """The training forward: causal ``flash_attention`` of q, k, v [BH, S,
+    D] -> (out [BH, S, D] in ``q.dtype``, lse [BH, S] f32), through
+    ``csrc/flash_attention_train.cu`` (counted under ``flash_attention``); CPU
+    tensors take :func:`ref.flash_attention_lse_ref`."""
+    if all(t.device.type == "cpu" for t in (q, k, v)):
+        return lse_plain(q, k, v)
+    check_cuda("flash_attention", q, k, v)
+    bh, s, d = q.shape
+    if d not in TRAIN_HEAD_DIMS:
+        raise NotImplementedError(f"flash_attention: the training forward "
+                                  f"takes head dims {TRAIN_HEAD_DIMS}, got "
+                                  f"{d} ({TRAIN_TODO})")
+    q, k, v = _staged(q, k, v)
+    out = torch.empty_like(q)
+    lse = torch.empty((bh, s), dtype=torch.float32, device=q.device)
+    if bh == 0 or s == 0:
+        return out, lse
+    launch("flash_attention_lse", _ARGTYPES_LSE, q.data_ptr(), k.data_ptr(),
+           v.data_ptr(), out.data_ptr(), lse.data_ptr(), bh, s, k.shape[1],
+           d, 1.0 / math.sqrt(d), DTYPE_CODES[q.dtype],
+           source="flash_attention_train")
+    flash_attention.launches += 1
+    return out, lse
+
+
+def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        o: torch.Tensor, do: torch.Tensor,
+                        lse: torch.Tensor) -> tuple:
+    """The gradient of causal ``flash_attention`` (S = T): q, k, v, the
+    forward's output ``o`` and the output's gradient ``do`` [BH, S, D],
+    ``lse`` [BH, S] f32 -> (dq, dk, dv) in ``q.dtype``. One launch of
+    ``csrc/flash_attention_bwd.cu``'s C entry (its prep, dK/dV and dQ
+    kernels) on CUDA tensors at head dims 64 and 128; CPU tensors take
+    :func:`ref.flash_attention_bwd_ref`. ``flash_attention_bwd.launches``
+    counts launches."""
+    if q.dim() != 3 or any(t.shape != q.shape for t in (k, v, o, do)) \
+            or tuple(lse.shape) != tuple(q.shape[:2]):
+        raise ValueError(f"flash_attention_bwd: bad shapes q "
+                         f"{tuple(q.shape)} k {tuple(k.shape)} v "
+                         f"{tuple(v.shape)} o {tuple(o.shape)} do "
+                         f"{tuple(do.shape)} lse {tuple(lse.shape)}")
+    if all(t.device.type == "cpu" for t in (q, k, v, o, do, lse)):
+        return bwd_plain(q, k, v, o, do, lse)
+    check_cuda("flash_attention_bwd", q, k, v, o, do)
+    check_device("flash_attention_bwd", q, lse)
+    check_dtype("flash_attention_bwd", torch.float32, lse)
+    bh, s, d = q.shape
+    if d not in TRAIN_HEAD_DIMS:
+        raise NotImplementedError(f"flash_attention_bwd: head dims "
+                                  f"{TRAIN_HEAD_DIMS}, got {d} ({TRAIN_TODO})")
+    q, k, v, o, do = _staged(q, k, v, o, do)
+    lse = lse.contiguous()
+    dq, dk, dv = (torch.empty_like(q) for _ in range(3))
+    if bh == 0 or s == 0:
+        return dq, dk, dv
+    delta = torch.empty((bh, s), dtype=torch.float32, device=q.device)
+    launch("flash_attention_bwd", _ARGTYPES_BWD, q.data_ptr(), k.data_ptr(),
+           v.data_ptr(), o.data_ptr(), do.data_ptr(), lse.data_ptr(),
+           delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), bh,
+           s, d, 1.0 / math.sqrt(d), DTYPE_CODES[q.dtype])
+    flash_attention_bwd.launches += 1
+    return dq, dk, dv
+
+
+class _Attention(torch.autograd.Function):
+    """Causal fp self-attention with its hand-written gradient: the
+    forward keeps q, k, v, the output and lse; the backward is one
+    :func:`flash_attention_bwd`. Plain versions on CPU tensors."""
+
+    @staticmethod
+    def forward(ctx, q, k, v):
+        out, lse = flash_attention_lse(q, k, v)
+        ctx.save_for_backward(q, k, v, out, lse)
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, out, lse = ctx.saved_tensors
+        return flash_attention_bwd(q, k, v, out, do.to(q.dtype), lse)
+
+
 flash_attention.launches = 0
 flash_attention_q8.launches = 0
+flash_attention_bwd.launches = 0

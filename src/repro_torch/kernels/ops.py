@@ -9,7 +9,8 @@ from __future__ import annotations
 
 from repro_torch.kernels import ref
 from repro_torch.kernels.flash_attention import (  # noqa: F401
-    flash_attention, flash_attention_q8, prefix_attention)
+    flash_attention, flash_attention_bwd, flash_attention_lse,
+    flash_attention_q8, prefix_attention)
 from repro_torch.kernels.mlstm_chunkwise import (mlstm_chunkwise,
                                                  mlstm_chunkwise_fold)
 from repro_torch.kernels.paged_attention import (paged_attention,
@@ -31,11 +32,15 @@ from repro_torch.kernels.xfer_matmul import xfer_matmul, xfer_matmul_experts
 #: layer's expert products in one launch, counted on its own, and
 #: ``quant_matmul_experts`` ``quant_matmul``'s, the same under INT8
 #: weights; ``paged_attention_q8_multi`` is the int8 body's multi-query
-#: form, the speculative verify over an int8 grid or pool)
+#: form, the speculative verify over an int8 grid or pool;
+#: ``flash_attention_bwd`` is the causal fp form's gradient, the training
+#: step's backward, one count a launch of its three kernels; the training
+#: forward (``flash_attention_lse``) counts under ``flash_attention``, and
+#: ``xfer_matmul``'s backward products under ``xfer_matmul``)
 KERNELS = (xfer_matmul, flash_attention, flash_attention_q8, paged_attention,
            paged_attention_q8, quant_matmul, rglru_scan, mlstm_chunkwise,
            xfer_matmul_experts, quant_matmul_experts,
-           paged_attention_q8_multi)
+           paged_attention_q8_multi, flash_attention_bwd)
 
 
 # the JAX package's ``ops`` names
@@ -75,6 +80,8 @@ expert_matmul_ref = ref.expert_matmul_ref
 int8_matmul_ref = ref.quant_matmul_ref
 int8_expert_matmul_ref = ref.quant_matmul_experts_ref
 attention_ref = ref.flash_attention_ref
+attention_lse_ref = ref.flash_attention_lse_ref
+attention_bwd_ref = ref.flash_attention_bwd_ref
 prefix_attention_ref = ref.prefix_attention_ref
 paged_attn_ref = ref.paged_attention_ref
 paged_attn_split_ref = ref.paged_attention_split_ref

@@ -35,9 +35,16 @@ import torch.nn.functional as F
 NEG_INF = -1e30
 
 
+def _acc(x: torch.Tensor) -> torch.dtype:
+    """The accumulation dtype of a plain version: fp32, or fp64 for fp64
+    inputs (``torch.autograd.gradcheck`` of the training Functions)."""
+    return torch.promote_types(x.dtype, torch.float32)
+
+
 def matmul_ref(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """x [R, N] @ w [N, M] in fp32, cast to ``x.dtype``."""
-    return (x.float() @ w.float()).to(x.dtype)
+    """x [R, N] @ w [N, M] in fp32 (fp64 for fp64 x), cast to ``x.dtype``."""
+    acc = _acc(x)
+    return (x.to(acc) @ w.to(acc)).to(x.dtype)
 
 
 def expert_matmul_ref(x: torch.Tensor, w: torch.Tensor,
@@ -258,6 +265,50 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     s = torch.where(mask, s, NEG_INF)
     p = torch.where(mask.any(-1, keepdim=True), torch.softmax(s, dim=-1), 0.0)
     return torch.einsum("bst,btd->bsd", p, v.float()).to(q.dtype)
+
+
+def flash_attention_lse_ref(q: torch.Tensor, k: torch.Tensor,
+                            v: torch.Tensor) -> tuple:
+    """The training forward's plain version: causal
+    :func:`flash_attention_ref` (S = T) and each row's log-sum-exp of the
+    scaled scores, ``lse`` [BH, S] f32 (fp64 for fp64 q), the natural log
+    of the softmax denominator that ``flash_attention_bwd`` recomputes P
+    from."""
+    acc = _acc(q)
+    bh, sq, d = q.shape
+    s = torch.einsum("bsd,btd->bst", q.to(acc), k.to(acc)) / math.sqrt(d)
+    pos = torch.arange(sq, device=q.device)
+    mask = (pos[None, :] <= pos[:, None])[None]
+    s = torch.where(mask, s, NEG_INF)
+    lse = torch.logsumexp(s, dim=-1)
+    p = torch.softmax(s, dim=-1)
+    return torch.einsum("bst,btd->bsd", p, v.to(acc)).to(q.dtype), lse
+
+
+def flash_attention_bwd_ref(q: torch.Tensor, k: torch.Tensor,
+                            v: torch.Tensor, o: torch.Tensor,
+                            do: torch.Tensor, lse: torch.Tensor) -> tuple:
+    """The plain version of ``flash_attention_bwd``, causal (S = T): the
+    FlashAttention-2 gradient the kernel computes, from the forward's
+    output ``o`` and log-sum-exp ``lse`` [BH, S]: ``delta = sum(dO o)``,
+    ``P = exp(scale q k - lse)`` masked, ``dV = P^T dO``, ``dS = P (dO
+    V^T - delta)``, ``dQ = scale dS K``, ``dK = scale dS^T Q``; fp32
+    (fp64 for fp64 q), each cast to ``q.dtype``."""
+    acc = _acc(q)
+    bh, sq, d = q.shape
+    scale = 1.0 / math.sqrt(d)
+    qf, kf, vf = q.to(acc), k.to(acc), v.to(acc)
+    gf = do.to(acc)
+    delta = (gf * o.to(acc)).sum(-1, keepdim=True)
+    pos = torch.arange(sq, device=q.device)
+    mask = (pos[None, :] <= pos[:, None])[None]
+    s = torch.einsum("bsd,btd->bst", qf, kf) * scale
+    p = torch.where(mask, torch.exp(s - lse.to(acc)[..., None]), 0.0)
+    dv = torch.einsum("bst,bsd->btd", p, gf)
+    ds = p * (torch.einsum("bsd,btd->bst", gf, vf) - delta)
+    dq = torch.einsum("bst,btd->bsd", ds, kf) * scale
+    dk = torch.einsum("bst,bsd->btd", ds, qf) * scale
+    return dq.to(q.dtype), dk.to(q.dtype), dv.to(q.dtype)
 
 
 def prefix_attention_ref(q: torch.Tensor, pre_k: torch.Tensor,

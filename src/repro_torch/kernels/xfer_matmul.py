@@ -47,8 +47,17 @@ are all dead (every block of an expert with no row) returns at once,
 loading no weight and writing its tile as +0. At decode that skips the
 weights of the experts the step routed nothing to.
 
+Training (``torch.is_grad_enabled()`` and x or w requiring grad) goes
+through an ``autograd.Function`` whose backward runs the same kernel:
+the data gradient ``dx = dy @ w.T`` (``w.T`` a strided view, which
+:func:`route` takes in either layout) and the weight gradient ``dw =
+x.T @ dy`` (``x.T`` copied K-major first: ``x`` is staged row-major).
+Serving never enters the Function, so its launches are unchanged. On
+CPU tensors the Function runs the plain version forward and backward.
+
 A CPU tensor takes the plain version (:func:`plain`); a CUDA tensor
-launches the kernel or raises. ``xfer_matmul.launches`` counts launches.
+launches the kernel or raises. ``xfer_matmul.launches`` counts launches,
+the backward's too.
 """
 from __future__ import annotations
 
@@ -254,12 +263,39 @@ def xfer_matmul(x: torch.Tensor, w: torch.Tensor, *, tr: int = 256,
     if min(tr, tm, tn) <= 0:
         raise ValueError(f"xfer_matmul: tiles must be positive, got "
                          f"{(tr, tm, tn)}")
+    if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
+        return _Matmul.apply(x, w)
+    return _product(x, w)
+
+
+def _product(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``x @ w``: the plain version on CPU tensors, else one launch."""
     if x.device.type == "cpu" and w.device.type == "cpu":
         return plain(x, w)
     out = _launch("xfer_matmul", x, w)
     if out.numel():  # launched
         xfer_matmul.launches += 1
     return out
+
+
+class _Matmul(torch.autograd.Function):
+    """``x @ w`` with both gradients through the same kernel: ``dx = dy @
+    w.T`` and ``dw = x.T @ dy``, each one launch (none for an input that
+    needs no gradient)."""
+
+    @staticmethod
+    def forward(ctx, x, w):
+        ctx.save_for_backward(x, w)
+        return _product(x, w)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, w = ctx.saved_tensors
+        dy = dy.to(x.dtype).contiguous()
+        dx = _product(dy, w.T) if ctx.needs_input_grad[0] else None
+        dw = _product(x.T.contiguous(), dy) if ctx.needs_input_grad[1] \
+            else None
+        return dx, dw
 
 
 xfer_matmul.launches = 0

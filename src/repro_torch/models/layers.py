@@ -26,9 +26,11 @@ dequantised to fp32 where it is read. The values are the reference's
 from __future__ import annotations
 
 import math
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch import quant as Q
 from repro_torch.kernels import ops
@@ -214,6 +216,44 @@ def embed_tokens(embed, tokens: torch.Tensor) -> torch.Tensor:
 
 def unembed_logits(w, x: torch.Tensor) -> torch.Tensor:
     return dense(x, w)
+
+
+def _chunk_loss(w: torch.Tensor, xc: torch.Tensor, yc: torch.Tensor,
+                mc: torch.Tensor) -> torch.Tensor:
+    """One chunk's summed masked cross-entropy: logits ``xc @ w`` through
+    ``xfer_matmul``, cast to fp32, ``logsumexp - gold``."""
+    logits = dense(xc, w).float()
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, yc.long()[..., None])[..., 0]
+    return torch.sum((lse - gold) * mc)
+
+
+def cross_entropy_chunked(unembed_w: torch.Tensor, x: torch.Tensor,
+                          labels: torch.Tensor,
+                          mask: Optional[torch.Tensor] = None,
+                          chunk: int = 512) -> torch.Tensor:
+    """Mean cross-entropy over the masked tokens of x [B, S, D] against
+    ``labels`` [B, S], the logits computed ``chunk`` positions at a time
+    (the largest divisor of S up to ``chunk``, as the reference searches
+    it) so the [B, S, V] tensor never exists; with grad enabled each
+    chunk is checkpointed, so backward keeps no [B, chunk, V] logits
+    either. Divided by ``max(sum(mask), 1)``."""
+    b, s, _ = x.shape
+    if mask is None:
+        mask = torch.ones((b, s), dtype=torch.float32, device=x.device)
+    mask = mask.float()
+    chunk = min(chunk, s)
+    while s % chunk:
+        chunk -= 1
+    total = torch.zeros((), dtype=torch.float32, device=x.device)
+    for c0 in range(0, s, chunk):
+        args = (unembed_w, x[:, c0:c0 + chunk], labels[:, c0:c0 + chunk],
+                mask[:, c0:c0 + chunk])
+        if torch.is_grad_enabled():
+            total = total + checkpoint(_chunk_loss, *args, use_reentrant=False)
+        else:
+            total = total + _chunk_loss(*args)
+    return total / torch.clamp(mask.sum(), min=1.0)
 
 
 def unembed_tied_int8(embed: Q.QTensor, x: torch.Tensor,

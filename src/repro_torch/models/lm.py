@@ -32,6 +32,7 @@ from typing import List, Optional, Tuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch import quant as Q
 from repro_torch.configs.base import ArchConfig
@@ -58,6 +59,19 @@ def check_supported(arch: ArchConfig) -> None:
             f"serves the dense family, the MoE family, the RG-LRU hybrid "
             f"family, the xLSTM ssm family, the vlm family and the encdec "
             f"family)")
+
+
+def check_trainable(arch: ArchConfig) -> None:
+    """The port trains the dense family without a window: the only form
+    whose kernels (``xfer_matmul``, causal ``flash_attention``) have
+    hand-written gradients. Any other family raises."""
+    if arch.family != "dense" or arch.window \
+            or tuple(arch.block_pattern) not in ((), ("attn",)):
+        raise NotImplementedError(
+            f"{arch.name}: training of the {arch.family!r} family is not "
+            f"ported yet (ROADMAP A12b: it needs backward kernels for "
+            f"xfer_matmul_experts, rglru_scan, mlstm_chunkwise or the masked "
+            f"flash_attention forms); the port trains the dense family")
 
 
 def pattern(arch: ArchConfig) -> Tuple[str, ...]:
@@ -173,7 +187,8 @@ class LM(nn.Module):
                 seq_lens: Optional[torch.Tensor] = None,
                 page_table: Optional[torch.Tensor] = None,
                 append: bool = False,
-                prefix_embeds: Optional[torch.Tensor] = None
+                prefix_embeds: Optional[torch.Tensor] = None,
+                remat: bool = False
                 ) -> Tuple[torch.Tensor, Optional[List[dict]]]:
         """tokens [B, S] -> (hidden [B, S, D] after the final norm, caches).
 
@@ -204,7 +219,12 @@ class LM(nn.Module):
         window): S >= 1 fresh tokens per row at ``positions`` on filled
         caches, written in place at their positions (those past the grid
         dropped) and attended causally over the grid or, with
-        ``page_table``, the pool; ``caches`` itself is returned."""
+        ``page_table``, the pool; ``caches`` itself is returned.
+
+        ``remat=True`` (training, no caches): each layer runs under
+        ``torch.utils.checkpoint`` (non-reentrant), keeping only its
+        input for backward and recomputing the rest, as the reference's
+        ``remat`` with ``nothing_saveable`` does."""
         x = L.embed_tokens(self.embed, tokens)
         # sqrt(d_model) rounded to the activation dtype, as a Python
         # float: the same product as a 0-dim tensor of that dtype, with
@@ -235,7 +255,12 @@ class LM(nn.Module):
         new_caches = [] if caches is not None else None
         for i, (kind, layer) in enumerate(zip(self.kinds, self.layers)):
             cache = None if caches is None else caches[i]
-            if kind == "attn":
+            if remat and kind == "attn" and caches is None \
+                    and torch.is_grad_enabled():
+                x, c = checkpoint(layer, x, positions=positions,
+                                  seq_lens=seq_lens, prefix_len=prefix_len,
+                                  use_reentrant=False)
+            elif kind == "attn":
                 x, c = layer(x, positions=positions, cache=cache,
                              decode_meta=decode_meta, seq_lens=seq_lens,
                              page_table=page_table, append=append,
@@ -258,3 +283,16 @@ class LM(nn.Module):
         if self.arch.tie_embeddings and self.weights_quantized:
             return L.unembed_tied_int8(self.embed, hidden, self.unembed_ones)
         return L.unembed_logits(self.unembed_matrix(), hidden)
+
+
+def loss_fn(model: LM, tokens: torch.Tensor, labels: torch.Tensor,
+            mask: Optional[torch.Tensor] = None, *,
+            chunk: int = 512) -> torch.Tensor:
+    """The reference's ``lm.loss_fn`` for the dense family: the forward
+    with every layer rematerialised, then ``cross_entropy_chunked`` over
+    the unembedding (``embed.T`` when tied). tokens, labels [B, S] int;
+    ``mask`` [B, S] (None: every token)."""
+    check_trainable(model.arch)
+    hidden, _ = model(tokens, remat=True)
+    return L.cross_entropy_chunked(model.unembed_matrix(), hidden, labels,
+                                   mask=mask, chunk=chunk)

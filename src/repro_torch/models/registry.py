@@ -1,6 +1,7 @@
 """Step builders of the port (mirrors ``repro/models/registry.py``).
 
   init_params(arch, seed)                      -> LM or EncDec (random, seeded)
+  train_step(model, opt_state, batch)          -> (model, opt_state, metrics)
   prefill_step(model, tokens)                  -> (caches, last_logits)
   serve_step(model, caches, batch)             -> (next_token, caches)
   serve_step(model, caches, state)             -> (state', caches', record)
@@ -33,8 +34,9 @@ in one forward, and the longest accepted prefix commits; its record's
 """
 from __future__ import annotations
 
-from typing import Callable, Optional
+from typing import Callable, Dict, Optional
 
+import numpy as np
 import torch
 
 from repro_torch.configs.base import ArchConfig, ShapeConfig
@@ -56,6 +58,81 @@ def init_params(arch: ArchConfig, seed: int = 0, *, device: DeviceLike = None,
     gen.manual_seed(seed)
     model.init_(gen)
     return model
+
+
+def batch_to_device(batch: Dict[str, np.ndarray],
+                    device: torch.device) -> Dict[str, torch.Tensor]:
+    """A pipeline batch (numpy) on ``device``: through pinned host
+    buffers with ``non_blocking`` copies on CUDA."""
+    out = {}
+    for k, v in batch.items():
+        t = v if isinstance(v, torch.Tensor) else torch.from_numpy(
+            np.ascontiguousarray(v))
+        if device.type == "cuda" and t.device.type == "cpu":
+            t = t.pin_memory()
+        out[k] = t.to(device, non_blocking=True)
+    return out
+
+
+def build_train_step(arch: ArchConfig, cfg, lr_schedule: Optional[Callable]
+                     = None, accum_steps: int = 1) -> Callable:
+    """The reference's ``build_train_step`` for the dense family:
+    ``train_step(model, opt_state, batch) -> (model, opt_state,
+    metrics)``, ``metrics`` = ``loss``, ``lr``, ``grad_norm``,
+    ``clip_scale`` (0-dim tensors on the device). ``cfg`` is an
+    ``optim.adamw.AdamWConfig``; the learning rate is
+    ``lr_schedule(opt_state["step"])`` read before the step increments
+    it (``cfg.lr`` without a schedule). With ``accum_steps > 1`` the
+    batch is split into that many equal microbatches along dim 0, their
+    gradients summed in fp32 buffers and scaled by ``1 / accum_steps``
+    before the single update. The step turns on ``requires_grad`` of its
+    model's parameters (serving models keep it off) and updates them in
+    place (``optim.adamw.adamw_update``)."""
+    from repro_torch.models.lm import check_trainable, loss_fn
+    from repro_torch.optim import adamw as OPT
+    check_trainable(arch)
+
+    def schedule(step: torch.Tensor) -> torch.Tensor:
+        if lr_schedule is not None:
+            return lr_schedule(step)
+        return torch.full((), cfg.lr, dtype=torch.float32, device=step.device)
+
+    def value_and_grad(model: LM, params: dict, batch: dict):
+        loss = loss_fn(model, batch["tokens"], batch["labels"])
+        grads = torch.autograd.grad(loss, list(params.values()))
+        return loss.detach(), dict(zip(params, grads))
+
+    def grads_of(model: LM, params: dict, batch: dict):
+        if accum_steps <= 1:
+            return value_and_grad(model, params, batch)
+        b = batch["tokens"].shape[0]
+        if b % accum_steps:
+            raise ValueError(f"batch {b} does not split into {accum_steps} "
+                             f"microbatches")
+        mb = b // accum_steps
+        lsum = torch.zeros((), dtype=torch.float32, device=model.device)
+        gsum = {n: torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+                for n, p in params.items()}
+        for i in range(accum_steps):
+            micro = {k: v[i * mb:(i + 1) * mb] for k, v in batch.items()}
+            lval, g = value_and_grad(model, params, micro)
+            lsum = lsum + lval
+            for n in gsum:
+                gsum[n] += g[n]
+        inv = 1.0 / accum_steps
+        return lsum * inv, {n: g * inv for n, g in gsum.items()}
+
+    def train_step(model: LM, opt_state: dict, batch):
+        model.requires_grad_(True)
+        params = dict(model.named_parameters())
+        batch = batch_to_device(batch, model.device)
+        lval, grads = grads_of(model, params, batch)
+        lr = schedule(opt_state["step"])
+        _, opt_state, info = OPT.adamw_update(params, grads, opt_state, cfg,
+                                              lr, OPT.default_groups(model))
+        return model, opt_state, {"loss": lval, "lr": lr, **info}
+
+    return train_step
 
 
 def build_prefill_step(arch: ArchConfig, shape: ShapeConfig,

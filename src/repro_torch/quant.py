@@ -11,8 +11,10 @@ broadcasts. Three layouts: per tensor (``axis=None``), per output channel
 dim (the KV cache, :func:`quantize_kv`: an ``[..., G, 1]`` scale beside
 the ``[..., G, D]`` payload).
 
-The optimizer-state and gradient uses and ``param_qdims`` wait for the
-training and planning slices.
+The optimizer state (``optim.adamw``, per tensor, one scale for each
+leaf of the reference's stacked tree: :func:`stack_groups`) and the
+gradient compression (``runtime.compression``, per tensor) use
+:func:`quantize` too; ``param_qdims`` waits for the planning slice.
 """
 from __future__ import annotations
 
@@ -164,6 +166,26 @@ def _stacks(model: nn.Module) -> Tuple[List[List[str]], List[str]]:
     alone = [f"layers.{i}" for i in range(p)] + \
         [f"layers.{p + repeats * n + i}" for i in range(len(suffix))]
     return stacks, alone
+
+
+def stack_groups(model: nn.Module) -> List[List[str]]:
+    """The parameter names of ``model`` grouped as the JAX tree's leaves:
+    one group per leaf of a stacked subtree (its layers in order, e.g.
+    every ``layers.<i>.wq`` of the body), one single-name group per leaf
+    the reference keeps unstacked. A per-tensor quantity of a JAX leaf
+    (the int8 Adam state's scale) is one per group."""
+    names = [n for n, _ in model.named_parameters()]
+    stacks, _ = _stacks(model)
+    groups, seen = [], set()
+    for layers in stacks:
+        subs = [n[len(layers[0]) + 1:] for n in names
+                if n.startswith(layers[0] + ".")]
+        for sub in subs:
+            group = [f"{layer}.{sub}" for layer in layers]
+            groups.append(group)
+            seen.update(group)
+    groups += [[n] for n in names if n not in seen]
+    return groups
 
 
 def _fp_read(model: nn.Module, name: str, qt: QTensor) -> QTensor:

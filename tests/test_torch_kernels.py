@@ -45,7 +45,7 @@ def _no_launches():
                            "paged_attention_q8", "quant_matmul", "rglru_scan",
                            "mlstm_chunkwise", "xfer_matmul_experts",
                            "quant_matmul_experts",
-                           "paged_attention_q8_multi"}
+                           "paged_attention_q8_multi", "flash_attention_bwd"}
     assert not any(counts.values()), counts
 
 
