@@ -234,8 +234,9 @@ Phases (each failure propagates; the process exits non-zero):
    magnitude plus its head's RMS, TF32 off; bit-stable
    on two calls) at qwen1.5-0.5b's training shape [128, 512, 64]
    (bf16, the main entry, and fp32) and [64, 512, 128] bf16, timed
-   beside the plain backward and SDPA's backward alone, plus ragged
-   cases; the serving instances' ``ptxas`` registers asserted unchanged
+   beside the plain backward and SDPA's backward alone (its device time
+   under the profiler, its backend selected and printed), plus ragged
+   cases, the bf16 launch plan printed; the serving instances' ``ptxas`` registers asserted unchanged
    (``SERVING_REGISTERS``); ``xfer_matmul``'s dgrad (``dy @ w.T``) and
    wgrad (``x.T @ dy``, with the copy of ``x.T``) at qwen's projections
    and tied unembedding at 4096 rows, against the plain version and
@@ -981,9 +982,10 @@ def check_experts(dev, gen) -> dict:
 # deepseek-moe-16b's w_gate / w_up ([64, 2048, 1408] int8) and w_down
 # ([64, 1408, 2048]) at C = 1 (decode at 8 slots), 60 and 240, every row
 # live; C = 1 with the live rows of a seeded top-6 routing of 8 tokens
-# (the main entry); C = 60 and 240 with live rows below C; then a split-K
-# case, a wgmma case with part-filled row tiles and two misaligned cases
-# that take tile. Every case with fp32 x (the INT8 path's activations)
+# (the main entry) and at C = 2 (two rows of a term-packed B fragment
+# with fp32 x); C = 60 and 240 with live rows below C; then a case of a
+# long contraction, a wgmma case with part-filled row tiles and two
+# misaligned cases that take tile. Every case with fp32 x (the INT8 path's activations)
 # and bf16 x, one column scale for all experts.
 QME_CASES = (
     [(f"[{M_E},{c},{k}] @ int8 [{M_E},{k},{n}]", M_E, c, k, n, True, None,
@@ -991,9 +993,12 @@ QME_CASES = (
     + [(f"[{M_E},1,{k}] @ int8 [{M_E},{k},{n}] routed (8 tokens, top "
         f"{M_TOPK})", M_E, 1, k, n, True, "main" if k == M_D else None,
         "routed") for k, n in ((M_D, M_FF), (M_FF, M_D))]
+    + [(f"[{M_E},2,{M_D}] @ int8 [{M_E},{M_D},{M_FF}] routed (8 tokens, "
+        f"top {M_TOPK})", M_E, 2, M_D, M_FF, True, None, "routed")]
     + [(f"[{M_E},{c},{M_D}] @ int8 [{M_E},{M_D},{M_FF}] live rows below C",
         M_E, c, M_D, M_FF, False, None, "partial") for c in (60, 240)]
-    + [("split-K E=3 C=9 4096x64", 3, 9, 4096, 64, False, None, "partial"),
+    + [("long contraction E=3 C=9 4096x64", 3, 9, 4096, 64, False, None,
+        "partial"),
        ("wgmma E=12 C=77 1024x1152", 12, 77, 1024, 1152, False, None,
         "partial"),
        ("ragged E=5 C=13 1000x1001 (tile)", 5, 13, 1000, 1001, False, None,
@@ -1066,7 +1071,7 @@ def check_quant_experts(dev, gen) -> dict:
                 nbytes = (rows_live * k * 4 + busy * k * n + n * 4
                           + e * c * n * 4)
                 flops = 2.0 * rows_live * k * n
-                if rt.kernel in ("stream_mma", "wgmma"):
+                if rt.kernel in ("stream_ex", "wgmma"):
                     b, bkind = bound_ms(nbytes, flops * x_terms(dt),
                                         "bfloat16")
                 else:
@@ -3377,7 +3382,7 @@ def expert_launch(event: dict) -> bool:
     return event.get("cat") == "kernel" and grid[2] > 1 and any(
         k in event["name"] for k in ("stream_mma_kernel", "stream_rows_kernel",
                                      "wg_kernel", "tc_kernel",
-                                     "matmul_kernel", "stream_mma_q8_kernel",
+                                     "matmul_kernel", "stream_q8_ex_kernel",
                                      "wg_q8_kernel"))
 
 
@@ -4864,6 +4869,10 @@ FA_BWD_CASES = [("qwen train", 128, 512, 64, BOTH, "main"),
                 ("ragged d128", 5, 100, 128, BOTH, None),
                 ("two rows", 3, 2, 64, BOTH, None)]
 FA_BWD_TOL = {"float32": 2e-3, "bfloat16": 5e-2}
+# the yardstick's backend, selected explicitly (sdpa_kernel): PyTorch's
+# flash kernels take bf16, not fp32
+SDPA_BWD_BACKEND = {"bfloat16": "FLASH_ATTENTION",
+                    "float32": "EFFICIENT_ATTENTION"}
 # the serving instances' ptxas registers (PERF.md, PRs 17-23): the
 # training forward's hooks in flash_attention.cu must leave them
 # unchanged
@@ -4904,7 +4913,9 @@ def check_train_kernels(dev) -> dict:
     ``xfer_matmul``'s ``train`` sub-entry."""
     import torch
     import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
     from repro_torch.kernels import build, ops
+    from repro_torch.kernels.flash_attention import bwd_plan
     from repro_torch.kernels.xfer_matmul import route as xfer_route
 
     fwd_table = ptxas_kernels(build.build_log.get("flash_attention", ""))
@@ -4959,20 +4970,45 @@ def check_train_kernels(dev) -> dict:
                 fwd_ms = time_ms(lambda: ops.flash_attention_lse(q, k, v), 10, 2)
                 qs, ks, vs = (t.detach().reshape(1, bh, s, d).requires_grad_()
                               for t in (q, k, v))
-                ys = F.scaled_dot_product_attention(qs, ks, vs, is_causal=True)
                 g4 = do.reshape(1, bh, s, d)
-                lib = time_ms(lambda: torch.autograd.grad(
-                    ys, (qs, ks, vs), g4, retain_graph=True), 10, 2)
+                backend = SDPA_BWD_BACKEND[dname]
+                with sdpa_kernel([getattr(SDPBackend, backend)]):
+                    ys = F.scaled_dot_product_attention(qs, ks, vs,
+                                                        is_causal=True)
+
+                def sdpa_bwd():
+                    return torch.autograd.grad(ys, (qs, ks, vs), g4,
+                                               retain_graph=True)
+
+                lib_eager = time_ms(sdpa_bwd, 10, 2)
+                # device time: the backward's own kernels under the
+                # profiler (the host's autograd path is out of it)
+                tr = trace_window(lambda: [sdpa_bwd() for _ in range(10)]
+                                  and torch.cuda.synchronize(), 10)
+                if not tr.get("measured"):
+                    raise AssertionError(f"{name}: the profiler saw no "
+                                         f"device time of SDPA's backward")
+                lib = tr["device_ms_per_step"]
                 b, kind = fa_bwd_bound(bh, s, d, q.element_size(), dname)
                 row = dict(shape=f"q,k,v,o,dO [{bh},{s},{d}] {dname} causal",
                            max_abs_err=max(errs), ms=ms, device_ms=dev_ms,
                            plain_ms=plain, bound_ms=b, bound_by=kind,
-                           library_ms=lib, forward_lse_ms=fwd_ms,
-                           bit_stable=True)
+                           library_ms=lib, library_eager_ms=lib_eager,
+                           library_backend=backend,
+                           library_kernels=tr["top"][:3],
+                           forward_lse_ms=fwd_ms, bit_stable=True)
+                if dname == "bfloat16":
+                    plan = bwd_plan(bh, s, d, torch.cuda.get_device_properties(
+                        dev).multi_processor_count)
+                    row["plan"] = {k: plan[k] for k in (
+                        "items", "grid", "threads", "own", "tile", "stages",
+                        "own_bufs", "dkdv_smem", "dq_smem")}
+                    line += f"; plan {row['plan']}"
                 line += (f" ms {ms:.4f} device_ms {dev_ms:.4f} plain_ms "
-                         f"{plain:.4f} library_ms (SDPA backward) {lib:.4f} "
-                         f"bound_ms {b:.4f} ({kind}); training forward "
-                         f"{fwd_ms:.4f}")
+                         f"{plain:.4f} library_ms (SDPA backward, backend "
+                         f"{backend}, device) {lib:.4f} (eager {lib_eager:.4f};"
+                         f" kernels {tr['top'][:3]}) bound_ms {b:.4f} "
+                         f"({kind}); training forward {fwd_ms:.4f}")
                 if dname == "float32":
                     entry["fp32"] = row
                 elif timed == "main":
@@ -5206,20 +5242,24 @@ NO_SPILL = ("flash_split_kernel", "flash_tc_kernel", "flash_terms_kernel",
             "rglru_ring_kernel", "rglru_rows_kernel",
             "mlstm_kernel", "mlstm_tc_kernel",
             "stream_rows_kernel", "stream_mma_kernel", "stream_cols_kernel",
-            "stream_mma_q8_kernel", "stream_cols_q8_kernel", "tc_kernel",
-            "wg_kernel", "wg_q8_kernel", "paged_split_kernel",
-            "dkdv_tc_kernel", "dq_tc_kernel", "dkdv_fp_kernel", "dq_fp_kernel",
-            "bwd_prep_kernel")
-#: instances that the INT8 expert products and the int8 multi-query
-#: attention run, which must be in the build (and, by NO_SPILL's names,
-#: spill-free): stream_mma_q8_kernel with the expert axis (EX true) for
-#: fp32 and bf16 x, wg_q8_kernel (its expert axis on grid z), and the
-#: int8 paged body at qwen's head dim
-NEW_INSTANCES = (("xfer_matmul", "stream_mma_q8_kernelIfLi8ELi3ELb1E"),
-                 ("xfer_matmul", "stream_mma_q8_kernelI13__nv_bfloat16Li8E"
-                                 "Li1ELb1E"),
+            "stream_mma_q8_kernel", "stream_q8_ex_kernel",
+            "stream_cols_q8_kernel", "tc_kernel", "wg_kernel", "wg_q8_kernel",
+            "paged_split_kernel", "dkdv_wg_kernel", "dq_wg_kernel",
+            "dkdv_fp_kernel", "dq_fp_kernel", "bwd_prep_kernel")
+#: instances that the INT8 expert products, the int8 multi-query
+#: attention and the training backward run, which must be in the build
+#: (and, by NO_SPILL's names, spill-free): stream_q8_ex_kernel for fp32
+#: and bf16 x at one B tile, wg_q8_kernel (its expert axis on grid z), the
+#: int8 paged body at qwen's head dim, the bf16 backward at head dims 64
+#: and 128
+NEW_INSTANCES = (("xfer_matmul", "stream_q8_ex_kernelIfLi1E"),
+                 ("xfer_matmul", "stream_q8_ex_kernelI13__nv_bfloat16Li1E"),
                  ("xfer_matmul", "wg_q8_kernelIfLi3E"),
-                 ("paged_attention", "paged_split_kernelIfaLi64E"))
+                 ("paged_attention", "paged_split_kernelIfaLi64E"),
+                 ("flash_attention_bwd", "dkdv_wg_kernelILi64E"),
+                 ("flash_attention_bwd", "dq_wg_kernelILi64E"),
+                 ("flash_attention_bwd", "dkdv_wg_kernelILi128E"),
+                 ("flash_attention_bwd", "dq_wg_kernelILi128E"))
 
 
 def check_ptxas(build_log: dict) -> None:

@@ -8,9 +8,10 @@ Each TREE is the root of a checkout (``.`` for this one; an older commit
 unpacked with ``git archive`` into a directory that ``.gitignore`` lists).
 For each, in a fresh process, it runs that checkout's own
 ``chip_smoke.py`` serving phases: 4 (qwen1.5-0.5b, bf16), 4b (the same
-under INT8), 4c (recurrentgemma-2b), 4d (xlstm-350m) and 4j
-(deepseek-moe-16b on the slot grid, then the page pool), kernels built
-from that checkout's sources. It prints one JSON line per tree and phase with the
+under INT8), 4c (recurrentgemma-2b), 4d (xlstm-350m), 4j
+(deepseek-moe-16b on the slot grid, then the page pool) and 4n's
+deepseek-moe-16b under INT8 on the grid, kernels built from that
+checkout's sources. It prints one JSON line per tree and phase with the
 ``step_stats``, ``prefill_stats`` and ``peak_allocated_bytes`` that the
 phase logged. Give the trees
 as parent, change, change, parent to see the spread between calls of one
@@ -36,9 +37,13 @@ cs.serve_full_width(int8=True)
 cs.serve_hybrid()
 cs.serve_xlstm()
 cs.serve_moe()
+from repro_torch.configs import get_arch
+arch = get_arch("deepseek-moe-16b")
+cs.serve_int8("serve-moe-int8", arch, None, cs.phase4_prompts(arch.vocab_size))
 """
 _TAGS = {"serve": "4", "serve-int8": "4b", "serve-hybrid": "4c",
-         "serve-ssm": "4d", "serve-moe": "4j", "serve-moe-paged": "4j-pool"}
+         "serve-ssm": "4d", "serve-moe": "4j", "serve-moe-paged": "4j-pool",
+         "serve-moe-int8": "4n-moe"}
 
 
 def run_tree(tree: str) -> list:

@@ -9,11 +9,12 @@
 // so training there needs this kernel; it is FlashAttention-2's backward
 // (Dao, 2023), recomputing P from lse instead of storing it:
 //
-// - bwd_prep_kernel: delta_i = sum_d dO_id O_id (f32), one warp a row;
-// - dkdv kernel, one block per (key tile of 64, bh): dV_j += P^T dO_i and
+// - bwd_prep_kernel: delta_i = sum_d dO_id O_id (f32), 16-byte loads,
+//   D / 8 (bf16) or D / 4 (fp32) lanes a row;
+// - dkdv kernel, one block per (key tile, bh): dV_j += P^T dO_i and
 //   dK_j += scale dS^T Q_i over the query tiles i from the diagonal on,
 //   with P = exp(scale S - lse) and dS = P (dO V^T - delta);
-// - dq kernel, one block per (query tile of 64, bh): dQ_i += scale dS K_j
+// - dq kernel, one block per (query tile, bh): dQ_i += scale dS K_j
 //   over the key tiles up to the diagonal.
 //
 // Each output element is summed by one thread in a fixed order: no
@@ -22,15 +23,22 @@
 //
 // Two instances per head dim:
 //
-// - bf16 on tensor cores: mma.sync m16n8k16 from ldmatrix. A warp owns 16
-//   rows of the block's tile (keys in dkdv, queries in dq); the score and
-//   dP accumulators of a tile stay in registers, and P^T (dkdv) or dS (dq)
-//   converted to bf16 is the A operand of the next product straight from
-//   the accumulator layout. Tiles sit in shared memory as rows of D bf16
-//   with 16-byte chunk c of row r at c ^ (r % 8), so each ldmatrix (eight
-//   rows of one chunk column) hits eight different bank groups; Q / dO
-//   (dkdv) or K / V (dq) stream through a two-stage cp.async ring. P and
-//   dS are rounded to bf16 before their products, as the forward rounds P.
+// - bf16 on Hopper's warpgroup products (wgmma). A block is two consumer
+//   warpgroups of 64 rows each (128 keys in dkdv, 128 queries in dq) and
+//   one producer warpgroup, whose first warp loads every tile by TMA
+//   (3-d tensor maps, rows past S read as zeros) into a ring of 4 stages
+//   of 64-row tiles (Q and dO in dkdv, K and V in dq) on full / empty
+//   mbarriers; blocks are persistent, one an SM, and at D = 64 load the
+//   next item's own tiles while this one runs; the producer gives up its registers (setmaxnreg 24) so
+//   that the consumers hold 240 each: at D = 128 a consumer keeps dK and
+//   dV of its 64 keys (128 f32 a thread) beside S^T and dP^T (64). Tiles
+//   lie in the 128-byte swizzle as 64-dim atoms of 128-byte rows. In
+//   dkdv, S^T = K Q^T and dP^T = V dO^T (m64n64k16, both operands K-major
+//   from shared memory) put keys on the accumulator's rows, so P^T and
+//   dS^T, rounded to bf16, are the register A operand of dV += P^T dO
+//   and dK += dS^T Q (m64nDk16, dO and Q read MN-major); in dq, S = Q K^T
+//   and dP = dO V^T make dS the A operand of dQ += dS K. P and dS are
+//   rounded to bf16 before their products, as the forward rounds P.
 // - fp32 on CUDA cores (the card-vs-CPU parity path): 8 threads share a
 //   row (key in dkdv, query in dq), each owning D / 8 dims as float4
 //   chunks; the row's dots are summed by warp shuffles; the other side's
@@ -41,9 +49,13 @@
 // flops per visible pair each, against reading q, k, v, o, dO and lse
 // once and writing dq, dk, dv. At qwen1.5-0.5b's training shape ([128,
 // 512, 64] causal, bf16) that is 0.011 ms at the tensor-core peak and
-// 0.020 ms of bytes: the bytes bound it. This first kernel takes mma.sync
-// and a two-stage ring; wgmma and TMA are later work.
+// 0.020 ms of bytes: the bytes bound it. The 128-row own tiles halve the
+// re-reads of the streamed side against 64-row ones, yet over the causal
+// triangle each kernel still reads it 2.5 times (about 59 MB a kernel at
+// that shape), and that traffic, not the products, sets most of the time
+// (scripts/bwd_ablate.py times the kernels with their work taken out).
 #include <cstdint>
+#include <cuda.h>
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 
@@ -69,64 +81,179 @@ struct BwdArgs {
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
 
+// delta of 256 / L rows a block: L = D / V lanes a row read 16 bytes (V
+// elements) of o and dO at a time, and sum across the row's lanes
 template <typename T, int D>
 __global__ void __launch_bounds__(256) bwd_prep_kernel(const BwdArgs a) {
-  const long long row = (long long)blockIdx.x * 8 + threadIdx.x / 32;
-  const int lane = threadIdx.x & 31;
-  if (row >= (long long)a.BH * a.S) return;
-  const T* o = static_cast<const T*>(a.o) + row * D;
-  const T* g = static_cast<const T*>(a.dout) + row * D;
+  constexpr int V = 16 / sizeof(T), L = D / V <= 32 ? D / V : 32;
+  const long long row = ((long long)blockIdx.x * 256 + threadIdx.x) / L;
+  const int part = threadIdx.x % L;
   float s = 0.f;
+  if (row < (long long)a.BH * a.S) {
+    const uint4* o = reinterpret_cast<const uint4*>(static_cast<const T*>(a.o) + row * D);
+    const uint4* g = reinterpret_cast<const uint4*>(static_cast<const T*>(a.dout) + row * D);
 #pragma unroll
-  for (int d = lane; d < D; d += 32) s = fmaf(to_f32(o[d]), to_f32(g[d]), s);
+    for (int c = part; c < D / V; c += L) {
+      const uint4 ou = o[c], gu = g[c];
+      const uint32_t ow[4] = {ou.x, ou.y, ou.z, ou.w}, gw[4] = {gu.x, gu.y, gu.z, gu.w};
 #pragma unroll
-  for (int off = 16; off > 0; off >>= 1) s += __shfl_xor_sync(0xffffffffu, s, off);
-  if (lane == 0) a.delta[row] = s;
+      for (int i = 0; i < 4; ++i) {
+        if constexpr (sizeof(T) == 4) {
+          s = fmaf(__uint_as_float(ow[i]), __uint_as_float(gw[i]), s);
+        } else {
+          s = fmaf(__uint_as_float(ow[i] << 16), __uint_as_float(gw[i] << 16), s);
+          s = fmaf(__uint_as_float(ow[i] & 0xffff0000u),
+                   __uint_as_float(gw[i] & 0xffff0000u), s);
+        }
+      }
+    }
+  }
+#pragma unroll
+  for (int off = L / 2; off > 0; off >>= 1) s += __shfl_xor_sync(0xffffffffu, s, off);
+  if (part == 0 && row < (long long)a.BH * a.S) a.delta[row] = s;
 }
 
-// ---- bf16: mma.sync on tensor cores -------------------------------------
-namespace tcb {
+// ---- bf16: warpgroup products (wgmma), TMA ring, producer warpgroup ----
+namespace wgb {
 
 using B = __nv_bfloat16;
-constexpr int ROWS = 64;      // rows of a block's own tile (4 warps x 16)
-constexpr int THREADS = 128;
-// rows of the streamed tiles: 64, 32 at D = 128 in dkdv (registers)
-__host__ __device__ constexpr int kv_rows(int d) { return d == 128 ? 32 : 64; }
+constexpr int CWG = 2;                  // consumer warpgroups a block
+constexpr int THREADS = (CWG + 1) * 128;  // and one producer warpgroup
+constexpr int OWN = CWG * 64;           // a block's own rows: 64 a consumer
+constexpr int TILE = 64;                // rows of a streamed tile
+constexpr int STAGES = 4;               // tiles in the ring
+constexpr int PRODUCER_REGS = 24, CONSUMER_REGS = 240;
+// bytes of a [rows][D] bf16 tile: D / 64 swizzled atoms of rows x 128
 __host__ __device__ constexpr int tile_bytes(int rows, int d) { return rows * d * 2; }
+// the four [BH, S, D] inputs as TMA tensor maps (3-d: D, S, BH), boxes
+// of 64 dims x 64 rows in the 128-byte swizzle; rows past S read as 0
+struct alignas(64) Maps {
+  CUtensorMap q, k, v, g;  // g: dO
+};
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
-                                           int src_bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
-               "l"(src), "r"(src_bytes));
+__device__ __forceinline__ void bar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count)
+               : "memory");
 }
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
+__device__ __forceinline__ void bar_expect(uint32_t bar, int bytes) {
+  asm volatile(
+      "{\n.reg .b64 st;\nmbarrier.arrive.expect_tx.shared::cta.b64 st, [%0], %1;\n}\n"
+      ::"r"(bar), "r"(bytes) : "memory");
+}
+__device__ __forceinline__ void bar_arrive(uint32_t bar) {
+  asm volatile("{\n.reg .b64 st;\nmbarrier.arrive.shared::cta.b64 st, [%0];\n}\n"
+               ::"r"(bar) : "memory");
+}
+// until the phase of `parity` has completed (a fresh barrier's phase of
+// parity 1 counts as completed: a producer's first wait on an empty
+// stage passes)
+__device__ __forceinline__ void bar_wait(uint32_t bar, int parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(bar), "r"(parity) : "memory");
+  } while (!done);
+}
+// one 64-dim x 64-row box of `map` at (d0, row, bh) into dst (1024-aligned)
+__device__ __forceinline__ void tma_box(uint32_t dst, const CUtensorMap* map,
+                                        uint32_t bar, int d0, int row, int bh) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5}], [%2];\n"
+      ::"r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(d0),
+        "r"(row), "r"(bh) : "memory");
+}
+// rows [row0, row0 + ROWS) of head bh into the tile at dst: atom a (dims
+// 64 a ..) at dst + a ROWS 128, 64 rows a box
+template <int D, int ROWS>
+__device__ __forceinline__ void tma_tile(uint32_t dst, const CUtensorMap* map,
+                                         uint32_t bar, int row0, int bh) {
+#pragma unroll
+  for (int at = 0; at < D / 64; ++at)
+#pragma unroll
+    for (int h = 0; h < ROWS / 64; ++h)
+      tma_box(dst + at * ROWS * 128 + h * 64 * 128, map, bar, at * 64,
+              row0 + h * 64, bh);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
 }
 template <int PENDING>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(PENDING));
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(PENDING) : "memory");
 }
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], uint32_t addr) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr));
+// a shared-memory matrix descriptor with the 128-byte swizzle
+__device__ __forceinline__ uint64_t desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
+         ((uint64_t)(sbo >> 4) << 32) | (1ull << 62);
 }
-__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], uint32_t addr) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr));
+// K-major operand at row block `rows0` (bytes into atom 0) of a tile of
+// `rows` rows, k16 step j: atom j / 4, 32 bytes a step inside it
+__device__ __forceinline__ uint64_t kdesc(uint32_t tile, int rows, int j) {
+  return desc(tile + (j / 4) * (rows * 128) + (j % 4) * 32, 16, 1024);
 }
-// c += a b: m16n8k16, bf16 in, f32 accumulate
-__device__ __forceinline__ void mma(float (&c)[4], const uint32_t (&a)[4],
-                                    uint32_t b0, uint32_t b1) {
+// MN-major B operand (the contraction over the tile's rows), k16 step kj
+__device__ __forceinline__ uint64_t mndesc(uint32_t tile, int rows, int kj) {
+  return desc(tile + kj * 16 * 128, rows * 128, 1024);
+}
+
+// D += A B^T, m64n64k16, A and B K-major from shared memory
+__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da,
+                                             uint64_t db) {
   asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+      "{\n.reg .pred p;\nsetp.ne.b32 p, 1, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db));
+}
+// D += A B, m64n64k16, A from registers, B MN-major
+__device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t (&a)[4],
+                                         uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, 1, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db));
+}
+// the same, m64n128k16
+__device__ __forceinline__ void wgmma_rs(float (&d)[64], const uint32_t (&a)[4],
+                                         uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, 1, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db));
+}
+// keep registers that an in-flight wgmma reads or writes alive and
+// unmoved up to here (after its wait)
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&v)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(v[i]));
+}
+template <int N>
+__device__ __forceinline__ void fence_regs(uint32_t (&v)[N][4]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) asm volatile("" : "+r"(v[i][e]));
+}
+template <int N>
+__device__ __forceinline__ void zero(float (&v)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) v[i] = 0.f;
 }
 __device__ __forceinline__ uint32_t pack(float lo, float hi) {
   const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
@@ -137,85 +264,28 @@ __device__ __forceinline__ float ex2(float x) {
   asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
   return y;
 }
-
-// byte offset of 16-byte chunk c of row r in a swizzled [*, D] tile
+// S [64 x 64] = A B^T over D (two K-major tiles: A rows at a in a tile of
+// arows rows, B the brows-row tile b)
 template <int D>
-__device__ __forceinline__ uint32_t off(int r, int c) {
-  return r * (D * 2) + ((c ^ (r & 7)) << 4);
+__device__ __forceinline__ void scores(float (&s)[32], uint32_t a, int arows,
+                                       uint32_t b, int brows) {
+#pragma unroll
+  for (int j = 0; j < D / 16; ++j)
+    wgmma_ss_n64(s, kdesc(a, arows, j), kdesc(b, brows, j));
 }
-
-// rows [row0, row0 + ROWS_) of a [*, D] bf16 tensor into the tile at
-// dst; rows at or past lim are zero-filled, not read
-template <int D, int ROWS_>
-__device__ __forceinline__ void load_tile(uint32_t dst, const B* src,
-                                          int row0, int lim) {
-  constexpr int CH = D / 8;
-  for (int i = threadIdx.x; i < ROWS_ * CH; i += THREADS) {
-    const int r = i / CH, c = i % CH;
-    const bool ok = row0 + r < lim;
-    cp_async16(dst + off<D>(r, c),
-               ok ? src + (long long)(row0 + r) * D + c * 8 : src, ok ? 16 : 0);
-  }
-}
-
-// acc[N / 8][4] += A [16 rows from arow0 of tile a] x B^T, B the N rows
-// from row 0 of tile b (both [*, D], the contraction over D): A row-major,
-// B read as [n][k] (no transpose)
-template <int D, int N>
-__device__ __forceinline__ void mma_abt(float (&acc)[N / 8][4], uint32_t a,
-                                        int arow0, uint32_t b) {
-  const int lane = threadIdx.x & 31;
-#pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
-    uint32_t fa[4];
-    ldsm_x4(fa, a + off<D>(arow0 + (lane & 15), 2 * kk + (lane >> 4)));
-#pragma unroll
-    for (int nb = 0; nb < N / 16; ++nb) {
-      uint32_t fb[4];
-      ldsm_x4(fb, b + off<D>(nb * 16 + (lane & 7) + ((lane >> 4) << 3),
-                             2 * kk + ((lane >> 3) & 1)));
-      mma(acc[2 * nb], fa, fb[0], fb[1]);
-      mma(acc[2 * nb + 1], fa, fb[2], fb[3]);
-    }
-  }
-}
-
-// acc[D / 8][4] += P [16 x K] (registers, as m16n8 accumulators p[K / 8][4]
-// rounded to bf16) x V [K rows of tile b, D]: B read as [k][n] (ldmatrix
-// .trans)
-template <int D, int K>
-__device__ __forceinline__ void mma_pv(float (&acc)[D / 8][4],
-                                       const float (&p)[K / 8][4], uint32_t b) {
-  const int lane = threadIdx.x & 31;
-#pragma unroll
-  for (int kq = 0; kq < K / 16; ++kq) {
-    const uint32_t fa[4] = {pack(p[2 * kq][0], p[2 * kq][1]),
-                            pack(p[2 * kq][2], p[2 * kq][3]),
-                            pack(p[2 * kq + 1][0], p[2 * kq + 1][1]),
-                            pack(p[2 * kq + 1][2], p[2 * kq + 1][3])};
-#pragma unroll
-    for (int nd = 0; nd < D / 16; ++nd) {
-      uint32_t fb[4];
-      ldsm_x4_t(fb, b + off<D>(kq * 16 + (lane & 7) + (((lane >> 3) & 1) << 3),
-                               2 * nd + (lane >> 4)));
-      mma(acc[2 * nd], fa, fb[0], fb[1]);
-      mma(acc[2 * nd + 1], fa, fb[2], fb[3]);
-    }
-  }
-}
-
-template <int N>
-__device__ __forceinline__ void zero(float (&acc)[N][4]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[i][e] = 0.f;
-}
-
-// acc[D / 8][4] (rows r0 + g, r0 + g + 8 of a warp, dims 8 nt + 2 t4 + e)
-// times scale, stored as bf16 pairs for rows below lim
+// acc [64 x D] += P [64 x 64] (A fragments from registers) x the 64-row
+// tile b (MN-major: the contraction over its rows)
 template <int D>
-__device__ __forceinline__ void store_rows(B* dst, const float (&acc)[D / 8][4],
+__device__ __forceinline__ void accumulate(float (&acc)[D / 2],
+                                           const uint32_t (&pa)[4][4],
+                                           uint32_t b) {
+#pragma unroll
+  for (int kj = 0; kj < 4; ++kj) wgmma_rs(acc, pa[kj], mndesc(b, TILE, kj));
+}
+// the accumulator of rows r0 + g (+ 8) of a warp, dims 8 jb + 2 t4 + e,
+// times scale, as bf16 pairs for rows below lim
+template <int D>
+__device__ __forceinline__ void store_rows(B* dst, const float (&acc)[D / 2],
                                            int r0, int lim, float scale) {
   const int lane = threadIdx.x & 31, g = lane >> 2, t4 = lane & 3;
 #pragma unroll
@@ -223,180 +293,333 @@ __device__ __forceinline__ void store_rows(B* dst, const float (&acc)[D / 8][4],
     const int r = r0 + g + 8 * h;
     if (r >= lim) continue;
 #pragma unroll
-    for (int nt = 0; nt < D / 8; ++nt)
-      *reinterpret_cast<__nv_bfloat162*>(dst + (long long)r * D + nt * 8 + 2 * t4) =
-          __floats2bfloat162_rn(acc[nt][2 * h] * scale, acc[nt][2 * h + 1] * scale);
+    for (int jb = 0; jb < D / 8; ++jb)
+      *reinterpret_cast<__nv_bfloat162*>(dst + (long long)r * D + jb * 8 + 2 * t4) =
+          __floats2bfloat162_rn(acc[4 * jb + 2 * h] * scale,
+                                acc[4 * jb + 2 * h + 1] * scale);
   }
 }
 
-// dK, dV of 64 keys: the warp's 16 keys against every query tile of BQ
-// from the diagonal on
+// Persistent blocks: the items (head, block of OWN own rows) sorted from
+// the most tiles to the fewest (item i: head i % BH, block i / BH), block
+// b takes items b, 2 G - 1 - b, 2 G + b, ... (G blocks; the order turns
+// each round so that long and short items pair up). Its own tiles sit in
+// own_bufs(D) buffers, so that the next item's load while this one runs
+// where two fit; the ring runs on across items.
+__host__ __device__ constexpr int own_bufs(int d) { return d == 64 ? 2 : 1; }
+__device__ __forceinline__ int item_of(int round) {
+  return round * gridDim.x +
+         (round & 1 ? gridDim.x - 1 - blockIdx.x : blockIdx.x);
+}
+// dkdv: the own buffers of K, V, the ring of Q, dO, lse and delta of
+// each stage; dq: the own buffers of Q, dO, the ring of K, V; then the
+// barriers; + 1024 to align
+__host__ __device__ constexpr int smem_bytes(int d, bool dkdv) {
+  return 1024 + own_bufs(d) * 2 * tile_bytes(OWN, d) +
+         STAGES * 2 * tile_bytes(TILE, d) +
+         (dkdv ? STAGES * 2 * TILE * 4 : 0) + 8 * (2 * STAGES + 2 * own_bufs(d));
+}
+
+// dK, dV of OWN keys (64 a consumer warpgroup) against every query tile
+// from the diagonal on. S^T = K Q^T and dP^T = V dO^T put keys on the
+// accumulator's rows, so P^T and dS^T, rounded to bf16, are the A
+// fragments of dV += P^T dO and dK += dS^T Q as they lie. Item i: key
+// block i / BH from the first keys.
 template <int D>
-__global__ void __launch_bounds__(THREADS) dkdv_tc_kernel(const BwdArgs a) {
-  constexpr int BQ = kv_rows(D);
-  constexpr int KT = tile_bytes(ROWS, D), QT = tile_bytes(BQ, D);
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  const uint32_t k_s = smem_u32(smem_raw), v_s = k_s + KT;
-  const uint32_t q_s = v_s + KT;             // stage st: Q at q_s + 2 st QT, dO after it
-  float* lse_s = reinterpret_cast<float*>(smem_raw + 2 * KT + 4 * QT);  // [2][BQ]
-  float* del_s = lse_s + 2 * BQ;                                         // [2][BQ]
+__global__ void __launch_bounds__(THREADS, 1)
+dkdv_wg_kernel(const __grid_constant__ Maps maps, const BwdArgs a) {
+  constexpr int KB = tile_bytes(OWN, D), QB = tile_bytes(TILE, D);
+  constexpr int OB = own_bufs(D);
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t own_s = (raw + 1023) & ~1023u;  // buffer b: K at + 2 b KB, V after
+  const uint32_t ring = own_s + OB * 2 * KB;  // stage st: Q at ring + 2 st QB, dO after it
+  const uint32_t stat_s = ring + STAGES * 2 * QB;  // [STAGES][lse * log2 e, delta][TILE]
+  const uint32_t bars = stat_s + STAGES * 2 * TILE * 4;
+  float* stat = reinterpret_cast<float*>(smem_raw + (stat_s - raw));
+  auto full = [&](int st) { return bars + 8 * st; };
+  auto empty = [&](int st) { return bars + 8 * (STAGES + st); };
+  auto own_full = [&](int b) { return bars + 8 * (2 * STAGES + b); };
+  auto own_empty = [&](int b) { return bars + 8 * (2 * STAGES + OB + b); };
 
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int g = lane >> 2, t4 = lane & 3;
-  const int S = a.S;
-  const long long base = (long long)blockIdx.y * S;
-  const B* q = static_cast<const B*>(a.q) + base * D;
-  const B* k = static_cast<const B*>(a.k) + base * D;
-  const B* v = static_cast<const B*>(a.v) + base * D;
-  const B* dout = static_cast<const B*>(a.dout) + base * D;
-  const float* lse = a.lse + base;
-  const float* delta = a.delta + base;
-  const int k0 = blockIdx.x * ROWS;
-  const int i_first = k0 / BQ, i_end = (S + BQ - 1) / BQ;
-  const float sl2 = a.scale * LOG2E;
-
-  auto prefetch = [&](int i, int st) {
-    const int r0 = i * BQ;
-    load_tile<D, BQ>(q_s + 2 * st * QT, q, r0, S);
-    load_tile<D, BQ>(q_s + (2 * st + 1) * QT, dout, r0, S);
-    for (int t = threadIdx.x; t < BQ; t += THREADS) {
-      const bool ok = r0 + t < S;
-      lse_s[st * BQ + t] = ok ? lse[r0 + t] * LOG2E : 0.f;
-      del_s[st * BQ + t] = ok ? delta[r0 + t] : 0.f;
+  const int S = a.S, tiles = (S + TILE - 1) / TILE;
+  const int items = a.BH * ((S + OWN - 1) / OWN);
+  const int wg = threadIdx.x / 128;
+  if (threadIdx.x == 0) {
+    for (int st = 0; st < STAGES; ++st) {
+      bar_init(full(st), 32);
+      bar_init(empty(st), CWG * 128);
     }
-  };
-  load_tile<D, ROWS>(k_s, k, k0, S);
-  load_tile<D, ROWS>(v_s, v, k0, S);
-  prefetch(i_first, 0);
-  cp_async_commit();
+    for (int b = 0; b < OB; ++b) {
+      bar_init(own_full(b), 1);
+      bar_init(own_empty(b), CWG * 128);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
 
-  float dk[D / 8][4], dv[D / 8][4];
-  zero(dk);
-  zero(dv);
-  const int kw = warp * 16;  // the warp's keys in the tile
-  for (int i = i_first; i < i_end; ++i) {
-    const int st = (i - i_first) & 1;
-    if (i + 1 < i_end) prefetch(i + 1, st ^ 1);
-    cp_async_commit();
-    cp_async_wait<1>();
-    __syncthreads();
-    const int q0 = i * BQ;
-    const uint32_t qt = q_s + 2 * st * QT, dot = qt + QT;
-    // the warp's keys all lie past this tile's queries: nothing to add
-    if (k0 + kw <= q0 + BQ - 1) {
-      float s[BQ / 8][4], dp[BQ / 8][4];
-      zero(s);
-      zero(dp);
-      mma_abt<D, BQ>(s, k_s, kw, qt);    // S^T = K Q^T
-      mma_abt<D, BQ>(dp, v_s, kw, dot);  // dP^T = V dO^T
-      // s[nt][e]: key k0 + kw + g + 8 (e >> 1), query q0 + 8 nt + 2 t4 + (e & 1)
-#pragma unroll
-      for (int nt = 0; nt < BQ / 8; ++nt)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int kp = k0 + kw + g + 8 * (e >> 1);
-          const int qc = 8 * nt + 2 * t4 + (e & 1);
-          const bool ok = kp <= q0 + qc && q0 + qc < S;
-          const float p = ok ? ex2(fmaf(s[nt][e], sl2, -lse_s[st * BQ + qc])) : 0.f;
-          s[nt][e] = p;
-          dp[nt][e] = p * (dp[nt][e] - del_s[st * BQ + qc]);
+  if (wg == CWG) {  // producer: one warp loads, the other three leave
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(PRODUCER_REGS));
+    if (threadIdx.x % 128 >= 32) return;
+    const int lane = threadIdx.x & 31;
+    int c = 0, j = 0;  // ring tiles and items so far
+    for (int round = 0; round * (int)gridDim.x < items; ++round) {
+      const int it = item_of(round);
+      if (it >= items) continue;
+      const int bh = it % a.BH, k0 = it / a.BH * OWN;
+      const int i_first = k0 / TILE, n = tiles - i_first;
+      const long long rb = (long long)bh * S;
+      // K, V into a buffer the consumers are done with: at once while a
+      // free one is left, else after the ring's first tiles of the item
+      auto load_own = [&]() {
+        const int b = j % OB;
+        bar_wait(own_empty(b), ((j / OB) & 1) ^ 1);
+        if (lane == 0) {
+          const uint32_t ks = own_s + 2 * b * KB;
+          bar_expect(own_full(b), 2 * KB);
+          tma_tile<D, OWN>(ks, &maps.k, own_full(b), k0, bh);
+          tma_tile<D, OWN>(ks + KB, &maps.v, own_full(b), k0, bh);
         }
-      mma_pv<D, BQ>(dv, s, dot);   // dV += P^T dO
-      mma_pv<D, BQ>(dk, dp, qt);   // dK += dS^T Q
-    }
-    __syncthreads();
-  }
-  cp_async_wait<0>();
-  store_rows<D>(static_cast<B*>(a.dk) + base * D, dk, k0 + kw, S, a.scale);
-  store_rows<D>(static_cast<B*>(a.dv) + base * D, dv, k0 + kw, S, 1.f);
-}
-
-// dQ of 64 queries: the warp's 16 queries against every key tile up to
-// the diagonal
-template <int D>
-__global__ void __launch_bounds__(THREADS) dq_tc_kernel(const BwdArgs a) {
-  constexpr int BK = ROWS;
-  constexpr int QT = tile_bytes(ROWS, D), KT = tile_bytes(BK, D);
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  const uint32_t q_s = smem_u32(smem_raw), do_s = q_s + QT;
-  const uint32_t kv_s = do_s + QT;  // stage st: K at kv_s + 2 st KT, V after it
-
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int g = lane >> 2, t4 = lane & 3;
-  const int S = a.S;
-  const long long base = (long long)blockIdx.y * S;
-  const B* k = static_cast<const B*>(a.k) + base * D;
-  const B* v = static_cast<const B*>(a.v) + base * D;
-  // the longest query tiles first
-  const int q0 = (gridDim.x - 1 - blockIdx.x) * ROWS;
-  const int qw = warp * 16;
-  const int j_end = min((S + BK - 1) / BK, (q0 + ROWS + BK - 1) / BK);
-  const float sl2 = a.scale * LOG2E;
-
-  load_tile<D, ROWS>(q_s, static_cast<const B*>(a.q) + base * D, q0, S);
-  load_tile<D, ROWS>(do_s, static_cast<const B*>(a.dout) + base * D, q0, S);
-  load_tile<D, BK>(kv_s, k, 0, S);
-  load_tile<D, BK>(kv_s + KT, v, 0, S);
-  cp_async_commit();
-  // this thread's rows: q0 + qw + g (h = 0) and + 8 (h = 1)
-  float lse2[2], del[2];
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    const int r = q0 + qw + g + 8 * h;
-    lse2[h] = r < S ? a.lse[base + r] * LOG2E : 0.f;
-    del[h] = r < S ? a.delta[base + r] : 0.f;
-  }
-
-  float dq[D / 8][4];
-  zero(dq);
-  for (int j = 0; j < j_end; ++j) {
-    const int st = j & 1;
-    if (j + 1 < j_end) {
-      load_tile<D, BK>(kv_s + 2 * (st ^ 1) * KT, k, (j + 1) * BK, S);
-      load_tile<D, BK>(kv_s + (2 * (st ^ 1) + 1) * KT, v, (j + 1) * BK, S);
-    }
-    cp_async_commit();
-    cp_async_wait<1>();
-    __syncthreads();
-    const int t0 = j * BK;
-    const uint32_t kt = kv_s + 2 * st * KT, vt = kt + KT;
-    if (t0 <= q0 + qw + 15) {  // some key of the tile is visible to the warp
-      float s[BK / 8][4], dp[BK / 8][4];
-      zero(s);
-      zero(dp);
-      mma_abt<D, BK>(s, q_s, qw, kt);    // S = Q K^T
-      mma_abt<D, BK>(dp, do_s, qw, vt);  // dP = dO V^T
-      // s[nt][e]: query q0 + qw + g + 8 (e >> 1), key t0 + 8 nt + 2 t4 + (e & 1)
-#pragma unroll
-      for (int nt = 0; nt < BK / 8; ++nt)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int h = e >> 1;
-          const int qi = q0 + qw + g + 8 * h;
-          const int kp = t0 + 8 * nt + 2 * t4 + (e & 1);
-          const bool ok = kp <= qi && qi < S;
-          const float p = ok ? ex2(fmaf(s[nt][e], sl2, -lse2[h])) : 0.f;
-          dp[nt][e] = p * (dp[nt][e] - del[h]);
+      };
+      const int early = OB > 1 || j == 0 ? 0 : min(n, STAGES - 1);
+      for (int t = 0; t < n; ++t, ++c) {
+        if (t == early) load_own();
+        const int st = c % STAGES, q0 = (i_first + t) * TILE;
+        bar_wait(empty(st), ((c / STAGES) & 1) ^ 1);
+        float* ls = stat + st * 2 * TILE;
+        for (int r = lane; r < TILE; r += 32) {
+          const bool ok = q0 + r < S;
+          ls[r] = ok ? a.lse[rb + q0 + r] * LOG2E : 0.f;
+          ls[TILE + r] = ok ? a.delta[rb + q0 + r] : 0.f;
         }
-      mma_pv<D, BK>(dq, dp, kt);  // dQ += dS K
+        if (lane == 0) {
+          bar_expect(full(st), 2 * QB);
+          tma_tile<D, TILE>(ring + 2 * st * QB, &maps.q, full(st), q0, bh);
+          tma_tile<D, TILE>(ring + (2 * st + 1) * QB, &maps.g, full(st), q0, bh);
+        } else {
+          bar_arrive(full(st));
+        }
+      }
+      if (early == n) load_own();
+      ++j;
     }
-    __syncthreads();
+    return;
   }
-  cp_async_wait<0>();
-  store_rows<D>(static_cast<B*>(a.dq) + base * D, dq, q0 + qw, S, a.scale);
+
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(CONSUMER_REGS));
+  const int lane = threadIdx.x & 31, wq = (threadIdx.x / 32) % 4;
+  const int t4 = lane & 3;
+  const float sl2 = a.scale * LOG2E;
+  int c = 0, j = 0;
+  for (int round = 0; round * (int)gridDim.x < items; ++round) {
+    const int it = item_of(round);
+    if (it >= items) continue;
+    const int bh = it % a.BH, k0 = it / a.BH * OWN;
+    const int i_first = k0 / TILE, n = tiles - i_first;
+    const int kw0 = k0 + wg * 64;                 // the warpgroup's keys
+    const int key = kw0 + wq * 16 + (lane >> 2);  // this thread's: key, key + 8
+    const int b = j % OB;
+    const uint32_t ka = own_s + 2 * b * KB + wg * 64 * 128, va = ka + KB;
+    float dk[D / 2], dv[D / 2];
+    zero(dk);
+    zero(dv);
+    bar_wait(own_full(b), (j / OB) & 1);
+    for (int t = 0; t < n; ++t, ++c) {
+      const int st = c % STAGES, q0 = (i_first + t) * TILE;
+      bar_wait(full(st), (c / STAGES) & 1);
+      // the warpgroup's keys all lie past this tile's queries, or past S
+      if (kw0 <= q0 + TILE - 1 && kw0 < S) {
+        const uint32_t qs = ring + 2 * st * QB, gs = qs + QB;
+        float s[32], dp[32];
+        zero(s);
+        zero(dp);
+        wgmma_fence();
+        scores<D>(s, ka, OWN, qs, TILE);   // S^T = K Q^T
+        scores<D>(dp, va, OWN, gs, TILE);  // dP^T = V dO^T
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(s);
+        fence_regs(dp);
+        // s[4 jb + e]: key `key` + 8 ((e >> 1) & 1), query q0 + 8 jb + 2
+        // t4 + (e & 1); P^T and dS^T into A fragments (16 queries a k-step)
+        const float* ls = stat + st * 2 * TILE;
+        const bool edge = kw0 + 63 > q0 || q0 + TILE > S;
+        uint32_t pa[4][4], da[4][4];
+#pragma unroll
+        for (int jj = 0; jj < 32; jj += 2) {
+          const int qc = 8 * (jj / 4) + 2 * t4, kp = key + 8 * ((jj >> 1) & 1);
+          const float2 l2 = *reinterpret_cast<const float2*>(ls + qc);
+          const float2 dl = *reinterpret_cast<const float2*>(ls + TILE + qc);
+          float p0 = ex2(fmaf(s[jj], sl2, -l2.x));
+          float p1 = ex2(fmaf(s[jj + 1], sl2, -l2.y));
+          if (edge) {
+            if (!(kp <= q0 + qc && q0 + qc < S)) p0 = 0.f;
+            if (!(kp <= q0 + qc + 1 && q0 + qc + 1 < S)) p1 = 0.f;
+          }
+          pa[jj / 8][(jj % 8) / 2] = pack(p0, p1);
+          da[jj / 8][(jj % 8) / 2] =
+              pack(p0 * (dp[jj] - dl.x), p1 * (dp[jj + 1] - dl.y));
+        }
+        wgmma_fence();
+        accumulate<D>(dv, pa, gs);  // dV += P^T dO
+        accumulate<D>(dk, da, qs);  // dK += dS^T Q
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(dv);
+        fence_regs(dk);
+        fence_regs(pa);
+        fence_regs(da);
+      }
+      bar_arrive(empty(st));
+    }
+    bar_arrive(own_empty(b));  // every product that read K and V has waited
+    const long long base = (long long)bh * S * D;
+    store_rows<D>(static_cast<B*>(a.dk) + base, dk, kw0 + wq * 16, S, a.scale);
+    store_rows<D>(static_cast<B*>(a.dv) + base, dv, kw0 + wq * 16, S, 1.f);
+    ++j;
+  }
 }
 
+// dQ of OWN queries (64 a consumer warpgroup) against every key tile up
+// to the diagonal. S = Q K^T and dP = dO V^T put queries on the
+// accumulator's rows, so dS is the A fragment of dQ += dS K as it lies.
+// Item i: query block i / BH from the last queries.
 template <int D>
-int dkdv_smem() {
-  return 2 * tile_bytes(ROWS, D) + 4 * tile_bytes(kv_rows(D), D) +
-         4 * kv_rows(D) * 4;
-}
-template <int D>
-int dq_smem() {
-  return 2 * tile_bytes(ROWS, D) + 4 * tile_bytes(ROWS, D);
+__global__ void __launch_bounds__(THREADS, 1)
+dq_wg_kernel(const __grid_constant__ Maps maps, const BwdArgs a) {
+  constexpr int QB = tile_bytes(OWN, D), KB = tile_bytes(TILE, D);
+  constexpr int OB = own_bufs(D);
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  const uint32_t own_s = (smem_u32(smem_raw) + 1023) & ~1023u;  // buffer b: Q at + 2 b QB, dO after
+  const uint32_t ring = own_s + OB * 2 * QB;  // stage st: K at ring + 2 st KB, V after it
+  const uint32_t bars = ring + STAGES * 2 * KB;
+  auto full = [&](int st) { return bars + 8 * st; };
+  auto empty = [&](int st) { return bars + 8 * (STAGES + st); };
+  auto own_full = [&](int b) { return bars + 8 * (2 * STAGES + b); };
+  auto own_empty = [&](int b) { return bars + 8 * (2 * STAGES + OB + b); };
+
+  const int S = a.S, tiles = (S + TILE - 1) / TILE, blocks = (S + OWN - 1) / OWN;
+  const int items = a.BH * blocks;
+  const int wg = threadIdx.x / 128;
+  if (threadIdx.x == 0) {
+    for (int st = 0; st < STAGES; ++st) {
+      bar_init(full(st), 1);
+      bar_init(empty(st), CWG * 128);
+    }
+    for (int b = 0; b < OB; ++b) {
+      bar_init(own_full(b), 1);
+      bar_init(own_empty(b), CWG * 128);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (wg == CWG) {  // producer: one thread loads
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(PRODUCER_REGS));
+    if (threadIdx.x % 128 != 0) return;
+    int c = 0, j = 0;  // ring tiles and items so far
+    for (int round = 0; round * (int)gridDim.x < items; ++round) {
+      const int it = item_of(round);
+      if (it >= items) continue;
+      const int bh = it % a.BH, q0 = (blocks - 1 - it / a.BH) * OWN;
+      const int n = min(tiles, (q0 + OWN + TILE - 1) / TILE);
+      auto load_own = [&]() {  // Q, dO into a buffer the consumers are done with
+        const int b = j % OB;
+        const uint32_t qs = own_s + 2 * b * QB;
+        bar_wait(own_empty(b), ((j / OB) & 1) ^ 1);
+        bar_expect(own_full(b), 2 * QB);
+        tma_tile<D, OWN>(qs, &maps.q, own_full(b), q0, bh);
+        tma_tile<D, OWN>(qs + QB, &maps.g, own_full(b), q0, bh);
+      };
+      const int early = OB > 1 || j == 0 ? 0 : min(n, STAGES - 1);
+      for (int t = 0; t < n; ++t, ++c) {
+        if (t == early) load_own();
+        const int st = c % STAGES;
+        bar_wait(empty(st), ((c / STAGES) & 1) ^ 1);
+        bar_expect(full(st), 2 * KB);
+        tma_tile<D, TILE>(ring + 2 * st * KB, &maps.k, full(st), t * TILE, bh);
+        tma_tile<D, TILE>(ring + (2 * st + 1) * KB, &maps.v, full(st), t * TILE, bh);
+      }
+      if (early == n) load_own();
+      ++j;
+    }
+    return;
+  }
+
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(CONSUMER_REGS));
+  const int lane = threadIdx.x & 31, wq = (threadIdx.x / 32) % 4;
+  const int t4 = lane & 3;
+  const float sl2 = a.scale * LOG2E;
+  int c = 0, j = 0;
+  for (int round = 0; round * (int)gridDim.x < items; ++round) {
+    const int it = item_of(round);
+    if (it >= items) continue;
+    const int bh = it % a.BH, q0 = (blocks - 1 - it / a.BH) * OWN;
+    const int n = min(tiles, (q0 + OWN + TILE - 1) / TILE);
+    const int qw0 = q0 + wg * 64;                // the warpgroup's queries
+    const int qi = qw0 + wq * 16 + (lane >> 2);  // this thread's: qi, qi + 8
+    const long long rb = (long long)bh * S;
+    const int b = j % OB;
+    const uint32_t qa = own_s + 2 * b * QB + wg * 64 * 128, ga = qa + QB;
+    float lse2[2], del[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = qi + 8 * h;
+      lse2[h] = r < S ? a.lse[rb + r] * LOG2E : 0.f;
+      del[h] = r < S ? a.delta[rb + r] : 0.f;
+    }
+    float dq[D / 2];
+    zero(dq);
+    bar_wait(own_full(b), (j / OB) & 1);
+    for (int t = 0; t < n; ++t, ++c) {
+      const int st = c % STAGES, t0 = t * TILE;
+      bar_wait(full(st), (c / STAGES) & 1);
+      // some key of the tile is visible to the warpgroup
+      if (t0 <= qw0 + 63 && qw0 < S) {
+        const uint32_t ks = ring + 2 * st * KB, vs = ks + KB;
+        float s[32], dp[32];
+        zero(s);
+        zero(dp);
+        wgmma_fence();
+        scores<D>(s, qa, OWN, ks, TILE);   // S = Q K^T
+        scores<D>(dp, ga, OWN, vs, TILE);  // dP = dO V^T
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(s);
+        fence_regs(dp);
+        // s[4 jb + e]: query qi + 8 ((e >> 1) & 1), key t0 + 8 jb + 2 t4
+        // + (e & 1)
+        const bool edge = t0 + TILE - 1 > qw0 || t0 + TILE > S || qw0 + 64 > S;
+        uint32_t da[4][4];
+#pragma unroll
+        for (int jj = 0; jj < 32; jj += 2) {
+          const int h = (jj >> 1) & 1, r = qi + 8 * h;
+          const int kp = t0 + 8 * (jj / 4) + 2 * t4;
+          float p0 = ex2(fmaf(s[jj], sl2, -lse2[h]));
+          float p1 = ex2(fmaf(s[jj + 1], sl2, -lse2[h]));
+          if (edge) {
+            if (!(kp <= r && r < S)) p0 = 0.f;
+            if (!(kp + 1 <= r && r < S)) p1 = 0.f;
+          }
+          da[jj / 8][(jj % 8) / 2] =
+              pack(p0 * (dp[jj] - del[h]), p1 * (dp[jj + 1] - del[h]));
+        }
+        wgmma_fence();
+        accumulate<D>(dq, da, ks);  // dQ += dS K
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(dq);
+        fence_regs(da);
+      }
+      bar_arrive(empty(st));
+    }
+    bar_arrive(own_empty(b));  // every product that read Q and dO has waited
+    store_rows<D>(static_cast<B*>(a.dq) + rb * D, dq, qw0 + wq * 16, S, a.scale);
+    ++j;
+  }
 }
 
-}  // namespace tcb
+}  // namespace wgb
 
 // ---- fp32: CUDA cores ----------------------------------------------------
 namespace fpb {
@@ -566,22 +789,76 @@ cudaError_t allow_smem(F* kernel, int bytes, bool& done) {
   return e;
 }
 
+// cuTensorMapEncodeTiled from the driver, found through the runtime (the
+// library links no libcuda)
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                 void*, const cuuint64_t*, const cuuint64_t*,
+                                 const cuuint32_t*, const cuuint32_t*,
+                                 CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault,
+                                &found) == cudaSuccess &&
+        found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// [BH, S, D] bf16 as a 3-d map (D, S, BH), boxes of 64 dims x 64 rows in
+// the 128-byte swizzle; reads past S are zeros
+bool bf16_map(CUtensorMap* m, const void* base, int BH, int S, int D) {
+  const EncodeTiled enc = encode_tiled();
+  if (enc == nullptr) return false;
+  const cuuint64_t dims[3] = {(cuuint64_t)D, (cuuint64_t)S, (cuuint64_t)BH};
+  const cuuint64_t strides[2] = {(cuuint64_t)D * 2, (cuuint64_t)S * D * 2};
+  const cuuint32_t box[3] = {64, (cuuint32_t)wgb::TILE, 1};
+  const cuuint32_t step[3] = {1, 1, 1};
+  return enc(m, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base),
+             dims, strides, box, step, CU_TENSOR_MAP_INTERLEAVE_NONE,
+             CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
 template <int D>
 cudaError_t launch_d(const BwdArgs& a, int dtype, cudaStream_t s) {
   const long long rows = (long long)a.BH * a.S;
-  const dim3 prep((unsigned)((rows + 7) / 8));
+  // rows a prep block: 256 threads, D / V of them a row (V = 16 bytes)
+  const int per = 256 / (D / (dtype == 1 ? 8 : 4) < 32 ? D / (dtype == 1 ? 8 : 4) : 32);
+  const dim3 prep((unsigned)((rows + per - 1) / per));
   if (dtype == 1) {
     using B = __nv_bfloat16;
+    wgb::Maps maps;
+    if (!bf16_map(&maps.q, a.q, a.BH, a.S, D) ||
+        !bf16_map(&maps.k, a.k, a.BH, a.S, D) ||
+        !bf16_map(&maps.v, a.v, a.BH, a.S, D) ||
+        !bf16_map(&maps.g, a.dout, a.BH, a.S, D))
+      return cudaErrorNotSupported;
     bwd_prep_kernel<B, D><<<prep, 256, 0, s>>>(a);
     static bool sized[2] = {false, false};
-    const int b1 = tcb::dkdv_smem<D>(), b2 = tcb::dq_smem<D>();
-    cudaError_t e = allow_smem(tcb::dkdv_tc_kernel<D>, b1, sized[0]);
+    const int b1 = wgb::smem_bytes(D, true), b2 = wgb::smem_bytes(D, false);
+    cudaError_t e = allow_smem(wgb::dkdv_wg_kernel<D>, b1, sized[0]);
     if (e != cudaSuccess) return e;
-    e = allow_smem(tcb::dq_tc_kernel<D>, b2, sized[1]);
+    e = allow_smem(wgb::dq_wg_kernel<D>, b2, sized[1]);
     if (e != cudaSuccess) return e;
-    const dim3 grid((a.S + tcb::ROWS - 1) / tcb::ROWS, a.BH);
-    tcb::dkdv_tc_kernel<D><<<grid, tcb::THREADS, b1, s>>>(a);
-    tcb::dq_tc_kernel<D><<<grid, tcb::THREADS, b2, s>>>(a);
+    // persistent: one block an SM, at most one an item
+    static int sms = 0;
+    if (sms == 0) {
+      int dev = 0;
+      e = cudaGetDevice(&dev);
+      if (e == cudaSuccess)
+        e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+      if (e != cudaSuccess) return e;
+    }
+    const long long items = (long long)a.BH * ((a.S + wgb::OWN - 1) / wgb::OWN);
+    const dim3 grid((unsigned)(items < sms ? items : sms));
+    wgb::dkdv_wg_kernel<D><<<grid, wgb::THREADS, b1, s>>>(maps, a);
+    wgb::dq_wg_kernel<D><<<grid, wgb::THREADS, b2, s>>>(maps, a);
   } else {
     bwd_prep_kernel<float, D><<<prep, 256, 0, s>>>(a);
     const dim3 grid((a.S + fpb::RB - 1) / fpb::RB, a.BH);

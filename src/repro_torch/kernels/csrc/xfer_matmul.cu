@@ -75,6 +75,11 @@
 //   INT8 projection): stream_mma's split-K streaming and in-launch merge
 //   over an int8 cp.async ring, each weight widened exactly to bf16 in
 //   registers (byte permutes and one subtract) as the mma A operand;
+// - stream_q8_ex (the expert axis at R <= 16: quant_matmul_experts at
+//   decode): one block per (expert, 64 columns) over the whole
+//   contraction, each warp streaming its k16 steps of w through a
+//   cp.async ring of its own, only the live rows of x staged, x's terms
+//   packed into one B fragment where they fit (see the kernel);
 // - stream_cols_q8 (R <= 16, K-major w_q: the tied unembedding's q.T):
 //   q's rows read straight into registers as the A operand;
 // - wg_q8 (R > 16, row-major w_q with rows on 16 bytes: every INT8
@@ -827,6 +832,11 @@ __device__ __forceinline__ float q8_float(uint32_t u, int e) {
 __device__ __forceinline__ uint32_t bf16x2_hi(float lo, float hi) {
   return __byte_perm(__float_as_uint(lo), __float_as_uint(hi), 0x7632);
 }
+// two floats -> one bf16x2 (lo in the low half), each rounded to nearest
+__device__ __forceinline__ uint32_t bf16x2_rn(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
 
 // Row-major int8 w [N, M] with rows on 16 bytes: stream_mma_kernel's
 // split-K streaming, the 64-column tile of w^T the A operand, staged as
@@ -834,9 +844,8 @@ __device__ __forceinline__ uint32_t bf16x2_hi(float lo, float hi) {
 // registers. The output columns of a warp's four m16 tiles are permuted so
 // that one 8-byte shared load per w row gives a thread every element it
 // needs: fragment row g of tile mi is column 8 g + 2 mi, row g + 8 column
-// 8 g + 2 mi + 1. The scale multiplies each output once in the merge. EX:
-// the expert axis of quant_matmul_experts (Group; the scale is shared by
-// the experts) and its live rows, as stream_mma_kernel's.
+// 8 g + 2 mi + 1. The scale multiplies each output once in the merge.
+// One product: the expert axis takes stream_q8_ex_kernel below.
 constexpr int QLD = MT + 16;  // bytes per staged row of int8 w
 
 template <int RB, int TERMS>
@@ -844,31 +853,16 @@ __host__ __device__ constexpr int q8_smem(int kc) {
   return TERMS * RB * mma_x_ld(kc) * 2 + MSTAGES * MBK * QLD;
 }
 
-template <typename T, int RB, int TERMS, bool EX>
+template <typename T, int RB, int TERMS>
 __global__ void __launch_bounds__(THREADS)
 stream_mma_q8_kernel(const T* __restrict__ x, const int8_t* __restrict__ w,
                      const float* __restrict__ scale, T* __restrict__ out,
                      float* __restrict__ ws, int* __restrict__ counters,
-                     int R, int N, int M, long long ldw, int kc, int splits,
-                     Group grp) {
+                     int R, int N, int M, long long ldw, int kc, int splits) {
   constexpr int NI = RB / 8;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int tile = blockIdx.x, split = blockIdx.y;
-  int RL = R;  // rows of x staged, the rest zero
-  if constexpr (EX) {
-    const int e = blockIdx.z;
-    x += e * grp.sx;
-    w += e * grp.sw;
-    out += e * grp.so;
-    ws += e * grp.sws;
-    counters += e * grp.scnt;
-    RL = live_rows(grp, e, R);
-    if (RL == 0) {  // no weight read
-      if (split == 0) zero_tile(out, R, M, 0, R, tile * MT, (tile + 1) * MT);
-      return;
-    }
-  }
   const int c0 = tile * MT;
   const int k0 = split * kc;
   const int klen = min(N, k0 + kc) - k0;
@@ -894,7 +888,7 @@ stream_mma_q8_kernel(const T* __restrict__ x, const int8_t* __restrict__ w,
     if (s < KT) load_stage(s, s);
     cp_async_commit();
   }
-  stage_terms<T, RB, TERMS>(xs, x, RL, N, k0, klen, xld);
+  stage_terms<T, RB, TERMS>(xs, x, R, N, k0, klen, xld);
 
   float acc[4][NI][4];
 #pragma unroll
@@ -964,6 +958,210 @@ stream_mma_q8_kernel(const T* __restrict__ x, const int8_t* __restrict__ w,
     }
   finish_tile<T, RB, MT>(red, out, ws, counters, R, M, tile, split, splits,
                          scale);
+}
+
+// ---- quant_matmul_experts at decode: one block per (expert, 64 columns) --
+//
+// x [E, R, N] (R <= 16) @ int8 w [E, N, M] (row-major, rows on 16 bytes).
+// Block (tile, 0, e) computes expert e's output columns [64 tile, +64)
+// over the whole contraction: no split-K, so no workspace, counters or
+// second pass. A block of an expert with no live row returns at once,
+// storing its tile as +0 and reading no weight.
+//
+// - w: warp w takes the k16 steps w, w + 8, ... through a ring of its own
+//   (EX_STAGES stages of 16 rows x 64 bytes, rows padded to 80 bytes, 2
+//   cp.async of 16 bytes a lane a step), so no block barrier stands in
+//   the loop; 3 blocks an SM keep 120 KB of weight in flight. A thread's
+//   fragment rows are 4 t4 .. 4 t4 + 3 of the step (the contraction
+//   permuted, x's too), 8 bytes of each at columns 8 g (stream_mma_q8's
+//   permuted output columns), widened exactly to bf16 in registers.
+// - x: only the expert's live rows are staged, as T (fp32 or bf16), rows
+//   of N rounded up to 16 plus 8 elements; one 16-byte (fp32) or 8-byte
+//   (bf16) load gives a thread its four values of a step.
+// - Terms share the B fragment: output column n of the mma (of the NI n8
+//   tiles' 8 n NI) is row n % R of term n / R. A thread splits its row's
+//   values into that term at the fragment load (hi = bf16(v), then v -
+//   hi, then the rest), so R x TERMS <= 8 (one row with fp32 x, or two)
+//   costs one mma.sync per k16 step and m16 tile, not three. The terms
+//   are summed at the end, hi + mid + lo, each over the warps in order:
+//   ref.quant_matmul_experts_split_ref's order.
+// - The warps' partial sums meet in shared memory (over the ring), are
+//   summed in a fixed order and scaled once: bit-stable.
+constexpr int EX_TILE = 64;    // output columns per block (as MT)
+constexpr int EX_STAGES = 6;   // k16 steps of a warp's ring
+constexpr int EX_STAGE = 16 * QLD;  // bytes of one step of w
+
+// n8 tiles of the B fragment for R rows of TERMS terms: 1, 2, 3 or 6
+__host__ __device__ constexpr int ex_ni(int r, int terms) {
+  return r * terms <= 8 ? 1 : r * terms <= 16 ? 2 : r * terms <= 24 ? 3 : 6;
+}
+// elements of one staged x row
+__host__ __device__ constexpr int ex_x_ld(int n) { return (n + 15) / 16 * 16 + 8; }
+// the rings and the x stage, or over them the warps' partial sums
+template <typename T>
+__host__ __device__ constexpr size_t ex_smem(int r, int n, int terms) {
+  const size_t stages = (size_t)WARPS * EX_STAGES * EX_STAGE +
+                        (size_t)r * ex_x_ld(n) * sizeof(T);
+  const size_t red = (size_t)WARPS * r * terms * EX_TILE * sizeof(float);
+  return stages > red ? stages : red;
+}
+
+template <typename T, int NI>
+__global__ void __launch_bounds__(THREADS, NI == 1 ? 3 : NI <= 3 ? 2 : 1)
+stream_q8_ex_kernel(const T* __restrict__ x, const int8_t* __restrict__ w,
+                    const float* __restrict__ scale, T* __restrict__ out,
+                    int R, int N, int M, long long ldw, Group grp) {
+  constexpr int TERMS = sizeof(T) == 4 ? 3 : 1;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane / 4, t4 = lane % 4;
+  const int e = blockIdx.z, c0 = blockIdx.x * EX_TILE;
+  out += e * grp.so;
+  const int RL = live_rows(grp, e, R);
+  if (RL == 0) {  // no weight read
+    zero_tile(out, R, M, 0, R, c0, c0 + EX_TILE);
+    return;
+  }
+  x += e * grp.sx;
+  w += e * grp.sw;
+
+  // the warp's ring; lane copies 16-byte chunks lane and lane + 32 of a
+  // step: rows lane / 4 and + 8, columns c0 + 16 (lane % 4) (a chunk
+  // lies wholly in or past M: M is a multiple of 16)
+  int8_t* ring = reinterpret_cast<int8_t*>(smem_raw) + warp * EX_STAGES * EX_STAGE;
+  const int steps = (N + 15) / 16;
+  const int mine = warp < steps ? (steps - warp + WARPS - 1) / WARPS : 0;
+  const int crow = lane / 4, ccol = 16 * (lane % 4);
+  const bool col_ok = c0 + ccol < M;
+  const int8_t* src = w + (long long)(16 * warp + crow) * ldw + c0 + ccol;
+  const long long step_bytes = 16LL * WARPS * ldw;
+  auto issue = [&](int i) {  // step i of the warp into its stage
+    const int row = 16 * (warp + i * WARPS) + crow;
+    int8_t* d = ring + (i % EX_STAGES) * EX_STAGE + crow * QLD + ccol;
+    const int8_t* p = src + i * step_bytes;
+    cp_async<16>(smem_u32(d), col_ok && row < N ? p : w,
+                 col_ok && row < N ? 16 : 0);
+    cp_async<16>(smem_u32(d + 8 * QLD), col_ok && row + 8 < N ? p + 8 * ldw : w,
+                 col_ok && row + 8 < N ? 16 : 0);
+  };
+#pragma unroll
+  for (int i = 0; i < EX_STAGES - 1; ++i) {
+    if (i < mine) issue(i);
+    cp_async_commit();
+  }
+
+  // the live rows of x as T, zero up to the k16 steps' end
+  const int xld = ex_x_ld(N);
+  T* xs = reinterpret_cast<T*>(smem_raw + WARPS * EX_STAGES * EX_STAGE);  // [R][xld]
+  for (int i = tid; i < RL * xld; i += THREADS) {
+    const int r = i / xld, k = i % xld;
+    store(xs + i, k < N ? to_f32(x[(long long)r * N + k]) : 0.f);
+  }
+  __syncthreads();
+
+  // B fragment column n = ni * 8 + g: row n % R of term n / R (none, -1,
+  // past R x TERMS or the live rows); xoff its first element in xs
+  int xoff[NI], term[NI];
+#pragma unroll
+  for (int ni = 0; ni < NI; ++ni) {
+    const int n = ni * 8 + g, r = n % R;
+    term[ni] = n / R;
+    xoff[ni] = n < R * TERMS && r < RL ? r * xld + 4 * t4 : -1;
+  }
+
+  float acc[4][NI][4];
+#pragma unroll
+  for (int mi = 0; mi < 4; ++mi)
+#pragma unroll
+    for (int ni = 0; ni < NI; ++ni)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) acc[mi][ni][c] = 0.f;
+
+  for (int i = 0; i < mine; ++i) {
+    cp_async_wait<EX_STAGES - 2>();
+    __syncwarp();  // step i landed for every lane; step i - 1's stage is free
+    if (i + EX_STAGES - 1 < mine) issue(i + EX_STAGES - 1);
+    cp_async_commit();
+    // rows 4 t4 .. 4 t4 + 3 of the step, bytes 8 g .. 8 g + 7 of each,
+    // biased to unsigned
+    const int8_t* d = ring + (i % EX_STAGES) * EX_STAGE + 4 * t4 * QLD + 8 * g;
+    uint2 wr[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      wr[j] = *reinterpret_cast<const uint2*>(d + j * QLD);
+      wr[j].x ^= 0x80808080u;
+      wr[j].y ^= 0x80808080u;
+    }
+    // fragment k 2 t4 (+1) is row 4 t4 (+1), k 2 t4 + 8 (+9) row 4 t4 + 2 (+3)
+    uint32_t a[4][4];
+#pragma unroll
+    for (int mi = 0; mi < 4; ++mi) {
+      const int b = 2 * (mi % 2);
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const uint32_t u0 = mi < 2 ? wr[2 * h].x : wr[2 * h].y;
+        const uint32_t u1 = mi < 2 ? wr[2 * h + 1].x : wr[2 * h + 1].y;
+        a[mi][2 * h] = bf16x2_hi(q8_float(u0, b), q8_float(u1, b));
+        a[mi][2 * h + 1] = bf16x2_hi(q8_float(u0, b + 1), q8_float(u1, b + 1));
+      }
+    }
+    const int k = 16 * (warp + i * WARPS);
+#pragma unroll
+    for (int ni = 0; ni < NI; ++ni) {
+      uint32_t b0 = 0u, b1 = 0u;
+      if (xoff[ni] >= 0) {
+        const T* xr = xs + xoff[ni] + k;
+        if constexpr (TERMS == 1) {
+          const uint2 u = *reinterpret_cast<const uint2*>(xr);
+          b0 = u.x;
+          b1 = u.y;
+        } else {
+          const float4 f = *reinterpret_cast<const float4*>(xr);
+          float v[4] = {f.x, f.y, f.z, f.w};
+#pragma unroll
+          for (int c = 0; c < 4; ++c) {  // v - hi, then - mid
+            if (term[ni] >= 1) v[c] -= __bfloat162float(__float2bfloat16(v[c]));
+            if (term[ni] >= 2) v[c] -= __bfloat162float(__float2bfloat16(v[c]));
+          }
+          b0 = bf16x2_rn(v[0], v[1]);
+          b1 = bf16x2_rn(v[2], v[3]);
+        }
+      }
+#pragma unroll
+      for (int mi = 0; mi < 4; ++mi) mma_bf16(acc[mi][ni], a[mi], b0, b1);
+    }
+  }
+  cp_async_wait<0>();
+  __syncthreads();  // the rings and the x stage are free
+
+  // acc[mi][ni]: columns 8 g + 2 mi (c 0, 1) and 8 g + 2 mi + 1 (c 2,
+  // 3), B columns ni * 8 + 2 t4 (+ 1)
+  const int RT = R * TERMS;
+  float* red = reinterpret_cast<float*>(smem_raw);  // [WARPS][RT][EX_TILE]
+#pragma unroll
+  for (int mi = 0; mi < 4; ++mi)
+#pragma unroll
+    for (int ni = 0; ni < NI; ++ni)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const int n = ni * 8 + 2 * t4 + (c & 1), m = 8 * g + 2 * mi + (c >> 1);
+        if (n < RT) red[(warp * RT + n) * EX_TILE + m] = acc[mi][ni][c];
+      }
+  __syncthreads();
+  for (int o = tid; o < R * EX_TILE; o += THREADS) {
+    const int r = o / EX_TILE, m = o % EX_TILE, gc = c0 + m;
+    if (gc >= M) continue;
+    float s = 0.f;
+#pragma unroll
+    for (int t = 0; t < TERMS; ++t) {
+      float ts = 0.f;
+#pragma unroll
+      for (int wp = 0; wp < WARPS; ++wp)
+        ts += red[(wp * RT + t * R + r) * EX_TILE + m];
+      s += ts;
+    }
+    store(out + (long long)r * M + gc, r < RL ? s * scale[gc] : 0.f);
+  }
 }
 
 // K-major int8 w (w[n, m] at w + n + m * swm: the tied unembedding's
@@ -1971,45 +2169,74 @@ cudaError_t launch_q8_wg(const void* x, const void* w, const float* scale,
   return cudaSuccess;
 }
 
-template <typename T, int RB, int TERMS, bool EX>
+template <typename T, int RB, int TERMS>
 cudaError_t launch_q8_mma(const void* x, const void* w, const float* scale,
                           void* out, int R, int N, int M, long long ldw,
                           int kc, int splits, void* ws, void* counters,
-                          cudaStream_t stream, const Group& g, int E) {
+                          cudaStream_t stream) {
   if (kc <= 0 || splits <= 0 || (long long)kc * (splits - 1) >= N ||
       (long long)kc * splits < N || ldw % 16 != 0 ||
-      reinterpret_cast<uintptr_t>(w) % 16 != 0 || g.sw % 16 != 0 ||
+      reinterpret_cast<uintptr_t>(w) % 16 != 0 ||
       (splits > 1 && (ws == nullptr || counters == nullptr)))
     return cudaErrorInvalidValue;
   const size_t bytes = stream::q8_smem<RB, TERMS>(kc);
   if (bytes > 227 * 1024) return cudaErrorInvalidValue;
   static size_t allowed = 48 * 1024;
   const cudaError_t e = allow_smem(
-      stream::stream_mma_q8_kernel<T, RB, TERMS, EX>, bytes, allowed);
+      stream::stream_mma_q8_kernel<T, RB, TERMS>, bytes, allowed);
   if (e != cudaSuccess) return e;
-  const dim3 grid((M + stream::MT - 1) / stream::MT, splits, E);
-  stream::stream_mma_q8_kernel<T, RB, TERMS, EX>
+  const dim3 grid((M + stream::MT - 1) / stream::MT, splits);
+  stream::stream_mma_q8_kernel<T, RB, TERMS>
       <<<grid, stream::THREADS, bytes, stream>>>(
           static_cast<const T*>(x), static_cast<const int8_t*>(w), scale,
           static_cast<T*>(out), static_cast<float*>(ws),
-          static_cast<int*>(counters), R, N, M, ldw, kc, splits, g);
+          static_cast<int*>(counters), R, N, M, ldw, kc, splits);
   return cudaSuccess;
 }
 
-// the instance with the expert axis where there is one (a decode step's
-// single products keep the one without its prologue)
-template <typename T, int RB, int TERMS>
-cudaError_t launch_q8_mma_ex(const void* x, const void* w, const float* scale,
-                             void* out, int R, int N, int M, long long ldw,
-                             int kc, int splits, void* ws, void* counters,
-                             cudaStream_t s, const Group& g, int E) {
-  return E > 1 || g.counts != nullptr
-             ? launch_q8_mma<T, RB, TERMS, true>(x, w, scale, out, R, N, M,
-                                                 ldw, kc, splits, ws,
-                                                 counters, s, g, E)
-             : launch_q8_mma<T, RB, TERMS, false>(x, w, scale, out, R, N, M,
-                                                  ldw, kc, splits, ws,
-                                                  counters, s, g, E);
+// the expert axis at decode: one block per (64 columns, expert); every
+// expert's w on 16 bytes
+template <typename T, int NI>
+cudaError_t launch_q8_ex_ni(const void* x, const void* w, const float* scale,
+                            void* out, int R, int N, int M, long long ldw,
+                            cudaStream_t stream, const Group& g, int E) {
+  constexpr int TERMS = sizeof(T) == 4 ? 3 : 1;
+  const size_t bytes = stream::ex_smem<T>(R, N, TERMS);
+  if (bytes > 227 * 1024) return cudaErrorInvalidValue;
+  static size_t allowed = 48 * 1024;
+  const cudaError_t e =
+      allow_smem(stream::stream_q8_ex_kernel<T, NI>, bytes, allowed);
+  if (e != cudaSuccess) return e;
+  const dim3 grid((M + stream::EX_TILE - 1) / stream::EX_TILE, 1, E);
+  stream::stream_q8_ex_kernel<T, NI><<<grid, stream::THREADS, bytes, stream>>>(
+      static_cast<const T*>(x), static_cast<const int8_t*>(w), scale,
+      static_cast<T*>(out), R, N, M, ldw, g);
+  return cudaSuccess;
+}
+
+template <typename T>
+cudaError_t launch_q8_ex(const void* x, const void* w, const float* scale,
+                         void* out, int R, int N, int M, long long ldw,
+                         cudaStream_t s, const Group& g, int E) {
+  constexpr int TERMS = sizeof(T) == 4 ? 3 : 1;
+  if (R > 16 || N <= 0 || M % 16 != 0 || ldw % 16 != 0 ||
+      reinterpret_cast<uintptr_t>(w) % 16 != 0 || g.sw % 16 != 0)
+    return cudaErrorInvalidValue;
+  switch (stream::ex_ni(R, TERMS)) {
+    case 1:
+      return launch_q8_ex_ni<T, 1>(x, w, scale, out, R, N, M, ldw, s, g, E);
+    case 2:
+      return launch_q8_ex_ni<T, 2>(x, w, scale, out, R, N, M, ldw, s, g, E);
+    case 3:
+      if constexpr (TERMS == 3)
+        return launch_q8_ex_ni<T, 3>(x, w, scale, out, R, N, M, ldw, s, g, E);
+      break;
+    case 6:
+      if constexpr (TERMS == 3)
+        return launch_q8_ex_ni<T, 6>(x, w, scale, out, R, N, M, ldw, s, g, E);
+      break;
+  }
+  return cudaErrorInvalidValue;
 }
 
 template <typename T, int RB, int TERMS>
@@ -2034,9 +2261,10 @@ cudaError_t launch_q8_cols(const void* x, const void* w, const float* scale,
 
 // quant_matmul: the int8 routes (xfer_matmul's kernel codes: 0 = tile,
 // 2 = stream_cols on tensor cores for a K-major w, 4 = stream_mma, 5 =
-// wgmma at prefill); x as three bf16 terms when fp32 (TERMS = 3), one
-// when bf16. Over an expert axis (quant_matmul_experts: every route but
-// stream_cols) the scale is one for all experts.
+// wgmma at prefill, 6 = stream_q8_ex over experts at decode); x as three
+// bf16 terms when fp32 (TERMS = 3), one when bf16. Over an expert axis
+// (quant_matmul_experts: tile, wgmma, stream_q8_ex) the scale is one for
+// all experts.
 template <typename T>
 cudaError_t dispatch_q8(const void* x, const void* w, const float* scale,
                         void* out, int R, int N, int M, long long swn,
@@ -2058,17 +2286,21 @@ cudaError_t dispatch_q8(const void* x, const void* w, const float* scale,
                     : launch_q8_cols<T, 16, TERMS>(x, w, scale, out, R, N, M,
                                                    swm, p0, s);
     case 4:
-      if (R > 16 || swm != 1) return cudaErrorInvalidValue;
-      return R <= 8 ? launch_q8_mma_ex<T, 8, TERMS>(x, w, scale, out, R, N, M,
-                                                    swn, p0, p1, ws, counters,
-                                                    s, g, E)
-                    : launch_q8_mma_ex<T, 16, TERMS>(x, w, scale, out, R, N,
-                                                     M, swn, p0, p1, ws,
-                                                     counters, s, g, E);
+      if (R > 16 || swm != 1 || E != 1 || g.counts != nullptr)
+        return cudaErrorInvalidValue;
+      return R <= 8 ? launch_q8_mma<T, 8, TERMS>(x, w, scale, out, R, N, M,
+                                                 swn, p0, p1, ws, counters, s)
+                    : launch_q8_mma<T, 16, TERMS>(x, w, scale, out, R, N, M,
+                                                  swn, p0, p1, ws, counters,
+                                                  s);
     case 5:
       if (R <= 16 || swm != 1 || p0 != wg::QBM || p1 != wg::QBN)
         return cudaErrorInvalidValue;
       return launch_q8_wg<T, TERMS>(x, w, scale, out, R, N, M, swn, s, g, E);
+    case 6:
+      if (swm != 1 || p0 != stream::EX_TILE || p1 != 1)
+        return cudaErrorInvalidValue;
+      return launch_q8_ex<T>(x, w, scale, out, R, N, M, swn, s, g, E);
     default:
       return cudaErrorInvalidValue;
   }
@@ -2193,11 +2425,13 @@ extern "C" int xfer_matmul_launch(const void* x, const void* w,
 // scale M contiguous floats; kernel 0 = tile (p0 = 16 or 64 rows per
 // block), 2 = stream_cols (K-major w on tensor cores, p0 = blocks), 4 =
 // stream_mma (int8, p0 and p1 as for stream_rows, rows on 16 bytes, a
-// counter per 64 columns), 5 = wgmma (R > 16, row-major w with rows on
-// 16 bytes, M % 16 == 0, N % 8 == 0, x on 16 bytes; p0 = p1 = 128).
-// experts > 1 or counts (quant_matmul_experts, every kernel but 2): the
-// expert axis as xfer_matmul_launch takes it, one scale for all experts
-// (no expert stride), every expert's w on 16 bytes for kernels 4 and 5.
+// counter per 64 columns; one product), 5 = wgmma (R > 16, row-major w
+// with rows on 16 bytes, M % 16 == 0, N % 8 == 0, x on 16 bytes; p0 = p1
+// = 128), 6 = stream_q8_ex (the expert axis at R <= 16, row-major w with
+// rows on 16 bytes; p0 = 64 columns per block, p1 = 1). experts > 1 or
+// counts (quant_matmul_experts: kernels 0, 5 and 6): the expert axis as
+// xfer_matmul_launch takes it, one scale for all experts (no expert
+// stride), every expert's w on 16 bytes for kernels 5 and 6.
 extern "C" int quant_matmul_launch(const void* x, const void* w,
                                    const void* scale, const void* counts,
                                    void* out, const XferPlan* p,

@@ -132,6 +132,48 @@ _ARGTYPES_BWD = (_VP,) * 10 + (_I, _I, _I, _F, _I)
 TRAIN_HEAD_DIMS = (64, 128)
 #: the ROADMAP item that ports the forms without a backward kernel
 TRAIN_TODO = "ROADMAP A12b"
+#: flash_attention_bwd's bf16 kernels (``csrc/flash_attention_bwd.cu``,
+#: namespace wgb): consumer warpgroups a block (64 own rows each), rows
+#: of a streamed tile, stages of the TMA ring
+BWD_CONSUMERS, BWD_TILE, BWD_STAGES = 2, 64, 4
+
+
+def bwd_plan(bh: int, s: int, d: int, sms: int) -> dict:
+    """The launch of ``flash_attention_bwd``'s bf16 kernels for q [bh, s,
+    d] on a card of ``sms`` SMs: ``items`` (head, block of 128 own rows:
+    keys in dkdv from the first, queries in dq from the last), item i at
+    head ``i % bh`` and block ``i // bh`` so that the items with the most
+    tiles come first; ``grid`` (persistent blocks, one an SM: block b
+    takes items b, 2 grid - 1 - b, 2 grid + b, ...); ``threads`` (two
+    consumer warpgroups and a producer); ``own`` and ``tile`` rows;
+    ``stages`` of the ring; ``own_bufs`` (buffers of the own tiles, two
+    at D = 64 so that the next item's load while one runs); the streamed
+    tiles each dkdv item (from the diagonal on) and dq item (up to it)
+    visits; and each kernel's dynamic shared memory: 1024 bytes of
+    alignment, the own buffers (K, V or Q, dO), the ring of streamed
+    pairs, dkdv's lse and delta a stage, the full and empty mbarriers."""
+    own = BWD_CONSUMERS * 64
+    blocks = -(-s // own)
+    tiles = -(-s // BWD_TILE)
+    items = bh * blocks
+    bufs = 2 if d == 64 else 1
+    grid = min(items, sms)
+    ring = (1024 + bufs * 2 * own * d * 2
+            + BWD_STAGES * 2 * BWD_TILE * d * 2)
+    bars = 8 * (2 * BWD_STAGES + 2 * bufs)
+    q0 = [(blocks - 1 - i // bh) * own for i in range(items)]
+    return dict(items=items, grid=(grid,),
+                threads=(BWD_CONSUMERS + 1) * 128, own=own, tile=BWD_TILE,
+                stages=BWD_STAGES, own_bufs=bufs,
+                block_items=[[r * grid + (grid - 1 - b if r % 2 else b)
+                              for r in range(-(-items // grid))
+                              if r * grid + (grid - 1 - b if r % 2 else b)
+                              < items] for b in range(grid)],
+                dkdv_tiles=[tiles - i // bh * own // BWD_TILE
+                            for i in range(items)],
+                dq_tiles=[min(tiles, -(-(q + own) // BWD_TILE)) for q in q0],
+                dkdv_smem=ring + BWD_STAGES * 2 * BWD_TILE * 4 + bars,
+                dq_smem=ring + bars)
 
 
 def kernel_for(dtype: torch.dtype, d: int, prefix_q8: bool = False,

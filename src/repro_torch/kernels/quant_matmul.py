@@ -20,6 +20,13 @@ and ``w_q``'s strides:
   streaming on tensor cores over an int8 ``cp.async`` ring; the splits
   are summed in a fixed order by the last block of each column tile in
   the same launch, so two calls give bit-equal outputs.
+- ``stream_ex`` (the expert axis of :func:`quant_matmul_experts` at R <=
+  16, the same weights): one block per (expert, 64 columns) over the
+  whole contraction, no split-K; each warp streams its k16 steps of the
+  weight through a ``cp.async`` ring of its own, six deep, with no block
+  barrier in the loop; only the expert's live rows of ``x`` staged,
+  as they are given; fp32 ``x``'s three terms packed into the columns of
+  one ``mma.sync`` B fragment where rows x terms <= 8.
 - ``stream_cols`` (R <= 16, K-major ``w_q``: the tied unembedding passed
   as ``embed.q.T``, no transposed copy): q's rows read straight into
   registers as the ``mma.sync`` A operand; no split.
@@ -54,10 +61,13 @@ N]`` with one column scale for all experts (the reference quantises the
 stacked expert leaf ``[L, E, K, N]`` with one scale per column over
 layers, experts and rows) and ``counts`` [E] int32, each expert's live
 rows: rows past them come out +0, and an expert with no live row reads
-none of its weight bytes (``stream_mma`` at C <= 16, every block of it
+none of its weight bytes (``stream_ex`` at C <= 16, every block of it
 returns at once; ``wgmma`` above, where a 128-row tile past the live rows
-does). ``tile`` takes the misaligned shapes; ``stream_cols`` is not
-taken over experts.
+does). ``tile`` takes the misaligned shapes; ``stream_mma`` and
+``stream_cols`` are not taken over experts. ``stream_ex`` sums each
+term's products apart and the terms last, hi + mid + lo:
+:func:`repro_torch.kernels.ref.quant_matmul_experts_split_ref` is its
+plain mirror.
 
 A CPU tensor takes the plain version (:func:`plain`); a CUDA tensor
 launches the kernel or raises. ``quant_matmul.launches`` and
@@ -89,6 +99,8 @@ Q8_KC = {torch.float32: 1024, torch.bfloat16: 2048}
 Q8_COLS_PER_WARP = 16   # stream_cols: output columns per warp
 Q8_CHUNK = 64           # stream_cols: N is read in chunks of this many
 Q8_WG_TILE = 128        # wgmma: rows and columns per block
+EX_TILE = 64            # stream_ex: output columns per block
+EX_RING = STREAM_WARPS * 6 * 16 * 80  # stream_ex: the warps' rings of w
 
 
 def x_terms(dtype: torch.dtype) -> int:
@@ -96,32 +108,45 @@ def x_terms(dtype: torch.dtype) -> int:
     return 3 if dtype == torch.float32 else 1
 
 
+def ex_smem(r: int, n: int, dtype: torch.dtype) -> int:
+    """``stream_ex``'s shared memory for ``x [r, n]`` in ``dtype``: the
+    warps' rings of w (6 k16 steps of 16 rows x 80 bytes each) and the x
+    stage (rows of n rounded up to 16, plus 8) or, over them, the warps'
+    partial sums of every row and term, whichever is larger."""
+    x_stage = r * (_cdiv(n, 16) * 16 + 8) * dtype.itemsize
+    return max(EX_RING + x_stage,
+               STREAM_WARPS * r * x_terms(dtype) * EX_TILE * 4)
+
+
 @functools.lru_cache(maxsize=None)
 def route(r: int, n: int, m: int, dtype: torch.dtype, strides: tuple,
           sms: int, *, aligned: bool = True, x_aligned: bool = True,
-          experts: int = 1) -> Route:
+          experts: int = 0) -> Route:
     """The kernel and geometry for ``x [r, n] @ w_q [n, m]`` with ``x`` in
     ``dtype`` and ``w_q``'s element ``strides``, on a card of ``sms`` SMs.
     ``aligned``: ``w_q``'s base pointer lies on 16 bytes; ``x_aligned``:
     ``x``'s does (over experts: every expert's). Needs ``r``, ``m`` > 0.
-    ``experts`` > 1: that many products in one launch
-    (:func:`quant_matmul_experts`); their blocks count toward filling the
-    card, and ``stream_cols`` is not taken."""
+    ``experts`` >= 1: an expert axis of that many products in one launch
+    (:func:`quant_matmul_experts`): ``stream_ex`` at decode, ``wgmma``
+    with the expert on grid z above, never ``stream_mma`` or
+    ``stream_cols``; 0: one product."""
     swn, swm = strides
-    if r <= DECODE_ROWS and n > 0 and aligned:
+    if r <= DECODE_ROWS and n > 0 and aligned and experts:
+        if swm == 1 and swn % 16 == 0 and m % 16 == 0 \
+                and ex_smem(r, n, dtype) <= SMEM_MAX:
+            return Route("stream_ex", (_cdiv(m, EX_TILE), 1), cols=EX_TILE)
+    elif r <= DECODE_ROWS and n > 0 and aligned:
         rb = 8 if r <= 8 else 16
         if swm == 1 and swn % 16 == 0:
             # xfer_matmul's stream_mma geometry: every SM streams, and as
             # many splits as the card holds at once
             tiles = _cdiv(m, MMA_TILE)
-            blocks = tiles * experts
-            splits = max(_cdiv(sms, blocks), 2 * sms // blocks)
+            splits = max(_cdiv(sms, tiles), 2 * sms // tiles)
             kc = min(Q8_KC[dtype], _cdiv(_cdiv(n, splits), 16) * 16)
             splits = _cdiv(n, kc)
             return Route("stream_mma", (tiles, splits), kc=kc, splits=splits)
         if swn == 1 and swm % 16 == 0 and n % Q8_CHUNK == 0 \
-                and x_terms(dtype) * rb * (n + 4) * 2 <= SMEM_MAX \
-                and experts == 1:
+                and x_terms(dtype) * rb * (n + 4) * 2 <= SMEM_MAX:
             cols = STREAM_WARPS * Q8_COLS_PER_WARP
             return Route("stream_cols", (min(_cdiv(m, cols), 2 * sms),))
     if r > DECODE_ROWS and n > 0 and swm == 1 and swn % 16 == 0 \
@@ -142,7 +167,8 @@ def _plan(x: torch.Tensor, w_q: torch.Tensor, aligned: bool,
     r, n = x.shape[-2:]
     m = w_q.shape[-1]
     rt = route(r, n, m, x.dtype, w_q.stride()[-2:], sm_count(x.device),
-               aligned=aligned, x_aligned=x_aligned, experts=e)
+               aligned=aligned, x_aligned=x_aligned,
+               experts=e if x.dim() == 3 else 0)
     ws = counters = None
     per_ws = per_cnt = 0
     if rt.splits > 1:  # a counter per 64-column tile

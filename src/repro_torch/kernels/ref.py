@@ -107,6 +107,22 @@ def quant_matmul_split_ref(x: torch.Tensor, w_q: torch.Tensor,
     return (acc * scale.reshape(1, w_q.shape[1])).to(x.dtype)
 
 
+def quant_matmul_experts_split_ref(x: torch.Tensor, w_q: torch.Tensor,
+                                   scale: torch.Tensor,
+                                   counts: torch.Tensor = None
+                                   ) -> torch.Tensor:
+    """The arithmetic of ``quant_matmul_experts`` at decode
+    (``stream_ex``): per expert, each of :func:`split_terms`'s terms
+    times ``w_q`` in fp32 on its own, the terms summed last (hi + mid +
+    lo), times ``scale`` (N values shared by every expert) once, cast to
+    ``x.dtype``; ``counts`` as :func:`expert_matmul_ref`'s. Equal to
+    :func:`quant_matmul_experts_ref` up to the fp32 summation order."""
+    w = w_q.float()
+    acc = sum(expert_matmul_ref(t.float(), w, counts)
+              for t in split_terms(x))
+    return (acc * scale.reshape(1, 1, w_q.shape[2]).float()).to(x.dtype)
+
+
 #: query rows per block of the tensor-core flash kernels: 128 for
 #: ``flash_tc_kernel`` (192 at D = 128; its result does not depend on it),
 #: 64 for ``flash_terms_kernel``, whose two warpgroups take every other

@@ -88,9 +88,9 @@ class _Plan(ctypes.Structure):
                 ("experts", _I), ("scnt", _I), ("sx", _LL), ("sw", _LL),
                 ("so", _LL), ("sws", _LL)]
 
-#: the C entry's kernel codes
+#: the C entries' kernel codes (``stream_ex``: quant_matmul's only)
 KERNEL_CODES = {"tile": 0, "stream_rows": 1, "stream_cols": 2, "tc": 3,
-                "stream_mma": 4, "wgmma": 5}
+                "stream_mma": 4, "wgmma": 5, "stream_ex": 6}
 DECODE_ROWS = 16        # R at or under this streams the weight
 STREAM_WARPS = 8        # warps per streaming block
 STREAM_ROW_LANES = 8    # stream_rows: lanes along a row (8 x 16 bytes wide)
@@ -124,7 +124,7 @@ class Route(NamedTuple):
         """(kernel code, p0, p1) of the C entry."""
         p0 = {"tile": self.rows, "stream_rows": self.kc,
               "stream_cols": self.grid[0], "tc": 0, "stream_mma": self.kc,
-              "wgmma": self.rows}[self.kernel]
+              "wgmma": self.rows, "stream_ex": self.cols}[self.kernel]
         p1 = self.cols if self.kernel == "wgmma" else self.splits
         return KERNEL_CODES[self.kernel], p0, p1
 

@@ -794,3 +794,50 @@ def test_rglru_plan_fills_the_card(b, cw, esz):
     p = plan(b, chip_smoke.H_WIDTH, esz, True, SMS)
     assert p.kernel == "ring" and p.grid[0] * p.grid[1] >= 2 * SMS
     assert p.cw == cw
+
+
+# ---------------------------------------------------------------------------
+# flash_attention_bwd: the bf16 kernels' launch plan
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("bh,s,d", [(128, 512, 64), (64, 512, 128),
+                                    (6, 77, 64), (5, 100, 128), (3, 2, 64),
+                                    (2, 129, 128)])
+def test_bwd_plan_covers_every_visible_pair_once(bh, s, d):
+    """``bwd_plan``: persistent blocks, one an SM and at most one an item,
+    each taking every item once between them (the order turning each
+    round), 384 threads (two consumer warpgroups and a producer), a ring
+    of 4 tiles of 64 rows, two own buffers at D = 64; the items with the
+    most tiles first; each dkdv item visits the query tiles from its
+    first key's on, each dq item the key tiles up to its last query, so
+    that every causal (key, query) pair below S is in exactly one dkdv
+    and one dq visit; both kernels' shared memory fits a block."""
+    from repro_torch.kernels.flash_attention import bwd_plan
+    p = bwd_plan(bh, s, d, SMS)
+    blocks = -(-s // 128)
+    assert p["items"] == bh * blocks
+    assert p["grid"] == (min(bh * blocks, SMS),)
+    assert sorted(i for b in p["block_items"] for i in b) == \
+        list(range(p["items"]))
+    bufs = 2 if d == 64 else 1
+    assert (p["threads"], p["own"], p["tile"], p["stages"],
+            p["own_bufs"]) == (384, 128, 64, 4, bufs)
+    ring = 1024 + bufs * 2 * 128 * d * 2 + 4 * 2 * 64 * d * 2
+    assert p["dq_smem"] == ring + 8 * (8 + 2 * bufs)
+    assert p["dkdv_smem"] == ring + 4 * 2 * 64 * 4 + 8 * (8 + 2 * bufs)
+    assert max(p["dkdv_smem"], p["dq_smem"]) <= 232448
+    assert p["dkdv_tiles"] == sorted(p["dkdv_tiles"], reverse=True)
+    assert p["dq_tiles"] == sorted(p["dq_tiles"], reverse=True)
+    tiles = -(-s // 64)
+    seen_kv = np.zeros((bh, s, s), int)
+    seen_q = np.zeros((bh, s, s), int)
+    for i, n in enumerate(p["dkdv_tiles"]):  # keys of block i // bh
+        h, k0 = i % bh, i // bh * 128
+        for t in range(tiles - n, tiles):
+            seen_kv[h, 64 * t:64 * t + 64, k0:k0 + 128] += 1
+    for i, n in enumerate(p["dq_tiles"]):  # queries of block i // bh from the end
+        h, q0 = i % bh, (blocks - 1 - i // bh) * 128
+        seen_q[h, q0:q0 + 128, :64 * n] += 1
+    causal = np.broadcast_to(np.tril(np.ones((s, s), int)), (bh, s, s))
+    assert (seen_kv[causal == 1] == 1).all()
+    assert (seen_q[causal == 1] == 1).all()

@@ -525,6 +525,36 @@ def test_quant_expert_matmul_plain_version_matches_einsum():
         ops.int8_expert_matmul(torch.from_numpy(x), q_t, s_t[..., :3])
 
 
+@pytest.mark.parametrize("c,x_scale", [(1, 1.0), (2, 1.0), (2, 1e3)])
+def test_quant_expert_split_mirror_matches_einsum(c, x_scale):
+    """``ref.quant_matmul_experts_split_ref`` (the decode route's order:
+    each bf16 term of fp32 x times the int8 weight on its own, the terms
+    summed last, the scale once) against the reference's
+    ``einsum("ecd,edf->ecf")`` on its dequantised weights at C = 1 and 2
+    with live rows, fp32, 2e-4 of the output's scale; rows past the live
+    ones +0."""
+    from repro import quant as JQ
+    from repro_torch.kernels import ref
+    rng = np.random.RandomState(11 + c)
+    e, k, n = 8, 256, 64
+    x = (x_scale * rng.standard_normal((e, c, k))).astype(np.float32)
+    w = rng.standard_normal((2, e, k, n)).astype(np.float32)  # 2 layers
+    wq = JQ.quantize(jnp.asarray(w), axis=(0, 1, 2))
+    want = np.asarray(jnp.einsum("ecd,edf->ecf", x, JQ.dequantize(wq)[1]))
+    counts = rng.randint(0, c + 1, size=e).astype(np.int32)
+    counts[:2] = (0, c)
+    live = np.arange(c)[None, :, None] < counts[:, None, None]
+    got = ref.quant_matmul_experts_split_ref(
+        torch.from_numpy(x), torch.from_numpy(np.array(wq.q[1])),
+        torch.from_numpy(np.array(wq.scale[0])), torch.from_numpy(counts))
+    assert got.dtype == torch.float32 and tuple(got.shape) == (e, c, n)
+    tol = 2e-4 * np.abs(want).max()
+    np.testing.assert_allclose(got.numpy(), np.where(live, want, 0.0),
+                               rtol=2e-4, atol=tol)
+    dead = got.numpy()[~np.broadcast_to(live, got.shape)]
+    assert (dead == 0).all() and not np.signbit(dead).any()
+
+
 def test_expert_routes():
     """``xfer_matmul_experts``'s launch plan (plain Python): deepseek's
     expert products at decode stream the weights (bf16 ``stream_mma``,
@@ -553,14 +583,28 @@ def test_expert_routes():
     # few experts of a long contraction split K as the dense route does
     rt = route(9, 4096, 64, bf16, (64, 1), 132, experts=2)
     assert rt.kernel == "stream_mma" and rt.splits > 1
-    # quant_matmul_experts: int8 stream_mma at decode (fp32 x splits K at
-    # 1024 rows, its three bf16 terms' stage), wgmma on x's terms at
-    # prefill with the expert on grid z, tile off 16 bytes
+    # quant_matmul_experts: stream_ex at decode (one block per expert and
+    # 64 columns over the whole contraction: no split-K, fp32 x or bf16),
+    # wgmma on x's terms at prefill with the expert on grid z, tile off
+    # 16 bytes
+    from repro_torch.kernels.quant_matmul import ex_smem
     from repro_torch.kernels.quant_matmul import route as qroute
-    for dt, kc in ((f32, 1024), (bf16, 2048)):
-        rt = qroute(1, 2048, 1408, dt, (1408, 1), 132, experts=64)
-        assert (rt.kernel, rt.kc, rt.splits) == ("stream_mma", kc,
-                                                 2048 // kc)
+    for dt in (f32, bf16):
+        for c in (1, 2, 16):
+            for k, n in ((2048, 1408), (1408, 2048)):
+                rt = qroute(c, k, n, dt, (n, 1), 132, experts=64)
+                assert (rt.kernel, rt.grid, rt.splits, rt.cols) == (
+                    "stream_ex", (n // 64, 1), 1, 64)
+                assert rt.c_args == (6, 64, 1)
+                # the warps' rings, and only the rows of x, as given (no
+                # terms): three blocks an SM at C = 1
+                assert ex_smem(c, k, dt) == max(
+                    8 * 6 * 16 * 80 + c * (k + 8) * dt.itemsize,
+                    8 * c * (3 if dt == f32 else 1) * 64 * 4)
+                assert c > 1 or 3 * (ex_smem(c, k, dt) + 1024) <= 233472
+        # the dense decode route is unchanged
+        assert qroute(1, 2048, 1408, dt, (1408, 1), 132).kernel == \
+            "stream_mma"
         for c in (60, 240):
             rt = qroute(c, 2048, 1408, dt, (1408, 1), 132, experts=64)
             assert rt.kernel == "wgmma" and rt.grid == (11, -(-c // 128))
