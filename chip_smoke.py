@@ -232,16 +232,27 @@ Phases (each failure propagates; the process exits non-zero):
    and ``flash_attention_bwd`` against their plain versions on the card
    (dq, dk, dv within 5e-2 in bf16, 2e-3 in fp32 of each element's
    magnitude plus its head's RMS, TF32 off; bit-stable
-   on two calls) at qwen1.5-0.5b's training shape [128, 512, 64]
-   (bf16, the main entry, and fp32) and [64, 512, 128] bf16, timed
-   beside the plain backward and SDPA's backward alone (its device time
-   under the profiler, its backend selected and printed), plus ragged
-   cases, the bf16 launch plan printed; the serving instances' ``ptxas`` registers asserted unchanged
+   on two calls), causal at qwen1.5-0.5b's training shape [128, 512, 64]
+   (bf16, the main entry, and fp32) and [64, 512, 128] bf16, non-causal
+   at seamless-m4t-medium's encoder [128, 512, 64] and cross at its
+   decoder's [128, 256 -> 512, 64] (bf16 and fp32), each timed beside
+   the plain backward and SDPA's backward alone (its device time under
+   the profiler, its backend selected and printed) and its training
+   forward beside SDPA's forward that returns the log-sum-exp (device
+   time), with both bounds; plus ragged cases (S and T off the tiles,
+   causal with S != T), the bf16 launch plan printed; the serving
+   instances' ``ptxas`` registers asserted unchanged
    (``SERVING_REGISTERS``); ``xfer_matmul``'s dgrad (``dy @ w.T``) and
    wgrad (``x.T @ dy``, with the copy of ``x.T``) at qwen's projections
    and tied unembedding at 4096 rows, against the plain version and
    ``torch.matmul`` (the kernel line's ``train`` entry of
-   ``xfer_matmul``);
+   ``xfer_matmul``); ``xfer_matmul_experts``' dgrad (``dy @ w.T`` per
+   expert, ``w``'s K-major view) and wgrad (``x.T @ dy`` per expert, the
+   contraction stopped at each expert's live rows) at deepseek-moe-16b's
+   training shapes (C = 240 of B 4 x S 512, a routed ``counts`` with an
+   expert of no live row; table ``EX_TRAIN_CASES``), one launch each,
+   bit-stable, against their plain versions and ``torch.bmm`` (the
+   kernel line's ``train`` entry of ``xfer_matmul_experts``);
 6. full-width training (``train_full_width``): qwen1.5-0.5b, 24 layers,
    bf16 params, fp32 AdamW state, B = 8, S = 512, six steps of
    ``launch.train``'s driver with a checkpoint every 3 in a directory
@@ -252,10 +263,25 @@ Phases (each failure propagates; the process exits non-zero):
    first; step p50, tokens/s, the share of 989 TFLOP/s (6 N tokens),
    peak allocated bytes and one traced step (idle share, top device
    ops, the backward kernels' share);
-6b. a train step card vs CPU (``parity_train``): full width, 2 layers,
-   fp32, B = 2, S = 256: the loss within 2e-3 relative, each gradient
-   leaf within 2e-3 of its max |g|, then ``adamw_update`` on the same
-   gradients within 1e-5;
+6c. deepseek-moe-16b at full width, depth cut to 4 layers (1 dense + 3
+   MoE: 2.27 B parameters, about 27 GB of bf16 params and grads and fp32
+   AdamW state, reckoned and printed), B 4 x S 512, trained through the
+   driver the same way (``train_moe``; one checkpoint, at the end):
+   launches exactly ``moe_train_launches`` a step, a bit-equal resume,
+   step p50, tokens/s, peak bytes, the losses and one traced step (idle
+   share, top device ops, the expert products' share);
+6d. seamless-m4t-medium at full width and depth (12 + 12), B 8 x S 512
+   with 512 source frames a row (``train_encdec``): the same, launches
+   exactly ``encdec_train_launches`` a step;
+6b. a train step card vs CPU (``parity_train``): full width, fp32:
+   qwen1.5-0.5b at 2 layers, B = 2, S = 256, the loss within 2e-3
+   relative, each gradient leaf within 2e-3 of its max |g|, then
+   ``adamw_update`` on the same gradients within 1e-5; deepseek-moe-16b
+   at 2 layers (1 dense + 1 MoE; the smallest router margin printed) and
+   seamless-m4t-medium at 2 + 2 layers, B = 2, S = 128, the same limits;
+   then the device page accounting (``check_pool_state``): a seeded
+   sequence of allocations, retains and releases on int32 refcounts on
+   the card against the host ``PagePool``, equal after each;
 7. the kernel table as one JSON line, then the result line.
 
 It imports nothing of JAX and nothing of the JAX package.
@@ -386,9 +412,15 @@ PATH_KERNELS = {"fp": ("xfer_matmul", "flash_attention", "paged_attention"),
                                     "paged_attention",
                                     "paged_attention_q8_multi"),
                 # phase 6: training the dense family (the training
-                # forward counts under flash_attention)
+                # forward counts under flash_attention); 6c the MoE
+                # family (the expert products' backward counts under
+                # xfer_matmul_experts), 6d the encdec family
                 "train": ("xfer_matmul", "flash_attention",
-                          "flash_attention_bwd")}
+                          "flash_attention_bwd"),
+                "train-moe": ("xfer_matmul", "xfer_matmul_experts",
+                              "flash_attention", "flash_attention_bwd"),
+                "train-encdec": ("xfer_matmul", "flash_attention",
+                                 "flash_attention_bwd")}
 
 
 def train_launches(layers: int, seq: int, chunk: int = 512,
@@ -407,6 +439,50 @@ def train_launches(layers: int, seq: int, chunk: int = 512,
     return {"xfer_matmul": accum * 4 * (7 * layers + seq // c),
             "flash_attention": accum * 2 * layers,
             "flash_attention_bwd": accum * layers}
+
+
+def _chunks(seq: int, chunk: int) -> int:
+    """The loss's chunks over ``seq`` positions: ``seq // c``, c the
+    largest divisor of ``seq`` up to ``chunk``."""
+    c = min(chunk, seq)
+    while seq % c:
+        c -= 1
+    return seq // c
+
+
+def moe_train_launches(dense: int, moe: int, seq: int, chunk: int = 512,
+                       accum: int = 1) -> dict:
+    """The kernel launches of one MoE train step (swiglu, every layer
+    rematerialised), per microbatch: ``xfer_matmul`` 4 times (forward,
+    remat, dgrad, wgrad) for each of a dense prefix layer's 7
+    projections, an MoE layer's 8 (q, k, v, o, the router, the shared
+    experts' gate, up and down) and each loss chunk's unembedding;
+    ``xfer_matmul_experts`` 4 times for each of an MoE layer's 3 expert
+    products (forward, remat, dgrad, wgrad); each layer's attention the
+    training forward twice and ``flash_attention_bwd`` once
+    (``tests/test_torch_train_families.py`` counts the wrappers' calls on
+    the CPU)."""
+    return {"xfer_matmul": accum * 4 * (7 * dense + 8 * moe
+                                        + _chunks(seq, chunk)),
+            "xfer_matmul_experts": accum * 4 * 3 * moe,
+            "flash_attention": accum * 2 * (dense + moe),
+            "flash_attention_bwd": accum * (dense + moe)}
+
+
+def encdec_train_launches(enc: int, dec: int, seq: int, chunk: int = 512,
+                          accum: int = 1) -> dict:
+    """The kernel launches of one encdec train step (swiglu, every layer
+    rematerialised), per microbatch: ``xfer_matmul`` 4 times for each of
+    an encoder layer's 7 projections, a decoder layer's 11 (self q, k, v,
+    o; cross q, k, v, o; gate, up, down) and each loss chunk's
+    unembedding; the training forward twice and ``flash_attention_bwd``
+    once for each encoder attention (bidirectional) and each decoder
+    layer's two (causal self, cross)."""
+    return {"xfer_matmul": accum * 4 * (7 * enc + 11 * dec
+                                        + _chunks(seq, chunk)),
+            "xfer_matmul_experts": 0,
+            "flash_attention": accum * 2 * (enc + 2 * dec),
+            "flash_attention_bwd": accum * (enc + 2 * dec)}
 
 
 def log(msg: str) -> None:
@@ -4137,7 +4213,8 @@ def router_margins():
 
     def recording_route(arch, hf, router):
         gates, idx = route(arch, hf, router)
-        probs = torch.softmax(L.dense(hf, router).float(), dim=-1)
+        with torch.no_grad():  # no graph: a rematerialised layer matches
+            probs = torch.softmax(L.dense(hf, router).float(), dim=-1)
         top = torch.sort(probs, dim=-1, descending=True).values
         gap = top[:, arch.top_k - 1] - top[:, arch.top_k]
         margins.append((hf.device.type, float(gap.min())))
@@ -4859,15 +4936,27 @@ def parity_spec(dev) -> None:
 # phases 3t, 6 and 6b: training (the dense family)
 # --------------------------------------------------------------------------
 
-# flash_attention_bwd: (label, BH, S, D, dtypes, entry); the first three
-# are timed (qwen1.5-0.5b's training shape, B = 8 x 16 heads at S = 512,
-# in bf16 (the main entry) and fp32; yi-9b's head dim at [64, 512, 128]),
-# the rest ragged (S off the 64-row tiles)
-FA_BWD_CASES = [("qwen train", 128, 512, 64, BOTH, "main"),
-                ("d128 train", 64, 512, 128, BF16, "d128"),
-                ("ragged", 6, 77, 64, BOTH, None),
-                ("ragged d128", 5, 100, 128, BOTH, None),
-                ("two rows", 3, 2, 64, BOTH, None)]
+# flash_attention_bwd: (label, BH, S, T, D, causal, dtypes, entry); the
+# causal ones first: qwen1.5-0.5b's training shape, B = 8 x 16 heads at S
+# = 512, in bf16 (the main entry) and fp32, yi-9b's head dim at [64, 512,
+# 128]; then seamless-m4t-medium's forms: the encoder's bidirectional
+# attention [128, 512, 64] and the decoder's cross-attention [128, 256 ->
+# 512, 64] (timed, bf16 and fp32); the rest ragged (S and T off the
+# 64-row tiles, causal with S != T too)
+FA_BWD_CASES = [("qwen train", 128, 512, 512, 64, True, BOTH, "main"),
+                ("d128 train", 64, 512, 512, 128, True, BF16, "d128"),
+                ("seamless encoder", 128, 512, 512, 64, False, BOTH,
+                 "noncausal"),
+                ("seamless cross", 128, 256, 512, 64, False, BOTH, "cross"),
+                ("ragged", 6, 77, 77, 64, True, BOTH, None),
+                ("ragged d128", 5, 100, 100, 128, True, BOTH, None),
+                ("two rows", 3, 2, 2, 64, True, BOTH, None),
+                ("ragged non-causal d128", 5, 100, 100, 128, False, BOTH,
+                 None),
+                ("ragged cross", 6, 77, 150, 64, False, BOTH, None),
+                ("ragged cross d128", 3, 40, 130, 128, False, BOTH, None),
+                ("causal S<T", 3, 40, 100, 64, True, BOTH, None),
+                ("causal S>T", 3, 100, 40, 64, True, BOTH, None)]
 FA_BWD_TOL = {"float32": 2e-3, "bfloat16": 5e-2}
 # the yardstick's backend, selected explicitly (sdpa_kernel): PyTorch's
 # flash kernels take bf16, not fp32
@@ -4886,34 +4975,141 @@ SERVING_REGISTERS = {"flash_tc_kernelILi64EE": 136,
 TRAIN_B, TRAIN_S = 8, 512
 TRAIN_MM = (("qkvo", Q_D, Q_D), ("gate_up", Q_D, Q_FF), ("down", Q_FF, Q_D),
             ("unembed", Q_D, Q_VOCAB))
+# xfer_matmul_experts' gradients (label, E, C, K, N, dtypes, timed):
+# deepseek-moe-16b's expert products at phase 6c's training shape, B 4 x
+# S 512 = 2048 tokens, top 6 of 64 at capacity factor 1.25: C = 240
+# (gate/up [64, 240, 2048] @ [64, 2048, 1408], down [64, 240, 1408] @
+# [64, 1408, 2048]); C = 60 (the dgrad's K-major wgmma at 64-row
+# experts); a ragged case (C off 8: the wgrad's tile route, the dgrad's
+# tc). Live rows: a seeded skewed top-6 routing capped at C, one expert
+# with no row and one full.
+MOE_TRAIN_B, MOE_TRAIN_S = 4, 512
+EX_TRAIN_CASES = (("gate_up", M_E, 240, M_D, M_FF, BOTH, True),
+                  ("down", M_E, 240, M_FF, M_D, BF16, True),
+                  ("C=60", M_E, 60, M_D, M_FF, BF16, False),
+                  ("ragged", 5, 37, 24, 40, BOTH, False))
 # phase 6: steps, checkpoint interval, steps on one batch; phase 6b: cut
 # depth, batch, sequence
 TRAIN_STEPS, TRAIN_CKPT_EVERY, TRAIN_FIXED_STEPS = 6, 3, 8
 PARITY_TRAIN = (2, 2, 256)
 TRAIN_PARITY_TOL, ADAMW_PARITY_TOL = 2e-3, 1e-5
+# phases 6c and 6d: steps (one checkpoint, at the end: deepseek's holds
+# 22.7 GB), deepseek's cut depth (its dense prefix layer and 3 MoE
+# layers) and seamless's batch; phase 6b's families: batch, sequence
+FAMILY_STEPS, MOE_TRAIN_LAYERS, ED_TRAIN_B = 4, 4, 8
+PARITY_FAMILY = (2, 128)
 
 
-def fa_bwd_bound(bh: int, s: int, d: int, esz: int, dname: str):
-    """bound_ms of the causal backward: q, k, v, o, dO read once, lse
-    read, dq, dk, dv written; FA-2's five products (S, dP, dV, dK, dQ) of
-    2 D flops over each visible pair, at the bf16 tensor-core peak, or
-    the fp32 peak for the CUDA-core instance."""
-    pairs = bh * s * (s + 1) / 2
-    nbytes = 8 * bh * s * d * esz + 4 * bh * s
-    return bound_ms(nbytes, 5 * 2.0 * d * pairs, dname)
+def fa_bwd_bound(bh: int, s: int, d: int, esz: int, dname: str,
+                 t: int = None, causal: bool = True):
+    """bound_ms of the backward: q, o, dO and k, v read once, lse read,
+    dq, dk, dv written; FA-2's five products (S, dP, dV, dK, dQ) of 2 D
+    flops over each visible pair (the causal triangle, or every one of S
+    x T), at the bf16 tensor-core peak, or the fp32 peak for the
+    CUDA-core instance."""
+    t = s if t is None else t
+    nbytes = 4 * bh * (s + t) * d * esz + 4 * bh * s
+    return bound_ms(nbytes, 5 * 2.0 * d * visible_pairs(bh, s, t, causal),
+                    dname)
+
+
+def visible_pairs(bh: int, s: int, t: int, causal: bool) -> float:
+    """The (query, key) pairs a head sees, times ``bh``: query qi sees
+    keys 0..min(qi, t - 1) where causal, all t else."""
+    if not causal:
+        return float(bh * s * t)
+    m = min(s, t)
+    return float(bh * (m * (m + 1) // 2 + (s - m) * t))
+
+
+def sdpa_device_ms(fn, label: str) -> tuple:
+    """Device ms of one call of ``fn`` (a PyTorch attention call) under
+    the profiler, the host's path out of it, and its top device ops. A
+    window in which the profiler saw no device event is traced again (up
+    to three times); then the call is timed with CUDA events instead,
+    its top ops given as "eager"."""
+    import torch
+    for _ in range(3):
+        tr = trace_window(lambda: [fn() for _ in range(10)]
+                          and torch.cuda.synchronize(), 10)
+        if tr.get("measured"):
+            return tr["device_ms_per_step"], tr["top"][:3]
+    log(f"[3t] {label}: the profiler saw no device time in three windows; "
+        f"timed with CUDA events")
+    return time_ms(fn, 10, 2), "eager"
+
+
+def time_attention_train(q, k, v, out, do, lse, causal: bool,
+                         dname: str) -> dict:
+    """The timed figures of one training attention case: the backward
+    (eager, device from a CUDA graph, plain, SDPA's backward under an
+    explicit backend as device time, its bound) and the training forward
+    with lse (eager, device, plain, SDPA's forward that returns the
+    log-sum-exp as device time, its bound)."""
+    import torch
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    from repro_torch.kernels import ops
+    bh, s, d = q.shape
+    t = k.shape[1]
+    bwd = lambda: ops.flash_attention_bwd(q, k, v, out, do, lse,  # noqa: E731
+                                          causal=causal)
+    ms = time_ms(bwd, 10, 2)
+    dev_ms = graph_ms(bwd, 10)
+    plain = time_ms(lambda: ops.attention_bwd_ref(q, k, v, out, do, lse,
+                                                  causal=causal), 3, 1)
+    fwd = lambda: ops.flash_attention_lse(q, k, v, causal=causal)  # noqa: E731
+    fwd_ms = time_ms(fwd, 10, 2)
+    fwd_dev = graph_ms(fwd, 10)
+    fwd_plain = time_ms(lambda: ops.attention_lse_ref(q, k, v,
+                                                      causal=causal), 3, 1)
+    q4, k4, v4 = (x.detach().reshape(1, bh, x.shape[1], d).requires_grad_()
+                  for x in (q, k, v))
+    g4 = do.reshape(1, bh, s, d)
+    backend = SDPA_BWD_BACKEND[dname]
+    with sdpa_kernel([getattr(SDPBackend, backend)]):
+        ys = F.scaled_dot_product_attention(q4, k4, v4, is_causal=causal)
+
+    def sdpa_bwd():
+        return torch.autograd.grad(ys, (q4, k4, v4), g4, retain_graph=True)
+
+    lib_eager = time_ms(sdpa_bwd, 10, 2)
+    lib, lib_top = sdpa_device_ms(sdpa_bwd, "SDPA's backward")
+    qd, kd, vd = (x.detach() for x in (q4, k4, v4))
+    if dname == "bfloat16":  # the forward that returns the log-sum-exp
+        lse_call = lambda: torch.ops.aten._scaled_dot_product_flash_attention(  # noqa: E731
+            qd, kd, vd, 0.0, causal)
+        lse_op = "aten._scaled_dot_product_flash_attention"
+    else:
+        lse_call = lambda: torch.ops.aten._scaled_dot_product_efficient_attention(  # noqa: E731
+            qd, kd, vd, None, True, 0.0, causal)
+        lse_op = "aten._scaled_dot_product_efficient_attention"
+    fwd_lib, _ = sdpa_device_ms(lse_call, "SDPA's forward with lse")
+    b, kind = fa_bwd_bound(bh, s, d, q.element_size(), dname, t, causal)
+    pairs = visible_pairs(bh, s, t, causal)
+    fb, fkind = flash_bound((2 * bh * (s + t) * d) * q.element_size()
+                            + 4 * bh * s, [(4.0 * d * pairs, dname, dname)],
+                            q.dtype, d)
+    return dict(ms=ms, device_ms=dev_ms, plain_ms=plain, bound_ms=b,
+                bound_by=kind, library_ms=lib, library_eager_ms=lib_eager,
+                library_backend=backend, library_kernels=lib_top,
+                forward_lse_ms=fwd_ms, forward={
+                    "ms": fwd_ms, "device_ms": fwd_dev, "plain_ms": fwd_plain,
+                    "bound_ms": fb, "bound_by": fkind, "library_ms": fwd_lib,
+                    "library": f"{lse_op} (device)"})
 
 
 def check_train_kernels(dev) -> dict:
     """Phase 3t: ``flash_attention``'s training forward (the lse
     instances) and ``flash_attention_bwd`` against their plain versions
-    on the card (FA_BWD_CASES, bit-stable), the serving instances'
-    registers unchanged, and ``xfer_matmul``'s dgrad and wgrad products
-    at qwen's training shapes against the plain version and
-    ``torch.matmul``. Returns the ``flash_attention_bwd`` entry and
-    ``xfer_matmul``'s ``train`` sub-entry."""
+    on the card (FA_BWD_CASES: causal, non-causal and cross; bit-stable),
+    the serving instances' registers unchanged, ``xfer_matmul``'s dgrad
+    and wgrad products at qwen's training shapes against the plain
+    version and ``torch.matmul``, and ``xfer_matmul_experts``' dgrad and
+    wgrad at deepseek's (EX_TRAIN_CASES) against theirs and
+    ``torch.bmm``. Returns the ``flash_attention_bwd`` entry,
+    ``xfer_matmul``'s ``train`` sub-entry and ``xfer_matmul_experts``'."""
     import torch
-    import torch.nn.functional as F
-    from torch.nn.attention import SDPBackend, sdpa_kernel
     from repro_torch.kernels import build, ops
     from repro_torch.kernels.flash_attention import bwd_plan
     from repro_torch.kernels.xfer_matmul import route as xfer_route
@@ -4935,90 +5131,72 @@ def check_train_kernels(dev) -> dict:
     def randn(*shape, dt, scale=1.0):
         return (torch.randn(*shape, generator=gen, device=dev) * scale).to(dt)
 
-    for label, bh, s, d, dnames, timed in FA_BWD_CASES:
+    for label, bh, s, t, d, causal, dnames, timed in FA_BWD_CASES:
         for dname in dnames:
             dt = dtypes[dname]
-            q, k, v, do = (randn(bh, s, d, dt=dt) for _ in range(4))
-            out, lse = ops.flash_attention_lse(q, k, v)
-            want_o, want_lse = ops.attention_lse_ref(q, k, v)
-            name = f"flash_attention lse {label} {dname} [{bh},{s},{d}]"
+            q, do = (randn(bh, s, d, dt=dt) for _ in range(2))
+            k, v = (randn(bh, t, d, dt=dt) for _ in range(2))
+            form = "causal" if causal else "non-causal"
+            out, lse = ops.flash_attention_lse(q, k, v, causal=causal)
+            want_o, want_lse = ops.attention_lse_ref(q, k, v, causal=causal)
+            shape = f"[{bh},{s}->{t},{d}]" if s != t else f"[{bh},{s},{d}]"
+            name = f"flash_attention lse {label} {dname} {form} {shape}"
             compare(name + " out", out, want_o, dname)
             lse_err = float((lse - want_lse).abs().max())
             if not lse_err <= 1e-3 * float(want_lse.abs().max()):
                 raise AssertionError(f"{name}: lse off by {lse_err:.3e}")
-            got = ops.flash_attention_bwd(q, k, v, out, do, lse)
-            want = ops.attention_bwd_ref(q, k, v, out, do, lse)
-            name = f"flash_attention_bwd {label} {dname} [{bh},{s},{d}]"
+            got = ops.flash_attention_bwd(q, k, v, out, do, lse,
+                                          causal=causal)
+            want = ops.attention_bwd_ref(q, k, v, out, do, lse, causal=causal)
+            name = f"flash_attention_bwd {label} {dname} {form} {shape}"
             # each head's gradient as one row: the first query's dq is
             # 0 up to rounding (P = 1 there, so dS = 0), a row with no
             # scale of its own
             errs = [compare(f"{name} {part}", g.reshape(bh, -1),
                             w.reshape(bh, -1), dname, tol=FA_BWD_TOL[dname])
                     for part, g, w in zip(("dq", "dk", "dv"), got, want)]
-            again = ops.flash_attention_bwd(q, k, v, out, do, lse)
+            again = ops.flash_attention_bwd(q, k, v, out, do, lse,
+                                            causal=causal)
             for part, g, h in zip(("dq", "dk", "dv"), got, again):
                 bit_stable(f"{name} {part}", g, h)
             line = (f"[3t] {name}: max_abs_err dq/dk/dv "
                     + "/".join(f"{e:.3e}" for e in errs)
                     + f", lse {lse_err:.3e}, bit-stable")
             if timed:
-                bwd = lambda: ops.flash_attention_bwd(q, k, v, out, do, lse)
-                ms = time_ms(bwd, 10, 2)
-                dev_ms = graph_ms(bwd, 10)
-                plain = time_ms(lambda: ops.attention_bwd_ref(
-                    q, k, v, out, do, lse), 3, 1)
-                fwd_ms = time_ms(lambda: ops.flash_attention_lse(q, k, v), 10, 2)
-                qs, ks, vs = (t.detach().reshape(1, bh, s, d).requires_grad_()
-                              for t in (q, k, v))
-                g4 = do.reshape(1, bh, s, d)
-                backend = SDPA_BWD_BACKEND[dname]
-                with sdpa_kernel([getattr(SDPBackend, backend)]):
-                    ys = F.scaled_dot_product_attention(qs, ks, vs,
-                                                        is_causal=True)
-
-                def sdpa_bwd():
-                    return torch.autograd.grad(ys, (qs, ks, vs), g4,
-                                               retain_graph=True)
-
-                lib_eager = time_ms(sdpa_bwd, 10, 2)
-                # device time: the backward's own kernels under the
-                # profiler (the host's autograd path is out of it)
-                tr = trace_window(lambda: [sdpa_bwd() for _ in range(10)]
-                                  and torch.cuda.synchronize(), 10)
-                if not tr.get("measured"):
-                    raise AssertionError(f"{name}: the profiler saw no "
-                                         f"device time of SDPA's backward")
-                lib = tr["device_ms_per_step"]
-                b, kind = fa_bwd_bound(bh, s, d, q.element_size(), dname)
-                row = dict(shape=f"q,k,v,o,dO [{bh},{s},{d}] {dname} causal",
-                           max_abs_err=max(errs), ms=ms, device_ms=dev_ms,
-                           plain_ms=plain, bound_ms=b, bound_by=kind,
-                           library_ms=lib, library_eager_ms=lib_eager,
-                           library_backend=backend,
-                           library_kernels=tr["top"][:3],
-                           forward_lse_ms=fwd_ms, bit_stable=True)
+                row = dict(shape=f"q,o,dO [{bh},{s},{d}] k,v [{bh},{t},{d}] "
+                                 f"{dname} {form}", max_abs_err=max(errs),
+                           bit_stable=True,
+                           **time_attention_train(q, k, v, out, do, lse,
+                                                  causal, dname))
                 if dname == "bfloat16":
                     plan = bwd_plan(bh, s, d, torch.cuda.get_device_properties(
-                        dev).multi_processor_count)
-                    row["plan"] = {k: plan[k] for k in (
-                        "items", "grid", "threads", "own", "tile", "stages",
-                        "own_bufs", "dkdv_smem", "dq_smem")}
+                        dev).multi_processor_count, t=t, causal=causal)
+                    row["plan"] = {k_: plan[k_] for k_ in (
+                        "items", "grid", "dq_items", "dq_grid", "threads",
+                        "own", "tile", "stages", "own_bufs", "dkdv_smem",
+                        "dq_smem")}
                     line += f"; plan {row['plan']}"
-                line += (f" ms {ms:.4f} device_ms {dev_ms:.4f} plain_ms "
-                         f"{plain:.4f} library_ms (SDPA backward, backend "
-                         f"{backend}, device) {lib:.4f} (eager {lib_eager:.4f};"
-                         f" kernels {tr['top'][:3]}) bound_ms {b:.4f} "
-                         f"({kind}); training forward {fwd_ms:.4f}")
-                if dname == "float32":
-                    entry["fp32"] = row
-                elif timed == "main":
+                f = row["forward"]
+                line += (f" ms {row['ms']:.4f} device_ms {row['device_ms']:.4f}"
+                         f" plain_ms {row['plain_ms']:.4f} library_ms (SDPA "
+                         f"backward, backend {row['library_backend']}, device)"
+                         f" {row['library_ms']:.4f} (eager "
+                         f"{row['library_eager_ms']:.4f}; kernels "
+                         f"{row['library_kernels']}) bound_ms "
+                         f"{row['bound_ms']:.4f} ({row['bound_by']}); training "
+                         f"forward ms {f['ms']:.4f} device_ms "
+                         f"{f['device_ms']:.4f} plain_ms {f['plain_ms']:.4f} "
+                         f"library_ms ({f['library']}) {f['library_ms']:.4f} "
+                         f"bound_ms {f['bound_ms']:.4f} ({f['bound_by']})")
+                if timed == "main" and dname == "bfloat16":
                     entry.update(row)
                 else:
-                    entry[timed] = row
-                del qs, ks, vs, ys
+                    key = timed if dname == "bfloat16" else \
+                        ("fp32" if timed == "main" else f"{timed}_fp32")
+                    entry[key] = row
             log(line)
             del q, k, v, do, out, lse, got, want, again
-
+    experts = check_expert_grads(dev, gen)
     # xfer_matmul's training products at qwen's shapes (bf16)
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     r = TRAIN_B * TRAIN_S
@@ -5058,45 +5236,149 @@ def check_train_kernels(dev) -> dict:
             del got
         del x, w, dy, xt
     torch.cuda.empty_cache()
-    return {"flash_attention_bwd": entry, "xfer_matmul_train": rows}
+    return {"flash_attention_bwd": entry, "xfer_matmul_train": rows,
+            "xfer_matmul_experts_train": experts}
+
+
+def train_live_rows(e: int, c: int, seed: int = 0) -> list:
+    """Each expert's live rows in a training step: MOE_TRAIN_B x
+    MOE_TRAIN_S tokens each choosing M_TOPK distinct experts with skewed
+    (seeded Dirichlet) preferences, each expert's share capped at C;
+    expert 1 holds no row and expert 0 is full."""
+    import numpy as np
+    rng = np.random.RandomState(seed)
+    tokens = MOE_TRAIN_B * MOE_TRAIN_S
+    p = rng.dirichlet(np.full(e, 2.0))
+    hits = np.zeros(e, np.int64)
+    for _ in range(tokens):
+        hits[rng.choice(e, size=min(M_TOPK, e), replace=False, p=p)] += 1
+    live = np.minimum(hits, c)
+    live[0], live[1] = c, 0
+    return live.tolist()
+
+
+def check_expert_grads(dev, gen) -> list:
+    """``xfer_matmul_experts``' backward products (EX_TRAIN_CASES, the
+    wrappers the Function calls): the dgrad ``dy @ w.T`` per expert
+    (``w``'s K-major view, rows past the live ones +0) and the wgrad
+    ``x.T @ dy`` per expert (``x.T`` copied, the contraction stopped at
+    the live rows) against their plain versions, two calls bit-equal, x
+    and dy zero past the live rows as the MoE layer leaves them; the
+    timed ones in bf16 beside ``torch.bmm``, bounded on the live rows
+    and experts. Returns their rows."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import xfer_matmul as XM
+
+    dtypes = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    rows_out = []
+    for label, e, c, k, n, dnames, timed in EX_TRAIN_CASES:
+        live = train_live_rows(e, c)
+        counts = torch.tensor(live, dtype=torch.int32, device=dev)
+        alive = (torch.arange(c, device=dev)[None, :]
+                 < counts[:, None])[..., None]
+        rows, busy = sum(live), sum(1 for v in live if v)
+        for dname in dnames:
+            dt = dtypes[dname]
+            x = torch.where(alive, torch.randn(e, c, k, generator=gen,
+                                               device=dev), 0).to(dt)
+            w = (torch.randn(e, k, n, generator=gen, device=dev)
+                 * k ** -0.5).to(dt)
+            dy = torch.where(alive, torch.randn(e, c, n, generator=gen,
+                                                device=dev) * n ** -0.5,
+                             0).to(dt)
+            cases = (
+                ("dgrad", lambda: XM._experts_product(dy, w.transpose(1, 2),
+                                                      counts),
+                 lambda: ops.expert_matmul_dgrad_ref(dy, w, counts),
+                 lambda: torch.bmm(dy, w.transpose(1, 2)),
+                 XM.route(c, n, k, dt, (1, n), sms, experts=e),
+                 (rows * n + busy * k * n + e * c * k)),
+                ("wgrad", lambda: XM._experts_wgrad(x, dy, counts),
+                 lambda: ops.expert_matmul_wgrad_ref(x, dy, counts),
+                 lambda: torch.bmm(x.transpose(1, 2), dy),
+                 XM.route(k, c, n, dt, (n, 1), sms, experts=e, kdepth=True),
+                 (rows * k + rows * n + e * k * n)))
+            for kind, kern, plain, lib_fn, rt, elems in cases:
+                name = (f"xfer_matmul_experts {kind} {label} {dname} "
+                        f"[{e},{c},{k}]x[{e},{k},{n}]")
+                ops.reset_launches()
+                got = kern()
+                if ops.launch_counts()["xfer_matmul_experts"] != 1:
+                    raise AssertionError(f"{name}: not one launch")
+                err = compare(name, got, plain(), dname)
+                bit_stable(name, got, kern())
+                if kind == "wgrad" and not bool((got[1] == 0).all()):
+                    raise AssertionError(f"{name}: the expert with no live "
+                                         f"row has a nonzero gradient")
+                line = (f"[3t] {name}: route {rt.kernel} grid {rt.grid}, "
+                        f"{busy} of {e} experts live, {rows} of {e * c} "
+                        f"rows; max_abs_err {err:.3e} (bit-stable)")
+                if timed and dname == "bfloat16":
+                    flops = 2.0 * rows * k * n
+                    it, wu = iters_for(flops)
+                    ms = time_ms(kern, it, wu)
+                    dev_ms = graph_ms(kern)
+                    plain_ms = time_ms(plain, 3, 1)
+                    lib = time_ms(lib_fn, it, wu)
+                    lib_dev = graph_ms(lib_fn)
+                    b, by = bound_ms(elems * x.element_size(), flops,
+                                     "bfloat16")
+                    row = dict(shape=name[len("xfer_matmul_experts "):],
+                               variant=rt.kernel, max_abs_err=err, ms=ms,
+                               device_ms=dev_ms, plain_ms=plain_ms,
+                               bound_ms=b, bound_by=by, library_ms=lib,
+                               library_device_ms=lib_dev, live_rows=rows,
+                               live_experts=busy)
+                    if kind == "wgrad":
+                        row["x_transpose_copy_ms"] = time_ms(
+                            lambda: x.transpose(1, 2).contiguous(), 10, 2)
+                    rows_out.append(row)
+                    line += (f" ms {ms:.4f} device_ms {dev_ms:.4f} plain_ms "
+                             f"{plain_ms:.4f} library_ms {lib:.4f} (torch.bmm,"
+                             f" every row; device {lib_dev:.4f}) bound_ms "
+                             f"{b:.4f} ({by}, the live rows)"
+                             + (f"; x.T copy {row['x_transpose_copy_ms']:.4f}"
+                                f" ms" if kind == "wgrad" else ""))
+                log(line)
+                del got
+            del x, w, dy
+    torch.cuda.empty_cache()
+    return rows_out
 
 
 def param_count(model) -> int:
     return sum(p.numel() for p in model.parameters())
 
 
-def train_full_width() -> dict:
-    """Phase 6: full-width qwen1.5-0.5b (24 layers, bf16 params, fp32
-    AdamW state) trained through ``launch.train.build_driver``: B = 8, S =
-    512, TRAIN_STEPS steps with a checkpoint every TRAIN_CKPT_EVERY in a
-    directory under build/. Checks every loss finite, the launch counts
-    exact (``train_launches`` a step, no other kernel), a second driver on
-    the directory resuming at the last step with params and state
-    bit-equal to the first's, and TRAIN_FIXED_STEPS steps on one batch
-    ending below the first; prints step p50, tokens/s, the share of 989
-    TFLOP/s (6 N tokens a step), peak allocated bytes and one traced
-    step. Returns the launch counts of the TRAIN_STEPS steps."""
+def train_through_driver(tag: str, arch, shape, per_step: dict, steps: int,
+                         ckpt_every: int):
+    """``arch`` (bf16 params, fp32 AdamW state) trained through
+    ``launch.train.build_driver`` on ``shape`` for ``steps`` steps, with a
+    checkpoint every ``ckpt_every`` and at the end in a directory under
+    build/. Checks every loss finite, no restart, the launch counts exact
+    (``per_step`` a step, no other kernel), then a second driver on the
+    directory resuming at the last step with params and state bit-equal
+    to the first's (held on the host while the first is freed). Prints
+    step p50, tokens/s, the share of 989 TFLOP/s (6 N tokens a step, N
+    every parameter), peak allocated bytes and the losses. Returns (the
+    second driver, the launch counts of the steps, the stats)."""
     import shutil
     import tempfile
     import torch
     from repro_torch.checkpoint.checkpointer import flatten
-    from repro_torch.configs import get_arch
-    from repro_torch.configs.base import ShapeConfig
     from repro_torch.kernels import ops
     from repro_torch.launch.train import build_driver
-    from repro_torch.models.registry import build_train_step
     from repro_torch.optim import adamw as OPT
 
-    arch = get_arch("qwen1.5-0.5b")
-    shape = ShapeConfig("train_smoke", TRAIN_S, TRAIN_B, "train")
     os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
     ckdir = tempfile.mkdtemp(prefix="train_ckpt_", dir=os.path.join(ROOT, "build"))
     try:
-        kw = dict(steps=TRAIN_STEPS, ckpt_dir=ckdir,
-                  ckpt_every=TRAIN_CKPT_EVERY, device="cuda")
+        kw = dict(steps=steps, ckpt_dir=ckdir, ckpt_every=ckpt_every,
+                  device="cuda")
         driver = build_driver(arch, shape, seed=0, **kw)
-        model = driver.params
-        n_params = param_count(model)
+        n_params = param_count(driver.params)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         ops.reset_launches()
@@ -5108,116 +5390,237 @@ def train_full_width() -> dict:
         peak = torch.cuda.max_memory_allocated()
         losses = [m["loss"] for m in result["log"]]
         times = sorted(m["time_s"] for m in result["log"])
-        if len(losses) != TRAIN_STEPS or not all(
+        if len(losses) != steps or not all(
                 l == l and abs(l) < float("inf") for l in losses):
-            raise AssertionError(f"phase 6: losses {losses}")
+            raise AssertionError(f"phase {tag}: losses {losses}")
         if result["restarts"]:
-            raise AssertionError(f"phase 6: {result['restarts']} restarts")
-        per_step = train_launches(arch.num_layers, TRAIN_S)
+            raise AssertionError(f"phase {tag}: {result['restarts']} restarts")
         for name, n in counts.items():
-            want = TRAIN_STEPS * per_step.get(name, 0)
+            want = steps * per_step.get(name, 0)
             if n != want:
-                raise AssertionError(f"phase 6: {name} launched {n} times, "
-                                     f"expected {want} ({TRAIN_STEPS} steps "
+                raise AssertionError(f"phase {tag}: {name} launched {n} "
+                                     f"times, expected {want} ({steps} steps "
                                      f"of {per_step})")
         p50 = times[len(times) // 2] if len(times) % 2 else \
             (times[len(times) // 2 - 1] + times[len(times) // 2]) / 2
-        tokens = TRAIN_B * TRAIN_S
+        tokens = shape.global_batch * shape.seq_len
         share = 6.0 * n_params * tokens / p50 / PEAK_FLOPS["bfloat16"]
         stats = {"losses": losses, "step_times_s": [m["time_s"] for m in
                                                      result["log"]],
                  "step_p50_ms": p50 * 1e3, "tokens_per_s": tokens / p50,
                  "share_of_989_tflops": share, "params": n_params,
                  "peak_allocated_bytes": peak, "run_wall_s": wall,
-                 "launches": counts, "opt_state_bytes":
-                 OPT.state_bytes(driver.opt_state)}
-        log(f"[6] train qwen1.5-0.5b full width, bf16 params, fp32 AdamW, "
-            f"B {TRAIN_B} x S {TRAIN_S}: {json.dumps(stats)}")
+                 "launches": counts, "launches_per_step": per_step,
+                 "opt_state_bytes": OPT.state_bytes(driver.opt_state)}
+        log(f"[{tag}] train {arch.name} ({arch.num_layers} layers), bf16 "
+            f"params, fp32 AdamW, B {shape.global_batch} x S "
+            f"{shape.seq_len}: {json.dumps(stats)}")
 
         # a second driver on the same directory resumes at the last step
-        saved = [(k, v.clone()) for k, v in flatten(
-            {"params": model.state_dict(), "opt": driver.opt_state})]
+        saved = [(k, v.detach().cpu()) for k, v in flatten(
+            {"params": driver.params.state_dict(), "opt": driver.opt_state})]
+        del driver, result
+        torch.cuda.empty_cache()
         second = build_driver(arch, shape, seed=1, **kw)
         t0 = time.perf_counter()
         r2 = second.run()
         resume_s = time.perf_counter() - t0
-        if r2["log"] or second.pipeline.state.step != TRAIN_STEPS:
-            raise AssertionError(f"phase 6 resume: ran {r2['log']}, data step "
-                                 f"{second.pipeline.state.step}")
+        if r2["log"] or second.pipeline.state.step != steps:
+            raise AssertionError(f"phase {tag} resume: ran {r2['log']}, data "
+                                 f"step {second.pipeline.state.step}")
         restored = flatten({"params": second.params.state_dict(),
                             "opt": second.opt_state})
+        if len(restored) != len(saved):
+            raise AssertionError(f"phase {tag} resume: {len(restored)} "
+                                 f"leaves, saved {len(saved)}")
         for (k, a), (_, b) in zip(saved, restored):
-            if not torch.equal(a, b):
-                raise AssertionError(f"phase 6 resume: {k} differs")
-        log(f"[6] resume: a second driver restored step {TRAIN_STEPS} in "
+            if not torch.equal(a, b.cpu()):
+                raise AssertionError(f"phase {tag} resume: {k} differs")
+        log(f"[{tag}] resume: a second driver restored step {steps} in "
             f"{resume_s:.2f} s, {len(saved)} leaves bit-equal")
-        del second, restored, saved
-        torch.cuda.empty_cache()
-
-        # steps on one fixed batch
-        cfg = OPT.AdamWConfig(lr=1e-3)
-        step = build_train_step(arch, cfg)
-        opt = driver.opt_state
-        batch = driver.pipeline.next_batch()
-        fixed = [float(step(model, opt, batch)[2]["loss"])
-                 for _ in range(TRAIN_FIXED_STEPS)]
-        if not fixed[-1] < fixed[0]:
-            raise AssertionError(f"phase 6: loss on one batch did not fall: "
-                                 f"{fixed}")
-        log(f"[6] {TRAIN_FIXED_STEPS} steps on one batch: losses {fixed}")
-
-        # one traced step
-        def one():
-            step(model, opt, batch)
-            torch.cuda.synchronize()
-        trace = trace_window(one, 1, share_of=(
-            "flash_attention_bwd", lambda e: e.get("cat") == "kernel" and any(
-                k in e["name"] for k in ("dkdv_", "dq_", "bwd_prep"))))
-        log(f"[6] traced step: {json.dumps(trace)}")
-        return counts
+        del saved, restored
+        return second, counts, stats
     finally:
         shutil.rmtree(ckdir, ignore_errors=True)
 
 
-def parity_train(dev) -> None:
-    """Phase 6b: one train step of qwen1.5-0.5b at full width, depth cut
-    to PARITY_TRAIN[0] layers, fp32, card vs CPU on the same seeded
-    params and batch: the loss within 2e-3 relative, every gradient leaf
-    within 2e-3 of its leaf's max |g|; then ``adamw_update`` on the same
-    (CPU) gradients on both sides: params and state within 1e-5."""
-    import dataclasses
+def train_full_width() -> dict:
+    """Phase 6: full-width qwen1.5-0.5b (24 layers, bf16 params, fp32
+    AdamW state), B = 8, S = 512, TRAIN_STEPS steps with a checkpoint
+    every TRAIN_CKPT_EVERY (``train_through_driver``: launches exactly
+    ``train_launches`` a step, a bit-equal resume), then TRAIN_FIXED_STEPS
+    steps on one batch ending below the first and one traced step (idle
+    share, top device ops, the backward kernels' share). Returns the
+    launch counts of the TRAIN_STEPS steps."""
     import torch
     from repro_torch.configs import get_arch
     from repro_torch.configs.base import ShapeConfig
-    from repro_torch.data.pipeline import TokenPipeline
-    from repro_torch.models import lm as LM
-    from repro_torch.models.registry import batch_to_device, init_params
+    from repro_torch.models.registry import build_train_step
     from repro_torch.optim import adamw as OPT
 
-    layers, b, s = PARITY_TRAIN
-    arch = dataclasses.replace(get_arch("qwen1.5-0.5b"), num_layers=layers)
+    arch = get_arch("qwen1.5-0.5b")
+    shape = ShapeConfig("train_smoke", TRAIN_S, TRAIN_B, "train")
+    driver, counts, _ = train_through_driver(
+        "6", arch, shape, train_launches(arch.num_layers, TRAIN_S),
+        TRAIN_STEPS, TRAIN_CKPT_EVERY)
+    model, opt = driver.params, driver.opt_state
+
+    # steps on one fixed batch
+    step = build_train_step(arch, OPT.AdamWConfig(lr=1e-3))
+    batch = driver.pipeline.next_batch()
+    fixed = [float(step(model, opt, batch)[2]["loss"])
+             for _ in range(TRAIN_FIXED_STEPS)]
+    if not fixed[-1] < fixed[0]:
+        raise AssertionError(f"phase 6: loss on one batch did not fall: "
+                             f"{fixed}")
+    log(f"[6] {TRAIN_FIXED_STEPS} steps on one batch: losses {fixed}")
+
+    # one traced step
+    def one():
+        step(model, opt, batch)
+        torch.cuda.synchronize()
+    trace = trace_window(one, 1, share_of=("flash_attention_bwd", bwd_launch))
+    log(f"[6] traced step: {json.dumps(trace)}")
+    del driver, model, opt
+    torch.cuda.empty_cache()
+    return counts
+
+
+def bwd_launch(event: dict) -> bool:
+    """A trace event of one of ``flash_attention_bwd``'s three kernels."""
+    return event.get("cat") == "kernel" and any(
+        k in event["name"] for k in ("dkdv_", "dq_", "bwd_prep"))
+
+
+def train_family(tag: str, arch, shape, per_step: dict, share_of) -> dict:
+    """Phases 6c and 6d: ``arch`` trained through the driver for
+    FAMILY_STEPS steps with one checkpoint, at the end
+    (``train_through_driver``: exact launches, a bit-equal resume), the
+    bytes of params, grads and AdamW state reckoned from the parameter
+    count beside the measured peak, then one traced step of the resumed
+    driver (idle share, top device ops, ``share_of``'s share). Returns
+    the launch counts of the steps."""
+    import torch
+    driver, counts, stats = train_through_driver(
+        tag, arch, shape, per_step, FAMILY_STEPS, FAMILY_STEPS + 1)
+    n = stats["params"]
+    log(f"[{tag}] reckoned: {n} parameters, bf16 params {2 * n} B + bf16 "
+        f"grads {2 * n} B + fp32 AdamW m, v {8 * n} B = {12 * n / 1e9:.2f} "
+        f"GB; measured peak allocated {stats['peak_allocated_bytes']} B; "
+        f"launches a step {per_step}")
+    batch = driver.pipeline.next_batch()
+
+    def one():
+        driver.step_fn(driver.params, driver.opt_state, batch)
+        torch.cuda.synchronize()
+    trace = trace_window(one, 1, share_of=share_of)
+    log(f"[{tag}] traced step: {json.dumps(trace)}")
+    del driver
+    torch.cuda.empty_cache()
+    return counts
+
+
+def train_moe() -> dict:
+    """Phase 6c: deepseek-moe-16b at full width, depth cut to
+    MOE_TRAIN_LAYERS (its dense prefix layer and 3 MoE layers, 2.27 B
+    parameters), B MOE_TRAIN_B x S MOE_TRAIN_S (C = 240 slots an expert
+    at capacity factor 1.25), launches exactly ``moe_train_launches`` a
+    step; the traced step's share is the expert products' (forward,
+    remat, dgrad, wgrad)."""
+    import dataclasses
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.base import ShapeConfig
+    arch = dataclasses.replace(get_arch("deepseek-moe-16b"),
+                               num_layers=MOE_TRAIN_LAYERS)
+    dense = arch.first_dense_layers
+    return train_family(
+        "6c", arch, ShapeConfig("train_moe", MOE_TRAIN_S, MOE_TRAIN_B,
+                                "train"),
+        moe_train_launches(dense, arch.num_layers - dense, MOE_TRAIN_S),
+        ("xfer_matmul_experts", expert_launch))
+
+
+def train_encdec() -> dict:
+    """Phase 6d: seamless-m4t-medium at full width and depth (12 encoder
+    + 12 decoder layers), B ED_TRAIN_B x S TRAIN_S (512 source frames a
+    row), launches exactly ``encdec_train_launches`` a step; the traced
+    step's share is ``flash_attention_bwd``'s."""
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.base import ShapeConfig
+    arch = get_arch("seamless-m4t-medium")
+    return train_family(
+        "6d", arch, ShapeConfig("train_encdec", TRAIN_S, ED_TRAIN_B, "train"),
+        encdec_train_launches(arch.enc_layers, arch.dec_layers, TRAIN_S),
+        ("flash_attention_bwd", bwd_launch))
+
+
+def family_loss(model, batch: dict):
+    """The training loss of ``model`` on a device batch: ``encdec.loss_fn``
+    over the frames for the encdec family, else ``lm.loss_fn``."""
+    from repro_torch.models import encdec as ED
+    from repro_torch.models import lm as LM
+    if model.arch.family == "encdec":
+        return ED.loss_fn(model, batch["frames"], batch["tokens"],
+                          batch["labels"])
+    return LM.loss_fn(model, batch["tokens"], batch["labels"])
+
+
+def parity_train_case(dev, tag: str, arch, b: int, s: int):
+    """One train step's loss and gradients, card vs CPU, fp32, on the same
+    seeded params and batch: the loss within 2e-3 relative, every
+    gradient leaf within 2e-3 of its leaf's max |g|. Returns the CPU
+    model and gradients, and the card model."""
+    import torch
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data.pipeline import TokenPipeline
+    from repro_torch.models.registry import batch_to_device, init_params
+
     cpu = init_params(arch, 5, device="cpu", dtype=torch.float32)
     card = init_params(arch, 5, device=dev, dtype=torch.float32)
     card.load_state_dict(cpu.state_dict())
     batch = TokenPipeline(arch, ShapeConfig("p", s, b, "train"),
                           seed=2).next_batch()
-    out = {}
-    for tag, model in (("cpu", cpu), ("card", card)):
+    out, margin = {}, None
+    for side, model in (("cpu", cpu), ("card", card)):
         model.requires_grad_(True)
         bt = batch_to_device(batch, model.device)
-        loss = LM.loss_fn(model, bt["tokens"], bt["labels"])
+        with router_margins() as margins:
+            loss = family_loss(model, bt)
         grads = torch.autograd.grad(loss, list(model.parameters()))
-        out[tag] = (float(loss.detach()), dict(zip(
+        out[side] = (float(loss.detach()), dict(zip(
             [n for n, _ in model.named_parameters()], grads)))
+        if margins and side == "card":
+            margin = min(m for _, m in margins)
     (lc, gc), (lg, gg) = out["cpu"], out["card"]
     rel = abs(lg - lc) / abs(lc)
     worst = max(float((gg[n].cpu() - g).abs().max()) /
                 max(float(g.abs().max()), 1e-30) for n, g in gc.items())
-    log(f"[6b] loss card {lg:.6f} cpu {lc:.6f} (rel {rel:.3e}); worst grad "
-        f"leaf err / its max |g| {worst:.3e}")
+    log(f"[6b] {tag}: loss card {lg:.6f} cpu {lc:.6f} (rel {rel:.3e}); worst "
+        f"grad leaf err / its max |g| {worst:.3e} over {len(gc)} leaves"
+        + (f"; smallest router margin {margin:.3e}" if margin is not None
+           else ""))
     if not (rel <= TRAIN_PARITY_TOL and worst <= TRAIN_PARITY_TOL):
-        raise AssertionError(f"phase 6b: loss rel {rel:.3e}, grads {worst:.3e}"
-                             f" (limit {TRAIN_PARITY_TOL})")
+        raise AssertionError(f"phase 6b {tag}: loss rel {rel:.3e}, grads "
+                             f"{worst:.3e} (limit {TRAIN_PARITY_TOL})")
+    return cpu, gc, card
+
+
+def parity_train(dev) -> None:
+    """Phase 6b: one train step card vs CPU, fp32, full width at cut depth
+    (``parity_train_case``): qwen1.5-0.5b at PARITY_TRAIN[0] layers, then
+    ``adamw_update`` on the same (CPU) gradients on both sides: params
+    and state within 1e-5; deepseek-moe-16b at 2 layers (its dense
+    prefix layer and one MoE layer; the smallest router margin printed)
+    and seamless-m4t-medium at 2 + 2 layers, PARITY_FAMILY's batch and
+    sequence."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.optim import adamw as OPT
+
+    layers, b, s = PARITY_TRAIN
+    arch = dataclasses.replace(get_arch("qwen1.5-0.5b"), num_layers=layers)
+    cpu, gc, card = parity_train_case(dev, "qwen1.5-0.5b", arch, b, s)
     cfg = OPT.AdamWConfig(lr=3e-4)
     states = {}
     for tag, model in (("cpu", cpu), ("card", card)):
@@ -5236,6 +5639,70 @@ def parity_train(dev) -> None:
         f"over params, m and v")
     if not diff <= ADAMW_PARITY_TOL:
         raise AssertionError(f"phase 6b: adamw_update differs by {diff:.3e}")
+    del cpu, gc, card, states
+    b, s = PARITY_FAMILY
+    families = (("deepseek-moe-16b", dict(num_layers=2)),
+                ("seamless-m4t-medium", dict(num_layers=4, enc_layers=2,
+                                             dec_layers=2)))
+    for name, cut in families:
+        arch = dataclasses.replace(get_arch(name), **cut)
+        parity_train_case(dev, name, arch, b, s)
+        torch.cuda.empty_cache()
+
+
+POOL_OPS = 200  # the pool-accounting line's seeded operations
+
+
+def check_pool_state(dev) -> None:
+    """The device page accounting (``serving.pages``: ``pool_alloc``,
+    ``pool_retain``, ``pool_release``, ``pool_free_count`` on int32
+    refcounts on the card) against the host ``PagePool`` over a seeded
+    sequence of POOL_OPS allocations, retains and releases on qwen's
+    pool of phase 4e (65 pages): pages and refcounts equal after every
+    operation (read back here, not inside the functions)."""
+    import numpy as np
+    import torch
+    from repro_torch.serving import pages as P
+
+    rng = np.random.RandomState(7)
+    kv_pages = 65
+    state = P.make_pool_state(kv_pages, device=dev)
+    host = P.PagePool(kv_pages)
+    held, counted = [], {"alloc": 0, "retain": 0, "release": 0}
+    for _ in range(POOL_OPS):
+        op = rng.choice(["alloc", "retain", "release"], p=[0.35, 0.15, 0.5])
+        if op == "alloc":
+            n = int(rng.randint(1, 9))
+            if n > host.free_pages:
+                continue
+            state, pages = P.pool_alloc(state, n)
+            if pages.device != state.refcount.device or \
+                    host.alloc(n) != pages.tolist():
+                raise AssertionError(f"pool: alloc({n}) gave {pages.tolist()}")
+            held += pages.tolist()
+        elif op == "retain" and held:
+            pages = rng.choice(held, size=min(len(held), 4), replace=False)
+            state = P.pool_retain(state, torch.tensor(pages, dtype=torch.int32,
+                                                      device=dev))
+            host.retain(pages.tolist())
+            held += pages.tolist()
+        elif op == "release" and held:
+            i = int(rng.randint(len(held)))
+            page = held.pop(i)
+            state = P.pool_release(state, torch.tensor([page, 0],
+                                                       dtype=torch.int32,
+                                                       device=dev))
+            host.release([page])
+        else:
+            continue
+        counted[op] += 1
+        if not np.array_equal(state.refcount.cpu().numpy(), host.refcount) \
+                or int(P.pool_free_count(state)) != host.free_pages:
+            raise AssertionError(f"pool: refcounts differ after {op}")
+    log(f"[pool] device page accounting on {state.refcount.device}: "
+        f"{counted} against the host PagePool, refcounts and pages equal "
+        f"after each; {host.free_pages} of {kv_pages - 1} pages free at the "
+        f"end")
 
 
 NO_SPILL = ("flash_split_kernel", "flash_tc_kernel", "flash_terms_kernel",
@@ -5310,7 +5777,8 @@ def kernel_table(entries: dict, counts: dict) -> list:
                     "every_length", "shapes", "ptxas", "device_ms",
                     "library_device_ms", "yardstick_device_ms", "bit_stable",
                     "sdpa_dequantised_ms", "sdpa_dequantised_device_ms",
-                    "live_rows", "train", "forward_lse_ms"):
+                    "live_rows", "train", "forward_lse_ms", "forward",
+                    "noncausal", "cross", "noncausal_fp32", "cross_fp32"):
             if key in e:
                 row[key] = e[key]
         kernels.append(row)
@@ -5434,13 +5902,23 @@ def main() -> int:
     train = check_train_kernels(dev)
     entries["flash_attention_bwd"] = train["flash_attention_bwd"]
     entries["xfer_matmul"]["train"] = train["xfer_matmul_train"]
+    entries["xfer_matmul_experts"]["train"] = train["xfer_matmul_experts_train"]
     mark("3t")
     # ---- phase 6: full-width qwen1.5-0.5b trained through the driver
     counts["train"] = train_full_width()
     mark("6")
-    # ---- phase 6b: a train step, card vs CPU, fp32, cut depth
+    # ---- phase 6c: deepseek-moe-16b at full width, 4 layers, trained
+    counts["train-moe"] = train_moe()
+    mark("6c")
+    # ---- phase 6d: seamless-m4t-medium at full width and depth, trained
+    counts["train-encdec"] = train_encdec()
+    mark("6d")
+    # ---- phase 6b: a train step per family, card vs CPU, fp32, cut depth
     parity_train(dev)
     mark("6b")
+    # ---- the device page accounting against the host pool
+    check_pool_state(dev)
+    mark("pool")
 
     kernels = kernel_table(entries, counts)
     log(f"[total] {time.perf_counter() - started:.1f} s, the build included")

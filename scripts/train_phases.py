@@ -1,9 +1,11 @@
 #!/usr/bin/env python3
 """Build the port's kernels and run only the training phases of
 ``chip_smoke.py`` on one card: 3t (the training kernels against their
-plain versions), 6b (a train step, card against CPU) and 6 (full-width
-qwen1.5-0.5b through the driver). A short call for work on the training
-path; a failed ``ptxas`` spill check is printed and the phases still run.
+plain versions), the device page accounting, 6b (a train step per
+family, card against CPU), 6 (full-width qwen1.5-0.5b through the
+driver), 6c (deepseek-moe-16b, 4 layers) and 6d (seamless-m4t-medium).
+A short call for work on the training path; a failed ``ptxas`` spill
+check is printed and the phases still run.
 
     python3 scripts/train_phases.py
 """
@@ -36,13 +38,15 @@ def main() -> int:
         C.check_ptxas(build.build_log)
     except AssertionError as err:
         print("check_ptxas failed:", err, flush=True)
-    entries = C.check_train_kernels(dev)
-    print(json.dumps(entries, default=str), flush=True)
-    print(f"3t done {time.perf_counter() - t0:.1f} s", flush=True)
-    C.parity_train(dev)
-    print(f"6b done {time.perf_counter() - t0:.1f} s", flush=True)
-    C.train_full_width()
-    print(f"6 done {time.perf_counter() - t0:.1f} s", flush=True)
+    phases = (("3t", lambda: print(json.dumps(C.check_train_kernels(dev),
+                                              default=str), flush=True)),
+              ("pool", lambda: C.check_pool_state(dev)),
+              ("6b", lambda: C.parity_train(dev)),
+              ("6", C.train_full_width), ("6c", C.train_moe),
+              ("6d", C.train_encdec))
+    for name, run in phases:
+        run()
+        print(f"{name} done {time.perf_counter() - t0:.1f} s", flush=True)
     return 0
 
 

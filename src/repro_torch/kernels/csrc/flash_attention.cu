@@ -79,8 +79,9 @@
 // scores (natural log) at its end (FLASH_LSE_STORE), flash_tc_kernel
 // takes two warpgroups at D = 128 (three would leave a thread 168
 // registers, and the store spills there), and the library exports
-// flash_attention_lse_launch only (causal fp, D = 64 and 128, the forms
-// flash_attention_bwd.cu differentiates). Without FLASH_TRAIN every hook
+// flash_attention_lse_launch only (fp, causal or not, S queries over T
+// keys, D = 64 and 128: the forms flash_attention_bwd.cu differentiates).
+// Without FLASH_TRAIN every hook
 // below expands to what the file held before the training forward
 // existed, so the serving kernels compile to the same code.
 //
@@ -1315,18 +1316,20 @@ extern "C" int prefix_attention_launch(const void* q, const void* pk,
 }
 
 #else
-// The training forward: causal flash_attention_launch over fp q, k, v and
-// o of one dtype (0 = float32, 1 = bfloat16) that also writes lse [BH,
-// S] f32, each row's natural log of the sum of exp(scale q k) over its
-// visible keys. D = 64 or 128.
+// The training forward: flash_attention_launch over fp q, o [BH, S, D]
+// and k, v [BH, T, D] of one dtype (0 = float32, 1 = bfloat16), causal or
+// not (no window, lengths or prefix), that also writes lse [BH, S] f32,
+// each row's natural log of the sum of exp(scale q k) over its visible
+// keys. D = 64 or 128.
 extern "C" int flash_attention_lse_launch(const void* q, const void* k,
                                           const void* v, void* o, float* lse,
                                           int BH, int S, int T_, int D,
-                                          float scale, int dtype,
+                                          int causal, float scale, int dtype,
                                           void* stream) {
   if (!lse || BH <= 0 || S <= 0 || T_ <= 0) return (int)cudaErrorInvalidValue;
   const Args a{q, nullptr, nullptr, nullptr, nullptr, 0, 0, k, v, nullptr,
-               nullptr, o, BH, S, T_, 1, 0, scale, nullptr, 1, 0, lse};
+               nullptr, o, BH, S, T_, causal ? 1 : 0, 0, scale, nullptr, 1, 0,
+               lse};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   using B = __nv_bfloat16;
   cudaError_t e = cudaErrorInvalidValue;

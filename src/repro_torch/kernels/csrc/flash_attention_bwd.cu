@@ -1,7 +1,11 @@
-// flash_attention_bwd: the gradient of causal fp attention,
-// q, k, v, o, dO [BH, S, D] (keys at the query positions, T = S), D = 64
-// or 128, from the forward's per-row log-sum-exp lse [BH, S] (natural
-// log of the sum of exp(scale * q k) over the visible keys).
+// flash_attention_bwd: the gradient of fp attention, q, o, dO [BH, S, D]
+// over k, v [BH, T, D], D = 64 or 128, from the forward's per-row
+// log-sum-exp lse [BH, S] (natural log of the sum of exp(scale * q k)
+// over the visible keys). causal: key kp visible to query qi when kp <=
+// qi (positions from 0 on both sides; the decoder's and the dense
+// family's self-attention, T = S); else every key (the encoder's
+// bidirectional attention, T = S, and the decoder's cross-attention over
+// T encoder positions).
 //
 // Replaces no TPU kernel: the JAX package has no backward Pallas kernel,
 // and jax.grad differentiates its jnp attention (repro/models/layers.py
@@ -12,14 +16,16 @@
 // - bwd_prep_kernel: delta_i = sum_d dO_id O_id (f32), 16-byte loads,
 //   D / 8 (bf16) or D / 4 (fp32) lanes a row;
 // - dkdv kernel, one block per (key tile, bh): dV_j += P^T dO_i and
-//   dK_j += scale dS^T Q_i over the query tiles i from the diagonal on,
-//   with P = exp(scale S - lse) and dS = P (dO V^T - delta);
+//   dK_j += scale dS^T Q_i over the query tiles i from the diagonal on
+//   (causal) or over all of them, with P = exp(scale S - lse) and dS = P
+//   (dO V^T - delta);
 // - dq kernel, one block per (query tile, bh): dQ_i += scale dS K_j
-//   over the key tiles up to the diagonal.
+//   over the key tiles up to the diagonal (causal) or over all T.
 //
 // Each output element is summed by one thread in a fixed order: no
 // atomics, so two calls give equal bits. Masked pairs (key past the
-// query, query past S) take P = 0.
+// query where causal, query past S, key past T) take P = 0; tiles that
+// cross S or T are masked element by element.
 //
 // Two instances per head dim:
 //
@@ -74,7 +80,8 @@ struct BwdArgs {
   void* dq;
   void* dk;
   void* dv;
-  int BH, S;
+  int BH, S, T;  // q, o, dO, dq: S rows a head; k, v, dk, dv: T rows
+  int causal;
   float scale;
 };
 
@@ -342,8 +349,9 @@ dkdv_wg_kernel(const __grid_constant__ Maps maps, const BwdArgs a) {
   auto own_full = [&](int b) { return bars + 8 * (2 * STAGES + b); };
   auto own_empty = [&](int b) { return bars + 8 * (2 * STAGES + OB + b); };
 
-  const int S = a.S, tiles = (S + TILE - 1) / TILE;
-  const int items = a.BH * ((S + OWN - 1) / OWN);
+  const int S = a.S, T = a.T, tiles = (S + TILE - 1) / TILE;
+  const bool causal = a.causal;
+  const int items = a.BH * ((T + OWN - 1) / OWN);
   const int wg = threadIdx.x / 128;
   if (threadIdx.x == 0) {
     for (int st = 0; st < STAGES; ++st) {
@@ -367,7 +375,9 @@ dkdv_wg_kernel(const __grid_constant__ Maps maps, const BwdArgs a) {
       const int it = item_of(round);
       if (it >= items) continue;
       const int bh = it % a.BH, k0 = it / a.BH * OWN;
-      const int i_first = k0 / TILE, n = tiles - i_first;
+      // the query tiles from the diagonal (causal; none for keys past S)
+      const int i_first = causal ? k0 / TILE : 0;
+      const int n = max(tiles - i_first, 0);
       const long long rb = (long long)bh * S;
       // K, V into a buffer the consumers are done with: at once while a
       // free one is left, else after the ring's first tiles of the item
@@ -415,7 +425,8 @@ dkdv_wg_kernel(const __grid_constant__ Maps maps, const BwdArgs a) {
     const int it = item_of(round);
     if (it >= items) continue;
     const int bh = it % a.BH, k0 = it / a.BH * OWN;
-    const int i_first = k0 / TILE, n = tiles - i_first;
+    const int i_first = causal ? k0 / TILE : 0;
+    const int n = max(tiles - i_first, 0);
     const int kw0 = k0 + wg * 64;                 // the warpgroup's keys
     const int key = kw0 + wq * 16 + (lane >> 2);  // this thread's: key, key + 8
     const int b = j % OB;
@@ -427,8 +438,8 @@ dkdv_wg_kernel(const __grid_constant__ Maps maps, const BwdArgs a) {
     for (int t = 0; t < n; ++t, ++c) {
       const int st = c % STAGES, q0 = (i_first + t) * TILE;
       bar_wait(full(st), (c / STAGES) & 1);
-      // the warpgroup's keys all lie past this tile's queries, or past S
-      if (kw0 <= q0 + TILE - 1 && kw0 < S) {
+      // the warpgroup's keys all lie past this tile's queries, or past T
+      if ((!causal || kw0 <= q0 + TILE - 1) && kw0 < T) {
         const uint32_t qs = ring + 2 * st * QB, gs = qs + QB;
         float s[32], dp[32];
         zero(s);
@@ -443,7 +454,7 @@ dkdv_wg_kernel(const __grid_constant__ Maps maps, const BwdArgs a) {
         // s[4 jb + e]: key `key` + 8 ((e >> 1) & 1), query q0 + 8 jb + 2
         // t4 + (e & 1); P^T and dS^T into A fragments (16 queries a k-step)
         const float* ls = stat + st * 2 * TILE;
-        const bool edge = kw0 + 63 > q0 || q0 + TILE > S;
+        const bool edge = (causal && kw0 + 63 > q0) || q0 + TILE > S;
         uint32_t pa[4][4], da[4][4];
 #pragma unroll
         for (int jj = 0; jj < 32; jj += 2) {
@@ -452,9 +463,9 @@ dkdv_wg_kernel(const __grid_constant__ Maps maps, const BwdArgs a) {
           const float2 dl = *reinterpret_cast<const float2*>(ls + TILE + qc);
           float p0 = ex2(fmaf(s[jj], sl2, -l2.x));
           float p1 = ex2(fmaf(s[jj + 1], sl2, -l2.y));
-          if (edge) {
-            if (!(kp <= q0 + qc && q0 + qc < S)) p0 = 0.f;
-            if (!(kp <= q0 + qc + 1 && q0 + qc + 1 < S)) p1 = 0.f;
+          if (edge) {  // keys past T are never stored
+            if (!((!causal || kp <= q0 + qc) && q0 + qc < S)) p0 = 0.f;
+            if (!((!causal || kp <= q0 + qc + 1) && q0 + qc + 1 < S)) p1 = 0.f;
           }
           pa[jj / 8][(jj % 8) / 2] = pack(p0, p1);
           da[jj / 8][(jj % 8) / 2] =
@@ -473,9 +484,9 @@ dkdv_wg_kernel(const __grid_constant__ Maps maps, const BwdArgs a) {
       bar_arrive(empty(st));
     }
     bar_arrive(own_empty(b));  // every product that read K and V has waited
-    const long long base = (long long)bh * S * D;
-    store_rows<D>(static_cast<B*>(a.dk) + base, dk, kw0 + wq * 16, S, a.scale);
-    store_rows<D>(static_cast<B*>(a.dv) + base, dv, kw0 + wq * 16, S, 1.f);
+    const long long base = (long long)bh * T * D;
+    store_rows<D>(static_cast<B*>(a.dk) + base, dk, kw0 + wq * 16, T, a.scale);
+    store_rows<D>(static_cast<B*>(a.dv) + base, dv, kw0 + wq * 16, T, 1.f);
     ++j;
   }
 }
@@ -498,7 +509,9 @@ dq_wg_kernel(const __grid_constant__ Maps maps, const BwdArgs a) {
   auto own_full = [&](int b) { return bars + 8 * (2 * STAGES + b); };
   auto own_empty = [&](int b) { return bars + 8 * (2 * STAGES + OB + b); };
 
-  const int S = a.S, tiles = (S + TILE - 1) / TILE, blocks = (S + OWN - 1) / OWN;
+  const int S = a.S, T = a.T, tiles = (T + TILE - 1) / TILE;
+  const int blocks = (S + OWN - 1) / OWN;
+  const bool causal = a.causal;
   const int items = a.BH * blocks;
   const int wg = threadIdx.x / 128;
   if (threadIdx.x == 0) {
@@ -522,7 +535,7 @@ dq_wg_kernel(const __grid_constant__ Maps maps, const BwdArgs a) {
       const int it = item_of(round);
       if (it >= items) continue;
       const int bh = it % a.BH, q0 = (blocks - 1 - it / a.BH) * OWN;
-      const int n = min(tiles, (q0 + OWN + TILE - 1) / TILE);
+      const int n = causal ? min(tiles, (q0 + OWN + TILE - 1) / TILE) : tiles;
       auto load_own = [&]() {  // Q, dO into a buffer the consumers are done with
         const int b = j % OB;
         const uint32_t qs = own_s + 2 * b * QB;
@@ -555,7 +568,7 @@ dq_wg_kernel(const __grid_constant__ Maps maps, const BwdArgs a) {
     const int it = item_of(round);
     if (it >= items) continue;
     const int bh = it % a.BH, q0 = (blocks - 1 - it / a.BH) * OWN;
-    const int n = min(tiles, (q0 + OWN + TILE - 1) / TILE);
+    const int n = causal ? min(tiles, (q0 + OWN + TILE - 1) / TILE) : tiles;
     const int qw0 = q0 + wg * 64;                // the warpgroup's queries
     const int qi = qw0 + wq * 16 + (lane >> 2);  // this thread's: qi, qi + 8
     const long long rb = (long long)bh * S;
@@ -575,7 +588,7 @@ dq_wg_kernel(const __grid_constant__ Maps maps, const BwdArgs a) {
       const int st = c % STAGES, t0 = t * TILE;
       bar_wait(full(st), (c / STAGES) & 1);
       // some key of the tile is visible to the warpgroup
-      if (t0 <= qw0 + 63 && qw0 < S) {
+      if ((!causal || t0 <= qw0 + 63) && qw0 < S) {
         const uint32_t ks = ring + 2 * st * KB, vs = ks + KB;
         float s[32], dp[32];
         zero(s);
@@ -589,7 +602,8 @@ dq_wg_kernel(const __grid_constant__ Maps maps, const BwdArgs a) {
         fence_regs(dp);
         // s[4 jb + e]: query qi + 8 ((e >> 1) & 1), key t0 + 8 jb + 2 t4
         // + (e & 1)
-        const bool edge = t0 + TILE - 1 > qw0 || t0 + TILE > S || qw0 + 64 > S;
+        const bool edge = (causal && t0 + TILE - 1 > qw0) || t0 + TILE > T ||
+                          qw0 + 64 > S;
         uint32_t da[4][4];
 #pragma unroll
         for (int jj = 0; jj < 32; jj += 2) {
@@ -598,8 +612,8 @@ dq_wg_kernel(const __grid_constant__ Maps maps, const BwdArgs a) {
           float p0 = ex2(fmaf(s[jj], sl2, -lse2[h]));
           float p1 = ex2(fmaf(s[jj + 1], sl2, -lse2[h]));
           if (edge) {
-            if (!(kp <= r && r < S)) p0 = 0.f;
-            if (!(kp + 1 <= r && r < S)) p1 = 0.f;
+            if (!((!causal || kp <= r) && r < S && kp < T)) p0 = 0.f;
+            if (!((!causal || kp + 1 <= r) && r < S && kp + 1 < T)) p1 = 0.f;
           }
           da[jj / 8][(jj % 8) / 2] =
               pack(p0 * (dp[jj] - del[h]), p1 * (dp[jj + 1] - del[h]));
@@ -699,23 +713,25 @@ __global__ void __launch_bounds__(THREADS) dkdv_fp_kernel(const BwdArgs a) {
   __shared__ __align__(16) float qs[OT][D];
   __shared__ __align__(16) float gs[OT][D];
   __shared__ float ls[OT], ds[OT];
-  const int S = a.S;
-  const long long base = (long long)blockIdx.y * S;
+  const int S = a.S, T = a.T;
+  const bool causal = a.causal;
+  const long long base = (long long)blockIdx.y * S;   // query rows
+  const long long kbase = (long long)blockIdx.y * T;  // key rows
   const float* q = static_cast<const float*>(a.q) + base * D;
   const float* dout = static_cast<const float*>(a.dout) + base * D;
   const int lane = threadIdx.x % TPR;
   const int k0 = blockIdx.x * RB;
   const int kp = k0 + threadIdx.x / TPR;  // this thread's key
-  const bool row_ok = kp < S;
+  const bool row_ok = kp < T;
   float4 kr[C], vr[C], dk[C], dv[C];
-  load_row<D>(kr, static_cast<const float*>(a.k) + (base + kp) * D, lane, row_ok);
-  load_row<D>(vr, static_cast<const float*>(a.v) + (base + kp) * D, lane, row_ok);
+  load_row<D>(kr, static_cast<const float*>(a.k) + (kbase + kp) * D, lane, row_ok);
+  load_row<D>(vr, static_cast<const float*>(a.v) + (kbase + kp) * D, lane, row_ok);
 #pragma unroll
   for (int c = 0; c < C; ++c) {
     dk[c] = make_float4(0.f, 0.f, 0.f, 0.f);
     dv[c] = dk[c];
   }
-  for (int q0 = k0 / OT * OT; q0 < S; q0 += OT) {
+  for (int q0 = causal ? k0 / OT * OT : 0; q0 < S; q0 += OT) {
     stage<D>(qs, gs, q, dout, q0, S);
     for (int t = threadIdx.x; t < OT; t += THREADS) {
       const bool ok = q0 + t < S;
@@ -727,15 +743,16 @@ __global__ void __launch_bounds__(THREADS) dkdv_fp_kernel(const BwdArgs a) {
       const float s = dot_row<D>(kr, qs[r], lane);
       const float dp = dot_row<D>(vr, gs[r], lane);
       const int qi = q0 + r;
-      const float p = kp <= qi && qi < S ? expf(s * a.scale - ls[r]) : 0.f;
+      const float p =
+          (!causal || kp <= qi) && qi < S ? expf(s * a.scale - ls[r]) : 0.f;
       axpy_row<D>(dv, p, gs[r], lane);
       axpy_row<D>(dk, p * (dp - ds[r]), qs[r], lane);
     }
     __syncthreads();
   }
   if (row_ok) {
-    store_row<D>(static_cast<float*>(a.dk) + (base + kp) * D, dk, lane, a.scale);
-    store_row<D>(static_cast<float*>(a.dv) + (base + kp) * D, dv, lane, 1.f);
+    store_row<D>(static_cast<float*>(a.dk) + (kbase + kp) * D, dk, lane, a.scale);
+    store_row<D>(static_cast<float*>(a.dv) + (kbase + kp) * D, dv, lane, 1.f);
   }
 }
 
@@ -744,10 +761,11 @@ __global__ void __launch_bounds__(THREADS) dq_fp_kernel(const BwdArgs a) {
   constexpr int C = D / 4 / TPR;
   __shared__ __align__(16) float ks[OT][D];
   __shared__ __align__(16) float vs[OT][D];
-  const int S = a.S;
+  const int S = a.S, T = a.T;
+  const bool causal = a.causal;
   const long long base = (long long)blockIdx.y * S;
-  const float* k = static_cast<const float*>(a.k) + base * D;
-  const float* v = static_cast<const float*>(a.v) + base * D;
+  const float* k = static_cast<const float*>(a.k) + (long long)blockIdx.y * T * D;
+  const float* v = static_cast<const float*>(a.v) + (long long)blockIdx.y * T * D;
   const int lane = threadIdx.x % TPR;
   const int q0 = (gridDim.x - 1 - blockIdx.x) * RB;  // the longest first
   const int qi = q0 + threadIdx.x / TPR;
@@ -759,15 +777,17 @@ __global__ void __launch_bounds__(THREADS) dq_fp_kernel(const BwdArgs a) {
   for (int c = 0; c < C; ++c) dq[c] = make_float4(0.f, 0.f, 0.f, 0.f);
   const float lse = row_ok ? a.lse[base + qi] : 0.f;
   const float del = row_ok ? a.delta[base + qi] : 0.f;
-  const int t_end = min(S, q0 + RB);
+  // the row's last visible key (-1: none); one bound keeps the loop's
+  // mask to one compare
+  const int kmax = !row_ok ? -1 : causal ? min(qi, T - 1) : T - 1;
+  const int t_end = causal ? min(T, q0 + RB) : T;
   for (int t0 = 0; t0 < t_end; t0 += OT) {
-    stage<D>(ks, vs, k, v, t0, S);
+    stage<D>(ks, vs, k, v, t0, T);
     __syncthreads();
     for (int r = 0; r < OT; ++r) {
       const float s = dot_row<D>(qr, ks[r], lane);
       const float dp = dot_row<D>(gr, vs[r], lane);
-      const int kp = t0 + r;
-      const float p = kp <= qi && row_ok ? expf(s * a.scale - lse) : 0.f;
+      const float p = t0 + r <= kmax ? expf(s * a.scale - lse) : 0.f;
       axpy_row<D>(dq, p * (dp - del), ks[r], lane);
     }
     __syncthreads();
@@ -835,8 +855,8 @@ cudaError_t launch_d(const BwdArgs& a, int dtype, cudaStream_t s) {
     using B = __nv_bfloat16;
     wgb::Maps maps;
     if (!bf16_map(&maps.q, a.q, a.BH, a.S, D) ||
-        !bf16_map(&maps.k, a.k, a.BH, a.S, D) ||
-        !bf16_map(&maps.v, a.v, a.BH, a.S, D) ||
+        !bf16_map(&maps.k, a.k, a.BH, a.T, D) ||
+        !bf16_map(&maps.v, a.v, a.BH, a.T, D) ||
         !bf16_map(&maps.g, a.dout, a.BH, a.S, D))
       return cudaErrorNotSupported;
     bwd_prep_kernel<B, D><<<prep, 256, 0, s>>>(a);
@@ -855,39 +875,46 @@ cudaError_t launch_d(const BwdArgs& a, int dtype, cudaStream_t s) {
         e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
       if (e != cudaSuccess) return e;
     }
-    const long long items = (long long)a.BH * ((a.S + wgb::OWN - 1) / wgb::OWN);
-    const dim3 grid((unsigned)(items < sms ? items : sms));
-    wgb::dkdv_wg_kernel<D><<<grid, wgb::THREADS, b1, s>>>(maps, a);
-    wgb::dq_wg_kernel<D><<<grid, wgb::THREADS, b2, s>>>(maps, a);
+    // items: (head, 128 keys) in dkdv, (head, 128 queries) in dq
+    const long long kv_items = (long long)a.BH * ((a.T + wgb::OWN - 1) / wgb::OWN);
+    const long long q_items = (long long)a.BH * ((a.S + wgb::OWN - 1) / wgb::OWN);
+    const dim3 kv_grid((unsigned)(kv_items < sms ? kv_items : sms));
+    const dim3 q_grid((unsigned)(q_items < sms ? q_items : sms));
+    wgb::dkdv_wg_kernel<D><<<kv_grid, wgb::THREADS, b1, s>>>(maps, a);
+    wgb::dq_wg_kernel<D><<<q_grid, wgb::THREADS, b2, s>>>(maps, a);
   } else {
     bwd_prep_kernel<float, D><<<prep, 256, 0, s>>>(a);
-    const dim3 grid((a.S + fpb::RB - 1) / fpb::RB, a.BH);
-    fpb::dkdv_fp_kernel<D><<<grid, fpb::THREADS, 0, s>>>(a);
-    fpb::dq_fp_kernel<D><<<grid, fpb::THREADS, 0, s>>>(a);
+    const dim3 kv_grid((a.T + fpb::RB - 1) / fpb::RB, a.BH);
+    const dim3 q_grid((a.S + fpb::RB - 1) / fpb::RB, a.BH);
+    fpb::dkdv_fp_kernel<D><<<kv_grid, fpb::THREADS, 0, s>>>(a);
+    fpb::dq_fp_kernel<D><<<q_grid, fpb::THREADS, 0, s>>>(a);
   }
   return cudaSuccess;
 }
 
 }  // namespace
 
-// The causal backward: q, k, v, o, dout, dq, dk, dv [BH, S, D] of one
-// dtype (0 = float32, 1 = bfloat16), contiguous, 16-byte aligned; lse
-// [BH, S] f32 from flash_attention_lse_launch; delta [BH, S] f32
-// scratch. D = 64 or 128. Launches three kernels in order on `stream`;
-// returns the cudaError_t of the launches (0 = success).
+// The backward: q, o, dout, dq [BH, S, D] and k, v, dk, dv [BH, T, D] of
+// one dtype (0 = float32, 1 = bfloat16), contiguous, 16-byte aligned;
+// lse [BH, S] f32 from flash_attention_lse_launch with the same causal;
+// delta [BH, S] f32 scratch. D = 64 or 128. causal: key kp visible to
+// query qi when kp <= qi; 0: every key. Launches three kernels in order
+// on `stream`; returns the cudaError_t of the launches (0 = success).
 extern "C" int flash_attention_bwd_launch(const void* q, const void* k,
                                           const void* v, const void* o,
                                           const void* dout, const float* lse,
                                           float* delta, void* dq, void* dk,
-                                          void* dv, int BH, int S, int D,
-                                          float scale, int dtype,
-                                          void* stream) {
-  if (BH <= 0 || S <= 0 || (dtype != 0 && dtype != 1) || !lse || !delta)
+                                          void* dv, int BH, int S, int T,
+                                          int D, int causal, float scale,
+                                          int dtype, void* stream) {
+  if (BH <= 0 || S <= 0 || T <= 0 || (dtype != 0 && dtype != 1) || !lse ||
+      !delta)
     return (int)cudaErrorInvalidValue;
   const void* ptrs[] = {q, k, v, o, dout, dq, dk, dv};
   for (const void* p : ptrs)
     if (!on16(p)) return (int)cudaErrorMisalignedAddress;
-  const BwdArgs a{q, k, v, o, dout, lse, delta, dq, dk, dv, BH, S, scale};
+  const BwdArgs a{q, k, v, o, dout, lse, delta, dq, dk, dv, BH, S, T,
+                  causal ? 1 : 0, scale};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t e = cudaErrorInvalidValue;
   if (D == 64) e = launch_d<64>(a, dtype, s);

@@ -1,6 +1,8 @@
-// flash_attention_train: the training forward of flash_attention, the
-// causal fp form that also writes each row's log-sum-exp lse [BH, S] f32
-// for flash_attention_bwd.cu (which recomputes P from it).
+// flash_attention_train: the training forward of flash_attention, the fp
+// forms that train (causal self-attention, the encoder's bidirectional
+// attention, the decoder's cross-attention over T keys), also writing
+// each row's log-sum-exp lse [BH, S] f32 for flash_attention_bwd.cu
+// (which recomputes P from it).
 //
 // Replaces no TPU kernel beyond flash_attention's own (_flash_kernel,
 // repro/kernels/flash_attention.py:67): it is flash_attention.cu compiled

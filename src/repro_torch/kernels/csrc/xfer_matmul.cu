@@ -118,16 +118,27 @@ __device__ __forceinline__ void store(__nv_bfloat16* p, float v) { *p = __float2
 // at once, loading no weight and storing its tile as +0 (the first split
 // where K is split), so the split-K counters stay at 0 for the next call.
 // (Walking grid z over the live experts first was slower at decode and
-// cost the stream kernels registers.)
+// cost the stream kernels registers.) kdepth (the weight gradient of the
+// expert products, x^T [E, K, C] @ dy [E, C, N]; tile and wgmma only):
+// counts bound the contraction instead of the rows, so expert e sums
+// over its live rows [0, counts[e]) only, and an expert with none reads
+// nothing and stores +0.
 struct Group {
   long long sx, sw, so, sws;
   int scnt;
   const int* counts;
+  int kdepth;
 };
 
 // expert e's live rows of R
 __device__ __forceinline__ int live_rows(const Group& g, int e, int R) {
-  return g.counts == nullptr ? R : min(R, max(__ldg(g.counts + e), 0));
+  return g.counts == nullptr || g.kdepth ? R
+                                         : min(R, max(__ldg(g.counts + e), 0));
+}
+// expert e's live depth of the contraction N (kdepth), else N
+__device__ __forceinline__ int live_depth(const Group& g, int e, int N) {
+  return g.counts != nullptr && g.kdepth ? min(N, max(__ldg(g.counts + e), 0))
+                                         : N;
 }
 
 // a dead block's output tile: rows [r0, min(r1, R)) x columns [c0,
@@ -164,7 +175,8 @@ matmul_kernel(const T* __restrict__ x, const W* __restrict__ w,
   const int r0 = blockIdx.y * BM;
   const int c0 = blockIdx.x * BN;
   const bool w_kmajor = (swn == 1 && swm != 1);
-  const int KN = r0 < RL ? N : 0;  // a tile of dead rows stores zeros
+  // a tile of dead rows stores zeros; kdepth: the live depth only
+  const int KN = r0 < RL ? live_depth(grp, e, N) : 0;
 
   float acc[TM][TN];
 #pragma unroll
@@ -177,7 +189,7 @@ matmul_kernel(const T* __restrict__ x, const W* __restrict__ w,
     for (int idx = tid; idx < BM * BK; idx += THREADS) {
       const int r = idx / BK, kk = idx % BK;
       const int gr = r0 + r, gk = k0 + kk;
-      xs[kk][r] = (gr < RL && gk < N) ? to_f32(x[(long long)gr * N + gk]) : 0.f;
+      xs[kk][r] = (gr < RL && gk < KN) ? to_f32(x[(long long)gr * N + gk]) : 0.f;
     }
     // w tile [BK, BN]: consecutive threads walk w's contiguous axis
     for (int idx = tid; idx < BK * BN; idx += THREADS) {
@@ -190,7 +202,7 @@ matmul_kernel(const T* __restrict__ x, const W* __restrict__ w,
         c = idx % BN;
       }
       const int gk = k0 + kk, gc = c0 + c;
-      ws[kk][c] = (gk < N && gc < M) ? to_f32(w[gk * swn + gc * swm]) : 0.f;
+      ws[kk][c] = (gk < KN && gc < M) ? to_f32(w[gk * swn + gc * swm]) : 0.f;
     }
     __syncthreads();
 #pragma unroll 8
@@ -1638,13 +1650,14 @@ wg_kernel(const __nv_bfloat16* __restrict__ x,
   constexpr int STAGE = w_stage_bytes(BN, BM);
   constexpr int WSTAGES = w_stages(BN, BM), WAHEAD = WSTAGES - 2;
   const int r0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
-  const int KT = (N + WBK - 1) / WBK;
   const int e = blockIdx.z;
   x += e * grp.sx;
   w += e * grp.sw;
   out += e * grp.so;
   const int RL = live_rows(grp, e, R);
-  if (r0 >= RL) {
+  const int NL = live_depth(grp, e, N);  // kdepth: the live contraction
+  const int KT = (NL + WBK - 1) / WBK;
+  if (r0 >= RL || NL == 0) {
     zero_tile(out, R, M, r0, r0 + BM, n0, n0 + BN);
     return;
   }
@@ -1657,23 +1670,25 @@ wg_kernel(const __nv_bfloat16* __restrict__ x,
     for (int i = tid; i < BM * 8; i += WTHREADS) {  // A: BM rows x 8 chunks
       const int r = i / 8, c = i % 8;
       const int gr = r0 + r, gk = k0 + c * 8;
-      const bool ok = gr < RL && gk < N;
+      const bool ok = gr < RL && gk < NL;
       cp_async<16>(a_s + r * 128 + ((c ^ (r & 7)) * 16),
-                   ok ? x + (long long)gr * N + gk : x, ok ? 16 : 0);
+                   ok ? x + (long long)gr * N + gk : x,
+                   ok ? min(16, (NL - gk) * 2) : 0);
     }
 #pragma unroll
     for (int i = tid; i < BN * 8; i += WTHREADS) {
       if constexpr (KMAJ) {  // B: BN columns x 8 chunks along K
         const int n = i / 8, c = i % 8;
         const int gn = n0 + n, gk = k0 + c * 8;
-        const bool ok = gn < M && gk < N;
+        const bool ok = gn < M && gk < NL;
         cp_async<16>(b_s + n * 128 + ((c ^ (n & 7)) * 16),
-                     ok ? w + (long long)gn * ldw + gk : w, ok ? 16 : 0);
+                     ok ? w + (long long)gn * ldw + gk : w,
+                     ok ? min(16, (NL - gk) * 2) : 0);
       } else {  // B: 64 k rows x BN / 8 chunks along M, 64-column groups
         const int k = i / (BN / 8), cn = i % (BN / 8), half = cn / 8,
                   c = cn % 8;
         const int gk = k0 + k, gc = n0 + cn * 8;
-        const bool ok = gk < N && gc < M;
+        const bool ok = gk < NL && gc < M;
         cp_async<16>(b_s + half * (64 * 128) + k * 128 + ((c ^ (k & 7)) * 16),
                      ok ? w + (long long)gk * ldw + gc : w,
                      ok ? min(16, (M - gc) * 2) : 0);
@@ -2381,11 +2396,12 @@ cudaError_t dispatch_fp(const void* x, const void* w, void* out, int R, int N,
 // kernel but 2): one launch over that many products, expert e at x + e *
 // sx, w + e * sw, out + e * so, its split-K workspace at ws + e * sws
 // floats and its counters at counters + e * scnt (Group); 0 or 1: one
-// product.
+// product. kdepth (with counts; kernels 0 and 5): counts bound each
+// expert's contraction instead of its rows (Group), the weight gradient.
 struct XferPlan {
   int R, N, M, dtype;
   long long swn, swm;
-  int kernel, p0, p1, pad;
+  int kernel, p0, p1, kdepth;
   void* ws;
   void* counters;
   int experts, scnt;
@@ -2401,10 +2417,12 @@ extern "C" int xfer_matmul_launch(const void* x, const void* w,
   if (p->R <= 0 || p->M <= 0 || p->N < 0 || p->experts > 65535 ||
       (counts != nullptr && p->experts < 1))
     return (int)cudaErrorInvalidValue;
+  if (p->kdepth && (counts == nullptr || (p->kernel != 0 && p->kernel != 5)))
+    return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int E = p->experts > 1 ? p->experts : 1;
   const Group g{p->sx, p->sw, p->so, p->sws, p->scnt,
-                static_cast<const int*>(counts)};
+                static_cast<const int*>(counts), p->kdepth};
   cudaError_t e;
   if (p->dtype == 0) {
     e = dispatch_fp<float>(x, w, out, p->R, p->N, p->M, p->swn, p->swm,
@@ -2437,7 +2455,7 @@ extern "C" int quant_matmul_launch(const void* x, const void* w,
                                    void* out, const XferPlan* p,
                                    void* stream) {
   if (p->R <= 0 || p->M <= 0 || p->N < 0 || p->experts > 65535 ||
-      (counts != nullptr && p->experts < 1))
+      (counts != nullptr && p->experts < 1) || p->kdepth)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* sc = static_cast<const float*>(scale);

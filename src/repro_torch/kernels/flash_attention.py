@@ -86,17 +86,19 @@ tensor-core forms take it exactly, scales in f32, for bf16 q as well (a
 difference inside the bf16 tolerance).
 
 Training (``torch.is_grad_enabled()`` and q, k or v requiring grad)
-goes through an ``autograd.Function``: its forward launches the causal
-fp kernels as ``csrc/flash_attention_train.cu`` builds them
+goes through an ``autograd.Function``: its forward launches the fp
+kernels as ``csrc/flash_attention_train.cu`` builds them
 (:func:`flash_attention_lse`: ``flash_attention.cu`` with its training
 hooks on, also writing each row's log-sum-exp ``lse`` [BH, S] f32), its
 backward the hand-written :func:`flash_attention_bwd`
 (``csrc/flash_attention_bwd.cu``, FlashAttention-2's backward from
-``lse``), at head dims 64 and 128. The forms with no backward kernel
-(``window``, ``kv_len``, ``prefix_len``, non-causal, int8 K/V, other
-head dims on the card) raise ``NotImplementedError`` at the forward.
-On CPU tensors the same Function runs :func:`ref.flash_attention_lse_ref`
-and :func:`ref.flash_attention_bwd_ref`.
+``lse``), at head dims 64 and 128, causal or not, S queries over T keys
+(the dense and MoE families' causal self-attention; the encdec family's
+bidirectional encoder and its decoder's cross-attention). The forms with
+no backward kernel (``window``, ``kv_len``, ``prefix_len``, int8 K/V,
+other head dims on the card) raise ``NotImplementedError`` at the
+forward. On CPU tensors the same Function runs
+:func:`ref.flash_attention_lse_ref` and :func:`ref.flash_attention_bwd_ref`.
 
 A CPU tensor takes the plain version (:func:`plain`,
 :func:`prefix_plain`); a CUDA tensor launches the kernel or raises.
@@ -125,8 +127,8 @@ _VP, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _ARGTYPES = (_VP, _VP, _VP, _VP, _I, _I, _I, _I, _I, _I, _VP, _I, _I, _F, _I)
 _ARGTYPES_Q8 = (_VP,) * 6 + (_I, _I, _I, _I, _I, _I, _F, _I)
 _ARGTYPES_PREFIX = (_VP,) * 5 + (_I, _I, _VP, _VP, _VP, _I, _I, _I, _F, _I)
-_ARGTYPES_LSE = (_VP,) * 5 + (_I, _I, _I, _I, _F, _I)
-_ARGTYPES_BWD = (_VP,) * 10 + (_I, _I, _I, _F, _I)
+_ARGTYPES_LSE = (_VP,) * 5 + (_I, _I, _I, _I, _I, _F, _I)
+_ARGTYPES_BWD = (_VP,) * 10 + (_I, _I, _I, _I, _I, _F, _I)
 #: head dims of the training kernels on the card (qwen1.5-0.5b's 64; yi-9b,
 #: phi3-medium-14b and minitron-8b's 128)
 TRAIN_HEAD_DIMS = (64, 128)
@@ -138,40 +140,54 @@ TRAIN_TODO = "ROADMAP A12b"
 BWD_CONSUMERS, BWD_TILE, BWD_STAGES = 2, 64, 4
 
 
-def bwd_plan(bh: int, s: int, d: int, sms: int) -> dict:
+def _schedule(items: int, grid: int) -> list:
+    """The items each persistent block takes: block b items b, 2 grid - 1
+    - b, 2 grid + b, ... (the order turning each round)."""
+    return [[r * grid + (grid - 1 - b if r % 2 else b)
+             for r in range(-(-items // grid))
+             if r * grid + (grid - 1 - b if r % 2 else b) < items]
+            for b in range(grid)]
+
+
+def bwd_plan(bh: int, s: int, d: int, sms: int, *, t: int = None,
+             causal: bool = True) -> dict:
     """The launch of ``flash_attention_bwd``'s bf16 kernels for q [bh, s,
-    d] on a card of ``sms`` SMs: ``items`` (head, block of 128 own rows:
-    keys in dkdv from the first, queries in dq from the last), item i at
+    d] over k, v [bh, t, d] (``t`` default ``s``) on a card of ``sms``
+    SMs: ``items`` (dkdv's: head, block of 128 keys from the first) and
+    ``dq_items`` (head, block of 128 queries from the last), item i at
     head ``i % bh`` and block ``i // bh`` so that the items with the most
-    tiles come first; ``grid`` (persistent blocks, one an SM: block b
-    takes items b, 2 grid - 1 - b, 2 grid + b, ...); ``threads`` (two
-    consumer warpgroups and a producer); ``own`` and ``tile`` rows;
-    ``stages`` of the ring; ``own_bufs`` (buffers of the own tiles, two
-    at D = 64 so that the next item's load while one runs); the streamed
-    tiles each dkdv item (from the diagonal on) and dq item (up to it)
-    visits; and each kernel's dynamic shared memory: 1024 bytes of
-    alignment, the own buffers (K, V or Q, dO), the ring of streamed
-    pairs, dkdv's lse and delta a stage, the full and empty mbarriers."""
+    tiles come first; ``grid`` and ``dq_grid`` (persistent blocks, one an
+    SM: block b takes items b, 2 grid - 1 - b, 2 grid + b, ...,
+    ``block_items`` and ``dq_block_items``); ``threads`` (two consumer
+    warpgroups and a producer); ``own`` and ``tile`` rows; ``stages`` of
+    the ring; ``own_bufs`` (buffers of the own tiles, two at D = 64 so
+    that the next item's load while one runs); the streamed tiles each
+    dkdv item (causal: from the diagonal on; else all of S's) and dq
+    item (causal: up to it; else all of T's) visits; and each kernel's
+    dynamic shared memory: 1024 bytes of alignment, the own buffers (K, V
+    or Q, dO), the ring of streamed pairs, dkdv's lse and delta a stage,
+    the full and empty mbarriers."""
+    t = s if t is None else t
     own = BWD_CONSUMERS * 64
-    blocks = -(-s // own)
-    tiles = -(-s // BWD_TILE)
-    items = bh * blocks
+    kv_blocks, q_blocks = -(-t // own), -(-s // own)
+    q_tiles, k_tiles = -(-s // BWD_TILE), -(-t // BWD_TILE)
+    items, dq_items = bh * kv_blocks, bh * q_blocks
     bufs = 2 if d == 64 else 1
-    grid = min(items, sms)
+    grid, dq_grid = min(items, sms), min(dq_items, sms)
     ring = (1024 + bufs * 2 * own * d * 2
             + BWD_STAGES * 2 * BWD_TILE * d * 2)
     bars = 8 * (2 * BWD_STAGES + 2 * bufs)
-    q0 = [(blocks - 1 - i // bh) * own for i in range(items)]
-    return dict(items=items, grid=(grid,),
-                threads=(BWD_CONSUMERS + 1) * 128, own=own, tile=BWD_TILE,
-                stages=BWD_STAGES, own_bufs=bufs,
-                block_items=[[r * grid + (grid - 1 - b if r % 2 else b)
-                              for r in range(-(-items // grid))
-                              if r * grid + (grid - 1 - b if r % 2 else b)
-                              < items] for b in range(grid)],
-                dkdv_tiles=[tiles - i // bh * own // BWD_TILE
+    q0 = [(q_blocks - 1 - i // bh) * own for i in range(dq_items)]
+    return dict(items=items, grid=(grid,), dq_items=dq_items,
+                dq_grid=(dq_grid,), threads=(BWD_CONSUMERS + 1) * 128,
+                own=own, tile=BWD_TILE, stages=BWD_STAGES, own_bufs=bufs,
+                block_items=_schedule(items, grid),
+                dq_block_items=_schedule(dq_items, dq_grid),
+                dkdv_tiles=[max(q_tiles - (i // bh * own // BWD_TILE
+                                           if causal else 0), 0)
                             for i in range(items)],
-                dq_tiles=[min(tiles, -(-(q + own) // BWD_TILE)) for q in q0],
+                dq_tiles=[min(k_tiles, -(-(q + own) // BWD_TILE))
+                          if causal else k_tiles for q in q0],
                 dkdv_smem=ring + BWD_STAGES * 2 * BWD_TILE * 4 + bars,
                 dq_smem=ring + bars)
 
@@ -252,10 +268,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if window < 0:
         raise ValueError(f"flash_attention: window must be >= 0, got {window}")
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
-        _check_trainable(q, k, causal=causal, window=window, kv_len=kv_len,
+        _check_trainable(q, window=window, kv_len=kv_len,
                          prefix_len=int(prefix_len),
                          int8=k_scale is not None or v_scale is not None)
-        return _Attention.apply(q, k, v)
+        return _Attention.apply(q, k, v, bool(causal))
     prefix_len = int(prefix_len)
     heads = _check_forms(q.shape[0], kv_len, prefix_len, causal)
     scales = _check_scales("flash_attention", k, v, k_scale, v_scale)
@@ -363,33 +379,32 @@ def prefix_attention(q: torch.Tensor, pre_k: torch.Tensor,
     return out
 
 
-def _check_trainable(q, k, *, causal, window, kv_len, prefix_len,
-                     int8) -> None:
+def _check_trainable(q, *, window, kv_len, prefix_len, int8) -> None:
     """Raise ``NotImplementedError`` for a form that needs a gradient and
-    has no backward kernel: only causal fp self-attention (S = T) has
-    one, at head dims 64 and 128 on the card."""
+    has no backward kernel: fp attention, causal or not, over T keys
+    trains, at head dims 64 and 128 on the card."""
     forms = [name for name, on in (("window", window), ("kv_len",
              kv_len is not None), ("prefix_len", prefix_len),
-             ("causal=False", not causal), ("int8 K/V", int8)) if on]
-    if k.shape[1] != q.shape[1]:
-        forms.append(f"S = {q.shape[1]} queries over T = {k.shape[1]} keys")
+             ("int8 K/V", int8)) if on]
     if q.device.type == "cuda" and q.shape[2] not in TRAIN_HEAD_DIMS:
         forms.append(f"head dim {q.shape[2]} on the card (the backward "
                      f"kernel takes {TRAIN_HEAD_DIMS})")
     if forms:
         raise NotImplementedError(
             f"flash_attention: no backward kernel for {', '.join(forms)}; "
-            f"only causal fp self-attention trains ({TRAIN_TODO})")
+            f"fp attention without window, lengths or prefix trains "
+            f"({TRAIN_TODO})")
 
 
 def flash_attention_lse(q: torch.Tensor, k: torch.Tensor,
-                        v: torch.Tensor) -> tuple:
-    """The training forward: causal ``flash_attention`` of q, k, v [BH, S,
-    D] -> (out [BH, S, D] in ``q.dtype``, lse [BH, S] f32), through
-    ``csrc/flash_attention_train.cu`` (counted under ``flash_attention``); CPU
-    tensors take :func:`ref.flash_attention_lse_ref`."""
+                        v: torch.Tensor, *, causal: bool = True) -> tuple:
+    """The training forward: ``flash_attention`` of q [BH, S, D] over k,
+    v [BH, T, D], causal or not -> (out [BH, S, D] in ``q.dtype``, lse
+    [BH, S] f32), through ``csrc/flash_attention_train.cu`` (counted
+    under ``flash_attention``); CPU tensors take
+    :func:`ref.flash_attention_lse_ref`."""
     if all(t.device.type == "cpu" for t in (q, k, v)):
-        return lse_plain(q, k, v)
+        return lse_plain(q, k, v, causal=causal)
     check_cuda("flash_attention", q, k, v)
     bh, s, d = q.shape
     if d not in TRAIN_HEAD_DIMS:
@@ -401,9 +416,11 @@ def flash_attention_lse(q: torch.Tensor, k: torch.Tensor,
     lse = torch.empty((bh, s), dtype=torch.float32, device=q.device)
     if bh == 0 or s == 0:
         return out, lse
+    if k.shape[1] == 0:
+        raise ValueError("flash_attention: empty key sequence")
     launch("flash_attention_lse", _ARGTYPES_LSE, q.data_ptr(), k.data_ptr(),
            v.data_ptr(), out.data_ptr(), lse.data_ptr(), bh, s, k.shape[1],
-           d, 1.0 / math.sqrt(d), DTYPE_CODES[q.dtype],
+           d, int(causal), 1.0 / math.sqrt(d), DTYPE_CODES[q.dtype],
            source="flash_attention_train")
     flash_attention.launches += 1
     return out, lse
@@ -411,58 +428,65 @@ def flash_attention_lse(q: torch.Tensor, k: torch.Tensor,
 
 def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         o: torch.Tensor, do: torch.Tensor,
-                        lse: torch.Tensor) -> tuple:
-    """The gradient of causal ``flash_attention`` (S = T): q, k, v, the
+                        lse: torch.Tensor, *, causal: bool = True) -> tuple:
+    """The gradient of ``flash_attention`` (causal or not): q, the
     forward's output ``o`` and the output's gradient ``do`` [BH, S, D],
-    ``lse`` [BH, S] f32 -> (dq, dk, dv) in ``q.dtype``. One launch of
-    ``csrc/flash_attention_bwd.cu``'s C entry (its prep, dK/dV and dQ
-    kernels) on CUDA tensors at head dims 64 and 128; CPU tensors take
-    :func:`ref.flash_attention_bwd_ref`. ``flash_attention_bwd.launches``
-    counts launches."""
-    if q.dim() != 3 or any(t.shape != q.shape for t in (k, v, o, do)) \
+    k, v [BH, T, D], ``lse`` [BH, S] f32 -> (dq, dk, dv) in ``q.dtype``.
+    One launch of ``csrc/flash_attention_bwd.cu``'s C entry (its prep,
+    dK/dV and dQ kernels) on CUDA tensors at head dims 64 and 128; CPU
+    tensors take :func:`ref.flash_attention_bwd_ref`.
+    ``flash_attention_bwd.launches`` counts launches."""
+    if q.dim() != 3 or k.dim() != 3 or v.shape != k.shape \
+            or k.shape[0] != q.shape[0] or k.shape[2] != q.shape[2] \
+            or any(t.shape != q.shape for t in (o, do)) \
             or tuple(lse.shape) != tuple(q.shape[:2]):
         raise ValueError(f"flash_attention_bwd: bad shapes q "
                          f"{tuple(q.shape)} k {tuple(k.shape)} v "
                          f"{tuple(v.shape)} o {tuple(o.shape)} do "
                          f"{tuple(do.shape)} lse {tuple(lse.shape)}")
     if all(t.device.type == "cpu" for t in (q, k, v, o, do, lse)):
-        return bwd_plain(q, k, v, o, do, lse)
+        return bwd_plain(q, k, v, o, do, lse, causal=causal)
     check_cuda("flash_attention_bwd", q, k, v, o, do)
     check_device("flash_attention_bwd", q, lse)
     check_dtype("flash_attention_bwd", torch.float32, lse)
     bh, s, d = q.shape
+    t = k.shape[1]
     if d not in TRAIN_HEAD_DIMS:
         raise NotImplementedError(f"flash_attention_bwd: head dims "
                                   f"{TRAIN_HEAD_DIMS}, got {d} ({TRAIN_TODO})")
     q, k, v, o, do = _staged(q, k, v, o, do)
     lse = lse.contiguous()
-    dq, dk, dv = (torch.empty_like(q) for _ in range(3))
-    if bh == 0 or s == 0:
-        return dq, dk, dv
+    dq = torch.empty_like(q)
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    if bh == 0 or s == 0 or t == 0:
+        return dq.zero_(), dk.zero_(), dv.zero_()
     delta = torch.empty((bh, s), dtype=torch.float32, device=q.device)
     launch("flash_attention_bwd", _ARGTYPES_BWD, q.data_ptr(), k.data_ptr(),
            v.data_ptr(), o.data_ptr(), do.data_ptr(), lse.data_ptr(),
            delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), bh,
-           s, d, 1.0 / math.sqrt(d), DTYPE_CODES[q.dtype])
+           s, t, d, int(causal), 1.0 / math.sqrt(d), DTYPE_CODES[q.dtype])
     flash_attention_bwd.launches += 1
     return dq, dk, dv
 
 
 class _Attention(torch.autograd.Function):
-    """Causal fp self-attention with its hand-written gradient: the
-    forward keeps q, k, v, the output and lse; the backward is one
-    :func:`flash_attention_bwd`. Plain versions on CPU tensors."""
+    """fp attention (causal or not, S queries over T keys) with its
+    hand-written gradient: the forward keeps q, k, v, the output and
+    lse; the backward is one :func:`flash_attention_bwd`. Plain versions
+    on CPU tensors."""
 
     @staticmethod
-    def forward(ctx, q, k, v):
-        out, lse = flash_attention_lse(q, k, v)
+    def forward(ctx, q, k, v, causal):
+        out, lse = flash_attention_lse(q, k, v, causal=causal)
         ctx.save_for_backward(q, k, v, out, lse)
+        ctx.causal = causal
         return out
 
     @staticmethod
     def backward(ctx, do):
         q, k, v, out, lse = ctx.saved_tensors
-        return flash_attention_bwd(q, k, v, out, do.to(q.dtype), lse)
+        return (*flash_attention_bwd(q, k, v, out, do.to(q.dtype), lse,
+                                     causal=ctx.causal), None)
 
 
 flash_attention.launches = 0

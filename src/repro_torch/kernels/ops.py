@@ -33,10 +33,12 @@ from repro_torch.kernels.xfer_matmul import xfer_matmul, xfer_matmul_experts
 #: ``quant_matmul_experts`` ``quant_matmul``'s, the same under INT8
 #: weights; ``paged_attention_q8_multi`` is the int8 body's multi-query
 #: form, the speculative verify over an int8 grid or pool;
-#: ``flash_attention_bwd`` is the causal fp form's gradient, the training
-#: step's backward, one count a launch of its three kernels; the training
-#: forward (``flash_attention_lse``) counts under ``flash_attention``, and
-#: ``xfer_matmul``'s backward products under ``xfer_matmul``)
+#: ``flash_attention_bwd`` is the fp forms' gradient (causal or not, S
+#: queries over T keys), the training step's backward, one count a launch
+#: of its three kernels; the training forward (``flash_attention_lse``)
+#: counts under ``flash_attention``, ``xfer_matmul``'s backward products
+#: under ``xfer_matmul`` and ``xfer_matmul_experts``' (dgrad, wgrad)
+#: under ``xfer_matmul_experts``)
 KERNELS = (xfer_matmul, flash_attention, flash_attention_q8, paged_attention,
            paged_attention_q8, quant_matmul, rglru_scan, mlstm_chunkwise,
            xfer_matmul_experts, quant_matmul_experts,
@@ -77,6 +79,8 @@ def add_launches(counts: dict) -> None:
 # plain versions re-exported for tests and chip_smoke.py
 matmul_ref = ref.matmul_ref
 expert_matmul_ref = ref.expert_matmul_ref
+expert_matmul_dgrad_ref = ref.expert_matmul_dgrad_ref
+expert_matmul_wgrad_ref = ref.expert_matmul_wgrad_ref
 int8_matmul_ref = ref.quant_matmul_ref
 int8_expert_matmul_ref = ref.quant_matmul_experts_ref
 attention_ref = ref.flash_attention_ref

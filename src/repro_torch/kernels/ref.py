@@ -50,17 +50,43 @@ def matmul_ref(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 def expert_matmul_ref(x: torch.Tensor, w: torch.Tensor,
                       counts: torch.Tensor = None) -> torch.Tensor:
     """The expert products of an MoE layer: x [E, C, K] @ w [E, K, N]
-    per expert (the reference's ``einsum("ecd,edf->ecf")``) in fp32,
-    cast to ``x.dtype``. ``counts`` [E] (int): expert e's rows at or past
-    ``counts[e]`` are not live and come out +0 (the MoE layer's rows
-    there are zero already, so the product is unchanged); ``None``:
-    every row is live."""
-    out = torch.einsum("eck,ekn->ecn", x.float(), w.float())
+    per expert (the reference's ``einsum("ecd,edf->ecf")``) in fp32 (fp64
+    for fp64 x), cast to ``x.dtype``. ``counts`` [E] (int): expert e's
+    rows at or past ``counts[e]`` are not live and come out +0 (the MoE
+    layer's rows there are zero already, so the product is unchanged);
+    ``None``: every row is live."""
+    acc = _acc(x)
+    out = torch.einsum("eck,ekn->ecn", x.to(acc), w.to(acc))
     if counts is not None:
         rows = torch.arange(x.shape[1], device=x.device)
         live = rows[None, :] < counts.to(x.device, torch.int64)[:, None]
         out = torch.where(live[..., None], out, 0.0)
     return out.to(x.dtype)
+
+
+def expert_matmul_dgrad_ref(dy: torch.Tensor, w: torch.Tensor,
+                            counts: torch.Tensor = None) -> torch.Tensor:
+    """The data gradient of :func:`expert_matmul_ref`: dy [E, C, N] @
+    w [E, K, N]ᵀ per expert -> dx [E, C, K] in fp32, cast to
+    ``dy.dtype``; rows at or past ``counts[e]`` +0 (their forward rows
+    were not live)."""
+    return expert_matmul_ref(dy, w.transpose(1, 2), counts)
+
+
+def expert_matmul_wgrad_ref(x: torch.Tensor, dy: torch.Tensor,
+                            counts: torch.Tensor = None) -> torch.Tensor:
+    """The weight gradient of :func:`expert_matmul_ref`: x [E, C, K]ᵀ @
+    dy [E, C, N] per expert -> dw [E, K, N] in fp32, cast to
+    ``x.dtype``, the contraction over C stopped at ``counts[e]`` (an
+    expert with no live row gets zeros). The MoE layer's rows past it are
+    zero in x and in dy, so the sum equals the one over all C."""
+    acc = _acc(x)
+    xf, gf = x.to(acc), dy.to(acc)
+    if counts is not None:
+        rows = torch.arange(x.shape[1], device=x.device)
+        live = rows[None, :] < counts.to(x.device, torch.int64)[:, None]
+        xf = torch.where(live[..., None], xf, 0.0)
+    return torch.einsum("eck,ecn->ekn", xf, gf).to(x.dtype)
 
 
 def quant_matmul_ref(x: torch.Tensor, w_q: torch.Tensor,
@@ -283,19 +309,29 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return torch.einsum("bst,btd->bsd", p, v.float()).to(q.dtype)
 
 
+def _train_mask(sq: int, t: int, causal: bool, device) -> torch.Tensor:
+    """The training forms' mask [1, S, T]: query qi sees key kp when ``kp
+    <= qi`` (``causal``, positions from 0 on both sides), else every key."""
+    qp = torch.arange(sq, device=device)[:, None]
+    kp = torch.arange(t, device=device)[None, :]
+    mask = kp <= qp if causal else torch.ones((sq, t), dtype=torch.bool,
+                                               device=device)
+    return mask[None]
+
+
 def flash_attention_lse_ref(q: torch.Tensor, k: torch.Tensor,
-                            v: torch.Tensor) -> tuple:
-    """The training forward's plain version: causal
-    :func:`flash_attention_ref` (S = T) and each row's log-sum-exp of the
-    scaled scores, ``lse`` [BH, S] f32 (fp64 for fp64 q), the natural log
-    of the softmax denominator that ``flash_attention_bwd`` recomputes P
-    from."""
+                            v: torch.Tensor, *, causal: bool = True) -> tuple:
+    """The training forward's plain version: :func:`flash_attention_ref`
+    of q [BH, S, D] over k, v [BH, T, D] (``causal``: key kp seen by
+    query qi when kp <= qi; else every key, S and T free) and each row's
+    log-sum-exp of the scaled scores, ``lse`` [BH, S] f32 (fp64 for fp64
+    q), the natural log of the softmax denominator that
+    ``flash_attention_bwd`` recomputes P from."""
     acc = _acc(q)
     bh, sq, d = q.shape
     s = torch.einsum("bsd,btd->bst", q.to(acc), k.to(acc)) / math.sqrt(d)
-    pos = torch.arange(sq, device=q.device)
-    mask = (pos[None, :] <= pos[:, None])[None]
-    s = torch.where(mask, s, NEG_INF)
+    s = torch.where(_train_mask(sq, k.shape[1], causal, q.device), s,
+                    NEG_INF)
     lse = torch.logsumexp(s, dim=-1)
     p = torch.softmax(s, dim=-1)
     return torch.einsum("bst,btd->bsd", p, v.to(acc)).to(q.dtype), lse
@@ -303,21 +339,22 @@ def flash_attention_lse_ref(q: torch.Tensor, k: torch.Tensor,
 
 def flash_attention_bwd_ref(q: torch.Tensor, k: torch.Tensor,
                             v: torch.Tensor, o: torch.Tensor,
-                            do: torch.Tensor, lse: torch.Tensor) -> tuple:
-    """The plain version of ``flash_attention_bwd``, causal (S = T): the
+                            do: torch.Tensor, lse: torch.Tensor, *,
+                            causal: bool = True) -> tuple:
+    """The plain version of ``flash_attention_bwd``: the
     FlashAttention-2 gradient the kernel computes, from the forward's
-    output ``o`` and log-sum-exp ``lse`` [BH, S]: ``delta = sum(dO o)``,
-    ``P = exp(scale q k - lse)`` masked, ``dV = P^T dO``, ``dS = P (dO
-    V^T - delta)``, ``dQ = scale dS K``, ``dK = scale dS^T Q``; fp32
-    (fp64 for fp64 q), each cast to ``q.dtype``."""
+    output ``o`` and log-sum-exp ``lse`` [BH, S] (q, o, dO [BH, S, D];
+    k, v [BH, T, D]; the mask of :func:`flash_attention_lse_ref`):
+    ``delta = sum(dO o)``, ``P = exp(scale q k - lse)`` masked, ``dV =
+    P^T dO``, ``dS = P (dO V^T - delta)``, ``dQ = scale dS K``, ``dK =
+    scale dS^T Q``; fp32 (fp64 for fp64 q), each cast to ``q.dtype``."""
     acc = _acc(q)
     bh, sq, d = q.shape
     scale = 1.0 / math.sqrt(d)
     qf, kf, vf = q.to(acc), k.to(acc), v.to(acc)
     gf = do.to(acc)
     delta = (gf * o.to(acc)).sum(-1, keepdim=True)
-    pos = torch.arange(sq, device=q.device)
-    mask = (pos[None, :] <= pos[:, None])[None]
+    mask = _train_mask(sq, k.shape[1], causal, q.device)
     s = torch.einsum("bsd,btd->bst", qf, kf) * scale
     p = torch.where(mask, torch.exp(s - lse.to(acc)[..., None]), 0.0)
     dv = torch.einsum("bst,bsd->btd", p, gf)

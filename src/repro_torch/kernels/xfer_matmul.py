@@ -45,7 +45,14 @@ back to the host.
 device: rows at or past ``counts[e]`` come out +0, and a block whose rows
 are all dead (every block of an expert with no row) returns at once,
 loading no weight and writing its tile as +0. At decode that skips the
-weights of the experts the step routed nothing to.
+weights of the experts the step routed nothing to. Under grad it goes
+through an ``autograd.Function`` too: the data gradient ``dx = dy @
+w.T`` per expert (``w``'s transposed strided view, K-major, which the
+expert axis takes like a contiguous ``w``; rows past ``counts`` +0) and
+the weight gradient ``dw = x.T @ dy`` per expert (``x.T`` copied K-major
+first, then the same C entry with ``counts`` bounding each expert's
+contraction over C instead of its rows: ``wgmma`` or ``tile``, and an
+expert with no live row reads nothing and writes zeros).
 
 Training (``torch.is_grad_enabled()`` and x or w requiring grad) goes
 through an ``autograd.Function`` whose backward runs the same kernel:
@@ -72,6 +79,7 @@ from repro_torch.kernels._launch import (DTYPE_CODES, check_cuda, check_rc,
                                          current_stream, entry, scratch,
                                          sm_count)
 from repro_torch.kernels.ref import expert_matmul_ref as plain_experts
+from repro_torch.kernels.ref import expert_matmul_wgrad_ref as plain_wgrad
 from repro_torch.kernels.ref import matmul_ref as plain
 
 _VP, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
@@ -81,10 +89,11 @@ _ARGTYPES = (_VP, _VP, _VP, _VP, _VP)  # x, w, counts, out, &plan
 class _Plan(ctypes.Structure):
     """The C entry's ``XferPlan``: one shape's launch, built once; the
     last six fields are the expert axis of :func:`xfer_matmul_experts`
-    (0 for one product)."""
+    (0 for one product); ``kdepth`` 1: ``counts`` bound each expert's
+    contraction (the weight gradient), not its rows."""
     _fields_ = [("R", _I), ("N", _I), ("M", _I), ("dtype", _I),
                 ("swn", _LL), ("swm", _LL), ("kernel", _I), ("p0", _I),
-                ("p1", _I), ("pad", _I), ("ws", _VP), ("counters", _VP),
+                ("p1", _I), ("kdepth", _I), ("ws", _VP), ("counters", _VP),
                 ("experts", _I), ("scnt", _I), ("sx", _LL), ("sw", _LL),
                 ("so", _LL), ("sws", _LL)]
 
@@ -135,7 +144,8 @@ def _cdiv(a: int, b: int) -> int:
 
 @functools.lru_cache(maxsize=None)
 def route(r: int, n: int, m: int, dtype: torch.dtype, strides: tuple,
-          sms: int, *, aligned: bool = True, experts: int = 1) -> Route:
+          sms: int, *, aligned: bool = True, experts: int = 1,
+          kdepth: bool = False) -> Route:
     """The kernel and geometry for ``x [r, n] @ w [n, m]`` in ``dtype``
     with ``w``'s element ``strides`` on a card of ``sms`` SMs.
     ``aligned``: both base pointers lie on 16 bytes (``tc`` and
@@ -144,9 +154,19 @@ def route(r: int, n: int, m: int, dtype: torch.dtype, strides: tuple,
     such products in one launch (:func:`xfer_matmul_experts`, the grid's
     third axis the expert); their blocks and outputs count toward
     filling the card, ``stream_cols`` is not taken, and ``wgmma`` takes
-    64-row tiles at ``r`` <= 64."""
+    64-row tiles at ``r`` <= 64 for a row-major ``w``. ``kdepth``: the
+    expert weight gradient, whose live depth ``n`` is known only on the
+    device: ``wgmma`` (128-row tiles) where the shape allows it, else
+    ``tile``."""
     swn, swm = strides
     vec = 16 // dtype.itemsize
+    if kdepth:
+        if dtype == torch.bfloat16 and aligned and n % 8 == 0 and (
+                (swm == 1 and swn % 8 == 0) or (swn == 1 and swm % 8 == 0)):
+            return Route("wgmma", (_cdiv(m, 128), _cdiv(r, WG_ROWS)),
+                         rows=WG_ROWS, cols=128)
+        rows = 16 if r <= DECODE_ROWS else 64
+        return Route("tile", (_cdiv(m, 64), _cdiv(r, rows)), rows=rows)
     if r <= DECODE_ROWS and n > 0:
         if dtype == torch.bfloat16 and swm == 1 and swn % 2 == 0 and aligned:
             # enough splits for every SM, and as many as the card holds at
@@ -170,7 +190,7 @@ def route(r: int, n: int, m: int, dtype: torch.dtype, strides: tuple,
             and n % 8 == 0 and (swm == 1 or swn == 1):
         if r * m * experts >= TC_SMALL and (
                 (swm == 1 and swn % 8 == 0) or (swn == 1 and swm % 8 == 0)):
-            if experts > 1 and r <= WG_ROWS_SMALL:
+            if experts > 1 and r <= WG_ROWS_SMALL and swm == 1:
                 # C <= 64 rows of each expert: one warpgroup's 64-row
                 # tile, 128 columns (three blocks per SM)
                 return Route("wgmma", (_cdiv(m, 128), 1),
@@ -195,20 +215,22 @@ def route(r: int, n: int, m: int, dtype: torch.dtype, strides: tuple,
     return Route("tile", (_cdiv(m, 64), _cdiv(r, rows)), rows=rows)
 
 
-def _plan(name: str, x: torch.Tensor, w: torch.Tensor, aligned: bool) -> tuple:
+def _plan(name: str, x: torch.Tensor, w: torch.Tensor, aligned: bool,
+          kdepth: bool = False) -> tuple:
     """Check CUDA operands once per (shapes, strides, dtypes, devices,
-    alignment) and fix the launch of ``x [R, N] @ w [N, M]``, or of one
-    such product per expert for ``x [E, R, N] @ w [E, N, M]`` (the card
-    filled by all of them, the split-K workspace and counters one slice
-    per expert): (the address of its ``_Plan``, what keeps the plan and
-    the workspace alive)."""
+    alignment, ``kdepth``) and fix the launch of ``x [R, N] @ w [N, M]``,
+    or of one such product per expert for ``x [E, R, N] @ w [E, N, M]``
+    (the card filled by all of them, the split-K workspace and counters
+    one slice per expert; expert e's ``w`` at ``w.stride(0)`` elements
+    on): (the address of its ``_Plan``, what keeps the plan and the
+    workspace alive)."""
     check_cuda(name, x, w)
     e = x.shape[0] if x.dim() == 3 else 1
     r, n = x.shape[-2:]
     m = w.shape[-1]
     strides = w.stride()[-2:]
     rt = route(r, n, m, x.dtype, strides, sm_count(x.device),
-               aligned=aligned, experts=e)
+               aligned=aligned, experts=e, kdepth=kdepth)
     ws = counters = None
     per_ws = per_cnt = 0
     if rt.splits > 1:  # a counter per column tile (per output tile on tc)
@@ -216,8 +238,10 @@ def _plan(name: str, x: torch.Tensor, w: torch.Tensor, aligned: bool) -> tuple:
         per_cnt = math.prod(rt.grid[:2]) if rt.kernel == "tc" else rt.grid[0]
         ws, counters = scratch("xfer_matmul", x.device, e * per_ws,
                                e * per_cnt)
-    group = (e, per_cnt, r * n, n * m, r * m, per_ws) if x.dim() == 3 else ()
-    plan = _Plan(r, n, m, DTYPE_CODES[x.dtype], *strides, *rt.c_args, 0,
+    group = (e, per_cnt, r * n, w.stride(0), r * m, per_ws) \
+        if x.dim() == 3 else ()
+    plan = _Plan(r, n, m, DTYPE_CODES[x.dtype], *strides, *rt.c_args,
+                 int(kdepth),
                  ws.data_ptr() if ws is not None else None,
                  counters.data_ptr() if counters is not None else None,
                  *group)
@@ -228,10 +252,11 @@ _plans: dict = {}
 
 
 def _launch(name: str, x: torch.Tensor, w: torch.Tensor,
-            counts: torch.Tensor = None) -> torch.Tensor:
+            counts: torch.Tensor = None, kdepth: bool = False) -> torch.Tensor:
     """``x @ w`` (per expert where ``x`` has three axes, ``counts`` its
-    live rows) through one launch of the C entry, none for an empty
-    output; ``x`` and ``w`` have been checked to chain."""
+    live rows, or with ``kdepth`` its live depth of the contraction)
+    through one launch of the C entry, none for an empty output; ``x``
+    and ``w`` have been checked to chain."""
     dev = x.device
     x = x.contiguous()
     shape = (*x.shape[:-1], w.shape[-1])
@@ -241,10 +266,10 @@ def _launch(name: str, x: torch.Tensor, w: torch.Tensor,
     xp, wp = x.data_ptr(), w.data_ptr()
     index = torch.cuda.current_device()
     key = (x.shape, w.shape, w.stride(), x.dtype, w.dtype, dev, w.device,
-           index, (xp | wp) % 16 == 0)
+           index, kdepth, (xp | wp) % 16 == 0)
     plan = _plans.get(key)
     if plan is None:
-        plan = _plans[key] = _plan(name, x, w, key[-1])
+        plan = _plans[key] = _plan(name, x, w, key[-1], kdepth)
     out = torch.empty(shape, dtype=x.dtype, device=dev)
     fn = entry("xfer_matmul", _ARGTYPES)
     cp = counts.data_ptr() if counts is not None else None
@@ -320,31 +345,84 @@ def xfer_matmul_experts(x: torch.Tensor, w: torch.Tensor,
                         counts: torch.Tensor = None) -> torch.Tensor:
     """The expert products of a capacity-routed MoE layer in one launch:
     x [E, C, K] @ w [E, K, N] -> [E, C, N] in ``x.dtype`` (fp32
-    accumulation), ``w`` contiguous. Block z of the grid is expert z
-    (``tc``: z / splits); each expert's product runs the body that
-    :func:`route` gives its shape (``stream_mma`` or ``stream_rows`` at C
-    <= 16, ``wgmma``, ``tc`` or ``tile`` above) with its pointers
-    advanced by the expert's offsets. ``counts`` [E] int32 on ``x``'s
-    device: expert e's rows at or past ``counts[e]`` come out +0, and an
-    expert with no live row reads none of its weights; ``None``: every
-    row is live, every expert multiplied, as the reference's
-    ``einsum("ecd,edf->ecf")`` does.
-    ``xfer_matmul_experts.launches`` counts launches."""
+    accumulation); each expert's ``w`` row-major (``w`` contiguous) or
+    K-major (its transposed view, the data gradient's). Block z of the
+    grid is expert z (``tc``: z / splits); each expert's product runs the
+    body that :func:`route` gives its shape (``stream_mma`` or
+    ``stream_rows`` at C <= 16, ``wgmma``, ``tc`` or ``tile`` above) with
+    its pointers advanced by the expert's offsets. ``counts`` [E] int32
+    on ``x``'s device: expert e's rows at or past ``counts[e]`` come out
+    +0, and an expert with no live row reads none of its weights;
+    ``None``: every row is live, every expert multiplied, as the
+    reference's ``einsum("ecd,edf->ecf")`` does. Under grad (x or w
+    requiring it) the :class:`_ExpertMatmul` Function, whose backward
+    is two more launches. ``xfer_matmul_experts.launches`` counts
+    launches, the backward's too."""
     if x.dim() != 3 or w.dim() != 3 or x.shape[0] != w.shape[0] \
             or x.shape[2] != w.shape[1]:
         raise ValueError(f"xfer_matmul_experts: shapes {tuple(x.shape)} @ "
                          f"{tuple(w.shape)} do not chain per expert")
     check_counts("xfer_matmul_experts", x, counts)
-    if all(t.device.type == "cpu" for t in (x, w) +
-           ((counts,) if counts is not None else ())):
+    if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
+        return _ExpertMatmul.apply(x, w, counts)
+    return _experts_product(x, w, counts)
+
+
+def _cpu(*tensors) -> bool:
+    return all(t.device.type == "cpu" for t in tensors if t is not None)
+
+
+def _experts_product(x: torch.Tensor, w: torch.Tensor,
+                     counts: torch.Tensor = None) -> torch.Tensor:
+    """The expert products: the plain version on CPU tensors, else one
+    launch (``w`` row-major or K-major per expert)."""
+    if _cpu(x, w, counts):
         return plain_experts(x, w, counts)
-    if not w.is_contiguous():
-        raise ValueError("xfer_matmul_experts: w must be contiguous "
-                         "[E, K, N]")
+    if w.stride(2) != 1 and w.stride(1) != 1:
+        raise ValueError("xfer_matmul_experts: each expert's w must be "
+                         "row-major [K, N] or its transposed view")
     out = _launch("xfer_matmul_experts", x, w, counts)
     if out.numel():  # launched
         xfer_matmul_experts.launches += 1
     return out
+
+
+def _experts_wgrad(x: torch.Tensor, dy: torch.Tensor,
+                   counts: torch.Tensor = None) -> torch.Tensor:
+    """The weight gradient x [E, C, K]ᵀ @ dy [E, C, N] -> [E, K, N] in
+    ``x.dtype``: the plain version on CPU tensors, else ``x.T`` copied
+    K-major and one launch whose contraction over C stops at each
+    expert's ``counts`` (all C without counts)."""
+    if _cpu(x, dy, counts):
+        return plain_wgrad(x, dy, counts)
+    out = _launch("xfer_matmul_experts", x.transpose(1, 2).contiguous(), dy,
+                  counts, kdepth=counts is not None)
+    if out.numel():  # launched
+        xfer_matmul_experts.launches += 1
+    return out
+
+
+class _ExpertMatmul(torch.autograd.Function):
+    """The expert products with both gradients through the same C entry:
+    ``dx = dy @ w.T`` per expert (``w``'s transposed view, rows past
+    ``counts`` +0) and ``dw = x.T @ dy`` per expert (the contraction
+    stopped at ``counts``), each one launch (none for an input that needs
+    no gradient). ``counts`` is saved and gets no gradient."""
+
+    @staticmethod
+    def forward(ctx, x, w, counts):
+        ctx.save_for_backward(x, w, counts)
+        return _experts_product(x, w, counts)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, w, counts = ctx.saved_tensors
+        dy = dy.to(x.dtype).contiguous()
+        dx = _experts_product(dy, w.transpose(1, 2), counts) \
+            if ctx.needs_input_grad[0] else None
+        dw = _experts_wgrad(x, dy, counts) if ctx.needs_input_grad[1] \
+            else None
+        return dx, dw, None
 
 
 xfer_matmul_experts.launches = 0

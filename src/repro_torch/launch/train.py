@@ -13,8 +13,11 @@ cosine schedule with ``max(steps // 20, 2)`` warm-up steps, params in
 bf16 on the card and fp32 on the CPU, checkpoints kept 3 deep. The
 driver restores from ``--ckpt`` when it holds a checkpoint: give a
 fresh directory to start over. The port trains the dense family
-(qwen1.5-0.5b by default; yi-9b, phi3-medium-14b, minitron-8b); other
-families raise. Runs on the card by default.
+(qwen1.5-0.5b by default; yi-9b, phi3-medium-14b, minitron-8b), the MoE
+family (``--arch deepseek-moe-16b``) and the encdec family (``--arch
+seamless-m4t-medium``, the pipeline's stub source frames encoded with
+the tokens); the hybrid, ssm and vlm families raise (ROADMAP A12b). Runs
+on the card by default.
 """
 from __future__ import annotations
 

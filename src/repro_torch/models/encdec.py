@@ -23,6 +23,14 @@ them; keys past ``enc_lens`` masked), the MLP; then ``final_norm``.
 JAX's stacked ``enc_body``/``dec_body`` are ``ModuleList``s here,
 ``enc_layers.<i>`` and ``dec_layers.<i>`` (``bridge.from_jax_params``
 unstacks a JAX tree).
+
+Training (:func:`loss_fn`, the reference's ``ED.loss_fn``): the encoder
+and the decoder with every layer rematerialised (``remat=True``), then
+``cross_entropy_chunked`` over ``unembed``; no ``enc_lens`` (the
+training frames fill their rows), so the encoder's bidirectional
+attention and the decoder's cross-attention are ``flash_attention``'s
+non-causal form without lengths, whose gradient is
+``flash_attention_bwd``'s.
 """
 from __future__ import annotations
 
@@ -30,12 +38,13 @@ from typing import List, Optional, Tuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch import quant as Q
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import blocks as B
 from repro_torch.models import layers as L
-from repro_torch.models.lm import _scale_in, check_supported
+from repro_torch.models.lm import _scale_in, check_supported, check_trainable
 
 
 class EncDec(nn.Module):
@@ -93,27 +102,35 @@ class EncDec(nn.Module):
                 for _ in self.dec_layers]
 
     def encode(self, frames: torch.Tensor,
-               enc_lens: Optional[torch.Tensor] = None) -> torch.Tensor:
+               enc_lens: Optional[torch.Tensor] = None, *,
+               remat: bool = False) -> torch.Tensor:
         """frames [B, S_src, D] -> the encoder output [B, S_src, D] in the
         model's dtype, or in fp32 under int8 weights (the reference's
         INT8 step encodes its fp32 frames with fp32 dequantised params;
         serving casts the output to the state's ``enc_out`` dtype where
         it writes it). ``enc_lens`` [B]: the true frame count of each
         row of a right-padded batch; keys at or past it are masked, so a
-        valid position's output equals the unpadded row's."""
+        valid position's output equals the unpadded row's. ``remat=True``
+        (training): each layer under ``torch.utils.checkpoint``, as
+        ``LM.forward`` runs its layers."""
         x = frames.to(torch.float32 if self.weights_quantized else self.dtype)
         b, s, _ = x.shape
         positions = torch.arange(s, dtype=torch.int32,
                                  device=x.device)[None].expand(b, s)
         for layer in self.enc_layers:
-            x, _ = layer(x, positions=positions, causal=False,
-                         seq_lens=enc_lens)
+            if remat and torch.is_grad_enabled():
+                x, _ = checkpoint(layer, x, positions=positions, causal=False,
+                                  seq_lens=enc_lens, use_reentrant=False)
+            else:
+                x, _ = layer(x, positions=positions, causal=False,
+                             seq_lens=enc_lens)
         return L.rms_norm(x, self.enc_norm)
 
     def forward(self, tokens: torch.Tensor, enc_out: torch.Tensor, *,
                 caches: Optional[List[dict]] = None,
                 positions: Optional[torch.Tensor] = None,
-                enc_lens: Optional[torch.Tensor] = None
+                enc_lens: Optional[torch.Tensor] = None,
+                remat: bool = False
                 ) -> Tuple[torch.Tensor, Optional[List[dict]]]:
         """``decode``: tokens [B, S] against ``enc_out`` [B, T, D] ->
         (hidden [B, S, D] after the final norm, caches). ``enc_lens``
@@ -123,7 +140,8 @@ class EncDec(nn.Module):
         its token into its grid in place and attends over it, and
         ``caches`` itself is returned; with ``caches`` and S > 1 a prefill
         that returns freshly filled caches. ``positions`` default to
-        0..S-1."""
+        0..S-1. ``remat=True`` (training, no caches): each layer under
+        ``torch.utils.checkpoint``."""
         x = L.embed_tokens(self.embed, tokens)
         x = x * _scale_in(self.arch.d_model ** 0.5, x.dtype)
         b, s, _ = x.shape
@@ -140,6 +158,10 @@ class EncDec(nn.Module):
         enc = enc_out.to(x.dtype)
         new_caches = [] if caches is not None else None
         for i, layer in enumerate(self.dec_layers):
+            if remat and caches is None and torch.is_grad_enabled():
+                x, c = checkpoint(layer, x, positions=positions, enc=enc,
+                                  enc_lens=enc_lens, use_reentrant=False)
+                continue
             x, c = layer(x, positions=positions,
                          cache=None if caches is None else caches[i],
                          decode_meta=decode_meta, enc=enc, enc_lens=enc_lens)
@@ -153,3 +175,18 @@ class EncDec(nn.Module):
         """``hidden @ unembed`` through ``xfer_matmul`` (``quant_matmul``
         for int8 weights)."""
         return L.unembed_logits(self.unembed, hidden)
+
+
+def loss_fn(model: EncDec, frames: torch.Tensor, tokens: torch.Tensor,
+            labels: torch.Tensor, mask: Optional[torch.Tensor] = None, *,
+            chunk: int = 512) -> torch.Tensor:
+    """The reference's ``encdec.loss_fn``: ``frames`` [B, S_src, D]
+    encoded with every layer rematerialised, ``tokens`` [B, S] decoded
+    against the output the same way, then ``cross_entropy_chunked`` of
+    ``labels`` [B, S] over ``unembed`` (``mask`` [B, S]; None: every
+    token)."""
+    check_trainable(model.arch)
+    enc_out = model.encode(frames, remat=True)
+    hidden, _ = model(tokens, enc_out, remat=True)
+    return L.cross_entropy_chunked(model.unembed, hidden, labels, mask=mask,
+                                   chunk=chunk)

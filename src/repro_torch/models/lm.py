@@ -41,6 +41,9 @@ from repro_torch.models import layers as L
 from repro_torch.models import recurrent as R
 
 
+#: the families the port trains (:func:`check_trainable`)
+TRAINABLE_FAMILIES = ("dense", "moe", "encdec")
+
 #: the block module of each kind a pattern may name
 BLOCK_KINDS = {"attn": B.AttnBlock, "rglru": R.RGLRUBlock,
                "mlstm": R.MLSTMBlock, "slstm": R.SLSTMBlock}
@@ -62,16 +65,18 @@ def check_supported(arch: ArchConfig) -> None:
 
 
 def check_trainable(arch: ArchConfig) -> None:
-    """The port trains the dense family without a window: the only form
-    whose kernels (``xfer_matmul``, causal ``flash_attention``) have
-    hand-written gradients. Any other family raises."""
-    if arch.family != "dense" or arch.window \
+    """The port trains the dense, MoE and encdec families without a
+    window: the forms whose kernels have hand-written gradients
+    (``xfer_matmul``, ``xfer_matmul_experts``, ``flash_attention`` causal,
+    bidirectional and cross). The hybrid, ssm and vlm families raise."""
+    if arch.family not in TRAINABLE_FAMILIES or arch.window \
             or tuple(arch.block_pattern) not in ((), ("attn",)):
         raise NotImplementedError(
             f"{arch.name}: training of the {arch.family!r} family is not "
             f"ported yet (ROADMAP A12b: it needs backward kernels for "
-            f"xfer_matmul_experts, rglru_scan, mlstm_chunkwise or the masked "
-            f"flash_attention forms); the port trains the dense family")
+            f"rglru_scan, mlstm_chunkwise, the windowed or the prefix-LM "
+            f"flash_attention forms); the port trains the "
+            f"{', '.join(TRAINABLE_FAMILIES)} families")
 
 
 def pattern(arch: ArchConfig) -> Tuple[str, ...]:
@@ -288,11 +293,16 @@ class LM(nn.Module):
 def loss_fn(model: LM, tokens: torch.Tensor, labels: torch.Tensor,
             mask: Optional[torch.Tensor] = None, *,
             chunk: int = 512) -> torch.Tensor:
-    """The reference's ``lm.loss_fn`` for the dense family: the forward
-    with every layer rematerialised, then ``cross_entropy_chunked`` over
-    the unembedding (``embed.T`` when tied). tokens, labels [B, S] int;
-    ``mask`` [B, S] (None: every token)."""
+    """The reference's ``lm.loss_fn`` for the dense and MoE families: the
+    forward with every layer rematerialised (an MoE layer recomputes the
+    same routing), then ``cross_entropy_chunked`` over the unembedding
+    (``embed.T`` when tied); no auxiliary loss, as the reference has
+    none. tokens, labels [B, S] int; ``mask`` [B, S] (None: every
+    token). The encdec family's is ``models.encdec.loss_fn``."""
     check_trainable(model.arch)
+    if model.arch.family == "encdec":
+        raise ValueError(f"{model.arch.name}: the encdec family's loss is "
+                         f"models.encdec.loss_fn (it takes the frames)")
     hidden, _ = model(tokens, remat=True)
     return L.cross_entropy_chunked(model.unembed_matrix(), hidden, labels,
                                    mask=mask, chunk=chunk)

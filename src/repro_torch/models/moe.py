@@ -33,7 +33,17 @@ included: they are routed and take capacity there too):
 
 Nothing here reads back to the host or takes a shape from the data:
 ``cap`` depends on T only, so the routing runs inside the captured
-decode step. Expert parallelism over a mesh (``_moe_apply_sharded``) is
+decode step.
+
+Under autograd (training, ``lm.loss_fn``) the same code is
+differentiated as ``jax.grad`` differentiates ``_moe_apply_dense``: the
+router gets its gradient through the renormalised gate values (the
+sort's values, as through ``jax.lax.top_k``), the expert products
+through ``xfer_matmul_experts``' Function (its dgrad and wgrad), the
+dispatch through the scatter into the buffer; a dropped assignment
+lands on the spare row, which nothing reads, and gets no gradient. The
+routing depends only on the layer's input, so a rematerialised layer
+recomputes the same one. Expert parallelism over a mesh (``_moe_apply_sharded``) is
 not ported.
 """
 from __future__ import annotations

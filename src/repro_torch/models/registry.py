@@ -76,10 +76,13 @@ def batch_to_device(batch: Dict[str, np.ndarray],
 
 def build_train_step(arch: ArchConfig, cfg, lr_schedule: Optional[Callable]
                      = None, accum_steps: int = 1) -> Callable:
-    """The reference's ``build_train_step`` for the dense family:
-    ``train_step(model, opt_state, batch) -> (model, opt_state,
-    metrics)``, ``metrics`` = ``loss``, ``lr``, ``grad_norm``,
-    ``clip_scale`` (0-dim tensors on the device). ``cfg`` is an
+    """The reference's ``build_train_step`` for the dense, MoE and encdec
+    families (``lm.check_trainable``): ``train_step(model, opt_state,
+    batch) -> (model, opt_state, metrics)``; the loss is ``lm.loss_fn``,
+    or for the encdec family ``encdec.loss_fn`` over the batch's
+    ``frames``, as the reference branches; ``metrics`` = ``loss``,
+    ``lr``, ``grad_norm``, ``clip_scale`` (0-dim tensors on the
+    device). ``cfg`` is an
     ``optim.adamw.AdamWConfig``; the learning rate is
     ``lr_schedule(opt_state["step"])`` read before the step increments
     it (``cfg.lr`` without a schedule). With ``accum_steps > 1`` the
@@ -88,6 +91,7 @@ def build_train_step(arch: ArchConfig, cfg, lr_schedule: Optional[Callable]
     before the single update. The step turns on ``requires_grad`` of its
     model's parameters (serving models keep it off) and updates them in
     place (``optim.adamw.adamw_update``)."""
+    from repro_torch.models import encdec as ED
     from repro_torch.models.lm import check_trainable, loss_fn
     from repro_torch.optim import adamw as OPT
     check_trainable(arch)
@@ -97,8 +101,12 @@ def build_train_step(arch: ArchConfig, cfg, lr_schedule: Optional[Callable]
             return lr_schedule(step)
         return torch.full((), cfg.lr, dtype=torch.float32, device=step.device)
 
-    def value_and_grad(model: LM, params: dict, batch: dict):
-        loss = loss_fn(model, batch["tokens"], batch["labels"])
+    def value_and_grad(model, params: dict, batch: dict):
+        if arch.family == "encdec":
+            loss = ED.loss_fn(model, batch["frames"], batch["tokens"],
+                              batch["labels"])
+        else:
+            loss = loss_fn(model, batch["tokens"], batch["labels"])
         grads = torch.autograd.grad(loss, list(params.values()))
         return loss.detach(), dict(zip(params, grads))
 

@@ -13,10 +13,14 @@ there, so its contents are garbage by construction and never read
 unmasked.
 
 Page accounting is the host :class:`PagePool` (refcounts; prefix sharing
-aliases pages across slots), which the scheduler drives synchronously.
-The JAX package's jitted device form of the same accounting
-(``PoolState``, ``pool_alloc``/``pool_retain``/``pool_release``) is not
-ported: the JAX scheduler does not use it either.
+aliases pages across slots), which the scheduler drives synchronously,
+as the JAX scheduler does. The JAX package's device form of the same
+accounting is here too: :class:`PoolState` (int32 refcounts on a given
+device) and the pure functions :func:`make_pool_state`,
+:func:`pool_alloc`, :func:`pool_retain`, :func:`pool_release` and
+:func:`pool_free_count`, with the host pool's policy (lowest free pages
+first, the null page 0 never allocated, releases clamped at 0) and no
+read back to the host.
 
 :class:`PrefixRegistry` maps prompt prefixes to refcounted pages at token
 granularity. A later prompt aliases the matched full pages and gets a
@@ -33,6 +37,7 @@ scatters). A pool tree is the list of per-layer dicts of
 """
 from __future__ import annotations
 
+import dataclasses
 from collections import OrderedDict
 from typing import Dict, List, Optional, Sequence, Tuple
 
@@ -84,6 +89,72 @@ class PagePoolExhausted(RuntimeError):
     def __init__(self, msg: str, waiting: Sequence[int] = ()):
         super().__init__(msg)
         self.waiting = list(waiting)
+
+
+@dataclasses.dataclass
+class PoolState:
+    """Device-resident page accounting: ``refcount [P] int32``. Page 0
+    (null) is born with refcount 1 so it is never allocated."""
+
+    refcount: torch.Tensor
+
+    @property
+    def kv_pages(self) -> int:
+        return self.refcount.shape[0]
+
+
+def make_pool_state(kv_pages: int, device=None) -> PoolState:
+    """A pool of ``kv_pages`` pages (the null page and ``kv_pages - 1``
+    usable) on ``device``, every usable page free."""
+    if kv_pages < 2:
+        raise ValueError(f"kv_pages must be >= 2 (null page + one usable), "
+                         f"got {kv_pages}")
+    rc = torch.zeros((kv_pages,), dtype=torch.int32, device=device)
+    rc[0] = 1
+    return PoolState(refcount=rc)
+
+
+def pool_free_count(state: PoolState) -> torch.Tensor:
+    """The free pages (refcount 0), a 0-dim int32 tensor on the pool's
+    device."""
+    return (state.refcount == 0).sum(dtype=torch.int32)
+
+
+def pool_alloc(state: PoolState, n: int) -> Tuple[PoolState, torch.Tensor]:
+    """Take the ``n`` lowest-indexed free pages (refcount 0 -> 1).
+
+    Returns ``(state', pages [n] int32)``; positions past the free count
+    return the null page 0 (callers check :func:`pool_free_count`: the
+    function reads nothing back to the host, so it cannot raise)."""
+    rc = state.refcount
+    p = state.kv_pages
+    free = rc == 0
+    ids = torch.arange(p, dtype=torch.int32, device=rc.device)
+    # lowest free indices first: a stable sort of (free ? index : P)
+    order = torch.sort(torch.where(free, ids, p), stable=True).indices
+    want = torch.arange(1, n + 1, dtype=torch.int32, device=rc.device)
+    pages = torch.zeros(n, dtype=torch.int32, device=rc.device)
+    m = min(n, p)
+    pages[:m] = order[:m].to(torch.int32)
+    pages = torch.where(free.sum(dtype=torch.int32) >= want, pages, 0)
+    return pool_retain(state, pages), pages
+
+
+def pool_retain(state: PoolState, pages: torch.Tensor) -> PoolState:
+    """refcount += 1 for each page id (null page 0 is a no-op)."""
+    pages = pages.to(torch.int64)
+    inc = (pages > 0).to(torch.int32)
+    return PoolState(refcount=state.refcount.index_add(0, pages, inc))
+
+
+def pool_release(state: PoolState, pages: torch.Tensor) -> PoolState:
+    """refcount -= 1 for each page id, clamped at 0 (null page no-op):
+    each id is held to the refcount before the call, as the reference's
+    scatter-add reads it."""
+    pages = pages.to(torch.int64)
+    rc = state.refcount
+    dec = -((pages > 0) & (rc[pages] > 0)).to(torch.int32)
+    return PoolState(refcount=rc.index_add(0, pages, dec))
 
 
 class PagePool:
